@@ -1,0 +1,40 @@
+"""hyperspace_tpu_torch — the Hyperspace covering-index engine on PyTorch
+and CUDA.
+
+This package mirrors ``hyperspace_tpu``'s module layout and on-disk
+formats (the JSON operation log and the TCB index files), so each of the
+two packages can serve an index tree the other one wrote. Device work runs
+on a CUDA card through torch ops and two hand-written CUDA kernels
+(``csrc/``); every entry point takes its device from the caller or the
+session conf (``hyperspace.torch.device``, default ``cuda``) and never
+falls back to the CPU on its own.
+
+The package imports ``torch`` and nothing of JAX.
+"""
+
+__version__ = "0.1.0"
+
+from .config import HyperspaceConf  # noqa: E402,F401
+from .exceptions import HyperspaceException  # noqa: E402,F401
+from .index.index_config import IndexConfig  # noqa: E402,F401
+
+
+def __getattr__(name):
+    # the session, facade and expression helpers load on first use
+    if name == "HyperspaceSession":
+        from .session import HyperspaceSession
+
+        return HyperspaceSession
+    if name == "Hyperspace":
+        from .hyperspace import Hyperspace
+
+        return Hyperspace
+    if name == "DataFrame":
+        from .dataframe import DataFrame
+
+        return DataFrame
+    if name in ("col", "lit", "is_in"):
+        from .plan import expr
+
+        return getattr(expr, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,61 @@
+"""Config keys, defaults, and naming constants.
+
+The keys and on-disk names are the same strings ``hyperspace_tpu`` uses,
+so a conf dict and an index tree mean the same thing to both packages.
+Only the keys this package reads are here.
+"""
+
+# --- system layout -----------------------------------------------------------
+INDEX_SYSTEM_PATH = "hyperspace.system.path"
+INDEX_SYSTEM_PATH_DEFAULT = "indexes"  # resolved relative to workspace root
+
+# Operation-log directory name inside every index directory
+HYPERSPACE_LOG = "_hyperspace_log"
+# Versioned index-data directory prefix
+INDEX_VERSION_DIRECTORY_PREFIX = "v__"
+
+# --- index build -------------------------------------------------------------
+INDEX_NUM_BUCKETS = "hyperspace.index.numBuckets"
+INDEX_NUM_BUCKETS_DEFAULT = 200
+INDEX_NUM_BUCKETS_LEGACY = "hyperspace.num.buckets"  # legacy fallback key
+
+# Build mode: only the in-memory build is ported; "auto" resolves to it and
+# "streaming" raises.
+BUILD_MODE = "hyperspace.index.build.mode"
+BUILD_MODE_AUTO = "auto"
+BUILD_MODE_INMEMORY = "inmemory"
+BUILD_MODE_STREAMING = "streaming"
+BUILD_MODES = (BUILD_MODE_AUTO, BUILD_MODE_INMEMORY, BUILD_MODE_STREAMING)
+BUILD_MODE_DEFAULT = BUILD_MODE_AUTO
+
+# Lineage
+INDEX_LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
+INDEX_LINEAGE_ENABLED_DEFAULT = False
+DATA_FILE_NAME_ID = "_data_file_id"
+UNKNOWN_FILE_ID = -1
+
+# --- hybrid scan (not ported: the rules refuse it) ----------------------------
+INDEX_HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
+INDEX_HYBRID_SCAN_ENABLED_DEFAULT = False
+
+# --- sources -----------------------------------------------------------------
+FILE_BASED_SOURCE_BUILDERS = "hyperspace.index.sources.fileBasedBuilders"
+# formats this package reads: avro through its own OCF reader, parquet
+# through pyarrow (imported only on that path)
+DEFAULT_SUPPORTED_FORMATS = ("avro", "parquet")
+GLOBBING_PATTERN_KEY = "hyperspace.source.globbingPattern"
+
+# --- telemetry ---------------------------------------------------------------
+EVENT_LOGGER_CLASS = "hyperspace.eventLoggerClass"
+
+# --- signature provider ------------------------------------------------------
+SIGNATURE_PROVIDER = "hyperspace.index.signatureProvider"
+
+# --- storage -----------------------------------------------------------------
+STORAGE_BLOCK_ALIGN = 128  # bytes; alignment of TCB column buffers
+
+# --- device ------------------------------------------------------------------
+# The torch device every engine entry point runs on: "cuda" (default) or
+# "cpu". Asking for cuda where there is none raises.
+TORCH_DEVICE = "hyperspace.torch.device"
+TORCH_DEVICE_DEFAULT = "cuda"

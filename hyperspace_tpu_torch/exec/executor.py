@@ -1,0 +1,259 @@
+"""The plan executor: interprets a logical plan into columnar execution.
+
+Counterpart of the single-device arms of ``hyperspace_tpu.exec.executor``
+for Scan, IndexScan, Filter, Project and Join:
+
+* ``Filter(IndexScan)`` fuses into one index_scan call — bucket pruning +
+  zone maps + the device mask (exec.scan.index_scan);
+* ``Join(IndexScan, IndexScan)`` with matching bucket specs executes as
+  the shuffle-free bucketed sort-merge join (exec.joins.bucketed_join_pairs);
+* everything else evaluates bottom-up over ColumnarBatches.
+
+The compiled-pipeline, residency, mesh and aggregate arms are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..exceptions import HyperspaceException
+from ..ops import DeviceLike
+from ..plan.expr import Expr, eval_mask
+from ..plan.ir import Filter, IndexScan, Join, LogicalPlan, Project, Scan
+from ..plan.rules.join_rule import align_condition_sides, extract_equi_condition
+from ..storage import layout, parquet_io
+from ..storage.columnar import ColumnarBatch
+from .joins import bucketed_join_pairs, inner_join
+from .scan import empty_batch_for, index_scan
+
+
+def bucketed_meta(plan: LogicalPlan) -> Optional[IndexScan]:
+    """The bucketed IndexScan a join side would load — metadata only, no
+    I/O. None when the shape isn't bucket-aligned."""
+    node = plan
+    while isinstance(node, (Project, Filter)):
+        node = node.children[0]
+    if isinstance(node, IndexScan) and node.use_bucket_spec:
+        return node
+    return None
+
+
+class Executor:
+    def __init__(self, device: DeviceLike = None):
+        self.device = device
+
+    def execute(self, plan: LogicalPlan) -> ColumnarBatch:
+        return self._exec(plan, predicate=None)
+
+    # -- dispatch ------------------------------------------------------------
+    def _exec(
+        self,
+        plan: LogicalPlan,
+        predicate: Optional[Expr],
+        columns: Optional[List[str]] = None,
+    ) -> ColumnarBatch:
+        """``columns``: projection pushed down from an enclosing Project —
+        leaf scans read only these (plus predicate columns)."""
+        if isinstance(plan, Filter):
+            # push the predicate into the child scan; Project is
+            # transparent to pushdown (pure column selection)
+            child = plan.child
+            if isinstance(child, (IndexScan, Scan, Project)):
+                return self._exec(
+                    child,
+                    predicate=self._conjoin(predicate, plan.condition),
+                    columns=columns,
+                )
+            need = None
+            if columns is not None:
+                need = list(
+                    dict.fromkeys(columns + sorted(plan.condition.columns()))
+                )
+            batch = self._exec(child, None, need)
+            return self._apply_predicate(batch, self._conjoin(predicate, plan.condition))
+        if isinstance(plan, Project):
+            batch = self._exec(plan.child, predicate, list(plan.columns))
+            return batch.select(list(plan.columns))
+        if isinstance(plan, Scan):
+            if not plan.relation.files:
+                return ColumnarBatch.empty(dict(plan.relation.schema))
+            need = None
+            if columns is not None:
+                need = list(dict.fromkeys(columns))
+                if predicate is not None:
+                    need = list(
+                        dict.fromkeys(need + sorted(predicate.columns()))
+                    )
+                avail = set(plan.relation.schema)
+                need = [c for c in need if c in avail]
+            batch = parquet_io.read_relation(
+                plan.relation,
+                paths=[f.name for f in plan.relation.files],
+                columns=need,
+            )
+            return self._apply_predicate(batch, predicate)
+        if isinstance(plan, IndexScan):
+            entry = plan.entry
+            return index_scan(
+                entry.content.files(),
+                list(plan.required_columns),
+                predicate,
+                device=self.device,
+                indexed_columns=entry.indexed_columns,
+                dtypes=entry.schema,
+                num_buckets=entry.num_buckets,
+            )
+        if isinstance(plan, Join):
+            batch = self._exec_join(plan)
+            return self._apply_predicate(batch, predicate)
+        raise HyperspaceException(
+            f"Cannot execute node {plan.node_name} (not yet ported to "
+            "hyperspace_tpu_torch)."
+        )
+
+    @staticmethod
+    def _conjoin(a: Optional[Expr], b: Expr) -> Expr:
+        return b if a is None else (a & b)
+
+    @staticmethod
+    def _apply_predicate(
+        batch: ColumnarBatch, predicate: Optional[Expr]
+    ) -> ColumnarBatch:
+        if predicate is None or batch.num_rows == 0:
+            return batch
+        return batch.take(np.flatnonzero(eval_mask(predicate, batch)))
+
+    # -- joins ---------------------------------------------------------------
+    def _exec_join(self, join: Join) -> ColumnarBatch:
+        pairs = extract_equi_condition(join.condition)
+        if pairs is None:
+            raise HyperspaceException("Only equi-joins are executable.")
+        oriented = align_condition_sides(
+            pairs, join.left.output_columns(), join.right.output_columns()
+        )
+        if oriented is None:
+            raise HyperspaceException("Join condition references unknown columns.")
+        l_keys = [l for l, _ in oriented]
+        r_keys = [r for _, r in oriented]
+        bucketed = self._try_bucketed_join(join, l_keys, r_keys)
+        if bucketed is not None:
+            return bucketed
+        left = self._exec(join.left, None)
+        right = self._exec(join.right, None)
+        return inner_join(left, right, l_keys, r_keys, self.device)
+
+    def _load_index_by_bucket(
+        self, node: IndexScan, predicate: Optional[Expr]
+    ) -> Dict[int, ColumnarBatch]:
+        """Read a bucketed index side grouped by bucket (files in log
+        order within a bucket); the side's predicate applies per bucket
+        after grouping."""
+        files = node.entry.content.files()
+        groups: Dict[int, List[ColumnarBatch]] = {}
+        for f, batch in zip(
+            files, layout.read_batches(files, columns=list(node.required_columns))
+        ):
+            if batch.num_rows:
+                groups.setdefault(layout.bucket_of_file(f), []).append(batch)
+        out: Dict[int, ColumnarBatch] = {}
+        for b, parts in groups.items():
+            v = parts[0] if len(parts) == 1 else ColumnarBatch.concat(parts)
+            v = self._apply_predicate(v, predicate)
+            if v.num_rows:
+                out[b] = v
+        return out
+
+    def _bucketed_source(
+        self, plan: LogicalPlan, predicate: Optional[Expr]
+    ) -> Optional[Tuple[Dict[int, ColumnarBatch], IndexScan]]:
+        """[Filter?][Project?]IndexScan(bucketed) loaded grouped by bucket."""
+        node = plan
+        if isinstance(node, Filter):
+            predicate = self._conjoin(predicate, node.condition)
+            node = node.child
+        if isinstance(node, IndexScan) and node.use_bucket_spec:
+            return self._load_index_by_bucket(node, predicate), node
+        if isinstance(node, Project):
+            inner = self._bucketed_source(node.child, predicate)
+            if inner is None:
+                return None
+            by_bucket, idx = inner
+            return {b: v.select(list(node.columns)) for b, v in by_bucket.items()}, idx
+        return None
+
+    def _try_bucketed_join(
+        self, join: Join, l_keys: List[str], r_keys: List[str]
+    ) -> Optional[ColumnarBatch]:
+        """The shuffle-free bucketed SMJ: both sides are bucket-spec index
+        scans with the same numBuckets, and the join keys are exactly the
+        indexed (bucketing) columns — so equal keys share a bucket id on
+        both sides (the hash is value-stable, ops.hashing)."""
+        l_meta = bucketed_meta(join.left)
+        r_meta = bucketed_meta(join.right)
+        if l_meta is None or r_meta is None:
+            return None
+        if {c.lower() for c in l_meta.entry.indexed_columns} != {
+            k.lower() for k in l_keys
+        } or {c.lower() for c in r_meta.entry.indexed_columns} != {
+            k.lower() for k in r_keys
+        }:
+            return None
+        if l_meta.entry.num_buckets != r_meta.entry.num_buckets:
+            return None  # not co-partitioned: the exact unbucketed join serves
+        left = self._side_by_bucket(join.left)
+        right = self._side_by_bucket(join.right)
+        if left is None or right is None:
+            return None
+        l_by_bucket, l_node = left
+        r_by_bucket, r_node = right
+        # merge in the index's key order so both sides hash and compare the
+        # same tuple order
+        l2r = {l.lower(): r for l, r in zip(l_keys, r_keys)}
+        l_keys = list(l_node.entry.indexed_columns)
+        r_keys = [l2r[k.lower()] for k in l_keys]
+        parts = bucketed_join_pairs(
+            l_by_bucket, r_by_bucket, l_keys, r_keys, self.device
+        )
+        if not parts:
+            return inner_join(
+                self._empty_side(join.left, l_by_bucket, l_node),
+                self._empty_side(join.right, r_by_bucket, r_node),
+                l_keys,
+                r_keys,
+                self.device,
+            )
+        return ColumnarBatch.concat(parts)
+
+    def _side_by_bucket(self, plan: LogicalPlan):
+        """[Project?] over a bucketed index source."""
+        project: Optional[Project] = None
+        node = plan
+        if isinstance(node, Project):
+            project, node = node, node.child
+        inner = self._bucketed_source(node, None)
+        if inner is None:
+            return None
+        by_bucket, idx_node = inner
+        if project is not None:
+            by_bucket = {b: v.select(list(project.columns)) for b, v in by_bucket.items()}
+        return by_bucket, idx_node
+
+    @staticmethod
+    def _empty_side(
+        side_plan: LogicalPlan,
+        by_bucket: Dict[int, ColumnarBatch],
+        idx_node: IndexScan,
+    ) -> ColumnarBatch:
+        """A 0-row batch with a join side's output schema."""
+        if by_bucket:
+            any_batch = next(iter(by_bucket.values()))
+            return any_batch.take(np.array([], dtype=np.int64))
+        empty = empty_batch_for(side_plan.output_columns(), idx_node.entry.schema)
+        if empty is None:
+            raise HyperspaceException(
+                f"Join side outputs {side_plan.output_columns()} not covered "
+                f"by index {idx_node.entry.name}'s schema."
+            )
+        return empty

@@ -1,0 +1,202 @@
+"""The physical scan over TCB index data.
+
+Counterpart of ``hyperspace_tpu.exec.scan`` (its host leg). Pipeline per
+query:
+
+  1. hash-bucket pruning — an equality predicate that pins every indexed
+     column touches only its buckets' files;
+  2. footer min/max zone-map pruning against the predicate's bounds
+     (storage.layout.prune_by_min_max) — files whose range can't match are
+     never opened;
+  3. mmap the surviving column buffers (no decode — TCB is raw columns);
+  4. the predicate mask on the device: the CUDA mask kernel
+     (ops.kernels.predicate_mask) when the predicate and data narrow to
+     int32, torch ops otherwise; predicates touching float64 evaluate on
+     the host, exactly, as in the reference;
+  5. row compaction.
+
+The measured scan gate, HBM residency and run-file segment reads of the
+reference are not ported.
+"""
+
+from __future__ import annotations
+
+import itertools
+from pathlib import Path
+from typing import Iterable, List, Optional
+
+import numpy as np
+
+from ..exceptions import HyperspaceException
+from ..ops import DeviceLike, resolve_device
+from ..ops.hashing import bucket_of_values
+from ..plan.expr import Expr, bind_string_literals, bounds_for_column, eval_mask, pinned_values
+from ..storage import layout
+from ..storage.columnar import Column, ColumnarBatch
+from ..telemetry.metrics import metrics
+
+
+def buckets_for_predicate(
+    predicate: Expr,
+    indexed_columns: List[str],
+    dtypes: dict,
+    num_buckets: int,
+    max_product: int = 64,
+):
+    """The set of buckets an equality predicate can touch, or None for all.
+
+    Valid only when the predicate pins *every* indexed column to a finite
+    value set (the hash covers all indexed columns) — the analog of Spark's
+    bucket pruning over the index's BucketSpec."""
+    per_col = []
+    total = 1
+    for c in indexed_columns:
+        vals = pinned_values(predicate, c)
+        if vals is None:
+            return None
+        per_col.append(sorted(vals, key=repr))
+        total *= len(vals)
+        if total > max_product:
+            return None
+    buckets = set()
+    for combo in itertools.product(*per_col):
+        buckets.add(
+            bucket_of_values(combo, [dtypes[c] for c in indexed_columns], num_buckets)
+        )
+    return buckets
+
+
+def device_mask(
+    predicate: Expr, batch: ColumnarBatch, device: DeviceLike = None
+) -> np.ndarray:
+    """The predicate's row mask over ``batch``, evaluated on ``device``."""
+    names = sorted(predicate.columns())
+    # float64 never takes the device arms (the reference keeps it on the
+    # host, exactly) — predicates touching f64 evaluate on host
+    if any(batch.columns[n_].dtype_str == "float64" for n_ in names):
+        metrics.incr("scan.path.host_f64")
+        return np.asarray(eval_mask(predicate, batch))
+    n = batch.num_rows
+    # string literals bind to this batch's dictionary codes, so the bound
+    # expression is pure int arithmetic (shared by both device arms)
+    bound = bind_string_literals(predicate, batch)
+    mask = _mask_kernel(bound, batch, names, n, device)
+    if mask is not None:
+        metrics.incr("scan.path.kernel_mask")
+        return mask
+    # not int32-narrowable: the same predicate in torch ops on the device
+    metrics.incr("scan.path.torch_mask")
+    dev = resolve_device(device)
+    shim = ColumnarBatch(
+        {
+            name: Column("int32", np.empty(0, dtype=np.int32))
+            if batch.columns[name].vocab is not None
+            else Column(
+                batch.columns[name].dtype_str,
+                np.empty(0, dtype=batch.columns[name].data.dtype),
+            )
+            for name in names
+        }
+    )
+    arrays = batch.select(names).device_arrays(device=dev)
+    return eval_mask(bound, shim, arrays).cpu().numpy()
+
+
+def _mask_kernel(bound, batch, names, n, device):
+    from ..ops import kernels
+
+    return kernels.predicate_mask(
+        bound, {name: batch.columns[name].data for name in names}, n, device
+    )
+
+
+def empty_batch_for(output_columns, dtypes) -> Optional[ColumnarBatch]:
+    """A 0-row batch projecting ``output_columns`` out of a (possibly
+    differently-cased) ``dtypes`` schema, or None when the schema can't
+    cover the projection."""
+    if not dtypes:
+        return None
+    resolved = {k.lower(): v for k, v in dtypes.items()}
+    if any(c.lower() not in resolved for c in output_columns):
+        return None
+    return ColumnarBatch.empty({c: resolved[c.lower()] for c in output_columns})
+
+
+def prune_index_files(
+    files: List[Path],
+    predicate: Optional[Expr],
+    indexed_columns: Optional[List[str]] = None,
+    dtypes: Optional[dict] = None,
+    num_buckets: Optional[int] = None,
+    pinned_buckets: Optional[set] = None,
+) -> List[Path]:
+    """Hash-bucket pruning (equality predicates pin buckets) followed by
+    footer zone-map pruning; no file is opened for data."""
+    if predicate is None:
+        return files
+    if pinned_buckets is None and indexed_columns and dtypes and num_buckets:
+        pinned_buckets = buckets_for_predicate(
+            predicate, indexed_columns, dtypes, num_buckets
+        )
+    if pinned_buckets is not None:
+        files = [f for f in files if layout.bucket_of_file(f) in pinned_buckets]
+    for c in sorted(predicate.columns()):
+        lo, hi = bounds_for_column(predicate, c)
+        if lo is not None or hi is not None:
+            files = layout.prune_by_min_max(files, c, lo, hi)
+    return files
+
+
+def index_scan(
+    data_files: Iterable[str | Path],
+    output_columns: List[str],
+    predicate: Optional[Expr] = None,
+    device: DeviceLike = None,
+    indexed_columns: Optional[List[str]] = None,
+    dtypes: Optional[dict] = None,
+    num_buckets: Optional[int] = None,
+) -> ColumnarBatch:
+    """Scan index data files, returning the filtered projection in file
+    order. When ``indexed_columns``/``dtypes``/``num_buckets`` describe the
+    index's bucketing, equality predicates prune to their hash buckets
+    before any file is opened."""
+    files = prune_index_files(
+        [Path(p) for p in data_files],
+        predicate,
+        indexed_columns,
+        dtypes,
+        num_buckets,
+    )
+    metrics.incr("scan.files_read", len(files))
+    need = (
+        list(dict.fromkeys(list(output_columns) + sorted(predicate.columns())))
+        if predicate is not None
+        else list(output_columns)
+    )
+    parts: List[ColumnarBatch] = []
+    for batch in layout.read_batches(files, columns=need):
+        if batch.num_rows == 0:
+            continue
+        if predicate is not None:
+            idx = np.flatnonzero(device_mask(predicate, batch, device))
+            if idx.size == 0:
+                continue
+            batch = batch.take(idx)
+        parts.append(batch.select(output_columns))
+    if not parts:
+        return _empty_result(files, output_columns, dtypes)
+    return ColumnarBatch.concat(parts)
+
+
+def _empty_result(
+    files: List[Path], output_columns: List[str], dtypes: Optional[dict]
+) -> ColumnarBatch:
+    """Empty result with correct schema: from the index's logged schema
+    when available, else from a surviving file's footer."""
+    empty = empty_batch_for(output_columns, dtypes)
+    if empty is not None:
+        return empty
+    if not files:
+        raise HyperspaceException("index_scan over zero files with no schema.")
+    eb = layout.read_batch(files[0], columns=output_columns)
+    return eb.take(np.array([], dtype=np.int64))

@@ -1,0 +1,96 @@
+"""IndexCollectionManager: dispatches the management verbs to their
+actions with per-index log/data managers, and enumerates indexes.
+
+Parity: com/microsoft/hyperspace/index/IndexCollectionManager.scala —
+create and the read-only verbs. The other lifecycle actions (delete,
+restore, vacuum, refresh, optimize, cancel) are not yet ported.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from ..actions import states
+from ..actions.create import CreateAction
+from ..exceptions import HyperspaceException
+from ..index.log_entry import IndexLogEntry
+from .data_manager import IndexDataManagerImpl
+from .log_manager import IndexLogManagerImpl
+from .path_resolver import PathResolver
+from .stats import IndexStatistics
+
+
+class IndexCollectionManager:
+    def __init__(self, session):
+        self.session = session
+        self.conf = session.conf
+        self.path_resolver = PathResolver(self.conf)
+
+    def _log_manager(self, name: str) -> IndexLogManagerImpl:
+        return IndexLogManagerImpl(self.path_resolver.get_index_path(name))
+
+    def _data_manager(self, name: str) -> IndexDataManagerImpl:
+        return IndexDataManagerImpl(self.path_resolver.get_index_path(name))
+
+    def _existing_log_manager(self, name: str) -> IndexLogManagerImpl:
+        mgr = self._log_manager(name)
+        if mgr.get_latest_id() is None:
+            raise HyperspaceException(f"Index with name {name} could not be found.")
+        return mgr
+
+    def create(self, df, config) -> None:
+        CreateAction(
+            self.session,
+            df,
+            config,
+            self._log_manager(config.index_name),
+            self._data_manager(config.index_name),
+        ).run()
+
+    def _enumerate(self):
+        """(latest entry, stable entry or None) per index directory."""
+        out = []
+        root = self.path_resolver.system_path
+        if not root.is_dir():
+            return out
+        for d in sorted(root.iterdir()):
+            if not d.is_dir():
+                continue
+            mgr = IndexLogManagerImpl(d)
+            latest = mgr.get_latest_log()
+            if latest is None:
+                continue
+            stable = (
+                latest
+                if latest.state in states.STABLE_STATES
+                else mgr.get_latest_stable_log()
+            )
+            out.append((latest, stable))
+        return out
+
+    def get_indexes(
+        self,
+        states_filter: Optional[List[str]] = None,
+        prefer_stable: bool = False,
+    ) -> List[IndexLogEntry]:
+        """``prefer_stable=True`` is the query view: an in-flight writer is
+        invisible and readers get the previous stable snapshot."""
+        out: List[IndexLogEntry] = []
+        for latest, stable in self._enumerate():
+            entry = stable if prefer_stable else latest
+            if entry is None:
+                continue
+            if states_filter is None or entry.state in states_filter:
+                out.append(entry)
+        return out
+
+    def indexes(self) -> List[IndexStatistics]:
+        return [
+            IndexStatistics.from_entry(e)
+            for e in self.get_indexes()
+            if e.state != states.DOESNOTEXIST
+        ]
+
+    def index(self, name: str) -> IndexStatistics:
+        entry = self._existing_log_manager(name).get_latest_log()
+        return IndexStatistics.from_entry(entry, extended=True)

@@ -1,0 +1,30 @@
+"""Rewrite-rule batch: JoinIndexRule before FilterIndexRule, matching the
+registration order and its rationale in the reference (package.scala:25-35:
+join rewrites are strictly more constrained, so they get first claim on
+scans; filter rewrites then pick up what's left).
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+from ...config import HyperspaceConf
+from ...index.log_entry import IndexLogEntry
+from ..ir import LogicalPlan
+from .filter_rule import FilterIndexRule
+from .join_rule import JoinIndexRule
+
+
+def apply_hyperspace_rules(
+    plan: LogicalPlan,
+    indexes: List[IndexLogEntry],
+    conf: HyperspaceConf,
+) -> Tuple[LogicalPlan, List[IndexLogEntry]]:
+    """Returns (rewritten plan, applied index entries). The data-skipping
+    rule of the reference is not ported."""
+    applied: List[IndexLogEntry] = []
+    plan, a = JoinIndexRule().apply(plan, indexes, conf)
+    applied.extend(a)
+    plan, a = FilterIndexRule().apply(plan, indexes, conf)
+    applied.extend(a)
+    return plan, applied
