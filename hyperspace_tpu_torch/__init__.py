@@ -4,8 +4,9 @@ and CUDA.
 This package mirrors ``hyperspace_tpu``'s module layout and on-disk
 formats (the JSON operation log and the TCB index files), so each of the
 two packages can serve an index tree the other one wrote. Device work runs
-on a CUDA card through torch ops and two hand-written CUDA kernels
-(``csrc/``); every entry point takes its device from the caller or the
+on a CUDA card through torch ops and hand-written CUDA kernels (``csrc/``),
+over columns uploaded per query or kept resident on the card
+(``Hyperspace.prefetch_index``, ``exec/hbm_cache.py``); every entry point takes its device from the caller or the
 session conf (``hyperspace.torch.device``, default ``cuda``) and never
 falls back to the CPU on its own.
 

@@ -6,6 +6,7 @@ accessors this package reads are here.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 from . import constants as C
@@ -89,3 +90,41 @@ class HyperspaceConf:
 
     def torch_device(self) -> str:
         return str(self.get(C.TORCH_DEVICE, C.TORCH_DEVICE_DEFAULT))
+
+    def residency(self) -> "ResidencyConf":
+        """The HBM-residency knobs, parsed as the reference parses its
+        environment knobs: a malformed value falls back to its default."""
+
+        def num(key, default, cast):
+            try:
+                return cast(self.get(key, default))
+            except (TypeError, ValueError):
+                return default
+
+        mode = str(self.get(C.HBM_MODE, C.HBM_MODE_DEFAULT)).lower()
+        frac = num(C.HBM_MAX_BLOCK_FRAC, C.HBM_MAX_BLOCK_FRAC_DEFAULT, float)
+        return ResidencyConf(
+            mode=mode if mode in C.HBM_MODES else C.HBM_MODE_DEFAULT,
+            budget_mb=num(C.HBM_BUDGET_MB, C.HBM_BUDGET_MB_DEFAULT, int),
+            min_rows=num(C.HBM_MIN_ROWS, C.HBM_MIN_ROWS_DEFAULT, int),
+            max_block_frac=(
+                frac if 0.0 < frac <= 1.0 else C.HBM_MAX_BLOCK_FRAC_DEFAULT
+            ),
+        )
+
+
+@dataclass(frozen=True)
+class ResidencyConf:
+    """Where and how much of an index the scan keeps resident on the
+    device (``exec/hbm_cache.py``). A residency policy, not a kernel
+    switch: with residency off or declined, the scan still evaluates its
+    predicate through the mask kernel, file by file."""
+
+    mode: str = C.HBM_MODE_DEFAULT
+    budget_mb: int = C.HBM_BUDGET_MB_DEFAULT
+    min_rows: int = C.HBM_MIN_ROWS_DEFAULT
+    max_block_frac: float = C.HBM_MAX_BLOCK_FRAC_DEFAULT
+
+    @property
+    def budget_bytes(self) -> int:
+        return self.budget_mb << 20

@@ -59,3 +59,20 @@ STORAGE_BLOCK_ALIGN = 128  # bytes; alignment of TCB column buffers
 # "cpu". Asking for cuda where there is none raises.
 TORCH_DEVICE = "hyperspace.torch.device"
 TORCH_DEVICE_DEFAULT = "cuda"
+
+# --- HBM residency (exec/hbm_cache.py) ---------------------------------------
+# The reference reads these from environment variables (HYPERSPACE_TPU_HBM,
+# _BUDGET_MB, _MIN_ROWS, _MAX_BLOCK_FRAC); here they are session conf.
+# mode: "auto" populates on first touch when the session's device is cuda;
+# "force" on any device (the CPU tests); "off" neither populates nor serves.
+HBM_MODE = "hyperspace.torch.hbm.mode"
+HBM_MODES = ("auto", "off", "force")
+HBM_MODE_DEFAULT = "auto"
+HBM_BUDGET_MB = "hyperspace.torch.hbm.budgetMB"
+HBM_BUDGET_MB_DEFAULT = 4096
+HBM_MIN_ROWS = "hyperspace.torch.hbm.minRows"  # first-touch floor
+HBM_MIN_ROWS_DEFAULT = 1 << 21
+# zone-gate threshold: a predicate whose blocks could match above this
+# fraction routes to the host before any device work; 1.0 disables the gate
+HBM_MAX_BLOCK_FRAC = "hyperspace.torch.hbm.maxBlockFrac"
+HBM_MAX_BLOCK_FRAC_DEFAULT = 0.9

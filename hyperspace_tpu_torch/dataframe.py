@@ -84,7 +84,9 @@ class DataFrame(EventLogging):
         from .exec.executor import Executor
 
         plan = self.optimized_plan(log_usage=True)
-        return Executor(self.session.device).execute(plan)
+        return Executor(
+            self.session.device, self.session.conf.residency()
+        ).execute(plan)
 
     def count(self) -> int:
         return self.collect().num_rows

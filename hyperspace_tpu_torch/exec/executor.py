@@ -4,12 +4,14 @@ Counterpart of the single-device arms of ``hyperspace_tpu.exec.executor``
 for Scan, IndexScan, Filter, Project and Join:
 
 * ``Filter(IndexScan)`` fuses into one index_scan call — bucket pruning +
-  zone maps + the device mask (exec.scan.index_scan);
+  zone maps + the device mask (exec.scan.index_scan), or the resident
+  scan when the session's residency policy has the index on the device;
 * ``Join(IndexScan, IndexScan)`` with matching bucket specs executes as
   the shuffle-free bucketed sort-merge join (exec.joins.bucketed_join_pairs);
 * everything else evaluates bottom-up over ColumnarBatches.
 
-The compiled-pipeline, residency, mesh and aggregate arms are not ported.
+The compiled-pipeline, delta/join residency, mesh and aggregate arms are
+not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..config import ResidencyConf
 from ..exceptions import HyperspaceException
 from ..ops import DeviceLike
 from ..plan.expr import Expr, eval_mask
@@ -41,8 +44,11 @@ def bucketed_meta(plan: LogicalPlan) -> Optional[IndexScan]:
 
 
 class Executor:
-    def __init__(self, device: DeviceLike = None):
+    def __init__(
+        self, device: DeviceLike = None, residency: ResidencyConf = ResidencyConf()
+    ):
         self.device = device
+        self.residency = residency
 
     def execute(self, plan: LogicalPlan) -> ColumnarBatch:
         return self._exec(plan, predicate=None)
@@ -104,6 +110,7 @@ class Executor:
                 indexed_columns=entry.indexed_columns,
                 dtypes=entry.schema,
                 num_buckets=entry.num_buckets,
+                residency=self.residency,
             )
         if isinstance(plan, Join):
             batch = self._exec_join(plan)

@@ -15,8 +15,16 @@ query:
      the host, exactly, as in the reference;
   5. row compaction.
 
-The measured scan gate, HBM residency and run-file segment reads of the
-reference are not ported.
+When the index version's predicate columns are resident on the device
+(exec.hbm_cache), steps 3-5 give way to the resident protocol: one K1c
+launch counts matches per 8192-row block over the whole table, and the
+host reads, re-evaluates exactly and gathers only the blocks that hold
+matches (``_resident_parts``). A zone-map gate routes predicates that
+cannot prune blocks to the per-file path first; a miss schedules the
+table's background upload when the session's residency mode allows.
+
+The measured scan gate and run-file segment reads of the reference are
+not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Iterable, List, Optional
 
 import numpy as np
 
+from ..config import ResidencyConf
 from ..exceptions import HyperspaceException
 from ..ops import DeviceLike, resolve_device
 from ..ops.hashing import bucket_of_values
@@ -110,6 +119,94 @@ def _mask_kernel(bound, batch, names, n, device):
     )
 
 
+def _resident_parts(
+    table,
+    files: List[Path],
+    output_columns: List[str],
+    predicate: Expr,
+    counts: np.ndarray,
+) -> List[ColumnarBatch]:
+    """The result batches of a resident scan: the host reads ONLY the
+    8192-row blocks the device counted matches in (pad rows past a file's
+    end are never read), re-evaluates the predicate exactly there, and
+    gathers the output columns from mmap. Parts come back in ``files``
+    order, the per-file path's output order."""
+    from .hbm_cache import BLOCK_ROWS
+
+    candid = np.flatnonzero(counts)
+    metrics.incr("scan.path.resident_device")
+    metrics.incr("scan.resident.blocks_touched", int(len(candid)))
+    metrics.incr("scan.resident.blocks_total", int(len(counts)))
+    if candid.size == 0:
+        return []
+    need = list(dict.fromkeys(list(output_columns) + sorted(predicate.columns())))
+    parts: List[ColumnarBatch] = []
+    for f in files:
+        span = table.file_span(str(f))
+        if span is None:  # cannot happen (resident_for covered the files)
+            continue
+        start, end = span
+        b_lo, b_hi = start // BLOCK_ROWS, -(-end // BLOCK_ROWS)
+        mine = candid[(candid >= b_lo) & (candid < b_hi)]
+        if mine.size == 0:
+            continue
+        # merge adjacent candidate blocks into contiguous row runs
+        runs: List[List[int]] = []
+        for b in mine:
+            lo = max(int(b) * BLOCK_ROWS, start) - start
+            hi = min((int(b) + 1) * BLOCK_ROWS, end) - start
+            if runs and runs[-1][1] == lo:
+                runs[-1][1] = hi
+            else:
+                runs.append([lo, hi])
+        reader = layout.cached_reader(f)
+        for lo, hi in runs:
+            batch = reader.read(need, row_range=(lo, hi))
+            idx = np.flatnonzero(eval_mask(predicate, batch))
+            if idx.size:
+                parts.append(batch.take(idx).select(output_columns))
+    return parts
+
+
+def _resident_scan(
+    all_files: List[Path],
+    files: List[Path],
+    output_columns: List[str],
+    predicate: Expr,
+    device: DeviceLike,
+    residency: ResidencyConf,
+) -> Optional[List[ColumnarBatch]]:
+    """The resident arm of ``index_scan``: its result parts, or None when
+    the query takes the per-file path (no covering table, the zone gate
+    routed host, or the predicate does not narrow to the resident
+    encodings). A miss schedules first-touch population over the index
+    version's FULL file list, so one table serves every later subset."""
+    from .hbm_cache import hbm_cache, zone_block_fraction
+
+    pred_cols = sorted(predicate.columns())
+    table = hbm_cache.resident_for(files, pred_cols, device, residency)
+    if table is None:
+        if hbm_cache.auto_enabled(residency, device):
+            hbm_cache.note_touch(all_files, pred_cols, device, residency)
+        return None
+    # selectivity gate: the zone vectors bound the block fraction the
+    # predicate can touch; when the host would read nearly every block
+    # anyway, the device pass is pure overhead — route host before it
+    frac = zone_block_fraction(table, predicate)
+    if frac is not None:
+        # per-mille sum + eval count: mean fraction = sum / count
+        metrics.incr("scan.gate.resident_zone_frac_pm", int(frac * 1000))
+        metrics.incr("scan.gate.resident_zone_evals")
+        if residency.max_block_frac < 1.0 and frac >= residency.max_block_frac:
+            metrics.incr("scan.gate.resident_selectivity")
+            return None
+    counts = hbm_cache.block_counts(table, predicate)
+    if counts is None:
+        metrics.incr("scan.resident.declined")
+        return None
+    return _resident_parts(table, files, output_columns, predicate, counts)
+
+
 def empty_batch_for(output_columns, dtypes) -> Optional[ColumnarBatch]:
     """A 0-row batch projecting ``output_columns`` out of a (possibly
     differently-cased) ``dtypes`` schema, or None when the schema can't
@@ -155,13 +252,16 @@ def index_scan(
     indexed_columns: Optional[List[str]] = None,
     dtypes: Optional[dict] = None,
     num_buckets: Optional[int] = None,
+    residency: ResidencyConf = ResidencyConf(),
 ) -> ColumnarBatch:
     """Scan index data files, returning the filtered projection in file
     order. When ``indexed_columns``/``dtypes``/``num_buckets`` describe the
     index's bucketing, equality predicates prune to their hash buckets
-    before any file is opened."""
+    before any file is opened. ``residency`` is the session's HBM
+    residency policy (exec.hbm_cache)."""
+    all_files = [Path(p) for p in data_files]
     files = prune_index_files(
-        [Path(p) for p in data_files],
+        all_files,
         predicate,
         indexed_columns,
         dtypes,
@@ -173,6 +273,14 @@ def index_scan(
         if predicate is not None
         else list(output_columns)
     )
+    if predicate is not None and files:
+        resident = _resident_scan(
+            all_files, files, output_columns, predicate, device, residency
+        )
+        if resident is not None:
+            if resident:
+                return ColumnarBatch.concat(resident)
+            return _empty_result(files, output_columns, dtypes)
     parts: List[ColumnarBatch] = []
     for batch in layout.read_batches(files, columns=need):
         if batch.num_rows == 0:

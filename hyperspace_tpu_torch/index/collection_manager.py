@@ -2,7 +2,8 @@
 actions with per-index log/data managers, and enumerates indexes.
 
 Parity: com/microsoft/hyperspace/index/IndexCollectionManager.scala —
-create and the read-only verbs. The other lifecycle actions (delete,
+create and the read-only verbs, plus ``prefetch`` (HBM residency, a verb
+the reference package added). The other lifecycle actions (delete,
 restore, vacuum, refresh, optimize, cancel) are not yet ported.
 """
 
@@ -94,3 +95,31 @@ class IndexCollectionManager:
     def index(self, name: str) -> IndexStatistics:
         entry = self._existing_log_manager(name).get_latest_log()
         return IndexStatistics.from_entry(entry, extended=True)
+
+    def prefetch(self, name: str, columns: Optional[List[str]] = None) -> bool:
+        """Upload the index's predicate columns to the session's device
+        (exec.hbm_cache) under the session's residency policy: only an
+        ACTIVE covering index qualifies — a DELETED index's files still
+        exist on disk but no query is rewritten to them. ``columns``
+        defaults to the indexed columns; their case resolves against the
+        index schema, as DataFrame filters do."""
+        from ..exec.hbm_cache import hbm_cache
+        from ..utils import resolver
+
+        entry = self._existing_log_manager(name).get_latest_stable_log()
+        if entry is None or entry.state != states.ACTIVE:
+            return False
+        if entry.derived_dataset.kind != "CoveringIndex":
+            return False
+        if columns is None:
+            cols = list(entry.indexed_columns)
+        else:
+            schema_cols = list(entry.schema)
+            cols = [resolver.resolve(c, schema_cols) or c for c in columns]
+        return (
+            hbm_cache.prefetch(
+                entry.content.files(), cols, self.session.device,
+                self.conf.residency(),
+            )
+            is not None
+        )

@@ -1,4 +1,4 @@
-"""The query hot path's two hand-written CUDA kernels and their wrappers.
+"""The query hot path's hand-written CUDA kernels and their wrappers.
 
 Counterpart of ``hyperspace_tpu.ops.kernels``, whose two Pallas kernels
 become CUDA C++ for Hopper (``csrc/``):
@@ -6,11 +6,17 @@ become CUDA C++ for Hopper (``csrc/``):
 1. **Predicate mask** (``predicate_mask`` → ``csrc/predicate_mask.cu``,
    replacing ``_build_mask_call``): a filter predicate over int32-narrowed
    columns, lowered on the host to a postfix program the kernel
-   interprets per row, so one build serves every predicate.
+   interprets per row, so one build serves every predicate. Its second
+   entry, K1c (``predicate_block_counts_tensor``), fuses a match count
+   per 8192-row block for the HBM-resident scan (``exec/hbm_cache.py``).
 2. **Sorted-intersection join counts** (``sorted_intersect_counts`` →
    ``csrc/sorted_intersect.cu``, replacing ``_build_smj_call``): for each
    left key against ascending right keys, (#right < key, #right == key) —
    the match range of the bucketed sort-merge join.
+
+The ``resident_*`` entry points run the same kernels over operands
+uploaded once (the reference's microbench primitives and its fused
+aggregate-over-join).
 
 The int32 narrowing (``narrow_expr_to_i32`` / ``narrow_arrays_to_i32``)
 and the host span planning (``_plan_sorted_intersect``) are copies of the
@@ -19,7 +25,8 @@ reference, so both packages accept and decline exactly the same inputs
 
 Each tensor-level wrapper decides by the device its tensors lie on: a CPU
 tensor goes to the plain torch version beside the kernel
-(``predicate_mask_reference``, ``sorted_intersect_counts_reference``); a
+(``predicate_mask_reference``, ``predicate_block_counts_reference``,
+``sorted_intersect_counts_reference``); a
 CUDA tensor launches the kernel or raises. There is no fallback from a
 failed launch. The kernels build with ``nvcc`` for ``sm_90a`` on first use
 into ``hyperspace_tpu_torch/_build/`` and load through ``ctypes``.
@@ -33,6 +40,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -42,6 +50,7 @@ import torch
 from ..exceptions import HyperspaceException
 from ..plan.expr import And, Cmp, Col, Expr, In, Lit, Not, Or, eval_mask
 from ..storage.columnar import Column, ColumnarBatch
+from ..telemetry.metrics import metrics
 from . import DeviceLike, count_launch, resolve_device
 from .floatbits import f32_to_ordered_i32 as _f32_ordered_i32
 
@@ -54,7 +63,9 @@ _I32_MAX = 2**31 - 1
 SMJ_MAX_SPAN_TILES = 64
 
 K1 = "predicate_mask"
+K1C = "predicate_block_counts"  # K1's block-count entry, same source
 K2 = "sorted_intersect"
+BLOCK_ROWS = 8192  # K1c's count granularity (the resident scan's block)
 
 # ---------------------------------------------------------------------------
 # build + load (nvcc -> plain-C shared library -> ctypes)
@@ -125,6 +136,8 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
             if n == K1:
                 lib.hs_predicate_mask.argtypes = [vp, vp, ci, ll, vp, vp]
                 lib.hs_predicate_mask.restype = ci
+                lib.hs_predicate_block_counts.argtypes = [vp, vp, ci, ll, vp, vp]
+                lib.hs_predicate_block_counts.restype = ci
             else:
                 lib.hs_sorted_intersect.argtypes = [vp, vp, vp, vp, vp, ll, vp, vp, vp]
                 lib.hs_sorted_intersect.restype = ci
@@ -148,6 +161,12 @@ def _check_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
 def _check_launch(rc: int, what: str) -> None:
     if rc != 0:
         raise HyperspaceException(f"{what}: CUDA launch failed with error {rc}.")
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    # np.require copies only read-only (mmap) views: torch wants writable
+    # host memory to wrap
+    return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -351,31 +370,97 @@ def predicate_mask_reference(
     return eval_mask(bound, shim, dict(zip(names, cols)))
 
 
+def column_pointer_table(cols: List[torch.Tensor]) -> torch.Tensor:
+    """The device array of column addresses K1 and K1c read (one small
+    host→device copy; callers over resident columns build it once)."""
+    return torch.tensor(
+        [t.data_ptr() for t in cols], dtype=torch.int64, device=cols[0].device
+    )
+
+
+def _k1_operands(bound, names, cols, what, prog, ptrs):
+    """Checked CUDA operands of K1/K1c: (n_rows, prog, ptrs), lowering the
+    program and building the pointer table unless the caller passes them
+    prebuilt."""
+    n = int(cols[0].shape[0])
+    for t in cols:
+        _check_cuda(t, torch.int32, what)
+        if int(t.shape[0]) != n:
+            raise HyperspaceException(f"{what}: ragged columns.")
+    dev = cols[0].device
+    if prog is None:
+        prog = torch.from_numpy(lower_predicate(bound, names)).to(dev)
+    if ptrs is None:
+        ptrs = column_pointer_table(cols)
+    if ptrs.device != dev or int(ptrs.shape[0]) != len(cols):
+        raise HyperspaceException(f"{what}: pointer table does not match the columns.")
+    return n, prog, ptrs
+
+
 def predicate_mask_tensor(
-    bound: Expr, names: Tuple[str, ...], cols: List[torch.Tensor]
+    bound: Expr,
+    names: Tuple[str, ...],
+    cols: List[torch.Tensor],
+    prog: Optional[torch.Tensor] = None,
+    ptrs: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Bool mask of the narrowed predicate ``bound`` over int32 columns
     ``cols`` (ordered as ``names``). CPU tensors take the plain version;
-    CUDA tensors launch K1."""
+    CUDA tensors launch K1. ``prog``/``ptrs`` — the lowered program and
+    ``column_pointer_table(cols)`` already on the card — spare the two
+    per-call host→device copies."""
     if cols[0].device.type == "cpu":
         return predicate_mask_reference(bound, names, cols)
-    n = int(cols[0].shape[0])
-    for t in cols:
-        _check_cuda(t, torch.int32, "predicate_mask")
-        if int(t.shape[0]) != n:
-            raise HyperspaceException("predicate_mask: ragged columns.")
+    n, prog, ptrs = _k1_operands(bound, names, cols, K1, prog, ptrs)
     dev = cols[0].device
-    prog = torch.from_numpy(lower_predicate(bound, names)).to(dev)
-    ptrs = torch.tensor([t.data_ptr() for t in cols], dtype=torch.int64, device=dev)
     out = torch.empty(n, dtype=torch.uint8, device=dev)
-    lib = _lib(K1)
-    rc = lib.hs_predicate_mask(
+    rc = _lib(K1).hs_predicate_mask(
         ptrs.data_ptr(), prog.data_ptr(), int(prog.shape[0]), n, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _check_launch(rc, "predicate_mask")
+    _check_launch(rc, K1)
     count_launch(K1)
     return out.view(torch.bool)
+
+
+def predicate_block_counts_reference(
+    bound: Expr, names: Tuple[str, ...], cols: List[torch.Tensor]
+) -> torch.Tensor:
+    """Plain version of K1c: K1's plain mask summed per ``BLOCK_ROWS``
+    rows, int32."""
+    mask = predicate_mask_reference(bound, names, cols)
+    return mask.view(-1, BLOCK_ROWS).sum(1, dtype=torch.int32)
+
+
+def predicate_block_counts_tensor(
+    bound: Expr,
+    names: Tuple[str, ...],
+    cols: List[torch.Tensor],
+    ptrs: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """int32 match count of the narrowed predicate per ``BLOCK_ROWS`` rows
+    of the int32 columns ``cols``, whose length must be a multiple of
+    ``BLOCK_ROWS`` (resident planes are zero-padded so; pad rows count
+    when they satisfy the predicate, as in the reference). CPU tensors
+    take the plain version; CUDA tensors launch K1c. ``ptrs``: the
+    columns' prebuilt ``column_pointer_table``."""
+    n = int(cols[0].shape[0])
+    if n % BLOCK_ROWS:
+        raise HyperspaceException(
+            f"{K1C}: {n} rows is not a multiple of {BLOCK_ROWS}."
+        )
+    if cols[0].device.type == "cpu":
+        return predicate_block_counts_reference(bound, names, cols)
+    n, prog, ptrs = _k1_operands(bound, names, cols, K1C, None, ptrs)
+    dev = cols[0].device
+    counts = torch.empty(n // BLOCK_ROWS, dtype=torch.int32, device=dev)
+    rc = _lib(K1).hs_predicate_block_counts(
+        ptrs.data_ptr(), prog.data_ptr(), int(prog.shape[0]), n,
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check_launch(rc, K1C)
+    count_launch(K1C)
+    return counts
 
 
 def prepare_predicate(
@@ -412,13 +497,38 @@ def predicate_mask(
         return None
     narrowed, names, i32 = prep
     dev = resolve_device(device)
-    # np.require copies only read-only (mmap) views: torch wants writable
-    # host memory to wrap
-    cols = [
-        torch.from_numpy(np.require(i32[n][:n_rows], requirements=["C", "W"])).to(dev)
-        for n in names
-    ]
+    cols = [_upload(i32[n][:n_rows], dev) for n in names]
     return predicate_mask_tensor(narrowed, names, cols).cpu().numpy()
+
+
+def resident_mask_fn(bound: Expr, arrays: Dict[str, np.ndarray], device: DeviceLike = None):
+    """Device-resident variant of ``predicate_mask``: narrows and uploads
+    ``arrays`` once, and lowers the program and builds the column-pointer
+    table once. Returns ``(dispatch, cols)``: ``dispatch(cols)`` launches
+    K1 with no host→device copy and returns the device bool mask (no
+    readback; the caller fences). ``(None, None)`` when the predicate or
+    data do not narrow to int32 (the reference's decline)."""
+    prep = prepare_predicate(bound, arrays)
+    if prep is None:
+        return None, None
+    narrowed, names, i32 = prep
+    dev = resolve_device(device)
+    cols = [_upload(i32[n], dev) for n in names]
+    prog = ptrs = None
+    if dev.type == "cuda":
+        prog = torch.from_numpy(lower_predicate(narrowed, names)).to(dev)
+        ptrs = column_pointer_table(cols)
+    addrs = [t.data_ptr() for t in cols]
+
+    def dispatch(device_cols: List[torch.Tensor]) -> torch.Tensor:
+        # the prebuilt table holds the uploaded columns' addresses: other
+        # tensors get a table of their own
+        same = [t.data_ptr() for t in device_cols] == addrs
+        return predicate_mask_tensor(
+            narrowed, names, device_cols, prog, ptrs if same else None
+        )
+
+    return dispatch, cols
 
 
 # ---------------------------------------------------------------------------
@@ -543,3 +653,171 @@ def sorted_intersect_counts(
             lt[s:e] = np.searchsorted(r32, q, side="left")
             eq[s:e] = np.searchsorted(r32, q, side="right") - lt[s:e]
     return lt, eq
+
+
+def resident_sorted_intersect(
+    l_keys: np.ndarray, r_sorted: np.ndarray, device: DeviceLike = None
+):
+    """Device-resident variant of ``sorted_intersect_counts``: the host
+    planning and the uploads happen once, and the returned zero-argument
+    ``run()`` launches K2, returning the device ``(lt, eq)`` int32 tensors
+    (tile-padded; no readback). ``run.d_args`` are the resident operands.
+    None where the reference declines: an empty side, a declined plan, or
+    any wide tile (timing wants the pure-kernel shape)."""
+    if len(l_keys) == 0 or len(r_sorted) == 0:
+        return None
+    plan = _plan_sorted_intersect(l_keys, r_sorted)
+    if plan is None or plan[-1].any():
+        return None
+    dev = resolve_device(device)
+    d_args = [torch.from_numpy(a).to(dev) for a in plan[:5]]
+
+    def run():
+        return sorted_intersect_tensors(*d_args)
+
+    run.d_args = d_args
+    return run
+
+
+def _loop_seconds(fn, k: int, repeats: int, dev: torch.device) -> float:
+    """Median seconds of ``k`` back-to-back calls of ``fn``: CUDA events
+    around the launches on the card, the host clock on the CPU."""
+    times = []
+    for _ in range(repeats):
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _i in range(k):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            for _i in range(k):
+                fn()
+            times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def resident_smj_amortized(
+    l_keys: np.ndarray,
+    r_sorted: np.ndarray,
+    iters: int,
+    repeats: int = 5,
+    prepared=None,
+    device: DeviceLike = None,
+) -> Optional[float]:
+    """Per-launch seconds of K2 over resident operands: the time of an
+    ``iters``-launch loop minus a 1-launch loop, over ``iters - 1`` (the
+    reference differences a ``fori_loop`` the same way), so the fixed
+    per-measurement cost cancels. ``prepared`` (a
+    ``resident_sorted_intersect`` runner) reuses its operands. None where
+    ``resident_sorted_intersect`` declines."""
+    if iters < 2:
+        raise ValueError(
+            "resident_smj_amortized needs iters >= 2 (it differences a "
+            f"{iters}-iteration loop against a 1-iteration one)"
+        )
+    run = prepared or resident_sorted_intersect(l_keys, r_sorted, device)
+    if run is None:
+        return None
+    dev = run.d_args[0].device
+    run()  # warm: the first launch loads the kernel's library
+    w1 = _loop_seconds(run, 1, repeats, dev)
+    wk = _loop_seconds(run, iters, repeats, dev)
+    return max(wk - w1, 1e-9) / (iters - 1)
+
+
+def _int64_safe(a: np.ndarray) -> bool:
+    # signed ints embed exactly; unsigned only up to 32 bits (uint64 >=
+    # 2**63 would wrap negative in the int64 cast and de-sort the operands)
+    return a.dtype.kind == "i" or (a.dtype.kind == "u" and a.dtype.itemsize <= 4)
+
+
+def resident_fused_agg_over_join(
+    l_keys: np.ndarray,
+    r_sorted: np.ndarray,
+    r_vals_sorted: np.ndarray,
+    l_groups: np.ndarray,
+    n_groups: int,
+    device: DeviceLike = None,
+):
+    """Q17-shaped aggregate over a join, on resident operands: for each
+    left row its match range in the ascending right keys, the sum of the
+    right values over that range (prefix-sum differences, exact int64,
+    wraparound cancels), and both accumulated per left group. Returns a
+    zero-argument ``run()`` giving device int64 ``(group_pair_counts,
+    group_value_sums)`` of length ``n_groups``, or None where the
+    reference refuses (an empty side, non-integer or unsafe dtypes, a
+    right key equal to int64 max, group codes out of range).
+
+    When K2's plan accepts the operands with no wide tile, the match
+    ranges come from K2 and the epilogue (range sums, the group
+    permutation, int64 cumsum and boundary differences — a jnp program in
+    the reference) runs in torch ops; otherwise ``torch.searchsorted`` and
+    ``index_add_`` compute the same on the device, the reference's other
+    arm. Counted as ``fused_agg.path.kernel`` / ``fused_agg.path.torch``."""
+    n_l, n_r = len(l_keys), len(r_sorted)
+    if n_l == 0 or n_r == 0 or n_groups <= 0:
+        return None
+    if not (_int64_safe(l_keys) and _int64_safe(r_sorted)):
+        return None
+    if not _int64_safe(r_vals_sorted) or len(r_vals_sorted) != n_r:
+        return None
+    if int(r_sorted[-1]) == np.iinfo(np.int64).max:
+        return None
+    if len(l_groups) != n_l:
+        return None
+    # range-check BEFORE the int32 cast: a 2^32-offset code would wrap
+    # into range and silently corrupt the aggregation
+    if int(np.min(l_groups)) < 0 or int(np.max(l_groups)) >= n_groups:
+        return None
+    g = np.ascontiguousarray(l_groups, dtype=np.int32)
+    dev = resolve_device(device)
+    rvc = np.zeros(n_r + 1, dtype=np.int64)
+    np.cumsum(r_vals_sorted.astype(np.int64), out=rvc[1:])
+    rvc_d = torch.from_numpy(rvc).to(dev)
+
+    plan = _plan_sorted_intersect(l_keys, r_sorted)
+    if plan is not None and not plan[-1].any():
+        metrics.incr("fused_agg.path.kernel")
+        d_smj = [torch.from_numpy(a).to(dev) for a in plan[:5]]
+        # the group layout is static across dispatches: a stable
+        # group-sort permutation turns the per-group sums into cumsum +
+        # boundary differences
+        perm = np.argsort(g, kind="stable")
+        g_sorted = g[perm]
+        grid = np.arange(n_groups, dtype=g_sorted.dtype)
+        perm_d = torch.from_numpy(perm).to(dev)
+        st_d = torch.from_numpy(np.searchsorted(g_sorted, grid, side="left")).to(dev)
+        en_d = torch.from_numpy(np.searchsorted(g_sorted, grid, side="right")).to(dev)
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def run_kernel():
+            lt2, eq2 = sorted_intersect_tensors(*d_smj)
+            lt = lt2[:n_l].to(torch.int64)
+            eq = eq2[:n_l].to(torch.int64)
+            rsum = rvc_d[lt + eq] - rvc_d[lt]
+            cc = torch.cat([zero, torch.cumsum(eq[perm_d], 0)])
+            rc = torch.cat([zero, torch.cumsum(rsum[perm_d], 0)])
+            return cc[en_d] - cc[st_d], rc[en_d] - rc[st_d]
+
+        return run_kernel
+
+    metrics.incr("fused_agg.path.torch")
+    l_d = torch.from_numpy(np.asarray(l_keys, dtype=np.int64)).to(dev)
+    r_d = torch.from_numpy(np.ascontiguousarray(r_sorted, dtype=np.int64)).to(dev)
+    g_d = torch.from_numpy(g.astype(np.int64)).to(dev)
+
+    def run_torch():
+        lt = torch.searchsorted(r_d, l_d, side="left")
+        le = torch.searchsorted(r_d, l_d, side="right")
+        gc = torch.zeros(n_groups, dtype=torch.int64, device=dev)
+        gs = torch.zeros(n_groups, dtype=torch.int64, device=dev)
+        gc.index_add_(0, g_d, le - lt)
+        gs.index_add_(0, g_d, rvc_d[le] - rvc_d[lt])
+        return gc, gs
+
+    return run_torch

@@ -1,20 +1,23 @@
-"""Engine path counters: which arm of a routing decision ran.
+"""Engine path counters and timers: which arm of a routing decision ran,
+and how long a named step took.
 
 A process-global registry of named integer counters (``scan.path.*``,
 ``join.path.*``, ``build.engine.*``), the same names the reference
 package counts, so a test or ``chip_smoke.py`` can show which path a
-query took.
+query took; and of named host-clock timers (``hbm.prefetch``,
+``scan.resident.device``), each a total of seconds and a count.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 
 class Metrics:
     def __init__(self) -> None:
         self._counts: Dict[str, int] = {}
+        self._times: Dict[str, Tuple[float, int]] = {}
         self._lock = threading.Lock()
 
     def incr(self, name: str, n: int = 1) -> None:
@@ -29,9 +32,20 @@ class Metrics:
         with self._lock:
             return dict(self._counts)
 
+    def record_time(self, name: str, seconds: float) -> None:
+        with self._lock:
+            total, n = self._times.get(name, (0.0, 0))
+            self._times[name] = (total + seconds, n + 1)
+
+    def timings(self) -> Dict[str, Tuple[float, int]]:
+        """name -> (total seconds, count)."""
+        with self._lock:
+            return dict(self._times)
+
     def reset(self) -> None:
         with self._lock:
             self._counts.clear()
+            self._times.clear()
 
 
 metrics = Metrics()

@@ -1,9 +1,13 @@
 """Kernel parity: the port's K1 (predicate mask) and K2 (sorted-intersect)
 wrappers on the CPU — where they run the kernels' plain torch versions —
 against the JAX package's Pallas kernels in interpret mode, on the same
-numpy inputs. Also the postfix lowering K1's CUDA kernel interprets, the
-join span planning, and the CUDA kernels themselves on a card (marked
-``gpu``; skipped without one). Tolerance: exact throughout.
+numpy inputs. Also K1c's plain version against the reference's fused
+mask + block count, the f64 two-plane expansion, the resident entry
+points (``resident_mask_fn``, ``resident_sorted_intersect``,
+``resident_smj_amortized``, ``resident_fused_agg_over_join``) and their
+declines, the postfix lowering K1's CUDA kernel interprets, the join span
+planning, and the CUDA kernels themselves on a card (marked ``gpu``;
+skipped without one). Tolerance: exact throughout.
 """
 
 import numpy as np
@@ -202,6 +206,202 @@ def test_cpu_wrappers_launch_nothing_and_cuda_requests_raise(monkeypatch):
         tk.sorted_intersect_counts(l, r)
 
 
+def test_block_counts_match_pallas_counts_fn_pads_included():
+    """K1c's plain version against the reference's fused mask + block count
+    (``exec/hbm_cache.py:_counts_fn``, Pallas arm, interpreted) over the
+    same zero-padded planes: the pad rows of the tail satisfy the
+    predicate and count on both sides."""
+    from hyperspace_tpu.exec import hbm_cache as jh
+
+    rng = np.random.default_rng(3)
+    n_pad, n_real = 32768, 32768 - 5000
+    data = {c: np.zeros(n_pad, dtype=np.int32) for c in ("a", "b")}
+    data["a"][:n_real] = rng.integers(-300, 300, n_real)
+    data["b"][:n_real] = rng.integers(0, 50, n_real)
+    names = ("a", "b")
+    for i, mk in enumerate((
+        lambda m: (m.col("a") <= 10) & (m.col("b") < 30),
+        lambda m: ~(m.col("a") == 0) | m.is_in(m.col("b"), [3, 4]),
+        lambda m: m.col("a") > m.col("b"),
+    )):
+        jn = jk.narrow_expr_to_i32(mk(jexpr))
+        fn = jh._counts_fn(jn, names, n_pad // jk.LANES, True)
+        with jk._x32():
+            want = np.asarray(fn([data[c].reshape(-1, jk.LANES) for c in names]))
+        got = tk.predicate_block_counts_reference(
+            tk.narrow_expr_to_i32(mk(texpr)), names, [torch.from_numpy(data[c]) for c in names]
+        )
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+        if i == 0:
+            assert int(got[-1]) >= 5000  # the pads matched
+    cols = [torch.from_numpy(data[c][:-1]) for c in names]
+    with pytest.raises(HyperspaceException, match="multiple of 8192"):
+        tk.predicate_block_counts_tensor(texpr.col("a") > 0, names, cols)
+
+
+def test_expand_f64_predicate_matches_reference():
+    """The two-plane rewrite of f64 comparisons: the port's expansion,
+    evaluated over the int32 planes, equals the predicate over the floats
+    and the reference's expansion (oracle: test_hbm_cache.py)."""
+    from hyperspace_tpu.ops import floatbits as jf
+    from hyperspace_tpu.storage.columnar import Column as JColumn
+    from hyperspace_tpu.storage.columnar import ColumnarBatch as JBatch
+
+    from hyperspace_tpu_torch.ops import floatbits as tf
+    from hyperspace_tpu_torch.storage.columnar import Column, ColumnarBatch
+
+    rng = np.random.default_rng(2)
+    d = np.concatenate([rng.normal(0, 1e6, 500), rng.normal(0, 1e-6, 500),
+                        [0.0, -0.0, np.inf, -np.inf, 1.5, -1.5, 2.0**40, -(2.0**33)]])
+    hi, lo = tf.ordered_i64_planes(tf.f64_to_ordered_i64(d))
+    jhi, jlo = jf.ordered_i64_planes(jf.f64_to_ordered_i64(d))
+    assert np.array_equal(hi, jhi) and np.array_equal(lo, jlo)
+    nh, nl = tf.plane_names("d")
+    assert (nh, nl) == jf.plane_names("d")
+    shim = ColumnarBatch({nh: Column("int32", hi), nl: Column("int32", lo)})
+    jshim = JBatch({nh: JColumn("int32", hi), nl: JColumn("int32", lo)})
+    fbatch = ColumnarBatch({"d": Column("float64", d)})
+    for v in (0.0, -1.5, 1.5, 3.25e5, -7.125e-7, 2.0**40, -(2.0**33)):
+        for op in ("eq", "ne", "lt", "le", "gt", "ge"):
+            for pred, jpred in (
+                (texpr.Cmp(op, texpr.col("d"), texpr.lit(v)), jexpr.Cmp(op, jexpr.col("d"), jexpr.lit(v))),
+                (texpr.Cmp(op, texpr.lit(v), texpr.col("d")), jexpr.Cmp(op, jexpr.lit(v), jexpr.col("d"))),
+            ):
+                ex = tf.expand_f64_predicate(pred, {"d"})
+                jx = jf.expand_f64_predicate(jpred, {"d"})
+                got = np.asarray(texpr.eval_mask(ex, shim))
+                assert np.array_equal(got, np.asarray(texpr.eval_mask(pred, fbatch))), (op, v)
+                assert np.array_equal(got, np.asarray(jexpr.eval_mask(jx, jshim))), (op, v)
+                assert tk.narrow_expr_to_i32(ex) is not None
+    assert tf.expand_f64_predicate(texpr.col("d") < texpr.col("d"), {"d"}) is None
+    assert tf.expand_f64_predicate(texpr.col("d") == float("nan"), {"d"}) is None
+    assert jf.f64_literal_planes(2**63 - 1) is tf.f64_literal_planes(2**63 - 1) is None
+
+
+@pytest.mark.parametrize("i", [0, 3, 5])
+def test_resident_mask_fn_matches_reference(i):
+    arrs = _arrays(seed=i)
+    n = len(arrs["a"])
+    jfn, jcols = jk.resident_mask_fn(_preds(jexpr)[i], arrs)
+    tfn, tcols = tk.resident_mask_fn(_preds(texpr)[i], arrs, device="cpu")
+    with jk._x32():
+        want = np.asarray(jfn(jcols)).reshape(-1)[:n].astype(bool)
+    got = tfn(tcols)
+    assert got.dtype == torch.bool and np.array_equal(got.numpy(), want)
+    nan = dict(arrs, f=np.where(np.arange(n) == 5, np.nan, arrs["f"]).astype(np.float32))
+    bad = jexpr.col("f") > 0.5
+    assert jk.resident_mask_fn(bad, nan) == (None, None)
+    assert tk.resident_mask_fn(texpr.col("f") > 0.5, nan, device="cpu") == (None, None)
+
+
+def test_resident_sorted_intersect_and_amortized_match_reference():
+    l, r = _clustered(5000, 1500, 4, 0)
+    jrun = jk.resident_sorted_intersect(l, r)
+    trun = tk.resident_sorted_intersect(l, r, device="cpu")
+    with jk._x32():
+        jlt, jeq = (np.asarray(a).reshape(-1)[: len(l)] for a in jrun())
+    tlt, teq = trun()
+    assert np.array_equal(tlt[: len(l)].numpy(), jlt)
+    assert np.array_equal(teq[: len(l)].numpy(), jeq)
+    per_launch = tk.resident_smj_amortized(l, r, iters=4, repeats=2, prepared=trun)
+    assert per_launch is not None and per_launch > 0
+    # declines: an empty side, a wide tile, an overflowing key range
+    rng = np.random.default_rng(4)
+    r_big = np.sort(rng.integers(0, 10**6, 200_000)).astype(np.int64)
+    wide = np.sort(rng.choice(r_big, 8192))
+    wide[:1024] = rng.permutation(rng.choice(r_big, 1024))  # one tile spans all
+    for ll, rr in ((l[:0], r), (wide, r_big), (np.array([0, 2**40]), np.array([1, 5]))):
+        assert jk.resident_sorted_intersect(ll, rr) is None
+        assert tk.resident_sorted_intersect(ll, rr, device="cpu") is None
+        assert jk.resident_smj_amortized(ll, rr, 3, lambda f, k: (0, 0), 1) is None
+        assert tk.resident_smj_amortized(ll, rr, 3, device="cpu") is None
+    for mod in (jk, tk):
+        with pytest.raises(ValueError, match="iters >= 2"):
+            mod.resident_smj_amortized(l, r, 1, *((lambda f, k: (0, 0), 1) if mod is jk else ()))
+
+
+def _agg_ref(l_keys, r_keys, r_vals, groups, n_g):
+    lo = np.searchsorted(r_keys, l_keys, side="left")
+    hi = np.searchsorted(r_keys, l_keys, side="right")
+    rvc = np.concatenate([[0], np.cumsum(r_vals.astype(np.int64))])
+    exp_c = np.zeros(n_g, dtype=np.int64)
+    exp_s = np.zeros(n_g, dtype=np.int64)
+    np.add.at(exp_c, groups.astype(np.int64), hi - lo)
+    np.add.at(exp_s, groups.astype(np.int64), rvc[hi] - rvc[lo])
+    return exp_c, exp_s
+
+
+def _agg_cases():
+    """tests/test_kernels.py's fused-aggregate cases: duplicates on both
+    sides with empty groups, tiny inputs with one group, disjoint key
+    ranges, negative keys and sums, uint32 keys, and a key range too wide
+    for int32 narrowing (the torch arm)."""
+    rng = np.random.default_rng(5)
+    yield (rng.integers(0, 2000, 5000).astype(np.int64),
+           np.sort(rng.integers(0, 2000, 3000)).astype(np.int64),
+           rng.integers(-(1 << 20), 1 << 20, 3000).astype(np.int64),
+           rng.integers(0, 64, 5000).astype(np.int64), 64)
+    rng = np.random.default_rng(11)
+    yield (np.array([5, 1, 9], dtype=np.int64), np.array([1, 1, 5, 7], dtype=np.int64),
+           np.array([10, -20, 30, 40], dtype=np.int64), np.zeros(3, dtype=np.int64), 1)
+    yield (rng.integers(0, 100, 500).astype(np.int64),
+           np.sort(rng.integers(10_000, 20_000, 400)).astype(np.int64),
+           rng.integers(-50, 50, 400).astype(np.int64), rng.integers(0, 8, 500).astype(np.int64), 8)
+    yield (rng.integers(-5000, -1000, 2000).astype(np.int64),
+           np.sort(rng.integers(-5000, -1000, 1500)).astype(np.int64),
+           rng.integers(-(1 << 30), 1 << 30, 1500).astype(np.int64),
+           rng.integers(0, 16, 2000).astype(np.int64), 16)
+    yield (rng.integers(0, 1 << 31, 1000).astype(np.uint32),
+           np.sort(rng.integers(0, 1 << 31, 800).astype(np.uint32)),
+           rng.integers(0, 100, 800).astype(np.int64), rng.integers(0, 4, 1000).astype(np.int64), 4)
+    yield (rng.integers(0, 1 << 33, 1000).astype(np.int64),
+           np.sort(rng.integers(0, 1 << 33, 900)).astype(np.int64),
+           rng.integers(-100, 100, 900).astype(np.int64), rng.integers(0, 7, 1000).astype(np.int64), 7)
+
+
+@pytest.mark.parametrize("i", range(6))
+def test_fused_agg_over_join_matches_reference(i):
+    import jax
+
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    lk, rk, rv, g, ng = list(_agg_cases())[i]
+    metrics.reset()
+    run = tk.resident_fused_agg_over_join(lk, rk, rv, g, ng, device="cpu")
+    assert run is not None
+    gc, gs = run()
+    assert gc.dtype == gs.dtype == torch.int64
+    exp_c, exp_s = _agg_ref(np.asarray(lk, dtype=np.int64), np.asarray(rk, dtype=np.int64), rv, g, ng)
+    assert np.array_equal(gc.numpy(), exp_c) and np.array_equal(gs.numpy(), exp_s)
+    arm = "torch" if i == 5 else "kernel"  # only the wide key range declines K2
+    assert metrics.get(f"fused_agg.path.{arm}") == 1
+    if i in (0, 5):
+        jc, js = (np.asarray(a) for a in jax.block_until_ready(
+            jk.resident_fused_agg_over_join(lk, rk, rv, g, ng)()))
+        assert np.array_equal(gc.numpy(), jc) and np.array_equal(gs.numpy(), js)
+
+
+def test_fused_agg_refusals_match_reference():
+    lk, rk, rv, g, ng = next(_agg_cases())
+    bad = g.copy()
+    bad[0] = ng
+    cases = [
+        (lk[:0], rk, rv, g[:0], ng),  # empty side
+        (lk, rk, rv.astype(np.float64), g, ng),  # float values
+        (lk, rk, rv, bad, ng),  # group code out of range
+        (lk, rk, rv, g, 0),  # no groups
+        (lk, rk, rv[:-1], g, ng),  # ragged values
+        (lk, rk, rv, g[:-1], ng),  # ragged groups
+        (np.arange(4, dtype=np.int64), np.arange(4, dtype=np.int64),
+         np.full(4, 1 << 63, dtype=np.uint64), np.zeros(4, dtype=np.int64), 1),
+        (np.arange(2, dtype=np.int64), np.array([0, np.iinfo(np.int64).max]),
+         np.ones(2, dtype=np.int64), np.zeros(2, dtype=np.int64), 1),
+    ]
+    for args in cases:
+        assert jk.resident_fused_agg_over_join(*args) is None
+        assert tk.resident_fused_agg_over_join(*args, device="cpu") is None
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
@@ -216,4 +416,11 @@ def test_cuda_kernels_match_plain_versions():
     want = tk.sorted_intersect_counts(l, r, device="cpu")
     got = tk.sorted_intersect_counts(l, r, device="cuda")
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
-    assert launch_counts() == {tk.K1: 6, tk.K2: 1}
+    rng = np.random.default_rng(8)
+    cols = [torch.from_numpy(rng.integers(-99, 99, 25 * tk.BLOCK_ROWS).astype(np.int32))
+            for _ in range(2)]
+    for p in ((texpr.col("p") <= 10) & ~(texpr.col("q") == 3), texpr.col("p") < texpr.col("q")):
+        want = tk.predicate_block_counts_tensor(p, ("p", "q"), cols)
+        got = tk.predicate_block_counts_tensor(p, ("p", "q"), [c.cuda() for c in cols])
+        assert torch.equal(got.cpu(), want)
+    assert launch_counts() == {tk.K1: 6, tk.K2: 1, tk.K1C: 2}
