@@ -9,13 +9,23 @@ It needs a CUDA card and exits non-zero, printing no result, without one
 (or without the ``hyperspace_tpu_torch`` package beside it). Phases:
 
 1. header — the card's name and power limit (``nvidia-smi``); the CUDA
-   kernels build from ``hyperspace_tpu_torch/csrc`` (timed as set-up);
+   kernels build from ``hyperspace_tpu_torch/csrc`` (timed as set-up),
+   and ``ptxas -v``'s registers, stack frame and spills per kernel;
 2. kernels — each kernel against its plain torch version on the card, at
    the main path's shapes, exact equality; times (median of repeats, CUDA
-   events), the plain version's time, the library call's time where one
-   exists, and the least time the card could take (its bound). K1c (block
-   counts) also runs over a 3 GiB table made on the card (3 int32 columns
-   x 2^28 rows); K1 and K2 are also timed over operands uploaded once
+   events around the wrapper call; and the kernel's own device time from
+   torch.profiler), the plain version's time, the library call's time
+   where one exists, and the least time the card could take (its bound).
+   Device times are taken after an L2 flush. K1 also runs at one index
+   file's shape (30,006 rows), over a 599-instruction IN chain (staged in
+   shared memory), a program 64 stack slots deep, and ragged lengths from
+   1 to 200,003 rows (each on a random sample of the rows), under the
+   range filter and under predicates over 5 and 18 columns (18: more
+   addresses than the kernel's parameter block holds); at one file's
+   shape the range filter's and the IN chain's host dispatch is timed
+   step by step. K1c (block counts) also runs over the 18 columns and
+   over a 3 GiB table made on the card (3 int32 columns x 2^28 rows); K1
+   and K2 are also timed over operands uploaded once
    (``resident_mask_fn``, ``resident_sorted_intersect``,
    ``resident_smj_amortized``), and the fused aggregate-over-join is held
    against numpy;
@@ -152,6 +162,135 @@ def time_ms(fn, repeats: int = 20, warmup: int = 3) -> float:
     return float(statistics.median(times))
 
 
+_L2_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Overwrite a buffer five times the card's L2 (50 MB on an H100), so
+    that the next kernel reads its operands from device memory."""
+    import torch
+
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
+    _L2_FLUSH[0].zero_()
+
+
+def time_pair_ms(fa, fb, repeats: int = 100, warmup: int = 3):
+    """``time_ms`` of two calls taken in alternation, so that host and
+    clock drift fall on both alike: (median of ``fa``, median of ``fb``)."""
+    import torch
+
+    for _ in range(warmup):
+        fa()
+        fb()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for _ in range(repeats):
+        for fn, out in ((fa, times[0]), (fb, times[1])):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+    return float(statistics.median(times[0])), float(statistics.median(times[1]))
+
+
+def device_ms(fn, kernel: str, calls: int = 20):
+    """Mean device time (ms) of the CUDA kernels whose name holds
+    ``kernel`` over ``calls`` calls of ``fn``, each after an L2 flush
+    (cold L2), from torch.profiler: the kernel alone, where ``time_ms``
+    also holds the host's dispatch when it is the longer part, and reads
+    operands that stay in L2 between its repeats. None when the profiler
+    saw no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush_l2()
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            total_us += getattr(e, "self_device_time_total", 0.0)
+            count += e.count
+    return total_us / count / 1e3 if count and total_us else None
+
+
+def host_dispatch_us(narrowed, names, cols, calls: int = 200) -> dict:
+    """Host microseconds (median of ``calls``) of the steps of one K1
+    wrapper call: the lowering cache's key (``repr`` of the narrowed
+    predicate), a cache miss (lowering plus the parameter template), a
+    cache hit, packing the launch's parameter block, and the whole wrapper
+    call, which returns once the kernel is queued."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    def med(fn, k=calls):
+        ts = []
+        for _ in range(k):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts) * 1e6
+
+    program = tk.lowered_predicate(narrowed, names)
+    addrs = tk.k1_column_addrs(cols, tk.K1)
+    staged = program.on_device(cols[0].device).data_ptr() if program.staged else 0
+    out = torch.empty(int(cols[0].shape[0]), dtype=torch.uint8, device=cols[0].device)
+    torch.cuda.synchronize()
+    rec = dict(
+        key_us=med(lambda: repr(narrowed)),
+        miss_us=med(lambda: tk.K1Program(tk.lower_predicate(narrowed, names), len(names)),
+                    k=max(5, calls // 20)),
+        hit_us=med(lambda: tk.lowered_predicate(narrowed, names)),
+        params_us=med(lambda: program.params(addrs, len(out), out.data_ptr(), staged)),
+        wrapper_us=med(lambda: tk.predicate_mask_tensor(narrowed, names, cols)),
+    )
+    torch.cuda.synchronize()
+    return rec
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def ptxas_summary(report: str) -> dict:
+    """Per kernel of a ``ptxas -v`` report: registers, stack frame and
+    spill bytes (template arguments of the mask kernels spelled out)."""
+    import re
+
+    def name(mangled: str) -> str:
+        m = re.search(r"([a-z_]+_kernel)(?:ILb([01])ELi(\d+)E)?", mangled)
+        if not m:
+            return mangled
+        if m.group(2) is None:
+            return m.group(1)
+        flag = "staged" if m.group(2) == "1" else "params"
+        return f"{m.group(1)}<{flag},{m.group(3)}>"
+
+    out, current = {}, None
+    for ln in report.splitlines():
+        if "Function properties for" in ln:
+            current = name(ln.split("for", 1)[1].strip())
+            out.setdefault(current, {})
+        elif "Compiling entry function" in ln:
+            current = name(ln.split("'")[1])
+            out.setdefault(current, {})
+        elif current and "stack frame" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[current].update(stack_frame=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif current and "Used" in ln and "registers" in ln:
+            out[current]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return {k: v for k, v in out.items() if v}
+
+
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_OPS_PER_S * 1e3
@@ -178,6 +317,105 @@ def searchsorted_pair(r, l):
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
+FILE_ROWS = 30_006  # one index file's rows at SF1 (6,001,215 rows / 200 buckets)
+RAGGED_ROWS = (1, 31, 4095, 4097, 30_006, 200_003)
+
+
+def deep_program(depth: int, spans) -> np.ndarray:
+    """A hand-written postfix program that fills ``depth`` stack slots:
+    ``depth`` compares (one negated) of column ``i % len(spans)`` against a
+    literal inside its (lo, hi) span, then alternating AND / OR."""
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    prog = []
+    for i in range(depth):
+        lo, hi = spans[i % len(spans)]
+        prog.append((tk.OP_CMP_LIT, i % len(spans), i % 6, lo + (hi - lo) * (i * 37 % 100) // 100))
+    prog.insert(3, (tk.OP_NOT, 0, 0, 0))
+    prog += [(tk.OP_AND if i % 2 else tk.OP_OR, 0, 0, 0) for i in range(depth - 1)]
+    return np.array(prog, dtype=np.int32)
+
+
+def k1_shape_cases(arrays: dict, preds: dict, lineitem: dict, dev, seed: int) -> dict:
+    """K1 beyond SF1's whole table, each held exactly against its plain
+    version on the card: one index file's shape (timed), a 599-instruction
+    IN chain (staged in shared memory; at the file's shape and at SF1,
+    timed), a program 64 stack slots deep, and ragged lengths under the
+    range filter, under a predicate over 5 columns (more than the kernel
+    holds in registers) and under one over 18 (more addresses than its
+    parameter block holds). The range filter and the IN chain at one
+    file's shape also report their host dispatch step by step."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import kernels as tk
+    from hyperspace_tpu_torch.plan.expr import col, is_in
+
+    out = {}
+    n = len(arrays["l_orderkey"])
+    rng = np.random.default_rng(seed + 2)
+    keys = np.unique(lineitem["l_orderkey"])
+    chain = is_in(col("l_orderkey"), [int(k) for k in keys[:: max(1, len(keys) // 300)][:300]])
+
+    def case(name, pred, rows, timed=True, program=None, dispatch=False):
+        # an index file holds one hash bucket, rows from across the key
+        # range: each case takes a sorted random sample of the table's rows
+        idx = np.sort(rng.choice(n, rows, replace=False)) if rows < n else slice(None)
+        sub = {c: a[idx] for c, a in arrays.items()}
+        narrowed, names, i32 = tk.prepare_predicate(pred, sub)
+        cols = [torch.from_numpy(np.require(i32[c], requirements=["C", "W"])).to(dev)
+                for c in names]
+        lowered = program is None
+        if lowered:
+            program = tk.lowered_predicate(narrowed, names)
+            plain = lambda: tk.predicate_mask_reference(narrowed, names, cols)  # noqa: E731
+        else:  # a hand-written program over the predicate's columns
+            plain = lambda: tk.run_postfix_reference(program.prog, cols)  # noqa: E731
+        got = tk.program_mask_tensor(program, cols)
+        want = plain()
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max().item())
+        if err != 0 or got.shape != (rows,):
+            raise AssertionError(f"K1 {name}: kernel disagrees with plain version")
+        rec = dict(max_abs_err=err, rows=rows, cols=program.n_cols, instr=len(program.prog),
+                   depth=program.depth, staged=program.staged,
+                   matches=int(want.sum().item()))
+        if timed:
+            rec["ms"] = time_ms(lambda: tk.program_mask_tensor(program, cols))
+            rec["device_ms"] = device_ms(lambda: tk.program_mask_tensor(program, cols),
+                                         "predicate_mask_kernel")
+            if lowered:
+                rec["wrapper_ms"] = time_ms(lambda: tk.predicate_mask_tensor(narrowed, names, cols))
+            rec["plain_ms"] = time_ms(plain, repeats=5)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                rows * (4 * program.n_cols + 1), float(rows) * len(program.prog))
+        if dispatch:
+            rec["host_us"] = host_dispatch_us(narrowed, names, cols)
+            log(f"K1 {name} host dispatch: " + " ".join(
+                f"{k}={v:.1f}" for k, v in rec["host_us"].items()))
+        out[name] = rec
+        log(f"K1 {name}: rows={rows} cols={program.n_cols} instr={len(program.prog)} "
+            f"depth={program.depth} staged={program.staged} matches={rec['matches']} "
+            f"exact=yes" + (
+                f" ms={rec['ms']:.4f} device_ms={_fmt(rec['device_ms'])} "
+                f"wrapper_ms={rec.get('wrapper_ms', rec['ms']):.4f} "
+                f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+                f"({rec['bound_by']})" if timed else ""))
+
+    case("file_range_3col", preds["range_3col"], min(FILE_ROWS, n), dispatch=True)
+    case("file_in_chain_599", chain, min(FILE_ROWS, n), dispatch=True)
+    case("file_wide_18col", preds["wide_18col"], min(FILE_ROWS, n))
+    case("in_chain_599", chain, n)
+    spans = [(int(arrays[c].min()), int(arrays[c].max()))
+             for c in ("l_orderkey", "l_quantity", "l_shipdate")]  # the predicate's names
+    case("deep64_3col", preds["range_3col"], min(200_003, n), timed=False,
+         program=tk.K1Program(deep_program(64, spans), 3))
+    for rows in RAGGED_ROWS:
+        case(f"ragged_{rows}", preds["range_3col"], min(rows, n), timed=False)
+        case(f"ragged_{rows}_wide_5col", preds["wide_5col"], min(rows, n), timed=False)
+        case(f"ragged_{rows}_wide_18col", preds["wide_18col"], min(rows, n), timed=False)
+    return out
+
+
 def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
     import torch
 
@@ -194,6 +432,9 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
         "l_receiptdate": (lineitem["l_shipdate"] + rng.integers(-3, 30, n)).astype(np.int32),
         "l_discount": (rng.integers(0, 11, n) / 100).astype(np.float32),
     }
+    extra = [f"x{i:02d}" for i in range(13)]  # 18 columns with wide_5col's 5
+    for name in extra:
+        arrays[name] = rng.integers(0, 1000, n, dtype=np.int32)
     k = int(lineitem["l_orderkey"][n // 3])
     top = int(lineitem["l_orderkey"].max())
     preds = {
@@ -205,7 +446,15 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
         | (~(col("l_shipdate") < DAY_1995_03_15) & (col("l_discount") > 0.0625)),
         "colcol_4col": (col("l_shipdate") < col("l_receiptdate")) & (col("l_quantity") > 2)
         & ~(col("l_discount") == 0.0) & (col("l_quantity") < 48),
+        # 5 columns: more than K1 holds in registers, so it loads per compare
+        "wide_5col": (col("l_shipdate") < col("l_receiptdate")) & (col("l_quantity") > 2)
+        & ~(col("l_discount") == 0.0) & (col("l_orderkey") < top // 2),
     }
+    # 18 columns: more addresses than K1's parameter block holds (16), so
+    # they reach the kernel in a device array
+    preds["wide_18col"] = preds["wide_5col"]
+    for name in extra:
+        preds["wide_18col"] = preds["wide_18col"] & (col(name) > 20)
     k1 = {}
     for name, p in preds.items():
         prep = tk.prepare_predicate(p, arrays)
@@ -223,56 +472,75 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
         plain = time_ms(lambda: tk.predicate_mask_reference(narrowed, names, cols), repeats=5)
         n_instr = len(tk.lower_predicate(narrowed, names))
         b_ms, b_by = bound(n * (4 * len(names) + 1), float(n) * n_instr)
-        k1[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                        cols=len(names), rows=n, matches=int(want.sum().item()))
-        log(f"K1 {name}: rows={n} cols={len(names)} ms={ms:.4f} plain_ms={plain:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) exact=yes")
+        dev_ms = device_ms(lambda: tk.predicate_mask_tensor(narrowed, names, cols),
+                           "predicate_mask_kernel")
+        k1[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                        max_abs_err=err, cols=len(names), rows=n,
+                        matches=int(want.sum().item()))
+        log(f"K1 {name}: rows={n} cols={len(names)} ms={ms:.4f} device_ms={_fmt(dev_ms)} "
+            f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) exact=yes")
 
-    # K1 again over operands uploaded once: the program and pointer table
-    # too, so the gap to the wrapper's time is its per-call copies
+    # K1 again over operands uploaded once and a program lowered once: the
+    # gap to the wrapper's time, the two timed in alternation, is the
+    # wrapper's per-call host work (the program rides in the launch's
+    # parameters either way)
     dispatch, rcols = tk.resident_mask_fn(preds["range_3col"], arrays, device=dev)
-    if not torch.equal(dispatch(rcols), tk.predicate_mask_tensor(
-            *tk.prepare_predicate(preds["range_3col"], arrays)[:2], rcols)):
+    narrowed, names = tk.prepare_predicate(preds["range_3col"], arrays)[:2]
+    if not torch.equal(dispatch(rcols), tk.predicate_mask_tensor(narrowed, names, rcols)):
         raise AssertionError("K1 resident_mask_fn disagrees with the wrapper")
-    k1["range_3col"]["resident_ms"] = time_ms(lambda: dispatch(rcols))
-    log(f"K1 range_3col resident_mask_fn: ms={k1['range_3col']['resident_ms']:.4f} "
-        f"(wrapper {k1['range_3col']['ms']:.4f})")
+    rec = k1["range_3col"]
+    rec["wrapper_paired_ms"], rec["resident_ms"] = time_pair_ms(
+        lambda: tk.predicate_mask_tensor(narrowed, names, rcols), lambda: dispatch(rcols))
+    rec["resident_device_ms"] = device_ms(lambda: dispatch(rcols), "predicate_mask_kernel")
+    log(f"K1 range_3col resident_mask_fn: ms={rec['resident_ms']:.4f} "
+        f"device_ms={_fmt(rec['resident_device_ms'])} (wrapper in alternation "
+        f"{rec['wrapper_paired_ms']:.4f}; alone {rec['ms']:.4f})")
+    k1.update(k1_shape_cases(arrays, preds, lineitem, dev, seed))
 
     k1c = {}
-    narrowed, names, i32 = tk.prepare_predicate(preds["range_3col"], arrays)
     n_pad = -(-n // tk.BLOCK_ROWS) * tk.BLOCK_ROWS
-    padded = []
-    for c in names:  # zero-padded, as the resident table holds them
-        t = torch.zeros(n_pad, dtype=torch.int32, device=dev)
-        t[:n] = torch.from_numpy(np.require(i32[c], requirements=["C", "W"])).to(dev)
-        padded.append(t)
+
+    def padded(pred):  # zero-padded columns, as the resident table holds them
+        narrowed, names, i32 = tk.prepare_predicate(pred, arrays)
+        out = []
+        for c in names:
+            t = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+            t[:n] = torch.from_numpy(np.require(i32[c], requirements=["C", "W"])).to(dev)
+            out.append(t)
+        return narrowed, names, out
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     large = [  # the same predicate's columns over 2^28 rows, made on the card
         torch.randint(lo, hi, (LARGE_ROWS,), generator=gen, device=dev, dtype=torch.int32)
         for lo, hi in ((1, 6_000_000), (1, 51), (DAY_1992_01_01, DAY_1998_08_02))
     ]
-    for name, cols in (("range_3col", padded), ("large_3col", large)):
+    narrowed, names, range_cols = padded(preds["range_3col"])
+    for name, narrowed, names, cols in (("range_3col", narrowed, names, range_cols),
+                                        ("large_3col", narrowed, names, large),
+                                        ("wide_18col", *padded(preds["wide_18col"]))):
         rows = int(cols[0].shape[0])
-        ptrs = tk.column_pointer_table(cols)
-        got = tk.predicate_block_counts_tensor(narrowed, names, cols, ptrs)
+        got = tk.predicate_block_counts_tensor(narrowed, names, cols)
         want = tk.predicate_block_counts_reference(narrowed, names, cols)
         torch.cuda.synchronize()
         err = int((got - want).abs().max().item())
         if err != 0 or got.shape != (rows // tk.BLOCK_ROWS,):
             raise AssertionError(f"K1c {name}: kernel disagrees with plain version")
-        ms = time_ms(lambda: tk.predicate_block_counts_tensor(narrowed, names, cols, ptrs))
+        ms = time_ms(lambda: tk.predicate_block_counts_tensor(narrowed, names, cols))
         plain = time_ms(lambda: tk.predicate_block_counts_reference(narrowed, names, cols),
                         repeats=5)
         n_instr = len(tk.lower_predicate(narrowed, names))
         b_ms, b_by = bound(4 * len(names) * rows + 4 * (rows // tk.BLOCK_ROWS),
                            float(rows) * n_instr)
-        k1c[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        dev_ms = device_ms(lambda: tk.predicate_block_counts_tensor(narrowed, names, cols),
+                           "predicate_block_counts_kernel")
+        k1c[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                          max_abs_err=err, cols=len(names), rows_padded=rows,
                          matches=int(want.sum().item()))
         log(f"K1c {name}: rows_padded={rows} cols={len(names)} ms={ms:.4f} "
-            f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) exact=yes")
-    del large, padded
+            f"device_ms={_fmt(dev_ms)} plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"exact=yes")
+    del large, range_cols, cols
     torch.cuda.empty_cache()
 
     # K2 at the join's shapes: left = lineitem keys laid out as the index
@@ -310,16 +578,19 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
         ):
             raise AssertionError(f"K2 {name}: kernel disagrees with plain version")
         ms = time_ms(lambda: tk.sorted_intersect_tensors(*args))
+        dev_ms = device_ms(lambda: tk.sorted_intersect_tensors(*args), "sorted_intersect_kernel")
         plain = time_ms(lambda: tk.sorted_intersect_counts_reference(args[3], args[4]))
 
         lib_ms = time_ms(lambda: searchsorted_pair(args[4], args[3]))
         b_ms, b_by = k2_bound(span, len(l_p), len(r_p))
-        k2[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        k2[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by,
                         max_abs_err=err,
                         n_l=len(l), n_r=len(r), wide_tiles=int(wide_t.sum()),
                         max_span=int(span.max()))
         log(f"K2 {name}: n_l={len(l)} n_r={len(r)} wide_tiles={int(wide_t.sum())} "
-            f"max_span={int(span.max())} ms={ms:.4f} plain_ms={plain:.4f} "
+            f"max_span={int(span.max())} ms={ms:.4f} device_ms={_fmt(dev_ms)} "
+            f"plain_ms={plain:.4f} "
             f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) exact=yes")
     # K2 over resident operands. At index_layout the 199 tiles that
     # straddle a bucket boundary are wide, and the resident entry points
@@ -697,6 +968,13 @@ def main() -> int:
     t0 = time.perf_counter()
     tk.build_kernels()
     log(f"setup: kernels built and loaded in {time.perf_counter() - t0:.3f} s")
+    ptxas = {}
+    for kname in (tk.K1, tk.K2):
+        ptxas[kname] = ptxas_summary(tk.build_report(kname))
+        for fn, info in sorted(ptxas[kname].items()):
+            log(f"setup: ptxas {fn}: registers={info.get('registers')} "
+                f"stack_frame={info.get('stack_frame')} spill_stores={info.get('spill_stores')} "
+                f"spill_loads={info.get('spill_loads')}")
 
     n_l = int(round(SF1_LINEITEM * args.scale))
     n_o = int(round(SF1_ORDERS * args.scale))
@@ -742,7 +1020,8 @@ def main() -> int:
     ]}
     log(json.dumps({"main_path": {k: main_out[k] for k in ("build_s", "query_s", "rows")},
                     "resident_path": main_out["resident"],
-                    "kernel_cases": kphase, "total_s": time.perf_counter() - t_start}))
+                    "kernel_cases": kphase, "ptxas": ptxas,
+                    "total_s": time.perf_counter() - t_start}))
     log(json.dumps(line))
     # the port drives one card
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -131,26 +131,12 @@ class ResidentTable:
         default_factory=dict
     )
     last_used: float = field(default_factory=time.monotonic)
-    # device tables of column addresses, one per operand tuple, built on
-    # first use so a query uploads only its lowered program
-    _pointer_tables: Dict[tuple, torch.Tensor] = field(
-        default_factory=dict, repr=False
-    )
 
     def file_span(self, path: str) -> Optional[Tuple[int, int]]:
         for p, start, n in self.files:
             if p == path:
                 return start, start + n
         return None
-
-    def pointer_table(self, names: Tuple[str, ...]) -> Optional[torch.Tensor]:
-        if self.device.type != "cuda":
-            return None
-        t = self._pointer_tables.get(names)
-        if t is None:
-            t = K.column_pointer_table(resident_arrays_for(self.columns, names))
-            self._pointer_tables[names] = t
-        return t
 
 
 def _file_identity(path: str | Path) -> tuple:
@@ -744,9 +730,7 @@ class HbmIndexCache(ResidentCacheBase):
         narrowed, names = prepared
         cols = resident_arrays_for(table.columns, names)
         t0 = time.perf_counter()
-        counts = K.predicate_block_counts_tensor(
-            narrowed, names, cols, table.pointer_table(names)
-        ).cpu().numpy()
+        counts = K.predicate_block_counts_tensor(narrowed, names, cols).cpu().numpy()
         metrics.record_time("scan.resident.device", time.perf_counter() - t0)
         n_blocks = -(-table.n_rows // BLOCK_ROWS)
         metrics.incr("scan.resident.d2h_bytes", int(counts.nbytes))

@@ -5,10 +5,12 @@ become CUDA C++ for Hopper (``csrc/``):
 
 1. **Predicate mask** (``predicate_mask`` → ``csrc/predicate_mask.cu``,
    replacing ``_build_mask_call``): a filter predicate over int32-narrowed
-   columns, lowered on the host to a postfix program the kernel
-   interprets per row, so one build serves every predicate. Its second
-   entry, K1c (``predicate_block_counts_tensor``), fuses a match count
-   per 8192-row block for the HBM-resident scan (``exec/hbm_cache.py``).
+   columns, lowered on the host to a postfix program (cached per
+   predicate) that rides in the launch's parameter block and that the
+   kernel interprets once per 32 rows, so one build serves every
+   predicate. Its second entry, K1c (``predicate_block_counts_tensor``),
+   fuses a match count per 8192-row block for the HBM-resident scan
+   (``exec/hbm_cache.py``).
 2. **Sorted-intersection join counts** (``sorted_intersect_counts`` →
    ``csrc/sorted_intersect.cu``, replacing ``_build_smj_call``): for each
    left key against ascending right keys, (#right < key, #right == key) —
@@ -38,9 +40,11 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
+from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -102,7 +106,9 @@ def _lib_path(name: str) -> Tuple[Path, Path]:
 
 def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
     """Compile (one ``nvcc`` per source, all started together) and load
-    the named kernels' libraries; already-built ones are reused."""
+    the named kernels' libraries; already-built ones are reused. Each
+    build keeps ``ptxas -v``'s report (registers, stack frame, spills per
+    kernel) beside its library (``build_report``)."""
     with _LIB_LOCK:
         todo = [n for n in names if n not in _LIBS]
         procs = []
@@ -114,7 +120,7 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [
                 _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
                 "-o", str(tmp), str(src),
             ]
             procs.append((n, so, tmp, subprocess.Popen(
@@ -127,6 +133,7 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
                 failed.append(f"{n}: {out.decode(errors='replace')}")
                 tmp.unlink(missing_ok=True)
             else:
+                so.with_suffix(".ptxas.txt").write_bytes(out)
                 os.replace(tmp, so)
         if failed:
             raise HyperspaceException("nvcc failed:\n" + "\n".join(failed))
@@ -134,15 +141,29 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
             lib = ctypes.CDLL(str(_lib_path(n)[1]))
             vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             if n == K1:
-                lib.hs_predicate_mask.argtypes = [vp, vp, ci, ll, vp, vp]
-                lib.hs_predicate_mask.restype = ci
-                lib.hs_predicate_block_counts.argtypes = [vp, vp, ci, ll, vp, vp]
-                lib.hs_predicate_block_counts.restype = ci
+                lib.hs_predicate_param_bytes.argtypes = []
+                lib.hs_predicate_param_bytes.restype = ci
+                if lib.hs_predicate_param_bytes() != _PARAM_DTYPE.itemsize:
+                    raise HyperspaceException(
+                        "predicate_mask.cu's parameter block is "
+                        f"{lib.hs_predicate_param_bytes()} bytes; ops/kernels.py "
+                        f"packs {_PARAM_DTYPE.itemsize}."
+                    )
+                for entry in (lib.hs_predicate_mask, lib.hs_predicate_block_counts):
+                    entry.argtypes = [ctypes.c_char_p, vp]
+                    entry.restype = ci
             else:
                 lib.hs_sorted_intersect.argtypes = [vp, vp, vp, vp, vp, ll, vp, vp, vp]
                 lib.hs_sorted_intersect.restype = ci
             _LIBS[n] = lib
         return dict(_LIBS)
+
+
+def build_report(name: str) -> str:
+    """``ptxas -v``'s output from building kernel ``name`` (empty when the
+    library was built before reports were kept)."""
+    log = _lib_path(name)[1].with_suffix(".ptxas.txt")
+    return log.read_text(errors="replace") if log.exists() else ""
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -370,57 +391,207 @@ def predicate_mask_reference(
     return eval_mask(bound, shim, dict(zip(names, cols)))
 
 
-def column_pointer_table(cols: List[torch.Tensor]) -> torch.Tensor:
-    """The device array of column addresses K1 and K1c read (one small
-    host→device copy; callers over resident columns build it once)."""
-    return torch.tensor(
-        [t.data_ptr() for t in cols], dtype=torch.int64, device=cols[0].device
-    )
+# ---------------------------------------------------------------------------
+# K1/K1c launch: a lowered program and the columns' addresses travel in the
+# kernel's parameter block (csrc/predicate_mask.cu:Params), so a launch
+# copies nothing to the card first
+# ---------------------------------------------------------------------------
+K1_MAX_COLS = 16  # column addresses the parameter block holds
+K1_MAX_PARAM_INSTR = 240  # instructions it holds; longer programs are staged
+K1_STACK_SLOTS = 64
+K1_MAX_SMEM = 232448 - 1024  # dynamic shared memory a launch may ask for
+K1C_THREADS = 256  # K1c's CTA, the widest: shared memory is checked for it
+_PARAM_DTYPE = np.dtype({
+    "names": ["prog", "cols", "staged", "n_rows", "out", "n_cols", "n_instr", "depth",
+              "col_table"],
+    "formats": [(np.int32, (K1_MAX_PARAM_INSTR, 4)), (np.int64, (K1_MAX_COLS,)),
+                np.int64, np.int64, np.int64, np.int32, np.int32, np.int32, np.int64],
+    "offsets": [0, 3840, 3968, 3976, 3984, 3992, 3996, 4000, 4008],
+    "itemsize": 4016,
+})
+_LOWER_CACHE_SIZE = 256  # as the reference's _mask_call_cache
 
 
-def _k1_operands(bound, names, cols, what, prog, ptrs):
-    """Checked CUDA operands of K1/K1c: (n_rows, prog, ptrs), lowering the
-    program and building the pointer table unless the caller passes them
-    prebuilt."""
+def program_depth(prog: np.ndarray) -> int:
+    """Peak stack depth of a postfix program; raises on a program that
+    underflows, does not end with one value, or exceeds the kernel's
+    stack."""
+    depth = peak = 0
+    for opc in prog[:, 0].tolist():
+        if opc in (OP_CMP_LIT, OP_CMP_COL):
+            depth += 1
+        elif opc in (OP_AND, OP_OR):
+            depth -= 1
+        elif opc != OP_NOT:
+            raise HyperspaceException(f"Unknown mask-kernel opcode {opc}.")
+        if depth < 1:
+            raise HyperspaceException("Mask-kernel program underflows its stack.")
+        peak = max(peak, depth)
+    if depth != 1:
+        raise HyperspaceException("Mask-kernel program does not end with one value.")
+    if peak > K1_STACK_SLOTS:
+        raise HyperspaceException(
+            f"Mask-kernel program needs {peak} stack slots (at most {K1_STACK_SLOTS})."
+        )
+    return peak
+
+
+def k1_smem_bytes(n_instr: int, depth: int, threads: int) -> int:
+    """Shared memory of a K1/K1c CTA: a staged program, then ``depth``
+    stack words per thread."""
+    staged = n_instr > K1_MAX_PARAM_INSTR
+    return (16 * n_instr if staged else 0) + 4 * depth * threads
+
+
+class K1Program:
+    """A postfix program ready to launch: its instructions, stack depth and
+    column count, and a parameter block with everything but the launch's
+    addresses filled in. A program longer than ``K1_MAX_PARAM_INSTR`` is
+    staged: it is copied to each card once (``on_device``) and every CTA
+    loads it into shared memory. One that fits neither the parameter block
+    nor shared memory raises. A program over more than ``K1_MAX_COLS``
+    columns takes its addresses from a device array (``col_table``)."""
+
+    def __init__(self, prog: np.ndarray, n_cols: int):
+        prog = np.ascontiguousarray(prog, dtype=np.int32).reshape(-1, 4)
+        if n_cols < 1:
+            raise HyperspaceException("Mask kernel: a program over no columns.")
+        cmp_rows = np.isin(prog[:, 0], (OP_CMP_LIT, OP_CMP_COL))
+        used = np.concatenate([prog[cmp_rows, 1], prog[prog[:, 0] == OP_CMP_COL, 3]])
+        if used.size and (used.min() < 0 or used.max() >= n_cols):
+            raise HyperspaceException("Mask-kernel program names a missing column.")
+        self.prog = prog
+        self.n_cols = n_cols
+        self.depth = program_depth(prog)
+        smem = k1_smem_bytes(len(prog), self.depth, K1C_THREADS)
+        if smem > K1_MAX_SMEM:
+            raise HyperspaceException(
+                f"Mask-kernel program of {len(prog)} instructions fits neither the "
+                f"parameter block ({K1_MAX_PARAM_INSTR}) nor shared memory "
+                f"({smem} > {K1_MAX_SMEM} bytes)."
+            )
+        self.staged = len(prog) > K1_MAX_PARAM_INSTR
+        rec = np.zeros(1, dtype=_PARAM_DTYPE)
+        if not self.staged:
+            rec["prog"][0, : len(prog)] = prog
+        rec["n_cols"], rec["n_instr"], rec["depth"] = n_cols, len(prog), self.depth
+        self.template = rec.tobytes()
+        self._on_device: Dict[torch.device, torch.Tensor] = {}
+
+    def on_device(self, dev: torch.device) -> torch.Tensor:
+        """The staged program on ``dev``, copied there on first use."""
+        t = self._on_device.get(dev)
+        if t is None:
+            t = self._on_device[dev] = torch.from_numpy(self.prog.copy()).to(dev)
+        return t
+
+    def params(self, addrs: List[int], n_rows: int, out_addr: int, staged_addr: int = 0,
+               table_addr: int = 0) -> bytes:
+        """The launch's parameter block, as the kernel reads it. Over
+        ``K1_MAX_COLS`` columns, ``table_addr`` is a device array of
+        ``addrs`` (``col_table``) and the block holds no address."""
+        if len(addrs) != self.n_cols:
+            raise HyperspaceException(
+                f"Mask kernel: {len(addrs)} columns for a program over {self.n_cols}."
+            )
+        if self.staged != bool(staged_addr):
+            raise HyperspaceException("Mask kernel: staged address does not match the program.")
+        if (self.n_cols > K1_MAX_COLS) != bool(table_addr):
+            raise HyperspaceException(
+                "Mask kernel: an address table goes with, and only with, more than "
+                f"{K1_MAX_COLS} columns."
+            )
+        buf = bytearray(self.template)
+        if table_addr:
+            struct.pack_into("<q", buf, _PARAM_DTYPE.fields["col_table"][1], table_addr)
+        else:
+            struct.pack_into(f"<{len(addrs)}q", buf, _PARAM_DTYPE.fields["cols"][1], *addrs)
+        # staged, n_rows and out lie back to back
+        struct.pack_into("<3q", buf, _PARAM_DTYPE.fields["staged"][1],
+                         staged_addr, n_rows, out_addr)
+        return bytes(buf)
+
+
+_LOWERED: "OrderedDict[tuple, K1Program]" = OrderedDict()
+_LOWERED_LOCK = threading.Lock()
+
+
+def lowered_predicate(bound: Expr, names: Tuple[str, ...]) -> K1Program:
+    """``lower_predicate`` as a launchable program, cached by
+    ``(repr(bound), names)`` (least recently used out beyond
+    ``_LOWER_CACHE_SIZE``): the per-file scan's launches of one predicate
+    lower it once."""
+    key = (repr(bound), tuple(names))
+    with _LOWERED_LOCK:
+        hit = _LOWERED.get(key)
+        if hit is not None:
+            _LOWERED.move_to_end(key)
+            return hit
+    program = K1Program(lower_predicate(bound, names), len(names))
+    with _LOWERED_LOCK:
+        _LOWERED[key] = program
+        while len(_LOWERED) > _LOWER_CACHE_SIZE:
+            _LOWERED.popitem(last=False)
+    return program
+
+
+def k1_column_addrs(cols: List[torch.Tensor], what: str) -> List[int]:
+    """The columns' addresses, checked: equal lengths, each 16-byte
+    aligned (the kernels read 16 bytes at a time)."""
     n = int(cols[0].shape[0])
+    addrs = []
     for t in cols:
-        _check_cuda(t, torch.int32, what)
         if int(t.shape[0]) != n:
             raise HyperspaceException(f"{what}: ragged columns.")
+        if t.data_ptr() % 16:
+            raise HyperspaceException(
+                f"{what}: column at {t.data_ptr():#x} is not 16-byte aligned."
+            )
+        addrs.append(t.data_ptr())
+    return addrs
+
+
+def _launch_k1(entry: str, what: str, program: K1Program, cols, n: int, out) -> None:
+    for t in cols:
+        _check_cuda(t, torch.int32, what)
     dev = cols[0].device
-    if prog is None:
-        prog = torch.from_numpy(lower_predicate(bound, names)).to(dev)
-    if ptrs is None:
-        ptrs = column_pointer_table(cols)
-    if ptrs.device != dev or int(ptrs.shape[0]) != len(cols):
-        raise HyperspaceException(f"{what}: pointer table does not match the columns.")
-    return n, prog, ptrs
+    staged = program.on_device(dev).data_ptr() if program.staged else 0
+    addrs = k1_column_addrs(cols, what)
+    table = None
+    if len(addrs) > K1_MAX_COLS:
+        # more addresses than the parameters hold: a device array for this
+        # launch (freed after it, stream-ordered, by the caching allocator)
+        table = torch.tensor(addrs, dtype=torch.int64).to(dev)
+    params = program.params(addrs, n, out.data_ptr(), staged,
+                            0 if table is None else table.data_ptr())
+    if n == 0:  # nothing to launch, and so nothing to count
+        return
+    rc = getattr(_lib(K1), entry)(params, torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(rc, what)
+    count_launch(what)
+
+
+def program_mask_tensor(program: K1Program, cols: List[torch.Tensor]) -> torch.Tensor:
+    """Bool mask of a launchable program over int32 columns. CPU tensors
+    take the plain version (``run_postfix_reference``); CUDA tensors
+    launch K1."""
+    if cols[0].device.type == "cpu":
+        return run_postfix_reference(program.prog, cols)
+    n = int(cols[0].shape[0])
+    out = torch.empty(n, dtype=torch.uint8, device=cols[0].device)
+    _launch_k1("hs_predicate_mask", K1, program, cols, n, out)
+    return out.view(torch.bool)
 
 
 def predicate_mask_tensor(
-    bound: Expr,
-    names: Tuple[str, ...],
-    cols: List[torch.Tensor],
-    prog: Optional[torch.Tensor] = None,
-    ptrs: Optional[torch.Tensor] = None,
+    bound: Expr, names: Tuple[str, ...], cols: List[torch.Tensor]
 ) -> torch.Tensor:
     """Bool mask of the narrowed predicate ``bound`` over int32 columns
     ``cols`` (ordered as ``names``). CPU tensors take the plain version;
-    CUDA tensors launch K1. ``prog``/``ptrs`` — the lowered program and
-    ``column_pointer_table(cols)`` already on the card — spare the two
-    per-call host→device copies."""
+    CUDA tensors launch K1 with the cached lowering."""
     if cols[0].device.type == "cpu":
         return predicate_mask_reference(bound, names, cols)
-    n, prog, ptrs = _k1_operands(bound, names, cols, K1, prog, ptrs)
-    dev = cols[0].device
-    out = torch.empty(n, dtype=torch.uint8, device=dev)
-    rc = _lib(K1).hs_predicate_mask(
-        ptrs.data_ptr(), prog.data_ptr(), int(prog.shape[0]), n, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _check_launch(rc, K1)
-    count_launch(K1)
-    return out.view(torch.bool)
+    return program_mask_tensor(lowered_predicate(bound, names), cols)
 
 
 def predicate_block_counts_reference(
@@ -432,35 +603,42 @@ def predicate_block_counts_reference(
     return mask.view(-1, BLOCK_ROWS).sum(1, dtype=torch.int32)
 
 
-def predicate_block_counts_tensor(
-    bound: Expr,
-    names: Tuple[str, ...],
-    cols: List[torch.Tensor],
-    ptrs: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """int32 match count of the narrowed predicate per ``BLOCK_ROWS`` rows
-    of the int32 columns ``cols``, whose length must be a multiple of
-    ``BLOCK_ROWS`` (resident planes are zero-padded so; pad rows count
-    when they satisfy the predicate, as in the reference). CPU tensors
-    take the plain version; CUDA tensors launch K1c. ``ptrs``: the
-    columns' prebuilt ``column_pointer_table``."""
+def _check_blocked(cols: List[torch.Tensor]) -> int:
     n = int(cols[0].shape[0])
     if n % BLOCK_ROWS:
         raise HyperspaceException(
             f"{K1C}: {n} rows is not a multiple of {BLOCK_ROWS}."
         )
+    return n
+
+
+def program_block_counts_tensor(
+    program: K1Program, cols: List[torch.Tensor]
+) -> torch.Tensor:
+    """int32 match count of a launchable program per ``BLOCK_ROWS`` rows.
+    CPU tensors take the plain version; CUDA tensors launch K1c."""
+    n = _check_blocked(cols)
+    if cols[0].device.type == "cpu":
+        mask = run_postfix_reference(program.prog, cols)
+        return mask.view(-1, BLOCK_ROWS).sum(1, dtype=torch.int32)
+    counts = torch.empty(n // BLOCK_ROWS, dtype=torch.int32, device=cols[0].device)
+    _launch_k1("hs_predicate_block_counts", K1C, program, cols, n, counts)
+    return counts
+
+
+def predicate_block_counts_tensor(
+    bound: Expr, names: Tuple[str, ...], cols: List[torch.Tensor]
+) -> torch.Tensor:
+    """int32 match count of the narrowed predicate per ``BLOCK_ROWS`` rows
+    of the int32 columns ``cols``, whose length must be a multiple of
+    ``BLOCK_ROWS`` (resident planes are zero-padded so; pad rows count
+    when they satisfy the predicate, as in the reference). CPU tensors
+    take the plain version; CUDA tensors launch K1c with the cached
+    lowering."""
+    _check_blocked(cols)
     if cols[0].device.type == "cpu":
         return predicate_block_counts_reference(bound, names, cols)
-    n, prog, ptrs = _k1_operands(bound, names, cols, K1C, None, ptrs)
-    dev = cols[0].device
-    counts = torch.empty(n // BLOCK_ROWS, dtype=torch.int32, device=dev)
-    rc = _lib(K1).hs_predicate_block_counts(
-        ptrs.data_ptr(), prog.data_ptr(), int(prog.shape[0]), n,
-        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _check_launch(rc, K1C)
-    count_launch(K1C)
-    return counts
+    return program_block_counts_tensor(lowered_predicate(bound, names), cols)
 
 
 def prepare_predicate(
@@ -503,32 +681,19 @@ def predicate_mask(
 
 def resident_mask_fn(bound: Expr, arrays: Dict[str, np.ndarray], device: DeviceLike = None):
     """Device-resident variant of ``predicate_mask``: narrows and uploads
-    ``arrays`` once, and lowers the program and builds the column-pointer
-    table once. Returns ``(dispatch, cols)``: ``dispatch(cols)`` launches
-    K1 with no host→device copy and returns the device bool mask (no
-    readback; the caller fences). ``(None, None)`` when the predicate or
-    data do not narrow to int32 (the reference's decline)."""
+    ``arrays`` once and lowers the program once. Returns ``(dispatch,
+    cols)``: ``dispatch(cols)`` launches K1 (no host→device copy: the
+    program rides in the launch's parameters) and returns the device bool
+    mask (no readback; the caller fences). ``(None, None)`` when the
+    predicate or data do not narrow to int32 (the reference's decline)."""
     prep = prepare_predicate(bound, arrays)
     if prep is None:
         return None, None
     narrowed, names, i32 = prep
     dev = resolve_device(device)
     cols = [_upload(i32[n], dev) for n in names]
-    prog = ptrs = None
-    if dev.type == "cuda":
-        prog = torch.from_numpy(lower_predicate(narrowed, names)).to(dev)
-        ptrs = column_pointer_table(cols)
-    addrs = [t.data_ptr() for t in cols]
-
-    def dispatch(device_cols: List[torch.Tensor]) -> torch.Tensor:
-        # the prebuilt table holds the uploaded columns' addresses: other
-        # tensors get a table of their own
-        same = [t.data_ptr() for t in device_cols] == addrs
-        return predicate_mask_tensor(
-            narrowed, names, device_cols, prog, ptrs if same else None
-        )
-
-    return dispatch, cols
+    program = lowered_predicate(narrowed, names)
+    return (lambda device_cols: program_mask_tensor(program, device_cols)), cols
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,18 @@
 """Avro ingest: a self-contained object-container-file (OCF) reader/writer.
 
 A copy of ``hyperspace_tpu.storage.avro_io`` (which implements the OCF
-wire format from the Avro 1.11 spec, needing nothing but numpy) with two
-additions for data at benchmark scale:
+wire format from the Avro 1.11 spec, needing nothing but numpy):
 
 * records of primitives: null, boolean, int, long, float, double, bytes,
   string, plus enum and fixed; nullable fields as ``["null", T]`` unions
   (nulls become NULL strings / NaN floats; nullable ints promote to
   float64); codecs ``null`` and ``deflate``;
-* the Avro ``date`` logical type (an int of days) reads as date32 — the
-  reference reads the same field as int64;
+
+and, for data at benchmark scale:
+
+* the writer annotates date32 columns with the Avro ``date`` logical
+  type; the reader, like the reference, reads any ``int`` (annotated or
+  not) as int64;
 * files whose fields are all non-null primitives and that hold several
   data blocks decode with numpy, all blocks in lockstep; the writer
   encodes all-numeric batches with numpy. Both give the values the
@@ -155,19 +158,11 @@ _DTYPE_OF = {
 }
 
 
-def _is_date(base: str, meta: dict) -> bool:
-    """The Avro ``date`` logical type: an int of days since the epoch,
-    read as this package's date32."""
-    return base == "int" and meta.get("logicalType") == "date"
-
-
-def _dtype_of(name: str, base: str, null_idx: Optional[int], meta: dict) -> str:
+def _dtype_of(name: str, base: str, null_idx: Optional[int]) -> str:
     if null_idx is not None and base == "boolean":
         raise HyperspaceException(
             f"avro: nullable boolean field {name} is not representable."
         )
-    if _is_date(base, meta) and null_idx is None:
-        return "date32"
     if null_idx is not None and base in ("int", "long"):
         return "float64"
     return _DTYPE_OF[base]
@@ -176,7 +171,7 @@ def _dtype_of(name: str, base: str, null_idx: Optional[int], meta: dict) -> str:
 def infer_schema(path: str | Path) -> Dict[str, str]:
     """Column schema from the OCF header alone — no data block is decoded.
     Dtypes follow the same schema-determined rules as ingest (nullable int
-    → float64, non-null ``date`` ints → date32)."""
+    → float64; logical types are not read: a ``date`` int is int64)."""
     with open(path, "rb") as f:
         buf = io.BytesIO(f.read(1 << 20))  # header fits well within 1MB
     schema, _codec, _sync = _read_header(buf)
@@ -184,8 +179,8 @@ def infer_schema(path: str | Path) -> Dict[str, str]:
         raise HyperspaceException("avro: top-level schema must be a record.")
     out: Dict[str, str] = {}
     for f_ in schema["fields"]:
-        base, null_idx, meta = _normalize_field_type(f_["type"])
-        out[f_["name"]] = _dtype_of(f_["name"], base, null_idx, meta)
+        base, null_idx, _meta = _normalize_field_type(f_["type"])
+        out[f_["name"]] = _dtype_of(f_["name"], base, null_idx)
     return out
 
 
@@ -268,8 +263,8 @@ def _read_one(path: str) -> ColumnarBatch:
     if vectorizable and len(blocks) >= _VEC_MIN_BLOCKS:
         arrays = _decode_blocks_vectorized(fields, blocks)
         out = {
-            name: _to_column_array(name, base, meta, arrays[name])
-            for name, base, _null_idx, meta in fields
+            name: _to_column_array(base, arrays[name])
+            for name, base, _null_idx, _meta in fields
         }
         return ColumnarBatch(out)
     cols: Dict[str, list] = {name: [] for name, *_ in fields}
@@ -283,8 +278,8 @@ def _read_one(path: str) -> ColumnarBatch:
                         continue
                 cols[name].append(_decode_value(bbuf, base, meta))
     out: Dict[str, Column] = {}
-    for name, base, null_idx, meta in fields:
-        out[name] = _to_column(name, base, null_idx is not None, cols[name], meta)
+    for name, base, null_idx, _meta in fields:
+        out[name] = _to_column(name, base, null_idx is not None, cols[name])
     return ColumnarBatch(out)
 
 
@@ -361,18 +356,14 @@ def _vec_dtype(base: str):
     }[base]
 
 
-def _to_column_array(name: str, base: str, meta: dict, arr: np.ndarray) -> Column:
+def _to_column_array(base: str, arr: np.ndarray) -> Column:
     """Column of a vectorized-decoded non-null field (dtypes as _to_column)."""
-    if _is_date(base, meta):
-        return Column("date32", arr.astype(np.int32))
     if base == "float":
         return Column.from_values(arr.astype(np.float64).astype(np.float32))
     return Column.from_values(arr)
 
 
-def _to_column(
-    name: str, base: str, nullable: bool, values: list, meta: Optional[dict] = None
-) -> Column:
+def _to_column(name: str, base: str, nullable: bool, values: list) -> Column:
     """Column dtype is a function of the SCHEMA alone (never of observed
     values): a nullable int/long field is float64 whether or not this
     particular file contains a null — otherwise two files of the same
@@ -392,8 +383,6 @@ def _to_column(
                 dtype=np.float64,
             )
             return Column.from_values(arr)
-        if _is_date(base, meta or {}):
-            return Column("date32", np.array(values, dtype=np.int32))
         return Column.from_values(np.array(values, dtype=np.int64))
     if base in ("float", "double"):
         arr = np.array(

@@ -260,19 +260,66 @@ def test_avro_reader_matches_reference(tmp_path):
             ), n
 
 
+def _date_source(root: Path, n_files: int = 1, n: int = 3000) -> Path:
+    """Avro files written by the port with a ``date``-annotated int column
+    (the reference's writer has no date type)."""
+    rng = np.random.default_rng(9)
+    days = rng.integers(-5, 9000, n).astype(np.int32)
+    data = {"d": days, "k": rng.integers(1, n // 4, n).astype(np.int64),
+            "v": rng.integers(0, 99, n).astype(np.int64)}
+    root.mkdir(parents=True, exist_ok=True)
+    bounds = np.linspace(0, n, n_files + 1).astype(int)
+    for i, (s, e) in enumerate(zip(bounds[:-1], bounds[1:])):
+        part = TorchBatch.from_pydict({c: a[s:e] for c, a in data.items()},
+                                      schema={"d": "date32", "k": "int64", "v": "int64"})
+        torch_avro.write_avro(root / f"part-{i}.avro", part)
+    return root
+
+
 def test_avro_date_logical_type_round_trips(tmp_path):
-    days = np.arange(-5, 9000, 3, dtype=np.int32)
-    b = TorchBatch.from_pydict(
-        {"d": days, "k": days.astype(np.int64) * 3}, schema={"d": "date32", "k": "int64"}
-    )
-    f = tmp_path / "d.avro"
-    torch_avro.write_avro(f, b)
-    assert torch_avro.infer_schema(f) == {"d": "date32", "k": "int64"}
-    got = torch_avro.read_avro([f])
-    assert got.columns["d"].dtype_str == "date32"
-    assert np.array_equal(got.columns["d"].data, days)
-    # the reference reads the annotated int as a plain int64
-    assert np.array_equal(jax_avro.read_avro([f]).columns["d"].data, days.astype(np.int64))
+    """A ``date``-annotated avro int reads as the reference reads it: the
+    same schema (int64), dtype and bytes, from the numpy multi-block
+    decoder and from the per-value one."""
+    src = _date_source(tmp_path / "src")
+    f = src / "part-0.avro"
+    assert torch_avro.infer_schema(f) == jax_avro.infer_schema(f) == {
+        "d": "int64", "k": "int64", "v": "int64"}
+    small = tmp_path / "small.avro"  # one block: the per-value decoder
+    torch_avro.write_avro(small, TorchBatch.from_pydict(
+        {"d": np.array([-3, 0, 18000], dtype=np.int32)}, schema={"d": "date32"}))
+    for path in (f, small):
+        want, got = jax_avro.read_avro([path]), torch_avro.read_avro([path])
+        assert got.schema() == want.schema()
+        for n in want.column_names:
+            assert got.columns[n].data.dtype == want.columns[n].data.dtype == np.int64
+            assert got.columns[n].data.tobytes() == want.columns[n].data.tobytes(), n
+    days = torch_avro.read_avro([small]).columns["d"].data
+    assert days.tolist() == [-3, 0, 18000]
+
+
+def test_index_over_avro_date_column_matches_reference(tmp_path):
+    """An index whose key and included columns come from a date-annotated
+    avro column: equal log-entry schema and equal TCB bytes in both
+    packages."""
+    src = str(_date_source(tmp_path / "src", n_files=2))
+    conf = {"hyperspace.index.numBuckets": N_BUCKETS}
+    js = hs_jax.HyperspaceSession(hs_jax.HyperspaceConf(
+        dict(conf, **{"hyperspace.system.path": str(tmp_path / "ix_jax")})))
+    ts = hs_torch.HyperspaceSession(hs_torch.HyperspaceConf(
+        dict(conf, **{"hyperspace.system.path": str(tmp_path / "ix_torch"),
+                      "hyperspace.torch.device": "cpu"})))
+    for sess, mod in ((js, hs_jax), (ts, hs_torch)):
+        mod.Hyperspace(sess).create_index(
+            sess.read.avro(src), mod.IndexConfig("d_idx", ["d"], ["k", "v"]))
+    jb = _bucket_bytes(tmp_path / "ix_jax", "d_idx")
+    tb = _bucket_bytes(tmp_path / "ix_torch", "d_idx")
+    assert sorted(jb) == sorted(tb) and len(jb) > 1
+    assert all(jb[b] == tb[b] for b in jb)
+    je = js.collection_manager.get_indexes()[0]
+    te = ts.collection_manager.get_indexes()[0]
+    assert dict(te.derived_dataset.schema) == dict(je.derived_dataset.schema)
+    assert dict(te.derived_dataset.schema)["d"] == "int64"
+    assert _entry_view(je) == _entry_view(te)
 
 
 def test_streaming_build_mode_is_refused(tmp_path):

@@ -402,6 +402,221 @@ def test_fused_agg_refusals_match_reference():
         assert tk.resident_fused_agg_over_join(*args, device="cpu") is None
 
 
+def _range_pred():
+    c = texpr.col
+    return ((c("p") >= -40) & (c("p") < 40) & (c("q") < 10) & (c("r") >= -30)
+            & (c("r") < 50))
+
+
+def _in_chain(n_values=300):
+    e = texpr.col("p") == 0
+    for v in range(1, n_values):  # the 599-instruction IN-style chain
+        e = texpr.Or(texpr.col("p") == v, e)
+    return e
+
+
+def _deep_program(depth, n_cols=2):
+    """A hand-written postfix program that fills ``depth`` stack slots:
+    ``depth`` compares (one negated), then alternating AND / OR."""
+    prog = [(tk.OP_CMP_LIT, i % n_cols, i % 6, (i * 7) % 50 - 25) for i in range(depth)]
+    prog.insert(3, (tk.OP_NOT, 0, 0, 0))
+    prog += [(tk.OP_AND if i % 2 else tk.OP_OR, 0, 0, 0) for i in range(depth - 1)]
+    return np.array(prog, dtype=np.int32)
+
+
+def _cu_source():
+    from pathlib import Path
+
+    return (Path(tk.__file__).resolve().parent.parent / "csrc" / "predicate_mask.cu").read_text()
+
+
+def test_k1_param_block_layout_matches_the_kernel_source():
+    """The parameter block the wrapper packs is the kernel's ``Params``:
+    same caps, same field offsets and size (read from the source's
+    static_asserts), and a packed block decodes to its inputs."""
+    import re
+
+    src = _cu_source()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["MAX_COLS"]) == tk.K1_MAX_COLS
+    assert int(consts["MAX_PARAM_INSTR"]) == tk.K1_MAX_PARAM_INSTR
+    assert int(consts["STACK_SLOTS"]) == tk.K1_STACK_SLOTS
+    offs = dict(re.findall(r"offsetof\(Params, (\w+)\) == (\d+)", src))
+    assert {k: int(v) for k, v in offs.items()} == {
+        k: tk._PARAM_DTYPE.fields[k][1] for k in offs}
+    size = int(re.search(r"sizeof\(Params\) == (\d+)", src).group(1))
+    assert tk._PARAM_DTYPE.itemsize == size <= 4096  # the classic parameter limit
+
+    names = ("p", "q", "r")
+    program = tk.K1Program(tk.lower_predicate(_range_pred(), names), 3)
+    assert len(program.prog) == 9 and program.depth == 2 and not program.staged
+    blob = program.params([0x1000, 0x2010, 0x3020], 6_001_215, 0xABC0)
+    assert len(blob) == size
+    rec = np.frombuffer(blob, dtype=tk._PARAM_DTYPE)[0]
+    assert np.array_equal(rec["prog"][:9], program.prog) and not rec["prog"][9:].any()
+    assert rec["cols"][:3].tolist() == [0x1000, 0x2010, 0x3020] and not rec["cols"][3:].any()
+    assert (rec["staged"], rec["n_rows"], rec["out"]) == (0, 6_001_215, 0xABC0)
+    assert (rec["n_cols"], rec["n_instr"], rec["depth"]) == (3, 9, 2)
+    assert rec["col_table"] == 0  # the addresses fit the block
+
+
+@pytest.mark.parametrize("case", ["one", "at_cap", "over_cap", "in_chain", "deep64",
+                                  "cols_17", "beyond_both", "no_cols", "too_deep",
+                                  "underflow", "missing_col"])
+def test_k1_program_caps(case):
+    """Which programs ride in the parameter block, which are staged (copied
+    to the card once, loaded into shared memory per CTA), which take their
+    column addresses from a device array, and which raise."""
+    alternating = lambda n: np.array(  # noqa: E731  n compares ORed: depth 2
+        [(tk.OP_CMP_LIT, 0, 0, 0)] + [r for i in range(1, n) for r in
+                                      ((tk.OP_CMP_LIT, 0, 0, i), (tk.OP_OR, 0, 0, 0))],
+        dtype=np.int32)
+    ok = {
+        "one": (np.array([(tk.OP_CMP_LIT, 0, 2, 5)], dtype=np.int32), 1, False, 1),
+        "at_cap": (np.concatenate([alternating(120), [(tk.OP_NOT, 0, 0, 0)]]).astype(np.int32),
+                   1, False, 2),
+        "over_cap": (alternating(121), 1, True, 2),
+        "in_chain": (tk.lower_predicate(_in_chain(), ("p",)), 1, True, 2),
+        "deep64": (_deep_program(64), 2, False, 64),
+        "cols_17": (np.array([(tk.OP_CMP_LIT, 0, 4, 0)] + [
+            r for i in range(1, 17) for r in ((tk.OP_CMP_LIT, i, 4, 0), (tk.OP_AND, 0, 0, 0))],
+            dtype=np.int32), 17, False, 2),
+    }
+    bad = {
+        "beyond_both": (alternating(7600), 1, "fits neither"),
+        "no_cols": (np.array([(tk.OP_CMP_LIT, 0, 0, 1)], dtype=np.int32), 0, "no columns"),
+        "too_deep": (_deep_program(65), 2, "stack slots"),
+        "underflow": (np.array([(tk.OP_CMP_LIT, 0, 0, 1), (tk.OP_AND, 0, 0, 0)],
+                               dtype=np.int32), 1, "underflows"),
+        "missing_col": (np.array([(tk.OP_CMP_COL, 0, 0, 2)], dtype=np.int32), 2, "missing"),
+    }
+    if case in bad:
+        prog, n_cols, msg = bad[case]
+        with pytest.raises(HyperspaceException, match=msg):
+            tk.K1Program(prog, n_cols)
+        return
+    prog, n_cols, staged, depth = ok[case]
+    program = tk.K1Program(prog, n_cols)
+    assert len(program.prog) == len(prog)
+    assert program.staged is staged and program.depth == depth
+    assert len(prog) == {"at_cap": tk.K1_MAX_PARAM_INSTR, "over_cap": 241,
+                         "in_chain": 599}.get(case, len(prog))
+    rec = np.frombuffer(program.template, dtype=tk._PARAM_DTYPE)[0]
+    assert rec["n_instr"] == len(prog)
+    assert np.array_equal(rec["prog"][: len(prog)], prog) != staged
+    if staged:
+        with pytest.raises(HyperspaceException, match="staged"):
+            program.params([0x100] * n_cols, 10, 0x200)
+        dev = program.on_device(torch.device("cpu"))
+        assert dev is program.on_device(torch.device("cpu"))  # copied once
+        assert np.array_equal(dev.numpy(), prog)
+        blob = program.params([0x100] * n_cols, 10, 0x200, dev.data_ptr())
+        assert np.frombuffer(blob, dtype=tk._PARAM_DTYPE)[0]["staged"] == dev.data_ptr()
+    addrs = [0x100 * (i + 1) for i in range(n_cols)]
+    staged_addr = 0x9000 if staged else 0
+    wide = n_cols > tk.K1_MAX_COLS
+    with pytest.raises(HyperspaceException, match="address table"):
+        program.params(addrs, 10, 0x200, staged_addr, 0 if wide else 0x7000)
+    rec = np.frombuffer(program.params(addrs, 10, 0x200, staged_addr, 0x7000 if wide else 0),
+                        dtype=tk._PARAM_DTYPE)[0]
+    assert rec["col_table"] == (0x7000 if wide else 0)
+    assert rec["cols"].tolist() == ([0] * tk.K1_MAX_COLS if wide else
+                                    addrs + [0] * (tk.K1_MAX_COLS - n_cols))
+    assert tk.k1_smem_bytes(len(prog), depth, tk.K1C_THREADS) <= tk.K1_MAX_SMEM
+
+
+def test_lowering_cache_is_keyed_and_bounded(monkeypatch):
+    monkeypatch.setattr(tk, "_LOWERED", type(tk._LOWERED)())
+    names = ("p", "q", "r")
+    a = tk.lowered_predicate(_range_pred(), names)
+    assert tk.lowered_predicate(_range_pred(), names) is a  # an equal expression hits
+    assert tk.lowered_predicate(_range_pred(), ("p", "q", "r", "s")) is not a
+    for v in range(300):
+        tk.lowered_predicate(texpr.col("p") == v, ("p",))
+        tk.lowered_predicate(_range_pred(), names)  # kept hot
+    assert len(tk._LOWERED) == tk._LOWER_CACHE_SIZE
+    assert tk.lowered_predicate(_range_pred(), names) is a
+    assert np.array_equal(a.prog, tk.lower_predicate(_range_pred(), names))
+
+
+def test_k1_column_checks_raise():
+    base = torch.zeros(64, dtype=torch.int32)
+    assert base.data_ptr() % 16 == 0
+    assert tk.k1_column_addrs([base[:32], base[32:]], "K1") == [
+        base.data_ptr(), base.data_ptr() + 128]
+    with pytest.raises(HyperspaceException, match="16-byte aligned"):
+        tk.k1_column_addrs([base[1:33], base[32:]], "K1")
+    with pytest.raises(HyperspaceException, match="ragged"):
+        tk.k1_column_addrs([base[:32], base[:31]], "K1")
+    program = tk.K1Program(np.array([(tk.OP_CMP_COL, 0, 2, 1)], dtype=np.int32), 2)
+    with pytest.raises(HyperspaceException, match="columns for a program over 2"):
+        program.params([base.data_ptr()], 32, base.data_ptr())
+    with pytest.raises(HyperspaceException, match="multiple of 8192"):
+        tk.program_block_counts_tensor(program, [base, base])
+
+
+@pytest.mark.parametrize("case", ["deep64", "in_chain", "range"])
+def test_program_entry_points_plain_versions(case):
+    """The raw-program entry points on CPU tensors: their plain versions
+    against numpy, for a depth-64 hand-written program, the IN chain and
+    the range predicate (mask and per-block counts)."""
+    rng = np.random.default_rng(12)
+    n = 3 * tk.BLOCK_ROWS
+    a = {k: rng.integers(-60, 60, n).astype(np.int32) for k in ("p", "q", "r")}
+    if case == "deep64":
+        prog = _deep_program(64)
+        names = ("p", "q")
+        want = None
+    elif case == "in_chain":
+        names = ("p",)
+        prog = tk.lower_predicate(_in_chain(), names)
+        want = (a["p"] >= 0) & (a["p"] < 300)
+    else:
+        names = ("p", "q", "r")
+        prog = tk.lower_predicate(_range_pred(), names)
+        p, q, r = a["p"], a["q"], a["r"]
+        want = (p >= -40) & (p < 40) & (q < 10) & (r >= -30) & (r < 50)
+    if want is None:  # evaluate the postfix program with numpy
+        ops = [np.equal, np.not_equal, np.less, np.less_equal, np.greater, np.greater_equal]
+        stack = []
+        for opc, x, b, c in prog.tolist():
+            if opc == tk.OP_CMP_LIT:
+                stack.append(ops[b](a[names[x]], c))
+            elif opc == tk.OP_NOT:
+                stack.append(~stack.pop())
+            else:
+                t, u = stack.pop(), stack.pop()
+                stack.append(t & u if opc == tk.OP_AND else t | u)
+        want = stack.pop()
+    program = tk.K1Program(prog, len(names))
+    cols = [torch.from_numpy(a[k]) for k in names]
+    reset_launch_counts()
+    got = tk.program_mask_tensor(program, cols)
+    assert np.array_equal(got.numpy(), want)
+    counts = tk.program_block_counts_tensor(program, cols)
+    assert counts.dtype == torch.int32
+    assert np.array_equal(counts.numpy(), want.reshape(-1, tk.BLOCK_ROWS).sum(1))
+    assert launch_counts() == {}
+
+
+def test_predicates_over_more_columns_than_the_parameters_hold_stay_on_k1():
+    """A predicate naming more columns than K1's parameter block holds
+    still narrows and lowers for K1 (its addresses then travel in a device
+    array); the plain version's mask is the numpy one."""
+    rng = np.random.default_rng(13)
+    names = [f"c{i:02d}" for i in range(tk.K1_MAX_COLS + 4)]
+    arrs = {k: rng.integers(0, 9, 500).astype(np.int32) for k in names}
+    wide = texpr.col(names[0]) > 3
+    for k in names[1:]:
+        wide = wide & (texpr.col(k) >= 1)
+    want = (arrs["c00"] > 3) & np.logical_and.reduce([arrs[k] >= 1 for k in names[1:]])
+    narrowed, got_names, _ = tk.prepare_predicate(wide, arrs)
+    assert tk.lowered_predicate(narrowed, got_names).n_cols == len(names)
+    assert np.array_equal(tk.predicate_mask(wide, arrs, 500, device="cpu"), want)
+    dispatch, cols = tk.resident_mask_fn(wide, arrs, device="cpu")
+    assert np.array_equal(dispatch(cols).numpy(), want) and 0 < want.sum() < 500
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
@@ -423,4 +638,48 @@ def test_cuda_kernels_match_plain_versions():
         want = tk.predicate_block_counts_tensor(p, ("p", "q"), cols)
         got = tk.predicate_block_counts_tensor(p, ("p", "q"), [c.cuda() for c in cols])
         assert torch.equal(got.cpu(), want)
-    assert launch_counts() == {tk.K1: 6, tk.K2: 1, tk.K1C: 2}
+    # ragged lengths x programs of 1, 9 and 599 instructions, col-col + NOT,
+    # a hand-written program 64 stack slots deep, and programs over 6
+    # columns (more than the kernel holds in registers) and over 20 (more
+    # addresses than the parameter block holds), in the parameters and
+    # staged: masks, and block counts where the length is a multiple of
+    # the block
+    c = texpr.col
+    six = ("p", "q", "r", "s", "t", "u")
+    wide = (c("p") < c("q")) & ~(c("r") == 7) | (c("s") >= c("t")) & (c("u") != 3)
+    twenty = six + tuple(f"v{i:02d}" for i in range(14))
+    over = wide
+    for name in twenty[6:]:
+        over = over & (c(name) > -50)
+    programs = [
+        tk.K1Program(np.array([(tk.OP_CMP_LIT, 0, 3, 10)], dtype=np.int32), 3),
+        tk.lowered_predicate(_range_pred(), ("p", "q", "r")),
+        tk.K1Program(tk.lower_predicate(_in_chain(), ("p",)), 1),
+        tk.lowered_predicate(~(c("p") < c("q")) | ((c("r") != c("p")) & ~(c("q") >= 3)),
+                             ("p", "q", "r")),
+        tk.K1Program(_deep_program(64, n_cols=3), 3),
+        tk.lowered_predicate(wide, six),
+        tk.lowered_predicate(_in_chain() | wide, six),
+        tk.lowered_predicate(over, twenty),
+        tk.lowered_predicate(_in_chain() | over, twenty),
+    ]
+    assert [len(pg.prog) for pg in programs[:3]] == [1, 9, 599] and programs[4].depth == 64
+    assert [(pg.n_cols, pg.staged) for pg in programs[5:]] == [
+        (6, False), (6, True), (20, False), (20, True)]
+    n_masks = n_counts = 0
+    for n in (1, 31, 4095, 4097, 30_006, 200_003, 2 * tk.BLOCK_ROWS):
+        host = [torch.from_numpy(rng.integers(-60, 320, n).astype(np.int32)) for _ in range(20)]
+        dev = [t.cuda() for t in host]
+        for pg in programs:
+            k = pg.n_cols
+            got = tk.program_mask_tensor(pg, dev[:k])
+            assert torch.equal(got.cpu(), tk.program_mask_tensor(pg, host[:k])), (n, len(pg.prog))
+            n_masks += 1
+            if n % tk.BLOCK_ROWS == 0:
+                got = tk.program_block_counts_tensor(pg, dev[:k])
+                assert torch.equal(got.cpu(), tk.program_block_counts_tensor(pg, host[:k]))
+                n_counts += 1
+    big = torch.zeros(4097, dtype=torch.int32, device="cuda")
+    with pytest.raises(HyperspaceException, match="16-byte aligned"):
+        tk.program_mask_tensor(programs[0], [big[1:], big[1:], big[1:]])
+    assert launch_counts() == {tk.K1: 6 + n_masks, tk.K2: 1, tk.K1C: 2 + n_counts}

@@ -9,6 +9,7 @@ K1c's plain version computes the block counts. Mirrors
 
 import numpy as np
 import pytest
+import torch
 
 from hyperspace_tpu.exec import hbm_cache as jh
 from hyperspace_tpu.exec.scan import index_scan as jscan
@@ -20,6 +21,7 @@ import hyperspace_tpu_torch as hs_torch
 from hyperspace_tpu_torch.config import ResidencyConf
 from hyperspace_tpu_torch.exec import hbm_cache as th
 from hyperspace_tpu_torch.exec.scan import index_scan as tscan
+from hyperspace_tpu_torch.ops import kernels as tk
 from hyperspace_tpu_torch.ops import launch_counts, reset_launch_counts
 from hyperspace_tpu_torch.plan import expr as texpr
 from hyperspace_tpu_torch.telemetry.metrics import metrics as tmetrics
@@ -298,6 +300,68 @@ def test_string_col_col_declines_without_dropping_table(tmp_path):
     assert tmetrics.get("scan.path.resident_device") == 0
     assert tmetrics.get("hbm.predicate_unbindable") == 1
     assert th.hbm_cache.resident_for(paths, ["s1"], "cpu", FORCE) is tt
+
+
+def _wide_files(tmp_path, n_int, n_f64):
+    """One file of ``n_int`` int64 and ``n_f64`` float64 columns (an f64
+    column is two resident planes) beside the key."""
+    rng = np.random.default_rng(n_int + 10 * n_f64)
+    n = 3000
+    cols = {f"i{j:02d}": Column("int64", rng.integers(0, 1000, n)) for j in range(n_int)}
+    cols.update({f"d{j}": Column("float64", np.round(rng.normal(0, 100.0, n), 3))
+                 for j in range(n_f64)})
+    cols["k"] = Column("int64", np.sort(rng.integers(0, 10_000, n)))
+    return _write(tmp_path, [cols], tag="beef")
+
+
+def _wide_pred(m, names):
+    pred = m.col("k") >= 0
+    for name in names:
+        pred = pred & (m.col(name) > (-150.123 if name.startswith("d") else 50))
+    return pred
+
+
+@pytest.mark.parametrize("n_int,n_f64", [(15, 0), (16, 0), (7, 4), (8, 5)])
+def test_predicate_over_more_planes_than_the_parameters_hold_stays_resident(
+        tmp_path, monkeypatch, n_int, n_f64):
+    """K1c's parameter block holds 16 column addresses (an f64 column takes
+    two planes); beyond that the kernel reads them from a device array. The
+    predicate stays on the resident path either way, rows as the
+    reference's."""
+    monkeypatch.setenv("HYPERSPACE_TPU_HBM_MAX_BLOCK_FRAC", "1.0")
+    paths = _wide_files(tmp_path, n_int, n_f64)
+    names = [f"i{j:02d}" for j in range(n_int)] + [f"d{j}" for j in range(n_f64)]
+    _, tt = _prefetch_both(paths, names + ["k"])
+    narrowed, planes = th.prepare_resident_predicate(tt.columns, _wide_pred(texpr, names))
+    assert len(planes) == n_int + 2 * n_f64 + 1  # the key's plane too
+    assert tk.lowered_predicate(narrowed, planes).n_cols == len(planes)
+    tmetrics.reset()
+    got = tscan(paths, ["k"], _wide_pred(texpr, names), device="cpu",
+                residency=ResidencyConf(mode="force", max_block_frac=1.0))
+    assert tmetrics.get("scan.path.resident_device") == 1
+    want = jscan(paths, ["k"], _wide_pred(jexpr, names), device=True)
+    assert 0 < got.num_rows < 3000
+    assert np.array_equal(_rows(got, ["k"])[0], _rows(want, ["k"])[0])
+
+
+@pytest.mark.gpu
+def test_cuda_block_counts_over_many_planes_match_plain_version(tmp_path):
+    """K1c on the card over 18 int32 planes, 10 of them from five f64
+    columns: more addresses than the parameter block holds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    paths = _wide_files(tmp_path, 7, 5)
+    names = [f"i{j:02d}" for j in range(7)] + [f"d{j}" for j in range(5)]
+    cpu = th.hbm_cache.prefetch(paths, names + ["k"], device="cpu", conf=FORCE)
+    th.hbm_cache.reset()
+    card = th.hbm_cache.prefetch(paths, names + ["k"], device="cuda", conf=FORCE)
+    pred = _wide_pred(texpr, names)
+    assert len(th.prepare_resident_predicate(card.columns, pred)[1]) == 18
+    reset_launch_counts()
+    got = th.hbm_cache.block_counts(card, pred)
+    assert launch_counts() == {tk.K1C: 1}
+    want = th.hbm_cache.block_counts(cpu, pred)
+    assert 0 < want.sum() and np.array_equal(got, want)
 
 
 def test_version_identity_invalidates(tmp_path):
