@@ -24,7 +24,13 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    addresses than the kernel's parameter block holds); at one file's
    shape the range filter's and the IN chain's host dispatch is timed
    step by step. K1c (block counts) also runs over the 18 columns and
-   over a 3 GiB table made on the card (3 int32 columns x 2^28 rows); K1
+   over a 3 GiB table made on the card (3 int32 columns x 2^28 rows). K2
+   runs at the Q3 join's shapes (its device time holds the fence build
+   its wrapper launches first; both are also timed alone), is held on
+   every padded row against its span semantics as well, and runs K2's
+   edge cases (``ops/k2_cases.py``: runs of 9 to 5,000 equal keys, keys
+   on fences, spans of 64 and 1, shuffled tiles, ragged sides, pad rows);
+   ``ptxas -v`` must show no stack frame and no spills. K1
    and K2 are also timed over operands uploaded once
    (``resident_mask_fn``, ``resident_sorted_intersect``,
    ``resident_smj_amortized``), and the fused aggregate-over-join is held
@@ -197,16 +203,18 @@ def time_pair_ms(fa, fb, repeats: int = 100, warmup: int = 3):
     return float(statistics.median(times[0])), float(statistics.median(times[1]))
 
 
-def device_ms(fn, kernel: str, calls: int = 20):
-    """Mean device time (ms) of the CUDA kernels whose name holds
-    ``kernel`` over ``calls`` calls of ``fn``, each after an L2 flush
-    (cold L2), from torch.profiler: the kernel alone, where ``time_ms``
-    also holds the host's dispatch when it is the longer part, and reads
-    operands that stay in L2 between its repeats. None when the profiler
-    saw no such kernel."""
+def device_ms(fn, kernels, calls: int = 20):
+    """Mean device time (ms) per call of ``fn`` of the CUDA kernels whose
+    name holds ``kernels`` (a name, or a tuple of names whose times add
+    up: K2 with its fence build), over ``calls`` calls, each after an L2
+    flush (cold L2), from torch.profiler: the kernels alone, where
+    ``time_ms`` also holds the host's dispatch when it is the longer part,
+    and reads operands that stay in L2 between its repeats. None when the
+    profiler saw no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -214,12 +222,17 @@ def device_ms(fn, kernel: str, calls: int = 20):
             flush_l2()
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
+    # each named kernel runs once per call: its mean over the launches the
+    # profiler kept (it may drop some), summed over the names
+    per_name = {k: [0.0, 0] for k in names}
     for e in prof.key_averages():
-        if kernel in e.key:
-            total_us += getattr(e, "self_device_time_total", 0.0)
-            count += e.count
-    return total_us / count / 1e3 if count and total_us else None
+        for k in names:
+            if k in e.key:
+                per_name[k][0] += getattr(e, "self_device_time_total", 0.0)
+                per_name[k][1] += e.count
+    if not all(n and us for us, n in per_name.values()):
+        return None
+    return sum(us / n for us, n in per_name.values()) / 1e3
 
 
 def host_dispatch_us(narrowed, names, cols, calls: int = 200) -> dict:
@@ -307,11 +320,93 @@ def k2_bound(span: np.ndarray, n_l_pad: int, n_r_pad: int):
                  float(2 * SMJ_TILE * steps.sum()))
 
 
+def k2_join_keys(lineitem: dict, orders: dict, dev):
+    """K2's operands at the Q3 join's shapes: lineitem's order keys laid
+    out as the index stores them (grouped by bucket, key-sorted within)
+    and orders' keys stable-sorted. Returns (left keys, right keys, the
+    left keys' buckets)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import build
+
+    l_keys = lineitem["l_orderkey"]
+    bucket = build.device_bucket_ids(
+        {"k": torch.from_numpy(l_keys).to(dev)}, {"k": "int64"}, ["k"], {}, NUM_BUCKETS
+    ).cpu().numpy()
+    return l_keys[np.lexsort((l_keys, bucket))], np.sort(orders["o_orderkey"], kind="stable"), bucket
+
+
 def searchsorted_pair(r, l):
     """The library yardstick of K2: torch.searchsorted left and right."""
     import torch
 
     return torch.searchsorted(r, l, side="left"), torch.searchsorted(r, l, side="right")
+
+
+K2_DEVICE_KERNELS = ("sorted_intersect_kernel", "fence_build_kernel")
+
+
+def k2_case(name: str, l: np.ndarray, r: np.ndarray, dev):
+    """K2 over one input (left keys, ascending right keys), held exactly
+    against its plain version on the tiles the plan does not mark wide,
+    against its span semantics (``sorted_intersect_span_reference``) on
+    every padded row, pad rows and wide tiles included, and, through
+    ``sorted_intersect_counts`` (wide tiles fixed up on the host), against
+    numpy. Returns (record, device operands, the plan's largest span)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    plan = tk._plan_sorted_intersect(l, r)
+    if plan is None:
+        raise AssertionError(f"K2 {name}: the plan declined")
+    s_tile, span, base, l_p, r_p, _l32, _r32, wide_t = plan
+    args = [torch.from_numpy(a).to(dev) for a in (s_tile, span, base, l_p, r_p)]
+    max_span = int(span.max())
+    n = len(l)
+    lt, eq = tk.sorted_intersect_tensors(*args, max_span=max_span)
+    lt_p, eq_p = tk.sorted_intersect_counts_reference(args[3], args[4])
+    lt_s, eq_s = tk.sorted_intersect_span_reference(*args)
+    keep = torch.from_numpy(np.repeat(~wide_t, tk.SMJ_TILE)).to(dev)[:n]
+    err = max(int((lt[:n] - lt_p[:n]).abs()[keep].max().item()),
+              int((eq[:n] - eq_p[:n]).abs()[keep].max().item()))
+    span_err = max(int((lt - lt_s).abs().max().item()), int((eq - eq_s).abs().max().item()))
+    full = tk.sorted_intersect_counts(l, r, device=dev)
+    want = np.searchsorted(r, l, side="left")
+    if err or span_err or not (np.array_equal(full[0], want) and np.array_equal(
+            full[1], np.searchsorted(r, l, side="right") - want)):
+        raise AssertionError(f"K2 {name}: kernel disagrees with plain version "
+                             f"(err {err}, span semantics err {span_err})")
+    rec = dict(max_abs_err=err, n_l=n, n_r=len(r), wide_tiles=int(wide_t.sum()),
+               max_span=max_span, pad_rows=len(l_p) - n)
+    log(f"K2 {name}: n_l={n} n_r={len(r)} max_span={max_span} "
+        f"pad_rows={len(l_p) - n} exact=yes (plain version, span semantics on every padded "
+        f"row, numpy)")
+    return rec, args, max_span
+
+
+def fence_case(r, fences) -> dict:
+    """K2's fence build (every ``K2_FENCE``-th right key) held against its
+    plain version, which is one PyTorch call (a strided copy), and timed."""
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    plain = tk.sorted_intersect_fences_reference(r)
+    if fences.shape != plain.shape:
+        raise AssertionError("K2 fences: wrong length")
+    err = int((fences - plain).abs().max().item())
+    if err:
+        raise AssertionError("K2 fences: kernel disagrees with plain version")
+    n_f = int(fences.shape[0])
+    rec = dict(max_abs_err=err, n_fences=n_f,
+               ms=time_ms(lambda: tk.sorted_intersect_fences(r)),
+               device_ms=device_ms(lambda: tk.sorted_intersect_fences(r), "fence_build_kernel"),
+               plain_ms=time_ms(lambda: tk.sorted_intersect_fences_reference(r)))
+    rec["library_ms"] = rec["plain_ms"]
+    rec["bound_ms"], rec["bound_by"] = bound(8 * n_f, 0.0)  # each fence read once, written once
+    log(f"K2 fences: n_fences={n_f} ms={rec['ms']:.4f} device_ms={_fmt(rec['device_ms'])} "
+        f"plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}) exact=yes")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -419,7 +514,8 @@ def k1_shape_cases(arrays: dict, preds: dict, lineitem: dict, dev, seed: int) ->
 def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
     import torch
 
-    from hyperspace_tpu_torch.ops import build, kernels as tk
+    from hyperspace_tpu_torch.ops import kernels as tk
+    from hyperspace_tpu_torch.ops.k2_cases import k2_edge_cases
     from hyperspace_tpu_torch.plan.expr import col, is_in
 
     dev = torch.device("cuda")
@@ -547,51 +643,40 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
     # stores them (grouped by bucket, key-sorted within), right = orders
     # keys stable-sorted
     l_keys = lineitem["l_orderkey"]
-    bucket = build.device_bucket_ids(
-        {"k": torch.from_numpy(l_keys).to(dev)}, {"k": "int64"}, ["k"], {}, NUM_BUCKETS
-    ).cpu().numpy()
-    l_codes = l_keys[np.lexsort((l_keys, bucket))]
-    r_sorted = np.sort(orders["o_orderkey"], kind="stable")
+    l_codes, r_sorted, bucket = k2_join_keys(lineitem, orders, dev)
     cases = {"index_layout": (l_codes, r_sorted)}
     wide = l_codes.copy()
     wide[:8192] = rng.permutation(wide[:8192])  # scattered tiles: host fix-up
     cases["with_wide_tiles"] = (wide, r_sorted)
     k2 = {}
     for name, (l, r) in cases.items():
-        plan = tk._plan_sorted_intersect(l, r)
-        if plan is None:
-            raise AssertionError(f"K2 {name}: the plan declined")
-        s_tile, span, base, l_p, r_p, l32, r32, wide_t = plan
-        args = [torch.from_numpy(a).to(dev) for a in (s_tile, span, base, l_p, r_p)]
-        lt, eq = tk.sorted_intersect_tensors(*args)
-        lt_p, eq_p = tk.sorted_intersect_counts_reference(args[3], args[4])
-        torch.cuda.synchronize()
-        keep = torch.from_numpy(np.repeat(~wide_t, tk.SMJ_TILE)).to(dev)[: len(l)]
-        err = max(
-            int((lt[: len(l)] - lt_p[: len(l)]).abs()[keep].max().item()),
-            int((eq[: len(l)] - eq_p[: len(l)]).abs()[keep].max().item()),
-        )
-        full = tk.sorted_intersect_counts(l, r, device=dev)
-        if err != 0 or not (
-            np.array_equal(full[0], np.searchsorted(r, l, side="left"))
-            and np.array_equal(full[1], np.searchsorted(r, l, side="right") - full[0])
-        ):
-            raise AssertionError(f"K2 {name}: kernel disagrees with plain version")
-        ms = time_ms(lambda: tk.sorted_intersect_tensors(*args))
-        dev_ms = device_ms(lambda: tk.sorted_intersect_tensors(*args), "sorted_intersect_kernel")
-        plain = time_ms(lambda: tk.sorted_intersect_counts_reference(args[3], args[4]))
-
-        lib_ms = time_ms(lambda: searchsorted_pair(args[4], args[3]))
-        b_ms, b_by = k2_bound(span, len(l_p), len(r_p))
-        k2[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib_ms,
-                        bound_ms=b_ms, bound_by=b_by,
-                        max_abs_err=err,
-                        n_l=len(l), n_r=len(r), wide_tiles=int(wide_t.sum()),
-                        max_span=int(span.max()))
-        log(f"K2 {name}: n_l={len(l)} n_r={len(r)} wide_tiles={int(wide_t.sum())} "
-            f"max_span={int(span.max())} ms={ms:.4f} device_ms={_fmt(dev_ms)} "
-            f"plain_ms={plain:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) exact=yes")
+        rec, args, max_span = k2_case(name, l, r, dev)
+        run = lambda: tk.sorted_intersect_tensors(*args, max_span=max_span)  # noqa: E731
+        # device time: K2 with the fence build its wrapper launches first
+        rec.update(ms=time_ms(run), device_ms=device_ms(run, K2_DEVICE_KERNELS),
+                   plain_ms=time_ms(lambda: tk.sorted_intersect_counts_reference(args[3], args[4])),
+                   library_ms=time_ms(lambda: searchsorted_pair(args[4], args[3])))
+        fences = tk.sorted_intersect_fences(args[4])
+        rec["kernel_device_ms"] = device_ms(
+            lambda: tk.sorted_intersect_tensors(*args, fences, max_span=max_span),
+            "sorted_intersect_kernel")
+        rec["fences_device_ms"] = device_ms(lambda: tk.sorted_intersect_fences(args[4]),
+                                            "fence_build_kernel")
+        rec["bound_ms"], rec["bound_by"] = k2_bound(args[1].cpu().numpy(), int(args[3].shape[0]),
+                                                    int(args[4].shape[0]))
+        k2[name] = rec
+        log(f"K2 {name}: n_l={len(l)} n_r={len(r)} wide_tiles={rec['wide_tiles']} "
+            f"max_span={rec['max_span']} ms={rec['ms']:.4f} device_ms={_fmt(rec['device_ms'])} "
+            f"(K2 {_fmt(rec['kernel_device_ms'])} + fences {_fmt(rec['fences_device_ms'])}) "
+            f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+            f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) exact=yes")
+        if name == "index_layout":
+            k2f = fence_case(args[4], fences)
+    # K2's edge cases (runs of equal keys, keys on fences, spans of 64 and
+    # 1, shuffled tiles, ragged sides, pad rows): the inputs the CPU parity
+    # tests feed the reference's Pallas kernel
+    for name, (l, r) in k2_edge_cases(seed).items():
+        k2[f"edge_{name}"] = k2_case(f"edge {name}", l, r, dev)[0]
     # K2 over resident operands. At index_layout the 199 tiles that
     # straddle a bucket boundary are wide, and the resident entry points
     # decline them as the reference does; the same keys in key order (no
@@ -612,6 +697,8 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
     k2["key_sorted"] = dict(
         max_abs_err=0,  # exact against numpy above
         resident_ms=time_ms(run),
+        # the resident operands carry their fences: K2 alone
+        device_ms=device_ms(run, "sorted_intersect_kernel"),
         amortized_ms=tk.resident_smj_amortized(l_sorted, r_sorted, 17, repeats=5,
                                                prepared=run) * 1e3,
         plain_ms=time_ms(lambda: tk.sorted_intersect_counts_reference(d[3], d[4])),
@@ -619,6 +706,7 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
         bound_ms=b_ms, bound_by=b_by)
     ks = k2["key_sorted"]
     log(f"K2 key_sorted resident_sorted_intersect: ms={ks['resident_ms']:.4f} "
+        f"device_ms={_fmt(ks['device_ms'])} "
         f"resident_smj_amortized ms={ks['amortized_ms']:.4f} plain_ms={ks['plain_ms']:.4f} "
         f"library_ms={ks['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})")
 
@@ -666,7 +754,7 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
                          bound_ms=b_ms, bound_by=b_by)
         log(f"fused_agg {name}: arm={arm} ms={agg[name]['ms']:.4f} "
             f"plain_ms={agg[name]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) exact=yes")
-    return {"k1": k1, "k1c": k1c, "k2": k2, "fused_agg": agg}
+    return {"k1": k1, "k1c": k1c, "k2": k2, "k2f": k2f, "fused_agg": agg}
 
 
 # ---------------------------------------------------------------------------
@@ -975,6 +1063,8 @@ def main() -> int:
             log(f"setup: ptxas {fn}: registers={info.get('registers')} "
                 f"stack_frame={info.get('stack_frame')} spill_stores={info.get('spill_stores')} "
                 f"spill_loads={info.get('spill_loads')}")
+            if info.get("stack_frame") or info.get("spill_stores") or info.get("spill_loads"):
+                raise AssertionError(f"ptxas: {fn} uses local memory: {info}")
 
     n_l = int(round(SF1_LINEITEM * args.scale))
     n_o = int(round(SF1_ORDERS * args.scale))
@@ -995,7 +1085,7 @@ def main() -> int:
         if not args.workdir:
             shutil.rmtree(workdir, ignore_errors=True)
     launches = main_out["launches"]
-    for kname in (tk.K1, tk.K2):
+    for kname in (tk.K1, tk.K2, tk.K2F):
         if launches.get(kname, 0) <= 0:
             raise AssertionError(f"{kname} was not launched on the main path")
     res_launches = main_out["resident"]["launches"]
@@ -1003,30 +1093,37 @@ def main() -> int:
     k1 = kphase["k1"]["range_3col"]
     k1c = kphase["k1c"]["range_3col"]
     k2 = kphase["k2"]["index_layout"]
+    k2f = kphase["k2f"]
     line = {"kernels": [
         {"name": tk.K1, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/predicate_mask.cu",
          "replaces": "hyperspace_tpu/ops/kernels.py:237", "launches": launches[tk.K1],
          "max_abs_err": max(c["max_abs_err"] for c in kphase["k1"].values()), "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
+         "device_ms": k1["device_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None},
         {"name": tk.K1C, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/predicate_mask.cu",
          "replaces": "hyperspace_tpu/exec/hbm_cache.py:476", "launches": res_launches[tk.K1C],
          "max_abs_err": max(c["max_abs_err"] for c in kphase["k1c"].values()), "ms": k1c["ms"],
-         "plain_ms": k1c["plain_ms"], "bound_ms": k1c["bound_ms"], "bound_by": k1c["bound_by"],
-         "library_ms": None},
+         "plain_ms": k1c["plain_ms"], "device_ms": k1c["device_ms"], "bound_ms": k1c["bound_ms"],
+         "bound_by": k1c["bound_by"], "library_ms": None},
         {"name": tk.K2, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/sorted_intersect.cu",
          "replaces": "hyperspace_tpu/ops/kernels.py:549", "launches": launches[tk.K2],
          "max_abs_err": max(c["max_abs_err"] for c in kphase["k2"].values()), "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
+         "device_ms": k2["device_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"]},
+        {"name": tk.K2F, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/sorted_intersect.cu",
+         "replaces": "hyperspace_tpu/ops/kernels.py:549", "launches": launches[tk.K2F],
+         "max_abs_err": k2f["max_abs_err"], "ms": k2f["ms"], "plain_ms": k2f["plain_ms"],
+         "device_ms": k2f["device_ms"], "bound_ms": k2f["bound_ms"], "bound_by": k2f["bound_by"],
+         "library_ms": k2f["library_ms"]},
     ]}
     log(json.dumps({"main_path": {k: main_out[k] for k in ("build_s", "query_s", "rows")},
                     "resident_path": main_out["resident"],
                     "kernel_cases": kphase, "ptxas": ptxas,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps(line))
-    # the port drives one card
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
-                                           "count": 1}}))
+                                           "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -14,7 +14,10 @@ become CUDA C++ for Hopper (``csrc/``):
 2. **Sorted-intersection join counts** (``sorted_intersect_counts`` →
    ``csrc/sorted_intersect.cu``, replacing ``_build_smj_call``): for each
    left key against ascending right keys, (#right < key, #right == key) —
-   the match range of the bucketed sort-merge join.
+   the match range of the bucketed sort-merge join. One CTA per left tile
+   searches its span's slice of a fence array (every ``K2_FENCE``-th
+   right key, built by the source's second entry, ``K2F``) in shared
+   memory, then reads one line of the right keys per key.
 
 The ``resident_*`` entry points run the same kernels over operands
 uploaded once (the reference's microbench primitives and its fused
@@ -69,7 +72,10 @@ SMJ_MAX_SPAN_TILES = 64
 K1 = "predicate_mask"
 K1C = "predicate_block_counts"  # K1's block-count entry, same source
 K2 = "sorted_intersect"
+K2F = "sorted_intersect_fences"  # K2's fence-array entry, same source
 BLOCK_ROWS = 8192  # K1c's count granularity (the resident scan's block)
+K2_THREADS = 256  # K2's CTA: one left tile, 4 keys a thread
+K2_FENCE = 8  # right keys per fence: K2 searches the fences in shared memory first
 
 # ---------------------------------------------------------------------------
 # build + load (nvcc -> plain-C shared library -> ctypes)
@@ -153,7 +159,9 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
                     entry.argtypes = [ctypes.c_char_p, vp]
                     entry.restype = ci
             else:
-                lib.hs_sorted_intersect.argtypes = [vp, vp, vp, vp, vp, ll, vp, vp, vp]
+                lib.hs_sorted_intersect_fences.argtypes = [vp, ll, vp, vp]
+                lib.hs_sorted_intersect_fences.restype = ci
+                lib.hs_sorted_intersect.argtypes = [vp, vp, vp, vp, vp, vp, ll, ci, vp, vp, vp]
                 lib.hs_sorted_intersect.restype = ci
             _LIBS[n] = lib
         return dict(_LIBS)
@@ -535,6 +543,13 @@ def lowered_predicate(bound: Expr, names: Tuple[str, ...]) -> K1Program:
     return program
 
 
+def _check_aligned(what: str, name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` starts on 16 bytes: the kernels read it 16 bytes
+    at a time."""
+    if t.data_ptr() % 16:
+        raise HyperspaceException(f"{what}: {name} at {t.data_ptr():#x} is not 16-byte aligned.")
+
+
 def k1_column_addrs(cols: List[torch.Tensor], what: str) -> List[int]:
     """The columns' addresses, checked: equal lengths, each 16-byte
     aligned (the kernels read 16 bytes at a time)."""
@@ -543,10 +558,7 @@ def k1_column_addrs(cols: List[torch.Tensor], what: str) -> List[int]:
     for t in cols:
         if int(t.shape[0]) != n:
             raise HyperspaceException(f"{what}: ragged columns.")
-        if t.data_ptr() % 16:
-            raise HyperspaceException(
-                f"{what}: column at {t.data_ptr():#x} is not 16-byte aligned."
-            )
+        _check_aligned(what, "column", t)
         addrs.append(t.data_ptr())
     return addrs
 
@@ -759,33 +771,106 @@ def sorted_intersect_counts_reference(
     return lt.to(torch.int32), eq.to(torch.int32)
 
 
+def sorted_intersect_span_reference(
+    s_tile: torch.Tensor, span: torch.Tensor, base: torch.Tensor, l: torch.Tensor,
+    r: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's exact function on padded, planned operands, pad rows and wide
+    tiles included: for a key of tile t, ``base[t]`` plus the right keys
+    below it inside the tile's span, and the right keys equal to it there
+    (span 0: ``base[t]`` and 0). It equals the plain version on every row
+    of a tile the plan does not mark wide, pad rows excepted."""
+    start = (s_tile.to(torch.int64) * SMJ_TILE).repeat_interleave(SMJ_TILE)
+    end = start + (span.to(torch.int64) * SMJ_TILE).repeat_interleave(SMJ_TILE)
+    a = torch.minimum(torch.maximum(torch.searchsorted(r, l, side="left"), start), end)
+    b = torch.minimum(torch.maximum(torch.searchsorted(r, l, side="right"), start), end)
+    lt = base.to(torch.int64).repeat_interleave(SMJ_TILE) + a - start
+    return lt.to(torch.int32), (b - a).to(torch.int32)
+
+
+def sorted_intersect_fences_reference(r: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2's fence array: every ``K2_FENCE``-th right key."""
+    return r[::K2_FENCE].contiguous()
+
+
+def _check_k2_right(r: torch.Tensor) -> int:
+    n_r = int(r.shape[0])
+    if n_r % SMJ_TILE or n_r >= 2**31:
+        raise HyperspaceException(
+            f"{K2}: {n_r} right keys is not tile-padded below 2^31 (int32 positions)."
+        )
+    return n_r
+
+
+def sorted_intersect_fences(r: torch.Tensor) -> torch.Tensor:
+    """K2's fence array of the padded right keys ``r``: every
+    ``K2_FENCE``-th key, which K2 searches in shared memory before it reads
+    one line of ``r``. CPU tensors take the plain version; CUDA tensors
+    launch K2's fence entry (counted as ``K2F``, not as a K2 launch)."""
+    if r.device.type == "cpu":
+        return sorted_intersect_fences_reference(r)
+    _check_cuda(r, torch.int32, f"{K2F} r")
+    n_r = _check_k2_right(r)
+    fences = torch.empty(n_r // K2_FENCE, dtype=torch.int32, device=r.device)
+    rc = _lib(K2).hs_sorted_intersect_fences(
+        r.data_ptr(), n_r, fences.data_ptr(), torch.cuda.current_stream(r.device).cuda_stream
+    )
+    _check_launch(rc, K2F)
+    count_launch(K2F)
+    return fences
+
+
 def sorted_intersect_tensors(
     s_tile: torch.Tensor,
     span: torch.Tensor,
     base: torch.Tensor,
     l: torch.Tensor,
     r: torch.Tensor,
+    fences: Optional[torch.Tensor] = None,
+    *,
+    max_span: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lt, eq) int32 for the padded, planned operands. CPU tensors take
     the plain version (exact on every tile, wide ones included); CUDA
     tensors launch K2 (wide tiles come back as their base, for the caller
-    to fix up, as in the reference)."""
+    to fix up, as in the reference). ``fences`` is ``r``'s fence array
+    (``sorted_intersect_fences``), built here when not given; the kernel
+    reads both as 16-byte vectors, so a misaligned one raises.
+    ``max_span`` is the largest entry of ``span``, known from the host
+    plan; when not given it is read from the card (a synchronizing copy).
+    It sizes the kernel's shared memory, so it must not be below any span
+    (a tile with a larger one comes back as -1s); one over
+    ``SMJ_MAX_SPAN_TILES`` raises: its fences would not fit."""
     if l.device.type == "cpu":
         return sorted_intersect_counts_reference(l, r)
     for t, what in ((s_tile, "s_tile"), (span, "span"), (base, "base"), (l, "l"), (r, "r")):
-        _check_cuda(t, torch.int32, f"sorted_intersect {what}")
+        _check_cuda(t, torch.int32, f"{K2} {what}")
     n_l = int(l.shape[0])
     if n_l % SMJ_TILE or int(span.shape[0]) != n_l // SMJ_TILE:
-        raise HyperspaceException("sorted_intersect: left keys not tile-padded.")
+        raise HyperspaceException(f"{K2}: left keys not tile-padded.")
+    n_r = _check_k2_right(r)
+    _check_aligned(K2, "r", r)
+    if max_span is None:
+        max_span = int(span.max()) if n_l else 0
+    if max_span > SMJ_MAX_SPAN_TILES:
+        raise HyperspaceException(
+            f"{K2}: a span of {max_span} right tiles; the kernel's shared memory holds "
+            f"the fences of {SMJ_MAX_SPAN_TILES}."
+        )
+    if fences is None:
+        fences = sorted_intersect_fences(r)
+    _check_cuda(fences, torch.int32, f"{K2} fences")
+    if int(fences.shape[0]) != n_r // K2_FENCE:
+        raise HyperspaceException(f"{K2}: fences are not r's ({n_r} keys / {K2_FENCE}).")
+    _check_aligned(K2, "fences", fences)
     lt = torch.empty(n_l, dtype=torch.int32, device=l.device)
     eq = torch.empty(n_l, dtype=torch.int32, device=l.device)
-    lib = _lib(K2)
-    rc = lib.hs_sorted_intersect(
-        l.data_ptr(), r.data_ptr(), s_tile.data_ptr(), span.data_ptr(),
-        base.data_ptr(), n_l, lt.data_ptr(), eq.data_ptr(),
+    rc = _lib(K2).hs_sorted_intersect(
+        l.data_ptr(), r.data_ptr(), fences.data_ptr(), s_tile.data_ptr(), span.data_ptr(),
+        base.data_ptr(), n_l, max_span, lt.data_ptr(), eq.data_ptr(),
         torch.cuda.current_stream(l.device).cuda_stream,
     )
-    _check_launch(rc, "sorted_intersect")
+    _check_launch(rc, K2)
     count_launch(K2)
     return lt, eq
 
@@ -808,7 +893,7 @@ def sorted_intersect_counts(
     s_tile, span, base, l_p, r_p, l32, r32, wide = plan
     dev = resolve_device(device)
     args = [torch.from_numpy(a).to(dev) for a in (s_tile, span, base, l_p, r_p)]
-    lt_d, eq_d = sorted_intersect_tensors(*args)
+    lt_d, eq_d = sorted_intersect_tensors(*args, max_span=int(span.max()))
     lt = lt_d.cpu().numpy()[:n_l].astype(np.int64)
     eq = eq_d.cpu().numpy()[:n_l].astype(np.int64)
     if wide.any():
@@ -824,24 +909,33 @@ def resident_sorted_intersect(
     l_keys: np.ndarray, r_sorted: np.ndarray, device: DeviceLike = None
 ):
     """Device-resident variant of ``sorted_intersect_counts``: the host
-    planning and the uploads happen once, and the returned zero-argument
-    ``run()`` launches K2, returning the device ``(lt, eq)`` int32 tensors
-    (tile-padded; no readback). ``run.d_args`` are the resident operands.
-    None where the reference declines: an empty side, a declined plan, or
-    any wide tile (timing wants the pure-kernel shape)."""
+    planning, the uploads and the right side's fence array happen once,
+    and the returned zero-argument ``run()`` launches K2, returning the
+    device ``(lt, eq)`` int32 tensors (tile-padded; no readback).
+    ``run.d_args`` are the resident operands ``(s_tile, span, base, l, r,
+    fences)`` and ``run.max_span`` the plan's largest span. None where the reference
+    declines: an empty side, a declined plan, or any wide tile (timing
+    wants the pure-kernel shape)."""
     if len(l_keys) == 0 or len(r_sorted) == 0:
         return None
     plan = _plan_sorted_intersect(l_keys, r_sorted)
     if plan is None or plan[-1].any():
         return None
-    dev = resolve_device(device)
-    d_args = [torch.from_numpy(a).to(dev) for a in plan[:5]]
+    d_args = _resident_k2_operands(plan, resolve_device(device))
+    max_span = int(plan[1].max())
 
     def run():
-        return sorted_intersect_tensors(*d_args)
+        return sorted_intersect_tensors(*d_args, max_span=max_span)
 
-    run.d_args = d_args
+    run.d_args, run.max_span = d_args, max_span
     return run
+
+
+def _resident_k2_operands(plan, dev: torch.device) -> List[torch.Tensor]:
+    """A plan's K2 operands on ``dev``, with the right side's fence array
+    built once beside them: ``(s_tile, span, base, l, r, fences)``."""
+    d_args = [torch.from_numpy(a).to(dev) for a in plan[:5]]
+    return d_args + [sorted_intersect_fences(d_args[4])]
 
 
 def _loop_seconds(fn, k: int, repeats: int, dev: torch.device) -> float:
@@ -948,7 +1042,8 @@ def resident_fused_agg_over_join(
     plan = _plan_sorted_intersect(l_keys, r_sorted)
     if plan is not None and not plan[-1].any():
         metrics.incr("fused_agg.path.kernel")
-        d_smj = [torch.from_numpy(a).to(dev) for a in plan[:5]]
+        d_smj = _resident_k2_operands(plan, dev)
+        max_span = int(plan[1].max())
         # the group layout is static across dispatches: a stable
         # group-sort permutation turns the per-group sums into cumsum +
         # boundary differences
@@ -961,7 +1056,7 @@ def resident_fused_agg_over_join(
         zero = torch.zeros(1, dtype=torch.int64, device=dev)
 
         def run_kernel():
-            lt2, eq2 = sorted_intersect_tensors(*d_smj)
+            lt2, eq2 = sorted_intersect_tensors(*d_smj, max_span=max_span)
             lt = lt2[:n_l].to(torch.int64)
             eq = eq2[:n_l].to(torch.int64)
             rsum = rvc_d[lt + eq] - rvc_d[lt]

@@ -6,8 +6,10 @@ mask + block count, the f64 two-plane expansion, the resident entry
 points (``resident_mask_fn``, ``resident_sorted_intersect``,
 ``resident_smj_amortized``, ``resident_fused_agg_over_join``) and their
 declines, the postfix lowering K1's CUDA kernel interprets, the join span
-planning, and the CUDA kernels themselves on a card (marked ``gpu``;
-skipped without one). Tolerance: exact throughout.
+planning, K2's edge cases (``ops/k2_cases.py``) and its span semantics
+against the Pallas kernel's padded outputs, the constants K2's wrapper
+shares with its source, and the CUDA kernels themselves on a card (marked
+``gpu``; skipped without one). Tolerance: exact throughout.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ from hyperspace_tpu.ops import kernels as jk
 from hyperspace_tpu.plan import expr as jexpr
 
 from hyperspace_tpu_torch.exceptions import HyperspaceException
+from hyperspace_tpu_torch.ops import k2_cases
 from hyperspace_tpu_torch.ops import kernels as tk
 from hyperspace_tpu_torch.ops import launch_counts, reset_launch_counts
 from hyperspace_tpu_torch.plan import expr as texpr
@@ -190,6 +193,85 @@ def test_sorted_intersect_declines_where_reference_declines():
     assert tk.sorted_intersect_counts(l, r, device="cpu") is None
     z = tk.sorted_intersect_counts(l[:0], r, device="cpu")
     assert z[0].shape == (0,) and z[1].shape == (0,)
+
+
+def _pallas_padded(l, r):
+    """The reference's Pallas kernel (interpreted) on its own plan: the
+    padded (lt, eq), pad rows and wide tiles included."""
+    s_tile, span, base, l2, r2, key, *_ = jk._plan_sorted_intersect(l, r)
+    with jk._x32():
+        lt, eq = jk._get_smj_call(key)(s_tile, span, base, l2, r2)
+    return np.asarray(lt).reshape(-1), np.asarray(eq).reshape(-1)
+
+
+@pytest.mark.parametrize("name", k2_cases.CASES)
+def test_k2_edge_cases_match_pallas(name):
+    """K2's edge cases (the inputs chip_smoke.py and the card test hold the
+    CUDA kernel to): the port's counts equal the reference's and numpy's,
+    and K2's span semantics equal the Pallas kernel's padded outputs on
+    every row, pad rows included."""
+    l, r = k2_cases.k2_edge_cases(0)[name]
+    plan = tk._plan_sorted_intersect(l, r)
+    assert plan is not None and not plan[-1].any()
+    want = jk.sorted_intersect_counts(l, r)
+    got = tk.sorted_intersect_counts(l, r, device="cpu")
+    lt = np.searchsorted(r, l, side="left")
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert np.array_equal(got[0], lt)
+    assert np.array_equal(got[1], np.searchsorted(r, l, side="right") - lt)
+    span_lt, span_eq = tk.sorted_intersect_span_reference(
+        *(torch.from_numpy(a) for a in plan[:5]))
+    p_lt, p_eq = _pallas_padded(l, r)
+    assert np.array_equal(span_lt.numpy(), p_lt) and np.array_equal(span_eq.numpy(), p_eq)
+    shape = {"span_64_and_1": (64, 0), "ragged": (2, 572)}.get(name)
+    if shape:  # (largest span, pad rows)
+        assert (int(plan[1].max()), len(plan[3]) - len(l)) == shape
+
+
+def test_k2_span_semantics_on_wide_tiles_and_pads():
+    """``sorted_intersect_span_reference`` is K2's exact function: wide
+    tiles come back as (base, 0) and pad rows count within their span, as
+    the Pallas kernel's padded outputs do."""
+    rng = np.random.default_rng(4)
+    r = np.sort(rng.integers(0, 10**6, 200_000)).astype(np.int64)
+    l = np.sort(rng.choice(r, 7500))
+    l[:1024] = rng.permutation(rng.choice(r, 1024))  # one wide tile
+    plan = tk._plan_sorted_intersect(l, r)
+    assert plan[-1].tolist() == [True] + [False] * 7
+    span_lt, span_eq = tk.sorted_intersect_span_reference(
+        *(torch.from_numpy(a) for a in plan[:5]))
+    p_lt, p_eq = _pallas_padded(l, r)
+    assert np.array_equal(span_lt.numpy(), p_lt) and np.array_equal(span_eq.numpy(), p_eq)
+    assert not span_lt[:1024].any() and not span_eq[:1024].any()
+
+
+def test_k2_constants_match_the_kernel_source():
+    """The tile, the CTA, the fence stride and the span cap the wrapper
+    assumes are the kernel source's, and the largest span's fences fit the
+    shared memory a launch gets without asking (48 KB)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tk.__file__).resolve().parent.parent / "csrc" / "sorted_intersect.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["TILE"] == tk.SMJ_TILE
+    assert consts["THREADS"] == tk.K2_THREADS and consts["KEYS"] * tk.K2_THREADS == tk.SMJ_TILE
+    assert consts["FENCE"] == tk.K2_FENCE and tk.SMJ_TILE % tk.K2_FENCE == 0
+    assert consts["MAX_SPAN_TILES"] == tk.SMJ_MAX_SPAN_TILES
+    assert tk.SMJ_MAX_SPAN_TILES * tk.SMJ_TILE // tk.K2_FENCE * 4 <= 48 * 1024
+    r = torch.arange(3 * tk.SMJ_TILE, dtype=torch.int32)
+    fences = tk.sorted_intersect_fences(r)
+    assert torch.equal(fences, r[:: tk.K2_FENCE]) and fences.is_contiguous()
+
+
+def test_k2_operand_checks_raise():
+    base = torch.zeros(2 * tk.SMJ_TILE + 4, dtype=torch.int32)
+    tk._check_aligned(tk.K2, "r", base[4:])
+    with pytest.raises(HyperspaceException, match="r at .* is not 16-byte aligned"):
+        tk._check_aligned(tk.K2, "r", base[1:])
+    assert tk._check_k2_right(base[: 2 * tk.SMJ_TILE]) == 2 * tk.SMJ_TILE
+    with pytest.raises(HyperspaceException, match="tile-padded"):
+        tk._check_k2_right(base[:-1])
 
 
 def test_cpu_wrappers_launch_nothing_and_cuda_requests_raise(monkeypatch):
@@ -631,6 +713,26 @@ def test_cuda_kernels_match_plain_versions():
     want = tk.sorted_intersect_counts(l, r, device="cpu")
     got = tk.sorted_intersect_counts(l, r, device="cuda")
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    # K2's edge cases: the counts against numpy, and the padded outputs
+    # against K2's span semantics on every row (pad rows included)
+    for name, (l, r) in k2_cases.k2_edge_cases(0).items():
+        got = tk.sorted_intersect_counts(l, r, device="cuda")
+        lt = np.searchsorted(r, l, side="left")
+        assert np.array_equal(got[0], lt), name
+        assert np.array_equal(got[1], np.searchsorted(r, l, side="right") - lt), name
+        plan = tk._plan_sorted_intersect(l, r)
+        args = [torch.from_numpy(a).cuda() for a in plan[:5]]
+        lt_d, eq_d = tk.sorted_intersect_tensors(*args, max_span=int(plan[1].max()))
+        want_lt, want_eq = tk.sorted_intersect_span_reference(*args)
+        assert torch.equal(lt_d, want_lt) and torch.equal(eq_d, want_eq), name
+    n_k2 = 1 + 2 * len(k2_cases.CASES)
+    with pytest.raises(HyperspaceException, match="16-byte aligned"):
+        padded = torch.zeros(len(args[4]) + 1, dtype=torch.int32, device="cuda")
+        tk.sorted_intersect_tensors(*args[:4], padded[1:1 + len(args[4])])
+    wide_span = args[1].clone()
+    wide_span[0] = tk.SMJ_MAX_SPAN_TILES + 1
+    with pytest.raises(HyperspaceException, match="span of 65"):
+        tk.sorted_intersect_tensors(args[0], wide_span, *args[2:])
     rng = np.random.default_rng(8)
     cols = [torch.from_numpy(rng.integers(-99, 99, 25 * tk.BLOCK_ROWS).astype(np.int32))
             for _ in range(2)]
@@ -682,4 +784,5 @@ def test_cuda_kernels_match_plain_versions():
     big = torch.zeros(4097, dtype=torch.int32, device="cuda")
     with pytest.raises(HyperspaceException, match="16-byte aligned"):
         tk.program_mask_tensor(programs[0], [big[1:], big[1:], big[1:]])
-    assert launch_counts() == {tk.K1: 6 + n_masks, tk.K2: 1, tk.K1C: 2 + n_counts}
+    assert launch_counts() == {tk.K1: 6 + n_masks, tk.K2: n_k2, tk.K2F: n_k2,
+                               tk.K1C: 2 + n_counts}
