@@ -48,7 +48,21 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    float64 bound 5 times run through K1c. Every result must equal numpy
    and the same query's per-file result; K1c must have launched once per
    query and K1 never;
-5. one ``kernels`` JSON line, then the last line
+5. front end — in the same session, residency off: Q3 written the
+   natural way (``li.join(od, ...).filter(...).select(...)``, nothing
+   under the join) must be rewritten to li_idx and ord_idx by predicate
+   pushdown, column pruning and JoinIndexRule (``explain``'s "Indexes
+   used"), launch K2 and its fence build once each, and equal numpy and
+   the hand-placed Q3 (timed beside it); lineitem written again as a
+   hive-partitioned source (``l_shipyear=YYYY/part-NNN.avro``, 7 years x 4
+   files in order-key order, the partition column not in the files): with
+   Hyperspace off ``l_shipyear == 1995 & l_quantity < 24`` reads 4 of the
+   28 files; a covering index li_year_idx built on the card holds
+   l_shipyear and serves a filter through K1; a data-skipping index
+   li_year_skip (min/max on l_orderkey, bloom filter on l_partkey) keeps
+   at most 14 of 28 files for a 2,000-key window, and a point filter on
+   l_partkey equals numpy;
+6. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero without the last
@@ -825,8 +839,9 @@ def run_main_path(
     lineitem, orders, workdir: Path, device: str, seed: int, profile: bool = False
 ) -> dict:
     """Build both indexes and run the three queries on ``device`` with
-    residency off, then the resident phase in the same session; every
-    result is checked against numpy. Returns timings and counts."""
+    residency off, then the resident phase and the front-end phase in the
+    same session; every result is checked against numpy. Returns timings
+    and counts."""
     import hyperspace_tpu_torch as hs
     from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
     from hyperspace_tpu_torch.plan.expr import col
@@ -924,6 +939,12 @@ def run_main_path(
     for q in out["query_s"]:
         log(f"query {q}: {out['query_s'][q]:.4f} s rows={out['rows'][q]} matches numpy reference")
     out["resident"] = resident_phase(session, hsp, li, L, seed, profile)
+    q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
+               "o_totalprice"]
+    out["front_end"] = front_end_phase(
+        session, hsp, li_dir, od_dir, q3, [np.asarray(results["q3_join"].columns[c].data)
+                                           for c in q3_cols],
+        q3_want, L, workdir, seed, profile)
     return out
 
 
@@ -1023,6 +1044,207 @@ def resident_phase(session, hsp, li, L, seed: int, profile: bool = False) -> dic
     return out
 
 
+def _scan_files_kept(df) -> int:
+    """The source files the optimized plan's one Scan still reads."""
+    from hyperspace_tpu_torch.plan.ir import Scan
+
+    scans = df.optimized_plan().collect(lambda n: isinstance(n, Scan))
+    if len(scans) != 1:
+        raise AssertionError(f"expected one source scan, found {len(scans)}")
+    return len(scans[0].relation.files)
+
+
+def _indexes_used(df) -> str:
+    return df.explain().split("Indexes used:")[1]
+
+
+def front_end_phase(session, hsp, li_dir, od_dir, q3_hand, q3_hand_rows, q3_want, L,
+                    workdir: Path, seed: int, profile: bool = False) -> dict:
+    """The query front end at SF1, after the resident phase, residency
+    off. (1) Q3 written the natural way, a join with one filter and one
+    select above it: pushdown and pruning must let JoinIndexRule rewrite
+    it to li_idx and ord_idx, and it must run through K2. (2) lineitem
+    again as a hive-partitioned source, ``l_shipyear=YYYY/part-NNN.avro``
+    (7 years x 4 files in order-key order; the partition column is not in
+    the files): a partition-pruned scan with Hyperspace off, then a
+    covering index li_year_idx built on the card and a filter it serves
+    through K1. (3) a data-skipping index li_year_skip (min/max on
+    l_orderkey, a bloom filter on l_partkey) pruning the files of a
+    2,000-key window and serving a point filter on l_partkey. Launch counts
+    start from zero before each query that must launch a kernel; every
+    result is held against numpy."""
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.index.sketches import BloomFilterSketch, MinMaxSketch
+    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.ops.kernels import K1, K2, K2F
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    on_card = session.device.type == "cuda"
+    out = {}
+
+    def timed(label, df):
+        t = time.perf_counter()
+        with _Profiled(f"front end {label}", profile):
+            res = df.collect()
+        fence(session.device)
+        return res, time.perf_counter() - t
+
+    # (1) Q3 as users write it: no select or filter under the join
+    session.conf.set("hyperspace.torch.hbm.mode", "off")
+    li, od = session.read.avro(li_dir), session.read.avro(od_dir)
+    q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
+               "o_totalprice"]
+    natural = li.join(od, col("l_orderkey") == col("o_orderkey")).filter(
+        (col("l_shipdate") > DAY_1993_06_01) & (col("o_orderdate") < DAY_1995_03_15)
+    ).select(*q3_cols)
+    used = _indexes_used(natural)
+    if "li_idx:" not in used or "ord_idx:" not in used:
+        raise AssertionError(f"natural Q3: explain's indexes used are {used.split()}")
+    reset_launch_counts()
+    metrics.reset()
+    nat, t_nat = timed("natural Q3", natural)
+    launches = launch_counts()
+    want_k2 = 1 if on_card else 0
+    if (launches.get(K2, 0), launches.get(K2F, 0)) != (want_k2, want_k2) or not (
+        metrics.get("join.path.device_kernel") + metrics.get("join.path.host_searchsorted")
+    ):
+        raise AssertionError(f"natural Q3 did not run the bucketed join through K2: "
+                             f"launches {launches}")
+    _check("natural Q3", nat, q3_cols, q3_want)
+    _check("natural Q3 against the hand-placed Q3", nat, q3_cols, q3_hand_rows)
+    # then both in turns, so that the host's drift falls on both alike
+    t_nats, t_hands = [t_nat], []
+    for _ in range(3):
+        t_hands.append(timed("hand-placed Q3", q3_hand)[1])
+        t_nats.append(timed("natural Q3 again", natural)[1])
+    out["q3"] = {"natural_s": t_nats, "hand_placed_s": t_hands,
+                 "rows": nat.num_rows, "launches": launches}
+    log(f"front end: natural Q3 median {np.median(t_nats):.4f} s {[round(t, 4) for t in t_nats]} "
+        f"| hand-placed Q3 median {np.median(t_hands):.4f} s {[round(t, 4) for t in t_hands]} "
+        f"| rows={nat.num_rows} | li_idx and ord_idx used | launches of the first natural run "
+        f"{launches} | matches numpy and the hand-placed Q3")
+
+    # (2) hive-partitioned lineitem: l_shipyear=YYYY/part-NNN.avro
+    from hyperspace_tpu_torch.storage.avro_io import write_avro
+    from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
+
+    t0 = time.perf_counter()
+    years = (L["l_shipdate"].astype("datetime64[D]").astype("datetime64[Y]")
+             .astype(np.int64) + 1970)
+    part_dir = workdir / "src" / "lineitem_by_year"
+    n_files = 0
+    file_of_row = np.empty(len(years), dtype=np.int64)
+    for y in np.unique(years):
+        rows = np.flatnonzero(years == y)  # ascending l_orderkey
+        for i, chunk in enumerate(np.array_split(rows, 4)):
+            file_of_row[chunk] = n_files
+            batch = ColumnarBatch.from_pydict({k: v[chunk] for k, v in L.items()},
+                                              schema=LINEITEM_SCHEMA)
+            write_avro(part_dir / f"l_shipyear={int(y)}" / f"part-{i:03d}.avro", batch)
+            n_files += 1
+    out["partitioned_write_s"] = time.perf_counter() - t0
+    log(f"front end: lineitem written as {n_files} files under "
+        f"{len(np.unique(years))} l_shipyear directories in {out['partitioned_write_s']:.3f} s")
+    fe = hs.HyperspaceSession(hs.HyperspaceConf({
+        "hyperspace.system.path": str(workdir / "indexes_partitioned"),
+        "hyperspace.index.numBuckets": NUM_BUCKETS,
+        "hyperspace.index.build.mode": "inmemory",
+        "hyperspace.torch.device": session.device.type,
+        "hyperspace.torch.hbm.mode": "off",
+    }))
+    fe_hs = hs.Hyperspace(fe)
+    src = fe.read.avro(str(part_dir))
+    spec = src.plan.relation.partition_spec
+    if spec is None or spec.columns != (("l_shipyear", "int64"),):
+        raise AssertionError(f"partition discovery: {spec}")
+    cols4 = ["l_orderkey", "l_quantity", "l_shipyear", "l_extendedprice"]
+    Ly = dict(L, l_shipyear=years)
+    metrics.reset()
+    pruned_q = src.filter((col("l_shipyear") == 1995) & (col("l_quantity") < 24)).select(*cols4)
+    res, t_pruned = timed("partition-pruned scan", pruned_q)
+    files_read = n_files - metrics.get("scan.partition_pruned")
+    if files_read != 4:
+        raise AssertionError(f"partition-pruned scan read {files_read} of {n_files} files")
+    _check("partition-pruned scan", res, cols4,
+           [Ly[c][(years == 1995) & (L["l_quantity"] < 24)] for c in cols4])
+    out["partition_pruned"] = {"s": t_pruned, "files_read": files_read, "files": n_files,
+                               "rows": res.num_rows}
+    log(f"front end: Hyperspace off, l_shipyear == 1995 & l_quantity < 24: {t_pruned:.4f} s, "
+        f"{files_read} of {n_files} files read, rows={res.num_rows}, matches numpy")
+
+    t0 = time.perf_counter()
+    fe_hs.create_index(src, hs.IndexConfig(
+        "li_year_idx", ["l_orderkey"], ["l_shipyear", "l_quantity", "l_extendedprice"]))
+    fence(fe.device)
+    out["li_year_idx_build_s"] = time.perf_counter() - t0
+    schema = fe.collection_manager.get_indexes()[0].derived_dataset.schema
+    if schema.get("l_shipyear") != "int64":
+        raise AssertionError(f"li_year_idx schema: {schema}")
+    log(f"front end: build li_year_idx (over the partitioned source, l_shipyear held as "
+        f"int64): {out['li_year_idx_build_s']:.3f} s")
+    fe.enable_hyperspace()
+    top = int(L["l_orderkey"].max())
+    lo_k, hi_k = top // 3, top // 3 + top // 20
+    ok = L["l_orderkey"]
+    year_q = fe.read.avro(str(part_dir)).filter(
+        (col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k) & (col("l_shipyear") == 1995)
+    ).select(*cols4)
+    if "li_year_idx:" not in _indexes_used(year_q):
+        raise AssertionError("the partitioned filter is not served by li_year_idx")
+    reset_launch_counts()
+    res, t_year = timed("li_year_idx filter", year_q)
+    k1_launches = launch_counts().get(K1, 0)
+    if on_card and k1_launches <= 0:
+        raise AssertionError("the li_year_idx filter did not launch K1")
+    _check("li_year_idx filter", res, cols4,
+           [Ly[c][(ok >= lo_k) & (ok < hi_k) & (years == 1995)] for c in cols4])
+    out["li_year_idx_filter"] = {"s": t_year, "rows": res.num_rows, "k1_launches": k1_launches}
+    log(f"front end: li_year_idx filter {t_year:.4f} s rows={res.num_rows} "
+        f"K1 launches={k1_launches}, matches numpy")
+
+    # (3) data-skipping index over the partitioned source
+    t0 = time.perf_counter()
+    fe_hs.create_index(fe.read.avro(str(part_dir)), hs.DataSkippingIndexConfig(
+        "li_year_skip", [MinMaxSketch("l_orderkey"), BloomFilterSketch("l_partkey")]))
+    out["li_year_skip_build_s"] = time.perf_counter() - t0
+    log(f"front end: build li_year_skip (min/max l_orderkey, bloom l_partkey, "
+        f"{n_files} files): {out['li_year_skip_build_s']:.3f} s")
+    rng = np.random.default_rng(seed + 3)
+    w0 = int(rng.integers(0, top - 2000))
+    window = fe.read.avro(str(part_dir)).filter(
+        (col("l_orderkey") >= w0) & (col("l_orderkey") < w0 + 2000)
+    ).select("l_orderkey", "l_partkey")
+    if "li_year_skip:" not in _indexes_used(window):
+        raise AssertionError("the order-key window is not pruned by li_year_skip")
+    kept = _scan_files_kept(window)
+    if kept > 14:
+        raise AssertionError(f"li_year_skip kept {kept} of {n_files} files")
+    res, t_window = timed("li_year_skip window", window)
+    wmask = (ok >= w0) & (ok < w0 + 2000)
+    _check("li_year_skip window", res, ["l_orderkey", "l_partkey"],
+           [L["l_orderkey"][wmask], L["l_partkey"][wmask]])
+    pk = int(L["l_partkey"][int(rng.integers(0, len(ok)))])
+    point = fe.read.avro(str(part_dir)).filter(col("l_partkey") == pk).select(
+        "l_orderkey", "l_partkey", "l_shipyear")
+    kept_point = _scan_files_kept(point)
+    res_p, t_point = timed("li_year_skip bloom point", point)
+    pmask = L["l_partkey"] == pk
+    _check("li_year_skip bloom point", res_p, ["l_orderkey", "l_partkey", "l_shipyear"],
+           [L["l_orderkey"][pmask], L["l_partkey"][pmask], years[pmask]])
+    out["skipping"] = {
+        "window": {"s": t_window, "files_kept": kept, "rows": res.num_rows},
+        "bloom_point": {"s": t_point, "files_kept": kept_point, "rows": res_p.num_rows,
+                        "files_with_key": int(len(np.unique(file_of_row[pmask])))},
+    }
+    log(f"front end: li_year_skip order-key window [{w0}, {w0 + 2000}): {t_window:.4f} s, "
+        f"{kept} of {n_files} files kept, rows={res.num_rows}, matches numpy")
+    log(f"front end: li_year_skip l_partkey == {pk}: {t_point:.4f} s, {kept_point} of "
+        f"{n_files} files kept ({out['skipping']['bloom_point']['files_with_key']} hold the "
+        f"key), rows={res_p.num_rows}, matches numpy")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1118,6 +1340,7 @@ def main() -> int:
     ]}
     log(json.dumps({"main_path": {k: main_out[k] for k in ("build_s", "query_s", "rows")},
                     "resident_path": main_out["resident"],
+                    "front_end": main_out["front_end"],
                     "kernel_cases": kphase, "ptxas": ptxas,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps(line))

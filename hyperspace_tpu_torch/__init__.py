@@ -38,4 +38,12 @@ def __getattr__(name):
         from .plan import expr
 
         return getattr(expr, name)
+    if name == "DataSkippingIndexConfig":
+        from .index.index_config import DataSkippingIndexConfig
+
+        return DataSkippingIndexConfig
+    if name in ("MinMaxSketch", "BloomFilterSketch", "ValueListSketch"):
+        from .index import sketches
+
+        return getattr(sketches, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

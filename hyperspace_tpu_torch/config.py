@@ -34,6 +34,9 @@ class HyperspaceConf:
     def copy(self) -> "HyperspaceConf":
         return HyperspaceConf(self._values)
 
+    def as_dict(self) -> Dict[str, Any]:
+        return dict(self._values)
+
     @staticmethod
     def _to_bool(v: Any) -> bool:
         if isinstance(v, bool):

@@ -34,16 +34,42 @@ INDEX_LINEAGE_ENABLED_DEFAULT = False
 DATA_FILE_NAME_ID = "_data_file_id"
 UNKNOWN_FILE_ID = -1
 
+# --- lifecycle modes ---------------------------------------------------------
+# Refresh and optimize are not yet ported; the collection manager checks a
+# data-skipping index's mode as the reference does before it refuses.
+OPTIMIZE_MODE_QUICK = "quick"
+OPTIMIZE_MODE_FULL = "full"
+REFRESH_MODE_INCREMENTAL = "incremental"
+REFRESH_MODE_FULL = "full"
+REFRESH_MODE_QUICK = "quick"
+REFRESH_MODES = (REFRESH_MODE_INCREMENTAL, REFRESH_MODE_FULL, REFRESH_MODE_QUICK)
+
 # --- hybrid scan (not ported: the rules refuse it) ----------------------------
 INDEX_HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
 INDEX_HYBRID_SCAN_ENABLED_DEFAULT = False
 
 # --- sources -----------------------------------------------------------------
 FILE_BASED_SOURCE_BUILDERS = "hyperspace.index.sources.fileBasedBuilders"
-# formats this package reads: avro through its own OCF reader, parquet
-# through pyarrow (imported only on that path)
-DEFAULT_SUPPORTED_FORMATS = ("avro", "parquet")
+# the reference's six-format allowlist: avro through this package's own
+# OCF reader; csv, json, orc and parquet through pyarrow, imported only on
+# their paths; text through plain file reads
+DEFAULT_SUPPORTED_FORMATS = ("avro", "csv", "json", "orc", "parquet", "text")
 GLOBBING_PATTERN_KEY = "hyperspace.source.globbingPattern"
+# Hive-style partition discovery toggle (source option, default on)
+PARTITION_INFERENCE_KEY = "hyperspace.source.partitionInference"
+# Relation option recording the discovered partition column names (a JSON
+# list, in directory order), logged with the relation so a refresh rebuilds
+# the same spec instead of re-guessing the layout
+PARTITION_COLUMNS_META = "hyperspace.source.partitionColumns"
+
+# --- explain display ---------------------------------------------------------
+DISPLAY_MODE = "hyperspace.explain.displayMode"
+HIGHLIGHT_BEGIN_TAG = "hyperspace.explain.displayMode.highlight.beginTag"
+HIGHLIGHT_END_TAG = "hyperspace.explain.displayMode.highlight.endTag"
+DISPLAY_MODE_PLAIN_TEXT = "plaintext"
+DISPLAY_MODE_HTML = "html"
+DISPLAY_MODE_CONSOLE = "console"
+DISPLAY_MODE_DEFAULT = DISPLAY_MODE_PLAIN_TEXT
 
 # --- telemetry ---------------------------------------------------------------
 EVENT_LOGGER_CLASS = "hyperspace.eventLoggerClass"

@@ -1,16 +1,17 @@
 """DataFrame: the user-facing lazy query handle over a logical plan.
 
-``collect()`` runs the rewrite rules (when the session has Hyperspace
-enabled) and executes on the session's device. Index usage telemetry is
-emitted exactly when a rewrite fired (HyperspaceEvent.scala:150-156).
-The reference's predicate-pushdown and column-pruning normalization
-passes are not ported: write side filters below the join, as the join
-rule needs linear sides.
+``collect()`` runs the normalization passes (predicate pushdown through
+joins, then column pruning) and, when the session has Hyperspace enabled,
+the rewrite rules, and executes on the session's device. Index usage
+telemetry is emitted exactly when a rewrite fired
+(HyperspaceEvent.scala:150-156).
 """
 
 from __future__ import annotations
 
 from typing import List
+
+import numpy as np
 
 from .exceptions import HyperspaceException
 from .plan.expr import Expr
@@ -56,19 +57,38 @@ class DataFrame(EventLogging):
         )
         return DataFrame(self.session, Join(self.plan, other.plan, condition, how))
 
+    def create_or_replace_temp_view(self, name: str) -> None:
+        """Register this DataFrame's logical plan under ``name``
+        (Spark's createOrReplaceTempView): ``session.table(name)``
+        queries rewrite against indexes exactly like this DataFrame."""
+        self.session.catalog.create_or_replace_temp_view(name, self)
+
     # -- actions -------------------------------------------------------------
+    def normalized_plan(self) -> LogicalPlan:
+        """The plan after the normalization passes that run before the
+        Hyperspace rules see it, as Catalyst's do: side predicates move
+        through inner joins (so filtered-join shapes stay linear for the
+        index rules), then column pruning narrows every join side."""
+        from .plan.rules.column_pruning import prune_columns
+        from .plan.rules.predicate_pushdown import push_filters_through_joins
+
+        return prune_columns(push_filters_through_joins(self.plan))
+
     def optimized_plan(self, log_usage: bool = False) -> LogicalPlan:
-        """The plan after the Hyperspace rule batch (identity when
-        disabled)."""
+        """The plan after the normalization passes and the Hyperspace rule
+        batch (the passes alone when disabled). Usage telemetry is emitted
+        only from executed queries (``log_usage=True``, set by collect())
+        — one event per execution, as in HyperspaceEvent.scala:150-156."""
+        pruned = self.normalized_plan()
         if not self.session.is_hyperspace_enabled():
-            return self.plan
+            return pruned
         from .actions import states
         from .plan.rules import apply_hyperspace_rules
 
         indexes = self.session.collection_manager.get_indexes(
             [states.ACTIVE], prefer_stable=True
         )
-        new_plan, applied = apply_hyperspace_rules(self.plan, indexes, self.session.conf)
+        new_plan, applied = apply_hyperspace_rules(pruned, indexes, self.session.conf)
         if applied and log_usage:
             self.log_event(
                 self.session.conf,
@@ -88,16 +108,27 @@ class DataFrame(EventLogging):
             self.session.device, self.session.conf.residency()
         ).execute(plan)
 
+    def to_pandas(self):
+        """The collected rows as a pandas DataFrame (needs ``pandas``,
+        imported only here)."""
+        return self.collect().to_pandas()
+
+    def show(self, n: int = 20) -> None:
+        """Print the first ``n`` rows (the df.show() notebook idiom). Only
+        the shown rows are converted to pandas."""
+        batch = self.collect()
+        head = batch.take(np.arange(min(n, batch.num_rows)))
+        print(head.to_pandas().to_string(index=False))
+        if batch.num_rows > n:
+            print(f"... ({batch.num_rows - n} more rows)")
+
     def count(self) -> int:
         return self.collect().num_rows
 
     def columns(self) -> List[str]:
         return self.plan.output_columns()
 
-    def explain(self) -> str:
-        """The logical plan and, with Hyperspace enabled, the plan the
-        rules rewrote it to (IndexScan nodes name the indexes used)."""
-        lines = ["== Plan ==", self.plan.tree_string()]
-        if self.session.is_hyperspace_enabled():
-            lines += ["== Plan with Hyperspace ==", self.optimized_plan().tree_string()]
-        return "\n".join(lines)
+    def explain(self, verbose: bool = False) -> str:
+        from .plananalysis.plan_analyzer import explain_string
+
+        return explain_string(self, verbose=verbose)

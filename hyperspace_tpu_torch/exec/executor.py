@@ -8,6 +8,8 @@ for Scan, IndexScan, Filter, Project and Join:
   scan when the session's residency policy has the index on the device;
 * ``Join(IndexScan, IndexScan)`` with matching bucket specs executes as
   the shuffle-free bucketed sort-merge join (exec.joins.bucketed_join_pairs);
+* a Scan of a hive-partitioned source prunes its files on the predicate's
+  partition-column conjuncts before reading any (``scan.partition_pruned``);
 * everything else evaluates bottom-up over ColumnarBatches.
 
 The compiled-pipeline, delta/join residency, mesh and aggregate arms are
@@ -84,6 +86,8 @@ class Executor:
             return batch.select(list(plan.columns))
         if isinstance(plan, Scan):
             if not plan.relation.files:
+                # zero-file scan (e.g. every file sketch-pruned): empty
+                # result with the relation's schema
                 return ColumnarBatch.empty(dict(plan.relation.schema))
             need = None
             if columns is not None:
@@ -94,11 +98,53 @@ class Executor:
                     )
                 avail = set(plan.relation.schema)
                 need = [c for c in need if c in avail]
+            files = plan.relation.files
+            spec = plan.relation.partition_spec
+            pred_for_reader = predicate
+            if spec is not None and predicate is not None:
+                # split once: conjuncts over partition columns only are
+                # decidable from directory names (→ file pruning, before
+                # any byte is read — the win Spark's PartitioningAwareFile-
+                # Index provides the reference for free); conjuncts free of
+                # partition columns can still reach the file reader; mixed
+                # conjuncts do neither (the full predicate is re-applied
+                # after the read regardless)
+                from ..plan.rules.predicate_pushdown import (
+                    conjoin,
+                    split_conjuncts,
+                )
+                from ..storage import partitions as P
+                from ..telemetry.metrics import metrics
+
+                part_names = set(spec.names)
+                part_conjs, file_conjs = [], []
+                for c in split_conjuncts(predicate):
+                    refs = set(c.columns())
+                    if refs and refs <= part_names:
+                        part_conjs.append(c)
+                    elif not (refs & part_names):
+                        file_conjs.append(c)
+                pred_for_reader = conjoin(file_conjs) if file_conjs else None
+                if part_conjs:
+                    before = len(files)
+                    files = P.prune_files(files, spec, conjoin(part_conjs))
+                    metrics.incr("scan.partition_pruned", before - len(files))
+                    if not files:
+                        out = ColumnarBatch.empty(dict(plan.relation.schema))
+                        return out.select(need) if need is not None else out
+            arrow_filter = None
+            if pred_for_reader is not None and plan.relation.read_format == "parquet":
+                from ..plan.expr import to_arrow_filter
+
+                arrow_filter = to_arrow_filter(pred_for_reader)
             batch = parquet_io.read_relation(
                 plan.relation,
-                paths=[f.name for f in plan.relation.files],
+                paths=[f.name for f in files],
                 columns=need,
+                arrow_filter=arrow_filter,
             )
+            # the full predicate is ALWAYS re-applied: the pushed filter is
+            # best-effort (partial conjunctions, reader fallback)
             return self._apply_predicate(batch, predicate)
         if isinstance(plan, IndexScan):
             entry = plan.entry

@@ -1,14 +1,15 @@
 """The Hyperspace facade: index management verbs bound to a session.
 
-Parity: com/microsoft/hyperspace/Hyperspace.scala — the create, list and
-describe verbs, and the reference package's ``prefetch_index``; the other
-lifecycle verbs are not yet ported.
+Parity: com/microsoft/hyperspace/Hyperspace.scala — the create, list,
+describe and explain verbs, and the reference package's
+``prefetch_index``; the other lifecycle verbs are not yet ported.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+from . import constants as C
 from .dataframe import DataFrame
 from .index.index_config import IndexConfig
 from .index.stats import IndexStatistics
@@ -23,14 +24,42 @@ class Hyperspace:
     def indexes(self) -> List[IndexStatistics]:
         return self._manager.indexes()
 
+    def indexes_df(self):
+        """The summary as a pandas DataFrame — the reference's
+        ``hyperspace.indexes`` IS a Spark DataFrame with these summary
+        columns (IndexStatistics.scala:64-71). Needs ``pandas``, imported
+        here only."""
+        import pandas as pd
+
+        rows = [s.to_row() for s in self.indexes()]
+        return pd.DataFrame(
+            rows,
+            columns=[
+                "name", "indexedColumns", "includedColumns", "numBuckets",
+                "schema", "indexLocation", "state",
+            ],
+        )
+
     def create_index(self, df: DataFrame, config: IndexConfig) -> None:
         self._manager.create(df, config)
 
     def index(self, name: str) -> IndexStatistics:
         return self._manager.index(name)
 
-    def explain(self, df: DataFrame) -> str:
-        return df.explain()
+    def refresh_index(self, name: str, mode: str = C.REFRESH_MODE_FULL) -> None:
+        """Not yet ported: raises (after the reference's own refusals for a
+        data-skipping index)."""
+        self._manager.refresh(name, mode)
+
+    def optimize_index(self, name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> None:
+        """Not yet ported: raises (after the reference's own refusal for a
+        data-skipping index)."""
+        self._manager.optimize(name, mode)
+
+    def explain(self, df: DataFrame, verbose: bool = False) -> str:
+        from .plananalysis.plan_analyzer import explain_string
+
+        return explain_string(df, verbose=verbose)
 
     def prefetch_index(self, name: str, columns: Optional[List[str]] = None) -> bool:
         """Upload an index's predicate columns to the session's device NOW
@@ -43,5 +72,8 @@ class Hyperspace:
         ``hyperspace.torch.hbm.budgetMB``)."""
         return self._manager.prefetch(name, columns)
 
-    # camelCase alias for reference-API parity
+    # camelCase aliases for reference-API parity
     createIndex = create_index
+    refreshIndex = refresh_index
+    optimizeIndex = optimize_index
+    prefetchIndex = prefetch_index

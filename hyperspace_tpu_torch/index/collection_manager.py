@@ -2,15 +2,18 @@
 actions with per-index log/data managers, and enumerates indexes.
 
 Parity: com/microsoft/hyperspace/index/IndexCollectionManager.scala —
-create and the read-only verbs, plus ``prefetch`` (HBM residency, a verb
-the reference package added). The other lifecycle actions (delete,
-restore, vacuum, refresh, optimize, cancel) are not yet ported.
+create (covering and data-skipping) and the read-only verbs, plus
+``prefetch`` (HBM residency, a verb the reference package added). The
+other lifecycle actions (delete, restore, vacuum, refresh, optimize,
+cancel) are not yet ported: refresh and optimize raise, after the checks
+the reference makes first for a data-skipping index.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+from .. import constants as C
 from ..actions import states
 from ..actions.create import CreateAction
 from ..exceptions import HyperspaceException
@@ -40,6 +43,19 @@ class IndexCollectionManager:
         return mgr
 
     def create(self, df, config) -> None:
+        from ..index.index_config import DataSkippingIndexConfig
+
+        if isinstance(config, DataSkippingIndexConfig):
+            from ..actions.create_skipping import DataSkippingCreateAction
+
+            DataSkippingCreateAction(
+                self.session,
+                df,
+                config,
+                self._log_manager(config.index_name),
+                self._data_manager(config.index_name),
+            ).run()
+            return
         CreateAction(
             self.session,
             df,
@@ -47,6 +63,45 @@ class IndexCollectionManager:
             self._log_manager(config.index_name),
             self._data_manager(config.index_name),
         ).run()
+
+    def _is_skipping(self, name: str) -> bool:
+        latest = self._existing_log_manager(name).get_latest_stable_log()
+        return (
+            latest is not None
+            and latest.derived_dataset.kind == "DataSkippingIndex"
+        )
+
+    def refresh(self, name: str, mode: str = C.REFRESH_MODE_FULL) -> None:
+        mode = mode.lower()
+        if self._is_skipping(name):
+            from ..actions.create_skipping import DataSkippingRefreshAction
+
+            if mode == C.REFRESH_MODE_QUICK:
+                raise HyperspaceException(
+                    "Quick refresh is not supported for data-skipping indexes "
+                    "(no hybrid-scan path exists for sketch tables)."
+                )
+            if mode not in C.REFRESH_MODES:
+                raise HyperspaceException(
+                    f"Unsupported refresh mode {mode!r}; supported modes are "
+                    f"{C.REFRESH_MODES}."
+                )
+            DataSkippingRefreshAction(
+                self.session, incremental=mode == C.REFRESH_MODE_INCREMENTAL
+            )
+        raise HyperspaceException(
+            "Refreshing a covering index is not yet ported to hyperspace_tpu_torch."
+        )
+
+    def optimize(self, name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> None:
+        if self._is_skipping(name):
+            raise HyperspaceException(
+                "Optimize is not supported for data-skipping indexes (the "
+                "sketch table is a single metadata file, nothing to compact)."
+            )
+        raise HyperspaceException(
+            "Optimizing an index is not yet ported to hyperspace_tpu_torch."
+        )
 
     def _enumerate(self):
         """(latest entry, stable entry or None) per index directory."""

@@ -1,9 +1,8 @@
 """User-facing index specifications.
 
 Parity: com/microsoft/hyperspace/index/IndexConfig.scala:28-165 —
-case-insensitive equality, duplicate-column checks, and a fluent Builder —
-plus DataSkippingIndexConfig for the sketch-index kind (BASELINE.md
-config 5).
+case-insensitive equality and duplicate-column checks — plus
+DataSkippingIndexConfig for the sketch-index kind (index/sketches.py).
 """
 
 from __future__ import annotations
@@ -66,3 +65,27 @@ class IndexConfig:
             f"IndexConfig({self.index_name}, indexed={self.indexed_columns}, "
             f"included={self.included_columns})"
         )
+
+
+class DataSkippingIndexConfig:
+    """Spec for a data-skipping index: a name plus one or more sketches
+    (index/sketches.py). The sketch list is ordered; each names the source
+    column it summarizes."""
+
+    def __init__(self, index_name: str, sketches):
+        from .sketches import SketchSpec
+
+        self.index_name = index_name
+        self.sketches = list(sketches)
+        if not self.index_name:
+            raise HyperspaceException("Index name cannot be empty.")
+        if not self.sketches:
+            raise HyperspaceException("At least one sketch is required.")
+        for s in self.sketches:
+            if not isinstance(s, SketchSpec):
+                raise HyperspaceException(f"Not a sketch spec: {s!r}.")
+        low = [(type(s).__name__, s.column.lower()) for s in self.sketches]
+        if len(set(low)) != len(low):
+            raise HyperspaceException(
+                "Duplicate sketches (same kind and column) are not allowed."
+            )

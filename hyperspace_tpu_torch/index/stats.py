@@ -65,3 +65,15 @@ class IndexStatistics:
             )
             stats.properties = dict(entry.derived_dataset.properties)
         return stats
+
+    def to_row(self) -> Dict[str, object]:
+        """Summary columns (IndexStatistics.scala:64-71)."""
+        return {
+            "name": self.name,
+            "indexedColumns": list(self.indexed_columns),
+            "includedColumns": list(self.included_columns),
+            "numBuckets": self.num_buckets,
+            "schema": dict(self.schema),
+            "indexLocation": self.index_location,
+            "state": self.state,
+        }

@@ -464,3 +464,73 @@ def bounds_for_column(expr: Expr, column: str):
 
     visit(expr)
     return lo, hi
+
+
+def to_arrow_filter(expr: Expr):
+    """Best-effort translation of a predicate into a pyarrow compute
+    Expression for scanner-level pushdown (row-group stats pruning + page
+    skipping inside the parquet reader). Partial translation is sound
+    because callers ALWAYS re-apply the full predicate mask after the
+    read: a conjunct that doesn't translate is simply not pushed, an Or or
+    Not translates only when complete (pushing half a disjunction would
+    drop rows). Returns None when nothing safely translates."""
+    import pyarrow.compute as pc
+
+    def lit_ok(v) -> bool:
+        return isinstance(v, (bool, int, float, str, np.integer, np.floating))
+
+    def full(e) -> "pc.Expression | None":
+        # exact-or-superset translation, or None (used under Or where a
+        # partial conjunct would be unsound). NULL semantics make two
+        # shapes untranslatable/special:
+        #   * Not is never pushed: arrow's ~(null) is null and the reader
+        #     drops the row, while the engine's NULL-fails-inner-predicate
+        #     rule KEEPS it under negation — rows the reader never
+        #     materializes can't be resurrected by the re-applied mask;
+        #   * ne keeps nulls explicitly ((x != v) | is_null(x)): float
+        #     NULLs ingest as NaN, and NaN != v is True for the engine.
+        if isinstance(e, And):
+            l, r = full(e.left), full(e.right)
+            return l & r if l is not None and r is not None else None
+        if isinstance(e, Or):
+            l, r = full(e.left), full(e.right)
+            return l | r if l is not None and r is not None else None
+        if isinstance(e, Not):
+            return None
+        if isinstance(e, In):
+            if isinstance(e.child, Col) and e.values and all(
+                lit_ok(v) for v in e.values
+            ):
+                return pc.field(e.child.name).isin(list(e.values))
+            return None
+        if isinstance(e, Cmp):
+            ops = {
+                "eq": lambda a, b: a == b,
+                "lt": lambda a, b: a < b,
+                "le": lambda a, b: a <= b,
+                "gt": lambda a, b: a > b,
+                "ge": lambda a, b: a >= b,
+            }
+            l, r = e.left, e.right
+            if isinstance(l, Col) and isinstance(r, Lit) and lit_ok(r.value):
+                if e.op == "ne":
+                    f = pc.field(l.name)
+                    return (f != r.value) | f.is_null()
+                return ops[e.op](pc.field(l.name), r.value)
+            if isinstance(l, Lit) and isinstance(r, Col) and lit_ok(l.value):
+                if e.op == "ne":
+                    f = pc.field(r.name)
+                    return (l.value != f) | f.is_null()
+                return ops[e.op](l.value, pc.field(r.name))
+            return None
+        return None
+
+    def partial(e) -> "pc.Expression | None":
+        if isinstance(e, And):
+            l, r = partial(e.left), partial(e.right)
+            if l is not None and r is not None:
+                return l & r
+            return l if l is not None else r
+        return full(e)
+
+    return partial(expr)

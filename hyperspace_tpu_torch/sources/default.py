@@ -1,13 +1,15 @@
-"""Default file-based source provider: avro and parquet directories.
+"""Default file-based source provider: avro, csv, json, orc, parquet and
+text directories, hive-partitioned or flat.
 
 Parity: com/microsoft/hyperspace/index/sources/default/
 DefaultFileBasedSource.scala, as ``hyperspace_tpu.sources.default``
-carries it, without hive partition discovery. Schema inference reads one
-file's header (avro) or footer (parquet, through pyarrow).
+carries it. Schema inference reads one file's header (avro), footer
+(parquet, through pyarrow) or contents (the other formats).
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -132,10 +134,52 @@ def _infer_schema_memoized(file_format: str, sample: FileInfo):
     return schema
 
 
+def _concrete_bases(root_paths) -> List[str]:
+    """Root paths with glob patterns expanded to the concrete directories
+    they currently match — partition components are resolved below these.
+    expand_globs passes non-pattern paths through unchanged, so it is the
+    single glob-detection policy."""
+    return [str(p.absolute()) for p in file_utils.expand_globs(root_paths)]
+
+
+def _discover_spec(files, root_paths, options, declared):
+    """Hive partition discovery over a snapshot (storage.partitions), off
+    when the ``partitionInference`` option is "false"."""
+    if (options or {}).get(C.PARTITION_INFERENCE_KEY, "true").lower() == "false":
+        return None
+    from ..storage.partitions import discover_partition_spec
+
+    return discover_partition_spec(
+        [f.name for f in files], _concrete_bases(root_paths), declared_schema=declared
+    )
+
+
+def _logged_spec(relation: Relation):
+    """The create-time PartitionSpec, reconstructed from the logged
+    relation (names from PARTITION_COLUMNS_META, dtypes from the schema;
+    bases re-expanded from the logged roots — new directories matched by a
+    logged glob pattern resolve against their own expansion)."""
+    raw = (relation.options or {}).get(C.PARTITION_COLUMNS_META, "")
+    names = json.loads(raw) if raw else []
+    if not names:
+        return None
+    from ..storage.partitions import PartitionSpec
+
+    missing = [n for n in names if n not in relation.schema]
+    if missing:
+        raise HyperspaceException(
+            f"Logged partition columns {missing} absent from the logged "
+            "relation schema — corrupt metadata."
+        )
+    return PartitionSpec(
+        tuple((n, relation.schema[n]) for n in names),
+        tuple(_concrete_bases(relation.root_paths)),
+    )
+
+
 class DefaultFileBasedSource(FileBasedSourceProvider):
-    """Formats in the allowlist (DefaultFileBasedSource.scala:42-48; ours
-    is constants.DEFAULT_SUPPORTED_FORMATS since only pyarrow-readable
-    formats execute)."""
+    """Formats in the allowlist (DefaultFileBasedSource.scala:42-48;
+    constants.DEFAULT_SUPPORTED_FORMATS)."""
 
     def supports_format(self, file_format: str) -> bool:
         return file_format.lower() in C.DEFAULT_SUPPORTED_FORMATS
@@ -168,18 +212,39 @@ class DefaultFileBasedSource(FileBasedSourceProvider):
                 )
             logged_roots = patterns
         files = _snapshot_files(root_paths)
+        # a user-declared schema may already include the partition columns
+        # (the standard way to pin their dtypes) — discovery treats it as
+        # authoritative for dtype, and such names are NOT collisions
+        spec = _discover_spec(files, root_paths, options, declared=schema)
         if schema is None:
             if not files:
                 raise HyperspaceException(
                     f"Cannot infer schema: no files under {root_paths}."
                 )
             schema = _infer_schema_memoized(file_format, files[0])
+            if spec is not None:
+                clash = [n for n in spec.names if n in schema]
+                if clash:
+                    raise HyperspaceException(
+                        f"Partition columns {clash} collide with data columns "
+                        f"of the same name under {root_paths}."
+                    )
+        if spec is not None:
+            # Spark's ordering: file columns first, partition columns after
+            # (already-declared partition columns keep their declared spot)
+            schema = {**schema, **{n: d for n, d in spec.columns if n not in schema}}
+        out_options = dict(options or {})
+        if spec is not None:
+            # JSON list, not comma-joined: a partition column named "a,b"
+            # must round-trip through the log intact
+            out_options[C.PARTITION_COLUMNS_META] = json.dumps(spec.names)
         return FileRelation(
             root_paths=logged_roots,
             file_format=file_format,
             schema=schema,
             files=files,
-            options=dict(options or {}),
+            options=out_options,
+            partition_spec=spec,
         )
 
     def refresh_relation(self, relation: Relation) -> Optional[FileRelation]:
@@ -194,6 +259,13 @@ class DefaultFileBasedSource(FileBasedSourceProvider):
             schema=dict(relation.schema),
             files=files,
             options=dict(relation.options),
+            # the spec is REBUILT from what create-time discovery logged
+            # (names in options, dtypes in the schema) — never re-guessed
+            # from the new snapshot, so a re-layout that grows partition-
+            # looking directories around a data column stays inert, while
+            # files that stop matching the logged layout fail loudly at
+            # read time (partition_values_for)
+            partition_spec=_logged_spec(relation),
         )
 
     def all_files(self, relation: FileRelation) -> Optional[List[FileInfo]]:

@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from ..index.log_entry import FileInfo
+from ..storage.partitions import PartitionSpec
 
 
 @dataclass
@@ -28,9 +29,11 @@ class FileRelation:
     # files are parquet (the analog of DeltaLakeFileBasedSource.
     # internalFileFormatName, DeltaLakeFileBasedSource.scala:120-126).
     internal_format: Optional[str] = None
-    # Hive-style partition columns: partition discovery is not ported,
-    # so this package's relations always carry None here.
-    partition_spec: Optional[object] = None
+    # Hive-style partition columns carried in directory names (see
+    # storage.partitions). When set, ``schema`` already includes these
+    # columns (file columns first, partition columns after — Spark's
+    # ordering) and every read of this relation's files materializes them.
+    partition_spec: Optional["PartitionSpec"] = None
 
     @property
     def read_format(self) -> str:

@@ -306,6 +306,12 @@ class ColumnarBatch:
     def to_pydict(self) -> Dict[str, np.ndarray]:
         return {n: c.to_values() for n, c in self.columns.items()}
 
+    def to_pandas(self):
+        """Needs ``pandas``, imported only here."""
+        import pandas as pd
+
+        return pd.DataFrame({n: c.to_values() for n, c in self.columns.items()})
+
     @staticmethod
     def concat(batches: Sequence["ColumnarBatch"]) -> "ColumnarBatch":
         """Concatenate batches with identical schemas, unifying string

@@ -1,8 +1,11 @@
-"""Source ingest: parquet and avro files into ColumnarBatches.
+"""Source ingest: avro, parquet, csv, json, orc and text files into
+ColumnarBatches, with hive partition columns materialized from directory
+names (storage.partitions).
 
-Parquet is read through pyarrow, imported only on that path; avro through
-this package's own OCF reader (storage.avro_io), which needs nothing but
-numpy. Index *data* is never parquet — it lives in the TCB layout.
+Avro is read through this package's own OCF reader (storage.avro_io) and
+text through plain file reads, both needing nothing but numpy; parquet,
+csv, json and orc through pyarrow, each imported only on its own path.
+Index *data* is never parquet — it lives in the TCB layout.
 """
 
 from __future__ import annotations
@@ -66,14 +69,86 @@ def _parquet_file(path: str):
 def read_parquet(
     paths: Iterable[str | Path],
     columns: Optional[List[str]] = None,
+    arrow_filter=None,
 ) -> ColumnarBatch:
-    """Read one or more parquet files into a single ColumnarBatch."""
+    """Read one or more parquet files into a single ColumnarBatch.
+
+    ``arrow_filter`` (a pyarrow compute Expression) pushes the predicate
+    into the reader — row-group statistics pruning and page skipping
+    happen inside parquet instead of materializing rows to mask later.
+    Callers must re-apply their own predicate after the read: the filter
+    is best-effort (a type-mismatched expression falls back to an
+    unfiltered read rather than failing the scan)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
 
     def reader(p):
+        if arrow_filter is not None:
+            try:
+                return pq.read_table(p, columns=columns, filters=arrow_filter)
+            except pa.lib.ArrowException:  # pushdown is an optimization
+                # count the declined pushdown: it costs a full-file decode
+                # per read with nothing else visible
+                from ..telemetry.metrics import metrics
+
+                metrics.incr("scan.arrow_pushdown_fallback")
         return _parquet_file(p).read(columns=columns)
 
     # column pushdown at the parquet reader; projection re-applied uniformly
     return _read_with(reader, "parquet", paths, columns)
+
+
+def read_csv(paths: Iterable[str | Path], columns: Optional[List[str]] = None) -> ColumnarBatch:
+    import pyarrow.csv as pacsv
+
+    return _read_with(lambda p: pacsv.read_csv(p), "csv", paths, columns)
+
+
+def read_json(paths: Iterable[str | Path], columns: Optional[List[str]] = None) -> ColumnarBatch:
+    import pyarrow.json as pajson
+
+    return _read_with(lambda p: pajson.read_json(p), "json", paths, columns)
+
+
+def read_orc(paths: Iterable[str | Path], columns: Optional[List[str]] = None) -> ColumnarBatch:
+    """ORC ingest via pyarrow.orc (the reference's allowlist includes orc,
+    HyperspaceConf.scala:85-90)."""
+    from pyarrow import orc as paorc
+
+    return _read_with(
+        lambda p: paorc.ORCFile(p).read(columns=columns), "orc", paths, columns
+    )
+
+
+def read_text(paths: Iterable[str | Path], columns: Optional[List[str]] = None) -> ColumnarBatch:
+    """Text ingest: one ``value`` string column per line — Spark's text
+    source schema. Lines split on ``\\n`` only (with ``\\r`` stripped
+    before it), matching Spark's record delimiter — NOT Python's
+    splitlines(), whose extra separators (\\f, U+2028, ...) would change
+    row counts. Bytes stay bytes end to end, so non-UTF-8 content indexes
+    fine (the dictionary vocab is byte-typed)."""
+    from .columnar import Column
+
+    paths = [str(p) for p in paths]
+    if not paths:
+        raise HyperspaceException("read_text: no paths.")
+    batches = []
+    for p in paths:
+        data = Path(p).read_bytes()
+        if data.endswith(b"\n"):
+            data = data[:-1]
+        raw_lines = data.split(b"\n") if data else []
+        lines = [ln[:-1] if ln.endswith(b"\r") else ln for ln in raw_lines]
+        col = (
+            Column.from_values(np.array(lines, dtype=object), "string")
+            if lines
+            else Column("string", np.empty(0, dtype=np.int32), np.array([], dtype=object))
+        )
+        b = ColumnarBatch({"value": col})
+        if columns is not None:
+            b = b.select(columns)
+        batches.append(b)
+    return ColumnarBatch.concat(batches)
 
 
 def write_parquet(path: str | Path, batch: ColumnarBatch) -> None:
@@ -104,6 +179,10 @@ def read_avro(paths: Iterable[str | Path], columns: Optional[List[str]] = None) 
 READERS = {
     "avro": read_avro,
     "parquet": read_parquet,
+    "csv": read_csv,
+    "json": read_json,
+    "orc": read_orc,
+    "text": read_text,
 }
 
 
@@ -111,21 +190,93 @@ def read_files(
     file_format: str,
     paths: Iterable[str | Path],
     columns=None,
+    arrow_filter=None,
 ) -> ColumnarBatch:
     try:
         reader = READERS[file_format]
     except KeyError:
         raise HyperspaceException(f"Unsupported source format: {file_format}")
+    if file_format == "parquet":
+        return reader(paths, columns, arrow_filter=arrow_filter)
     return reader(paths, columns)
+
+
+def _split_partition_columns(relation, columns):
+    """(file columns to read, partition columns to append) for a requested
+    projection against a possibly-partitioned relation. ``columns=None``
+    means all of each."""
+    spec = relation.partition_spec
+    if spec is None:
+        return columns, []
+    part_names = spec.names
+    if columns is None:
+        file_cols = [c for c in relation.schema if c not in part_names]
+        return file_cols, list(part_names)
+    return (
+        [c for c in columns if c not in part_names],
+        [c for c in columns if c in part_names],
+    )
+
+
+def _file_row_count(relation, path: str) -> int:
+    """Row count of one source file for a partition-only projection.
+    Parquet answers from the footer (no data decoded); other formats read
+    one file-borne column solely for its length."""
+    if relation.read_format == "parquet":
+        return _parquet_file(path).metadata.num_rows
+    spec_names = set(relation.partition_spec.names)
+    for c in relation.schema:
+        if c not in spec_names:
+            return read_files(relation.read_format, [path], columns=[c]).num_rows
+    raise HyperspaceException(
+        "Relation has no file-borne columns to derive row counts from."
+    )
+
+
+def _partition_file_batches(relation, path: str, columns, arrow_filter):
+    """Yield one file's batch with hive partition columns materialized.
+    The reference's streamed-chunk twin (``chunk_rows``) belongs to the
+    streaming build, which is not ported: a file is read whole."""
+    from . import partitions as P
+
+    spec = relation.partition_spec
+    file_cols, part_cols = _split_partition_columns(relation, columns)
+    values = P.partition_values_for(path, spec)
+    if not file_cols and part_cols:
+        # partition-only projection: no file bytes needed beyond the count
+        n = _file_row_count(relation, path)
+        consts = P.constant_columns(spec, values, n)
+        yield ColumnarBatch({name: consts[name] for name in part_cols})
+        return
+    chunk = read_files(
+        relation.read_format, [path], columns=file_cols, arrow_filter=arrow_filter
+    )
+    consts = P.constant_columns(spec, values, chunk.num_rows)
+    for name in part_cols:
+        chunk = chunk.with_column(name, consts[name])
+    yield chunk
 
 
 def read_relation(
     relation,
     paths: Optional[Iterable[str | Path]] = None,
     columns: Optional[List[str]] = None,
+    arrow_filter=None,
 ) -> ColumnarBatch:
-    """Read files of a FileRelation (all of them when ``paths`` is None)."""
+    """Read files of a FileRelation (all of them when ``paths`` is None),
+    materializing hive partition columns from the directory names
+    (storage.partitions). The one ingest entry point call sites should use
+    when they hold a relation — plain ``read_files`` knows nothing about
+    partition layout."""
     paths = (
         [f.name for f in relation.files] if paths is None else [str(p) for p in paths]
     )
-    return read_files(relation.read_format, paths, columns=columns)
+    if relation.partition_spec is None:
+        return read_files(
+            relation.read_format, paths, columns=columns, arrow_filter=arrow_filter
+        )
+    parts = []
+    for p in paths:
+        parts.extend(_partition_file_batches(relation, p, columns, arrow_filter))
+    out = ColumnarBatch.concat(parts)
+    return out.select(columns) if columns is not None else out

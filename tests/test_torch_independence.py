@@ -25,7 +25,11 @@ def test_import_leaves_jax_and_reference_out():
         "from hyperspace_tpu_torch import session, dataframe, hyperspace\n"
         "from hyperspace_tpu_torch.ops import kernels, build, hashing\n"
         "from hyperspace_tpu_torch.exec import executor\n"
-        "from hyperspace_tpu_torch.index import interop\n"
+        "from hyperspace_tpu_torch.index import interop, sketches\n"
+        "from hyperspace_tpu_torch.plananalysis import plan_analyzer\n"
+        "from hyperspace_tpu_torch.actions import create_skipping\n"
+        "from hyperspace_tpu_torch.plan.rules import column_pruning, data_skipping_rule\n"
+        "from hyperspace_tpu_torch.storage import partitions\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'hyperspace_tpu' or m.startswith('hyperspace_tpu.'))\n"
         "print(bad)\n"
