@@ -62,7 +62,22 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    li_year_skip (min/max on l_orderkey, bloom filter on l_partkey) keeps
    at most 14 of 28 files for a 2,000-key window, and a point filter on
    l_partkey equals numpy;
-6. one ``kernels`` JSON line, then the last line
+6. lifecycle — in a session of its own with lineage on: the same rows
+   written anew as ``src/lineitem_lc`` (8 avro files) and ``src/orders_lc``
+   (2), covering indexes li_lc and ord_lc (200 buckets), then TPC-H's
+   refresh functions as files appended to and removed from the sources
+   (RF1: 1,500 new orders a batch, 1 to 7 lineitems each, keys in
+   dbgen's unused slots; RF2: a batch's file removed): two batches
+   refreshed incrementally, RF2 through the lineage rewrite,
+   ``optimize_index`` quick and full, the resident range filter through
+   K1c, a quick refresh (the plan stays on the source), a full refresh,
+   then delete, restore, a hand-written REFRESHING head and ``cancel``,
+   delete and vacuum. At each step the range filter (and Q3) run with
+   launch counts from zero: K1 launches once per index file the scan
+   reads, K2 and its fence build once per Q3 served by both indexes, none
+   while the index is deleted or quick-refreshed. Every step is timed and
+   every result equals numpy over the source as it stands;
+7. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero without the last
@@ -840,8 +855,8 @@ def run_main_path(
 ) -> dict:
     """Build both indexes and run the three queries on ``device`` with
     residency off, then the resident phase and the front-end phase in the
-    same session; every result is checked against numpy. Returns timings
-    and counts."""
+    same session, then the lifecycle phase in its own; every result is
+    checked against numpy. Returns timings and counts."""
     import hyperspace_tpu_torch as hs
     from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
     from hyperspace_tpu_torch.plan.expr import col
@@ -945,6 +960,7 @@ def run_main_path(
         session, hsp, li_dir, od_dir, q3, [np.asarray(results["q3_join"].columns[c].data)
                                            for c in q3_cols],
         q3_want, L, workdir, seed, profile)
+    out["lifecycle"] = lifecycle_phase(lineitem, orders, workdir, device, seed, profile)
     return out
 
 
@@ -1245,6 +1261,323 @@ def front_end_phase(session, hsp, li_dir, od_dir, q3_hand, q3_hand_rows, q3_want
     return out
 
 
+# ---------------------------------------------------------------------------
+# lifecycle phase: TPC-H's refresh functions against two maintained indexes
+# ---------------------------------------------------------------------------
+def rf1_batches(orders: dict, seed: int, n_new: int, n_batches: int = 2):
+    """TPC-H RF1 (specification clause 2.5): ``n_new`` new orders a batch
+    (SF x 1,500), each with 1 to 7 lineitems. Their keys take dbgen's unused
+    slots, offsets 8..31 of each 32-key block (``make_tables`` fills
+    offsets 0..7), so new keys interleave with old ones in every bucket.
+    Returns [(lineitem part, orders part)] per batch."""
+    rng = np.random.default_rng(seed + 4)
+    n_blocks = (len(orders["o_orderkey"]) + 7) // 8
+    slots = rng.choice(n_blocks * 24, n_batches * n_new, replace=False)
+    keys = (slots // 24) * 32 + (slots % 24) + 9
+    out = []
+    for b in range(n_batches):
+        ok = np.sort(keys[b * n_new:(b + 1) * n_new]).astype(np.int64)
+        o_orderdate = rng.integers(DAY_1992_01_01, DAY_1998_08_02 - 151, n_new).astype(np.int32)
+        od = {"o_orderkey": ok,
+              "o_custkey": rng.integers(1, 150_001, n_new).astype(np.int64),
+              "o_orderdate": o_orderdate,
+              "o_totalprice": np.round(rng.uniform(850.0, 560_000.0, n_new), 2)}
+        counts = rng.integers(1, 8, n_new)
+        n = int(counts.sum())
+        qty = rng.integers(1, 51, n).astype(np.int64)
+        li = {"l_orderkey": np.repeat(ok, counts),
+              "l_partkey": rng.integers(1, 200_001, n).astype(np.int64),
+              "l_quantity": qty,
+              "l_shipdate": (np.repeat(o_orderdate, counts)
+                             + rng.integers(1, 122, n)).astype(np.int32),
+              "l_extendedprice": np.round(qty * rng.uniform(900.0, 2100.0, n), 2)}
+        out.append((li, od))
+    return out
+
+
+def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
+                    profile: bool = False) -> dict:
+    """The index lifecycle after create, in its own session with lineage
+    on: the SF1 rows written anew as ``src/lineitem_lc`` (8 avro files) and
+    ``src/orders_lc`` (2), covering indexes li_lc and ord_lc (200 buckets),
+    then TPC-H's refresh functions as a data lake sees them: RF1 appends
+    one avro file of new orders and their lineitems to each source, RF2
+    removes such a file. Steps: baseline; RF1 batch a appended (queries
+    fall back to the source) and refreshed incrementally; batch b the same;
+    RF2 of batch a through the lineage rewrite; optimize quick then full;
+    the resident range filter through K1c; batch a appended again and
+    refreshed quick (the plan stays on the source); a full refresh;
+    delete, restore, a hand-written REFRESHING head and cancel, delete and
+    vacuum. Every step is timed; launch counts start from zero before each
+    query; every result is held against numpy over the source as it
+    stands."""
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
+    from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
+    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.ops.kernels import K1, K1C, K2, K2F
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.storage import layout
+    from hyperspace_tpu_torch.storage.avro_io import write_avro
+    from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    on_card = device == "cuda"
+    n_new = max(1, int(round(1500 * len(orders["o_orderkey"]) / SF1_ORDERS)))
+    batches = dict(zip(("rf1_a", "rf1_b"), rf1_batches(orders, seed, n_new)))
+    t0 = time.perf_counter()
+    li_dir = Path(write_avro_dir(workdir / "src" / "lineitem_lc", lineitem, LINEITEM_SCHEMA, 8))
+    od_dir = Path(write_avro_dir(workdir / "src" / "orders_lc", orders, ORDERS_SCHEMA, 2))
+    out = {"write_s": time.perf_counter() - t0, "rf1_orders": n_new,
+           "rf1_lineitems": {k: len(li["l_orderkey"]) for k, (li, _od) in batches.items()},
+           "steps": []}
+    log(f"lifecycle: sources written anew in {out['write_s']:.3f} s; RF1 batches of {n_new} "
+        f"orders ({out['rf1_lineitems']} lineitems)")
+    present = {"base": (lineitem, orders)}  # the source as it stands, by file
+
+    def append(name):
+        li, od = batches[name]
+        write_avro(li_dir / f"part-{name}.avro", ColumnarBatch.from_pydict(li, schema=LINEITEM_SCHEMA))
+        write_avro(od_dir / f"part-{name}.avro", ColumnarBatch.from_pydict(od, schema=ORDERS_SCHEMA))
+        present[name] = batches[name]
+
+    def remove(name):
+        (li_dir / f"part-{name}.avro").unlink()
+        (od_dir / f"part-{name}.avro").unlink()
+        del present[name]
+
+    conf = {
+        "hyperspace.system.path": str(workdir / "indexes_lifecycle"),
+        "hyperspace.index.numBuckets": NUM_BUCKETS,
+        "hyperspace.index.build.mode": "inmemory",
+        "hyperspace.index.lineage.enabled": "true",
+        "hyperspace.torch.device": device,
+        "hyperspace.torch.hbm.mode": "off",
+    }
+    if not on_card:  # a rehearsal: below SF1 the zone gate would route away
+        conf["hyperspace.torch.hbm.maxBlockFrac"] = 1.0
+    session = hs.HyperspaceSession(hs.HyperspaceConf(conf))
+    hsp = hs.Hyperspace(session)
+    li_log = IndexLogManagerImpl(Path(conf["hyperspace.system.path"]) / "li_lc")
+    od_log = IndexLogManagerImpl(Path(conf["hyperspace.system.path"]) / "ord_lc")
+
+    def n_files(log_mgr) -> int:
+        entry = log_mgr.get_latest_stable_log()
+        return len(entry.content.files()) if entry is not None and entry.state == "ACTIVE" else 0
+
+    def timed_verb(fn, *args):
+        t = time.perf_counter()
+        with _Profiled(f"lifecycle {fn.__name__}{args}", profile):
+            fn(*args)
+        fence(session.device)
+        return time.perf_counter() - t
+
+    t_create = timed_verb(hsp.create_index, session.read.avro(str(li_dir)), hs.IndexConfig(
+        "li_lc", ["l_orderkey"], ["l_partkey", "l_quantity", "l_shipdate", "l_extendedprice"]))
+    t_create += timed_verb(hsp.create_index, session.read.avro(str(od_dir)), hs.IndexConfig(
+        "ord_lc", ["o_orderkey"], ["o_custkey", "o_orderdate", "o_totalprice"]))
+    session.enable_hyperspace()
+
+    top = int(lineitem["l_orderkey"].max())
+    lo_k, hi_k, d_lo = top // 6, top // 2, DAY_1995_03_15 - 365
+    r_cols = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
+    q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
+               "o_totalprice"]
+
+    def queries():
+        li, od = session.read.avro(str(li_dir)), session.read.avro(str(od_dir))
+        rng_q = li.filter((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+                          & (col("l_quantity") < 24) & (col("l_shipdate") >= d_lo)
+                          & (col("l_shipdate") < DAY_1995_03_15)).select(*r_cols)
+        q3 = li.filter(col("l_shipdate") > DAY_1993_06_01).select(
+            "l_orderkey", "l_extendedprice", "l_shipdate").join(
+            od.filter(col("o_orderdate") < DAY_1995_03_15).select(
+                "o_orderkey", "o_orderdate", "o_totalprice"),
+            col("l_orderkey") == col("o_orderkey"))
+        return rng_q, q3
+
+    def truth():
+        L = {c: np.concatenate([p[0][c] for p in present.values()]) for c in lineitem}
+        O = {c: np.concatenate([p[1][c] for p in present.values()]) for c in orders}
+        m = ((L["l_orderkey"] >= lo_k) & (L["l_orderkey"] < hi_k) & (L["l_quantity"] < 24)
+             & (L["l_shipdate"] >= d_lo) & (L["l_shipdate"] < DAY_1995_03_15))
+        o_ord = np.argsort(O["o_orderkey"])
+        lm = L["l_shipdate"] > DAY_1993_06_01
+        pos = o_ord[np.searchsorted(O["o_orderkey"], L["l_orderkey"][lm], sorter=o_ord)]
+        if not np.array_equal(O["o_orderkey"][pos], L["l_orderkey"][lm]):
+            raise AssertionError("lifecycle: a lineitem without its order in the source")
+        hit = O["o_orderdate"][pos] < DAY_1995_03_15
+        q3 = [L["l_orderkey"][lm][hit], L["l_extendedprice"][lm][hit], L["l_shipdate"][lm][hit],
+              O["o_orderkey"][pos[hit]], O["o_orderdate"][pos[hit]], O["o_totalprice"][pos[hit]]]
+        return [L[c][m] for c in r_cols], q3
+
+    def run(label, df):
+        reset_launch_counts()
+        metrics.reset()
+        t = time.perf_counter()
+        with _Profiled(f"lifecycle {label}", profile):
+            res = df.collect()
+        fence(session.device)
+        return res, time.perf_counter() - t, launch_counts(), metrics.snapshot()
+
+    def measure(step, verb_s, *, rewritten, q3=True, expect_files=None):
+        """Run the range filter (and Q3) and hold them against numpy."""
+        files, od_files = n_files(li_log), n_files(od_log)
+        if expect_files is not None and files != expect_files:
+            raise AssertionError(f"lifecycle {step}: {files} li_lc files, want {expect_files}")
+        want_r, want_q3 = truth()
+        rng_q, q3_q = queries()
+        used = rng_q.explain().split("Indexes used:")[1]
+        if ("li_lc:" in used) != rewritten:
+            raise AssertionError(f"lifecycle {step}: range filter indexes used {used.split()}")
+        res, t_r, launches, m = run(f"{step} range", rng_q)
+        _check(f"lifecycle {step} range filter", res, r_cols, want_r)
+        read = m.get("scan.files_read", 0)
+        k1 = launches.get(K1, 0)
+        if read > files:
+            raise AssertionError(f"lifecycle {step}: the scan read {read} of {files} files")
+        if k1 != (read if on_card and rewritten else 0):
+            raise AssertionError(f"lifecycle {step}: K1 launches {k1}, index files read {read}")
+        row = {"step": step, "verb_s": verb_s, "li_lc_files": files, "ord_lc_files": od_files,
+               "range_s": t_r,
+               "range_rows": res.num_rows, "range_files_read": read, "range_launches": launches,
+               "rewritten": rewritten}
+        text = (f"lifecycle {step}: verb {verb_s:.3f} s | li_lc files={files} ord_lc files="
+                f"{od_files} | range filter "
+                f"{t_r:.4f} s rows={res.num_rows} rewritten={rewritten} files read={read} "
+                f"launches={launches}")
+        if q3:
+            used3 = q3_q.explain().split("Indexes used:")[1]
+            if (("li_lc:" in used3) and ("ord_lc:" in used3)) != rewritten:
+                raise AssertionError(f"lifecycle {step}: Q3 indexes used {used3.split()}")
+            res3, t_q3, l3, m3 = run(f"{step} Q3", q3_q)
+            _check(f"lifecycle {step} Q3", res3, q3_cols, want_q3)
+            bucketed = rewritten and not (m3.get("join.path.device_kernel", 0)
+                                          + m3.get("join.path.host_searchsorted", 0) == 0)
+            want_k2 = 1 if on_card and rewritten else l3.get(K2, 0)
+            if (l3.get(K2, 0), l3.get(K2F, 0)) != (want_k2, want_k2) or (rewritten and not bucketed):
+                raise AssertionError(f"lifecycle {step}: Q3 launches {l3}, paths {m3}")
+            row.update(q3_s=t_q3, q3_rows=res3.num_rows, q3_launches=l3,
+                       q3_join_path={k: v for k, v in m3.items() if k.startswith("join.path")})
+            text += f" | Q3 {t_q3:.4f} s rows={res3.num_rows} launches={l3}"
+        out["steps"].append(row)
+        log(text + " | matches numpy")
+        return row
+
+    measure("1 baseline", t_create, rewritten=True, expect_files=NUM_BUCKETS)
+
+    append("rf1_a")
+    measure("2 rf1_a appended, before refresh", 0.0, rewritten=False)
+    t = timed_verb(hsp.refresh_index, "li_lc", "incremental")
+    t += timed_verb(hsp.refresh_index, "ord_lc", "incremental")
+    measure("2 rf1_a refreshed incrementally", t, rewritten=True)
+
+    append("rf1_b")
+    t = timed_verb(hsp.refresh_index, "li_lc", "incremental")
+    t += timed_verb(hsp.refresh_index, "ord_lc", "incremental")
+    measure("3 rf1_b refreshed incrementally", t, rewritten=True)
+
+    gone = set(batches["rf1_a"][0]["l_orderkey"].tolist())
+    remove("rf1_a")
+    t = timed_verb(hsp.refresh_index, "li_lc", "incremental")
+    t += timed_verb(hsp.refresh_index, "ord_lc", "incremental")
+    row = measure("4 RF2 of rf1_a refreshed incrementally (lineage rewrite)", t, rewritten=True)
+    res = session.read.avro(str(li_dir)).filter(
+        (col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)).select("l_orderkey").collect()
+    if gone & set(np.asarray(res.columns["l_orderkey"].data).tolist()):
+        raise AssertionError("lifecycle: rows of the deleted RF1 file came back")
+
+    for mode in ("quick", "full"):
+        before_id = li_log.get_latest_id()
+        entry = li_log.get_latest_stable_log()
+        by_bucket = {}
+        for f in entry.content.files():
+            by_bucket.setdefault(layout.bucket_of_file(f), []).append(f)
+        merged_rows = sum(layout.cached_reader(f).num_rows for fs in by_bucket.values()
+                          if len(fs) > 1 for f in fs)
+        t = timed_verb(hsp.optimize_index, "li_lc", mode)
+        noop = li_log.get_latest_id() == before_id
+        out[f"optimize_{mode}"] = {"s": t, "rows_merged": 0 if noop else merged_rows,
+                                   "buckets_merged": 0 if noop else sum(
+                                       len(fs) > 1 for fs in by_bucket.values()),
+                                   "no_op": noop}
+        log(f"lifecycle 5 optimize_index(li_lc, {mode}): {t:.3f} s, "
+            f"{out[f'optimize_{mode}']['rows_merged']} rows merged in "
+            f"{out[f'optimize_{mode}']['buckets_merged']} buckets"
+            + (" (a no-op: every bucket holds one file)" if noop else ""))
+    measure("5 optimized", out["optimize_quick"]["s"] + out["optimize_full"]["s"],
+            rewritten=True, expect_files=NUM_BUCKETS)
+
+    # 6. the resident range filter over the optimized version
+    session.conf.set("hyperspace.torch.hbm.mode", "auto" if on_card else "force")
+    t = time.perf_counter()
+    if not hsp.prefetch_index("li_lc", LI_RESIDENT):
+        raise AssertionError("prefetch_index(li_lc) did not make the index resident")
+    hbm_cache.wait_background()
+    fence(session.device)
+    t_pre = time.perf_counter() - t
+    want_r, _ = truth()
+    rng_q, _ = queries()
+    res, t_res, launches, m = run("6 resident range", rng_q)
+    session.conf.set("hyperspace.torch.hbm.mode", "off")
+    per_file, _t, _l, _m = run("6 per-file range", rng_q)
+    _check("lifecycle resident range filter", res, r_cols, want_r)
+    _check("lifecycle per-file range filter", per_file, r_cols, want_r)
+    if m.get("scan.path.resident_device", 0) != 1 or launches.get(K1C, 0) != (1 if on_card else 0) \
+            or launches.get(K1, 0):
+        raise AssertionError(f"lifecycle resident: launches {launches}, paths {m}")
+    out["resident"] = {"prefetch_s": t_pre, "s": t_res, "rows": res.num_rows,
+                       "launches": launches,
+                       "blocks_touched": m.get("scan.resident.blocks_touched", 0),
+                       "blocks_total": m.get("scan.resident.blocks_total", 0)}
+    log(f"lifecycle 6 resident: prefetch_index(li_lc) {t_pre:.3f} s | range filter {t_res:.4f} s "
+        f"rows={res.num_rows} launches={launches} blocks touched "
+        f"{out['resident']['blocks_touched']} of {out['resident']['blocks_total']} | "
+        f"matches numpy and the per-file result")
+
+    append("rf1_a")
+    t = timed_verb(hsp.refresh_index, "li_lc", "quick")
+    t += timed_verb(hsp.refresh_index, "ord_lc", "quick")
+    if li_log.get_latest_stable_log().source_update() is None:
+        raise AssertionError("lifecycle: quick refresh recorded no source delta")
+    measure("7 rf1_a appended again, refreshed quick (plan stays on the source)", t,
+            rewritten=False)
+
+    t = timed_verb(hsp.refresh_index, "li_lc", "full")
+    t += timed_verb(hsp.refresh_index, "ord_lc", "full")
+    measure("8 refreshed full", t, rewritten=True, expect_files=NUM_BUCKETS)
+
+    # 9. delete, restore, a writer that died mid-refresh, cancel, vacuum
+    t = timed_verb(hsp.delete_index, "li_lc")
+    measure("9 deleted", t, rewritten=False, q3=False)
+    t = timed_verb(hsp.restore_index, "li_lc")
+    measure("9 restored", t, rewritten=True, q3=False, expect_files=NUM_BUCKETS)
+    head = li_log.get_latest_log()
+    head.id += 1
+    head.state = "REFRESHING"
+    if not li_log.write_log(head.id, head):
+        raise AssertionError("lifecycle: could not write the REFRESHING head")
+    session.collection_manager.clear_cache()  # written behind the session's back
+    states = {s.name: s.state for s in hsp.indexes()}
+    if states.get("li_lc") != "REFRESHING":
+        raise AssertionError(f"lifecycle: states {states}")
+    measure("9 REFRESHING head (served from the stable snapshot)", 0.0, rewritten=True,
+            q3=False, expect_files=NUM_BUCKETS)
+    t = timed_verb(hsp.cancel, "li_lc")
+    states = {s.name: s.state for s in hsp.indexes()}
+    if states.get("li_lc") != "ACTIVE":
+        raise AssertionError(f"lifecycle: after cancel, states {states}")
+    measure("9 cancelled", t, rewritten=True, q3=False, expect_files=NUM_BUCKETS)
+    t = timed_verb(hsp.delete_index, "li_lc") + timed_verb(hsp.vacuum_index, "li_lc")
+    left = sorted(p.name for p in (Path(conf["hyperspace.system.path"]) / "li_lc").glob("v__=*"))
+    names = [s.name for s in hsp.indexes()]
+    if left or "li_lc" in names:
+        raise AssertionError(f"lifecycle vacuum: version dirs {left} left, indexes {names}")
+    measure("9 deleted and vacuumed", t, rewritten=False, q3=False)
+    log(f"lifecycle: after vacuum no v__ directory is left and indexes() lists {names}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1341,6 +1674,7 @@ def main() -> int:
     log(json.dumps({"main_path": {k: main_out[k] for k in ("build_s", "query_s", "rows")},
                     "resident_path": main_out["resident"],
                     "front_end": main_out["front_end"],
+                    "lifecycle": main_out["lifecycle"],
                     "kernel_cases": kphase, "ptxas": ptxas,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps(line))

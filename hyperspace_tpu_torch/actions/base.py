@@ -13,7 +13,8 @@ the operation log.
      recreate ``latestStable``.
 
 A writer that fails between begin and end leaves its transient entry in
-the log; writer leases and automatic recovery are not ported here.
+the log, and ``cancel()`` (actions/metadata_actions.py) is how an operator
+rolls it back; writer leases and automatic recovery are not ported here.
 """
 
 from __future__ import annotations
@@ -21,8 +22,12 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-from ..exceptions import ConcurrentModificationException, NoChangesException
-from ..index.log_entry import LogEntry
+from ..exceptions import (
+    ConcurrentModificationException,
+    HyperspaceException,
+    NoChangesException,
+)
+from ..index.log_entry import IndexLogEntry, LogEntry
 from ..index.log_manager import IndexLogManager
 from ..telemetry import EventLogging, HyperspaceEvent
 from . import states
@@ -109,3 +114,66 @@ class Action(EventLogging):
             )
         if self.final_state in states.STABLE_STATES:
             self.log_manager.create_latest_stable_log(entry.id)
+
+
+def _load_latest_entry(log_manager: IndexLogManager) -> IndexLogEntry:
+    """The LATEST log entry, not the latest stable one: modifying actions
+    validate against ``getLog(baseId)`` (RefreshActionBase.scala:43-55), so
+    an index stuck in a transient state refuses further modification until
+    cancel() rolls it back."""
+    entry = log_manager.get_latest_log()
+    if entry is None:
+        raise HyperspaceException("Index does not exist.")
+    return entry
+
+
+class MaintenanceActionBase:
+    """Shared by actions that rebuild index *data* from an existing entry
+    (the refresh family, optimize): the previous entry plus the next
+    data-version directory."""
+
+    log_manager: IndexLogManager
+    _previous: Optional[IndexLogEntry]
+
+    @property
+    def previous_entry(self) -> IndexLogEntry:
+        if self._previous is None:
+            self._previous = _load_latest_entry(self.log_manager)
+        return self._previous
+
+    def next_version_dir(self):
+        """Path of the next ``v__=<k>`` data directory (a new immutable
+        snapshot per rebuild, CreateActionBase.scala:33-38)."""
+        return self.data_manager.get_path(  # type: ignore[attr-defined]
+            (self.data_manager.get_latest_version_id() or 0) + 1  # type: ignore[attr-defined]
+        )
+
+
+class IndexAction(Action):
+    """Base for actions operating on an *existing* index: loads the previous
+    entry and validates its state (DeleteAction.scala and its siblings)."""
+
+    def __init__(self, log_manager: IndexLogManager):
+        super().__init__(log_manager)
+        self._previous: Optional[IndexLogEntry] = None
+
+    @property
+    def allowed_previous_states(self) -> tuple:
+        raise NotImplementedError
+
+    @property
+    def previous_entry(self) -> IndexLogEntry:
+        if self._previous is None:
+            self._previous = _load_latest_entry(self.log_manager)
+        return self._previous
+
+    def validate(self) -> None:
+        if self.previous_entry.state not in self.allowed_previous_states:
+            raise HyperspaceException(
+                f"{type(self).__name__} is only supported in "
+                f"{'/'.join(self.allowed_previous_states)} states; current state "
+                f"is {self.previous_entry.state}."
+            )
+
+    def log_entry(self) -> LogEntry:
+        return self.previous_entry

@@ -6,8 +6,7 @@ every source file to its per-column sketches (index/sketches.py). The
 Action begin/op/end protocol, versioned data dirs, and signature
 fingerprinting are shared with the covering path (Action.scala:34-104,
 CreateActionBase.scala:50-95). Parity: ``hyperspace_tpu.actions.
-create_skipping``; its refresh action waits for the refresh actions of the
-covering path and raises "not yet ported" here.
+create_skipping`` (create, and refresh full or incremental).
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import json
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from ..exceptions import HyperspaceException
+from ..exceptions import HyperspaceException, NoChangesException
 from ..index.data_manager import IndexDataManager
 from ..index.index_config import DataSkippingIndexConfig
 from ..index.log_entry import (
@@ -34,14 +33,20 @@ from ..index.log_entry import (
 )
 from ..index.log_manager import IndexLogManager
 from ..index.signatures import create_signature_provider
-from ..index.sketches import SKETCH_FILE_NAME, SketchSpec, sketch_key
+from ..index.sketches import (
+    SKETCH_FILE_NAME,
+    SketchSpec,
+    load_sketch_table,
+    sketch_from_json_dict,
+    sketch_key,
+)
 from ..plan.ir import Scan
 from ..sources.relation import FileRelation
 from ..storage import parquet_io
-from ..telemetry import CreateActionEvent
+from ..telemetry import CreateActionEvent, RefreshActionEvent
 from ..utils import resolver
 from . import states
-from .base import Action
+from .base import Action, MaintenanceActionBase
 from .create import CreateActionBase
 
 
@@ -214,13 +219,79 @@ class DataSkippingCreateAction(Action, CreateActionBase, SkippingActionBase):
         )
 
 
-class DataSkippingRefreshAction:
-    """Refresh for sketch indexes (full resketch, or incremental: carry
-    unchanged files' sketches over). Not yet ported: it lands with the
-    covering path's refresh actions."""
+class DataSkippingRefreshAction(
+    Action, CreateActionBase, SkippingActionBase, MaintenanceActionBase
+):
+    """Refresh for sketch indexes. ``full`` resketches every current file;
+    ``incremental`` carries unchanged files' sketches over and sketches
+    only appended files (deleted files simply drop out of the table)."""
 
-    def __init__(self, *args, **kwargs):
-        raise HyperspaceException(
-            "Refreshing a data-skipping index is not yet ported to "
-            "hyperspace_tpu_torch."
+    transient_state = states.REFRESHING
+    final_state = states.ACTIVE
+
+    def __init__(
+        self,
+        session,
+        log_manager: IndexLogManager,
+        data_manager: IndexDataManager,
+        incremental: bool,
+    ):
+        Action.__init__(self, log_manager)
+        CreateActionBase.__init__(self, session)
+        self.data_manager = data_manager
+        self.incremental = incremental
+        self._previous: Optional[IndexLogEntry] = None
+        self._relation: Optional[FileRelation] = None
+        self._entry: Optional[IndexLogEntry] = None
+
+    @property
+    def relation(self) -> FileRelation:
+        if self._relation is None:
+            self._relation = self.session.sources.refresh_relation(
+                self.previous_entry.relation
+            )
+        return self._relation
+
+    def validate(self) -> None:
+        if self.previous_entry.state != states.ACTIVE:
+            raise HyperspaceException(
+                "Refresh is only supported in ACTIVE state; current is "
+                f"{self.previous_entry.state}."
+            )
+        if set(self.relation.files) == set(self.previous_entry.source_file_infos()):
+            raise NoChangesException("Source data did not change; refresh is a no-op.")
+
+    def op(self) -> None:
+        prev = self.previous_entry
+        rel = self.relation
+        sketches = [sketch_from_json_dict(s) for s in prev.derived_dataset.sketches]
+        if self.incremental:
+            old = load_sketch_table(prev.content.files()) or {}
+            # diff on full FileInfo identity (name, size, mtime): a file
+            # modified in place is re-sketched, as the covering refresh
+            # treats it as deleted + appended (RefreshActionBase.scala:112-147)
+            logged = set(prev.source_file_infos())
+            current = list(rel.files)
+            changed = [f for f in current if f not in logged]
+            table = {
+                f.name: old[f.name]
+                for f in current
+                if f in logged and f.name in old
+            }
+            table.update(build_sketch_table(rel, sketches, changed))
+        else:
+            table = build_sketch_table(rel, sketches)
+        sketch_file = self.write_sketches(
+            sketches, self.next_version_dir(), table
+        )
+        self._entry = self.build_skipping_entry(
+            prev.name, rel, Scan(rel), sketches, sketch_file, self.conf
+        )
+
+    def log_entry(self) -> LogEntry:
+        return self._entry if self._entry is not None else self.previous_entry
+
+    def event(self, message: str):
+        return RefreshActionEvent(
+            index=self.previous_entry.name, state=self.final_state, message=message
         )

@@ -25,6 +25,10 @@ class HyperspaceConf:
         self._values[key] = value
         return self
 
+    def unset(self, key: str) -> "HyperspaceConf":
+        self._values.pop(key, None)
+        return self
+
     def get(self, key: str, default: Any = None) -> Any:
         return self._values.get(key, default)
 
@@ -62,6 +66,21 @@ class HyperspaceConf:
     def hybrid_scan_enabled(self) -> bool:
         return self._to_bool(
             self.get(C.INDEX_HYBRID_SCAN_ENABLED, C.INDEX_HYBRID_SCAN_ENABLED_DEFAULT)
+        )
+
+    def cache_expiry_seconds(self) -> int:
+        return int(
+            self.get(
+                C.INDEX_CACHE_EXPIRY_DURATION_SECONDS,
+                C.INDEX_CACHE_EXPIRY_DURATION_SECONDS_DEFAULT,
+            )
+        )
+
+    def optimize_file_size_threshold(self) -> int:
+        return int(
+            self.get(
+                C.OPTIMIZE_FILE_SIZE_THRESHOLD, C.OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT
+            )
         )
 
     def event_logger_class(self) -> Optional[str]:

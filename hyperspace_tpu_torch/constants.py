@@ -34,11 +34,18 @@ INDEX_LINEAGE_ENABLED_DEFAULT = False
 DATA_FILE_NAME_ID = "_data_file_id"
 UNKNOWN_FILE_ID = -1
 
+# --- index collection cache (CachingIndexCollectionManager) ------------------
+INDEX_CACHE_EXPIRY_DURATION_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
+INDEX_CACHE_EXPIRY_DURATION_SECONDS_DEFAULT = 300
+
 # --- lifecycle modes ---------------------------------------------------------
-# Refresh and optimize are not yet ported; the collection manager checks a
-# data-skipping index's mode as the reference does before it refuses.
+# optimize(quick) merges a bucket's files below the size threshold; full
+# merges every bucket holding more than one file
+OPTIMIZE_FILE_SIZE_THRESHOLD = "hyperspace.index.optimize.fileSizeThreshold"
+OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT = 256 * 1024 * 1024  # 256 MB
 OPTIMIZE_MODE_QUICK = "quick"
 OPTIMIZE_MODE_FULL = "full"
+OPTIMIZE_MODES = (OPTIMIZE_MODE_QUICK, OPTIMIZE_MODE_FULL)
 REFRESH_MODE_INCREMENTAL = "incremental"
 REFRESH_MODE_FULL = "full"
 REFRESH_MODE_QUICK = "quick"

@@ -1,8 +1,10 @@
 """The Hyperspace facade: index management verbs bound to a session.
 
-Parity: com/microsoft/hyperspace/Hyperspace.scala — the create, list,
-describe and explain verbs, and the reference package's
-``prefetch_index``; the other lifecycle verbs are not yet ported.
+Parity: com/microsoft/hyperspace/Hyperspace.scala:34-165 — the lifecycle
+verbs (create, delete, restore, vacuum, refresh, optimize, cancel), list,
+describe and explain, and the reference package's ``prefetch_index``.
+The reference package's ``compact_index`` (the background compactor's
+verb), ``doctor`` and ``serve`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,15 +48,23 @@ class Hyperspace:
     def index(self, name: str) -> IndexStatistics:
         return self._manager.index(name)
 
+    def delete_index(self, name: str) -> None:
+        self._manager.delete(name)
+
+    def restore_index(self, name: str) -> None:
+        self._manager.restore(name)
+
+    def vacuum_index(self, name: str) -> None:
+        self._manager.vacuum(name)
+
     def refresh_index(self, name: str, mode: str = C.REFRESH_MODE_FULL) -> None:
-        """Not yet ported: raises (after the reference's own refusals for a
-        data-skipping index)."""
         self._manager.refresh(name, mode)
 
     def optimize_index(self, name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> None:
-        """Not yet ported: raises (after the reference's own refusal for a
-        data-skipping index)."""
         self._manager.optimize(name, mode)
+
+    def cancel(self, name: str) -> None:
+        self._manager.cancel(name)
 
     def explain(self, df: DataFrame, verbose: bool = False) -> str:
         from .plananalysis.plan_analyzer import explain_string
@@ -73,7 +83,10 @@ class Hyperspace:
         return self._manager.prefetch(name, columns)
 
     # camelCase aliases for reference-API parity
+    prefetchIndex = prefetch_index
     createIndex = create_index
+    deleteIndex = delete_index
+    restoreIndex = restore_index
+    vacuumIndex = vacuum_index
     refreshIndex = refresh_index
     optimizeIndex = optimize_index
-    prefetchIndex = prefetch_index

@@ -1,12 +1,18 @@
 """IndexCollectionManager: dispatches the management verbs to their
 actions with per-index log/data managers, and enumerates indexes.
 
-Parity: com/microsoft/hyperspace/index/IndexCollectionManager.scala —
-create (covering and data-skipping) and the read-only verbs, plus
-``prefetch`` (HBM residency, a verb the reference package added). The
-other lifecycle actions (delete, restore, vacuum, refresh, optimize,
-cancel) are not yet ported: refresh and optimize raise, after the checks
-the reference makes first for a data-skipping index.
+Parity: com/microsoft/hyperspace/index/IndexCollectionManager.scala:36-152
+and CachingIndexCollectionManager.scala:38-106 (a TTL cache over the
+index listing that every mutating verb clears), plus ``prefetch`` (HBM
+residency, a verb the reference package added).
+
+The reference also drops, after a verb that rewrites or removes index
+data, caches this package does not have yet; they come with items of
+ROADMAP.md's queue A: resident deltas (item 3, hybrid scan), resident join
+regions and the mesh cache (item 7, residency), and compiled pipelines
+with their memoized results (item 8, compiler and serving). The resident
+tables this package keeps are keyed by file identity, so a new version
+never reads an old one's planes.
 """
 
 from __future__ import annotations
@@ -16,8 +22,21 @@ from typing import List, Optional
 from .. import constants as C
 from ..actions import states
 from ..actions.create import CreateAction
+from ..actions.metadata_actions import (
+    CancelAction,
+    DeleteAction,
+    RestoreAction,
+    VacuumAction,
+)
+from ..actions.optimize import OptimizeAction
+from ..actions.refresh import (
+    RefreshAction,
+    RefreshIncrementalAction,
+    RefreshQuickAction,
+)
 from ..exceptions import HyperspaceException
 from ..index.log_entry import IndexLogEntry
+from .cache import CreationTimeBasedCache
 from .data_manager import IndexDataManagerImpl
 from .log_manager import IndexLogManagerImpl
 from .path_resolver import PathResolver
@@ -64,16 +83,23 @@ class IndexCollectionManager:
             self._data_manager(config.index_name),
         ).run()
 
-    def _is_skipping(self, name: str) -> bool:
-        latest = self._existing_log_manager(name).get_latest_stable_log()
-        return (
-            latest is not None
-            and latest.derived_dataset.kind == "DataSkippingIndex"
-        )
+    def delete(self, name: str) -> None:
+        DeleteAction(self._existing_log_manager(name), self.conf).run()
+
+    def restore(self, name: str) -> None:
+        RestoreAction(self._existing_log_manager(name), self.conf).run()
+
+    def vacuum(self, name: str) -> None:
+        VacuumAction(
+            self._existing_log_manager(name), self._data_manager(name), self.conf
+        ).run()
 
     def refresh(self, name: str, mode: str = C.REFRESH_MODE_FULL) -> None:
+        mgr = self._existing_log_manager(name)
+        data = self._data_manager(name)
         mode = mode.lower()
-        if self._is_skipping(name):
+        latest = mgr.get_latest_stable_log()
+        if latest is not None and latest.derived_dataset.kind == "DataSkippingIndex":
             from ..actions.create_skipping import DataSkippingRefreshAction
 
             if mode == C.REFRESH_MODE_QUICK:
@@ -87,21 +113,38 @@ class IndexCollectionManager:
                     f"{C.REFRESH_MODES}."
                 )
             DataSkippingRefreshAction(
-                self.session, incremental=mode == C.REFRESH_MODE_INCREMENTAL
+                self.session, mgr, data, incremental=mode == C.REFRESH_MODE_INCREMENTAL
+            ).run()
+            return
+        if mode == C.REFRESH_MODE_FULL:
+            RefreshAction(self.session, mgr, data).run()
+        elif mode == C.REFRESH_MODE_INCREMENTAL:
+            RefreshIncrementalAction(self.session, mgr, data).run()
+        elif mode == C.REFRESH_MODE_QUICK:
+            RefreshQuickAction(self.session, mgr, data).run()
+        else:
+            raise HyperspaceException(
+                f"Unsupported refresh mode {mode!r}; supported modes are "
+                f"{C.REFRESH_MODES}."
             )
-        raise HyperspaceException(
-            "Refreshing a covering index is not yet ported to hyperspace_tpu_torch."
-        )
 
     def optimize(self, name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> None:
-        if self._is_skipping(name):
+        latest = self._existing_log_manager(name).get_latest_stable_log()
+        if latest is not None and latest.derived_dataset.kind == "DataSkippingIndex":
             raise HyperspaceException(
                 "Optimize is not supported for data-skipping indexes (the "
                 "sketch table is a single metadata file, nothing to compact)."
             )
-        raise HyperspaceException(
-            "Optimizing an index is not yet ported to hyperspace_tpu_torch."
-        )
+        OptimizeAction(
+            self.session, self._existing_log_manager(name), self._data_manager(name), mode
+        ).run()
+
+    def cancel(self, name: str) -> None:
+        CancelAction(
+            self._existing_log_manager(name),
+            self.conf,
+            data_manager=self._data_manager(name),
+        ).run()
 
     def _enumerate(self):
         """(latest entry, stable entry or None) per index directory."""
@@ -178,3 +221,59 @@ class IndexCollectionManager:
             )
             is not None
         )
+
+
+class CachingIndexCollectionManager(IndexCollectionManager):
+    """TTL cache over the index listing; every mutating verb clears it
+    before and after (CachingIndexCollectionManager.scala:38-106)."""
+
+    def __init__(self, session):
+        super().__init__(session)
+        self._cache: CreationTimeBasedCache[list] = CreationTimeBasedCache(
+            self.conf.cache_expiry_seconds
+        )
+
+    def clear_cache(self) -> None:
+        self._cache.clear()
+
+    def _enumerate(self):
+        cached = self._cache.get()
+        if cached is None:
+            cached = super()._enumerate()
+            self._cache.set(cached)
+        return cached
+
+    def create(self, df, config):
+        self.clear_cache()
+        super().create(df, config)
+        self.clear_cache()
+
+    def delete(self, name):
+        self.clear_cache()
+        super().delete(name)
+        self.clear_cache()
+
+    def restore(self, name):
+        self.clear_cache()
+        super().restore(name)
+        self.clear_cache()
+
+    def vacuum(self, name):
+        self.clear_cache()
+        super().vacuum(name)
+        self.clear_cache()
+
+    def refresh(self, name, mode=C.REFRESH_MODE_FULL):
+        self.clear_cache()
+        super().refresh(name, mode)
+        self.clear_cache()
+
+    def optimize(self, name, mode=C.OPTIMIZE_MODE_QUICK):
+        self.clear_cache()
+        super().optimize(name, mode)
+        self.clear_cache()
+
+    def cancel(self, name):
+        self.clear_cache()
+        super().cancel(name)
+        self.clear_cache()

@@ -49,6 +49,11 @@ class IndexDataManagerImpl(IndexDataManager):
         ]
         return max(ids) if ids else None
 
+    def get_all_version_ids(self) -> List[int]:
+        return sorted(
+            int(_VERSION_RE.search(p.name).group(1)) for p in self._version_dirs()
+        )
+
     def get_path(self, id: int) -> Path:
         """Path of version dir ``id`` (IndexDataManager.scala:69-71)."""
         return self._index_path / f"{C.INDEX_VERSION_DIRECTORY_PREFIX}={id}"

@@ -1,8 +1,8 @@
 """User-facing index specifications.
 
 Parity: com/microsoft/hyperspace/index/IndexConfig.scala:28-165 —
-case-insensitive equality and duplicate-column checks — plus
-DataSkippingIndexConfig for the sketch-index kind (index/sketches.py).
+case-insensitive equality, duplicate-column checks and a fluent builder —
+plus DataSkippingIndexConfig for the sketch-index kind (index/sketches.py).
 """
 
 from __future__ import annotations
@@ -65,6 +65,46 @@ class IndexConfig:
             f"IndexConfig({self.index_name}, indexed={self.indexed_columns}, "
             f"included={self.included_columns})"
         )
+
+    @staticmethod
+    def builder() -> "IndexConfigBuilder":
+        return IndexConfigBuilder()
+
+
+class IndexConfigBuilder:
+    """Fluent builder (IndexConfig.scala:88-165)."""
+
+    def __init__(self) -> None:
+        self._name: str = ""
+        self._indexed: List[str] = []
+        self._included: List[str] = []
+
+    def index_name(self, name: str) -> "IndexConfigBuilder":
+        if self._name:
+            raise HyperspaceException("Index name is already set.")
+        if not name:
+            raise HyperspaceException("Index name cannot be empty.")
+        self._name = name
+        return self
+
+    def index_by(self, *columns: str) -> "IndexConfigBuilder":
+        if self._indexed:
+            raise HyperspaceException("indexBy can only be called once.")
+        if not columns:
+            raise HyperspaceException("Indexed columns cannot be empty.")
+        self._indexed = list(columns)
+        return self
+
+    def include(self, *columns: str) -> "IndexConfigBuilder":
+        if self._included:
+            raise HyperspaceException("include can only be called once.")
+        if not columns:
+            raise HyperspaceException("Included columns cannot be empty.")
+        self._included = list(columns)
+        return self
+
+    def create(self) -> IndexConfig:
+        return IndexConfig(self._name, self._indexed, self._included)
 
 
 class DataSkippingIndexConfig:

@@ -224,3 +224,80 @@ def build_partition_single(
                 col.vocab,
             )
     return out, counts
+
+
+# ---------------------------------------------------------------------------
+# host merge of key-sorted runs (optimize's per-bucket merge)
+# ---------------------------------------------------------------------------
+def _pack_sort_keys(
+    encs: List[np.ndarray],
+    bucket: Optional[np.ndarray],
+    num_buckets: int,
+) -> Optional[np.ndarray]:
+    """Bit-pack (bucket?, enc1-min1, enc2-min2, ...) into one int64 whose
+    ascending order equals the lexicographic order of the inputs, or None
+    when the widths don't fit 63 bits (the caller then lexsorts). The
+    budget rule is ``_pack_plan``'s, shared with the device build."""
+    if not encs or not len(encs[0]):
+        return None
+    bounds = []
+    i64_max, i64_min = (1 << 63) - 1, -(1 << 63)
+    for e in encs:
+        mn = int(e.min())
+        mx = int(e.max())
+        if mx > i64_max or mn < i64_min:
+            return None  # uint64 beyond int64: the bias cast would raise
+        bounds.append((mn, mx))
+    bucket_bits = (
+        max(int(num_buckets - 1), 1).bit_length() if bucket is not None else 0
+    )
+    plan = _pack_plan(bounds, bucket_bits)
+    if plan is None:
+        return None
+    comp = (
+        bucket.astype(np.int64)
+        if bucket is not None
+        else np.zeros(len(encs[0]), dtype=np.int64)
+    )
+    for e, (mn, kb) in zip(encs, plan):
+        comp = (comp << np.int64(kb)) | (e.astype(np.int64) - np.int64(mn))
+    return comp
+
+
+def merge_sorted_orders(
+    runs: List[Tuple[np.ndarray, np.ndarray]],
+) -> np.ndarray:
+    """Merge per-run (sorted_keys, row_indices) pairs into one global
+    row-index order, stably: ties keep run order (run i's rows before run
+    j's for i < j), exactly like a stable argsort over the concatenation.
+    A pairwise searchsorted tournament: each pass is a few vectorized
+    binary-search merges instead of a full re-sort."""
+    runs = [r for r in runs if len(r[1])]
+    if not runs:
+        return np.empty(0, dtype=np.int64)
+    while len(runs) > 1:
+        nxt: List[Tuple[np.ndarray, np.ndarray]] = []
+        # adjacent pairs only: merging (0,1),(2,3)... keeps the global run
+        # order that makes the merge stable
+        for i in range(0, len(runs) - 1, 2):
+            (ak, ai), (bk, bi) = runs[i], runs[i + 1]
+            la, lb = len(ak), len(bk)
+            # merged position of a[x] = x + |b strictly before a[x]|;
+            # of b[y] = y + |a at-or-before b[y]| (ties: a first)
+            pos_a = np.arange(la, dtype=np.int64) + np.searchsorted(
+                bk, ak, side="left"
+            )
+            pos_b = np.arange(lb, dtype=np.int64) + np.searchsorted(
+                ak, bk, side="right"
+            )
+            mk = np.empty(la + lb, dtype=ak.dtype)
+            mi = np.empty(la + lb, dtype=np.int64)
+            mk[pos_a] = ak
+            mk[pos_b] = bk
+            mi[pos_a] = ai
+            mi[pos_b] = bi
+            nxt.append((mk, mi))
+        if len(runs) % 2:
+            nxt.append(runs[-1])
+        runs = nxt
+    return np.asarray(runs[0][1], dtype=np.int64)

@@ -16,7 +16,6 @@ from typing import List, Optional, Tuple
 
 from ... import constants as C
 from ...config import HyperspaceConf
-from ...exceptions import HyperspaceException
 from ...index.log_entry import IndexLogEntry
 from ...index.sketches import load_sketch_table, sketch_from_json_dict, sketch_key
 from ..expr import bounds_for_column, pinned_values
@@ -124,7 +123,7 @@ class DataSkippingFilterRule:
                     applied.append(entry)
                     return new_node
                 return None
-            except (HyperspaceException, OSError, ValueError, KeyError) as e:
+            except Exception as e:
                 # never break the query (FilterIndexRule.scala:79-83): a
                 # vacuumed or corrupt sketches.json leaves the scan unpruned
                 logger.warning("DataSkippingFilterRule skipped: %s", e)

@@ -144,9 +144,9 @@ class HyperspaceSession:
     @property
     def collection_manager(self):
         if self._collection_manager is None:
-            from .index.collection_manager import IndexCollectionManager
+            from .index.collection_manager import CachingIndexCollectionManager
 
-            self._collection_manager = IndexCollectionManager(self)
+            self._collection_manager = CachingIndexCollectionManager(self)
         return self._collection_manager
 
     # -- IO ------------------------------------------------------------------

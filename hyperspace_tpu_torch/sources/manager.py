@@ -40,11 +40,14 @@ class FileBasedSourceProviderManager:
 
     @staticmethod
     def _build(spec: Optional[str]) -> List[FileBasedSourceProvider]:
+        from .versioned_lake import VersionedLakeSource
+
         providers: List[FileBasedSourceProvider] = []
         if spec:
             for s in spec.split(","):
                 providers.append(_load_provider(s.strip()))
         providers.append(DefaultFileBasedSource())
+        providers.append(VersionedLakeSource())
         return providers
 
     def providers(self) -> List[FileBasedSourceProvider]:

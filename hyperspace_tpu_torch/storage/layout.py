@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import uuid
 from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Tuple
@@ -37,6 +38,16 @@ def _pad(n: int) -> int:
 
 def bucket_file_name(bucket: int) -> str:
     return f"b{bucket:05d}-{uuid.uuid4().hex[:12]}.tcb"
+
+
+_RUN_FILE_RE = re.compile(r"^r\d{5,}-[0-9a-f]{12}\.tcb$")
+
+
+def is_run_file(path: str | Path) -> bool:
+    """A multi-bucket run file (``r<seq>-<uuid>.tcb``), written by the
+    reference's streaming build with finalizeMode=runs. This package
+    writes none and reads none yet."""
+    return bool(_RUN_FILE_RE.match(os.path.basename(str(path))))
 
 
 def bucket_of_file(path: str | Path) -> int:

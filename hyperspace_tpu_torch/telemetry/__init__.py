@@ -3,6 +3,14 @@ from .events import (  # noqa: F401
     HyperspaceEvent,
     HyperspaceIndexCRUDEvent,
     CreateActionEvent,
+    DeleteActionEvent,
+    RestoreActionEvent,
+    VacuumActionEvent,
+    RefreshActionEvent,
+    RefreshIncrementalActionEvent,
+    RefreshQuickActionEvent,
+    OptimizeActionEvent,
+    CancelActionEvent,
     HyperspaceIndexUsageEvent,
 )
 from .logging import EventLogger, NoOpEventLogger, EventLogging, get_event_logger  # noqa: F401

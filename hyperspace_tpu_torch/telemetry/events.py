@@ -48,3 +48,43 @@ class HyperspaceIndexUsageEvent(HyperspaceEvent):
     indexes: List[str] = field(default_factory=list)
     plan_before: str = ""
     plan_after: str = ""
+
+
+@dataclass
+class DeleteActionEvent(HyperspaceIndexCRUDEvent):
+    pass
+
+
+@dataclass
+class RestoreActionEvent(HyperspaceIndexCRUDEvent):
+    pass
+
+
+@dataclass
+class VacuumActionEvent(HyperspaceIndexCRUDEvent):
+    pass
+
+
+@dataclass
+class RefreshActionEvent(HyperspaceIndexCRUDEvent):
+    pass
+
+
+@dataclass
+class RefreshIncrementalActionEvent(HyperspaceIndexCRUDEvent):
+    pass
+
+
+@dataclass
+class RefreshQuickActionEvent(HyperspaceIndexCRUDEvent):
+    pass
+
+
+@dataclass
+class OptimizeActionEvent(HyperspaceIndexCRUDEvent):
+    pass
+
+
+@dataclass
+class CancelActionEvent(HyperspaceIndexCRUDEvent):
+    pass

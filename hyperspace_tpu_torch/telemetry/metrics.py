@@ -5,12 +5,14 @@ A process-global registry of named integer counters (``scan.path.*``,
 ``join.path.*``, ``build.engine.*``), the same names the reference
 package counts, so a test or ``chip_smoke.py`` can show which path a
 query took; and of named host-clock timers (``hbm.prefetch``,
-``scan.resident.device``), each a total of seconds and a count.
+``scan.resident.device``, ``compaction.*``), each a total of seconds and a count.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from contextlib import contextmanager
 from typing import Dict, Tuple
 
 
@@ -36,6 +38,14 @@ class Metrics:
         with self._lock:
             total, n = self._times.get(name, (0.0, 0))
             self._times[name] = (total + seconds, n + 1)
+
+    @contextmanager
+    def timer(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record_time(name, time.perf_counter() - t0)
 
     def timings(self) -> Dict[str, Tuple[float, int]]:
         """name -> (total seconds, count)."""

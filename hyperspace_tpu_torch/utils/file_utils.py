@@ -58,3 +58,12 @@ def list_leaf_files(paths: Iterable[str | Path]) -> List[Path]:
                 if not f.startswith((".", "_")):
                     out.append(Path(root) / f)
     return sorted(out)
+
+
+def atomic_create(path: str | Path, content: str) -> bool:
+    """Atomically create ``path`` with ``content`` iff it does not exist:
+    the optimistic-concurrency commit point (IndexLogManager.scala:149-165),
+    through the filesystem seam's ``create_if_absent``."""
+    from ..storage.filesystem import DEFAULT_FS
+
+    return DEFAULT_FS.create_if_absent(str(path), content.encode("utf-8"))

@@ -166,6 +166,34 @@ def test_sorted_intersect_plan_matches_reference():
         assert np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("runs", [2, 3])
+def test_sorted_intersect_multi_run_buckets_match_reference(runs):
+    """Buckets of several files after incremental refreshes: each bucket's
+    left side is its files' sorted runs in log order (a large run, then
+    small appended ones), no longer one sorted run. K2's plan accepts and
+    marks wide tiles (the run boundaries) as the reference's does, and the
+    counts are exact."""
+    rng = np.random.default_rng(40 + runs)
+    r = np.sort(rng.choice(np.arange(800_000, dtype=np.int64), 200_000, replace=False))
+    b_of = lambda k: (k * 2654435761) % 8  # noqa: E731
+    parts = []
+    for b in range(8):
+        for size in [160_000] + [2_400] * (runs - 1):
+            keys = rng.choice(r, size) + rng.integers(0, 2, size)
+            parts.append(np.sort(keys[b_of(keys) == b]))
+    l = np.concatenate(parts)
+    jp = jk._plan_sorted_intersect(l, r)
+    tp = tk._plan_sorted_intersect(l, r)
+    assert jp is not None and tp is not None and tp[-1].any()
+    s_tile, span, base, l2, r2, _key, l32, r32, wide = jp
+    for a, b in zip((s_tile, span, base, l2.reshape(-1), r2.reshape(-1), l32, r32, wide), tp):
+        assert np.array_equal(a, b)
+    lt = np.searchsorted(r, l, side="left")
+    got = tk.sorted_intersect_counts(l, r, device="cpu")
+    assert np.array_equal(got[0], lt)
+    assert np.array_equal(got[1], np.searchsorted(r, l, side="right") - lt)
+
+
 def test_sorted_intersect_wide_tiles_fixed_up():
     rng = np.random.default_rng(4)
     r = np.sort(rng.integers(0, 10**6, 200_000)).astype(np.int64)

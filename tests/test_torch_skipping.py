@@ -406,8 +406,9 @@ def test_skipping_lifecycle_refusals(skip_trees):
         hsp.optimize_index("skp")
     with pytest.raises(hs_torch.HyperspaceException, match="Quick refresh is not supported"):
         hsp.refresh_index("skp", "quick")
-    with pytest.raises(hs_torch.HyperspaceException, match="not yet ported"):
-        hsp.refresh_index("skp", "incremental")
+    before = s.collection_manager._existing_log_manager("skp").get_latest_id()
+    hsp.refresh_index("skp", "incremental")  # the source did not change: a no-op
+    assert s.collection_manager._existing_log_manager("skp").get_latest_id() == before
     with pytest.raises(hs_torch.HyperspaceException, match="already exists"):
         hsp.create_index(_read(s, fmt, src), _skip_config(hs_torch))
     assert hsp.prefetch_index("skp") is False
@@ -427,3 +428,59 @@ def test_skipping_config_validation_matches(bad):
             mod.DataSkippingIndexConfig(*args)
         msgs[key] = str(e.value)
     assert msgs["torch"] == msgs["jax"]
+
+
+# ---------------------------------------------------------------------------
+# a corrupt sketch table leaves the scan unpruned in both packages
+# ---------------------------------------------------------------------------
+def _corrupt_bits(t, v):
+    for per_file in t["files"].values():
+        for key, data in per_file.items():
+            if "BloomFilter" in key:
+                data["bits"] = v(data["bits"])
+    return t
+
+
+def _corrupt_min(t):
+    per_file = next(iter(t["files"].values()))
+    for key, data in per_file.items():
+        if "MinMax" in key:
+            data["min"] = "x"
+    return t
+
+
+_CORRUPTIONS = {
+    "bits_cut_to_8": lambda t: _corrupt_bits(t, lambda b: b[:8]),
+    "bits_null": lambda t: _corrupt_bits(t, lambda b: None),
+    "empty_list": lambda t: [],
+    "no_files": lambda t: {"files": []},
+    "minmax_min_string": _corrupt_min,
+}
+
+
+@pytest.mark.parametrize("corruption", sorted(_CORRUPTIONS))
+def test_corrupt_sketch_table_returns_unindexed_rows(tmp_path, corruption):
+    """One skipping index tree (a bloom filter on p, min/max on k) over 4
+    avro files; after one edit of its sketches.json the rule must leave the
+    scan unpruned and both packages return the unindexed rows."""
+    src = tmp_path / "src"
+    for i in range(4):
+        k = np.arange(i * 1000, (i + 1) * 1000, dtype=np.int64)
+        jax_avro.write_avro(src / f"part-{i}.avro", JaxBatch.from_pydict(
+            {"k": k, "p": k % 97}, schema={"k": "int64", "p": "int64"}))
+    tree = tmp_path / "ix"
+    s = _session(hs_torch, tree)
+    hs_torch.Hyperspace(s).create_index(s.read.avro(str(src)), hs_torch.DataSkippingIndexConfig(
+        "sk", [hs_torch.BloomFilterSketch("p"), hs_torch.MinMaxSketch("k")]))
+    sk = next((tree / "sk").glob("v__=0/sketches.json"))
+    sk.write_text(json.dumps(_CORRUPTIONS[corruption](json.loads(sk.read_text()))))
+    out = {}
+    for key, mod in PKGS.items():
+        s = _session(mod, tree)
+        c = mod.col
+        q = s.read.avro(str(src)).filter((c("p") == 7) & (c("k") < 2500)).select("k", "p")
+        off = _rows(q.collect())
+        s.enable_hyperspace()
+        out[key] = _rows(q.collect())
+        assert out[key] == off, key
+    assert out["torch"] == out["jax"] and len(out["jax"][1]) == 26
