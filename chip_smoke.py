@@ -70,14 +70,28 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    dbgen's unused slots; RF2: a batch's file removed): two batches
    refreshed incrementally, RF2 through the lineage rewrite,
    ``optimize_index`` quick and full, the resident range filter through
-   K1c, a quick refresh (the plan stays on the source), a full refresh,
-   then delete, restore, a hand-written REFRESHING head and ``cancel``,
-   delete and vacuum. At each step the range filter (and Q3) run with
-   launch counts from zero: K1 launches once per index file the scan
-   reads, K2 and its fence build once per Q3 served by both indexes, none
-   while the index is deleted or quick-refreshed. Every step is timed and
+   K1c, a quick refresh (hybrid scan off, the recorded delta served through
+   the hybrid transformation), a full refresh, then delete, restore, a
+   hand-written REFRESHING head and ``cancel``, delete and vacuum. At each
+   step the range filter (and Q3) run with launch counts from zero: K1
+   launches once per index file the scan reads, K2 and its fence build
+   once per Q3, none while the index is deleted. Every step is timed and
    every result equals numpy over the source as it stands;
-7. one ``kernels`` JSON line, then the last line
+7. hybrid — in a session of its own with hybrid scan and lineage on: the
+   same rows written anew as ``src/lineitem_hy`` (8 files) and
+   ``src/orders_hy`` (2), covering indexes li_hy and ord_hy, served while
+   the sources run ahead of them: H1 baseline (index only), H2 two RF1
+   batches appended (the range filter a ``Union`` of the index and the 2
+   appended files, Q3 a ``BucketUnion`` with the appended rows
+   ``Repartition``-ed into the 200 buckets on both sides), H3 RF2 and a
+   retention delete of one base lineitem file (the lineage ``NOT IN`` over
+   its id in K1's program), H4 both indexes refreshed incrementally (index
+   only again). Each step checks the plan's nodes in ``explain``, runs the
+   range filter (K1 once per index file read) and Q3 (K2 and K2F once)
+   with launch counts from zero, prints seconds, rows, files read, the
+   ``union.side.*`` timers and the rows repartitioned, and holds every
+   result against numpy;
+8. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero without the last
@@ -87,6 +101,7 @@ line. ``--scale`` below 1 cuts both tables' row counts (printed).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import shutil
 import statistics
@@ -855,8 +870,8 @@ def run_main_path(
 ) -> dict:
     """Build both indexes and run the three queries on ``device`` with
     residency off, then the resident phase and the front-end phase in the
-    same session, then the lifecycle phase in its own; every result is
-    checked against numpy. Returns timings and counts."""
+    same session, then the lifecycle and hybrid phases, each in its own;
+    every result is checked against numpy. Returns timings and counts."""
     import hyperspace_tpu_torch as hs
     from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
     from hyperspace_tpu_torch.plan.expr import col
@@ -961,6 +976,7 @@ def run_main_path(
                                            for c in q3_cols],
         q3_want, L, workdir, seed, profile)
     out["lifecycle"] = lifecycle_phase(lineitem, orders, workdir, device, seed, profile)
+    out["hybrid"] = hybrid_phase(lineitem, orders, workdir, device, seed, profile)
     return out
 
 
@@ -1295,6 +1311,81 @@ def rf1_batches(orders: dict, seed: int, n_new: int, n_batches: int = 2):
     return out
 
 
+R_COLS = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
+Q3_COLS = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
+           "o_totalprice"]
+
+
+def timed_verb(session, phase: str, profile: bool, fn, *args) -> float:
+    """Seconds one verb takes, the card fenced after it."""
+    from hyperspace_tpu_torch.ops import fence
+
+    t = time.perf_counter()
+    with _Profiled(f"{phase} {fn.__name__}{args}", profile):
+        fn(*args)
+    fence(session.device)
+    return time.perf_counter() - t
+
+
+def timed_query(session, label: str, profile: bool, df):
+    """Collect ``df`` with launch counts and metrics from zero: (result,
+    seconds, launches, counters, timers)."""
+    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    reset_launch_counts()
+    metrics.reset()
+    t = time.perf_counter()
+    with _Profiled(label, profile):
+        res = df.collect()
+    fence(session.device)
+    return res, time.perf_counter() - t, launch_counts(), metrics.snapshot(), metrics.timings()
+
+
+def plan_with_indexes(df) -> str:
+    """The "Plan with indexes" section of ``explain()``."""
+    return df.explain().split("Plan without indexes")[0]
+
+
+def range_bounds(lineitem) -> tuple:
+    """The range filter's order-key window and ship-date floor."""
+    top = int(lineitem["l_orderkey"].max())
+    return top // 6, top // 2, DAY_1995_03_15 - 365
+
+
+def range_and_q3(session, li_dir, od_dir, bounds):
+    """The range filter and Q3 over the sources as users write them."""
+    from hyperspace_tpu_torch.plan.expr import col
+
+    lo_k, hi_k, d_lo = bounds
+    li, od = session.read.avro(str(li_dir)), session.read.avro(str(od_dir))
+    rng_q = li.filter((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+                      & (col("l_quantity") < 24) & (col("l_shipdate") >= d_lo)
+                      & (col("l_shipdate") < DAY_1995_03_15)).select(*R_COLS)
+    q3 = li.filter(col("l_shipdate") > DAY_1993_06_01).select(
+        "l_orderkey", "l_extendedprice", "l_shipdate").join(
+        od.filter(col("o_orderdate") < DAY_1995_03_15).select(
+            "o_orderkey", "o_orderdate", "o_totalprice"),
+        col("l_orderkey") == col("o_orderkey"))
+    return rng_q, q3
+
+
+def range_and_q3_truth(L: dict, O: dict, bounds, where: str):
+    """numpy's answers to ``range_and_q3`` over the rows ``L`` and ``O``."""
+    lo_k, hi_k, d_lo = bounds
+    m = ((L["l_orderkey"] >= lo_k) & (L["l_orderkey"] < hi_k) & (L["l_quantity"] < 24)
+         & (L["l_shipdate"] >= d_lo) & (L["l_shipdate"] < DAY_1995_03_15))
+    o_ord = np.argsort(O["o_orderkey"])
+    lm = L["l_shipdate"] > DAY_1993_06_01
+    pos = o_ord[np.searchsorted(O["o_orderkey"], L["l_orderkey"][lm], sorter=o_ord)]
+    if not np.array_equal(O["o_orderkey"][pos], L["l_orderkey"][lm]):
+        raise AssertionError(f"{where}: a lineitem without its order in the source")
+    hit = O["o_orderdate"][pos] < DAY_1995_03_15
+    q3 = [L["l_orderkey"][lm][hit], L["l_extendedprice"][lm][hit], L["l_shipdate"][lm][hit],
+          O["o_orderkey"][pos[hit]], O["o_orderdate"][pos[hit]], O["o_totalprice"][pos[hit]]]
+    return [L[c][m] for c in R_COLS], q3
+
+
 def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
                     profile: bool = False) -> dict:
     """The index lifecycle after create, in its own session with lineage
@@ -1306,7 +1397,8 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
     fall back to the source) and refreshed incrementally; batch b the same;
     RF2 of batch a through the lineage rewrite; optimize quick then full;
     the resident range filter through K1c; batch a appended again and
-    refreshed quick (the plan stays on the source); a full refresh;
+    refreshed quick (served through the hybrid transformation, hybrid scan
+    off); a full refresh;
     delete, restore, a hand-written REFRESHING head and cancel, delete and
     vacuum. Every step is timed; launch counts start from zero before each
     query; every result is held against numpy over the source as it
@@ -1314,13 +1406,12 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
     import hyperspace_tpu_torch as hs
     from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
     from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
-    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.ops import fence
     from hyperspace_tpu_torch.ops.kernels import K1, K1C, K2, K2F
     from hyperspace_tpu_torch.plan.expr import col
     from hyperspace_tpu_torch.storage import layout
     from hyperspace_tpu_torch.storage.avro_io import write_avro
     from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
-    from hyperspace_tpu_torch.telemetry.metrics import metrics
 
     on_card = device == "cuda"
     n_new = max(1, int(round(1500 * len(orders["o_orderkey"]) / SF1_ORDERS)))
@@ -1365,60 +1456,28 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
         entry = log_mgr.get_latest_stable_log()
         return len(entry.content.files()) if entry is not None and entry.state == "ACTIVE" else 0
 
-    def timed_verb(fn, *args):
-        t = time.perf_counter()
-        with _Profiled(f"lifecycle {fn.__name__}{args}", profile):
-            fn(*args)
-        fence(session.device)
-        return time.perf_counter() - t
+    verb = functools.partial(timed_verb, session, "lifecycle", profile)
 
-    t_create = timed_verb(hsp.create_index, session.read.avro(str(li_dir)), hs.IndexConfig(
+    t_create = verb(hsp.create_index, session.read.avro(str(li_dir)), hs.IndexConfig(
         "li_lc", ["l_orderkey"], ["l_partkey", "l_quantity", "l_shipdate", "l_extendedprice"]))
-    t_create += timed_verb(hsp.create_index, session.read.avro(str(od_dir)), hs.IndexConfig(
+    t_create += verb(hsp.create_index, session.read.avro(str(od_dir)), hs.IndexConfig(
         "ord_lc", ["o_orderkey"], ["o_custkey", "o_orderdate", "o_totalprice"]))
     session.enable_hyperspace()
 
-    top = int(lineitem["l_orderkey"].max())
-    lo_k, hi_k, d_lo = top // 6, top // 2, DAY_1995_03_15 - 365
-    r_cols = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
-    q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
-               "o_totalprice"]
+    bounds = range_bounds(lineitem)
+    lo_k, hi_k, _d_lo = bounds
+    r_cols, q3_cols = R_COLS, Q3_COLS
 
     def queries():
-        li, od = session.read.avro(str(li_dir)), session.read.avro(str(od_dir))
-        rng_q = li.filter((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
-                          & (col("l_quantity") < 24) & (col("l_shipdate") >= d_lo)
-                          & (col("l_shipdate") < DAY_1995_03_15)).select(*r_cols)
-        q3 = li.filter(col("l_shipdate") > DAY_1993_06_01).select(
-            "l_orderkey", "l_extendedprice", "l_shipdate").join(
-            od.filter(col("o_orderdate") < DAY_1995_03_15).select(
-                "o_orderkey", "o_orderdate", "o_totalprice"),
-            col("l_orderkey") == col("o_orderkey"))
-        return rng_q, q3
+        return range_and_q3(session, li_dir, od_dir, bounds)
 
     def truth():
         L = {c: np.concatenate([p[0][c] for p in present.values()]) for c in lineitem}
         O = {c: np.concatenate([p[1][c] for p in present.values()]) for c in orders}
-        m = ((L["l_orderkey"] >= lo_k) & (L["l_orderkey"] < hi_k) & (L["l_quantity"] < 24)
-             & (L["l_shipdate"] >= d_lo) & (L["l_shipdate"] < DAY_1995_03_15))
-        o_ord = np.argsort(O["o_orderkey"])
-        lm = L["l_shipdate"] > DAY_1993_06_01
-        pos = o_ord[np.searchsorted(O["o_orderkey"], L["l_orderkey"][lm], sorter=o_ord)]
-        if not np.array_equal(O["o_orderkey"][pos], L["l_orderkey"][lm]):
-            raise AssertionError("lifecycle: a lineitem without its order in the source")
-        hit = O["o_orderdate"][pos] < DAY_1995_03_15
-        q3 = [L["l_orderkey"][lm][hit], L["l_extendedprice"][lm][hit], L["l_shipdate"][lm][hit],
-              O["o_orderkey"][pos[hit]], O["o_orderdate"][pos[hit]], O["o_totalprice"][pos[hit]]]
-        return [L[c][m] for c in r_cols], q3
+        return range_and_q3_truth(L, O, bounds, "lifecycle")
 
     def run(label, df):
-        reset_launch_counts()
-        metrics.reset()
-        t = time.perf_counter()
-        with _Profiled(f"lifecycle {label}", profile):
-            res = df.collect()
-        fence(session.device)
-        return res, time.perf_counter() - t, launch_counts(), metrics.snapshot()
+        return timed_query(session, f"lifecycle {label}", profile, df)[:4]
 
     def measure(step, verb_s, *, rewritten, q3=True, expect_files=None):
         """Run the range filter (and Q3) and hold them against numpy."""
@@ -1468,19 +1527,19 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
 
     append("rf1_a")
     measure("2 rf1_a appended, before refresh", 0.0, rewritten=False)
-    t = timed_verb(hsp.refresh_index, "li_lc", "incremental")
-    t += timed_verb(hsp.refresh_index, "ord_lc", "incremental")
+    t = verb(hsp.refresh_index, "li_lc", "incremental")
+    t += verb(hsp.refresh_index, "ord_lc", "incremental")
     measure("2 rf1_a refreshed incrementally", t, rewritten=True)
 
     append("rf1_b")
-    t = timed_verb(hsp.refresh_index, "li_lc", "incremental")
-    t += timed_verb(hsp.refresh_index, "ord_lc", "incremental")
+    t = verb(hsp.refresh_index, "li_lc", "incremental")
+    t += verb(hsp.refresh_index, "ord_lc", "incremental")
     measure("3 rf1_b refreshed incrementally", t, rewritten=True)
 
     gone = set(batches["rf1_a"][0]["l_orderkey"].tolist())
     remove("rf1_a")
-    t = timed_verb(hsp.refresh_index, "li_lc", "incremental")
-    t += timed_verb(hsp.refresh_index, "ord_lc", "incremental")
+    t = verb(hsp.refresh_index, "li_lc", "incremental")
+    t += verb(hsp.refresh_index, "ord_lc", "incremental")
     row = measure("4 RF2 of rf1_a refreshed incrementally (lineage rewrite)", t, rewritten=True)
     res = session.read.avro(str(li_dir)).filter(
         (col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)).select("l_orderkey").collect()
@@ -1495,7 +1554,7 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
             by_bucket.setdefault(layout.bucket_of_file(f), []).append(f)
         merged_rows = sum(layout.cached_reader(f).num_rows for fs in by_bucket.values()
                           if len(fs) > 1 for f in fs)
-        t = timed_verb(hsp.optimize_index, "li_lc", mode)
+        t = verb(hsp.optimize_index, "li_lc", mode)
         noop = li_log.get_latest_id() == before_id
         out[f"optimize_{mode}"] = {"s": t, "rows_merged": 0 if noop else merged_rows,
                                    "buckets_merged": 0 if noop else sum(
@@ -1536,21 +1595,26 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
         f"matches numpy and the per-file result")
 
     append("rf1_a")
-    t = timed_verb(hsp.refresh_index, "li_lc", "quick")
-    t += timed_verb(hsp.refresh_index, "ord_lc", "quick")
+    t = verb(hsp.refresh_index, "li_lc", "quick")
+    t += verb(hsp.refresh_index, "ord_lc", "quick")
     if li_log.get_latest_stable_log().source_update() is None:
         raise AssertionError("lifecycle: quick refresh recorded no source delta")
-    measure("7 rf1_a appended again, refreshed quick (plan stays on the source)", t,
-            rewritten=False)
+    # hybrid scan is off: the recorded delta is served through the hybrid
+    # transformation all the same (the appended file's Union / BucketUnion)
+    measure("7 rf1_a appended again, refreshed quick (served through Hybrid Scan)", t,
+            rewritten=True)
+    plans = [plan_with_indexes(df) for df in queries()]
+    if "Union" not in plans[0] or "BucketUnion" not in plans[1]:
+        raise AssertionError(f"lifecycle 7: plans {plans}")
 
-    t = timed_verb(hsp.refresh_index, "li_lc", "full")
-    t += timed_verb(hsp.refresh_index, "ord_lc", "full")
+    t = verb(hsp.refresh_index, "li_lc", "full")
+    t += verb(hsp.refresh_index, "ord_lc", "full")
     measure("8 refreshed full", t, rewritten=True, expect_files=NUM_BUCKETS)
 
     # 9. delete, restore, a writer that died mid-refresh, cancel, vacuum
-    t = timed_verb(hsp.delete_index, "li_lc")
+    t = verb(hsp.delete_index, "li_lc")
     measure("9 deleted", t, rewritten=False, q3=False)
-    t = timed_verb(hsp.restore_index, "li_lc")
+    t = verb(hsp.restore_index, "li_lc")
     measure("9 restored", t, rewritten=True, q3=False, expect_files=NUM_BUCKETS)
     head = li_log.get_latest_log()
     head.id += 1
@@ -1563,18 +1627,202 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
         raise AssertionError(f"lifecycle: states {states}")
     measure("9 REFRESHING head (served from the stable snapshot)", 0.0, rewritten=True,
             q3=False, expect_files=NUM_BUCKETS)
-    t = timed_verb(hsp.cancel, "li_lc")
+    t = verb(hsp.cancel, "li_lc")
     states = {s.name: s.state for s in hsp.indexes()}
     if states.get("li_lc") != "ACTIVE":
         raise AssertionError(f"lifecycle: after cancel, states {states}")
     measure("9 cancelled", t, rewritten=True, q3=False, expect_files=NUM_BUCKETS)
-    t = timed_verb(hsp.delete_index, "li_lc") + timed_verb(hsp.vacuum_index, "li_lc")
+    t = verb(hsp.delete_index, "li_lc") + verb(hsp.vacuum_index, "li_lc")
     left = sorted(p.name for p in (Path(conf["hyperspace.system.path"]) / "li_lc").glob("v__=*"))
     names = [s.name for s in hsp.indexes()]
     if left or "li_lc" in names:
         raise AssertionError(f"lifecycle vacuum: version dirs {left} left, indexes {names}")
     measure("9 deleted and vacuumed", t, rewritten=False, q3=False)
     log(f"lifecycle: after vacuum no v__ directory is left and indexes() lists {names}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# hybrid phase: indexes served while their sources gain and lose files
+# ---------------------------------------------------------------------------
+def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
+                 profile: bool = False) -> dict:
+    """Hybrid Scan at SF1, in a session of its own (hybrid scan and lineage
+    on, 200 buckets, residency off): the SF1 rows written anew as
+    ``src/lineitem_hy`` (8 avro files) and ``src/orders_hy`` (2), covering
+    indexes li_hy and ord_hy, then, never refreshing until the last step:
+
+    * H1 baseline: the range filter and Q3 read the indexes only;
+    * H2 appended: two TPC-H RF1 batches, one avro file per batch in each
+      source. The range filter runs as Union(IndexScan, the 2 appended
+      files read and filtered on the host); Q3 as a BucketUnion on each
+      side, the appended rows hashed into the index's 200 buckets;
+    * H3 RF2 and a retention delete: RF2 removes one batch from both
+      sources, and one of the eight base lineitem files goes. The lineitem
+      index side gains the lineage filter NOT IN over that file's id (in
+      K1's program for the range filter, per bucket on the host for Q3);
+    * H4 refreshed: both indexes refreshed incrementally, index only again.
+
+    At each step the plan ``explain`` shows is checked for its nodes, the
+    queries run with launch counts from zero (K1 once per index file read,
+    the appended side none; K2 and its fence build once per Q3), and every
+    result is held against numpy over the sources as they stand."""
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
+    from hyperspace_tpu_torch.ops import kernels as tk
+    from hyperspace_tpu_torch.storage.avro_io import write_avro
+    from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
+
+    on_card = device == "cuda"
+    n_new = max(1, int(round(1500 * len(orders["o_orderkey"]) / SF1_ORDERS)))
+    rf1 = dict(zip(("rf1_a", "rf1_b"), rf1_batches(orders, seed, n_new)))
+    t_phase = t0 = time.perf_counter()
+    li_dir = Path(write_avro_dir(workdir / "src" / "lineitem_hy", lineitem, LINEITEM_SCHEMA, 8))
+    od_dir = Path(write_avro_dir(workdir / "src" / "orders_hy", orders, ORDERS_SCHEMA, 2))
+    out = {"write_s": time.perf_counter() - t0, "steps": []}
+    log(f"hybrid: sources written anew in {out['write_s']:.3f} s")
+    # the sources as they stand, by file: the base lineitem rows as
+    # write_avro_dir split them, the orders whole, and the RF1 batches
+    cuts = np.linspace(0, len(lineitem["l_orderkey"]), 9).astype(np.int64)
+    li_parts = {f"part-{i:03d}": {c: v[cuts[i]:cuts[i + 1]] for c, v in lineitem.items()}
+                for i in range(8)}
+    od_parts = {"base": orders}
+
+    conf = {
+        "hyperspace.system.path": str(workdir / "indexes_hybrid"),
+        "hyperspace.index.numBuckets": NUM_BUCKETS,
+        "hyperspace.index.build.mode": "inmemory",
+        "hyperspace.index.lineage.enabled": "true",
+        "hyperspace.index.hybridscan.enabled": "true",
+        "hyperspace.torch.device": device,
+        "hyperspace.torch.hbm.mode": "off",
+    }
+    session = hs.HyperspaceSession(hs.HyperspaceConf(conf))
+    hsp = hs.Hyperspace(session)
+    logs = {name: IndexLogManagerImpl(Path(conf["hyperspace.system.path"]) / name)
+            for name in ("li_hy", "ord_hy")}
+
+    verb = functools.partial(timed_verb, session, "hybrid", profile)
+
+    def byte_ratios(name, src):
+        """(appended bytes / source bytes, deleted bytes / indexed bytes)."""
+        entry = logs[name].get_latest_stable_log()
+        indexed = {f.name: f.size for f in entry.source_file_infos()}
+        current = {str(p): p.stat().st_size for p in Path(src).glob("*.avro")}
+        appended = sum(v for k, v in current.items() if k not in indexed)
+        deleted = sum(v for k, v in indexed.items() if k not in current)
+        return appended / sum(current.values()), deleted / sum(indexed.values())
+
+    bounds = range_bounds(lineitem)
+
+    def truth():
+        L = {c: np.concatenate([p[c] for p in li_parts.values()]) for c in lineitem}
+        O = {c: np.concatenate([p[c] for p in od_parts.values()]) for c in orders}
+        return range_and_q3_truth(L, O, bounds, "hybrid")
+
+    def run(label, df):
+        return timed_query(session, f"hybrid {label}", profile, df)
+
+    def measure(step, verb_s, range_nodes, q3_nodes, absent=()):
+        """Check both plans for their nodes (and for none of ``absent``),
+        then run both queries and hold them against numpy."""
+        want_r, want_q3 = truth()
+        rng_q, q3_q = range_and_q3(session, li_dir, od_dir, bounds)
+        plans = {"range": plan_with_indexes(rng_q), "Q3": plan_with_indexes(q3_q)}
+        for q, need in (("range", range_nodes), ("Q3", q3_nodes)):
+            missing = [n for n in need if n not in plans[q]]
+            found = [n for n in absent if n in plans[q]]
+            if missing or found:
+                raise AssertionError(f"hybrid {step} {q}: plan lacks {missing} or shows "
+                                     f"{found}:\n{plans[q]}")
+        row = {"step": step, "verb_s": verb_s, "range_nodes": list(range_nodes),
+               "q3_nodes": list(q3_nodes)}
+        text = f"hybrid {step}: verb {verb_s:.3f} s"
+        for q, df, cols, want in (("range", rng_q, R_COLS, want_r), ("Q3", q3_q, Q3_COLS, want_q3)):
+            res, t_q, launches, m, times = run(f"{step} {q}", df)
+            _check(f"hybrid {step} {q}", res, cols, want)
+            read = m.get("scan.files_read", 0)
+            sides = {k: v[0] for k, v in times.items() if k.startswith("union.side.")}
+            moved = m.get("union.repartition.rows", 0)
+            if q == "range":
+                if read <= 0 or launches.get(tk.K1, 0) != (read if on_card else 0):
+                    raise AssertionError(f"hybrid {step} range: K1 launches {launches}, "
+                                         f"index files read {read}")
+            else:
+                want_k2 = 1 if on_card else 0
+                if (launches.get(tk.K2, 0), launches.get(tk.K2F, 0)) != (want_k2, want_k2) or \
+                        m.get("join.path.device_kernel", 0) + m.get("join.path.host_searchsorted",
+                                                                     0) != 1:
+                    raise AssertionError(f"hybrid {step} Q3: launches {launches}, paths {m}")
+            key = "range" if q == "range" else "q3"
+            row.update({f"{key}_s": t_q, f"{key}_rows": res.num_rows,
+                        f"{key}_files_read": read, f"{key}_union_side_s": sides,
+                        f"{key}_rows_repartitioned": moved, f"{key}_launches": launches})
+            text += (f" | {q} {t_q:.4f} s rows={res.num_rows} files read={read} "
+                     f"union sides={ {k: round(v, 4) for k, v in sides.items()} } "
+                     f"rows repartitioned={moved} launches={launches}")
+        out["steps"].append(row)
+        log(text + f" | plan shows {list(range_nodes)} / {list(q3_nodes)} | matches numpy")
+        return plans
+
+    t_create = verb(hsp.create_index, session.read.avro(str(li_dir)), hs.IndexConfig(
+        "li_hy", ["l_orderkey"], ["l_partkey", "l_quantity", "l_shipdate", "l_extendedprice"]))
+    t_create += verb(hsp.create_index, session.read.avro(str(od_dir)), hs.IndexConfig(
+        "ord_hy", ["o_orderkey"], ["o_custkey", "o_orderdate", "o_totalprice"]))
+    session.enable_hyperspace()
+    unions = ("Union", "Repartition", "_data_file_id")
+    measure("H1 baseline", t_create, ["IndexScan"], ["IndexScan"], absent=unions)
+
+    t = time.perf_counter()
+    for name, (li, od) in rf1.items():
+        write_avro(li_dir / f"part-{name}.avro", ColumnarBatch.from_pydict(li, schema=LINEITEM_SCHEMA))
+        write_avro(od_dir / f"part-{name}.avro", ColumnarBatch.from_pydict(od, schema=ORDERS_SCHEMA))
+        li_parts[name], od_parts[name] = li, od
+    ratios = {"li_hy": byte_ratios("li_hy", li_dir), "ord_hy": byte_ratios("ord_hy", od_dir)}
+    out["rf1_lineitems"] = {k: len(li["l_orderkey"]) for k, (li, _od) in rf1.items()}
+    out["h2_byte_ratios"] = ratios
+    log(f"hybrid H2: RF1 batches of {n_new} orders ({out['rf1_lineitems']} lineitems) appended "
+        f"as one avro file each per source; (appended, deleted) byte ratios {ratios}")
+    buckets = f"x{NUM_BUCKETS}"
+    q3_hybrid = [f"BucketUnion [l_orderkey] {buckets}", f"BucketUnion [o_orderkey] {buckets}",
+                 f"Repartition [l_orderkey] {buckets}", f"Repartition [o_orderkey] {buckets}"]
+    measure("H2 two RF1 batches appended", time.perf_counter() - t,
+            ["Union", "(2 files)"], q3_hybrid, absent=("_data_file_id in",))
+
+    t = time.perf_counter()
+    for name in ("rf1_a",):  # RF2
+        (li_dir / f"part-{name}.avro").unlink()
+        (od_dir / f"part-{name}.avro").unlink()
+        del li_parts[name], od_parts[name]
+    (li_dir / "part-002.avro").unlink()  # the retention delete
+    del li_parts["part-002"]
+    entry = logs["li_hy"].get_latest_stable_log()
+    gone_id = [f.id for f in entry.source_file_infos() if f.name.endswith("part-002.avro")]
+    ratios = {"li_hy": byte_ratios("li_hy", li_dir), "ord_hy": byte_ratios("ord_hy", od_dir)}
+    out["h3_byte_ratios"] = ratios
+    out["deleted_file_id"] = gone_id
+    log(f"hybrid H3: RF2 removed rf1_a from both sources, the retention delete removed "
+        f"lineitem part-002.avro (lineage id {gone_id}); (appended, deleted) byte ratios {ratios}")
+    lineage = f"~((col(_data_file_id) in ({gone_id[0]},)))"
+    plans = measure("H3 RF2 and a retention delete", time.perf_counter() - t,
+                    ["Union", "(1 files)", lineage], q3_hybrid + [lineage])
+    if plans["Q3"].count("col(_data_file_id) in") != 1:
+        raise AssertionError("hybrid H3 Q3: the lineage filter is not on the lineitem side only")
+    if on_card:
+        # the range filter's K1 launches ran the lineage NOT IN in their program
+        with tk._LOWERED_LOCK:
+            lowered = [(len(p.prog), names) for (_k, names), p in tk._LOWERED.items()
+                       if "_data_file_id" in names]
+        if not lowered:
+            raise AssertionError("hybrid H3: no K1 program over _data_file_id was lowered")
+        out["h3_k1_programs"] = lowered
+        log(f"hybrid H3: K1 programs over the lineage column (instructions, columns): {lowered}")
+
+    t = verb(hsp.refresh_index, "li_hy", "incremental")
+    t += verb(hsp.refresh_index, "ord_hy", "incremental")
+    measure("H4 refreshed incrementally", t, ["IndexScan"], ["IndexScan"], absent=unions)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"hybrid: the phase took {out['phase_s']:.3f} s, the source write included")
     return out
 
 
@@ -1675,6 +1923,7 @@ def main() -> int:
                     "resident_path": main_out["resident"],
                     "front_end": main_out["front_end"],
                     "lifecycle": main_out["lifecycle"],
+                    "hybrid": main_out["hybrid"],
                     "kernel_cases": kphase, "ptxas": ptxas,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps(line))

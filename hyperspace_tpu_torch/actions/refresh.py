@@ -250,9 +250,9 @@ class RefreshIncrementalAction(RefreshActionBase):
 
 class RefreshQuickAction(RefreshActionBase):
     """Metadata-only refresh (RefreshQuickAction.scala:37-79): record the
-    appended/deleted delta in the log for query-time Hybrid Scan. Hybrid
-    Scan is not ported yet, so the rules leave a query over such an entry
-    on its source (plan/rules/rule_utils.py)."""
+    appended/deleted delta in the log for query-time Hybrid Scan: the
+    rules serve such an entry through the hybrid transformation even with
+    hybrid scan off (plan/rules/rule_utils.py)."""
 
     def validate(self) -> None:
         super().validate()

@@ -68,6 +68,22 @@ class HyperspaceConf:
             self.get(C.INDEX_HYBRID_SCAN_ENABLED, C.INDEX_HYBRID_SCAN_ENABLED_DEFAULT)
         )
 
+    def hybrid_scan_appended_ratio_threshold(self) -> float:
+        return float(
+            self.get(
+                C.INDEX_HYBRID_SCAN_APPENDED_RATIO_THRESHOLD,
+                C.INDEX_HYBRID_SCAN_APPENDED_RATIO_THRESHOLD_DEFAULT,
+            )
+        )
+
+    def hybrid_scan_deleted_ratio_threshold(self) -> float:
+        return float(
+            self.get(
+                C.INDEX_HYBRID_SCAN_DELETED_RATIO_THRESHOLD,
+                C.INDEX_HYBRID_SCAN_DELETED_RATIO_THRESHOLD_DEFAULT,
+            )
+        )
+
     def cache_expiry_seconds(self) -> int:
         return int(
             self.get(

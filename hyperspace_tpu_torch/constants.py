@@ -51,9 +51,18 @@ REFRESH_MODE_FULL = "full"
 REFRESH_MODE_QUICK = "quick"
 REFRESH_MODES = (REFRESH_MODE_INCREMENTAL, REFRESH_MODE_FULL, REFRESH_MODE_QUICK)
 
-# --- hybrid scan (not ported: the rules refuse it) ----------------------------
+# --- hybrid scan -------------------------------------------------------------
+# (reference: IndexConstants.scala:34-48)
 INDEX_HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
 INDEX_HYBRID_SCAN_ENABLED_DEFAULT = False
+INDEX_HYBRID_SCAN_APPENDED_RATIO_THRESHOLD = (
+    "hyperspace.index.hybridscan.maxAppendedRatio"
+)
+INDEX_HYBRID_SCAN_APPENDED_RATIO_THRESHOLD_DEFAULT = 0.3
+INDEX_HYBRID_SCAN_DELETED_RATIO_THRESHOLD = (
+    "hyperspace.index.hybridscan.maxDeletedRatio"
+)
+INDEX_HYBRID_SCAN_DELETED_RATIO_THRESHOLD_DEFAULT = 0.2
 
 # --- sources -----------------------------------------------------------------
 FILE_BASED_SOURCE_BUILDERS = "hyperspace.index.sources.fileBasedBuilders"

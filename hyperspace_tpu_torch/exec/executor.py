@@ -1,7 +1,8 @@
 """The plan executor: interprets a logical plan into columnar execution.
 
 Counterpart of the single-device arms of ``hyperspace_tpu.exec.executor``
-for Scan, IndexScan, Filter, Project and Join:
+for Scan, IndexScan, Filter, Project, Join and Hybrid Scan's Union,
+BucketUnion and Repartition:
 
 * ``Filter(IndexScan)`` fuses into one index_scan call — bucket pruning +
   zone maps + the device mask (exec.scan.index_scan), or the resident
@@ -10,6 +11,11 @@ for Scan, IndexScan, Filter, Project and Join:
   the shuffle-free bucketed sort-merge join (exec.joins.bucketed_join_pairs);
 * a Scan of a hive-partitioned source prunes its files on the predicate's
   partition-column conjuncts before reading any (``scan.partition_pruned``);
+* a hybrid ``Union(index side, appended side)`` runs its two sides at
+  once on two threads (``union.side.index`` / ``union.side.source``); a
+  join side ``BucketUnion(index side, Repartition(appended side))`` hashes
+  the appended rows into the index's buckets on the host and merges them
+  into the bucket groups the bucketed join reads;
 * everything else evaluates bottom-up over ColumnarBatches.
 
 The compiled-pipeline, delta/join residency, mesh and aggregate arms are
@@ -26,10 +32,21 @@ from ..config import ResidencyConf
 from ..exceptions import HyperspaceException
 from ..ops import DeviceLike
 from ..plan.expr import Expr, eval_mask
-from ..plan.ir import Filter, IndexScan, Join, LogicalPlan, Project, Scan
+from ..plan.ir import (
+    BucketUnion,
+    Filter,
+    IndexScan,
+    Join,
+    LogicalPlan,
+    Project,
+    Repartition,
+    Scan,
+    Union,
+)
 from ..plan.rules.join_rule import align_condition_sides, extract_equi_condition
 from ..storage import layout, parquet_io
 from ..storage.columnar import ColumnarBatch
+from ..telemetry.metrics import metrics
 from .joins import bucketed_join_pairs, inner_join
 from .scan import empty_batch_for, index_scan
 
@@ -42,7 +59,20 @@ def bucketed_meta(plan: LogicalPlan) -> Optional[IndexScan]:
         node = node.children[0]
     if isinstance(node, IndexScan) and node.use_bucket_spec:
         return node
+    if isinstance(node, BucketUnion):
+        for c in node.children:
+            idx = bucketed_meta(c)
+            if idx is not None:
+                return idx
     return None
+
+
+def _has_index_scan(plan: LogicalPlan) -> bool:
+    """Whether an IndexScan sits anywhere under ``plan`` — distinguishes
+    the hybrid union's index side from its appended-source side."""
+    if isinstance(plan, IndexScan):
+        return True
+    return any(_has_index_scan(c) for c in plan.children)
 
 
 class Executor:
@@ -65,10 +95,13 @@ class Executor:
         """``columns``: projection pushed down from an enclosing Project —
         leaf scans read only these (plus predicate columns)."""
         if isinstance(plan, Filter):
-            # push the predicate into the child scan; Project is
-            # transparent to pushdown (pure column selection)
+            # push the predicate into the child scan; row-wise predicates
+            # also distribute over unions, and Project is transparent to
+            # pushdown (pure column selection): the Hybrid Scan delete
+            # shape Filter(Project(Filter(NOT-IN, IndexScan))) must still
+            # deliver the user predicate to the scan for bucket/zone pruning
             child = plan.child
-            if isinstance(child, (IndexScan, Scan, Project)):
+            if isinstance(child, (IndexScan, Scan, Union, BucketUnion, Project)):
                 return self._exec(
                     child,
                     predicate=self._conjoin(predicate, plan.condition),
@@ -161,10 +194,57 @@ class Executor:
         if isinstance(plan, Join):
             batch = self._exec_join(plan)
             return self._apply_predicate(batch, predicate)
+        if isinstance(plan, Union):
+            return self._exec_union(plan, predicate, columns)
+        if isinstance(plan, Repartition):
+            # outside a bucketed join a repartition is a plain row pass
+            return self._exec(plan.child, predicate, columns)
+        if isinstance(plan, BucketUnion):
+            parts = [self._exec(c, predicate, columns) for c in plan.children]
+            return ColumnarBatch.concat(parts)
         raise HyperspaceException(
             f"Cannot execute node {plan.node_name} (not yet ported to "
             "hyperspace_tpu_torch)."
         )
+
+    def _exec_union(
+        self,
+        plan: Union,
+        predicate: Optional[Expr],
+        columns: Optional[List[str]],
+    ) -> ColumnarBatch:
+        """The Hybrid Scan merge Union(index side, appended side): the
+        sides run at once, the appended side's host read and filter
+        overlapping the index side's read and mask, each timed under
+        ``union.side.index`` / ``union.side.source``. A single-child union
+        skips the thread."""
+        import contextvars
+        import time
+        from concurrent.futures import ThreadPoolExecutor
+
+        def run_child(c):
+            t0 = time.perf_counter()
+            out = self._exec(c, predicate, columns)
+            side = "index" if _has_index_scan(c) else "source"
+            metrics.record_time(f"union.side.{side}", time.perf_counter() - t0)
+            return out
+
+        children = list(plan.children)
+        if len(children) < 2:
+            parts = [run_child(c) for c in children]
+        else:
+            # each side runs in a copy of the query thread's context
+            ctxs = [contextvars.copy_context() for _ in children]
+            with ThreadPoolExecutor(
+                max_workers=len(children), thread_name_prefix="union-side"
+            ) as pool:
+                parts = list(
+                    pool.map(
+                        lambda pair: pair[0].run(run_child, pair[1]),
+                        zip(ctxs, children),
+                    )
+                )
+        return ColumnarBatch.concat(parts)
 
     @staticmethod
     def _conjoin(a: Optional[Expr], b: Expr) -> Expr:
@@ -218,10 +298,34 @@ class Executor:
                 out[b] = v
         return out
 
+    def _repartition_by_bucket(
+        self, node: Repartition, predicate: Optional[Expr]
+    ) -> Dict[int, ColumnarBatch]:
+        """Execute the child and hash its rows into the index's buckets —
+        the on-the-fly shuffle of the (small) appended side under Hybrid
+        Scan (RuleUtils.scala:519-578), with the hash the build used, so
+        each row lands in the bucket its key has in the index."""
+        from ..ops.hashing import bucket_ids_host, key_repr
+
+        batch = self._exec(node.child, predicate)
+        if batch.num_rows == 0:
+            return {}
+        metrics.incr("union.repartition.rows", batch.num_rows)
+        buckets = bucket_ids_host(
+            [key_repr(batch.columns[c]) for c in node.columns], node.num_buckets
+        )
+        out: Dict[int, ColumnarBatch] = {}
+        for b in np.unique(buckets):
+            out[int(b)] = batch.take(np.flatnonzero(buckets == b))
+        return out
+
     def _bucketed_source(
         self, plan: LogicalPlan, predicate: Optional[Expr]
-    ) -> Optional[Tuple[Dict[int, ColumnarBatch], IndexScan]]:
-        """[Filter?][Project?]IndexScan(bucketed) loaded grouped by bucket."""
+    ) -> Optional[Tuple[Dict[int, ColumnarBatch], Optional[IndexScan]]]:
+        """Recognize the bucket-aligned shapes and load data grouped by
+        bucket: [Filter?][Project?]IndexScan(bucketed), Repartition(plan)
+        (no IndexScan: the second item is None), or BucketUnion of such
+        (the Hybrid Scan merge)."""
         node = plan
         if isinstance(node, Filter):
             predicate = self._conjoin(predicate, node.condition)
@@ -234,6 +338,25 @@ class Executor:
                 return None
             by_bucket, idx = inner
             return {b: v.select(list(node.columns)) for b, v in by_bucket.items()}, idx
+        if isinstance(node, Repartition):
+            return self._repartition_by_bucket(node, predicate), None
+        if isinstance(node, BucketUnion):
+            merged: Dict[int, ColumnarBatch] = {}
+            idx: Optional[IndexScan] = None
+            for c in node.children:
+                part = self._bucketed_source(c, predicate)
+                if part is None:
+                    return None
+                child_buckets, child_idx = part
+                idx = idx or child_idx
+                for b, v in child_buckets.items():
+                    if b in merged:
+                        merged[b] = ColumnarBatch.concat([merged[b], v])
+                    else:
+                        merged[b] = v
+            if idx is None:
+                return None
+            return merged, idx
         return None
 
     def _try_bucketed_join(
@@ -280,13 +403,13 @@ class Executor:
         return ColumnarBatch.concat(parts)
 
     def _side_by_bucket(self, plan: LogicalPlan):
-        """[Project?] over a bucketed index source."""
+        """[Project?] over a bucketed source (index scan / hybrid union)."""
         project: Optional[Project] = None
         node = plan
         if isinstance(node, Project):
             project, node = node, node.child
         inner = self._bucketed_source(node, None)
-        if inner is None:
+        if inner is None or inner[1] is None:
             return None
         by_bucket, idx_node = inner
         if project is not None:

@@ -8,8 +8,8 @@ residency, a verb the reference package added).
 
 The reference also drops, after a verb that rewrites or removes index
 data, caches this package does not have yet; they come with items of
-ROADMAP.md's queue A: resident deltas (item 3, hybrid scan), resident join
-regions and the mesh cache (item 7, residency), and compiled pipelines
+ROADMAP.md's queue A: resident deltas, resident join regions and the
+mesh cache (item 7, residency), and compiled pipelines
 with their memoized results (item 8, compiler and serving). The resident
 tables this package keeps are keyed by file identity, so a new version
 never reads an old one's planes.

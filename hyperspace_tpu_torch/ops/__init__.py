@@ -9,6 +9,7 @@ error, never a quiet CPU run, when CUDA was asked for and is absent.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Union
 
 import torch
@@ -36,19 +37,25 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 # Launch counts of the hand-written CUDA kernels: each wrapper adds one
 # exactly where it launches its kernel (the plain CPU versions never
 # count), so a run can show that the main path went through the kernels.
+# The lock keeps a count whole when two threads launch at once (the two
+# sides of a hybrid union run concurrently).
 _LAUNCHES: Dict[str, int] = {}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def count_launch(kernel: str) -> None:
-    _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+    with _LAUNCHES_LOCK:
+        _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES.clear()
+    with _LAUNCHES_LOCK:
+        _LAUNCHES.clear()
 
 
 def fence(device: Optional[torch.device] = None) -> None:

@@ -2,10 +2,12 @@
 
 Nodes are deliberately at the altitude the reference's rules actually
 consume: Scan (LogicalRelation), Filter, Project, Join, Aggregate, plus
-the node the rewrite layer introduces — IndexScan (the swapped-in index
+the nodes the rewrite layer introduces — IndexScan (the swapped-in index
 relation, printing the same ``Hyperspace(Type: CI, Name, LogVersion)``
-marker as IndexHadoopFsRelation.scala:42-47). The reference's union nodes
-arrive with Hybrid Scan.
+marker as IndexHadoopFsRelation.scala:42-47) and Hybrid Scan's merges:
+Union, BucketUnion (the partition-preserving union of
+plans/logical/BucketUnion.scala:31-67) and the Repartition that brings
+appended rows into the index's buckets.
 
 Plans are immutable; ``transform_up`` rebuilds bottom-up like Catalyst's
 ``transformUp`` (JoinIndexRule.scala:57-90 relies on this traversal order).
@@ -233,3 +235,78 @@ class Aggregate(LogicalPlan):
     def describe(self) -> str:
         parts = [f"{a.fn}({a.column or '*'}) AS {a.name}" for a in self.aggs]
         return f"Aggregate [{', '.join(self.group_by)}] [{', '.join(parts)}]"
+
+
+@dataclass(frozen=True)
+class BucketUnion(LogicalPlan):
+    """Partition-preserving union: children must agree on schema and bucket
+    count (BucketUnion.scala:31-67). Used to merge index data with
+    shuffled appended data under Hybrid Scan."""
+
+    children_: Tuple[LogicalPlan, ...]
+    bucket_spec: Tuple[Tuple[str, ...], int]  # (bucket columns, numBuckets)
+
+    @property
+    def children(self):
+        return self.children_
+
+    def with_children(self, children):
+        return replace(self, children_=tuple(children))
+
+    def output_columns(self) -> List[str]:
+        return self.children_[0].output_columns()
+
+    def output_schema(self) -> Dict[str, str]:
+        return self.children_[0].output_schema()
+
+    def describe(self) -> str:
+        cols, n = self.bucket_spec
+        return f"BucketUnion [{', '.join(cols)}] x{n}"
+
+
+@dataclass(frozen=True)
+class Repartition(LogicalPlan):
+    """Hash-repartition of the child by ``columns`` into ``num_buckets`` —
+    the on-the-fly shuffle injected for appended data under Hybrid Scan
+    (RuleUtils.scala:519-578, RepartitionByExpression)."""
+
+    columns: Tuple[str, ...]
+    num_buckets: int
+    child: LogicalPlan
+
+    @property
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, children):
+        return replace(self, child=children[0])
+
+    def output_columns(self) -> List[str]:
+        return self.child.output_columns()
+
+    def output_schema(self) -> Dict[str, str]:
+        return self.child.output_schema()
+
+    def describe(self) -> str:
+        return f"Repartition [{', '.join(self.columns)}] x{self.num_buckets}"
+
+
+@dataclass(frozen=True)
+class Union(LogicalPlan):
+    """Plain row union (the non-bucketed Hybrid Scan merge,
+    RuleUtils.scala:443-446)."""
+
+    children_: Tuple[LogicalPlan, ...]
+
+    @property
+    def children(self):
+        return self.children_
+
+    def with_children(self, children):
+        return replace(self, children_=tuple(children))
+
+    def output_columns(self) -> List[str]:
+        return self.children_[0].output_columns()
+
+    def output_schema(self) -> Dict[str, str]:
+        return self.children_[0].output_schema()

@@ -2,9 +2,9 @@
 transformation.
 
 Parity: com/microsoft/hyperspace/index/rules/RuleUtils.scala (579 LoC).
-Candidate selection requires an exact signature match
-(RuleUtils.scala:61-76); the Hybrid Scan file-overlap test is not ported.
-Results are memoized on
+Candidate selection either requires an exact signature match
+(RuleUtils.scala:61-76) or, with Hybrid Scan on, a file-overlap test with
+appended/deleted byte-ratio thresholds (:78-176). Results are memoized on
 the entry's tag scratch space keyed by the plan node, exactly like the
 reference's tag system.
 """
@@ -14,7 +14,7 @@ from __future__ import annotations
 from typing import List, Optional, Set, Tuple
 
 from ...config import HyperspaceConf
-from ...index.log_entry import IndexLogEntry
+from ...index.log_entry import FileInfo, IndexLogEntry
 from ...index.signatures import create_signature_provider
 from ...plan.ir import IndexScan, LogicalPlan, Scan
 
@@ -70,18 +70,68 @@ def _signature_valid(
     return entry.with_cached_tag(scan, TAG_SIGNATURE_MATCHED, compute)
 
 
+def _hybrid_scan_candidate(
+    entry: IndexLogEntry, plan: LogicalPlan, conf: HyperspaceConf
+) -> bool:
+    """File-overlap candidacy under Hybrid Scan (RuleUtils.scala:78-145):
+
+    * common files = entry's source snapshot ∩ the plan's current files;
+    * no common data → not a candidate;
+    * deleted files require lineage;
+    * appended-bytes / current-total   <= maxAppendedRatio (0.3 default);
+    * deleted-bytes  / indexed-total   <= maxDeletedRatio  (0.2 default).
+    """
+
+    def compute() -> bool:
+        scan = single_scan(plan)
+        if scan is None:
+            return False
+        current: Set[FileInfo] = set(scan.relation.files)
+        indexed: Set[FileInfo] = set(entry.source_file_infos())
+        common = current & indexed
+        if not common:
+            return False
+        appended = current - indexed
+        deleted = indexed - common
+        if not appended and not deleted:
+            entry.set_tag_value(plan, TAG_HYBRIDSCAN_REQUIRED, False)
+            entry.set_tag_value(
+                plan,
+                TAG_COMMON_SOURCE_SIZE_IN_BYTES,
+                sum(f.size for f in common),
+            )
+            return True
+        if deleted and not entry.has_lineage_column():
+            return False
+        current_bytes = sum(f.size for f in current)
+        indexed_bytes = sum(f.size for f in indexed)
+        appended_bytes = sum(f.size for f in appended)
+        deleted_bytes = sum(f.size for f in deleted)
+        if current_bytes and appended_bytes / current_bytes > conf.hybrid_scan_appended_ratio_threshold():
+            return False
+        if indexed_bytes and deleted_bytes / indexed_bytes > conf.hybrid_scan_deleted_ratio_threshold():
+            return False
+        entry.set_tag_value(plan, TAG_HYBRIDSCAN_REQUIRED, True)
+        entry.set_tag_value(
+            plan, TAG_COMMON_SOURCE_SIZE_IN_BYTES, sum(f.size for f in common)
+        )
+        return True
+
+    return entry.with_cached_tag(plan, TAG_IS_HYBRIDSCAN_CANDIDATE, compute)
+
+
 def get_candidate_indexes(
     entries: List[IndexLogEntry],
     plan: LogicalPlan,
     conf: HyperspaceConf,
     kind: str = "CoveringIndex",
 ) -> List[IndexLogEntry]:
-    """(RuleUtils.scala:51-177): exact signature match. Hybrid Scan
-    candidacy (file-overlap with appended/deleted ratios) is not ported,
-    so with hybrid scan enabled no index is a candidate."""
+    """(RuleUtils.scala:51-177). ``kind`` keeps each rule family on its own
+    index kind — a data-skipping entry's sketch columns must never satisfy
+    a covering rule's coverage test."""
     entries = [e for e in entries if e.derived_dataset.kind == kind]
     if conf.hybrid_scan_enabled():
-        return []
+        return [e for e in entries if _hybrid_scan_candidate(e, plan, conf)]
     return [e for e in entries if _signature_valid(e, plan, conf)]
 
 
@@ -98,20 +148,30 @@ def transform_plan_to_use_index(
     use_bucket_spec: bool,
     conf: HyperspaceConf,
 ) -> LogicalPlan:
-    """(RuleUtils.scala:207-234). Hybrid Scan is not ported: an entry that
-    carries a recorded source update (quick refresh) would need the hybrid
-    transformation to stay correct, so it is refused here and the rule
-    leaves the plan alone."""
+    """(RuleUtils.scala:207-234): dispatch to the clean index-only scan or,
+    when the candidate was selected with a source delta under Hybrid Scan,
+    the hybrid transformation."""
     scan = single_scan(plan)
+    hybrid_required = (
+        scan is not None and entry.get_tag_value(scan, TAG_HYBRIDSCAN_REQUIRED)
+    ) or entry.get_tag_value(plan, TAG_HYBRIDSCAN_REQUIRED)
+    # A quick-refreshed entry carries a recorded source Update: its
+    # fingerprint matches the *current* files, so it is selected via the
+    # signature path even with Hybrid Scan disabled — but using it without
+    # the hybrid transformation would drop appended rows / resurrect
+    # deleted ones (RefreshQuickAction.scala:70-79 semantics).
+    has_recorded_update = False
     if scan is not None:
         upd = entry.source_update()
         if upd is not None and (upd.appended_files or upd.deleted_files):
-            from ...exceptions import HyperspaceException
+            from .hybrid_scan import source_delta
 
-            raise HyperspaceException(
-                f"Index {entry.name} needs Hybrid Scan, which is not yet "
-                "ported to hyperspace_tpu_torch."
-            )
+            appended, deleted = source_delta(entry, scan)
+            has_recorded_update = bool(appended or deleted)
+    if (conf.hybrid_scan_enabled() and hybrid_required) or has_recorded_update:
+        from .hybrid_scan import transform_plan_to_use_hybrid_scan
+
+        return transform_plan_to_use_hybrid_scan(entry, plan, use_bucket_spec, conf)
     return transform_plan_to_use_index_only_scan(entry, plan, use_bucket_spec)
 
 

@@ -814,3 +814,26 @@ def test_cuda_kernels_match_plain_versions():
         tk.program_mask_tensor(programs[0], [big[1:], big[1:], big[1:]])
     assert launch_counts() == {tk.K1: 6 + n_masks, tk.K2: n_k2, tk.K2F: n_k2,
                                tk.K1C: 2 + n_counts}
+
+
+@pytest.mark.gpu
+def test_cuda_k1_long_not_in_program_matches_plain_version():
+    """Hybrid Scan's lineage filter over hundreds of deleted file ids: the
+    NOT IN narrows to a staged program of over 500 instructions, and K1 on
+    the card gives the plain version's mask at a ragged and a large
+    length, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = np.random.default_rng(31)
+    ids = sorted(rng.choice(4000, 300, replace=False).tolist())
+    pred = (texpr.col("k") >= 500) & ~texpr.is_in(texpr.col("_data_file_id"), ids)
+    reset_launch_counts()
+    for n in (4097, 1_000_003):
+        arrs = {"_data_file_id": rng.integers(0, 4000, n).astype(np.int64),
+                "k": rng.integers(0, 10**6, n).astype(np.int64)}
+        narrowed, names, _ = tk.prepare_predicate(pred, arrs)
+        assert tk.lowered_predicate(narrowed, names).staged
+        want = tk.predicate_mask(pred, arrs, n, device="cpu")
+        got = tk.predicate_mask(pred, arrs, n, device="cuda")
+        assert np.array_equal(got, want) and 0 < want.sum() < n
+    assert launch_counts() == {tk.K1: 2}

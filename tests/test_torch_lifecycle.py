@@ -539,10 +539,13 @@ def test_partition_compactable_matches():
 
 
 # ---------------------------------------------------------------------------
-# quick refresh: the rows are the reference's, the routing waits for Hybrid
-# Scan (the port leaves the plan on its source)
+# quick refresh: with hybrid scan off, the recorded update is served through
+# the hybrid transformation in both packages
 # ---------------------------------------------------------------------------
 def test_quick_refresh_rows_match_and_port_stays_on_source(tmp_path):
+    """Both packages rewrite the quick-refreshed index to the same hybrid
+    plan (the appended file's Union, the deleted file's lineage NOT IN),
+    with the source scan's rows; none stays on its source."""
     p = Pair(tmp_path, **{"hyperspace.index.lineage.enabled": True})
     for i in range(2):
         p.write(f"part-{i}", 200, 60 + i)
@@ -553,8 +556,17 @@ def test_quick_refresh_rows_match_and_port_stays_on_source(tmp_path):
     p.remove("part-0")
     assert p.verb("refresh_index", "li", "quick") == "ok"
     used = p.check()
-    assert not any(used["torch"].values())
-    assert all(used["jax"].values())  # the reference's hybrid transformation
+    assert all(used["torch"].values()) and all(used["jax"].values())
+    trees = {}
+    for k in PKGS:
+        p.s[k].enable_hyperspace()
+        plans = [q.optimized_plan() for q in p.queries(k).values()]
+        p.s[k].disable_hyperspace()
+        trees[k] = [pl.tree_string() for pl in plans]
+        kinds = {type(n).__name__ for pl in plans for n in pl.collect(lambda n: True)}
+        assert {"Union", "IndexScan"} <= kinds, k
+    assert trees["torch"] == trees["jax"]
+    assert all("_data_file_id" in t for t in trees["torch"])
 
 
 # ---------------------------------------------------------------------------

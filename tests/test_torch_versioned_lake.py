@@ -3,8 +3,9 @@ CPU. Mirrors test_versioned_lake.py: the table's log protocol, commit
 conflicts, tombstones, version pinning and time travel, an index over a
 table and its incremental refresh. Both packages index one table; their
 log entries (times and index file names aside), index bytes and rows must
-be equal. The hybrid-scan case waits for the port's Hybrid Scan. The
-table's files are parquet, so this module needs ``pyarrow``.
+be equal, with the table mutated under the index and served through
+Hybrid Scan too. The table's files are parquet, so this module needs
+``pyarrow``.
 Tolerance: exact.
 """
 
@@ -126,3 +127,42 @@ def test_index_refresh_and_queries_on_vlt_match(tmp_path):
         mod.Hyperspace(_session(mod, trees[key])).refresh_index("vlt_idx", "incremental")
     rows, _, n_files, _ = step()
     assert n_files == 3 and len(rows[1]) == 4
+
+
+def test_hybrid_scan_on_vlt_appends_and_removes_matches(tmp_path):
+    """test_versioned_lake.py:127: the table gains a file and loses its
+    first one under an index with lineage; with hybrid scan on, both
+    packages serve the index through the same hybrid plan (the appended
+    file's Union, the removed file's lineage NOT IN) with the table's rows."""
+    t = _table("jax", tmp_path / "table")
+    trees = {k: tmp_path / f"ix_{k}" for k in PKGS}
+    for key, mod in PKGS.items():
+        s = _session(mod, trees[key], **{"hyperspace.index.lineage.enabled": True})
+        mod.Hyperspace(s).create_index(s.read.format("vlt").load(str(t.path)),
+                                       mod.IndexConfig("vlt_idx", ["k"], ["v"]))
+    t.write(_batch(JaxBatch, [5, 9], [55, 90]))
+    first = json.loads(t._commit_path(1).read_text())["add"][0]["path"]
+    t.remove_files([first])  # drops keys 1-4, the version-1 write
+    res = {}
+    for key, mod in PKGS.items():
+        # three small files: one appended and one removed are each about
+        # half the bytes, so the caps are raised for the index to serve
+        s = _session(mod, trees[key], **{"hyperspace.index.lineage.enabled": True,
+                                         "hyperspace.index.hybridscan.enabled": True,
+                                         "hyperspace.index.hybridscan.maxAppendedRatio": 0.6,
+                                         "hyperspace.index.hybridscan.maxDeletedRatio": 0.6})
+        out = []
+        for k in (5, 1):
+            q = s.read.format("vlt").load(str(t.path)).filter(
+                mod.col("k") == k).select("k", "v")
+            s.disable_hyperspace()
+            off = _rows(q.collect())
+            s.enable_hyperspace()
+            on = _rows(q.collect())
+            assert on == off, key
+            out.append((on, q.optimized_plan().tree_string()))
+        res[key] = out
+    assert res["jax"] == res["torch"]
+    (five, plan5), (one, _) = res["torch"]
+    assert [r[1] for r in five[1]] == ["np.int64(50)", "np.int64(55)"] and one[1] == []
+    assert "Union" in plan5 and "_data_file_id" in plan5 and "IndexScan" in plan5
