@@ -41,7 +41,16 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    card, then a point lookup, a range filter and a Q3-shaped join with
    Hyperspace enabled and residency off (the per-file scan). Every result
    must equal a plain numpy evaluation of the same query, ``explain`` must
-   show the index scans, and K1 and K2 must have launched;
+   show the index scans, and K1 and K2 must have launched; then, in the
+   same session, the aggregates: Q17's shape (lineitem joined to orders,
+   grouped by part: the join's match ranges from K2 fused into the
+   aggregate), the Q3 join grouped by (order key, order date) as TPC-H Q3
+   ends (keys on both sides: the join is materialized, then
+   hash-aggregated), Q1's shape (the range filter's order-key and
+   ship-date windows through K1, grouped by quantity, all five functions)
+   with a HAVING filter, and Q6's shape (a global aggregate over the range
+   filter). Each shows its index scans under the Aggregate in
+   ``explain``, runs with launch counts from zero, and equals numpy;
 4. resident path — in the same session, residency ``auto``:
    ``prefetch_index`` puts li_idx's four predicate columns on the card,
    then 20 point lookups, the range filter 5 times and a filter with a
@@ -85,7 +94,9 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    appended files, Q3 a ``BucketUnion`` with the appended rows
    ``Repartition``-ed into the 200 buckets on both sides), H3 RF2 and a
    retention delete of one base lineitem file (the lineage ``NOT IN`` over
-   its id in K1's program), H4 both indexes refreshed incrementally (index
+   its id in K1's program), then Q17's shape over the two BucketUnion
+   sides (the fused aggregate reading the merged bucket groups, K2 once),
+   H4 both indexes refreshed incrementally (index
    only again). Each step checks the plan's nodes in ``explain``, runs the
    range filter (K1 once per index file read) and Q3 (K2 and K2F once)
    with launch counts from zero, prints seconds, rows, files read, the
@@ -869,7 +880,7 @@ def run_main_path(
     lineitem, orders, workdir: Path, device: str, seed: int, profile: bool = False
 ) -> dict:
     """Build both indexes and run the three queries on ``device`` with
-    residency off, then the resident phase and the front-end phase in the
+    residency off, then the aggregate, resident and front-end phases in the
     same session, then the lifecycle and hybrid phases, each in its own;
     every result is checked against numpy. Returns timings and counts."""
     import hyperspace_tpu_torch as hs
@@ -968,6 +979,7 @@ def run_main_path(
            q3_want)
     for q in out["query_s"]:
         log(f"query {q}: {out['query_s'][q]:.4f} s rows={out['rows'][q]} matches numpy reference")
+    out["aggregate"] = aggregate_phase(session, li, od, q3, L, O, profile)
     out["resident"] = resident_phase(session, hsp, li, L, seed, profile)
     q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
                "o_totalprice"]
@@ -977,6 +989,158 @@ def run_main_path(
         q3_want, L, workdir, seed, profile)
     out["lifecycle"] = lifecycle_phase(lineitem, orders, workdir, device, seed, profile)
     out["hybrid"] = hybrid_phase(lineitem, orders, workdir, device, seed, profile)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# aggregate phase: TPC-H Q17/Q3/Q1/Q6 shapes over the main path's indexes
+# ---------------------------------------------------------------------------
+def _check_agg(name, batch, keys, want: dict):
+    """Hold an aggregate's rows against numpy's: ``want`` maps each output
+    column to its values in ascending order of the group keys (a single
+    row for a global aggregate). Group sets and integer columns exact,
+    float64 columns to rtol 1e-9 with NaN equal to NaN."""
+    if batch.column_names != list(want):
+        raise AssertionError(f"{name}: columns {batch.column_names}, want {list(want)}")
+    n = len(next(iter(want.values())))
+    if batch.num_rows != n:
+        raise AssertionError(f"{name}: {batch.num_rows} groups, numpy has {n}")
+    order = (np.lexsort(tuple(np.asarray(batch.columns[k].data) for k in reversed(keys)))
+             if keys else np.arange(n))
+    for c, w in want.items():
+        g = np.asarray(batch.columns[c].data)[order]
+        ok = (np.allclose(g, w, rtol=1e-9, atol=0.0, equal_nan=True) if w.dtype.kind == "f"
+              else np.array_equal(g, w))
+        if not ok:
+            raise AssertionError(f"{name}: column {c} differs from the numpy reference")
+
+
+def q17_shape(li, od):
+    """The JAX package's Q17 shape (bench.py config 7): lineitem joined to
+    orders, grouped by part."""
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.plan.expr import col
+
+    return li.join(od, col("l_orderkey") == col("o_orderkey")).group_by("l_partkey").agg(
+        hs.agg_sum("o_totalprice", "rev"), hs.agg_avg("o_totalprice", "avg_rev"), hs.agg_count())
+
+
+def q17_truth(L: dict, O: dict) -> dict:
+    """numpy's answer to ``q17_shape``; every lineitem has its order."""
+    o_ord = np.argsort(O["o_orderkey"], kind="stable")
+    pos = o_ord[np.searchsorted(O["o_orderkey"], L["l_orderkey"], sorter=o_ord)]
+    if not np.array_equal(O["o_orderkey"][pos], L["l_orderkey"]):
+        raise AssertionError("q17 truth: a lineitem without its order")
+    uniq, inv = np.unique(L["l_partkey"], return_inverse=True)
+    rev = np.bincount(inv.reshape(-1), weights=O["o_totalprice"][pos], minlength=len(uniq))
+    cnt = np.bincount(inv.reshape(-1), minlength=len(uniq)).astype(np.int64)
+    return {"l_partkey": uniq, "rev": rev, "avg_rev": rev / cnt, "count": cnt}
+
+
+def aggregate_phase(session, li, od, q3, L: dict, O: dict, profile: bool = False) -> dict:
+    """Aggregates over li_idx and ord_idx at SF1, in the main path's
+    session, residency off, each query with launch counts from zero:
+
+    * A1 ``q17_shape``: Q17's aggregate over the join, 200,000 groups; the
+      group key is on lineitem's side, so the executor fuses the join's
+      match ranges (K2 and its fence build once) into the aggregate;
+    * A2 ``q3_grouped``: the main path's Q3 ending as TPC-H Q3 ends,
+      grouped by (l_orderkey, o_orderdate) — keys on both sides, so the
+      join is materialized (K2 once) and hash-aggregated;
+    * A3 ``q1_shape``: the range filter's order-key and ship-date windows
+      through K1 (once per index file read), grouped by l_quantity (50
+      groups) with all five functions, min/max over date32; then a HAVING
+      filter on the count;
+    * A4 ``q6_shape``: a global aggregate over the full range filter.
+
+    Each query's explain must show the index scans under the Aggregate,
+    and its result equal numpy's."""
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.ops import kernels as tk
+    from hyperspace_tpu_torch.plan.expr import col
+
+    on_card = session.device.type == "cuda"
+    lo_k, hi_k, d_lo = range_bounds(L)
+    window = ((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+              & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15))
+    w_mask = ((L["l_orderkey"] >= lo_k) & (L["l_orderkey"] < hi_k)
+              & (L["l_shipdate"] >= d_lo) & (L["l_shipdate"] < DAY_1995_03_15))
+    q6_mask = w_mask & (L["l_quantity"] < 24)
+
+    # numpy's answers
+    want = {"q17_shape": q17_truth(L, O)}
+    lm = L["l_shipdate"] > DAY_1993_06_01
+    pos = np.searchsorted(O["o_orderkey"], L["l_orderkey"][lm])  # orders keys ascend
+    hit = O["o_orderdate"][pos] < DAY_1995_03_15
+    q3_key = L["l_orderkey"][lm][hit]
+    uniq, first, inv = np.unique(q3_key, return_index=True, return_inverse=True)
+    inv = inv.reshape(-1)
+    want["q3_grouped"] = {
+        "l_orderkey": uniq, "o_orderdate": O["o_orderdate"][pos[hit]][first],
+        "revenue": np.bincount(inv, weights=L["l_extendedprice"][lm][hit], minlength=len(uniq)),
+        "count": np.bincount(inv, minlength=len(uniq)).astype(np.int64)}
+    qty, price, ship = L["l_quantity"][w_mask], L["l_extendedprice"][w_mask], L["l_shipdate"][w_mask]
+    uniq, inv = np.unique(qty, return_inverse=True)
+    inv = inv.reshape(-1)
+    cnt = np.bincount(inv, minlength=len(uniq)).astype(np.int64)
+    s = np.bincount(inv, weights=price, minlength=len(uniq))
+    mins = np.full(len(uniq), np.iinfo(np.int32).max, dtype=np.int32)
+    maxs = np.full(len(uniq), np.iinfo(np.int32).min, dtype=np.int32)
+    np.minimum.at(mins, inv, ship)
+    np.maximum.at(maxs, inv, ship)
+    want["q1_shape"] = {"l_quantity": uniq, "sum_l_extendedprice": s,
+                        "avg_l_extendedprice": s / cnt, "min_l_shipdate": mins,
+                        "max_l_shipdate": maxs, "count": cnt}
+    floor = int(np.median(cnt))
+    keep = cnt > floor
+    want["q1_having"] = {c: v[keep] for c, v in want["q1_shape"].items()}
+    want["q6_shape"] = {"sum_l_extendedprice": np.array([L["l_extendedprice"][q6_mask].sum()]),
+                        "count": np.array([int(q6_mask.sum())], dtype=np.int64)}
+
+    q1 = li.filter(window).group_by("l_quantity").agg(
+        hs.agg_sum("l_extendedprice"), hs.agg_avg("l_extendedprice"), hs.agg_min("l_shipdate"),
+        hs.agg_max("l_shipdate"), hs.agg_count())
+    queries = {
+        # name: (DataFrame, group keys, index scans under the Aggregate, arm)
+        "q17_shape": (q17_shape(li, od), ["l_partkey"], 2, "fused"),
+        "q3_grouped": (q3.group_by("l_orderkey", "o_orderdate").agg(
+            hs.agg_sum("l_extendedprice", "revenue"), hs.agg_count()),
+            ["l_orderkey", "o_orderdate"], 2, "materialized"),
+        "q1_shape": (q1, ["l_quantity"], 1, "scan"),
+        "q1_having": (q1.filter(col("count") > floor), ["l_quantity"], 1, "scan"),
+        "q6_shape": (li.filter(window & (col("l_quantity") < 24)).group_by().agg(
+            hs.agg_sum("l_extendedprice"), hs.agg_count()), [], 1, "scan"),
+    }
+    out = {}
+    for name, (df, keys, n_scans, arm) in queries.items():
+        plan = plan_with_indexes(df)
+        body = plan.split("Aggregate [", 1)
+        if len(body) != 2 or body[1].count("IndexScan Hyperspace(Type: CI") != n_scans:
+            raise AssertionError(f"aggregate {name}: explain shows no Aggregate over "
+                                 f"{n_scans} index scans:\n{plan}")
+        res, t_q, launches, m, _times = timed_query(session, f"aggregate {name}", profile, df)
+        _check_agg(f"aggregate {name}", res, keys, want[name])
+        fused = m.get("aggregate.path.join_fused", 0)
+        join_arm = [k for k in ("join.path.device_kernel", "join.path.host_searchsorted")
+                    if m.get(k, 0)]
+        read = m.get("scan.files_read", 0)
+        k2_want = (1 if on_card else 0) if arm != "scan" else 0
+        if (launches.get(tk.K2, 0), launches.get(tk.K2F, 0)) != (k2_want, k2_want) or \
+                fused != (1 if arm == "fused" else 0):
+            raise AssertionError(f"aggregate {name}: launches {launches}, counters {m}")
+        if arm == "scan" and (read <= 0 or launches.get(tk.K1, 0) != (read if on_card else 0)):
+            raise AssertionError(f"aggregate {name}: K1 launches {launches}, files read {read}")
+        out[name] = {"s": t_q, "groups": res.num_rows, "launches": launches, "arm": arm,
+                     "join_fused": fused, "join_path": join_arm, "files_read": read,
+                     "aggregate_total_s": _times.get("aggregate.total", (0.0, 0))[0],
+                     "aggregate_join_ranges_s": _times.get("aggregate.join_ranges", (0.0, 0))[0],
+                     "join_bucketed_ranges_s": _times.get("join.bucketed_ranges", (0.0, 0))[0]}
+        log(f"aggregate {name}: {t_q:.4f} s groups={res.num_rows} arm={arm} "
+            f"join_fused={fused} join path={join_arm} files read={read} launches={launches} "
+            f"| timers aggregate.total={out[name]['aggregate_total_s']:.4f} s "
+            f"aggregate.join_ranges={out[name]['aggregate_join_ranges_s']:.4f} s "
+            f"join.bucketed_ranges={out[name]['join_bucketed_ranges_s']:.4f} s "
+            f"| matches numpy")
     return out
 
 
@@ -1818,6 +1982,31 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
         out["h3_k1_programs"] = lowered
         log(f"hybrid H3: K1 programs over the lineage column (instructions, columns): {lowered}")
 
+    # H-agg: Q17's shape over the hybrid join, each side a BucketUnion of
+    # the index (less the deleted file) and the appended rows repartitioned
+    L_now = {c: np.concatenate([p[c] for p in li_parts.values()]) for c in lineitem}
+    O_now = {c: np.concatenate([p[c] for p in od_parts.values()]) for c in orders}
+    agg_q = q17_shape(session.read.avro(str(li_dir)), session.read.avro(str(od_dir)))
+    plan = plan_with_indexes(agg_q)
+    if "<----Aggregate [l_partkey]" not in plan or plan.count("BucketUnion") != 2 or \
+            plan.count("Repartition") != 2:
+        raise AssertionError(f"hybrid H-agg: plan lacks the Aggregate over two BucketUnions:\n"
+                             f"{plan}")
+    res, t_q, launches, m, times = run("H-agg q17_shape", agg_q)
+    _check_agg("hybrid H-agg", res, ["l_partkey"], q17_truth(L_now, O_now))
+    want_k2 = 1 if on_card else 0
+    if (launches.get(tk.K2, 0), launches.get(tk.K2F, 0)) != (want_k2, want_k2) or \
+            m.get("aggregate.path.join_fused", 0) != 1:
+        raise AssertionError(f"hybrid H-agg: launches {launches}, counters {m}")
+    moved = m.get("union.repartition.rows", 0)
+    out["h_agg"] = {"s": t_q, "groups": res.num_rows, "launches": launches,
+                    "join_fused": m.get("aggregate.path.join_fused", 0),
+                    "union_repartition_rows": moved,
+                    "aggregate_join_ranges_s": times.get("aggregate.join_ranges", (0.0, 0))[0],
+                    "join_bucketed_ranges_s": times.get("join.bucketed_ranges", (0.0, 0))[0]}
+    log(f"hybrid H-agg q17_shape: {t_q:.4f} s groups={res.num_rows} join_fused=1 "
+        f"union.repartition.rows={moved} launches={launches} | matches numpy")
+
     t = verb(hsp.refresh_index, "li_hy", "incremental")
     t += verb(hsp.refresh_index, "ord_hy", "incremental")
     measure("H4 refreshed incrementally", t, ["IndexScan"], ["IndexScan"], absent=unions)
@@ -1920,6 +2109,7 @@ def main() -> int:
          "library_ms": k2f["library_ms"]},
     ]}
     log(json.dumps({"main_path": {k: main_out[k] for k in ("build_s", "query_s", "rows")},
+                    "aggregate": main_out["aggregate"],
                     "resident_path": main_out["resident"],
                     "front_end": main_out["front_end"],
                     "lifecycle": main_out["lifecycle"],

@@ -38,6 +38,10 @@ def __getattr__(name):
         from .plan import expr
 
         return getattr(expr, name)
+    if name in ("agg_sum", "agg_count", "agg_min", "agg_max", "agg_avg", "AggSpec"):
+        from .plan import aggregates
+
+        return getattr(aggregates, name)
     if name == "DataSkippingIndexConfig":
         from .index.index_config import DataSkippingIndexConfig
 

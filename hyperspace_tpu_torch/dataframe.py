@@ -63,6 +63,22 @@ class DataFrame(EventLogging):
         queries rewrite against indexes exactly like this DataFrame."""
         self.session.catalog.create_or_replace_temp_view(name, self)
 
+    def group_by(self, *columns: str) -> "GroupedData":
+        """Hash-aggregate entry point: ``df.group_by("k").agg(agg_sum("v"))``
+        (specs from plan.aggregates). No columns = global aggregate."""
+        from .utils import resolver
+
+        out = self.plan.output_columns()
+        resolved = []
+        for c in columns:
+            match = resolver.resolve(c, out)
+            if match is None:
+                raise HyperspaceException(f"Unknown group-by column: {c}.")
+            resolved.append(match)
+        return GroupedData(self, tuple(resolved))
+
+    groupBy = group_by
+
     # -- actions -------------------------------------------------------------
     def normalized_plan(self) -> LogicalPlan:
         """The plan after the normalization passes that run before the
@@ -132,3 +148,45 @@ class DataFrame(EventLogging):
         from .plananalysis.plan_analyzer import explain_string
 
         return explain_string(self, verbose=verbose)
+
+
+class GroupedData:
+    """``df.group_by(...)`` result: call ``agg`` with AggSpecs (or use the
+    ``count`` shorthand) to get the aggregated DataFrame."""
+
+    def __init__(self, df: DataFrame, group_by):
+        self._df = df
+        self._group_by = group_by
+
+    def agg(self, *specs) -> DataFrame:
+        from dataclasses import replace
+
+        from .plan.aggregates import AggSpec, validate_specs
+        from .plan.ir import Aggregate
+        from .utils import resolver
+
+        if not specs:
+            raise HyperspaceException("agg() needs at least one AggSpec.")
+        out = self._df.plan.output_columns()
+        resolved = []
+        for s in specs:
+            if not isinstance(s, AggSpec):
+                raise HyperspaceException(f"Not an AggSpec: {s!r}.")
+            if s.column is not None:
+                match = resolver.resolve(s.column, out)
+                if match is None:
+                    raise HyperspaceException(
+                        f"Unknown aggregate column: {s.column}."
+                    )
+                s = replace(s, column=match)
+            resolved.append(s)
+        validate_specs(tuple(resolved), self._group_by)
+        return DataFrame(
+            self._df.session,
+            Aggregate(self._group_by, tuple(resolved), self._df.plan),
+        )
+
+    def count(self) -> DataFrame:
+        from .plan.aggregates import agg_count
+
+        return self.agg(agg_count())

@@ -16,10 +16,13 @@ BucketUnion and Repartition:
   join side ``BucketUnion(index side, Repartition(appended side))`` hashes
   the appended rows into the index's buckets on the host and merges them
   into the bucket groups the bucketed join reads;
+* ``Aggregate([Project](Join))`` over two bucketed index sides fuses the
+  join's match ranges into the aggregate (exec.aggregate.
+  aggregate_join_ranges: no pair arrays, no joined batch); every other
+  Aggregate runs its child, then exec.aggregate.hash_aggregate;
 * everything else evaluates bottom-up over ColumnarBatches.
 
-The compiled-pipeline, delta/join residency, mesh and aggregate arms are
-not ported.
+The compiled-pipeline, delta/join residency and mesh arms are not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..exceptions import HyperspaceException
 from ..ops import DeviceLike
 from ..plan.expr import Expr, eval_mask
 from ..plan.ir import (
+    Aggregate,
     BucketUnion,
     Filter,
     IndexScan,
@@ -47,7 +51,7 @@ from ..plan.rules.join_rule import align_condition_sides, extract_equi_condition
 from ..storage import layout, parquet_io
 from ..storage.columnar import ColumnarBatch
 from ..telemetry.metrics import metrics
-from .joins import bucketed_join_pairs, inner_join
+from .joins import bucketed_join_pairs, bucketed_join_ranges, inner_join
 from .scan import empty_batch_for, index_scan
 
 
@@ -65,6 +69,23 @@ def bucketed_meta(plan: LogicalPlan) -> Optional[IndexScan]:
             if idx is not None:
                 return idx
     return None
+
+
+def _co_bucketed(left: LogicalPlan, right: LogicalPlan, l_keys, r_keys) -> bool:
+    """Whether both join sides are bucket-spec index scans with the same
+    numBuckets, keyed exactly on their indexed (bucketing) columns — so
+    equal keys share a bucket id on both sides (the hash is value-stable,
+    ops.hashing). Metadata only, no I/O."""
+    l_meta, r_meta = bucketed_meta(left), bucketed_meta(right)
+    if l_meta is None or r_meta is None:
+        return False
+    if l_meta.entry.num_buckets != r_meta.entry.num_buckets:
+        return False
+    return {c.lower() for c in l_meta.entry.indexed_columns} == {
+        k.lower() for k in l_keys
+    } and {c.lower() for c in r_meta.entry.indexed_columns} == {
+        k.lower() for k in r_keys
+    }
 
 
 def _has_index_scan(plan: LogicalPlan) -> bool:
@@ -194,6 +215,8 @@ class Executor:
         if isinstance(plan, Join):
             batch = self._exec_join(plan)
             return self._apply_predicate(batch, predicate)
+        if isinstance(plan, Aggregate):
+            return self._exec_aggregate(plan, predicate)
         if isinstance(plan, Union):
             return self._exec_union(plan, predicate, columns)
         if isinstance(plan, Repartition):
@@ -206,6 +229,24 @@ class Executor:
             f"Cannot execute node {plan.node_name} (not yet ported to "
             "hyperspace_tpu_torch)."
         )
+
+    def _exec_aggregate(
+        self, plan: Aggregate, predicate: Optional[Expr]
+    ) -> ColumnarBatch:
+        """The fused aggregate-over-join arm first, then the child
+        gathered + hash_aggregate. A predicate above the aggregate (the
+        HAVING shape) applies to the aggregated rows, never the child's.
+        (The reference tries its mesh two-phase aggregate,
+        ``_try_distributed_aggregate``, before the fused arm; it lands
+        with multi-device.)"""
+        from .aggregate import hash_aggregate
+
+        fused = self._try_join_aggregate(plan)
+        if fused is not None:
+            return self._apply_predicate(fused, predicate)
+        child = self._exec(plan.child, None, plan.input_columns())
+        result = hash_aggregate(child, list(plan.group_by), list(plan.aggs))
+        return self._apply_predicate(result, predicate)
 
     def _exec_union(
         self,
@@ -362,22 +403,10 @@ class Executor:
     def _try_bucketed_join(
         self, join: Join, l_keys: List[str], r_keys: List[str]
     ) -> Optional[ColumnarBatch]:
-        """The shuffle-free bucketed SMJ: both sides are bucket-spec index
-        scans with the same numBuckets, and the join keys are exactly the
-        indexed (bucketing) columns — so equal keys share a bucket id on
-        both sides (the hash is value-stable, ops.hashing)."""
-        l_meta = bucketed_meta(join.left)
-        r_meta = bucketed_meta(join.right)
-        if l_meta is None or r_meta is None:
+        """The shuffle-free bucketed SMJ over two co-bucketed sides; None
+        otherwise (the exact unbucketed join serves)."""
+        if not _co_bucketed(join.left, join.right, l_keys, r_keys):
             return None
-        if {c.lower() for c in l_meta.entry.indexed_columns} != {
-            k.lower() for k in l_keys
-        } or {c.lower() for c in r_meta.entry.indexed_columns} != {
-            k.lower() for k in r_keys
-        }:
-            return None
-        if l_meta.entry.num_buckets != r_meta.entry.num_buckets:
-            return None  # not co-partitioned: the exact unbucketed join serves
         left = self._side_by_bucket(join.left)
         right = self._side_by_bucket(join.right)
         if left is None or right is None:
@@ -402,8 +431,48 @@ class Executor:
             )
         return ColumnarBatch.concat(parts)
 
+    def _try_join_aggregate(self, plan: Aggregate) -> Optional[ColumnarBatch]:
+        """Fuse Aggregate([Project](Join)) over the bucketed SMJ: the
+        join's match ranges (lo, counts) feed aggregate_join_ranges' range
+        arithmetic, so the expanded pair arrays and the joined batch are
+        never built. Falls back (None) whenever the shapes, key columns or
+        aggregate functions don't qualify; results are those of
+        materialize + hash_aggregate."""
+        from .aggregate import aggregate_join_ranges
+        from .join_residency import orient_join_aggregate
+
+        oriented = orient_join_aggregate(plan)
+        if oriented is None:
+            return None
+        left_plan, right_plan, lk, rk, group_by, aggs = oriented
+        if not _co_bucketed(left_plan, right_plan, lk, rk):
+            return None
+        # (the reference tries its device-resident fused aggregate-join,
+        # ``_try_resident_join_agg``, here; it lands with join residency)
+        # decidable before any bucket I/O: an ineligible shape would load
+        # both sides, decline, then load everything again on the fallback
+        if any(a.fn not in ("count", "sum", "avg") for a in aggs):
+            return None
+        left = self._side_by_bucket(left_plan)
+        right = self._side_by_bucket(right_plan)
+        if left is None or right is None:
+            return None
+        l_by_bucket, l_node = left
+        r_by_bucket, _r_node = right
+        # merge in the left index's key order, as _try_bucketed_join does
+        k2k = {a.lower(): b for a, b in zip(lk, rk)}
+        lk = list(l_node.entry.indexed_columns)
+        rk = [k2k[k.lower()] for k in lk]
+        ranges = bucketed_join_ranges(l_by_bucket, r_by_bucket, lk, rk, self.device)
+        if ranges is None:
+            return None
+        l_all, r_all, lo, counts, r_order = ranges
+        return aggregate_join_ranges(l_all, r_all, group_by, aggs, lo, counts, r_order)
+
     def _side_by_bucket(self, plan: LogicalPlan):
-        """[Project?] over a bucketed source (index scan / hybrid union)."""
+        """[Project?] over a bucketed source (index scan / hybrid union),
+        the Project applied: the reference's ``_scan_side_by_bucket``
+        followed by ``_project_groups``, in one helper."""
         project: Optional[Project] = None
         node = plan
         if isinstance(node, Project):

@@ -160,6 +160,30 @@ def inner_join(
     return ColumnarBatch(out)
 
 
+def _bucketed_join_setup(
+    left_by_bucket: Dict[int, ColumnarBatch],
+    right_by_bucket: Dict[int, ColumnarBatch],
+    l_keys: List[str],
+    r_keys: List[str],
+):
+    """Common-bucket concat + join codes, shared by the materializing join
+    and the range-only (aggregate-fused) join: (l_all, r_all, l_codes,
+    r_codes), or None when no bucket is common. Only the common buckets
+    join; they are concatenated per side in ascending bucket order, and
+    hash partitioning guarantees equal keys share a bucket id, so the
+    concatenation introduces no false matches. The reference keeps this
+    setup in a cross-query cache, which is not ported."""
+    common = sorted(set(left_by_bucket) & set(right_by_bucket))
+    if not common:
+        metrics.incr("join.path.no_common_buckets")
+        return None
+    l_all = ColumnarBatch.concat([left_by_bucket[b] for b in common])
+    r_all = ColumnarBatch.concat([right_by_bucket[b] for b in common])
+    _check_no_overlap(l_all, r_all)
+    l_codes, r_codes = join_codes(l_all, r_all, l_keys, r_keys)
+    return l_all, r_all, l_codes, r_codes
+
+
 def bucketed_join_pairs(
     left_by_bucket: Dict[int, ColumnarBatch],
     right_by_bucket: Dict[int, ColumnarBatch],
@@ -168,21 +192,39 @@ def bucketed_join_pairs(
     device: DeviceLike = None,
 ) -> List[ColumnarBatch]:
     """Bucket-batched inner join over bucket-aligned data — the
-    shuffle-free SMJ. Only the common buckets join; they are concatenated
-    per side (ascending bucket order) and merged in ONE kernel launch:
-    hash partitioning guarantees equal keys share a bucket id, so the
-    concatenation introduces no false matches."""
-    common = sorted(set(left_by_bucket) & set(right_by_bucket))
-    if not common:
-        metrics.incr("join.path.no_common_buckets")
+    shuffle-free SMJ: the common buckets merged in ONE kernel launch."""
+    setup = _bucketed_join_setup(left_by_bucket, right_by_bucket, l_keys, r_keys)
+    if setup is None:
         return []
-    l_all = ColumnarBatch.concat([left_by_bucket[b] for b in common])
-    r_all = ColumnarBatch.concat([right_by_bucket[b] for b in common])
-    _check_no_overlap(l_all, r_all)
-    l_codes, r_codes = join_codes(l_all, r_all, l_keys, r_keys)
+    l_all, r_all, l_codes, r_codes = setup
     l_idx, r_idx = merge_join_indices(l_codes, r_codes, device)
     out: Dict[str, Column] = {}
     out.update(l_all.take(l_idx).columns)
     out.update(r_all.take(r_idx).columns)
     j = ColumnarBatch(out)
     return [j] if j.num_rows else []
+
+
+@metrics.timer("join.bucketed_ranges")
+def bucketed_join_ranges(
+    left_by_bucket: Dict[int, ColumnarBatch],
+    right_by_bucket: Dict[int, ColumnarBatch],
+    l_keys: List[str],
+    r_keys: List[str],
+    device: DeviceLike = None,
+):
+    """Match RANGES of the bucketed inner join, never the pair arrays:
+    (l_all, r_all, lo, counts, r_order) where left row i matches right
+    rows ``r_order[lo[i]:lo[i]+counts[i]]``. The aggregate-over-join
+    fusion consumes this: sums and counts over match ranges need only
+    prefix arithmetic, not the expanded (l_idx, r_idx) pairs and the
+    gathers they feed. The ranges come from merge_join_ranges (the
+    sorted-intersect kernel on ``device``), so ``r_order`` is never None
+    here, where the reference's native arm returns None for presorted
+    segments. Returns None when there are no common buckets."""
+    setup = _bucketed_join_setup(left_by_bucket, right_by_bucket, l_keys, r_keys)
+    if setup is None:
+        return None
+    l_all, r_all, l_codes, r_codes = setup
+    lo, counts, r_order = merge_join_ranges(l_codes, r_codes, device)
+    return l_all, r_all, lo, counts, r_order
