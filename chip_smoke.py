@@ -102,7 +102,26 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    with launch counts from zero, prints seconds, rows, files read, the
    ``union.side.*`` timers and the rows repartitioned, and holds every
    result against numpy;
-8. one ``kernels`` JSON line, then the last line
+8. streaming — in a session of its own with lineage on: TPC-H lineitem
+   and orders at SF3 (18,003,645 and 4,500,000 rows, l_partkey in
+   1..600,000) written as avro into ``src/lineitem_st`` (24 files, over
+   the 256 MiB streaming threshold) and ``src/orders_st`` (6 files, under
+   it). li_st is built with ``build.mode=auto``, which must stream it:
+   2^21-row chunks bucketized and sorted on the card, 4 sorted chunks a
+   run merged there with one D2H a run, the tail through the per-chunk
+   program (counters), finalized as 200 per-bucket files; ord_st builds
+   in memory. The auto engine probe's verdict on this machine is printed;
+   one staged run's order is held exactly against the host engine's, and
+   the staged programs are timed beside their bounds. li_runs is the same
+   source with ``finalizeMode=runs`` (run files with ``bucketCounts``),
+   queried through the segment planner and through K1c after
+   ``prefetch_index``; one RF1 batch is appended and refreshed (run files
+   plus per-bucket files), RF2 removes it through the lineage rewrite
+   over the run files, and ``compact_index`` converges it to 200
+   per-bucket files at 64 buckets a committed step. Each step runs the
+   range filter (K1 once per index file read) and Q3 (K2 and its fence
+   build once), each held against numpy;
+9. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero without the last
@@ -146,7 +165,8 @@ def log(msg: str) -> None:
 # data: TPC-H-shaped lineitem / orders (same types, key relationships and
 # SF1 cardinalities as dbgen's tables; not dbgen's output)
 # ---------------------------------------------------------------------------
-def make_tables(seed: int, n_orders: int, n_lineitem: int):
+def make_tables(seed: int, n_orders: int, n_lineitem: int, n_parts: int = 200_000):
+    """``n_parts`` is dbgen's part count, 200,000 x SF."""
     rng = np.random.default_rng(seed)
     idx = np.arange(n_orders, dtype=np.int64)
     # dbgen's sparse keys: 8 used out of every 32
@@ -170,7 +190,7 @@ def make_tables(seed: int, n_orders: int, n_lineitem: int):
     l_quantity = rng.integers(1, 51, n_lineitem).astype(np.int64)
     lineitem = {
         "l_orderkey": l_orderkey,
-        "l_partkey": rng.integers(1, 200_001, n_lineitem).astype(np.int64),
+        "l_partkey": rng.integers(1, n_parts + 1, n_lineitem).astype(np.int64),
         "l_quantity": l_quantity,
         "l_shipdate": (np.repeat(o_orderdate, counts) + rng.integers(1, 122, n_lineitem)).astype(np.int32),
         "l_extendedprice": np.round(l_quantity * rng.uniform(900.0, 2100.0, n_lineitem), 2),
@@ -1444,7 +1464,8 @@ def front_end_phase(session, hsp, li_dir, od_dir, q3_hand, q3_hand_rows, q3_want
 # ---------------------------------------------------------------------------
 # lifecycle phase: TPC-H's refresh functions against two maintained indexes
 # ---------------------------------------------------------------------------
-def rf1_batches(orders: dict, seed: int, n_new: int, n_batches: int = 2):
+def rf1_batches(orders: dict, seed: int, n_new: int, n_batches: int = 2,
+                n_parts: int = 200_000):
     """TPC-H RF1 (specification clause 2.5): ``n_new`` new orders a batch
     (SF x 1,500), each with 1 to 7 lineitems. Their keys take dbgen's unused
     slots, offsets 8..31 of each 32-key block (``make_tables`` fills
@@ -1466,7 +1487,7 @@ def rf1_batches(orders: dict, seed: int, n_new: int, n_batches: int = 2):
         n = int(counts.sum())
         qty = rng.integers(1, 51, n).astype(np.int64)
         li = {"l_orderkey": np.repeat(ok, counts),
-              "l_partkey": rng.integers(1, 200_001, n).astype(np.int64),
+              "l_partkey": rng.integers(1, n_parts + 1, n).astype(np.int64),
               "l_quantity": qty,
               "l_shipdate": (np.repeat(o_orderdate, counts)
                              + rng.integers(1, 122, n)).astype(np.int32),
@@ -2015,6 +2036,400 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# streaming phase: TPC-H lineitem at SF3 through the streaming build
+# ---------------------------------------------------------------------------
+STREAM_SF = 3
+STREAM_THRESHOLD = 256 << 20  # hyperspace.index.build.streamingThresholdBytes' default
+STREAM_RUN_CHUNKS = 4  # hyperspace.index.build.device.runChunks' default
+
+
+def auto_probe(L: dict, cap: int, device: str, workdir: Path) -> dict:
+    """What the streaming build's ``engine=auto`` probe chooses on this
+    machine: a writer over lineitem's first three full chunks (host probe,
+    link check, device chunk, timed device probe; the verdict published at
+    finalize), its run files written to a scratch directory and removed."""
+    from hyperspace_tpu_torch.index import stream_builder as sb
+    from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    metrics.reset()
+    sb._ENGINE_CACHE.clear()
+    w = sb.StreamingIndexWriter(["l_orderkey"], NUM_BUCKETS, workdir / "probe", cap,
+                                engine="auto", finalize_mode="runs", device=device)
+    for i in range(3):
+        w.add_chunk(ColumnarBatch.from_pydict(
+            {c: L[c][i * cap:(i + 1) * cap] for c in LINEITEM_SCHEMA}, schema=LINEITEM_SCHEMA))
+    w.finalize()
+    shutil.rmtree(workdir / "probe", ignore_errors=True)
+    t = metrics.timings()
+    out = {"chose": "host" if metrics.get("build.engine.auto_chose_host") else "device",
+           "by_link": bool(metrics.get("build.engine.auto_chose_host_by_link")),
+           **{k.split(".")[-1] + "_s": t[k][0] for k in
+              ("build.engine.probe_host", "build.engine.probe_device", "build.engine.probe_link")
+              if k in t}}
+    sb._ENGINE_CACHE.clear()
+    log(f"streaming S1 auto probe on this machine ({cap}-row chunks): chooses {out['chose']}"
+        + (" (the link check ruled the device out)" if out["by_link"] else "")
+        + "".join(f" {k}={v:.4f}" for k, v in out.items() if k.endswith("_s")))
+    return out
+
+
+def staged_programs(L: dict, cap: int, run_chunks: int, device: str) -> dict:
+    """One staged run — ``run_chunks`` chunks of lineitem's order keys
+    staged on the card and merged there — held exactly against
+    ``build_partition_host``'s order and counts for the same rows, both
+    timed; then, on the card, CUDA-event times of each staged program at
+    its real shape beside its bound (the bytes it reads and writes once at
+    the card's memory rate), the ``torch.sort`` call alone, and the chunk's
+    H2D from pinned memory."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import build as tb
+    from hyperspace_tpu_torch.ops import fence
+    from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
+
+    key = "l_orderkey"
+    n = run_chunks * cap
+    keys = np.ascontiguousarray(L[key][:n])
+    dtypes = {key: "int64"}
+    chunks = [keys[i * cap:(i + 1) * cap] for i in range(run_chunks)]
+    plans = [tb.run_pack_plan([(int(c.min()), int(c.max()))], NUM_BUCKETS) for c in chunks]
+    run_plan = tb.run_pack_plan([(int(keys.min()), int(keys.max()))], NUM_BUCKETS)
+
+    def stage_all():
+        return [tb.stage_chunk_packed({key: c}, dtypes, [key], NUM_BUCKETS, pl, device=device)[0]
+                for c, pl in zip(chunks, plans)]
+
+    stage_all()  # warm the allocator and the sort's workspace
+    fence(torch.device(device))
+    t0 = time.perf_counter()
+    order, counts = tb.merge_staged_chunks(stage_all(), run_plan, NUM_BUCKETS).wait()
+    staged_s = time.perf_counter() - t0
+    batch = ColumnarBatch.from_pydict({key: keys, "row": np.arange(n, dtype=np.int64)})
+    t0 = time.perf_counter()
+    host, host_counts = tb.build_partition_host(batch, [key], NUM_BUCKETS)
+    host_s = time.perf_counter() - t0
+    if not (np.array_equal(order.astype(np.int64), host.columns["row"].data)
+            and np.array_equal(counts, host_counts)):
+        raise AssertionError("streaming: a staged run's order differs from build_partition_host's")
+    out = {"rows": n, "staged_run_s": staged_s, "host_s": host_s}
+    log(f"streaming S1 staged run: {run_chunks} chunks x {cap} rows staged on the card and merged "
+        f"there: order and counts equal build_partition_host's exactly; staged {staged_s:.4f} s "
+        f"(uploads, programs, merge, D2H), host {host_s:.4f} s")
+    if device != "cuda":
+        return out
+    dev = torch.device("cuda")
+    pinned = torch.from_numpy(chunks[0]).pin_memory()
+    resident = {key: pinned.to(dev)}
+    staged = stage_all()
+    packed = staged[0].packed.clone()
+    b_stage = bound(8 * cap + 16 * cap + 8 * NUM_BUCKETS, 0)
+    b_sort = bound(8 * cap + 16 * cap, 0)
+    b_merge = bound(16 * n + 8 * run_chunks * NUM_BUCKETS + 4 * n + 8 * NUM_BUCKETS, 0)
+    out.update(
+        stage_ms=time_ms(lambda: tb._single_staged_kernel_packed(
+            resident, dtypes, [key], NUM_BUCKETS, plans[0])),
+        stage_bound_ms=b_stage[0],
+        sort_ms=time_ms(lambda: torch.sort(packed, stable=True)),
+        sort_bound_ms=b_sort[0],
+        h2d_ms=time_ms(lambda: pinned.to(dev, non_blocking=True)),
+        merge_ms=time_ms(lambda: tb.merge_staged_chunks(staged, run_plan, NUM_BUCKETS).wait(),
+                         repeats=10),
+        merge_bound_ms=b_merge[0],
+    )
+    out["h2d_gb_s"] = 8 * cap / out["h2d_ms"] / 1e6
+    log(f"streaming program stage_chunk_packed: {out['stage_ms']:.4f} ms per {cap}-row chunk "
+        f"(keys on the card) | bound {out['stage_bound_ms']:.4f} ms (bytes) | torch.sort alone "
+        f"{out['sort_ms']:.4f} ms, bound {out['sort_bound_ms']:.4f} ms | the chunk's keys H2D "
+        f"from pinned memory {out['h2d_ms']:.4f} ms ({out['h2d_gb_s']:.2f} GB/s)")
+    log(f"streaming program merge_staged_chunks: {out['merge_ms']:.4f} ms per {run_chunks}-chunk "
+        f"run with its D2H of {4 * n} bytes | bound {out['merge_bound_ms']:.4f} ms (bytes, the D2H "
+        f"not counted)")
+    return out
+
+
+def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False,
+                    scale: float = 1.0, chunk_rows=None, threshold=None) -> dict:
+    """The streaming build, run files and background compaction, in a
+    session of its own (lineage on, 200 buckets, ``build.engine=device``,
+    residency off), over TPC-H lineitem and orders at SF3 (18,003,645 and
+    4,500,000 rows, l_partkey in 1..600,000) written as avro into
+    ``src/lineitem_st`` (24 files) and ``src/orders_st`` (6):
+
+    * S0: the source bytes; lineitem must exceed the 256 MiB streaming
+      threshold and orders stay under it;
+    * S1: li_st built with ``build.mode=auto``, which must stream it
+      (2^21-row chunks, 4 staged chunks a run merged on the card, the
+      tail through the per-chunk program; finalizeMode merge: 200
+      per-bucket files); ord_st builds in memory; the auto probe's verdict
+      on this machine; one staged run held exactly against the host
+      engine; the staged programs' times; the range filter and Q3;
+    * S2: li_runs over the same source with finalizeMode runs: its run
+      files and bucketCounts; the range filter, Q3 and a point lookup
+      through the segment planner; ``prefetch_index`` and the resident
+      range filter through K1c;
+    * S3: one TPC-H RF1 batch (SF x 1,500 orders) appended to both
+      sources and refreshed incrementally (run files plus per-bucket
+      files), then RF2 removes it through the lineage rewrite over the run
+      files;
+    * S4: ``compact_index("li_runs")`` at 64 buckets a step, step by step,
+      until no run file is left.
+
+    Every query runs with launch counts from zero (K1 once per index file
+    read, K2 and its fence build once per Q3) and equals numpy over the
+    sources as they stand. ``chunk_rows`` and ``threshold`` are for
+    rehearsals off the card at a small ``scale`` only."""
+    import os
+
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
+    from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
+    from hyperspace_tpu_torch.ops import fence
+    from hyperspace_tpu_torch.ops.kernels import K1, K1C, K2, K2F
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.storage import layout
+    from hyperspace_tpu_torch.storage.avro_io import write_avro
+    from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    n_l = int(round(SF1_LINEITEM * STREAM_SF * scale))
+    n_o = int(round(SF1_ORDERS * STREAM_SF * scale))
+    n_parts = 200_000 * STREAM_SF
+    L, O = make_tables(seed + 8, n_o, n_l, n_parts=n_parts)
+    t0 = time.perf_counter()
+    li_dir = Path(write_avro_dir(workdir / "src" / "lineitem_st", L, LINEITEM_SCHEMA, 24))
+    od_dir = Path(write_avro_dir(workdir / "src" / "orders_st", O, ORDERS_SCHEMA, 6))
+    thr = STREAM_THRESHOLD if threshold is None else int(threshold)
+    li_bytes = sum(f.stat().st_size for f in li_dir.glob("*.avro"))
+    od_bytes = sum(f.stat().st_size for f in od_dir.glob("*.avro"))
+    out = {"lineitem_rows": n_l, "orders_rows": n_o, "lineitem_bytes": li_bytes,
+           "orders_bytes": od_bytes, "threshold_bytes": thr,
+           "write_s": time.perf_counter() - t0, "steps": []}
+    log(f"streaming S0: TPC-H SF{STREAM_SF}" + (f" x {scale}" if scale != 1.0 else "")
+        + f": lineitem {n_l} rows in 24 avro files, {li_bytes} bytes "
+        f"({li_bytes / n_l:.2f} a row); orders {n_o} rows in 6 files, {od_bytes} bytes; "
+        f"threshold {thr} bytes; written in {out['write_s']:.3f} s")
+    if li_bytes <= thr or od_bytes > thr:
+        raise AssertionError("streaming S0: lineitem must exceed the threshold and orders not")
+    os.environ["HYPERSPACE_TPU_TORCH_PROBE_CACHE"] = str(workdir / "engine_probe.json")
+    conf = {
+        "hyperspace.system.path": str(workdir / "indexes_streaming"),
+        "hyperspace.index.numBuckets": NUM_BUCKETS,
+        "hyperspace.index.lineage.enabled": "true",
+        "hyperspace.index.build.engine": "device",
+        "hyperspace.torch.device": device,
+        "hyperspace.torch.hbm.mode": "off",
+    }
+    if chunk_rows is not None:
+        conf["hyperspace.index.build.chunkRows"] = int(chunk_rows)
+    if threshold is not None:
+        conf["hyperspace.index.build.streamingThresholdBytes"] = int(threshold)
+    if not on_card:  # a rehearsal: the zone gate would route small tables away
+        conf["hyperspace.torch.hbm.maxBlockFrac"] = 1.0
+    session = hs.HyperspaceSession(hs.HyperspaceConf(conf))
+    hsp = hs.Hyperspace(session)
+    root = Path(conf["hyperspace.system.path"])
+    cap = 1 << max(session.conf.build_chunk_rows() - 1, 0).bit_length()
+    n_full, tail = divmod(n_l, cap)
+    staged_runs = -(-n_full // STREAM_RUN_CHUNKS)
+    verb = functools.partial(timed_verb, session, "streaming", profile)
+
+    def files(name):
+        entry = IndexLogManagerImpl(root / name).get_latest_stable_log()
+        return entry.content.files() if entry is not None and entry.state == "ACTIVE" else []
+
+    present = {"base": (L, O)}  # the sources as they stand, by file
+    bounds = range_bounds(L)
+
+    def truth():
+        Lp = {c: np.concatenate([p[0][c] for p in present.values()]) for c in L}
+        Op = {c: np.concatenate([p[1][c] for p in present.values()]) for c in O}
+        return Lp, range_and_q3_truth(Lp, Op, bounds, "streaming")
+
+    def measure(step, index, verb_s, extra=""):
+        """The range filter and Q3, launch counts from zero, against numpy."""
+        _Lp, (want_r, want_q3) = truth()
+        rng_q, q3_q = range_and_q3(session, li_dir, od_dir, bounds)
+        used = rng_q.explain().split("Indexes used:")[1]
+        if f"{index}:" not in used:
+            raise AssertionError(f"streaming {step}: range filter indexes used {used.split()}")
+        res, t_r, launches, m, _t = timed_query(session, f"streaming {step} range", profile, rng_q)
+        _check(f"streaming {step} range filter", res, R_COLS, want_r)
+        read = m.get("scan.files_read", 0)
+        if launches.get(K1, 0) != (read if on_card else 0):
+            raise AssertionError(f"streaming {step}: K1 launches {launches}, files read {read}")
+        res3, t_q3, l3, m3, _t3 = timed_query(session, f"streaming {step} Q3", profile, q3_q)
+        _check(f"streaming {step} Q3", res3, Q3_COLS, want_q3)
+        want_k2 = 1 if on_card else 0
+        if (l3.get(K2, 0), l3.get(K2F, 0)) != (want_k2, want_k2):
+            raise AssertionError(f"streaming {step}: Q3 launches {l3}, paths {m3}")
+        n_files = len(files(index))
+        n_runs = sum(layout.is_run_file(f) for f in files(index))
+        row = {"step": step, "verb_s": verb_s, "files": n_files, "run_files": n_runs,
+               "range_s": t_r, "range_rows": res.num_rows, "range_files_read": read,
+               "range_launches": launches, "range_sweeps": m.get("io.segment.sweeps", 0),
+               "q3_s": t_q3, "q3_rows": res3.num_rows, "q3_launches": l3,
+               "q3_sweeps": m3.get("io.segment.sweeps", 0),
+               "q3_segments": m3.get("io.segment.ranges", 0) + m3.get("io.segment.coalesced", 0)}
+        out["steps"].append(row)
+        log(f"streaming {step}: {verb_s:.3f} s | {index} files={n_files} (run files {n_runs}) | "
+            f"range filter {t_r:.4f} s rows={res.num_rows} files read={read} "
+            f"segment sweeps={row['range_sweeps']} launches={launches} | Q3 {t_q3:.4f} s "
+            f"rows={res3.num_rows} segment sweeps={row['q3_sweeps']} segments="
+            f"{row['q3_segments']} launches={l3}{extra} | matches numpy")
+        return row
+
+    # S1: li_st streams under auto (finalizeMode merge), ord_st in memory
+    out["auto_probe"] = auto_probe(L, cap, device, workdir)
+    metrics.reset()
+    t = time.perf_counter()
+    with _Profiled("streaming S1 build li_st", profile):
+        hsp.create_index(session.read.avro(str(li_dir)), hs.IndexConfig(
+            "li_st", ["l_orderkey"], ["l_partkey", "l_quantity", "l_shipdate", "l_extendedprice"]))
+    fence(session.device)
+    build_s = time.perf_counter() - t
+    c, tm = metrics.snapshot(), metrics.timings()
+    got = {k: c.get(k, 0) for k in ("build.stream.rows", "build.stream.chunks",
+                                    "build.device.staged_chunks", "build.device.staged_runs",
+                                    "build.stream.d2h_calls", "build.device.staging_declined.tail",
+                                    "build.stream.h2d_bytes", "build.stream.d2h_bytes")}
+    want = {"build.stream.rows": n_l, "build.stream.chunks": n_full + (tail > 0),
+            "build.device.staged_chunks": n_full, "build.device.staged_runs": staged_runs,
+            "build.stream.d2h_calls": staged_runs + (tail > 0)}
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"streaming S1: counters {got}, want {want}")
+    index_rows = sum(layout.cached_reader(f).num_rows for f in files("li_st"))
+    if len(files("li_st")) != NUM_BUCKETS or index_rows != n_l or \
+            any(layout.is_run_file(f) for f in files("li_st")):
+        raise AssertionError(f"streaming S1: li_st is not 200 per-bucket files of {n_l} rows")
+    timers = {k: tm[k][0] for k in tm if k.startswith("build.stream.")}
+    out["li_st"] = {"build_s": build_s, "rows_per_s": n_l / build_s, "counters": got,
+                    "timers": timers, "chunk_capacity": cap, "tail_rows": tail,
+                    "index_rows": index_rows}
+    log(f"streaming S1 build li_st (build.mode=auto -> streaming, engine=device): {build_s:.3f} s, "
+        f"{n_l / build_s:.0f} rows/s, index rows {index_rows} | chunks "
+        f"{got['build.stream.chunks']} of {cap} rows (tail "
+        f"{tail}), staged chunks {got['build.device.staged_chunks']}, runs merged on the card "
+        f"{got['build.device.staged_runs']}, D2H calls {got['build.stream.d2h_calls']}, H2D "
+        f"{got['build.stream.h2d_bytes']} bytes, D2H {got['build.stream.d2h_bytes']} bytes | "
+        + " ".join(f"{k[13:]}={v:.3f}" for k, v in sorted(timers.items())))
+    metrics.reset()
+    t = verb(hsp.create_index, session.read.avro(str(od_dir)), hs.IndexConfig(
+        "ord_st", ["o_orderkey"], ["o_custkey", "o_orderdate", "o_totalprice"]))
+    if metrics.get("build.stream.rows") or metrics.get("build.engine.device") != 1:
+        raise AssertionError("streaming S1: ord_st did not build in memory")
+    out["ord_st_build_s"] = t
+    log(f"streaming S1 build ord_st (under the threshold: in memory): {t:.3f} s")
+    out["staged_programs"] = staged_programs(L, cap, STREAM_RUN_CHUNKS, device)
+    session.enable_hyperspace()
+    measure("S1 li_st", "li_st", build_s)
+
+    # S2: the same source as run files; li_st goes so that the rules pick li_runs
+    verb(hsp.delete_index, "li_st")
+    verb(hsp.vacuum_index, "li_st")
+    session.conf.set("hyperspace.index.build.finalizeMode", "runs")
+    metrics.reset()
+    t = verb(hsp.create_index, session.read.avro(str(li_dir)), hs.IndexConfig(
+        "li_runs", ["l_orderkey"], ["l_partkey", "l_quantity", "l_shipdate", "l_extendedprice"]))
+    run_files = files("li_runs")
+    totals = [int(layout.run_offsets_checked(f)[-1]) for f in run_files]
+    if not all(layout.is_run_file(f) for f in run_files) or \
+            len(run_files) != staged_runs + (tail > 0) or sum(totals) != n_l:
+        raise AssertionError(f"streaming S2: run files {run_files}, bucketCounts totals {totals}")
+    out["li_runs"] = {"build_s": t, "rows_per_s": n_l / t, "run_files": len(run_files),
+                      "bucket_count_totals": totals,
+                      "run_files_metric": metrics.get("build.stream.run_files")}
+    log(f"streaming S2 build li_runs (finalizeMode=runs): {t:.3f} s, {n_l / t:.0f} rows/s | "
+        f"{len(run_files)} run files, bucketCounts totals {totals}")
+    measure("S2 li_runs", "li_runs", t)
+    k = int(L["l_orderkey"][n_l // 3])
+    point = session.read.avro(str(li_dir)).filter(col("l_orderkey") == k).select(*R_COLS)
+    res, t_p, launches, m, _t = timed_query(session, "streaming S2 point", profile, point)
+    _check("streaming S2 point lookup", res, R_COLS, [L[c][L["l_orderkey"] == k] for c in R_COLS])
+    if not m.get("scan.run_bucket_segments") or launches.get(K1, 0) != (
+            m.get("scan.files_read", 0) if on_card else 0):
+        raise AssertionError(f"streaming S2 point lookup: launches {launches}, counters {m}")
+    out["point"] = {"s": t_p, "rows": res.num_rows, "segments": m["scan.run_bucket_segments"],
+                    "sweeps": m.get("io.segment.sweeps", 0), "launches": launches}
+    log(f"streaming S2 point lookup: {t_p:.4f} s rows={res.num_rows} bucket segments="
+        f"{out['point']['segments']} in {out['point']['sweeps']} sweeps launches={launches} | "
+        f"matches numpy")
+    session.conf.set("hyperspace.torch.hbm.mode", "auto" if on_card else "force")
+    t = time.perf_counter()
+    if not hsp.prefetch_index("li_runs", LI_RESIDENT):
+        raise AssertionError("prefetch_index(li_runs) did not make the index resident")
+    hbm_cache.wait_background()
+    fence(session.device)
+    t_pre = time.perf_counter() - t
+    rng_q, _q3 = range_and_q3(session, li_dir, od_dir, bounds)
+    res, t_res, launches, m, _t = timed_query(session, "streaming S2 resident", profile, rng_q)
+    session.conf.set("hyperspace.torch.hbm.mode", "off")
+    _check("streaming S2 resident range filter", res, R_COLS, truth()[1][0])
+    if m.get("scan.path.resident_device", 0) != 1 or launches.get(K1C, 0) != (
+            1 if on_card else 0) or launches.get(K1, 0):
+        raise AssertionError(f"streaming S2 resident: launches {launches}, counters {m}")
+    out["resident"] = {"prefetch_s": t_pre, "s": t_res, "rows": res.num_rows, "launches": launches}
+    log(f"streaming S2 resident: prefetch_index(li_runs) {t_pre:.3f} s | range filter "
+        f"{t_res:.4f} s rows={res.num_rows} launches={launches} | matches numpy")
+
+    # S3: one RF1 batch appended and refreshed, then RF2 through the lineage rewrite
+    n_new = max(1, int(round(1500 * n_o / SF1_ORDERS)))
+    li_new, od_new = rf1_batches(O, seed + 8, n_new, n_batches=1, n_parts=n_parts)[0]
+    write_avro(li_dir / "part-rf1.avro", ColumnarBatch.from_pydict(li_new, schema=LINEITEM_SCHEMA))
+    write_avro(od_dir / "part-rf1.avro", ColumnarBatch.from_pydict(od_new, schema=ORDERS_SCHEMA))
+    present["rf1"] = (li_new, od_new)
+    t = verb(hsp.refresh_index, "li_runs", "incremental")
+    t += verb(hsp.refresh_index, "ord_st", "incremental")
+    row = measure("S3 RF1 refreshed incrementally", "li_runs", t,
+                  f" | RF1 {n_new} orders, {len(li_new['l_orderkey'])} lineitems")
+    if not (0 < row["run_files"] < row["files"]):
+        raise AssertionError(f"streaming S3: not a mixed layout: {row}")
+    (li_dir / "part-rf1.avro").unlink()
+    (od_dir / "part-rf1.avro").unlink()
+    del present["rf1"]
+    metrics.reset()
+    t_li = verb(hsp.refresh_index, "li_runs", "incremental")
+    sweeps = metrics.get("io.segment.sweeps")
+    t_od = verb(hsp.refresh_index, "ord_st", "incremental")
+    row = measure("S3 RF2 refreshed incrementally (lineage rewrite over run files)", "li_runs",
+                  t_li + t_od, f" | li_runs {t_li:.3f} s ({sweeps} run sweeps), ord_st {t_od:.3f} s")
+    if row["run_files"] != len(run_files) or row["files"] != len(run_files):
+        raise AssertionError(f"streaming S3 RF2: {row}")
+
+    # S4: background compaction, one committed step at a time
+    log_mgr = IndexLogManagerImpl(root / "li_runs")
+    before = len(files("li_runs"))
+    step_s, ids = [], [log_mgr.get_latest_id()]
+    while True:
+        metrics.reset()
+        t = time.perf_counter()
+        res = hsp.compact_index("li_runs", max_steps=1)
+        if not res["steps"]:
+            break
+        step_s.append(time.perf_counter() - t)
+        ids.append(log_mgr.get_latest_id())
+        log(f"streaming S4 compaction step {len(step_s)}: {step_s[-1]:.3f} s | buckets "
+            f"{metrics.get('compaction.buckets')} runs rewritten "
+            f"{metrics.get('compaction.runs_rewritten')} consumed "
+            f"{metrics.get('compaction.runs_consumed')} | li_runs files {len(files('li_runs'))} "
+            f"(run files {sum(layout.is_run_file(f) for f in files('li_runs'))}) | log ids "
+            f"{ids[-2]} -> {ids[-1]}")
+    want_steps = -(-NUM_BUCKETS // session.conf.compaction_buckets_per_step())
+    after = files("li_runs")
+    if len(step_s) != want_steps or any(layout.is_run_file(f) for f in after) or \
+            len(after) != NUM_BUCKETS or any(b - a != 2 for a, b in zip(ids, ids[1:])):
+        raise AssertionError(f"streaming S4: {len(step_s)} steps, {len(after)} files, ids {ids}")
+    out["compaction"] = {"steps_s": step_s, "files_before": before, "files_after": len(after)}
+    measure("S4 compacted", "li_runs", sum(step_s),
+            f" | {len(step_s)} steps, files {before} -> {len(after)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"streaming: the phase took {out['phase_s']:.3f} s, the source write included")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2073,6 +2488,13 @@ def main() -> int:
     workdir = Path(args.workdir) if args.workdir else Path(tempfile.mkdtemp(prefix="hs_smoke_"))
     try:
         main_out = run_main_path(lineitem, orders, workdir, "cuda", args.seed, args.profile)
+        cut = {}
+        if args.scale != 1.0:  # a cut: the threshold and chunks shrink with the tables
+            cut = {"chunk_rows": max(1024, int((1 << 21) * args.scale)),
+                   "threshold": int(STREAM_THRESHOLD * args.scale)}
+            log(f"CUT: streaming phase at scale {args.scale}: {cut}")
+        stream_out = streaming_phase(workdir / "streaming", "cuda", args.seed, args.profile,
+                                     scale=args.scale, **cut)
     finally:
         if not args.workdir:
             shutil.rmtree(workdir, ignore_errors=True)
@@ -2114,6 +2536,7 @@ def main() -> int:
                     "front_end": main_out["front_end"],
                     "lifecycle": main_out["lifecycle"],
                     "hybrid": main_out["hybrid"],
+                    "streaming": stream_out,
                     "kernel_cases": kphase, "ptxas": ptxas,
                     "total_s": time.perf_counter() - t_start}))
     log(json.dumps(line))

@@ -3,7 +3,8 @@
 Parity: com/microsoft/hyperspace/actions/CreateActionBase.scala and
 CreateAction.scala, as ``hyperspace_tpu.actions.create`` carries them.
 The build engine is index.builder.write_index_data (torch on the session's
-device); this module supplies the metadata, lineage and protocol glue:
+device), or index.stream_builder for a source over the streaming
+threshold; this module supplies the metadata, lineage and protocol glue:
 
   * resolveConfig — case-insensitive column resolution;
   * prepareIndexDataFrame — project + optional lineage column;
@@ -104,6 +105,98 @@ class CreateActionBase:
             parts.append(part)
         return ColumnarBatch.concat(parts)
 
+    # -- streamed data preparation (out-of-core path) ------------------------
+    def prepare_index_chunks(
+        self,
+        relation: FileRelation,
+        indexed: List[str],
+        included: List[str],
+        lineage: bool,
+        tracker: FileIdTracker,
+        chunk_rows: int,
+    ):
+        """Generator twin of prepare_index_batch: yields chunks of at most
+        ``chunk_rows`` rows so the build never materializes the source.
+        Lineage stays per file (each file's rows get its id); chunks never
+        span files."""
+        cols = list(indexed) + list(included)
+        if not lineage:
+            for f in relation.files:
+                yield from parquet_io.iter_relation_file_batches(
+                    relation, f.name, columns=cols, chunk_rows=chunk_rows
+                )
+            return
+        pairs = self.session.sources.lineage_pairs(relation, tracker)
+        for path, fid in pairs:
+            for chunk in parquet_io.iter_relation_file_batches(
+                relation, path, columns=cols, chunk_rows=chunk_rows
+            ):
+                yield chunk.with_column(
+                    C.DATA_FILE_NAME_ID,
+                    Column("int64", np.full(chunk.num_rows, fid, dtype=np.int64)),
+                )
+
+    def prepare_index_chunk_tasks(
+        self,
+        relation: FileRelation,
+        indexed: List[str],
+        included: List[str],
+        lineage: bool,
+        tracker: FileIdTracker,
+        chunk_rows: int,
+    ):
+        """Parallel-ingest twin of prepare_index_chunks: zero-arg decode
+        tasks (each returning a list of chunks) the pipelined build spreads
+        over its ingest workers IN ORDER — the same rows in the same order,
+        the same bytes. None for shapes the task split cannot express
+        (partitioned relations; formats other than parquet, which alone has
+        row-group random access): the caller then ingests serially."""
+        if relation.partition_spec is not None:
+            return None
+        if relation.read_format != "parquet":
+            return None
+        cols = list(indexed) + list(included)
+        pairs = (
+            self.session.sources.lineage_pairs(relation, tracker)
+            if lineage
+            else [(f.name, None) for f in relation.files]
+        )
+        tasks = []
+        for path, fid in pairs:
+            for t in parquet_io.file_chunk_tasks(
+                "parquet", path, columns=cols, chunk_rows=chunk_rows
+            ):
+                if fid is None:
+                    tasks.append(t)
+                else:
+
+                    def with_lineage(t=t, fid=fid):
+                        return [
+                            chunk.with_column(
+                                C.DATA_FILE_NAME_ID,
+                                Column(
+                                    "int64",
+                                    np.full(chunk.num_rows, fid, dtype=np.int64),
+                                ),
+                            )
+                            for chunk in t()
+                        ]
+
+                    tasks.append(with_lineage)
+        return tasks
+
+    def _streaming_build(self, relation: FileRelation) -> bool:
+        """Build-mode policy: 'streaming' forces the out-of-core path,
+        'inmemory' the materialized one, 'auto' streams when the source's
+        bytes exceed the threshold."""
+        mode = self.conf.build_mode()
+        if mode == C.BUILD_MODE_STREAMING:
+            return True
+        if mode == C.BUILD_MODE_INMEMORY:
+            return False
+        total = sum(f.size for f in relation.files)
+        return total > self.conf.build_streaming_threshold_bytes()
+
     # -- build (CreateActionBase.scala:122-140) ------------------------------
     def write(
         self,
@@ -114,16 +207,50 @@ class CreateActionBase:
         lineage: bool,
         tracker: FileIdTracker,
     ) -> List[Path]:
-        """In-memory build on the session's device."""
+        """Build the index data of ``relation`` into ``version_dir`` on the
+        session's device: streamed when the build mode says so, in memory
+        otherwise."""
         indexed, included = self.resolved_columns(relation, config)
+        extra_meta = {"indexName": config.index_name}
+        pipeline = self.conf.build_pipeline()
+        if self._streaming_build(relation):
+            from ..index.stream_builder import write_index_data_streaming
+
+            chunk_rows = self.conf.build_chunk_rows()
+            chunk_tasks = self.prepare_index_chunk_tasks(
+                relation, indexed, included, lineage, tracker, chunk_rows
+            )
+            chunks = (
+                None
+                if chunk_tasks is not None
+                else self.prepare_index_chunks(
+                    relation, indexed, included, lineage, tracker, chunk_rows
+                )
+            )
+            return write_index_data_streaming(
+                chunks,
+                indexed,
+                num_buckets,
+                version_dir,
+                chunk_rows,
+                extra_meta=extra_meta,
+                engine=self.conf.build_engine(),
+                finalize_mode=self.conf.build_finalize_mode(),
+                chunk_tasks=chunk_tasks,
+                pipeline=pipeline,
+                device_build=self.conf.build_device(),
+                device=self.conf.torch_device(),
+            )
         batch = self.prepare_index_batch(relation, indexed, included, lineage, tracker)
         return write_index_data(
             batch,
             indexed,
             num_buckets,
             version_dir,
-            extra_meta={"indexName": config.index_name},
+            extra_meta=extra_meta,
             device=self.conf.torch_device(),
+            engine=self.conf.build_engine(),
+            host_workers=pipeline.host_width(),
         )
 
     # -- metadata (CreateActionBase.scala:50-95) -----------------------------
@@ -228,7 +355,7 @@ class CreateAction(Action, CreateActionBase):
 
     def validate(self) -> None:
         rel = self.relation
-        self.conf.build_mode()  # raises for the unported streaming build
+        self.conf.build_mode()  # an unknown mode raises before begin()
         self.resolved_columns(rel, self.config)  # raises on unresolvable
         latest = self.log_manager.get_latest_log()
         if latest is not None and latest.state != states.DOESNOTEXIST:

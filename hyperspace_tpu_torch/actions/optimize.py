@@ -6,8 +6,10 @@ merges each bucket's small files into one, writing a new version dir.
 ``quick`` mode compacts only files under the size threshold (256 MB
 default); ``full`` compacts every bucket with more than one file.
 Single-file buckets are skipped (:126-131); untouched files carry over
-into the new Content (:135-155). The merge is host numpy, as in the
-reference.
+into the new Content (:135-155). Multi-bucket run files (the streaming
+build's finalizeMode=runs) are always compacted, whatever their size or
+the mode. The merge is host numpy, as in the reference, spread over the
+build pipeline's merge pool.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from .base import Action, MaintenanceActionBase
 from .create import CreateActionBase, _content_from_file_infos
 
 # host bytes of run-segment rows one compaction group may materialize at
-# once; with no run files (this package writes none) every bucket joins
-# one group
+# once (the group's coalesced segment map): the host-memory peak of
+# optimize over run files
 _GROUP_READ_BUDGET_BYTES = 1 << 30
 
 
@@ -91,11 +93,11 @@ class OptimizeAction(Action, CreateActionBase, MaintenanceActionBase):
         run_paths = [fi.name for fi in run_files]
         small = {b: [f.name for f in fis] for b, fis in to_optimize.items()}
         all_buckets = sorted(set(to_optimize) | run_buckets)
-        # the reference's merge-pool width; the build pipeline's conf is
-        # not ported, so one worker
-        workers = 1
-        # buckets go in groups sized by a read budget over the run bytes
-        # (the reference's rule, kept as written)
+        pipe = self.conf.build_pipeline()
+        workers = pipe.merge_workers if pipe.enabled else 1
+        # buckets go in groups sized by a read-bytes budget over the logged
+        # run sizes: a group's segment map holds its buckets' run rows at
+        # once, while every group pays one sweep per run file
         run_bytes = sum(fi.size for fi in run_files)
         est_bucket_bytes = max(run_bytes // max(len(run_buckets), 1), 1)
         group = int(

@@ -207,23 +207,40 @@ class RefreshIncrementalAction(RefreshActionBase):
 
         if self.deleted_files:
             # rewrite existing data without the deleted lineage ids (:73-95);
-            # filtering file by file keeps each file's bucket and order
+            # filtering file by file keeps each file's bucket and order. A
+            # multi-bucket run file is read through the segment planner and
+            # rewritten as a run file: the keep mask keeps row order, so only
+            # its bucketCounts shrink
             del_arr = np.array(sorted(deleted_ids), dtype=np.int64)
-            for f in prev.content.files():
-                if layout.is_run_file(f):
-                    raise HyperspaceException(
-                        "Rewriting multi-bucket run files on refresh is not yet "
-                        "ported to hyperspace_tpu_torch."
-                    )
-                batch = layout.read_batch(f)
+            for i, f in enumerate(prev.content.files()):
+                run = layout.is_run_file(f)
+                batch = layout.read_run_coalesced(f) if run else layout.read_batch(f)
                 ids = batch.columns[C.DATA_FILE_NAME_ID].data
                 keep = ~np.isin(ids, del_arr)
                 kept = batch.take(np.flatnonzero(keep))
                 if kept.num_rows == 0:
                     continue
-                b = layout.bucket_of_file(f)
-                p = version_dir / layout.bucket_file_name(b)
-                layout.write_batch(p, kept, sorted_by=indexed, bucket=b)
+                if run:
+                    offs = layout.run_offsets_checked(f)
+                    counts = [
+                        int(keep[int(offs[b]) : int(offs[b + 1])].sum())
+                        for b in range(len(offs) - 1)
+                    ]
+                    # the source run's other footer extras (the index-level
+                    # metadata the build puts in every run) carry over
+                    extra = {
+                        k: v
+                        for k, v in layout.cached_reader(f).footer.get("extra", {}).items()
+                        if k != "bucketCounts"
+                    }
+                    p = version_dir / layout.run_file_name(i)
+                    layout.write_batch(
+                        p, kept, sorted_by=indexed, extra={**extra, "bucketCounts": counts}
+                    )
+                else:
+                    b = layout.bucket_of_file(f)
+                    p = version_dir / layout.bucket_file_name(b)
+                    layout.write_batch(p, kept, sorted_by=indexed, bucket=b)
                 new_files.append(p)
 
         self._entry = self.build_log_entry(

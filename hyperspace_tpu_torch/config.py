@@ -112,19 +112,138 @@ class HyperspaceConf:
         return str(v) if v else None
 
     def build_mode(self) -> str:
-        """The build mode; this package builds in memory only, so "auto"
-        resolves to "inmemory" and "streaming" raises."""
         v = str(self.get(C.BUILD_MODE, C.BUILD_MODE_DEFAULT)).lower()
         if v not in C.BUILD_MODES:
             raise HyperspaceException(
                 f"Unknown build mode {v!r}; expected one of {C.BUILD_MODES}."
             )
-        if v == C.BUILD_MODE_STREAMING:
+        return v
+
+    def build_chunk_rows(self) -> int:
+        return int(self.get(C.BUILD_CHUNK_ROWS, C.BUILD_CHUNK_ROWS_DEFAULT))
+
+    def build_finalize_mode(self) -> str:
+        v = str(
+            self.get(C.BUILD_FINALIZE_MODE, C.BUILD_FINALIZE_MODE_DEFAULT)
+        ).lower()
+        if v not in C.BUILD_FINALIZE_MODES:
             raise HyperspaceException(
-                f"{C.BUILD_MODE}=streaming is not yet ported to "
-                "hyperspace_tpu_torch; use inmemory."
+                f"Unsupported {C.BUILD_FINALIZE_MODE}={v!r}; supported: "
+                f"{C.BUILD_FINALIZE_MODES}."
             )
-        return C.BUILD_MODE_INMEMORY
+        return v
+
+    def build_streaming_threshold_bytes(self) -> int:
+        return int(
+            self.get(
+                C.BUILD_STREAMING_THRESHOLD_BYTES,
+                C.BUILD_STREAMING_THRESHOLD_BYTES_DEFAULT,
+            )
+        )
+
+    def build_engine(self) -> str:
+        v = str(self.get(C.BUILD_ENGINE, C.BUILD_ENGINE_DEFAULT)).lower()
+        if v not in C.BUILD_ENGINES:
+            raise HyperspaceException(
+                f"Unknown build engine {v!r}; expected one of {C.BUILD_ENGINES}."
+            )
+        return v
+
+    def build_pipeline(self):
+        """The BuildPipelineConfig from the ``hyperspace.index.build.*``
+        pipeline knobs: worker counts take an int or "auto" (the machine's
+        default); ``pipeline=off`` gives the zero-thread serial config."""
+        from .index.stream_builder import BuildPipelineConfig
+
+        mode = str(self.get(C.BUILD_PIPELINE, C.BUILD_PIPELINE_DEFAULT)).lower()
+        if mode not in C.BUILD_PIPELINE_MODES:
+            raise HyperspaceException(
+                f"Unknown {C.BUILD_PIPELINE}={mode!r}; expected one of "
+                f"{C.BUILD_PIPELINE_MODES}."
+            )
+        if mode == C.BUILD_PIPELINE_OFF:
+            return BuildPipelineConfig.serial()
+        auto = BuildPipelineConfig.default()
+
+        def _workers(key: str, fallback: int) -> int:
+            v = self.get(key, C.BUILD_WORKERS_AUTO)
+            if str(v).strip().lower() == C.BUILD_WORKERS_AUTO:
+                return fallback
+            return max(1, int(v))
+
+        return BuildPipelineConfig(
+            enabled=True,
+            ingest_workers=_workers(C.BUILD_INGEST_WORKERS, auto.ingest_workers),
+            spill_compute_workers=_workers(
+                C.BUILD_SPILL_COMPUTE_WORKERS, auto.spill_compute_workers
+            ),
+            spill_write_workers=_workers(
+                C.BUILD_SPILL_WRITE_WORKERS, auto.spill_write_workers
+            ),
+            merge_workers=_workers(C.BUILD_MERGE_WORKERS, auto.merge_workers),
+            queue_depth=max(1, int(self.get(C.BUILD_QUEUE_DEPTH, auto.queue_depth))),
+        )
+
+    def build_device(self):
+        """The DeviceBuildConfig from the ``hyperspace.index.build.device.*``
+        knobs: ``doubleBuffer`` rotates the pinned host slab pair under the
+        H2D copy, ``runChunks`` sets how many sorted chunks stay on the card
+        before they merge into one run (below 1 clamps to 1, the per-chunk
+        round trip). The staged runs borrow from the residency budget
+        (``hyperspace.torch.hbm.budgetMB``)."""
+        from .index.stream_builder import DeviceBuildConfig
+
+        return DeviceBuildConfig(
+            double_buffer=self._to_bool(
+                self.get(
+                    C.BUILD_DEVICE_DOUBLE_BUFFER,
+                    C.BUILD_DEVICE_DOUBLE_BUFFER_DEFAULT,
+                )
+            ),
+            run_chunks=max(
+                1,
+                int(
+                    self.get(
+                        C.BUILD_DEVICE_RUN_CHUNKS,
+                        C.BUILD_DEVICE_RUN_CHUNKS_DEFAULT,
+                    )
+                ),
+            ),
+            hbm_budget_bytes=self.residency().budget_bytes,
+        )
+
+    def compaction_buckets_per_step(self) -> int:
+        return max(
+            1,
+            int(
+                self.get(
+                    C.INDEX_COMPACTION_BUCKETS_PER_STEP,
+                    C.INDEX_COMPACTION_BUCKETS_PER_STEP_DEFAULT,
+                )
+            ),
+        )
+
+    def compaction_max_steps_per_sweep(self) -> int:
+        return max(
+            1,
+            int(
+                self.get(
+                    C.INDEX_COMPACTION_MAX_STEPS_PER_SWEEP,
+                    C.INDEX_COMPACTION_MAX_STEPS_PER_SWEEP_DEFAULT,
+                )
+            ),
+        )
+
+    def segment_io_mode(self) -> str:
+        v = str(
+            self.get(C.STORAGE_SEGMENT_IO, C.STORAGE_SEGMENT_IO_DEFAULT)
+        ).lower()
+        if v not in C.STORAGE_SEGMENT_IO_MODES:
+            raise HyperspaceException(
+                f"Unknown {C.STORAGE_SEGMENT_IO}={v!r}; expected one of "
+                f"{C.STORAGE_SEGMENT_IO_MODES}."
+            )
+        return v
 
     def torch_device(self) -> str:
         return str(self.get(C.TORCH_DEVICE, C.TORCH_DEVICE_DEFAULT))

@@ -19,14 +19,65 @@ INDEX_NUM_BUCKETS = "hyperspace.index.numBuckets"
 INDEX_NUM_BUCKETS_DEFAULT = 200
 INDEX_NUM_BUCKETS_LEGACY = "hyperspace.num.buckets"  # legacy fallback key
 
-# Build mode: only the in-memory build is ported; "auto" resolves to it and
-# "streaming" raises.
+# Build mode: "inmemory" materializes the source and sorts it in one pass;
+# "streaming" runs the out-of-core pipeline (index/stream_builder.py):
+# fixed-capacity chunks bucketized and sorted on the device, spilled as
+# bucket-grouped runs, merged per bucket (or kept as run files); "auto"
+# streams when the source's bytes exceed the threshold below.
 BUILD_MODE = "hyperspace.index.build.mode"
 BUILD_MODE_AUTO = "auto"
 BUILD_MODE_INMEMORY = "inmemory"
 BUILD_MODE_STREAMING = "streaming"
 BUILD_MODES = (BUILD_MODE_AUTO, BUILD_MODE_INMEMORY, BUILD_MODE_STREAMING)
 BUILD_MODE_DEFAULT = BUILD_MODE_AUTO
+BUILD_CHUNK_ROWS = "hyperspace.index.build.chunkRows"
+BUILD_CHUNK_ROWS_DEFAULT = 1 << 21  # rows per streamed chunk
+# What the streamed build does with its spilled sorted runs:
+#   merge — merge the runs into one file per bucket at finalize;
+#   runs  — promote the runs themselves to final multi-bucket data files
+#           (footer bucketCounts give each bucket's row range); queries
+#           read bucket segments, and optimize or the compactor later
+#           rewrite them as per-bucket files.
+BUILD_FINALIZE_MODE = "hyperspace.index.build.finalizeMode"
+BUILD_FINALIZE_MERGE = "merge"
+BUILD_FINALIZE_RUNS = "runs"
+BUILD_FINALIZE_MODES = (BUILD_FINALIZE_MERGE, BUILD_FINALIZE_RUNS)
+BUILD_FINALIZE_MODE_DEFAULT = BUILD_FINALIZE_MERGE
+# auto mode streams when the source files exceed this many bytes on disk
+BUILD_STREAMING_THRESHOLD_BYTES = "hyperspace.index.build.streamingThresholdBytes"
+BUILD_STREAMING_THRESHOLD_BYTES_DEFAULT = 256 * 1024 * 1024
+# The streaming build's chunk engine: device (bucketize + sort on the
+# card), host (the numpy twin), or auto (both timed on early chunks, the
+# rest routed to the measured winner; the verdict is cached per machine).
+BUILD_ENGINE = "hyperspace.index.build.engine"
+BUILD_ENGINE_AUTO = "auto"
+BUILD_ENGINE_DEVICE = "device"
+BUILD_ENGINE_HOST = "host"
+BUILD_ENGINES = (BUILD_ENGINE_AUTO, BUILD_ENGINE_DEVICE, BUILD_ENGINE_HOST)
+BUILD_ENGINE_DEFAULT = BUILD_ENGINE_AUTO
+# The pipelined build's worker counts and queue depths (ingest decode →
+# dispatch → spill compute → spill write → per-bucket merge). pipeline=off
+# runs every stage inline on the caller's thread. Worker counts take an
+# int or "auto" (derived from the host's core count).
+BUILD_PIPELINE = "hyperspace.index.build.pipeline"
+BUILD_PIPELINE_ON = "on"
+BUILD_PIPELINE_OFF = "off"
+BUILD_PIPELINE_MODES = (BUILD_PIPELINE_ON, BUILD_PIPELINE_OFF)
+BUILD_PIPELINE_DEFAULT = BUILD_PIPELINE_ON
+# The device engine's streaming shape: doubleBuffer rotates a fixed pair
+# of pinned host staging slabs under the H2D copy; runChunks (R) keeps R
+# sorted chunks on the card and merges them into one spill run there
+# (one D2H per run). runChunks=1 is the per-chunk round trip.
+BUILD_DEVICE_DOUBLE_BUFFER = "hyperspace.index.build.device.doubleBuffer"
+BUILD_DEVICE_DOUBLE_BUFFER_DEFAULT = True
+BUILD_DEVICE_RUN_CHUNKS = "hyperspace.index.build.device.runChunks"
+BUILD_DEVICE_RUN_CHUNKS_DEFAULT = 4
+BUILD_INGEST_WORKERS = "hyperspace.index.build.ingestWorkers"
+BUILD_SPILL_COMPUTE_WORKERS = "hyperspace.index.build.spillComputeWorkers"
+BUILD_SPILL_WRITE_WORKERS = "hyperspace.index.build.spillWriteWorkers"
+BUILD_MERGE_WORKERS = "hyperspace.index.build.mergeWorkers"
+BUILD_QUEUE_DEPTH = "hyperspace.index.build.queueDepth"
+BUILD_WORKERS_AUTO = "auto"
 
 # Lineage
 INDEX_LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
@@ -46,6 +97,29 @@ OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT = 256 * 1024 * 1024  # 256 MB
 OPTIMIZE_MODE_QUICK = "quick"
 OPTIMIZE_MODE_FULL = "full"
 OPTIMIZE_MODES = (OPTIMIZE_MODE_QUICK, OPTIMIZE_MODE_FULL)
+
+# --- background compaction of runs-layout indexes (index/compactor.py) -------
+# buckets compacted per committed step (also the step's host-memory bound);
+# the reference's .enabled and .intervalSeconds drive a serving loop's
+# timed sweeps, which come with the serve layer
+INDEX_COMPACTION_BUCKETS_PER_STEP = "hyperspace.index.compaction.bucketsPerStep"
+INDEX_COMPACTION_BUCKETS_PER_STEP_DEFAULT = 64
+INDEX_COMPACTION_MAX_STEPS_PER_SWEEP = (
+    "hyperspace.index.compaction.maxStepsPerSweep"
+)
+INDEX_COMPACTION_MAX_STEPS_PER_SWEEP_DEFAULT = 1
+
+# --- segment IO (storage/layout.py planner) ----------------------------------
+# How (run file, bucket) segment reads execute: "planned" merges adjacent
+# and near-adjacent ranges into one ordered sweep per run file; "naive"
+# issues one ranged read per segment. HYPERSPACE_TPU_TORCH_SEGMENT_IO
+# overrides both.
+STORAGE_SEGMENT_IO = "hyperspace.storage.segmentIo"
+STORAGE_SEGMENT_IO_PLANNED = "planned"
+STORAGE_SEGMENT_IO_NAIVE = "naive"
+STORAGE_SEGMENT_IO_MODES = (STORAGE_SEGMENT_IO_PLANNED, STORAGE_SEGMENT_IO_NAIVE)
+STORAGE_SEGMENT_IO_DEFAULT = STORAGE_SEGMENT_IO_PLANNED
+
 REFRESH_MODE_INCREMENTAL = "incremental"
 REFRESH_MODE_FULL = "full"
 REFRESH_MODE_QUICK = "quick"

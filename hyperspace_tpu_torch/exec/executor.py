@@ -321,23 +321,54 @@ class Executor:
     def _load_index_by_bucket(
         self, node: IndexScan, predicate: Optional[Expr]
     ) -> Dict[int, ColumnarBatch]:
-        """Read a bucketed index side grouped by bucket (files in log
-        order within a bucket); the side's predicate applies per bucket
-        after grouping."""
-        files = node.entry.content.files()
-        groups: Dict[int, List[ColumnarBatch]] = {}
-        for f, batch in zip(
-            files, layout.read_batches(files, columns=list(node.required_columns))
-        ):
-            if batch.num_rows:
-                groups.setdefault(layout.bucket_of_file(f), []).append(batch)
+        """Read a bucketed index side grouped by bucket (parts in log order
+        within a bucket); the side's predicate applies per bucket after
+        grouping."""
+        groups = self._read_groups_by_bucket(
+            node.entry.content.files(), list(node.required_columns)
+        )
         out: Dict[int, ColumnarBatch] = {}
-        for b, parts in groups.items():
-            v = parts[0] if len(parts) == 1 else ColumnarBatch.concat(parts)
+        for b, v in groups.items():
             v = self._apply_predicate(v, predicate)
             if v.num_rows:
                 out[b] = v
         return out
+
+    @staticmethod
+    def _read_groups_by_bucket(files, columns) -> Dict[int, ColumnarBatch]:
+        """Read a bucketed side grouped by bucket: per-bucket files whole,
+        multi-bucket RUN files as per-bucket segments through the coalesced
+        segment planner (one ordered sweep per run file). Part order within
+        a bucket keeps ``files`` order, so merge tie order is unchanged. A
+        bucket whose rows span several runs arrives as piecewise-sorted
+        segments; the join re-sorts it, as it does the multi-file buckets
+        an incremental refresh leaves."""
+        run_files = [f for f in files if layout.is_run_file(f)]
+        plain = [f for f in files if not layout.is_run_file(f)]
+        bmap = dict(zip(plain, layout.read_batches(plain, columns=columns)))
+        seg_map: Dict = {}
+        sweep_segments: Dict[str, List] = {}
+        if run_files:
+            plan = layout.plan_segment_reads(run_files)
+            seg_map = layout.execute_segment_reads(plan, columns=columns)
+            for sw in plan:
+                sweep_segments[sw.path] = sw.segments
+        groups: Dict[int, List[ColumnarBatch]] = {}
+        for f in files:
+            if layout.is_run_file(f):
+                for b, _lo, _hi in sweep_segments.get(str(f), ()):
+                    part = seg_map[(str(f), b)]
+                    if part.num_rows:
+                        groups.setdefault(b, []).append(part)
+                continue
+            batch = bmap[f]
+            if batch is None or batch.num_rows == 0:
+                continue
+            groups.setdefault(layout.bucket_of_file(f), []).append(batch)
+        return {
+            b: parts[0] if len(parts) == 1 else ColumnarBatch.concat(parts)
+            for b, parts in groups.items()
+        }
 
     def _repartition_by_bucket(
         self, node: Repartition, predicate: Optional[Expr]

@@ -80,6 +80,15 @@ def vocab_heap_bytes(vocab) -> int:
     return sum(len(v) + 50 for v in vocab)
 
 
+def _budget_bytes(conf: ResidencyConf) -> int:
+    """The residency budget less what streaming builds hold for their
+    staged runs (residency.slabs): every budget site sees the true
+    headroom. Builds hold at most half, so this stays positive."""
+    from ..residency.slabs import held_bytes
+
+    return conf.budget_bytes - held_bytes()
+
+
 def _device(device: DeviceLike) -> torch.device:
     """``resolve_device`` with the card's index made explicit, so tables
     and lookups compare devices exactly and a background thread can
@@ -466,7 +475,7 @@ class HbmIndexCache(ResidentCacheBase):
             return None
         if table is None:
             return None
-        self._register(table, conf.budget_bytes)
+        self._register(table, _budget_bytes(conf))
         return table
 
     def note_touch(
@@ -527,7 +536,7 @@ class HbmIndexCache(ResidentCacheBase):
                 )
                 table, permanent = self._build(paths, key, build_cols, dev, conf)
                 if table is not None and set(columns) <= set(table.columns):
-                    self._register(table, conf.budget_bytes, epoch=epoch)
+                    self._register(table, _budget_bytes(conf), epoch=epoch)
                 elif table is not None or permanent:
                     # a partly encodable table could never serve this
                     # predicate; budget and IO refusals stay retryable
@@ -592,7 +601,7 @@ class HbmIndexCache(ResidentCacheBase):
                     if m is not None:
                         vocab_est += vocab_heap_bytes(m.get("vocab", ()))
         planes = sum(2 if dtype_of[c] == "float64" else 1 for c in encodable)
-        if planes * n_pad * 4 + vocab_est > conf.budget_bytes:
+        if planes * n_pad * 4 + vocab_est > _budget_bytes(conf):
             metrics.incr("hbm.over_budget_refused")
             return None, False
 
@@ -667,7 +676,7 @@ class HbmIndexCache(ResidentCacheBase):
             col_bytes = len(arrs) * n_pad * 4 + vocab_heap_bytes(vocab)
             cols[name] = ResidentColumn(data, dts, enc, col_bytes, vocab, data2)
             nbytes += col_bytes
-        if nbytes > conf.budget_bytes:
+        if nbytes > _budget_bytes(conf):
             metrics.incr("hbm.over_budget_refused")
             return None, False
         metrics.record_time("hbm.prefetch", time.perf_counter() - t0)

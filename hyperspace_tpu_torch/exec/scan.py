@@ -23,8 +23,10 @@ matches (``_resident_parts``). A zone-map gate routes predicates that
 cannot prune blocks to the per-file path first; a miss schedules the
 table's background upload when the session's residency mode allows.
 
-The measured scan gate and run-file segment reads of the reference are
-not ported.
+Multi-bucket run files (the streaming build's finalizeMode=runs) are read
+whole, or, under an equality predicate that pins buckets, at those buckets'
+row ranges through the coalesced segment planner. The measured scan gate
+of the reference is not ported.
 """
 
 from __future__ import annotations
@@ -228,7 +230,9 @@ def prune_index_files(
     pinned_buckets: Optional[set] = None,
 ) -> List[Path]:
     """Hash-bucket pruning (equality predicates pin buckets) followed by
-    footer zone-map pruning; no file is opened for data."""
+    footer zone-map pruning; no file is opened for data. Multi-bucket RUN
+    files survive bucket pruning whole: their pinned buckets become
+    row-range reads in the scan itself."""
     if predicate is None:
         return files
     if pinned_buckets is None and indexed_columns and dtypes and num_buckets:
@@ -236,7 +240,11 @@ def prune_index_files(
             predicate, indexed_columns, dtypes, num_buckets
         )
     if pinned_buckets is not None:
-        files = [f for f in files if layout.bucket_of_file(f) in pinned_buckets]
+        files = [
+            f
+            for f in files
+            if layout.is_run_file(f) or layout.bucket_of_file(f) in pinned_buckets
+        ]
     for c in sorted(predicate.columns()):
         lo, hi = bounds_for_column(predicate, c)
         if lo is not None or hi is not None:
@@ -260,12 +268,16 @@ def index_scan(
     before any file is opened. ``residency`` is the session's HBM
     residency policy (exec.hbm_cache)."""
     all_files = [Path(p) for p in data_files]
+    pinned = None
+    if predicate is not None and indexed_columns and dtypes and num_buckets:
+        pinned = buckets_for_predicate(predicate, indexed_columns, dtypes, num_buckets)
     files = prune_index_files(
         all_files,
         predicate,
         indexed_columns,
         dtypes,
         num_buckets,
+        pinned_buckets=pinned,
     )
     metrics.incr("scan.files_read", len(files))
     need = (
@@ -281,9 +293,21 @@ def index_scan(
             if resident:
                 return ColumnarBatch.concat(resident)
             return _empty_result(files, output_columns, dtypes)
+    # run files under pinned buckets are read at those buckets' row ranges
+    # only (the runs layout's stand-in for file-level bucket pruning)
+    special: dict = {}
+    if pinned is not None and any(layout.is_run_file(f) for f in files):
+        with metrics.timer("scan.run_segment_io"):
+            special = _read_run_segments(
+                [f for f in files if layout.is_run_file(f)], need, pinned
+            )
+    bulk_files = [f for f in files if f not in special]
+    bmap = dict(zip(bulk_files, layout.read_batches(bulk_files, columns=need)))
+    bmap.update(special)
     parts: List[ColumnarBatch] = []
-    for batch in layout.read_batches(files, columns=need):
-        if batch.num_rows == 0:
+    for f in files:
+        batch = bmap[f]
+        if batch is None or batch.num_rows == 0:
             continue
         if predicate is not None:
             idx = np.flatnonzero(device_mask(predicate, batch, device))
@@ -294,6 +318,25 @@ def index_scan(
     if not parts:
         return _empty_result(files, output_columns, dtypes)
     return ColumnarBatch.concat(parts)
+
+
+def _read_run_segments(run_files: List[Path], need: List[str], pinned: set) -> dict:
+    """The pinned buckets' row ranges of every run file, read through the
+    coalesced segment planner (one ordered sweep per run file). Returns
+    {file: batch, or None when those buckets hold no rows there}. A run
+    file without its bucketCounts footer raises."""
+    plan = layout.plan_segment_reads(run_files, buckets=set(pinned))
+    got = layout.execute_segment_reads(plan, columns=need)
+    out: dict = {f: None for f in run_files}
+    n_segments = 0
+    for sw in plan:
+        parts = [got[(sw.path, b)] for b, _lo, _hi in sw.segments]
+        n_segments += len(parts)
+        match = next(f for f in run_files if str(f) == sw.path)
+        out[match] = parts[0] if len(parts) == 1 else ColumnarBatch.concat(parts)
+    if n_segments:
+        metrics.incr("scan.run_bucket_segments", n_segments)
+    return out
 
 
 def _empty_result(

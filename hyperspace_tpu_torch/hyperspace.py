@@ -2,9 +2,9 @@
 
 Parity: com/microsoft/hyperspace/Hyperspace.scala:34-165 — the lifecycle
 verbs (create, delete, restore, vacuum, refresh, optimize, cancel), list,
-describe and explain, and the reference package's ``prefetch_index``.
-The reference package's ``compact_index`` (the background compactor's
-verb), ``doctor`` and ``serve`` are not ported yet.
+describe and explain, and the reference package's ``prefetch_index`` and
+``compact_index`` (the background compactor's verb). Its ``doctor`` and
+``serve`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -63,6 +63,18 @@ class Hyperspace:
     def optimize_index(self, name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> None:
         self._manager.optimize(name, mode)
 
+    def compact_index(self, name: str, max_steps: Optional[int] = None) -> dict:
+        """Step ``name`` toward the per-bucket layout now, one committed
+        increment at a time (index/compactor.py): each step compacts
+        ``hyperspace.index.compaction.bucketsPerStep`` run-held buckets
+        into per-bucket files; convergence gives exactly
+        ``optimize(quick)``'s layout. Returns {"steps": committed count,
+        "converged": bool}. Unlike ``optimize_index``, a reader of the
+        previous version keeps its files between steps."""
+        from .index.compactor import IndexCompactor
+
+        return IndexCompactor(self.session).compact_index(name, max_steps=max_steps)
+
     def cancel(self, name: str) -> None:
         self._manager.cancel(name)
 
@@ -90,3 +102,4 @@ class Hyperspace:
     vacuumIndex = vacuum_index
     refreshIndex = refresh_index
     optimizeIndex = optimize_index
+    compactIndex = compact_index

@@ -24,9 +24,9 @@ def open_index_tree(system_path: str | Path) -> Dict[str, IndexLogEntry]:
     """The latest stable ACTIVE entry of every index under
     ``system_path``, keyed by index name, with every data file's footer
     read through the shared reader cache (so the first query pays no
-    footer parse). Raises when a logged data file is missing or is not a
-    per-bucket TCB file this package reads (the reference's multi-bucket
-    run files are not ported)."""
+    footer parse). Per-bucket files and the streaming build's multi-bucket
+    run files are both read; raises when a logged data file is missing, is
+    not a TCB data file, or is a run file without its ``bucketCounts``."""
     root = Path(system_path)
     out: Dict[str, IndexLogEntry] = {}
     if not root.is_dir():
@@ -38,11 +38,15 @@ def open_index_tree(system_path: str | Path) -> Dict[str, IndexLogEntry]:
         if entry is None or entry.state != states.ACTIVE:
             continue
         for f in entry.content.files():
-            layout.bucket_of_file(f)  # raises on run files
+            run = layout.is_run_file(f)
+            if not run:
+                layout.bucket_of_file(f)  # raises on a foreign file name
             if not Path(f).is_file():
                 raise HyperspaceException(
                     f"Index {entry.name}: logged data file {f} is missing."
                 )
             layout.cached_reader(f)
+            if run:
+                layout.run_offsets_checked(f)
         out[entry.name] = entry
     return out

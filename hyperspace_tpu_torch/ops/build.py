@@ -1,9 +1,12 @@
-"""The index-build kernel: hash-bucketize + per-bucket sort on the device.
+"""The index-build device programs: hash-bucketize + per-bucket sort on the
+card, the streaming build's staged chunk sort and on-card run merge, and
+the host engine that computes the same orders with numpy.
 
-Counterpart of the single-device build in ``hyperspace_tpu.ops.build``
-(``build_partition_single`` with ``_single_perm_kernel_packed`` /
-``_single_perm_kernel``). Those are XLA programs, not Pallas kernels, so
-torch ops carry them here:
+Counterpart of ``hyperspace_tpu.ops.build`` (its single-device arms:
+``build_partition_single`` with ``_single_perm_kernel_packed`` /
+``_single_perm_kernel``, the staged ``_single_staged_kernel_packed`` and
+``_staged_merge_fn``, ``build_partition_host(_parallel)``). Those are XLA
+programs, not Pallas kernels, so torch ops carry them here:
 
 * bucket ids: the murmur3-fmix32 mix of ops.hashing in int64 lanes;
 * ordering: a stable sort by (bucket, key...) with the input position as
@@ -11,18 +14,27 @@ torch ops carry them here:
   composite, ONE stable ``torch.sort`` of the packed composite; otherwise
   successive stable sorts from the last key to the bucket (least to most
   significant), which is the same lexicographic order;
-* per-bucket counts: ``torch.bincount``.
+* per-bucket counts: ``torch.bincount``;
+* the staged run merge: each chunk's sorted composite re-packed on the
+  run's plan, then a pairwise ``torch.searchsorted`` tournament (the left
+  run wins ties) scattered with ``index_put_``.
 
-Only key columns move to the device and only the int64 permutation and
-the counts come back; the host applies one gather to the batch it already
-holds. The permutation is exactly the reference's: its ``lax.sort`` keyed
-on (bucket, keys..., iota) and a stable sort give the same order, and
-float keys compare through the same ordered-int encodings (-0.0 == +0.0).
+Only key columns move to the device and only an int32/int64 order and the
+counts come back; the host applies one gather to the rows it already
+holds. The orders are exactly the reference's: its ``lax.sort`` keyed on
+(bucket, keys..., iota) and a stable sort give the same order, and float
+keys compare through the same ordered-int encodings (-0.0 == +0.0).
+
+Device work may be queued on a caller's CUDA stream (the streaming
+writer's own), and results come back through ``DeviceFetch``: pinned host
+buffers filled by non-blocking copies and an event recorded after them,
+so a spill worker thread waits on that event and nothing else.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import contextlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -172,58 +184,285 @@ def _single_perm_kernel(
     return perm
 
 
+class DeviceFetch:
+    """Device tensors on their way to the host. On a CUDA device the copies
+    go into pinned host buffers with ``non_blocking=True`` on the current
+    stream, and an event is recorded after them; ``wait()`` blocks on that
+    event alone, from any thread, then hands back numpy views. Reading the
+    buffers before the event would give stale rows and no error. On the
+    CPU the tensors are the host arrays already."""
+
+    __slots__ = ("_src", "_host", "_event")
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self._src = list(tensors)  # alive until the copies complete
+        if self._src and self._src[0].device.type == "cuda":
+            self._host = [
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in self._src
+            ]
+            for h, t in zip(self._host, self._src):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = self._src
+            self._event = None
+
+    def wait(self) -> List[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        self._src = []
+        return [h.numpy() for h in self._host]
+
+
+def on_stream(stream: Optional["torch.cuda.Stream"]):
+    """Queue the enclosed device work on ``stream`` (None: the current
+    stream; always None on the CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
+
+
+def _to_device(buf, dev: torch.device) -> torch.Tensor:
+    """A host buffer (numpy, or a pinned tensor of the writer's slab pair)
+    on ``dev``. A pinned source copies asynchronously; its slot must not be
+    refilled before an event recorded after the copy has completed."""
+    if not isinstance(buf, torch.Tensor):
+        buf = torch.from_numpy(np.require(buf, requirements=["C", "W"]))
+    return buf.to(dev, non_blocking=buf.is_pinned())
+
+
 def build_partition_single(
     batch: ColumnarBatch,
     key_names: List[str],
     num_buckets: int,
     device: DeviceLike = None,
-) -> Tuple[ColumnarBatch, np.ndarray]:
+    defer: bool = False,
+    stream: Optional["torch.cuda.Stream"] = None,
+):
     """Returns the batch reordered so rows are grouped by bucket
     (ascending) and sorted by the key columns within each bucket, plus
-    per-bucket row counts. Bucketize and sort run on ``device``."""
+    per-bucket row counts. Bucketize and sort run on ``device``.
+
+    ``defer=True`` returns a zero-arg ``finish()`` instead: the device work
+    is queued (on ``stream`` when given) with its D2H in flight, and
+    ``finish`` waits for the copy and gathers the rows on the host — the
+    streaming writer calls it on a spill thread, so the copy overlaps the
+    next chunk's dispatch."""
     from ..telemetry.metrics import metrics
 
     dev = resolve_device(device)
     dtypes = batch.schema()
     n = batch.num_rows
-    host_bufs = {k: encode_for_device(batch.columns[k]) for k in key_names}
-    arrays = {
-        k: torch.from_numpy(np.require(b, requirements=["C", "W"])).to(dev)
-        for k, b in host_bufs.items()
-    }
-    vh = {
-        k: torch.from_numpy(vocab_hashes(batch.columns[k])).to(dev)
-        for k in key_names
-        if is_string(dtypes[k])
-    }
     if n == 0:
-        return batch, np.zeros(num_buckets, dtype=np.int64)
-    bucket = device_bucket_ids(arrays, dtypes, list(key_names), vh, num_buckets)
+        empty = (batch, np.zeros(num_buckets, dtype=np.int64))
+        return (lambda: empty) if defer else empty
+    host_bufs = {k: encode_for_device(batch.columns[k]) for k in key_names}
     bounds = [_packed_minmax(host_bufs[k]) for k in key_names]
     plan = (
         _pack_plan(bounds, max(int(num_buckets), 1).bit_length())
         if all(b is not None for b in bounds)
         else None
     )
-    if plan is not None:
-        metrics.incr("build.engine.device_radix")
-        perm_dev = _single_perm_kernel_packed(arrays, bucket, list(key_names), plan)
-    else:
-        metrics.incr("build.engine.device_sortfull")
-        perm_dev = _single_perm_kernel(arrays, bucket, list(key_names))
-    counts = torch.bincount(bucket, minlength=num_buckets)[:num_buckets]
-    perm = perm_dev.cpu().numpy()
-    counts = counts.cpu().numpy().astype(np.int64)
-    out = batch.take(perm)
-    for name, col in out.columns.items():
-        if col.dtype_str == "float64":
-            # the reference's f64 transport encoding canonicalizes -0.0
-            out.columns[name] = Column(
-                col.dtype_str,
-                np.where(col.data == 0.0, 0.0, col.data),
-                col.vocab,
+    with on_stream(stream):
+        arrays = {k: _to_device(b, dev) for k, b in host_bufs.items()}
+        vh = {
+            k: torch.from_numpy(vocab_hashes(batch.columns[k])).to(dev)
+            for k in key_names
+            if is_string(dtypes[k])
+        }
+        if defer:
+            metrics.incr(
+                "build.stream.h2d_bytes",
+                sum(int(b.nbytes) for b in host_bufs.values()),
             )
-    return out, counts
+        bucket = device_bucket_ids(arrays, dtypes, list(key_names), vh, num_buckets)
+        if plan is not None:
+            metrics.incr("build.engine.device_radix")
+            perm_dev = _single_perm_kernel_packed(
+                arrays, bucket, list(key_names), plan
+            )
+        else:
+            metrics.incr("build.engine.device_sortfull")
+            perm_dev = _single_perm_kernel(arrays, bucket, list(key_names))
+        counts_dev = torch.bincount(bucket, minlength=num_buckets)[:num_buckets]
+        fetch = DeviceFetch([perm_dev, counts_dev])
+
+    def finish() -> Tuple[ColumnarBatch, np.ndarray]:
+        perm, counts = fetch.wait()
+        if defer:
+            # one blocking round trip per chunk: the call count the staged
+            # run merge divides by runChunks
+            metrics.incr("build.stream.d2h_calls")
+            metrics.incr("build.stream.d2h_bytes", 8 * n + 8 * num_buckets)
+        out = batch.take(perm.astype(np.int64, copy=False))
+        _canonicalize_f64(out)
+        return out, counts.astype(np.int64, copy=False)
+
+    return finish if defer else finish()
+
+
+# ---------------------------------------------------------------------------
+# device-resident run staging (the streaming build's device engine)
+# ---------------------------------------------------------------------------
+def _single_staged_kernel_packed(
+    arrays: Dict[str, torch.Tensor],
+    dtypes: Dict[str, str],
+    key_names: List[str],
+    num_buckets: int,
+    plan: List[Tuple[int, int]],
+):
+    """Run-staging twin of _single_perm_kernel_packed: the same bucketize +
+    radix pack + ONE stable sort, but the sorted packed composite stays on
+    the device beside the permutation — the merge operand of the on-card
+    run merge. Staged chunks are always full (the tail routes per chunk),
+    so every row is real. Returns (sorted composite, permutation, counts)."""
+    bucket = device_bucket_ids(arrays, dtypes, key_names, {}, num_buckets)
+    packed = bucket.to(torch.int64)
+    for k, (mn, kb) in zip(key_names, plan):
+        enc = _ordered_sort_operand(arrays[k]).to(torch.int64)
+        packed = (packed << kb) | (enc - mn)
+    packed_sorted, perm = torch.sort(packed, stable=True)
+    counts = torch.bincount(bucket, minlength=num_buckets)
+    return packed_sorted, perm, counts
+
+
+def _staged_merge(
+    staged: List["StagedChunk"], run_plan: List[Tuple[int, int]]
+) -> torch.Tensor:
+    """The on-card k-way run merge: each staged chunk's sorted composite
+    (packed with its own chunk plan) is unpacked with the chunk's mins and
+    shifts and re-packed on the run's plan — an order-preserving change of
+    field offsets, so each chunk stays sorted — then the chunks merge by
+    the stable pairwise searchsorted tournament of the host's
+    ``merge_sorted_orders`` (adjacent pairs, the left run wins ties).
+    Returns the run's row order into the R concatenated chunks, int32 (the
+    reference's transport width: R x capacity stays under 2^31)."""
+    cap = int(staged[0].packed.shape[0])
+    runs = []
+    for c, s in enumerate(staged):
+        rem = s.packed
+        fields = []
+        for mn, kb in reversed(s.plan):
+            # masks from Python ints: a shift of 63 stays exact
+            fields.append((rem & ((1 << kb) - 1)) + mn)
+            rem = rem >> kb
+        fields.reverse()
+        comp = rem  # what remains above the key fields is the bucket id
+        for (mn, kb), f in zip(run_plan, fields):
+            comp = (comp << kb) | (f - mn)
+        runs.append((comp, (s.perm + c * cap).to(torch.int32)))
+    while len(runs) > 1:
+        nxt = []
+        for j in range(0, len(runs) - 1, 2):
+            (ak, ai), (bk, bi) = runs[j], runs[j + 1]
+            dev = ak.device
+            # merged position of a[x] = x + |b strictly before a[x]|; of
+            # b[y] = y + |a at or before b[y]| (ties: a first)
+            pos_a = torch.arange(ak.shape[0], device=dev) + torch.searchsorted(
+                bk, ak, right=False
+            )
+            pos_b = torch.arange(bk.shape[0], device=dev) + torch.searchsorted(
+                ak, bk, right=True
+            )
+            mk = torch.empty(ak.shape[0] + bk.shape[0], dtype=ak.dtype, device=dev)
+            mi = torch.empty(ak.shape[0] + bk.shape[0], dtype=ai.dtype, device=dev)
+            mk.index_put_((pos_a,), ak)
+            mk.index_put_((pos_b,), bk)
+            mi.index_put_((pos_a,), ai)
+            mi.index_put_((pos_b,), bi)
+            nxt.append((mk, mi))
+        if len(runs) % 2:
+            nxt.append(runs[-1])
+        runs = nxt
+    return runs[0][1]
+
+
+class StagedChunk:
+    """One device-resident sorted chunk awaiting its run merge: the packed
+    composite, permutation and counts stay on the card; the host keeps the
+    pack plan (the merge's unpack operands). The device footprint is
+    charged up front by the writer's all-or-nothing reservation
+    (residency.slabs)."""
+
+    __slots__ = ("packed", "perm", "counts", "plan")
+
+    def __init__(self, packed, perm, counts, plan):
+        self.packed = packed
+        self.perm = perm
+        self.counts = counts
+        self.plan = plan
+
+
+def stage_encode(
+    batch: ColumnarBatch, key_names: List[str]
+) -> Tuple[Dict[str, np.ndarray], Optional[List[Tuple[int, int]]]]:
+    """Host transport buffers + per-key (min, max) bounds of a full chunk —
+    the staged path's routing input, computed before any upload so an
+    ineligible chunk never touches the device. ``bounds`` is None when a
+    key declines the 63-bit pack (floats, uint64 beyond int64)."""
+    encoded = {k: encode_for_device(batch.columns[k]) for k in key_names}
+    bounds = []
+    for k in key_names:
+        b = _packed_minmax(encoded[k])
+        if b is None:
+            return encoded, None
+        bounds.append(b)
+    return encoded, bounds
+
+
+def run_pack_plan(
+    bounds: List[Tuple[int, int]], num_buckets: int
+) -> Optional[List[Tuple[int, int]]]:
+    """The run-level pack plan over accumulated per-chunk bound unions —
+    the same budget rule and bucket ceiling as the per-chunk sort, so chunk
+    and run composites share one field layout. None: the union overflows
+    63 bits and the pending run must flush first."""
+    return _pack_plan(bounds, max(int(num_buckets), 1).bit_length())
+
+
+def stage_chunk_packed(
+    host_bufs: Dict[str, object],
+    dtypes: Dict[str, str],
+    key_names: List[str],
+    num_buckets: int,
+    plan: List[Tuple[int, int]],
+    device: DeviceLike = None,
+    stream: Optional["torch.cuda.Stream"] = None,
+) -> Tuple[StagedChunk, int]:
+    """Upload one full chunk's key buffers (the writer's pinned slab slot,
+    or the chunk's own encoded arrays) and leave its sorted composite,
+    permutation and counts on the device. Returns the staged handle and
+    the H2D byte count. The caller guarantees: no string keys, a full
+    chunk, ``plan`` fits 63 bits."""
+    from ..telemetry.metrics import metrics
+
+    dev = resolve_device(device)
+    with on_stream(stream):
+        arrays = {k: _to_device(host_bufs[k], dev) for k in key_names}
+        metrics.incr("build.engine.device_radix")
+        packed, perm, counts = _single_staged_kernel_packed(
+            arrays, dtypes, list(key_names), num_buckets, plan
+        )
+    h2d_bytes = sum(int(a.nbytes) for a in arrays.values())
+    return StagedChunk(packed, perm, counts, plan), h2d_bytes
+
+
+def merge_staged_chunks(
+    staged: List[StagedChunk],
+    run_plan: List[Tuple[int, int]],
+    num_buckets: int,
+    stream: Optional["torch.cuda.Stream"] = None,
+) -> DeviceFetch:
+    """Queue the on-card merge of R staged chunks into one sorted run and
+    its non-blocking D2H. Returns the fetch of (order, counts): the order
+    indexes the concatenation of the R original chunks, int32; the counts
+    are the per-bucket sums."""
+    with on_stream(stream):
+        order = _staged_merge(staged, run_plan)
+        counts = torch.stack([s.counts[:num_buckets] for s in staged]).sum(0)
+        return DeviceFetch([order, counts])
 
 
 # ---------------------------------------------------------------------------
@@ -301,3 +540,96 @@ def merge_sorted_orders(
             nxt.append(runs[-1])
         runs = nxt
     return np.asarray(runs[0][1], dtype=np.int64)
+
+
+def build_partition_host(
+    batch: ColumnarBatch,
+    key_names: List[str],
+    num_buckets: int,
+) -> Tuple[ColumnarBatch, np.ndarray]:
+    """Host twin of build_partition_single: the same hash, the same
+    (bucket, keys...) order and the same stable tie-break, computed with
+    numpy — one stable argsort of the packed composite when it fits 63
+    bits, a lexsort otherwise. The streaming build's ``host`` engine, and
+    the in-memory build's with ``engine=host``."""
+    from ..index.stream_builder import sort_encoding
+    from .hashing import bucket_ids_host, key_repr
+
+    bucket = bucket_ids_host(
+        [key_repr(batch.columns[k]) for k in key_names], num_buckets
+    )
+    encs = [sort_encoding(batch.columns[k]) for k in key_names]
+    order = None
+    comp = _pack_sort_keys(encs, bucket, num_buckets)
+    if comp is not None:
+        order = np.argsort(comp, kind="stable")
+    if order is None:
+        order = np.lexsort(tuple(reversed(encs)) + (bucket,))
+    counts = np.bincount(bucket, minlength=num_buckets).astype(np.int64)
+    out = batch.take(order)
+    _canonicalize_f64(out)
+    return out, counts
+
+
+def _canonicalize_f64(out: ColumnarBatch) -> None:
+    """-0.0 → +0.0 on float64 columns, matching the device transport
+    encoding (ops.floatbits): every engine writes the same bytes."""
+    for name, col in out.columns.items():
+        if col.dtype_str == "float64":
+            out.columns[name] = Column(
+                col.dtype_str, np.where(col.data == 0.0, 0.0, col.data), col.vocab
+            )
+
+
+# Below this many rows the slice/merge machinery costs more than the one
+# stable argsort it replaces; the serial twin handles small batches.
+HOST_PARALLEL_MIN_ROWS = 1 << 16
+
+
+def build_partition_host_parallel(
+    batch: ColumnarBatch,
+    key_names: List[str],
+    num_buckets: int,
+    workers: int,
+) -> Tuple[ColumnarBatch, np.ndarray]:
+    """Multi-core twin of build_partition_host with identical output: rows
+    split into contiguous slices, each stable-argsorted on its own thread
+    (numpy's sort releases the GIL), then merged by the stable
+    searchsorted tournament — contiguous slices and left-run-wins ties
+    reproduce the serial stable argsort. Shapes the composite cannot pack
+    take the serial twin."""
+    n = batch.num_rows
+    if workers <= 1 or n < HOST_PARALLEL_MIN_ROWS:
+        return build_partition_host(batch, key_names, num_buckets)
+    from ..index.stream_builder import sort_encoding
+    from ..parallel.pool import run_parallel
+    from ..telemetry.metrics import metrics
+    from .hashing import bucket_ids_host, key_repr
+
+    bucket = bucket_ids_host(
+        [key_repr(batch.columns[k]) for k in key_names], num_buckets
+    )
+    encs = [sort_encoding(batch.columns[k]) for k in key_names]
+    comp = _pack_sort_keys(encs, bucket, num_buckets)
+    if comp is None:
+        return build_partition_host(batch, key_names, num_buckets)
+    workers = min(int(workers), max(n // HOST_PARALLEL_MIN_ROWS, 1))
+    step = -(-n // workers)
+    spans = [(s, min(s + step, n)) for s in range(0, n, step)]
+
+    def slice_sort(span: Tuple[int, int]):
+        s, e = span
+        order = np.argsort(comp[s:e], kind="stable").astype(np.int64) + s
+        return comp[order], order
+
+    sorted_slices = run_parallel(
+        [lambda sp=sp: slice_sort(sp) for sp in spans],
+        workers,
+        name="host-partition",
+    )
+    order = merge_sorted_orders(sorted_slices)
+    counts = np.bincount(bucket, minlength=num_buckets).astype(np.int64)
+    out = batch.take(order)
+    _canonicalize_f64(out)
+    metrics.incr("build.engine.host_parallel")
+    return out, counts

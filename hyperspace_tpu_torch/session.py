@@ -14,6 +14,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, List, Optional
 
+from . import constants as C
 from .config import HyperspaceConf
 from .ops import resolve_device
 from .sources.manager import FileBasedSourceProviderManager
@@ -119,6 +120,13 @@ class HyperspaceSession:
     def __init__(self, conf: Optional[HyperspaceConf] = None):
         self.conf = conf or HyperspaceConf()
         self.device = resolve_device(self.conf.torch_device())
+        # the segment-IO mode (hyperspace.storage.segmentIo) becomes the
+        # process default, as in the reference: the planner runs on
+        # process-global read paths; the typed accessor raises on a typo
+        if self.conf.contains(C.STORAGE_SEGMENT_IO):
+            from .storage import layout as _layout
+
+            _layout.set_segment_io_default(self.conf.segment_io_mode())
         self.sources = FileBasedSourceProviderManager(self.conf)
         self.catalog = Catalog(self)
         self._hyperspace_enabled = False

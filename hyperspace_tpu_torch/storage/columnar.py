@@ -346,6 +346,44 @@ class ColumnarBatch:
                 out[n] = Column(cols[0].dtype_str, np.concatenate([c.data for c in cols]))
         return ColumnarBatch(out)
 
+    @staticmethod
+    def gather_concat(
+        batches: Sequence["ColumnarBatch"], indices: np.ndarray
+    ) -> "ColumnarBatch":
+        """``concat(batches).take(indices)`` without materializing the
+        concatenation: each output row is gathered straight from its source
+        batch, so every row moves once. The streaming build gathers a
+        staged run's R chunks in merged order this way. The same result as
+        concat().take(): string dictionaries unify exactly as concat does."""
+        batches = [b for b in batches if b.num_rows > 0] or list(batches[:1])
+        if len(batches) == 1:
+            return batches[0].take(indices)
+        first = batches[0]
+        names = first.column_names
+        for b in batches[1:]:
+            if b.column_names != names or b.schema() != first.schema():
+                raise HyperspaceException(
+                    f"Schema mismatch in gather_concat: {first.schema()} "
+                    f"vs {b.schema()}."
+                )
+        sizes = np.array([b.num_rows for b in batches])
+        ends = np.cumsum(sizes)
+        chunk_ix = np.searchsorted(ends, indices, side="right")
+        local_ix = indices - (ends - sizes)[chunk_ix]
+        masks = [chunk_ix == ci for ci in range(len(batches))]
+        out: Dict[str, Column] = {}
+        for n in names:
+            cols = [b.columns[n] for b in batches]
+            vocab = None
+            if is_string(cols[0].dtype_str):
+                cols = unify_dictionaries(cols)
+                vocab = cols[0].vocab
+            acc = np.empty(len(indices), dtype=cols[0].data.dtype)
+            for c, m in zip(cols, masks):
+                acc[m] = c.data[local_ix[m]]
+            out[n] = Column(cols[0].dtype_str, acc, vocab)
+        return ColumnarBatch(out)
+
     def device_arrays(self, names: Optional[Iterable[str]] = None, device=None):
         """Copy columns to ``device`` (ops.resolve_device: cuda unless the
         caller names the cpu) as a dict of torch tensors (codes for

@@ -1,10 +1,13 @@
 """The on-disk index layout: TCB (tensor columnar batch) files.
 
-A copy of ``hyperspace_tpu.storage.layout`` (per-bucket files only): the
-bytes this module writes for a batch are exactly the reference's, so both
-packages read each other's index data.
+A copy of ``hyperspace_tpu.storage.layout``: the bytes this module writes
+for a batch are exactly the reference's, so both packages read each
+other's index data.
 
-* one file per bucket, named ``b<bucket>-<uuid>.tcb``;
+* one file per bucket, named ``b<bucket>-<uuid>.tcb``, or (the streaming
+  build's ``finalizeMode=runs``) multi-bucket run files named
+  ``r<seq>-<uuid>.tcb``, bucket-grouped and key-sorted, whose footer
+  ``bucketCounts`` give each bucket's row range;
 * raw little-endian fixed-width column buffers, each aligned to 128 bytes,
   so a read is an ``np.memmap`` view with no decode step;
 * a JSON footer (schema, row count, per-column offset/nbytes, per-column
@@ -20,7 +23,8 @@ import os
 import re
 import uuid
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -40,22 +44,63 @@ def bucket_file_name(bucket: int) -> str:
     return f"b{bucket:05d}-{uuid.uuid4().hex[:12]}.tcb"
 
 
-_RUN_FILE_RE = re.compile(r"^r\d{5,}-[0-9a-f]{12}\.tcb$")
+def run_file_name(seq: int) -> str:
+    """A multi-bucket RUN file: one key-sorted, bucket-grouped spill run
+    promoted to a final data file (build finalizeMode=runs). Rows of every
+    bucket live in one file at the row ranges its footer's
+    ``bucketCounts`` describe; optimize or the compactor later rewrite
+    runs as per-bucket ``b``-files."""
+    return f"r{seq:05d}-{uuid.uuid4().hex[:12]}.tcb"
+
+
+_RUN_FILE_RE = re.compile(r"^r\d{5,}-[0-9a-f]{12}\.tcb$")  # {5,}: seq >= 100000 widens the field
 
 
 def is_run_file(path: str | Path) -> bool:
-    """A multi-bucket run file (``r<seq>-<uuid>.tcb``), written by the
-    reference's streaming build with finalizeMode=runs. This package
-    writes none and reads none yet."""
+    """Matches exactly the names ``run_file_name`` generates (not the
+    build's ``run-*.tcb`` spill scratch)."""
     return bool(_RUN_FILE_RE.match(os.path.basename(str(path))))
+
+
+def run_bucket_offsets(footer: Dict[str, Any]) -> Optional[np.ndarray]:
+    """Per-bucket cumulative row offsets of a run file (len num_buckets+1),
+    or None when the footer carries no bucket layout. Bucket b's rows are
+    ``[offsets[b], offsets[b+1])``."""
+    counts = footer.get("extra", {}).get("bucketCounts")
+    if counts is None:
+        return None
+    return np.concatenate([[0], np.cumsum(np.asarray(counts, dtype=np.int64))])
+
+
+def run_offsets_checked(path: str | Path) -> np.ndarray:
+    """``run_bucket_offsets`` through the shared reader cache, raising when
+    the footer carries no bucket layout — the one copy of that check every
+    run-segment reader shares (a whole-file fallback would put the file's
+    rows into every bucket's group)."""
+    offs = run_bucket_offsets(cached_reader(path).footer)
+    if offs is None:
+        raise HyperspaceException(
+            f"Run file {path} carries no bucketCounts footer."
+        )
+    return offs
+
+
+def index_root_of(path: str | Path) -> Optional[str]:
+    """The index directory a data file lives under (the parent of its
+    ``v__=k`` version dir), or None for paths outside the versioned
+    layout."""
+    p = Path(path)
+    for parent in p.parents:
+        if parent.name.startswith(C.INDEX_VERSION_DIRECTORY_PREFIX + "="):
+            return str(parent.parent)
+    return None
 
 
 def bucket_of_file(path: str | Path) -> int:
     """Parse the bucket id back out of a data file name (the analog of
     Spark's BucketingUtils.getBucketId used by OptimizeAction.scala:120).
-    Multi-bucket run files (``r``-prefixed, written by the reference's
-    streaming build with finalizeMode=runs) are not read by this package
-    and raise here."""
+    Run files (``r``-prefixed) hold ALL buckets and raise here — callers
+    check ``is_run_file`` first and use ``run_bucket_offsets`` instead."""
     name = os.path.basename(str(path))
     if not (name.startswith("b") and name.endswith(".tcb")):
         raise HyperspaceException(f"Not an index data file: {name}")
@@ -317,6 +362,195 @@ def read_batches(
     """Read (projections of) many TCB files as mmap views, one file after
     another (pages fault in when the data is first touched)."""
     return [read_batch(p, columns) for p in paths]
+
+
+# --- coalesced run-segment IO (the segment-read planner) ---------------------
+# A scan or join side over a runs-layout index needs (run file, bucket) row
+# segments. The planner takes the whole segment set a side needs, groups it
+# per run file, merges adjacent and near-adjacent row ranges, and executes
+# ONE ordered sweep per file through the shared TcbReader handles, fanned
+# across the host worker pool. The ``io.segment.*`` counters make the plan
+# observable; ``naive`` mode (one read per segment) is the A/B lever.
+
+# merge ranges whose gap is at most this many rows: reading a small gap
+# through is cheaper than a second ranged read, and the slice step drops
+# the gap rows without copying them
+SEGMENT_COALESCE_GAP_ROWS = 8192
+
+_SEGMENT_IO_DEFAULT = C.STORAGE_SEGMENT_IO_DEFAULT  # a session conf adopts
+
+
+def set_segment_io_default(mode: str) -> None:
+    """Adopt a session conf's ``hyperspace.storage.segmentIo`` value as the
+    process default (the planner is consulted from process-global read
+    paths, so the last session's conf wins;
+    HYPERSPACE_TPU_TORCH_SEGMENT_IO overrides both)."""
+    global _SEGMENT_IO_DEFAULT
+    if mode in C.STORAGE_SEGMENT_IO_MODES:
+        _SEGMENT_IO_DEFAULT = mode
+
+
+def segment_io_coalesced() -> bool:
+    v = os.environ.get("HYPERSPACE_TPU_TORCH_SEGMENT_IO", "").strip().lower()
+    if v in C.STORAGE_SEGMENT_IO_MODES:
+        return v == C.STORAGE_SEGMENT_IO_PLANNED
+    return _SEGMENT_IO_DEFAULT == C.STORAGE_SEGMENT_IO_PLANNED
+
+
+@dataclass
+class SegmentSweep:
+    """One run file's planned read: ``segments`` are the (bucket, row_lo,
+    row_hi) slices the caller needs, lo-ascending (runs are bucket-grouped,
+    so bucket order IS row order); ``ranges`` are the merged [lo, hi) row
+    ranges one ordered sweep reads to cover them."""
+
+    path: str
+    segments: List[Tuple[int, int, int]]
+    ranges: List[Tuple[int, int]]
+
+
+def plan_segment_reads(
+    files: Iterable[str | Path],
+    buckets: Optional[Set[int]] = None,
+    gap_rows: int = SEGMENT_COALESCE_GAP_ROWS,
+) -> List[SegmentSweep]:
+    """Plan the (run file, bucket) segment reads ``buckets`` (None = every
+    bucket) need over the RUN files in ``files`` — other files are skipped
+    (callers read those whole). Adjacent and near-adjacent segments merge
+    into one range; a bucket with no rows in a file plans nothing there."""
+    sweeps: List[SegmentSweep] = []
+    for f in files:
+        if not is_run_file(f):
+            continue
+        offs = run_offsets_checked(f)
+        want = (
+            range(len(offs) - 1)
+            if buckets is None
+            else sorted(b for b in buckets if 0 <= b < len(offs) - 1)
+        )
+        segs: List[Tuple[int, int, int]] = []
+        for b in want:
+            lo, hi = int(offs[b]), int(offs[b + 1])
+            if hi > lo:
+                segs.append((b, lo, hi))
+        if not segs:
+            continue
+        ranges: List[List[int]] = []
+        for _b, lo, hi in segs:  # lo-ascending by construction
+            if ranges and lo - ranges[-1][1] <= gap_rows:
+                ranges[-1][1] = hi
+            else:
+                ranges.append([lo, hi])
+        sweeps.append(SegmentSweep(str(f), segs, [(a, b) for a, b in ranges]))
+    return sweeps
+
+
+def _slice_batch(batch: ColumnarBatch, lo: int, hi: int) -> ColumnarBatch:
+    """A zero-copy row-slice view of ``batch`` (columns stay views over the
+    sweep's buffers; vocabs are shared)."""
+    return ColumnarBatch(
+        {
+            name: Column(c.dtype_str, c.data[lo:hi], c.vocab)
+            for name, c in batch.columns.items()
+        }
+    )
+
+
+def _segment_row_bytes(reader: TcbReader, names: List[str]) -> int:
+    total = 0
+    for m in reader.footer["columns"]:
+        if m["name"] not in names:
+            continue
+        dt = CODE_DTYPE if is_string(m["dtype"]) else numpy_dtype(m["dtype"])
+        total += dt.itemsize
+    return total
+
+
+def execute_segment_reads(
+    sweeps: List[SegmentSweep],
+    columns: Optional[Iterable[str]] = None,
+    workers: Optional[int] = None,
+    coalesce: Optional[bool] = None,
+) -> Dict[Tuple[str, int], ColumnarBatch]:
+    """Execute a segment-read plan: one ordered sweep per run file (the
+    merged ranges read front to back through the shared reader handles),
+    fanned across the host worker pool, returning the per-(path, bucket)
+    batches. ``coalesce=False`` (or segment IO mode ``naive``) issues one
+    ranged read per segment instead."""
+    if not sweeps:
+        return {}
+    if coalesce is None:
+        coalesce = segment_io_coalesced()
+    from ..telemetry.metrics import metrics
+
+    names = list(columns) if columns is not None else None
+
+    def sweep_one(sw: SegmentSweep) -> Dict[Tuple[str, int], ColumnarBatch]:
+        reader = cached_reader(sw.path)
+        got: Dict[Tuple[str, int], ColumnarBatch] = {}
+        want = names if names is not None else [
+            m["name"] for m in reader.footer["columns"]
+        ]
+        row_bytes = _segment_row_bytes(reader, want)
+        n_reads = 0
+        nbytes = 0
+        if coalesce:
+            seg_i = 0
+            for lo, hi in sw.ranges:
+                block = reader.read(want, row_range=(lo, hi))
+                n_reads += 1
+                nbytes += (hi - lo) * row_bytes
+                while seg_i < len(sw.segments) and sw.segments[seg_i][2] <= hi:
+                    b, slo, shi = sw.segments[seg_i]
+                    got[(sw.path, b)] = _slice_batch(block, slo - lo, shi - lo)
+                    seg_i += 1
+        else:
+            for b, lo, hi in sw.segments:
+                got[(sw.path, b)] = reader.read(want, row_range=(lo, hi))
+                n_reads += 1
+                nbytes += (hi - lo) * row_bytes
+        metrics.incr("io.segment.ranges", n_reads)
+        metrics.incr("io.segment.coalesced", len(sw.segments) - n_reads)
+        metrics.incr("io.segment.bytes", nbytes)
+        return got
+
+    metrics.incr("io.segment.sweeps", len(sweeps))
+    with metrics.timer("io.segment.sweep_wall"):
+        if workers is None:
+            workers = min(len(sweeps), os.cpu_count() or 1)
+        if workers <= 1 or len(sweeps) == 1:
+            results = [sweep_one(sw) for sw in sweeps]
+        else:
+            from ..parallel.pool import run_parallel
+
+            results = run_parallel(
+                [lambda sw=sw: sweep_one(sw) for sw in sweeps],
+                workers,
+                name="segment-io",
+            )
+    out: Dict[Tuple[str, int], ColumnarBatch] = {}
+    for r in results:
+        out.update(r)
+    return out
+
+
+def read_run_coalesced(
+    path: str | Path, columns: Optional[Iterable[str]] = None
+) -> ColumnarBatch:
+    """Read one run file whole through the segment planner (one sweep, one
+    merged range): bucket segments concatenate in bucket order, which is
+    the file's row order — the same rows as ``read_batch``, with the sweep
+    counted. The refresh rewrite reads run files this way."""
+    sweeps = plan_segment_reads([path])
+    if not sweeps:
+        return read_batch(path, columns=columns)
+    got = execute_segment_reads(sweeps, columns=columns)
+    parts = [got[(sweeps[0].path, b)] for b, _lo, _hi in sweeps[0].segments]
+    if len(parts) == 1:
+        return parts[0]
+    # bucket segments of one run share the file's vocab objects, so the
+    # concat's re-encode changes no code; order == row order
+    return ColumnarBatch.concat(parts)
 
 
 def prune_by_min_max(

@@ -233,10 +233,12 @@ def _file_row_count(relation, path: str) -> int:
     )
 
 
-def _partition_file_batches(relation, path: str, columns, arrow_filter):
-    """Yield one file's batch with hive partition columns materialized.
-    The reference's streamed-chunk twin (``chunk_rows``) belongs to the
-    streaming build, which is not ported: a file is read whole."""
+def _partition_file_batches(
+    relation, path: str, columns, arrow_filter, chunk_rows: Optional[int]
+):
+    """Yield one file's batches with hive partition columns materialized —
+    the shared core of read_relation (chunk_rows=None: the whole file) and
+    iter_relation_file_batches (streamed chunks)."""
     from . import partitions as P
 
     spec = relation.partition_spec
@@ -244,17 +246,34 @@ def _partition_file_batches(relation, path: str, columns, arrow_filter):
     values = P.partition_values_for(path, spec)
     if not file_cols and part_cols:
         # partition-only projection: no file bytes needed beyond the count
+        # (still emitted in chunk_rows pieces, so the streaming build's
+        # memory bound holds even for constant columns)
         n = _file_row_count(relation, path)
-        consts = P.constant_columns(spec, values, n)
-        yield ColumnarBatch({name: consts[name] for name in part_cols})
+        step = n if chunk_rows is None else max(int(chunk_rows), 1)
+        starts = range(0, n, step) if n else [0]  # 0-row files still yield
+        for start in starts:
+            m = min(step, n - start)
+            consts = P.constant_columns(spec, values, m)
+            yield ColumnarBatch({name: consts[name] for name in part_cols})
         return
-    chunk = read_files(
-        relation.read_format, [path], columns=file_cols, arrow_filter=arrow_filter
-    )
-    consts = P.constant_columns(spec, values, chunk.num_rows)
-    for name in part_cols:
-        chunk = chunk.with_column(name, consts[name])
-    yield chunk
+    if chunk_rows is None:
+        chunks = [
+            read_files(
+                relation.read_format,
+                [path],
+                columns=file_cols,
+                arrow_filter=arrow_filter,
+            )
+        ]
+    else:
+        chunks = iter_file_batches(
+            relation.read_format, path, columns=file_cols, chunk_rows=chunk_rows
+        )
+    for chunk in chunks:
+        consts = P.constant_columns(spec, values, chunk.num_rows)
+        for name in part_cols:
+            chunk = chunk.with_column(name, consts[name])
+        yield chunk
 
 
 def read_relation(
@@ -277,6 +296,105 @@ def read_relation(
         )
     parts = []
     for p in paths:
-        parts.extend(_partition_file_batches(relation, p, columns, arrow_filter))
+        parts.extend(
+            _partition_file_batches(relation, p, columns, arrow_filter, None)
+        )
     out = ColumnarBatch.concat(parts)
     return out.select(columns) if columns is not None else out
+
+
+def iter_relation_file_batches(
+    relation,
+    path: str | Path,
+    columns: Optional[List[str]] = None,
+    chunk_rows: int = 1 << 21,
+):
+    """Streaming twin of read_relation for one file (the out-of-core build
+    ingest): yields chunks with partition columns materialized."""
+    if relation.partition_spec is None:
+        yield from iter_file_batches(
+            relation.read_format, path, columns=columns, chunk_rows=chunk_rows
+        )
+        return
+    for chunk in _partition_file_batches(
+        relation, str(path), columns, None, chunk_rows
+    ):
+        yield chunk.select(columns) if columns is not None else chunk
+
+
+def file_chunk_tasks(
+    file_format: str,
+    path: str | Path,
+    columns: Optional[List[str]] = None,
+    chunk_rows: int = 1 << 21,
+) -> List:
+    """The parallel-ingest twin of ``iter_file_batches``: zero-arg
+    callables, each decoding one contiguous slice of the file into a LIST
+    of batches. Running them in order and concatenating their outputs
+    gives the serial iterator's rows in its order, so the pipelined build
+    can spread decode over host cores without changing the index bytes.
+
+    Parquet slices at row-group granularity (the footer names the
+    boundaries), packed greedily to ~``chunk_rows`` per task; each task
+    re-slices its span to ``chunk_rows`` pieces. Formats without random
+    access get one task for the whole file."""
+    path = str(path)
+    if file_format != "parquet":
+        return [
+            lambda: list(iter_file_batches(file_format, path, columns, chunk_rows))
+        ]
+    md = _parquet_file(path).metadata
+    spans: List[List[int]] = []
+    cur: List[int] = []
+    cur_rows = 0
+    for rg in range(md.num_row_groups):
+        cur.append(rg)
+        cur_rows += md.row_group(rg).num_rows
+        if cur_rows >= chunk_rows:
+            spans.append(cur)
+            cur, cur_rows = [], 0
+    if cur:
+        spans.append(cur)
+
+    def read_span(span: List[int]) -> List[ColumnarBatch]:
+        # a fresh ParquetFile per task around the memoized footer: pyarrow
+        # readers are not thread-safe, file metadata is
+        pf = _parquet_file(path)
+        t = pf.read_row_groups(span, columns=columns)
+        n = t.num_rows
+        return [
+            ColumnarBatch.from_arrow(t.slice(s, min(chunk_rows, n - s)))
+            for s in range(0, n, chunk_rows)
+            if n
+        ]
+
+    return [lambda sp=sp: read_span(sp) for sp in spans]
+
+
+def iter_file_batches(
+    file_format: str,
+    path: str | Path,
+    columns: Optional[List[str]] = None,
+    chunk_rows: int = 1 << 21,
+):
+    """Yield batches of at most ``chunk_rows`` rows from one source file —
+    the streamed ingest of the out-of-core build. Parquet streams
+    row-group batches through pyarrow's iterator; the other formats are
+    read whole (avro through this package's OCF reader, which needs no
+    pyarrow) and re-sliced, which bounds memory at file granularity."""
+    path = str(path)
+    if file_format == "parquet":
+        import pyarrow as pa
+
+        pf = _parquet_file(path)
+        for rb in pf.iter_batches(batch_size=chunk_rows, columns=columns):
+            if rb.num_rows == 0:
+                continue
+            yield ColumnarBatch.from_arrow(pa.Table.from_batches([rb]))
+        return
+    whole = read_files(file_format, [path], columns=columns)
+    n = whole.num_rows
+    if n == 0:
+        return
+    for s in range(0, n, chunk_rows):
+        yield whole.take(np.arange(s, min(s + chunk_rows, n)))

@@ -26,6 +26,12 @@ class Metrics:
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + int(n)
 
+    def gauge(self, name: str, value: int) -> None:
+        """SET a counter to a level (worker counts, reserved bytes): unlike
+        ``incr``, repeated recordings do not accumulate across builds."""
+        with self._lock:
+            self._counts[name] = int(value)
+
     def get(self, name: str) -> int:
         with self._lock:
             return self._counts.get(name, 0)

@@ -323,11 +323,23 @@ def test_index_over_avro_date_column_matches_reference(tmp_path):
 
 
 def test_streaming_build_mode_is_refused(tmp_path):
-    paths, _js, ts = _sessions(tmp_path, "avro")
-    ts.conf.set("hyperspace.index.build.mode", "streaming")
-    with pytest.raises(hs_torch.HyperspaceException, match="not yet ported"):
+    """An unknown build mode is refused before any log entry is written;
+    ``streaming``, once refused here, now builds the reference's bytes
+    (tests/test_torch_stream_build.py holds the streaming build itself)."""
+    paths, js, ts = _sessions(tmp_path, "avro")
+    ts.conf.set("hyperspace.index.build.mode", "bogus")
+    with pytest.raises(hs_torch.HyperspaceException, match="Unknown build mode"):
         hs_torch.Hyperspace(ts).create_index(
             ts.read.avro(paths["orders"]),
             hs_torch.IndexConfig("o", ["o_orderkey"], ["o_total"]),
         )
     assert not (tmp_path / "ix_torch" / "o").exists()
+    for sess, mod in ((js, hs_jax), (ts, hs_torch)):
+        sess.conf.set("hyperspace.index.build.mode", "streaming")
+        sess.conf.set("hyperspace.index.build.chunkRows", 1024)
+        mod.Hyperspace(sess).create_index(
+            sess.read.avro(paths["orders"]),
+            mod.IndexConfig("o", ["o_orderkey"], ["o_total"]),
+        )
+    jb, tb = _bucket_bytes(tmp_path / "ix_jax", "o"), _bucket_bytes(tmp_path / "ix_torch", "o")
+    assert jb == tb and len(tb) > 1

@@ -519,9 +519,11 @@ def test_merge_bucket_parts_matches(dtype, two_keys):
     assert outs["jax"] == outs["torch"]
 
 
-def test_partition_compactable_matches():
+def test_partition_compactable_matches(tmp_path):
     """optimize(quick)'s partition rule on per-bucket files
-    (test_compactor.py:542), and full mode's; a run file raises here."""
+    (test_compactor.py:542), and full mode's; a run file, refused here
+    until the runs layout was ported, is now always compactable and its
+    buckets join the eligible set, as in the reference."""
     from types import SimpleNamespace
 
     fi = lambda name, size: SimpleNamespace(name=name, size=size)  # noqa: E731
@@ -534,8 +536,15 @@ def test_partition_compactable_matches():
         view = [({b: [f.name for f in v] for b, v in g[0].items()}, g[1], g[2],
                  sorted(f.name for f in g[3])) for g in got]
         assert view[0] == view[1]
-    with pytest.raises(hs_torch.HyperspaceException, match="not yet ported"):
-        torch_compactor.partition_compactable([fi("r00000-aaaaaaaaaaaa.tcb", 10)], 1000, True)
+    run = tmp_path / "r00000-aaaaaaaaaaaa.tcb"
+    from hyperspace_tpu_torch.storage import layout as torch_layout
+
+    torch_layout.write_batch(run, TorchBatch.from_pydict({"k": np.arange(3, dtype=np.int64)}),
+                             extra={"bucketCounts": [0, 3, 0, 0]})
+    got = [m.partition_compactable([fi(str(run), 10)], 1000, True)
+           for m in (jax_compactor, torch_compactor)]
+    assert [(g[0], [f.name for f in g[1]], g[2], g[3]) for g in got] == \
+        [({}, [str(run)], {1}, [])] * 2
 
 
 # ---------------------------------------------------------------------------
