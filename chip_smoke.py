@@ -34,7 +34,13 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    and K2 are also timed over operands uploaded once
    (``resident_mask_fn``, ``resident_sorted_intersect``,
    ``resident_smj_amortized``), and the fused aggregate-over-join is held
-   against numpy;
+   against numpy. K1p (K1c over bit-packed planes) runs every width 1 to
+   16 bits with negative frames, literals off the frame, packed, raw and
+   f64 planes in one program, staged programs and rows ending mid-word,
+   and is timed at li_st's packed shape beside K1c at the same rows raw;
+   K1h (base and delta in one launch) runs no mask and masks of none, all
+   and random rows, deltas of 1 row and several blocks, 1 to 9 columns,
+   and is timed at li_hy's shape;
 3. main path — TPC-H-shaped data at scale factor 1 (lineitem 6,001,215
    rows, orders 1,500,000, made with numpy from ``--seed`` and written as
    avro), two covering indexes with 200 buckets built in memory on the
@@ -101,7 +107,11 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    range filter (K1 once per index file read) and Q3 (K2 and K2F once)
    with launch counts from zero, prints seconds, rows, files read, the
    ``union.side.*`` timers and the rows repartitioned, and holds every
-   result against numpy;
+   result against numpy. At H2 and H3 the delta arm follows, residency
+   auto: li_hy's predicate planes prefetched, the first range filter
+   takes the host union and populates the resident delta in the
+   background, then 5 range filters each launch K1h once (no K1, no read
+   of the appended files); after H4's refresh no delta is left;
 8. streaming — in a session of its own with lineage on: TPC-H lineitem
    and orders at SF3 (18,003,645 and 4,500,000 rows, l_partkey in
    1..600,000) written as avro into ``src/lineitem_st`` (24 files, over
@@ -120,7 +130,13 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    over the run files, and ``compact_index`` converges it to 200
    per-bucket files at 64 buckets a committed step. Each step runs the
    range filter (K1 once per index file read) and Q3 (K2 and its fence
-   build once), each held against numpy;
+   build once), each held against numpy. After S1 the ladder runs on
+   li_st, residency auto, each tier from a fresh cache: budgetMB 4096
+   (resident, K1c), 320 (compressed: l_quantity and l_shipdate packed,
+   K1p) and 64 (streaming: 18 windows of 2^20 rows through a slab pair),
+   each with the resident phase's 30 queries, one launch a query (a
+   window a query when streaming), rows against numpy and block counts
+   against the resident tier's;
 9. one ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -586,6 +602,220 @@ def k1_shape_cases(arrays: dict, preds: dict, lineitem: dict, dev, seed: int) ->
     return out
 
 
+LI_ST_ROWS = SF1_LINEITEM * 3  # the ladder phase's li_st (SF3)
+
+
+def _held(name: str, got, want) -> int:
+    """Exact agreement of a kernel's counts with its plain version's."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = int((got.cpu() - want.cpu()).abs().max().item()) if got.shape == want.shape else -1
+    if err != 0:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    return err
+
+
+def _timed_counts(name: str, run, plain, kernel: str, nbytes: float, ops: float, **rec):
+    """ms (CUDA events), device ms (profiler after an L2 flush), plain ms
+    and the bound of one counts kernel call; logged, returned."""
+    rec.update(ms=time_ms(run), device_ms=device_ms(run, kernel), plain_ms=time_ms(plain, repeats=5),
+               library_ms=None)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
+    log(f"{name}: " + " ".join(f"{k}={v}" for k, v in rec.items()
+                               if not isinstance(v, float) and k not in ("library_ms", "bound_by"))
+        + f" ms={rec['ms']:.4f} device_ms={_fmt(rec['device_ms'])} plain_ms={rec['plain_ms']:.4f}"
+        f" bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) library_ms=null exact=yes")
+    return rec
+
+
+def residency_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
+    """K1p and K1h against their plain versions on the card, exactly.
+
+    K1p: every width 1-16 (every vpw 32, 16, 8, 4, 2) with negative frames,
+    literals below and above each frame, packed, raw and f64 planes in one
+    program, a staged program of over 240 instructions, more columns than
+    the registers hold, and a table whose real rows end mid-word (pad rows
+    decode to ref0, as the compressed tier stores them); timed at li_st's
+    packed shape (SF3: l_orderkey raw, l_quantity 6 bits, l_shipdate 12
+    bits) beside K1c at the same rows raw. K1h: no mask and masks of none,
+    all and random rows, deltas of 1 row and of several blocks, 1 to 9
+    columns (18 addresses: a device table); timed at li_hy's shape (SF1
+    base, two RF1 batches of delta, one file of eight deleted)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import bitpack
+    from hyperspace_tpu_torch.ops import kernels as tk
+    from hyperspace_tpu_torch.ops.floatbits import (
+        expand_f64_predicate,
+        f64_to_ordered_i64,
+        ordered_i64_planes,
+    )
+    from hyperspace_tpu_torch.plan.expr import col, is_in
+
+    rng = np.random.default_rng(seed + 10)
+    B = tk.BLOCK_ROWS
+    k1p, k1h = {}, {}
+
+    def packed_case(name, planes, pred, n_pad):
+        """``planes``: name -> (values over the real rows, PackSpec or None,
+        or "f64"); the predicate over those names (f64 expanded)."""
+        f64 = {nm for nm, (_v, sp) in planes.items() if sp == "f64"}
+        bound_pred = expand_f64_predicate(pred, f64) if f64 else pred
+        narrowed = tk.narrow_expr_to_i32(bound_pred)
+        names = tuple(sorted(narrowed.columns()))
+        cols, specs = [], []
+        for nm in names:
+            base, _, plane = nm.partition("\x00")
+            v, sp = planes[base]
+            if sp == "f64":
+                hi, lo = ordered_i64_planes(f64_to_ordered_i64(v))
+                a = np.zeros(n_pad, dtype=np.int32)
+                a[: len(v)] = hi if plane == "hi" else lo
+                sp = None
+            elif sp is None:
+                a = np.zeros(n_pad, dtype=np.int32)
+                a[: len(v)] = v
+            else:
+                sp = bitpack.PackSpec(sp.bits, sp.vpw, n_pad, sp.ref0)
+                padded = np.full(n_pad, sp.ref0, dtype=np.int64)
+                padded[: len(v)] = v
+                a = bitpack.pack_plain(padded, sp)
+            cols.append(torch.from_numpy(a).to(dev))
+            specs.append(sp)
+        got = tk.predicate_block_counts_packed_tensor(narrowed, names, cols, specs, n_pad)
+        want = tk.predicate_block_counts_packed_reference(narrowed, names, cols, specs, n_pad)
+        err = _held(f"K1p {name}", got, want)
+        prog = tk.packed_program(narrowed, names, specs)
+        k1p[name] = dict(max_abs_err=err, rows=n_pad, cols=len(names),
+                         packed=sum(s is not None for s in specs), instr=len(prog.prog),
+                         staged=prog.staged, matches=int(want.sum().item()))
+        return narrowed, names, cols, specs, want
+
+    # every width, negative frames, literals off the frame; rows end mid-word
+    n_real, n_pad = 5 * B - 3, 5 * B
+    for bits in range(1, 17):
+        planes = {}
+        for b in (bits, 1 + bits % 16, 9):
+            lo = -int(rng.integers(1, 5000))
+            v = rng.integers(lo, lo + (1 << b), n_real).astype(np.int64)
+            planes[f"p{b:02d}"] = (v, bitpack.pack_spec(lo, lo + (1 << b) - 1, n_real))
+        planes["r"] = (rng.integers(-10**6, 10**6, n_real).astype(np.int64), None)
+        planes["x"] = (np.round(rng.uniform(-1000.0, 60_000.0, n_real), 2), "f64")
+        first = f"p{bits:02d}"
+        others = sorted(nm for nm in planes if nm.startswith("p") and nm != first)
+        v0, sp0 = planes[first]
+        mixed = ((col(first) >= int(np.median(v0))) | (col(first) < sp0.ref0 - 1)
+                 | (col(first) > sp0.ref0 + (1 << sp0.bits))) & (col("r") < 0) & (
+            col("x") > 30_000.0) & (col(others[0]) != int(planes[others[0]][0][2])) & (
+            col(others[-1]) <= int(np.median(planes[others[-1]][0])))
+        packed_case(f"width_{bits}_mixed_6col", planes, mixed, n_pad)
+        chain = is_in(col(first), [int(x) for x in v0[:130]]) & (col("r") > 0)
+        packed_case(f"width_{bits}_staged", planes, chain, n_pad)
+    log(f"K1p: {len(k1p)} cases (widths 1-16, vpw 32/16/8/4/2, negative frames, literals off "
+        f"the frame, packed + raw + f64 planes, staged programs of "
+        f"{max(c['instr'] for c in k1p.values())} instructions, rows ending mid-word) exact=yes")
+
+    # timed: li_st's shape, packed (K1p) and raw (K1c)
+    n = LI_ST_ROWS
+    n_pad = -(-n // B) * B
+    ok = rng.integers(1, 18_000_000, n).astype(np.int64)
+    qty = rng.integers(1, 51, n).astype(np.int64)
+    ship = rng.integers(8036, 10411, n).astype(np.int64)
+    top = 18_000_000
+    planes = {"l_orderkey": (ok, None),
+              "l_quantity": (qty, bitpack.pack_spec(int(qty.min()), int(qty.max()), n)),
+              "l_shipdate": (ship, bitpack.pack_spec(int(ship.min()), int(ship.max()), n))}
+    pred = ((col("l_orderkey") >= top // 6) & (col("l_orderkey") < top // 2)
+            & (col("l_quantity") < 24) & (col("l_shipdate") >= DAY_1995_03_15 - 365)
+            & (col("l_shipdate") < DAY_1995_03_15))
+    narrowed, names, cols, specs, _w = packed_case("li_st_packed_3col", planes, pred, n_pad)
+    rec = k1p.pop("li_st_packed_3col")
+    words = sum(int(c.numel()) for c in cols)
+    k1p["li_st_packed_3col"] = _timed_counts(
+        "K1p li_st_packed_3col",
+        lambda: tk.predicate_block_counts_packed_tensor(narrowed, names, cols, specs, n_pad),
+        lambda: tk.predicate_block_counts_packed_reference(narrowed, names, cols, specs, n_pad),
+        "predicate_block_counts_packed_kernel", 4 * words + 4 * (n_pad // B),
+        float(n_pad) * len(tk.lower_predicate(narrowed, names)),
+        specs="/".join("raw" if s is None else f"{s.bits}b_vpw{s.vpw}" for s in specs), **rec)
+    raw = [torch.zeros(n_pad, dtype=torch.int32, device=dev) for _ in names]
+    for t, nm in zip(raw, names):
+        t[:n] = torch.from_numpy(planes[nm][0].astype(np.int32)).to(dev)
+    err = _held("K1c li_st_raw_3col", tk.predicate_block_counts_tensor(narrowed, names, raw),
+                tk.predicate_block_counts_reference(narrowed, names, raw))
+    k1p["li_st_raw_3col_k1c"] = _timed_counts(
+        "K1c li_st_raw_3col (beside K1p)",
+        lambda: tk.predicate_block_counts_tensor(narrowed, names, raw),
+        lambda: tk.predicate_block_counts_reference(narrowed, names, raw),
+        "predicate_block_counts_kernel", 4 * len(names) * n_pad + 4 * (n_pad // B),
+        float(n_pad) * len(tk.lower_predicate(narrowed, names)), max_abs_err=err, rows=n_pad)
+    del cols, raw
+    torch.cuda.empty_cache()
+
+    # K1h: masks, delta sizes and column counts, exactly
+    for n_cols in (1, 3, 9):
+        names = tuple(f"c{i}" for i in range(n_cols))
+        pred = col("c0") < 40
+        for nm in names[1:]:
+            pred = pred & (col(nm) > -40)
+        for nb, nd, d_real in ((3, 1, 1), (2, 4, 4 * B - 100)):
+            base = [torch.from_numpy(rng.integers(-99, 99, nb * B).astype(np.int32)).to(dev)
+                    for _ in names]
+            delta = [torch.zeros(nd * B, dtype=torch.int32, device=dev) for _ in names]
+            for t in delta:
+                t[:d_real] = torch.from_numpy(rng.integers(-99, 99, d_real).astype(np.int32))
+            for label, rows in (("no_mask", None), ("none", np.zeros(nb * B, bool)),
+                                ("all", np.ones(nb * B, bool)),
+                                ("random", rng.random(nb * B) < 0.3)):
+                mask = None if rows is None else torch.from_numpy(
+                    tk.pack_row_bitmask(rows)).to(dev)
+                got = tk.hybrid_block_counts_tensor(pred, names, base, delta, mask)
+                want = tk.hybrid_block_counts_reference(pred, names, base, delta, mask)
+                case = f"{n_cols}col_base{nb}_delta{d_real}_{label}"
+                k1h[case] = dict(max_abs_err=_held(f"K1h {case}", got, want),
+                                 matches=int(want.sum().item()))
+    log(f"K1h: {len(k1h)} cases (no mask, masks of none, all and random rows; deltas of 1 row "
+        f"and of several blocks; 1, 3 and 9 columns) exact=yes")
+
+    # timed: li_hy's shape, the range filter's three planes
+    n = len(lineitem["l_orderkey"])
+    nb_pad = -(-n // B) * B
+    d_rows = 11_891  # two RF1 batches at SF1 (hybrid phase, PR 7)
+    nd_pad = -(-d_rows // B) * B
+    names = ("l_orderkey", "l_quantity", "l_shipdate")
+    topk = int(lineitem["l_orderkey"].max())
+    pred = tk.narrow_expr_to_i32(
+        (col("l_orderkey") >= topk // 6) & (col("l_orderkey") < topk // 2)
+        & (col("l_quantity") < 24) & (col("l_shipdate") >= DAY_1995_03_15 - 365)
+        & (col("l_shipdate") < DAY_1995_03_15))
+    base, delta = [], []
+    pick = rng.integers(0, n, d_rows)
+    for c in names:
+        t = torch.zeros(nb_pad, dtype=torch.int32, device=dev)
+        t[:n] = torch.from_numpy(lineitem[c].astype(np.int32)).to(dev)
+        base.append(t)
+        t = torch.zeros(nd_pad, dtype=torch.int32, device=dev)
+        t[:d_rows] = torch.from_numpy(lineitem[c][pick].astype(np.int32)).to(dev)
+        delta.append(t)
+    deleted = np.zeros(nb_pad, dtype=bool)
+    deleted[2 * n // 8: 3 * n // 8] = True  # one base file of eight
+    mask = torch.from_numpy(tk.pack_row_bitmask(deleted)).to(dev)
+    err = _held("K1h li_hy", tk.hybrid_block_counts_tensor(pred, names, base, delta, mask),
+                tk.hybrid_block_counts_reference(pred, names, base, delta, mask))
+    k1h["li_hy_3col"] = _timed_counts(
+        "K1h li_hy_3col",
+        lambda: tk.hybrid_block_counts_tensor(pred, names, base, delta, mask),
+        lambda: tk.hybrid_block_counts_reference(pred, names, base, delta, mask),
+        "hybrid_block_counts_kernel",
+        4 * len(names) * (nb_pad + nd_pad) + nb_pad // 8 + 4 * ((nb_pad + nd_pad) // B),
+        float(nb_pad + nd_pad) * len(tk.lower_predicate(pred, names)),
+        max_abs_err=err, base_rows=nb_pad, delta_rows=nd_pad)
+    del base, delta
+    torch.cuda.empty_cache()
+    return {"k1p": k1p, "k1h": k1h}
+
+
 def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
     import torch
 
@@ -829,7 +1059,9 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
                          bound_ms=b_ms, bound_by=b_by)
         log(f"fused_agg {name}: arm={arm} ms={agg[name]['ms']:.4f} "
             f"plain_ms={agg[name]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) exact=yes")
-    return {"k1": k1, "k1c": k1c, "k2": k2, "k2f": k2f, "fused_agg": agg}
+    out = {"k1": k1, "k1c": k1c, "k2": k2, "k2f": k2f, "fused_agg": agg}
+    out.update(residency_kernel_cases(lineitem, seed, dev))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1854,6 +2086,7 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
     result is held against numpy over the sources as they stand."""
     import hyperspace_tpu_torch as hs
     from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
+    from hyperspace_tpu_torch.ops import fence
     from hyperspace_tpu_torch.ops import kernels as tk
     from hyperspace_tpu_torch.storage.avro_io import write_avro
     from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
@@ -1882,6 +2115,8 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
         "hyperspace.torch.device": device,
         "hyperspace.torch.hbm.mode": "off",
     }
+    if not on_card:  # a rehearsal: the zone gate would route small tables away
+        conf["hyperspace.torch.hbm.maxBlockFrac"] = 1.0
     session = hs.HyperspaceSession(hs.HyperspaceConf(conf))
     hsp = hs.Hyperspace(session)
     logs = {name: IndexLogManagerImpl(Path(conf["hyperspace.system.path"]) / name)
@@ -1950,6 +2185,74 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
         log(text + f" | plan shows {list(range_nodes)} / {list(q3_nodes)} | matches numpy")
         return plans
 
+    def delta_arm(step: str, repeats: int = 5) -> dict:
+        """Delta residency on the range filter, residency auto (force on
+        the CPU): li_hy's predicate planes resident, then the first query
+        takes the host union and populates the delta in the background;
+        the repeats each take ``scan.path.resident_hybrid``: one K1h
+        launch, no K1, no read of the appended files (no
+        ``union.side.source``). Rows against numpy and residency off."""
+        from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
+        from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+        want_r, _w = truth()
+        rng_q = range_and_q3(session, li_dir, od_dir, bounds)[0]
+        off, t_off, _l, _m, _t = run(f"{step} delta arm, residency off", rng_q)
+        _check(f"hybrid {step} range (residency off)", off, R_COLS, want_r)
+        session.conf.set("hyperspace.torch.hbm.mode", "auto" if on_card else "force")
+        t = time.perf_counter()
+        if not hsp.prefetch_index("li_hy", ["l_orderkey", "l_quantity", "l_shipdate"]):
+            raise AssertionError(f"hybrid {step}: prefetch_index(li_hy) refused")
+        fence(session.device)
+        t_pre = time.perf_counter() - t
+        first, t_first, l_first, m_first, tm_first = run(f"{step} delta arm first", rng_q)
+        _check(f"hybrid {step} range (first, host union)", first, R_COLS, want_r)
+        if m_first.get("scan.path.resident_hybrid", 0) or "union.side.source" not in tm_first:
+            raise AssertionError(f"hybrid {step}: the first query did not take the host union")
+        t = time.perf_counter()
+        hbm_cache.wait_background()
+        fence(session.device)
+        t_pop = time.perf_counter() - t
+        timers = metrics.timings()
+        snap = hbm_cache.snapshot()
+        if snap["deltas"] != 1:
+            raise AssertionError(f"hybrid {step}: {snap['deltas']} deltas resident after the "
+                                 f"first query")
+        times, launches = [], {}
+        for i in range(repeats):
+            res, t_q, lq, mq, tq = run(f"{step} delta arm {i}", rng_q)
+            _check(f"hybrid {step} range (resident hybrid {i})", res, R_COLS, want_r)
+            if not np.array_equal(np.sort(res.columns["l_orderkey"].data),
+                                  np.sort(off.columns["l_orderkey"].data)):
+                raise AssertionError(f"hybrid {step}: rows differ from residency off")
+            want_l = {tk.K1H: 1} if on_card else {}
+            if mq.get("scan.path.resident_hybrid", 0) != 1 or lq != want_l or \
+                    "union.side.source" in tq:
+                raise AssertionError(f"hybrid {step} resident hybrid {i}: launches {lq}, "
+                                     f"counters {mq}, timers {sorted(tq)}")
+            times.append(t_q)
+            for k, v in lq.items():
+                launches[k] = launches.get(k, 0) + v
+        session.conf.set("hyperspace.torch.hbm.mode", "off")
+        rec = {"prefetch_s": t_pre, "first_s": t_first, "first_launches": l_first,
+               "first_union_side_s": {k: v[0] for k, v in tm_first.items()
+                                      if k.startswith("union.side.")},
+               "populate_wait_s": t_pop,
+               "delta_prefetch_s": timers.get("hbm.delta.prefetch", (0.0, 0))[0],
+               "lineage_mask_s": timers.get("hbm.delta.lineage_mask", (0.0, 0))[0],
+               "delta": snap["per_delta"][0], "resident_mb": snap["resident_mb"],
+               "residency_off_s": t_off, "hybrid_s": times, "launches": launches,
+               "hybrid_median_s": float(np.median(times))}
+        log(f"hybrid {step} delta arm: residency off {t_off:.4f} s | prefetch_index(li_hy) "
+            f"{t_pre:.3f} s | first query (host union, populates the delta) {t_first:.4f} s "
+            f"union sides { {k: round(v, 4) for k, v in rec['first_union_side_s'].items()} } | "
+            f"delta populated in {t_pop:.3f} s more (hbm.delta.prefetch "
+            f"{rec['delta_prefetch_s']:.3f} s, lineage mask {rec['lineage_mask_s']:.3f} s): "
+            f"{rec['delta']} | {repeats} resident-hybrid queries median "
+            f"{rec['hybrid_median_s']:.4f} s ({', '.join(f'{x:.4f}' for x in times)}), launches "
+            f"{launches}, no union.side.source | rows match numpy and residency off")
+        return rec
+
     t_create = verb(hsp.create_index, session.read.avro(str(li_dir)), hs.IndexConfig(
         "li_hy", ["l_orderkey"], ["l_partkey", "l_quantity", "l_shipdate", "l_extendedprice"]))
     t_create += verb(hsp.create_index, session.read.avro(str(od_dir)), hs.IndexConfig(
@@ -1973,6 +2276,7 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
                  f"Repartition [l_orderkey] {buckets}", f"Repartition [o_orderkey] {buckets}"]
     measure("H2 two RF1 batches appended", time.perf_counter() - t,
             ["Union", "(2 files)"], q3_hybrid, absent=("_data_file_id in",))
+    out["h2_delta"] = delta_arm("H2")
 
     t = time.perf_counter()
     for name in ("rf1_a",):  # RF2
@@ -1993,6 +2297,7 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
                     ["Union", "(1 files)", lineage], q3_hybrid + [lineage])
     if plans["Q3"].count("col(_data_file_id) in") != 1:
         raise AssertionError("hybrid H3 Q3: the lineage filter is not on the lineitem side only")
+    out["h3_delta"] = delta_arm("H3")
     if on_card:
         # the range filter's K1 launches ran the lineage NOT IN in their program
         with tk._LOWERED_LOCK:
@@ -2030,7 +2335,13 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
 
     t = verb(hsp.refresh_index, "li_hy", "incremental")
     t += verb(hsp.refresh_index, "ord_hy", "incremental")
+    from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
+
+    if hbm_cache.snapshot()["deltas"] != 0:
+        raise AssertionError("hybrid H4: the incremental refresh left a resident delta")
+    log("hybrid H4: the incremental refresh invalidated li_hy's resident delta (deltas 0)")
     measure("H4 refreshed incrementally", t, ["IndexScan"], ["IndexScan"], absent=unions)
+    hbm_cache.reset()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"hybrid: the phase took {out['phase_s']:.3f} s, the source write included")
     return out
@@ -2149,8 +2460,158 @@ def staged_programs(L: dict, cap: int, run_chunks: int, device: str) -> dict:
     return out
 
 
+LADDER_BUDGETS_MB = (4096, 320, 64)  # L1 resident, L2 compressed, L3 streaming (SF3)
+LADDER_TIERS = ("resident", "compressed", "streaming")
+
+
+def ladder_phase(session, hsp, L: dict, li_dir: Path, seed: int, budgets=LADDER_BUDGETS_MB,
+                 window_rows=None, profile: bool = False) -> dict:
+    """The residency tier ladder on li_st (SF3), residency auto (force on
+    the CPU), each tier from a fresh cache: L1 at ``budgets[0]`` MB holds
+    the raw planes (K1c), L2 at ``budgets[1]`` the bit-packed ones (K1p
+    where a query reads a packed plane, K1c otherwise), L3 at
+    ``budgets[2]`` streams windows through a slab pair (K1c or K1p a
+    window). In each: ``prefetch_index``, then the resident phase's 20
+    point lookups, 5 range filters and 5 float64 filters, launch counts
+    from zero. Checks: ``by_tier``, one launch a query (windows a query
+    on L3), the tier's ``scan.path.resident_*`` metric, rows against
+    numpy, and every query's block counts against L1's."""
+    from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
+    from hyperspace_tpu_torch.ops import bitpack, fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.ops.kernels import K1, K1C, K1P
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.residency import plan_tier
+    from hyperspace_tpu_torch.telemetry.metrics import metrics, residency_snapshot
+
+    on_card = session.device.type == "cuda"
+    rng = np.random.default_rng(seed + 12)
+    ok = L["l_orderkey"]
+    keys = rng.choice(np.unique(ok), 20, replace=False)
+    top = int(ok.max())
+    lo_k, hi_k, d_lo = top // 6, top // 2, DAY_1995_03_15 - 365
+    shapes = {
+        "point_lookup": [(col("l_orderkey") == int(k), ok == k) for k in keys],
+        "range_filter": [(
+            (col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k) & (col("l_quantity") < 24)
+            & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15),
+            (ok >= lo_k) & (ok < hi_k) & (L["l_quantity"] < 24)
+            & (L["l_shipdate"] >= d_lo) & (L["l_shipdate"] < DAY_1995_03_15))] * 5,
+        "f64_filter": [(
+            (col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+            & (col("l_extendedprice") > 50000.0),
+            (ok >= lo_k) & (ok < hi_k) & (L["l_extendedprice"] > 50000.0))] * 5,
+    }
+    n_queries = sum(len(v) for v in shapes.values())
+    li = session.read.avro(str(li_dir))
+    session.conf.set("hyperspace.torch.hbm.mode", "auto" if on_card else "force")
+    if window_rows is not None:
+        session.conf.set("hyperspace.residency.streaming.windowRows", int(window_rows))
+    out, l1_counts = {"queries": n_queries, "tiers": {}}, {}
+    for level, (budget, tier) in enumerate(zip(budgets, LADDER_TIERS), 1):
+        label = f"L{level}"
+        hbm_cache.reset()
+        session.conf.set("hyperspace.torch.hbm.budgetMB", int(budget))
+        metrics.reset()
+        t0 = time.perf_counter()
+        if not hsp.prefetch_index("li_st", LI_RESIDENT):
+            raise AssertionError(f"ladder {label}: prefetch_index(li_st) refused at {budget} MB")
+        hbm_cache.wait_background()
+        fence(session.device)
+        prefetch_s = time.perf_counter() - t0
+        snap = hbm_cache.snapshot_residency()
+        if snap["by_tier"] != {tier: 1}:
+            raise AssertionError(f"ladder {label}: by_tier {snap['by_tier']}, want {tier}")
+        table = hbm_cache._tables[0]
+        row = snap["tables"][0]
+        # the tier planner's own numbers for this table, from the data
+        conf = session.conf.residency()
+        n_pad = -(-len(ok) // 8192) * 8192
+        raw = unpacked = 0
+        specs = {}
+        for c in LI_RESIDENT:
+            planes = 2 if L[c].dtype == np.float64 else 1
+            raw += planes * n_pad * 4
+            sp = bitpack.pack_spec(int(L[c].min()), int(L[c].max()), n_pad) if planes == 1 else None
+            if sp is None:
+                unpacked += planes * n_pad * 4
+            else:
+                specs[c] = sp
+        plan = plan_tier(raw, conf.budget_bytes, specs, unpacked, conf=conf)
+        if plan.tier != tier:
+            raise AssertionError(f"ladder {label}: plan_tier says {plan.tier}, the cache built {tier}")
+        log(f"ladder {label} ({tier}, budgetMB {budget}): prefetch_index(li_st) {prefetch_s:.3f} s"
+            f" | device MB {row['mb']} (raw {row.get('raw_mb', row['mb'])})"
+            + (f" host MB {row['host_mb']}, {row['windows']} windows of {row['window_rows']} rows"
+               if tier == "streaming" else "")
+            + " | packable planes " + ", ".join(f"{c}: {sp.bits} bits, vpw {sp.vpw}, ref0 "
+                                                f"{sp.ref0}" for c, sp in sorted(specs.items()))
+            + f" | plan_tier: budget {conf.budget_bytes} B, raw planes {plan.raw_bytes} B, "
+            f"packed planes {plan.packed_bytes} B -> {plan.tier}")
+        reset_launch_counts()
+        metrics.reset()
+        times, results = {}, {}
+        for q, qs in shapes.items():
+            with _Profiled(f"ladder {label} {q} x{len(qs)}", profile):
+                for i, (p, _m) in enumerate(qs):
+                    t = time.perf_counter()
+                    results[(q, i)] = li.filter(p).select(*LI_RESIDENT).collect()
+                    fence(session.device)
+                    times.setdefault(q, []).append(time.perf_counter() - t)
+        launches = launch_counts()
+        m = metrics.snapshot()
+        path = {"resident": "scan.path.resident_device",
+                "compressed": "scan.path.resident_compressed",
+                "streaming": "scan.path.resident_streaming"}[tier]
+        per_query = table.n_windows if tier == "streaming" else 1
+        want_launches = n_queries * per_query if on_card else 0
+        got_launches = launches.get(K1C, 0) + launches.get(K1P, 0)
+        if m.get(path, 0) != n_queries or got_launches != want_launches or launches.get(K1, 0):
+            raise AssertionError(f"ladder {label}: {m.get(path, 0)} of {n_queries} served by "
+                                 f"{path}, launches {launches} (want {want_launches})")
+        if tier == "compressed" and on_card and not launches.get(K1P):
+            raise AssertionError(f"ladder {label}: K1p never launched")
+        for q, qs in shapes.items():
+            for i, (_p, mask) in enumerate(qs):
+                _check(f"ladder {label} {q}[{i}]", results[(q, i)], LI_RESIDENT,
+                       [L[c][mask] for c in LI_RESIDENT])
+        # the block counts of every distinct query against L1's
+        for q, qs in shapes.items():
+            for i, (p, _m) in enumerate(qs[:1] if q != "point_lookup" else qs[:3]):
+                c = hbm_cache.block_counts(table, p)
+                if level == 1:
+                    l1_counts[(q, i)] = c
+                elif not np.array_equal(c, l1_counts[(q, i)]):
+                    raise AssertionError(f"ladder {label} {q}[{i}]: counts differ from L1's")
+        stream = residency_snapshot(metrics) if tier == "streaming" else {}
+        rec = {"tier": tier, "budget_mb": budget, "prefetch_s": prefetch_s, "mb": row["mb"],
+               "raw_mb": row.get("raw_mb", row["mb"]), "launches": launches,
+               "packed": {c: [sp.bits, sp.vpw, sp.ref0] for c, sp in plan.specs.items()},
+               "plan_raw_bytes": plan.raw_bytes, "plan_packed_bytes": plan.packed_bytes,
+               "shapes": {q: {"n": len(v), "median_s": float(np.median(v)),
+                              "p90_s": float(np.percentile(v, 90))} for q, v in times.items()}}
+        if tier == "streaming":
+            rec.update(windows=table.n_windows, host_mb=row["host_mb"],
+                       h2d_bytes_per_query=m.get("residency.stream.h2d_bytes", 0) / n_queries,
+                       prefetch_hit=stream["stream_prefetch_hit"],
+                       prefetch_stall=stream["stream_prefetch_stall"],
+                       stall_s=metrics.timings().get("residency.stream.stall", (0.0, 0))[0])
+        out["tiers"][label] = rec
+        log(f"ladder {label} ({tier}): {n_queries} queries, launches {launches} | " + " | ".join(
+            f"{q} median {v['median_s']:.4f} s p90 {v['p90_s']:.4f} s"
+            for q, v in rec["shapes"].items())
+            + (f" | windows {rec['windows']}, H2D {rec['h2d_bytes_per_query']:.0f} B a query, "
+               f"prefetch hits {rec['prefetch_hit']} stalls {rec['prefetch_stall']} "
+               f"({rec['stall_s']:.4f} s)" if tier == "streaming" else "")
+            + " | rows match numpy, counts match L1's")
+    hbm_cache.reset()
+    session.conf.set("hyperspace.torch.hbm.budgetMB", 4096)
+    session.conf.set("hyperspace.torch.hbm.mode", "off")
+    return out
+
+
 def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False,
-                    scale: float = 1.0, chunk_rows=None, threshold=None) -> dict:
+                    scale: float = 1.0, chunk_rows=None, threshold=None,
+                    ladder_budgets=LADDER_BUDGETS_MB, ladder_window_rows=None) -> dict:
     """The streaming build, run files and background compaction, in a
     session of its own (lineage on, 200 buckets, ``build.engine=device``,
     residency off), over TPC-H lineitem and orders at SF3 (18,003,645 and
@@ -2326,6 +2787,8 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
     out["staged_programs"] = staged_programs(L, cap, STREAM_RUN_CHUNKS, device)
     session.enable_hyperspace()
     measure("S1 li_st", "li_st", build_s)
+    out["ladder"] = ladder_phase(session, hsp, L, li_dir, seed, ladder_budgets,
+                                 ladder_window_rows, profile)
 
     # S2: the same source as run files; li_st goes so that the rules pick li_runs
     verb(hsp.delete_index, "li_st")
@@ -2503,6 +2966,17 @@ def main() -> int:
         if launches.get(kname, 0) <= 0:
             raise AssertionError(f"{kname} was not launched on the main path")
     res_launches = main_out["resident"]["launches"]
+    # K1p on the ladder's compressed and streaming tiers, K1h on the hybrid
+    # phase's resident-hybrid queries (each counted from 0 in its phase)
+    k1p_launches = sum(t["launches"].get(tk.K1P, 0)
+                       for t in stream_out["ladder"]["tiers"].values())
+    k1h_launches = sum(main_out["hybrid"][s]["launches"].get(tk.K1H, 0)
+                       for s in ("h2_delta", "h3_delta"))
+    if k1p_launches <= 0 or k1h_launches <= 0:
+        raise AssertionError(f"K1p launched {k1p_launches} times on the ladder, K1h "
+                             f"{k1h_launches} times on the hybrid phase")
+    k1p = kphase["k1p"]["li_st_packed_3col"]
+    k1h = kphase["k1h"]["li_hy_3col"]
 
     k1 = kphase["k1"]["range_3col"]
     k1c = kphase["k1c"]["range_3col"]
@@ -2519,6 +2993,16 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in kphase["k1c"].values()), "ms": k1c["ms"],
          "plain_ms": k1c["plain_ms"], "device_ms": k1c["device_ms"], "bound_ms": k1c["bound_ms"],
          "bound_by": k1c["bound_by"], "library_ms": None},
+        {"name": tk.K1P, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/predicate_mask.cu",
+         "replaces": "hyperspace_tpu/exec/hbm_cache.py:447", "launches": k1p_launches,
+         "max_abs_err": max(c["max_abs_err"] for c in kphase["k1p"].values()), "ms": k1p["ms"],
+         "plain_ms": k1p["plain_ms"], "device_ms": k1p["device_ms"], "bound_ms": k1p["bound_ms"],
+         "bound_by": k1p["bound_by"], "library_ms": None},
+        {"name": tk.K1H, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/predicate_mask.cu",
+         "replaces": "hyperspace_tpu/exec/hbm_cache.py:671", "launches": k1h_launches,
+         "max_abs_err": max(c["max_abs_err"] for c in kphase["k1h"].values()), "ms": k1h["ms"],
+         "plain_ms": k1h["plain_ms"], "device_ms": k1h["device_ms"], "bound_ms": k1h["bound_ms"],
+         "bound_by": k1h["bound_by"], "library_ms": None},
         {"name": tk.K2, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/sorted_intersect.cu",
          "replaces": "hyperspace_tpu/ops/kernels.py:549", "launches": launches[tk.K2],
          "max_abs_err": max(c["max_abs_err"] for c in kphase["k2"].values()), "ms": k2["ms"], "plain_ms": k2["plain_ms"],

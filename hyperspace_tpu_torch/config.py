@@ -258,14 +258,40 @@ class HyperspaceConf:
             except (TypeError, ValueError):
                 return default
 
+        def choice(key, default, modes):
+            v = str(self.get(key, default)).lower()
+            if v not in modes:
+                raise HyperspaceException(
+                    f"Unknown {key}={v!r}; expected one of {modes}."
+                )
+            return v
+
         mode = str(self.get(C.HBM_MODE, C.HBM_MODE_DEFAULT)).lower()
         frac = num(C.HBM_MAX_BLOCK_FRAC, C.HBM_MAX_BLOCK_FRAC_DEFAULT, float)
+        window = num(
+            C.RESIDENCY_STREAMING_WINDOW_ROWS,
+            C.RESIDENCY_STREAMING_WINDOW_ROWS_DEFAULT,
+            int,
+        )
         return ResidencyConf(
             mode=mode if mode in C.HBM_MODES else C.HBM_MODE_DEFAULT,
             budget_mb=num(C.HBM_BUDGET_MB, C.HBM_BUDGET_MB_DEFAULT, int),
             min_rows=num(C.HBM_MIN_ROWS, C.HBM_MIN_ROWS_DEFAULT, int),
             max_block_frac=(
                 frac if 0.0 < frac <= 1.0 else C.HBM_MAX_BLOCK_FRAC_DEFAULT
+            ),
+            compression=choice(
+                C.RESIDENCY_COMPRESSION,
+                C.RESIDENCY_COMPRESSION_DEFAULT,
+                C.RESIDENCY_COMPRESSION_MODES,
+            ),
+            streaming=choice(
+                C.RESIDENCY_STREAMING,
+                C.RESIDENCY_STREAMING_DEFAULT,
+                C.RESIDENCY_STREAMING_MODES,
+            ),
+            window_rows=(
+                window if window > 0 else C.RESIDENCY_STREAMING_WINDOW_ROWS_DEFAULT
             ),
         )
 
@@ -281,6 +307,10 @@ class ResidencyConf:
     budget_mb: int = C.HBM_BUDGET_MB_DEFAULT
     min_rows: int = C.HBM_MIN_ROWS_DEFAULT
     max_block_frac: float = C.HBM_MAX_BLOCK_FRAC_DEFAULT
+    # the tier ladder past the raw planes (residency/tiers.py)
+    compression: str = C.RESIDENCY_COMPRESSION_DEFAULT
+    streaming: str = C.RESIDENCY_STREAMING_DEFAULT
+    window_rows: int = C.RESIDENCY_STREAMING_WINDOW_ROWS_DEFAULT
 
     @property
     def budget_bytes(self) -> int:

@@ -192,3 +192,22 @@ HBM_MIN_ROWS_DEFAULT = 1 << 21
 # fraction routes to the host before any device work; 1.0 disables the gate
 HBM_MAX_BLOCK_FRAC = "hyperspace.torch.hbm.maxBlockFrac"
 HBM_MAX_BLOCK_FRAC_DEFAULT = 0.9
+
+# --- residency tier ladder (exec/hbm_cache.py, residency/) --------------------
+# The reference's keys under their names (hyperspace_tpu/constants.py); the
+# reference lets HYPERSPACE_TPU_RESIDENCY_* environment variables override
+# them, this package reads session conf only.
+# compression: "auto" bit-packs narrow planes when the raw table exceeds the
+# budget; "force" packs every packable column; "off" never packs.
+RESIDENCY_COMPRESSION = "hyperspace.residency.compression"
+RESIDENCY_COMPRESSION_MODES = ("auto", "force", "off")
+RESIDENCY_COMPRESSION_DEFAULT = "auto"
+# streaming: "auto" stages oversubscribed tables through a pair of device
+# slabs, window by window; "off" refuses them (host path).
+RESIDENCY_STREAMING = "hyperspace.residency.streaming"
+RESIDENCY_STREAMING_MODES = ("auto", "off")
+RESIDENCY_STREAMING_DEFAULT = "auto"
+# rows per streamed window (padded up to 8192); two windows' device bytes
+# are charged against the budget
+RESIDENCY_STREAMING_WINDOW_ROWS = "hyperspace.residency.streaming.windowRows"
+RESIDENCY_STREAMING_WINDOW_ROWS_DEFAULT = 1 << 20

@@ -53,6 +53,28 @@
 // covers one block in one pass: __popc of each thread's word, a warp sum
 // (__reduce_add_sync), a shared-memory sum of the 8 warps. No atomics,
 // deterministic; only the count vector (4 B per 8192 rows) is written.
+//
+// K1p (hs_predicate_block_counts_packed) replaces the compressed-tier arm
+// of hyperspace_tpu/exec/hbm_cache.py:_counts_fn (:447-516, the XLA
+// program that decoded bit-packed planes through ops/bitpack.py:
+// unpack_plain_jnp and summed the mask per block). It is K1c with a decode
+// in the loads: the program starts with one descriptor per column,
+// {OP_PACK, bits, vpw, ref0} (vpw == 1: a raw int32 plane), and a packed
+// column's 4 rows of a chunk come from one word (vpw >= 4; rows off .. off+3
+// with off a multiple of 4 never straddle a word) or two (vpw == 2),
+// shifted and masked as uint32 and re-based by ref0 before the compare.
+// Bound: memory, and a packed plane moves 32 / vpw bits a row instead of 32.
+//
+// K1h (hs_hybrid_block_counts) replaces hbm_cache.py:_hybrid_counts_fn
+// (:671), which counted a predicate over the resident base planes with
+// the rows of deleted source files masked out, then over the appended
+// delta's planes, in one program. One launch covers nb_base + nb_delta
+// blocks: a block below nb_base reads the base planes (cols[0..n)) and
+// clears the bits of deleted rows, one bit a row, laid out so that the
+// thread that owns 32 rows reads them as one word (block * 256 + thread);
+// a block at or above nb_base reads the delta planes (cols[n..2n)). Both
+// sides are raw planes. Bound: memory, the base and delta planes read
+// once plus 1 bit a base row.
 
 #include <atomic>
 #include <cstddef>
@@ -61,7 +83,8 @@
 
 namespace {
 
-enum : int32_t { OP_CMP_LIT = 0, OP_CMP_COL = 1, OP_AND = 2, OP_OR = 3, OP_NOT = 4 };
+enum : int32_t { OP_CMP_LIT = 0, OP_CMP_COL = 1, OP_AND = 2, OP_OR = 3, OP_NOT = 4,
+                 OP_PACK = 5 };
 enum : int32_t { CMP_EQ = 0, CMP_NE = 1, CMP_LT = 2, CMP_LE = 3, CMP_GT = 4, CMP_GE = 5 };
 
 constexpr int MAX_COLS = 16;
@@ -100,12 +123,20 @@ static_assert(offsetof(Params, cols) == 3840 && offsetof(Params, staged) == 3968
                   offsetof(Params, depth) == 4000 && offsetof(Params, col_table) == 4008,
               "ops/kernels.py:_PARAM_DTYPE mirrors this");
 
+// K1h's second parameter: the deletion bitmask over the base rows (null:
+// no deletes) and the number of base blocks.
+struct HybridParams {
+  const uint32_t* del;
+  long long nb_base;
+};
+static_assert(sizeof(Params) + sizeof(HybridParams) <= 4096, "kernel parameters fit 4 KB");
+
 // Column c's address: from the parameters, or from the caller's device
-// array when the predicate names more columns than they hold. Only the
-// NC = 0 instantiations (more than MAX_CACHED_COLS columns) can see the
-// latter.
+// array when the launch has more addresses than they hold (col_table set).
+// Only the NC = 0 instantiations (more than MAX_CACHED_COLS columns) can
+// see the latter.
 __device__ __forceinline__ const int32_t* col_addr(const Params& p, int c) {
-  return p.n_cols > MAX_COLS ? p.col_table[c] : p.cols[c];
+  return p.col_table != nullptr ? p.col_table[c] : p.cols[c];
 }
 
 template <int OP>
@@ -148,6 +179,41 @@ struct Global {
   bool full;
   __device__ __forceinline__ int4 operator()(int k) const {
     return load_chunk(col, off + k * 128, n, full);
+  }
+};
+
+// K1p: rows e .. e+3 (e a multiple of 4) of a column under descriptor
+// d = {OP_PACK, bits, vpw, ref0}, decoded. vpw is a power of two; vpw == 1
+// is a raw plane. Shifts and masks act on uint32 (a word whose top bit is
+// set must not smear into its neighbour), and (offset + ref0) wraps to
+// the int32 value the host packed.
+__device__ __forceinline__ int4 load_packed(const int32_t* col, const int4 d, long long e) {
+  if (d.z == 1) return __ldg(reinterpret_cast<const int4*>(col + e));
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(col);
+  const int bits = d.y;
+  const uint32_t mask = (1u << bits) - 1u;  // bits <= 16
+  const uint32_t ref = (uint32_t)d.w;
+  if (d.z == 2) {
+    const uint32_t w0 = __ldg(w + (e >> 1));
+    const uint32_t w1 = __ldg(w + (e >> 1) + 1);
+    return make_int4((int32_t)((w0 & mask) + ref), (int32_t)(((w0 >> bits) & mask) + ref),
+                     (int32_t)((w1 & mask) + ref), (int32_t)(((w1 >> bits) & mask) + ref));
+  }
+  const int lg = __ffs(d.z) - 1;
+  const uint32_t w0 = __ldg(w + (e >> lg));
+  const int sh = (int)(e & (d.z - 1)) * bits;  // + 3 * bits stays below 32
+  return make_int4((int32_t)(((w0 >> sh) & mask) + ref),
+                   (int32_t)(((w0 >> (sh + bits)) & mask) + ref),
+                   (int32_t)(((w0 >> (sh + 2 * bits)) & mask) + ref),
+                   (int32_t)(((w0 >> (sh + 3 * bits)) & mask) + ref));
+}
+
+struct Packed {
+  const int32_t* col;
+  int4 d;
+  long long off;
+  __device__ __forceinline__ int4 operator()(int k) const {
+    return load_packed(col, d, off + k * 128);
   }
 };
 
@@ -194,10 +260,17 @@ __device__ __forceinline__ uint32_t* setup(const Params& p, int4* smem,
   }
 }
 
+template <bool STAGED>
+__device__ __forceinline__ int4 instr(const Params& p, const int4* sprog, int i) {
+  if constexpr (STAGED) return sprog[i]; else return p.prog[i];
+}
+
 // The interpreter: the program's value for the thread's 32 rows, bit
 // 4k + j for row off + k*128 + j. NC > 0: the program names exactly NC
-// columns, all loaded into registers first.
-template <bool STAGED, int NC>
+// columns, all loaded into registers first. PACKED (K1p): the program
+// starts with n_cols column descriptors and every load decodes. DELTA
+// (K1h's delta blocks): column c's address is the launch's n_cols + c.
+template <bool STAGED, int NC, bool PACKED = false, bool DELTA = false>
 __device__ __forceinline__ uint32_t eval_rows(const Params& p, const int4* sprog,
                                               uint32_t* stk, long long off, bool full) {
   const long long n = p.n_rows;
@@ -205,10 +278,18 @@ __device__ __forceinline__ uint32_t eval_rows(const Params& p, const int4* sprog
   if constexpr (NC > 0) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
+      const int32_t* col = p.cols[(DELTA ? NC : 0) + c];
+      if constexpr (PACKED) {
+        const int4 d = instr<STAGED>(p, sprog, c);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[c][k] = load_chunk(p.cols[c], off + k * 128, n, full);
+        for (int k = 0; k < 8; ++k) v[c][k] = load_packed(col, d, off + k * 128);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[c][k] = load_chunk(col, off + k * 128, n, full);
+      }
     }
   }
+  [[maybe_unused]] const int cb = DELTA ? p.n_cols : 0;
   const int T = blockDim.x;
   uint32_t* my = stk + threadIdx.x;  // slot s of this thread: my[s * T]
   // the stack's top two words live in registers, the rest in slots
@@ -217,9 +298,8 @@ __device__ __forceinline__ uint32_t eval_rows(const Params& p, const int4* sprog
   // next one
   uint32_t top = 0, second = 0;
   int sp = 0;
-  for (int i = 0; i < p.n_instr; ++i) {
-    int4 ins;
-    if constexpr (STAGED) ins = sprog[i]; else ins = p.prog[i];
+  for (int i = PACKED ? p.n_cols : 0; i < p.n_instr; ++i) {
+    const int4 ins = instr<STAGED>(p, sprog, i);
     if (ins.x == OP_CMP_LIT || ins.x == OP_CMP_COL) {
       uint32_t w = 0;
       if constexpr (NC > 0) {
@@ -236,11 +316,19 @@ __device__ __forceinline__ uint32_t eval_rows(const Params& p, const int4* sprog
             }
           }
         }
+      } else if constexpr (PACKED) {
+        const Packed a{col_addr(p, ins.y), instr<STAGED>(p, sprog, ins.y), off};
+        if (ins.x == OP_CMP_LIT) {
+          w = cmp_dispatch(a, Lit{ins.w}, ins.z);
+        } else {
+          w = cmp_dispatch(a, Packed{col_addr(p, ins.w), instr<STAGED>(p, sprog, ins.w), off},
+                           ins.z);
+        }
       } else if (ins.x == OP_CMP_LIT) {
-        w = cmp_dispatch(Global{col_addr(p, ins.y), off, n, full}, Lit{ins.w}, ins.z);
+        w = cmp_dispatch(Global{col_addr(p, cb + ins.y), off, n, full}, Lit{ins.w}, ins.z);
       } else {
-        w = cmp_dispatch(Global{col_addr(p, ins.y), off, n, full},
-                         Global{col_addr(p, ins.w), off, n, full}, ins.z);
+        w = cmp_dispatch(Global{col_addr(p, cb + ins.y), off, n, full},
+                         Global{col_addr(p, cb + ins.w), off, n, full}, ins.z);
       }
       my[sp * T] = second;
       ++sp;
@@ -294,20 +382,12 @@ predicate_mask_kernel(const __grid_constant__ Params p) {
   }
 }
 
-template <bool STAGED, int NC>
-__global__ void __launch_bounds__(COUNT_THREADS, NC == MAX_CACHED_COLS ? 1 : 2)
-predicate_block_counts_kernel(const __grid_constant__ Params p) {
-  extern __shared__ int4 smem[];
-  __shared__ int warp_counts[COUNT_THREADS / 32];
-  const int4* sprog;
-  uint32_t* stk = setup<STAGED>(p, smem, sprog);
-  const int lane = threadIdx.x & 31;
-  const long long off = (long long)blockIdx.x * BLOCK_ROWS +
-                        (long long)(threadIdx.x / 32) * WARP_ROWS + lane * 4;
-  // the caller's n is a multiple of BLOCK_ROWS: every warp is full
-  const uint32_t w = eval_rows<STAGED, NC>(p, sprog, stk, off, true);
+// The CTA's match count: __popc of each thread's word, a warp sum, a
+// shared-memory sum of the 8 warps, written by thread 0.
+__device__ __forceinline__ void store_block_count(const Params& p, uint32_t w,
+                                                  int* warp_counts) {
   const int c = __reduce_add_sync(0xffffffffu, __popc(w));
-  if (lane == 0) warp_counts[threadIdx.x / 32] = c;
+  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x / 32] = c;
   __syncthreads();
   if (threadIdx.x == 0) {
     int total = 0;
@@ -317,24 +397,84 @@ predicate_block_counts_kernel(const __grid_constant__ Params p) {
   }
 }
 
+// The thread's first row within its 8192-row block.
+__device__ __forceinline__ long long row_in_block() {
+  return (long long)(threadIdx.x / 32) * WARP_ROWS + (threadIdx.x & 31) * 4;
+}
+
+// K1c's and K1p's body: one CTA counts one block.
+template <bool STAGED, int NC, bool PACKED>
+__device__ __forceinline__ void block_counts_body(const Params& p, int4* smem,
+                                                  int* warp_counts) {
+  const int4* sprog;
+  uint32_t* stk = setup<STAGED>(p, smem, sprog);
+  const long long off = (long long)blockIdx.x * BLOCK_ROWS + row_in_block();
+  // the caller's n is a multiple of BLOCK_ROWS: every warp is full
+  const uint32_t w = eval_rows<STAGED, NC, PACKED>(p, sprog, stk, off, true);
+  store_block_count(p, w, warp_counts);
+}
+
+template <bool STAGED, int NC>
+__global__ void __launch_bounds__(COUNT_THREADS, NC == MAX_CACHED_COLS ? 1 : 2)
+predicate_block_counts_kernel(const __grid_constant__ Params p) {
+  extern __shared__ int4 smem[];
+  __shared__ int warp_counts[COUNT_THREADS / 32];
+  block_counts_body<STAGED, NC, false>(p, smem, warp_counts);
+}
+
+template <bool STAGED, int NC>
+__global__ void __launch_bounds__(COUNT_THREADS, NC == MAX_CACHED_COLS ? 1 : 2)
+predicate_block_counts_packed_kernel(const __grid_constant__ Params p) {
+  extern __shared__ int4 smem[];
+  __shared__ int warp_counts[COUNT_THREADS / 32];
+  block_counts_body<STAGED, NC, true>(p, smem, warp_counts);
+}
+
+template <bool STAGED, int NC>
+__global__ void __launch_bounds__(COUNT_THREADS, NC == MAX_CACHED_COLS ? 1 : 2)
+hybrid_block_counts_kernel(const __grid_constant__ Params p,
+                           const __grid_constant__ HybridParams h) {
+  extern __shared__ int4 smem[];
+  __shared__ int warp_counts[COUNT_THREADS / 32];
+  const int4* sprog;
+  uint32_t* stk = setup<STAGED>(p, smem, sprog);
+  uint32_t w;
+  if ((long long)blockIdx.x < h.nb_base) {  // uniform across the CTA
+    const long long off = (long long)blockIdx.x * BLOCK_ROWS + row_in_block();
+    w = eval_rows<STAGED, NC, false, false>(p, sprog, stk, off, true);
+    if (h.del != nullptr) w &= ~__ldg(h.del + (long long)blockIdx.x * COUNT_THREADS + threadIdx.x);
+  } else {
+    const long long off = ((long long)blockIdx.x - h.nb_base) * BLOCK_ROWS + row_in_block();
+    w = eval_rows<STAGED, NC, false, true>(p, sprog, stk, off, true);
+  }
+  store_block_count(p, w, warp_counts);
+}
+
 static_assert(BLOCK_ROWS == COUNT_THREADS * ROWS_PER_THREAD,
               "one K1c CTA covers one block in one pass");
 
 using KernelFn = void (*)(const Params);
+using HybridFn = void (*)(const Params, const HybridParams);
 
 #define HS_BY_NC(KERNEL, STAGED)                                              \
   KERNEL<STAGED, 0>, KERNEL<STAGED, 1>, KERNEL<STAGED, 2>, KERNEL<STAGED, 3>, \
       KERNEL<STAGED, 4>
 constexpr int N_PER_ENTRY = 2 * (MAX_CACHED_COLS + 1);
-// K1's instantiations, then K1c's: program in the parameters or staged,
-// times the columns cached in registers (0: more than MAX_CACHED_COLS)
-const KernelFn KERNELS[2 * N_PER_ENTRY] = {
+// K1's instantiations, then K1c's, then K1p's: program in the parameters
+// or staged, times the columns cached in registers (0: more than
+// MAX_CACHED_COLS)
+const KernelFn KERNELS[3 * N_PER_ENTRY] = {
     HS_BY_NC(predicate_mask_kernel, false), HS_BY_NC(predicate_mask_kernel, true),
     HS_BY_NC(predicate_block_counts_kernel, false),
-    HS_BY_NC(predicate_block_counts_kernel, true)};
+    HS_BY_NC(predicate_block_counts_kernel, true),
+    HS_BY_NC(predicate_block_counts_packed_kernel, false),
+    HS_BY_NC(predicate_block_counts_packed_kernel, true)};
+// K1h's, in the same order, after them in big_smem_set's bits
+const HybridFn HYBRID_KERNELS[N_PER_ENTRY] = {HS_BY_NC(hybrid_block_counts_kernel, false),
+                                              HS_BY_NC(hybrid_block_counts_kernel, true)};
 #undef HS_BY_NC
 static_assert(MAX_CACHED_COLS == 4, "HS_BY_NC lists 0..4");
-static_assert(2 * N_PER_ENTRY <= 32, "one bit per instantiation in big_smem_set");
+static_assert(4 * N_PER_ENTRY <= 64, "one bit per instantiation in big_smem_set");
 
 int pick(int entry, const Params& p) {
   return entry * N_PER_ENTRY + (p.staged != nullptr) * (MAX_CACHED_COLS + 1) +
@@ -345,16 +485,16 @@ int pick(int entry, const Params& p) {
 // of dynamic shared memory: the attribute is set on first need, not on
 // every launch.
 constexpr int MAX_DEVICES = 64;
-std::atomic<uint32_t> big_smem_set[MAX_DEVICES];
+std::atomic<uint64_t> big_smem_set[MAX_DEVICES];
 
-int allow_big_smem(int k) {
+template <class F>
+int allow_big_smem(F* fn, int bit_index) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const uint32_t bit = 1u << k;
+  const uint64_t bit = 1ull << bit_index;
   if (dev < MAX_DEVICES && (big_smem_set[dev].load(std::memory_order_relaxed) & bit)) return 0;
-  e = cudaFuncSetAttribute(KERNELS[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           MAX_DYN_SMEM);
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_DYN_SMEM);
   if (e != cudaSuccess) return (int)e;
   if (dev < MAX_DEVICES) big_smem_set[dev].fetch_or(bit, std::memory_order_relaxed);
   return 0;
@@ -365,7 +505,7 @@ int launch(int k, const Params& p, long long blocks, int threads, size_t smem,
   if (smem > 48 * 1024) {
     // dynamic shared memory above the 48 KB default (deep stacks, long
     // staged programs) must be allowed per kernel first
-    const int e = allow_big_smem(k);
+    const int e = allow_big_smem(KERNELS[k], k);
     if (e != 0) return e;
   }
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -375,9 +515,11 @@ int launch(int k, const Params& p, long long blocks, int threads, size_t smem,
 
 // Shared memory of a launch: the staged program, then ``depth`` stack
 // slots of one word per thread. -1 when the launch is malformed or does
-// not fit.
-long long smem_bytes(const Params& p, int threads) {
-  if (p.n_cols < 1 || (p.n_cols > MAX_COLS && p.col_table == nullptr) || p.n_instr < 1 ||
+// not fit. ``n_addrs``: the column addresses the launch carries (n_cols,
+// or 2 * n_cols for K1h), in the parameters up to MAX_COLS, else in
+// col_table.
+long long smem_bytes(const Params& p, int threads, int n_addrs) {
+  if (p.n_cols < 1 || (n_addrs > MAX_COLS) != (p.col_table != nullptr) || p.n_instr < 1 ||
       p.depth < 1 || p.depth > STACK_SLOTS || p.out == nullptr)
     return -1;
   if (p.staged == nullptr && p.n_instr > MAX_PARAM_INSTR) return -1;
@@ -397,7 +539,7 @@ extern "C" int hs_predicate_mask(const void* params, void* stream) {
   const Params& p = *static_cast<const Params*>(params);
   if (p.n_rows <= 0) return 0;
   const int threads = p.n_rows < K1_SMALL_BELOW ? K1_SMALL_THREADS : K1_THREADS;
-  const long long smem = smem_bytes(p, threads);
+  const long long smem = smem_bytes(p, threads, p.n_cols);
   if (smem < 0) return (int)cudaErrorInvalidValue;
   const long long rows_per_cta = (long long)threads * ROWS_PER_THREAD;
   const long long blocks = (p.n_rows + rows_per_cta - 1) / rows_per_cta;
@@ -411,8 +553,46 @@ extern "C" int hs_predicate_block_counts(const void* params, void* stream) {
   const Params& p = *static_cast<const Params*>(params);
   if (p.n_rows <= 0) return 0;
   if (p.n_rows % BLOCK_ROWS) return (int)cudaErrorInvalidValue;
-  const long long smem = smem_bytes(p, COUNT_THREADS);
+  const long long smem = smem_bytes(p, COUNT_THREADS, p.n_cols);
   if (smem < 0) return (int)cudaErrorInvalidValue;
   const long long blocks = p.n_rows / BLOCK_ROWS;
   return launch(pick(1, p), p, blocks, COUNT_THREADS, smem, (cudaStream_t)stream);
+}
+
+// As hs_predicate_block_counts, for K1p: the program's first n_cols
+// instructions are the columns' descriptors {OP_PACK, bits, vpw, ref0}; a
+// packed column holds n_rows / vpw words, a raw one (vpw 1) n_rows values.
+extern "C" int hs_predicate_block_counts_packed(const void* params, void* stream) {
+  const Params& p = *static_cast<const Params*>(params);
+  if (p.n_rows <= 0) return 0;
+  if (p.n_rows % BLOCK_ROWS || p.n_instr <= p.n_cols) return (int)cudaErrorInvalidValue;
+  const long long smem = smem_bytes(p, COUNT_THREADS, p.n_cols);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = p.n_rows / BLOCK_ROWS;
+  return launch(pick(2, p), p, blocks, COUNT_THREADS, smem, (cudaStream_t)stream);
+}
+
+// K1h: ``params`` as for K1c, with n_rows the base rows plus the delta
+// rows (both multiples of 8192) and 2 * n_cols addresses, the base
+// planes' then the delta planes' (in col_table when more than MAX_COLS);
+// ``hybrid`` a host pointer to HybridParams (nb_base: the base rows /
+// 8192; del: n_base / 32 words, or null). ``out`` holds n_rows / 8192
+// counts, the base blocks' then the delta blocks'.
+extern "C" int hs_hybrid_block_counts(const void* params, const void* hybrid, void* stream) {
+  const Params& p = *static_cast<const Params*>(params);
+  const HybridParams& h = *static_cast<const HybridParams*>(hybrid);
+  if (p.n_rows <= 0) return 0;
+  if (p.n_rows % BLOCK_ROWS || h.nb_base < 0 || h.nb_base * BLOCK_ROWS > p.n_rows)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = smem_bytes(p, COUNT_THREADS, 2 * p.n_cols);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = p.n_rows / BLOCK_ROWS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int k = pick(0, p);
+  if (smem > 48 * 1024) {
+    const int e = allow_big_smem(HYBRID_KERNELS[k], 3 * N_PER_ENTRY + k);
+    if (e != 0) return e;
+  }
+  HYBRID_KERNELS[k]<<<(unsigned)blocks, COUNT_THREADS, smem, (cudaStream_t)stream>>>(p, h);
+  return (int)cudaGetLastError();
 }

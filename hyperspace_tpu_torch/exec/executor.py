@@ -11,8 +11,11 @@ BucketUnion and Repartition:
   the shuffle-free bucketed sort-merge join (exec.joins.bucketed_join_pairs);
 * a Scan of a hive-partitioned source prunes its files on the predicate's
   partition-column conjuncts before reading any (``scan.partition_pruned``);
-* a hybrid ``Union(index side, appended side)`` runs its two sides at
-  once on two threads (``union.side.index`` / ``union.side.source``); a
+* a hybrid ``Union(index side, appended side)`` whose base and appended
+  delta are resident counts both in one K1h launch
+  (``scan.path.resident_hybrid``, delta residency: exec/delta.py);
+  otherwise it runs its two sides at once on two threads
+  (``union.side.index`` / ``union.side.source``); a
   join side ``BucketUnion(index side, Repartition(appended side))`` hashes
   the appended rows into the index's buckets on the host and merges them
   into the bucket groups the bucketed join reads;
@@ -22,7 +25,7 @@ BucketUnion and Repartition:
   Aggregate runs its child, then exec.aggregate.hash_aggregate;
 * everything else evaluates bottom-up over ColumnarBatches.
 
-The compiled-pipeline, delta/join residency and mesh arms are not ported.
+The compiled-pipeline, join residency and mesh arms are not ported.
 """
 
 from __future__ import annotations
@@ -254,11 +257,16 @@ class Executor:
         predicate: Optional[Expr],
         columns: Optional[List[str]],
     ) -> ColumnarBatch:
-        """The Hybrid Scan merge Union(index side, appended side): the
-        sides run at once, the appended side's host read and filter
-        overlapping the index side's read and mask, each timed under
-        ``union.side.index`` / ``union.side.source``. A single-child union
-        skips the thread."""
+        """The Hybrid Scan merge Union(index side, appended side). When the
+        base and the appended delta are resident, one K1h launch serves it
+        (``_try_resident_hybrid``). Otherwise the sides run at once, the
+        appended side's host read and filter overlapping the index side's
+        read and mask, each timed under ``union.side.index`` /
+        ``union.side.source``. A single-child union skips the thread."""
+        if predicate is not None:
+            fused = self._try_resident_hybrid(plan, predicate)
+            if fused is not None:
+                return fused
         import contextvars
         import time
         from concurrent.futures import ThreadPoolExecutor
@@ -286,6 +294,55 @@ class Executor:
                     )
                 )
         return ColumnarBatch.concat(parts)
+
+    def _try_resident_hybrid(self, plan: Union, predicate: Expr) -> Optional[ColumnarBatch]:
+        """The delta-resident hybrid path: when ``plan`` is a hybrid union
+        whose base table and appended delta are resident, one K1h launch
+        counts base and delta (deleted base rows masked out on the
+        device), then the exact host legs run: base blocks from the index
+        files with the lineage NOT IN re-applied, delta blocks from the
+        decoded appended rows. None routes the host union, which, with a
+        resident base and no delta yet, schedules the delta's background
+        population so the next query lands here. Rows equal the host
+        union's: the host re-evaluates every candidate block exactly."""
+        from ..plan.rules.hybrid_scan import parse_hybrid_union
+        from .delta import resolve_hybrid_residency
+        from .hbm_cache import hbm_cache
+        from .scan import _resident_parts
+
+        info = parse_hybrid_union(plan)
+        if info is None:
+            return None
+        res = resolve_hybrid_residency(info, predicate, self.device, self.residency)
+        if res.status == "gated":
+            # its own name: the host union's index side counts
+            # scan.gate.resident_selectivity for its own gate
+            metrics.incr("scan.gate.resident_hybrid_selectivity")
+            return None
+        if res.status == "no_delta":
+            if hbm_cache.auto_enabled(self.residency, self.device):
+                hbm_cache.note_touch_delta(res.table, info.appended, info.relation,
+                                           list(info.user_cols), info.deleted_ids,
+                                           self.residency)
+            return None
+        if res.status != "ok":
+            return None  # the union's index side schedules note_touch
+        out_cols = list(info.user_cols)
+        counts = hbm_cache.hybrid_block_counts(res.table, res.delta, predicate)
+        if counts is None:
+            return None
+        base_counts, delta_counts = counts
+        parts = _resident_parts(res.table, res.files, out_cols, res.host_predicate,
+                                base_counts, path_metric=None)
+        parts += hbm_cache.delta_parts(res.delta, predicate, out_cols, delta_counts)
+        metrics.incr("scan.path.resident_hybrid")
+        if parts:
+            return ColumnarBatch.concat(parts)
+        empty = empty_batch_for(out_cols, info.entry.schema)
+        if empty is not None:
+            return empty
+        return layout.read_batch(res.files[0], columns=out_cols).take(
+            np.array([], dtype=np.int64))
 
     @staticmethod
     def _conjoin(a: Optional[Expr], b: Expr) -> Expr:

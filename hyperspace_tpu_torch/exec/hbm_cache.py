@@ -27,20 +27,39 @@ blocks hold matches, and the host leg is exact. Pad rows may count (a
 zero satisfies ``v <= 10``), exactly as in the reference; the host leg
 reads real rows only.
 
-Tables are populated synchronously (``prefetch``) or on first touch
-(``note_touch``, a background thread), and LRU-evicted against a byte
+A table whose raw planes exceed the budget goes down the tier ladder
+(``residency/tiers.py:plan_tier``): ``compressed`` keeps plain-packed
+words on the device (``ops/bitpack.py``; pad rows encode ``ref0``) and
+counts through K1p, which decodes in registers; ``streaming`` keeps the
+planes in pinned host memory and counts window by window through a pair
+of device slabs (``residency/streaming.py``); ``host`` refuses
+(``hbm.over_budget_refused``). ``block_counts`` dispatches on the tier.
+
+Delta residency serves Hybrid Scan between refreshes: a ``DeltaRegion``
+holds the appended source files' predicate columns on the device, encoded
+under the resident base's contracts (``exec/delta.py``), their rows on
+the host (decoded once), and a deletion mask of one bit per base row
+from the lineage column. ``hybrid_block_counts`` counts base and delta in
+one K1h launch; ``delta_parts`` is the delta's exact host leg. Under
+budget pressure deltas go before tables; dropping a base drops its
+deltas; a refresh or optimize of the index invalidates them
+(``invalidate_deltas``).
+
+Tables and deltas are populated synchronously (``prefetch``,
+``prefetch_delta``) or on first touch (``note_touch``,
+``note_touch_delta``, background threads), and LRU-evicted against a byte
 budget. The knobs are session conf (``config.ResidencyConf``): ``mode``
-auto | off | force, ``budgetMB``, ``minRows``, ``maxBlockFrac``.
+auto | off | force, ``budgetMB``, ``minRows``, ``maxBlockFrac``, and the
+ladder's ``compression``, ``streaming`` and ``window_rows``.
 
 Where the reference recovers quietly, this port raises: a CUDA or torch
-error on the background thread is kept and raised by the next
-``wait_background()`` or ``resident_for()`` on the query thread. A file
+error on a background thread is kept and raised by the next
+``wait_background()`` or ``resident_for()`` on the query thread, and one
+in a window loop or a hybrid launch raises on the query thread. A file
 that vanished before population is a skip, as in the reference.
 
-Not ported yet: the compressed (bit-packed) and streaming tiers — a table
-whose raw planes exceed the budget is refused (``hbm.over_budget_refused``),
-as the reference does with its tier ladder closed — delta and join
-residency, and the batched and hybrid count programs.
+Not ported yet: join residency, and the batched count programs of the
+serving layer.
 """
 
 from __future__ import annotations
@@ -59,7 +78,8 @@ from ..config import ResidencyConf
 from ..exceptions import HyperspaceException
 from ..ops import DeviceLike, resolve_device
 from ..ops import kernels as K
-from ..plan.expr import Expr
+from ..ops.bitpack import PackSpec
+from ..plan.expr import Expr, eval_mask
 from ..storage.columnar import Column, ColumnarBatch, is_string
 from ..telemetry.metrics import metrics
 
@@ -82,11 +102,18 @@ def vocab_heap_bytes(vocab) -> int:
 
 def _budget_bytes(conf: ResidencyConf) -> int:
     """The residency budget less what streaming builds hold for their
-    staged runs (residency.slabs): every budget site sees the true
-    headroom. Builds hold at most half, so this stays positive."""
+    staged runs (residency.slabs) and what budget claimants hold
+    (residency.tiers): every budget site sees the true headroom. Builds
+    hold at most half, so this stays positive."""
     from ..residency.slabs import held_bytes
+    from ..residency.tiers import claimant_bytes
 
-    return conf.budget_bytes - held_bytes()
+    return conf.budget_bytes - held_bytes() - claimant_bytes()
+
+
+def batch_nbytes(batch: ColumnarBatch) -> int:
+    """Host bytes of a batch, its string dictionaries included."""
+    return sum(c.data.nbytes + vocab_heap_bytes(c.vocab) for c in batch.columns.values())
 
 
 def _device(device: DeviceLike) -> torch.device:
@@ -119,6 +146,9 @@ class ResidentColumn:
     # index into (host-side: literals bind against it, it never uploads)
     vocab: Optional[np.ndarray] = None
     data2: Optional[torch.Tensor] = None  # f64 low plane
+    # compressed tier only: ``data`` holds plain-packed int32 words under
+    # this spec, and the budget is charged the packed bytes
+    pack: Optional[PackSpec] = None
 
 
 @dataclass
@@ -140,12 +170,49 @@ class ResidentTable:
         default_factory=dict
     )
     last_used: float = field(default_factory=time.monotonic)
+    # the ladder's rung: "resident" (raw planes) or "compressed" (packed
+    # planes); the streaming tier has a table type of its own
+    # (residency/streaming.py)
+    tier: str = "resident"
+    raw_nbytes: int = 0  # what the planes would cost raw
 
     def file_span(self, path: str) -> Optional[Tuple[int, int]]:
         for p, start, n in self.files:
             if p == path:
                 return start, start + n
         return None
+
+
+@dataclass
+class DeltaRegion:
+    """Appended-source residency for one (index version, source snapshot):
+    the appended files' predicate columns as device int32 planes encoded
+    under the base table's contracts (``exec/delta.py``), their rows on
+    the host (decoded once, so a query's host leg reads memory), the
+    string columns' out-of-vocabulary side tables, the deletion mask over
+    the base rows (``ops/kernels.py:pack_row_bitmask`` words, one bit a
+    row; None without deletes), and per-block zone vectors for the
+    delta-aware selectivity gate."""
+
+    key: tuple  # ((name, size, mtime), ...) of the appended files, sorted
+    base_key: tuple  # the ResidentTable.key this delta extends
+    deleted_ids: tuple  # sorted lineage ids of the deleted source files
+    n_rows: int
+    n_pad: int
+    columns: Dict[str, ResidentColumn]
+    oov: Dict[str, np.ndarray]  # per string column: sorted OOV values
+    host_batch: ColumnarBatch  # the appended rows (user columns)
+    del_mask: Optional[torch.Tensor]  # int32 words over the base's n_pad rows
+    zones: Dict[str, Tuple[str, np.ndarray, np.ndarray]] = field(default_factory=dict)
+    nbytes: int = 0
+    last_used: float = field(default_factory=time.monotonic)
+
+
+def delta_snapshot_key(appended) -> tuple:
+    """The source-snapshot half of a delta's key, from the appended
+    FileInfos of the hybrid plan: a file appended or replaced since gives
+    another key, and the stale delta never serves."""
+    return tuple(sorted((f.name, int(f.size), int(f.modified_time)) for f in appended))
 
 
 def _file_identity(path: str | Path) -> tuple:
@@ -300,28 +367,37 @@ def resident_arrays_for(
     return out
 
 
+def resident_specs_for(
+    columns: Dict[str, ResidentColumn], names: Tuple[str, ...]
+) -> List[Optional[PackSpec]]:
+    """Per-name PackSpec (None for a raw plane), aligned with
+    ``resident_arrays_for`` (f64 planes always ride raw)."""
+    return [None if "\x00" in n else columns[n].pack for n in names]
+
+
 def _upload_planes(
-    planes: List[np.ndarray], n_pad: int, dev: torch.device
+    planes: List[np.ndarray], lengths: List[int], dev: torch.device
 ) -> List[torch.Tensor]:
-    """Zero-padded int32 device planes of ``planes``. On the card the
-    copies leave pinned host memory on a side stream that first waits for
-    the current stream (the new planes' memory may have been freed by
-    work still queued there), and the side stream is synchronized before
-    returning: a registered table never holds a half-written plane."""
+    """Zero-padded int32 device planes of ``planes``, plane i ``lengths[i]``
+    long. On the card the copies leave pinned host memory on a side stream
+    that first waits for the current stream (the new planes' memory may
+    have been freed by work still queued there), and the side stream is
+    synchronized before returning: a registered table never holds a
+    half-written plane."""
     if dev.type == "cpu":
         out = []
-        for a in planes:
-            t = torch.zeros(n_pad, dtype=torch.int32)
+        for a, n in zip(planes, lengths):
+            t = torch.zeros(n, dtype=torch.int32)
             t[: len(a)] = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
             out.append(t)
         return out
     side = torch.cuda.Stream(dev)
-    outs = [torch.empty(n_pad, dtype=torch.int32, device=dev) for _ in planes]
+    outs = [torch.empty(n, dtype=torch.int32, device=dev) for n in lengths]
     side.wait_stream(torch.cuda.current_stream(dev))
     staged = []
     with torch.cuda.stream(side):
-        for a, dst in zip(planes, outs):
-            host = torch.zeros(n_pad, dtype=torch.int32, pin_memory=True)
+        for a, n, dst in zip(planes, lengths, outs):
+            host = torch.zeros(n, dtype=torch.int32, pin_memory=True)
             host[: len(a)] = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
             dst.copy_(host, non_blocking=True)
             staged.append(host)
@@ -337,6 +413,9 @@ class ResidentCacheBase:
 
     def __init__(self) -> None:
         self._tables: List[ResidentTable] = []
+        # delta regions, one per base at most (the hybrid scan's appended
+        # side); under budget pressure they go before any table
+        self._deltas: List[DeltaRegion] = []
         self._pending: set = set()
         # (file-set key, frozenset(columns)) that can never materialize
         # (nothing encodable, too small): without this memo every query
@@ -355,10 +434,74 @@ class ResidentCacheBase:
         """Whether first-touch population is on for ``conf`` on ``device``."""
         return _auto_enabled(conf, _device(device))
 
+    def empty(self) -> bool:
+        """True when no table is resident: callers skip pruning and stat
+        work that could only reach a lookup miss."""
+        with self._lock:
+            return not self._tables
+
     def drop(self, table: ResidentTable) -> None:
-        """Unregister a table."""
+        """Unregister a table; the deltas built over it go with it (no
+        query could reach them without their base)."""
         with self._lock:
             self._tables = [t for t in self._tables if t is not table]
+            self._deltas = [d for d in self._deltas if d.base_key != table.key]
+
+    def invalidate_deltas(self, index_root: Optional[str] = None) -> None:
+        """Drop the delta regions whose base files lie under ``index_root``
+        (None: all). The refresh and optimize hook: a new index version
+        changes the base's file identities, so those deltas could never
+        serve again. A quick refresh changes no index file and keeps
+        them."""
+        prefix = None if index_root is None else str(index_root).rstrip("/") + "/"
+        with self._lock:
+            keep = [
+                d for d in self._deltas
+                if prefix is not None
+                and not any(str(p).startswith(prefix) for p, _sz, _mt in d.base_key)
+            ]
+            n = len(self._deltas) - len(keep)
+            self._deltas[:] = keep
+        if n:
+            metrics.incr("hbm.delta.invalidated", n)
+
+    def _total_locked(self) -> int:
+        return sum(t.nbytes for t in self._tables) + sum(d.nbytes for d in self._deltas)
+
+    def _register_delta(self, delta: DeltaRegion, budget: int,
+                        epoch: Optional[int] = None) -> bool:
+        """Register a delta under the shared budget: it supersedes any
+        other delta of its base, evicts other bases' deltas if it must,
+        and is refused rather than evict a table."""
+        from ..residency.tiers import shed_claimants
+
+        with self._lock:
+            if epoch is not None and epoch != self._epoch:
+                return False  # reset() since this build was scheduled
+            if not any(t.key == delta.base_key for t in self._tables):
+                # the base went while this build ran: unreachable
+                metrics.incr("hbm.delta.base_gone")
+                return False
+            for d in self._deltas:
+                if d.base_key == delta.base_key and (
+                    d.key != delta.key or d.deleted_ids != delta.deleted_ids
+                ):
+                    metrics.incr("hbm.delta.superseded")
+            self._deltas = [d for d in self._deltas if d.base_key != delta.base_key]
+            self._deltas.append(delta)
+            if self._total_locked() > budget:
+                budget += shed_claimants(self._total_locked() - budget)
+            while self._total_locked() > budget and len(self._deltas) > 1:
+                victim = min((d for d in self._deltas if d is not delta),
+                             key=lambda d: d.last_used)
+                self._deltas.remove(victim)
+                metrics.incr("hbm.delta.evicted")
+            if self._total_locked() > budget:
+                self._deltas.remove(delta)
+                metrics.incr("hbm.delta.over_budget_refused")
+                return False
+            metrics.incr("hbm.delta.registered")
+            return True
 
     def _raise_background_error(self) -> None:
         with self._lock:
@@ -378,14 +521,22 @@ class ResidentCacheBase:
     def _register(
         self, table: ResidentTable, budget: int, epoch: Optional[int] = None
     ) -> None:
+        from ..residency.tiers import shed_claimants
+
         with self._lock:
             if epoch is not None and epoch != self._epoch:
                 return  # reset() since this build was scheduled
             # replace any table over the same file set (e.g. a widened
-            # column set); then evict LRU tables until the budget fits
+            # column set); then claimants shed, deltas go, and LRU tables
+            # (each with its deltas) until the budget fits
             self._tables = [t for t in self._tables if t.key != table.key]
             self._tables.append(table)
-            while sum(t.nbytes for t in self._tables) > budget and len(self._tables) > 1:
+            if self._total_locked() > budget:
+                budget += shed_claimants(self._total_locked() - budget)
+            while self._total_locked() > budget and self._deltas:
+                self._deltas.remove(min(self._deltas, key=lambda d: d.last_used))
+                metrics.incr("hbm.delta.evicted")
+            while self._total_locked() > budget and len(self._tables) > 1:
                 victim = min(
                     (t for t in self._tables if t is not table),
                     key=lambda t: t.last_used,
@@ -415,27 +566,57 @@ class ResidentCacheBase:
     def reset(self) -> None:
         with self._lock:
             self._tables.clear()
+            self._deltas.clear()
             self._pending.clear()
             self._failed.clear()
             self._bg_error = None
             self._epoch += 1
 
     def snapshot_residency(self) -> dict:
-        """Per-table tier, rows, columns and MB (every table is on the raw
-        "resident" tier: the compressed and streaming tiers are not
-        ported)."""
+        """The tier ladder's surface: each table's tier, rows, columns,
+        budget-charged MB beside its raw MB, and a streaming table's
+        windows; and the count of tables by tier."""
         with self._lock:
-            per = [
-                {
-                    "tier": "resident",
+            per = []
+            for t in self._tables:
+                row = {
+                    "tier": t.tier,
                     "rows": t.n_rows,
                     "columns": sorted(t.columns),
                     "mb": round(t.nbytes / 1e6, 1),
                     "device": str(t.device),
                 }
-                for t in self._tables
-            ]
-        return {"tables": per, "by_tier": {"resident": len(per)} if per else {}}
+                if t.raw_nbytes:
+                    row["raw_mb"] = round(t.raw_nbytes / 1e6, 1)
+                if t.tier == "streaming":
+                    row.update(windows=t.n_windows, window_rows=t.window_rows,
+                               host_mb=round(t.host_bytes / 1e6, 1))
+                per.append(row)
+        tiers: Dict[str, int] = {}
+        for row in per:
+            tiers[row["tier"]] = tiers.get(row["tier"], 0) + 1
+        return {"tables": per, "by_tier": tiers}
+
+    def snapshot(self) -> dict:
+        """Tables and deltas held, and their MB."""
+        with self._lock:
+            return {
+                "tables": len(self._tables),
+                "deltas": len(self._deltas),
+                "resident_mb": round(self._total_locked() / 1e6, 1),
+                "per_table": [
+                    {"files": len(t.files), "rows": t.n_rows, "columns": sorted(t.columns),
+                     "mb": round(t.nbytes / 1e6, 1), "tier": t.tier}
+                    for t in self._tables
+                ],
+                "per_delta": [
+                    {"rows": d.n_rows, "columns": sorted(d.columns),
+                     "deleted_ids": len(d.deleted_ids),
+                     "oov": {k: int(len(v)) for k, v in d.oov.items() if len(v)},
+                     "mb": round(d.nbytes / 1e6, 1)}
+                    for d in self._deltas
+                ],
+            }
 
 
 class HbmIndexCache(ResidentCacheBase):
@@ -590,9 +771,10 @@ class HbmIndexCache(ResidentCacheBase):
         encodable = [c for c in columns if c in dtype_of]
         if not encodable:
             return None, True
-        # budget pre-check BEFORE any read or upload: every resident plane
-        # costs n_pad * 4 device bytes (float64 two planes); string columns
-        # add their host vocab heap, bounded by the per-file footers
+        # budget pre-check BEFORE any read or upload: every raw plane costs
+        # n_pad * 4 device bytes (float64 two planes); string columns add
+        # their host vocab heap, bounded by the per-file footers. Over the
+        # budget it refuses here only when the tier ladder is closed
         vocab_est = 0
         for c in encodable:
             if is_string(dtype_of[c]):
@@ -601,7 +783,8 @@ class HbmIndexCache(ResidentCacheBase):
                     if m is not None:
                         vocab_est += vocab_heap_bytes(m.get("vocab", ()))
         planes = sum(2 if dtype_of[c] == "float64" else 1 for c in encodable)
-        if planes * n_pad * 4 + vocab_est > _budget_bytes(conf):
+        ladder_open = conf.compression != "off" or conf.streaming != "off"
+        if planes * n_pad * 4 + vocab_est > _budget_bytes(conf) and not ladder_open:
             metrics.incr("hbm.over_budget_refused")
             return None, False
 
@@ -660,27 +843,77 @@ class HbmIndexCache(ResidentCacheBase):
         if not host_planes:
             return None, True  # nothing encoded (e.g. NaN float32 data)
 
-        # --- upload ---------------------------------------------------------
+        # --- tier plan: the one ladder procedure (residency/tiers.py) -------
+        from ..ops import bitpack
+        from ..residency import plan_tier
+
+        pack_specs: Dict[str, PackSpec] = {}
+        raw_plane_bytes = unpacked_bytes = side_bytes = 0
+        for name, (_dts, _enc, vocab, arrs) in host_planes.items():
+            side_bytes += vocab_heap_bytes(vocab)
+            raw_plane_bytes += len(arrs) * n_pad * 4
+            spec = None
+            if len(arrs) == 1 and arrs[0].size:
+                spec = bitpack.pack_spec(int(arrs[0].min()), int(arrs[0].max()), n_pad)
+            if spec is not None:
+                pack_specs[name] = spec
+            else:
+                unpacked_bytes += len(arrs) * n_pad * 4
+        plan = plan_tier(raw_plane_bytes, _budget_bytes(conf), pack_specs, unpacked_bytes,
+                         side_bytes, streaming_ok=True, conf=conf)
+        if plan.tier == "host":
+            metrics.incr("hbm.over_budget_refused")
+            return None, False
+        if plan.tier == "streaming":
+            from ..residency.streaming import build_streaming_table
+
+            table = build_streaming_table(key, spans, n_rows, host_planes, zones, plan.specs,
+                                          plan.window_rows, dev)
+            if table.nbytes > _budget_bytes(conf):
+                # even the slab pair does not fit: no device tier
+                metrics.incr("hbm.over_budget_refused")
+                return None, False
+            metrics.incr("residency.tier.streaming_built")
+            metrics.record_time("hbm.prefetch", time.perf_counter() - t0)
+            return table, False
+
+        # --- upload: raw planes, or packed words (pad rows encode ref0) -----
         order = list(host_planes)
-        device_planes = iter(
-            _upload_planes(
-                [a for n in order for a in host_planes[n][3]], n_pad, dev
-            )
-        )
+        uploads: List[np.ndarray] = []
+        lengths: List[int] = []
+        for name in order:
+            spec = plan.specs.get(name)
+            if spec is not None:
+                padded = np.full(n_pad, spec.ref0, dtype=np.int64)
+                padded[:n_rows] = host_planes[name][3][0]
+                uploads.append(bitpack.pack_plain(padded, spec))
+                lengths.append(spec.n_words)
+            else:
+                uploads.extend(host_planes[name][3])
+                lengths.extend([n_pad] * len(host_planes[name][3]))
+        device_planes = iter(_upload_planes(uploads, lengths, dev))
         cols: Dict[str, ResidentColumn] = {}
         nbytes = 0
         for name in order:
             dts, enc, vocab, arrs = host_planes[name]
+            spec = plan.specs.get(name)
             data = next(device_planes)
             data2 = next(device_planes) if len(arrs) == 2 else None
-            col_bytes = len(arrs) * n_pad * 4 + vocab_heap_bytes(vocab)
-            cols[name] = ResidentColumn(data, dts, enc, col_bytes, vocab, data2)
+            plane_bytes = 4 * spec.n_words if spec is not None else len(arrs) * n_pad * 4
+            col_bytes = plane_bytes + vocab_heap_bytes(vocab)
+            cols[name] = ResidentColumn(data, dts, enc, col_bytes, vocab, data2, spec)
             nbytes += col_bytes
         if nbytes > _budget_bytes(conf):
             metrics.incr("hbm.over_budget_refused")
             return None, False
+        raw_nbytes = raw_plane_bytes + side_bytes
+        if plan.tier == "compressed":
+            metrics.incr("residency.tier.compressed_built")
+            metrics.incr("residency.compressed.packed_bytes", nbytes)
+            metrics.incr("residency.compressed.raw_bytes", raw_nbytes)
         metrics.record_time("hbm.prefetch", time.perf_counter() - t0)
-        return ResidentTable(key, spans, n_rows, n_pad, cols, nbytes, dev, zones), False
+        return ResidentTable(key, spans, n_rows, n_pad, cols, nbytes, dev, zones,
+                             tier=plan.tier, raw_nbytes=raw_nbytes), False
 
     # -- lookup --------------------------------------------------------------
     def _covering_locked(
@@ -730,20 +963,272 @@ class HbmIndexCache(ResidentCacheBase):
         self, table: ResidentTable, predicate: Expr
     ) -> Optional[np.ndarray]:
         """Per-BLOCK_ROWS match counts of ``predicate`` over the resident
-        table: K1c on the card (its plain version on the CPU), one
-        count-vector-sized copy home. None when the predicate does not
-        narrow to the resident encodings (the caller routes host)."""
+        table, one count-vector-sized copy home: K1c over raw planes, K1p
+        where a plane the predicate reads is packed (their plain versions
+        on the CPU), and a streaming table's window loop. None when the
+        predicate does not narrow to the resident encodings (the caller
+        routes host)."""
+        if table.tier == "streaming":
+            from ..residency.streaming import stream_block_counts
+
+            return stream_block_counts(table, predicate)
         prepared = prepare_resident_predicate(table.columns, predicate)
         if prepared is None:
             return None
         narrowed, names = prepared
         cols = resident_arrays_for(table.columns, names)
+        specs = resident_specs_for(table.columns, names)
         t0 = time.perf_counter()
-        counts = K.predicate_block_counts_tensor(narrowed, names, cols).cpu().numpy()
+        if any(s is not None for s in specs):
+            counts = K.predicate_block_counts_packed_tensor(
+                narrowed, names, cols, specs, table.n_pad
+            )
+        else:
+            counts = K.predicate_block_counts_tensor(narrowed, names, cols)
+        counts = counts.cpu().numpy()
         metrics.record_time("scan.resident.device", time.perf_counter() - t0)
         n_blocks = -(-table.n_rows // BLOCK_ROWS)
         metrics.incr("scan.resident.d2h_bytes", int(counts.nbytes))
         return counts[:n_blocks]
+
+    # -- delta residency (the hybrid scan's appended side) --------------------
+    def delta_for(
+        self, table: ResidentTable, appended, columns, deleted_ids,
+        conf: ResidencyConf = ResidencyConf(),
+    ) -> Optional[DeltaRegion]:
+        """The registered delta extending ``table`` for exactly this
+        (appended snapshot, deleted ids) with every column of ``columns``,
+        else None. Mode "off" disables serving here too."""
+        if conf.mode == "off":
+            return None
+        dkey = delta_snapshot_key(appended)
+        dels = tuple(sorted(int(i) for i in deleted_ids))
+        with self._lock:
+            for d in reversed(self._deltas):
+                if (d.base_key == table.key and d.key == dkey and d.deleted_ids == dels
+                        and set(columns) <= set(d.columns)):
+                    d.last_used = time.monotonic()
+                    return d
+        return None
+
+    def prefetch_delta(
+        self, table: ResidentTable, appended, relation, host_columns, deleted_ids,
+        conf: ResidencyConf = ResidencyConf(),
+    ) -> Optional[DeltaRegion]:
+        """Synchronously build and register a delta region. Idempotent; a
+        delta built against a narrower base is rebuilt with the wider
+        column set."""
+        want = [c for c in host_columns if c in table.columns]
+        existing = self.delta_for(table, appended, want, deleted_ids, conf)
+        if existing is not None:
+            return existing
+        delta, _ = self._build_delta(table, appended, relation, host_columns, deleted_ids,
+                                     conf)
+        if delta is None or not self._register_delta(delta, _budget_bytes(conf)):
+            return None
+        return delta
+
+    def note_touch_delta(
+        self, table: ResidentTable, appended, relation, host_columns, deleted_ids,
+        conf: ResidencyConf = ResidencyConf(),
+    ) -> None:
+        """First-touch delta population: a background upload of the
+        appended files' predicate columns and the deletion mask, so repeat
+        hybrid queries take the K1h path. Never blocks; no row floor (a
+        delta is small, and its base being resident shows the table is
+        worth the device). A device error is kept for the query thread."""
+        if not _auto_enabled(conf, table.device) or not appended:
+            return
+        dkey = delta_snapshot_key(appended)
+        dels = tuple(sorted(int(i) for i in deleted_ids))
+        want = {c for c in host_columns if c in table.columns}
+        memo = ("delta", table.key, dkey, dels)
+        with self._lock:
+            if memo in self._pending or memo in self._failed:
+                return
+            if any(d.base_key == table.key and d.key == dkey and d.deleted_ids == dels
+                   and want <= set(d.columns) for d in self._deltas):
+                return
+            self._pending.add(memo)
+            epoch = self._epoch
+
+        def bg():
+            failed = False
+            try:
+                if table.device.type == "cuda":
+                    torch.cuda.set_device(table.device)
+                delta, permanent = self._build_delta(
+                    table, appended, relation, host_columns, deleted_ids, conf
+                )
+                if delta is not None:
+                    self._register_delta(delta, _budget_bytes(conf), epoch=epoch)
+                    # a delta that could not encode part of ``want`` never
+                    # will for this epoch: no rebuild on every query
+                    failed = not want <= set(delta.columns)
+                else:
+                    failed = permanent
+            except OSError:  # an appended file vanished: skip
+                metrics.incr("hbm.delta.read_error")
+            except Exception as e:  # noqa: BLE001 - kept, raised on the query thread
+                metrics.incr("hbm.delta.populate_failed")
+                with self._lock:
+                    if epoch == self._epoch and self._bg_error is None:
+                        self._bg_error = e
+            finally:
+                with self._lock:
+                    self._pending.discard(memo)
+                    if failed:
+                        if len(self._failed) >= _MAX_FAILED_MEMO:
+                            self._failed.clear()
+                        self._failed.add(memo)
+
+        t = threading.Thread(target=bg, daemon=True, name="hbm-delta-populate")
+        self._track_for_exit(t)
+        t.start()
+
+    def _build_delta(
+        self, table: ResidentTable, appended, relation, host_columns, deleted_ids,
+        conf: ResidencyConf,
+    ) -> Tuple[Optional[DeltaRegion], bool]:
+        """(delta, permanent_refusal): one decode of the appended files
+        (what the host union pays per query), the base-covered predicate
+        columns encoded under the base's contracts and uploaded, and the
+        deletion mask from the base files' lineage column."""
+        from .. import constants as C
+        from ..storage import layout, parquet_io
+        from .delta import encode_delta_columns
+
+        if table.tier != "resident":
+            # K1h reads the base's raw planes: a compressed or streaming
+            # base cannot anchor a delta
+            metrics.incr("hbm.delta.declined.tier")
+            return None, True
+        t0 = time.perf_counter()
+        dels = tuple(sorted(int(i) for i in deleted_ids))
+        with self._lock:
+            headroom = _budget_bytes(conf) - sum(t.nbytes for t in self._tables)
+        # the appended files' sizes bound the decoded batch from below: with
+        # no headroom the build refuses before paying the decode
+        if sum(int(f.size) for f in appended) > headroom:
+            metrics.incr("hbm.delta.over_budget_refused")
+            return None, False
+        host_batch = parquet_io.read_relation(
+            relation, paths=[f.name for f in appended], columns=list(host_columns)
+        )
+        n_rows = host_batch.num_rows
+        if n_rows == 0:
+            return None, True
+        n_pad = -(-n_rows // BLOCK_ROWS) * BLOCK_ROWS
+        if dels:
+            # deletes without a readable lineage column can never serve
+            for path, _start, _n in table.files:
+                names = {m["name"] for m in layout.cached_reader(path).footer["columns"]}
+                if C.DATA_FILE_NAME_ID not in names:
+                    metrics.incr("hbm.delta.no_lineage_refused")
+                    return None, True
+        flats, encs, oov, planes, zones = encode_delta_columns(
+            host_batch, table.columns, with_zones=True
+        )
+        if not flats:
+            return None, True
+        host_bytes = batch_nbytes(host_batch)
+        oov_bytes = sum(vocab_heap_bytes(side) for side in oov.values())
+        mask_bytes = table.n_pad // 8 if dels else 0
+        dev_bytes = planes * n_pad * 4 + mask_bytes
+        with self._lock:
+            headroom = _budget_bytes(conf) - sum(t.nbytes for t in self._tables)
+        if dev_bytes + host_bytes + oov_bytes > headroom:
+            metrics.incr("hbm.delta.over_budget_refused")
+            return None, False
+        order = list(flats)
+        uploads: List[np.ndarray] = []
+        for name in order:
+            uploads.extend(flats[name] if encs[name][1] == "f64" else [flats[name]])
+        lengths = [n_pad] * len(uploads)
+        if dels:
+            t_mask = time.perf_counter()
+            uploads.append(K.pack_row_bitmask(self._lineage_mask(table, dels)))
+            lengths.append(table.n_pad // 32)
+            metrics.record_time("hbm.delta.lineage_mask", time.perf_counter() - t_mask)
+        device_planes = iter(_upload_planes(uploads, lengths, table.device))
+        cols: Dict[str, ResidentColumn] = {}
+        for name in order:
+            dtype_str, enc = encs[name]
+            data = next(device_planes)
+            data2 = next(device_planes) if enc == "f64" else None
+            vocab = table.columns[name].vocab if enc == "string" else None
+            cols[name] = ResidentColumn(data, dtype_str, enc,
+                                        n_pad * 4 * (2 if enc == "f64" else 1), vocab, data2)
+        del_mask = next(device_planes) if dels else None
+        metrics.incr("hbm.delta.h2d_bytes", dev_bytes)
+        metrics.record_time("hbm.delta.prefetch", time.perf_counter() - t0)
+        return DeltaRegion(delta_snapshot_key(appended), table.key, dels, n_rows, n_pad, cols,
+                           oov, host_batch, del_mask, zones,
+                           dev_bytes + host_bytes + oov_bytes), False
+
+    @staticmethod
+    def _lineage_mask(table: ResidentTable, dels: tuple) -> np.ndarray:
+        """bool over the base table's padded rows: True where the row's
+        lineage id is deleted (pad rows False; the host leg clips them
+        like every tail block). Reads ``_data_file_id`` of every base file
+        through the reader cache (timed as ``hbm.delta.lineage_mask``)."""
+        from .. import constants as C
+        from ..storage import layout
+
+        flat = np.zeros(table.n_pad, dtype=bool)
+        dels_arr = np.asarray(dels, dtype=np.int64)
+        for path, start, n in table.files:
+            vals = layout.cached_reader(path).read([C.DATA_FILE_NAME_ID]).columns[
+                C.DATA_FILE_NAME_ID].data
+            flat[start : start + n] = np.isin(np.asarray(vals, dtype=np.int64), dels_arr)
+        return flat
+
+    def hybrid_block_counts(
+        self, table: ResidentTable, delta: DeltaRegion, predicate: Expr
+    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """(base per-block counts, delta per-block counts) of ``predicate``
+        in one K1h launch (its plain version on the CPU), the deleted base
+        rows masked out on the device and one count vector copied home.
+        None when the predicate cannot ride the shared encodings (the
+        caller routes the host union)."""
+        from .delta import prepare_hybrid_predicate
+
+        prepared = prepare_hybrid_predicate(table.columns, delta.oov, predicate)
+        if prepared is None:
+            return None
+        narrowed, names = prepared
+        if any(n.split("\x00", 1)[0] not in delta.columns for n in names):
+            return None
+        bcols = resident_arrays_for(table.columns, names)
+        dcols = resident_arrays_for(delta.columns, names)
+        t0 = time.perf_counter()
+        counts = K.hybrid_block_counts_tensor(narrowed, names, bcols, dcols,
+                                              delta.del_mask).cpu().numpy()
+        metrics.record_time("scan.resident_hybrid.device", time.perf_counter() - t0)
+        metrics.incr("scan.resident.d2h_bytes", int(counts.nbytes))
+        nb_pad = table.n_pad // BLOCK_ROWS
+        nb = -(-table.n_rows // BLOCK_ROWS)
+        nd = -(-delta.n_rows // BLOCK_ROWS)
+        return counts[:nb], counts[nb_pad : nb_pad + nd]
+
+    def delta_parts(
+        self, delta: DeltaRegion, predicate: Expr, output_columns, counts: np.ndarray
+    ) -> List[ColumnarBatch]:
+        """The delta's exact host leg: only the blocks the device counted
+        matches in, sliced out of the decoded appended rows, the predicate
+        re-evaluated there, projected. No source file is read."""
+        from .delta import blocks_to_runs
+
+        cand = np.flatnonzero(counts)
+        metrics.incr("scan.resident.delta_blocks_touched", int(cand.size))
+        metrics.incr("scan.resident.delta_blocks_total", int(len(counts)))
+        parts = []
+        for lo, hi in blocks_to_runs(cand, BLOCK_ROWS, delta.n_rows):
+            sub = delta.host_batch.take(np.arange(lo, hi))
+            idx = np.flatnonzero(eval_mask(predicate, sub))
+            if idx.size:
+                parts.append(sub.take(idx).select(list(output_columns)))
+        return parts
 
 
 hbm_cache = HbmIndexCache()

@@ -17,7 +17,8 @@ query:
 
 When the index version's predicate columns are resident on the device
 (exec.hbm_cache), steps 3-5 give way to the resident protocol: one K1c
-launch counts matches per 8192-row block over the whole table, and the
+launch (K1p over packed planes, one launch a window on the streaming
+tier) counts matches per 8192-row block over the whole table, and the
 host reads, re-evaluates exactly and gathers only the blocks that hold
 matches (``_resident_parts``). A zone-map gate routes predicates that
 cannot prune blocks to the per-file path first; a miss schedules the
@@ -127,16 +128,19 @@ def _resident_parts(
     output_columns: List[str],
     predicate: Expr,
     counts: np.ndarray,
+    path_metric: Optional[str] = "scan.path.resident_device",
 ) -> List[ColumnarBatch]:
     """The result batches of a resident scan: the host reads ONLY the
     8192-row blocks the device counted matches in (pad rows past a file's
     end are never read), re-evaluates the predicate exactly there, and
     gathers the output columns from mmap. Parts come back in ``files``
-    order, the per-file path's output order."""
+    order, the per-file path's output order. ``path_metric`` names the
+    tier that served (None: the hybrid path counts its own)."""
     from .hbm_cache import BLOCK_ROWS
 
     candid = np.flatnonzero(counts)
-    metrics.incr("scan.path.resident_device")
+    if path_metric is not None:
+        metrics.incr(path_metric)
     metrics.incr("scan.resident.blocks_touched", int(len(candid)))
     metrics.incr("scan.resident.blocks_total", int(len(counts)))
     if candid.size == 0:
@@ -206,7 +210,17 @@ def _resident_scan(
     if counts is None:
         metrics.incr("scan.resident.declined")
         return None
-    return _resident_parts(table, files, output_columns, predicate, counts)
+    # the path metric names the tier that served: raw planes, packed
+    # planes (K1p), or the window loop
+    return _resident_parts(table, files, output_columns, predicate, counts,
+                           path_metric=_TIER_PATH_METRIC[table.tier])
+
+
+_TIER_PATH_METRIC = {
+    "resident": "scan.path.resident_device",
+    "compressed": "scan.path.resident_compressed",
+    "streaming": "scan.path.resident_streaming",
+}
 
 
 def empty_batch_for(output_columns, dtypes) -> Optional[ColumnarBatch]:

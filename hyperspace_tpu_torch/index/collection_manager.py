@@ -6,13 +6,15 @@ and CachingIndexCollectionManager.scala:38-106 (a TTL cache over the
 index listing that every mutating verb clears), plus ``prefetch`` (HBM
 residency, a verb the reference package added).
 
-The reference also drops, after a verb that rewrites or removes index
-data, caches this package does not have yet; they come with items of
-ROADMAP.md's queue A: resident deltas, resident join regions and the
-mesh cache (item 7, residency), and compiled pipelines
-with their memoized results (item 8, compiler and serving). The resident
-tables this package keeps are keyed by file identity, so a new version
-never reads an old one's planes.
+A full or incremental refresh and an optimize drop this index's resident
+deltas (``_invalidate_resident_deltas``): the new version's file
+identities change their base keys, so they could never serve again. A
+quick refresh changes no index file and keeps them. The reference also
+drops caches this package does not have yet; they come with items of
+ROADMAP.md's queue A: resident join regions and the mesh cache
+(residency), and compiled pipelines with their memoized results
+(compiler and serving). The resident tables this package keeps are keyed
+by file identity, so a new version never reads an old one's planes.
 """
 
 from __future__ import annotations
@@ -41,6 +43,15 @@ from .data_manager import IndexDataManagerImpl
 from .log_manager import IndexLogManagerImpl
 from .path_resolver import PathResolver
 from .stats import IndexStatistics
+
+
+def _invalidate_resident_deltas(index_root) -> None:
+    """Drop the resident delta regions whose base lies under this index's
+    directory, after a verb that rewrote its data (the other indexes'
+    deltas stay)."""
+    from ..exec.hbm_cache import hbm_cache
+
+    hbm_cache.invalidate_deltas(str(index_root))
 
 
 class IndexCollectionManager:
@@ -118,9 +129,14 @@ class IndexCollectionManager:
             return
         if mode == C.REFRESH_MODE_FULL:
             RefreshAction(self.session, mgr, data).run()
+            _invalidate_resident_deltas(self.path_resolver.get_index_path(name))
         elif mode == C.REFRESH_MODE_INCREMENTAL:
             RefreshIncrementalAction(self.session, mgr, data).run()
+            _invalidate_resident_deltas(self.path_resolver.get_index_path(name))
         elif mode == C.REFRESH_MODE_QUICK:
+            # no invalidation: a quick refresh records the source delta in
+            # the log and changes no index file, so the resident delta's
+            # (base key, appended snapshot) still matches and keeps serving
             RefreshQuickAction(self.session, mgr, data).run()
         else:
             raise HyperspaceException(
@@ -138,6 +154,7 @@ class IndexCollectionManager:
         OptimizeAction(
             self.session, self._existing_log_manager(name), self._data_manager(name), mode
         ).run()
+        _invalidate_resident_deltas(self.path_resolver.get_index_path(name))
 
     def cancel(self, name: str) -> None:
         CancelAction(

@@ -64,3 +64,17 @@ def fence(device: Optional[torch.device] = None) -> None:
     dev = torch.device("cuda") if device is None else torch.device(device)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+# the kernels' launch-count names, and the entry points of the residency
+# tiers' kernels (K1p: packed planes; K1h: base + delta)
+from .kernels import (  # noqa: E402,F401
+    K1,
+    K1C,
+    K1H,
+    K1P,
+    K2,
+    K2F,
+    hybrid_block_counts_tensor,
+    predicate_block_counts_packed_tensor,
+)

@@ -10,7 +10,11 @@ become CUDA C++ for Hopper (``csrc/``):
    kernel interprets once per 32 rows, so one build serves every
    predicate. Its second entry, K1c (``predicate_block_counts_tensor``),
    fuses a match count per 8192-row block for the HBM-resident scan
-   (``exec/hbm_cache.py``).
+   (``exec/hbm_cache.py``); K1p (``predicate_block_counts_packed_tensor``)
+   is K1c over bit-packed planes, decoded in registers (the compressed and
+   streaming tiers), and K1h (``hybrid_block_counts_tensor``) K1c over a
+   resident base with deleted rows masked out and an appended delta, in
+   one launch (delta residency).
 2. **Sorted-intersection join counts** (``sorted_intersect_counts`` →
    ``csrc/sorted_intersect.cu``, replacing ``_build_smj_call``): for each
    left key against ascending right keys, (#right < key, #right == key) —
@@ -31,7 +35,8 @@ reference, so both packages accept and decline exactly the same inputs
 Each tensor-level wrapper decides by the device its tensors lie on: a CPU
 tensor goes to the plain torch version beside the kernel
 (``predicate_mask_reference``, ``predicate_block_counts_reference``,
-``sorted_intersect_counts_reference``); a
+``predicate_block_counts_packed_reference``,
+``hybrid_block_counts_reference``, ``sorted_intersect_counts_reference``); a
 CUDA tensor launches the kernel or raises. There is no fallback from a
 failed launch. The kernels build with ``nvcc`` for ``sm_90a`` on first use
 into ``hyperspace_tpu_torch/_build/`` and load through ``ctypes``.
@@ -71,6 +76,8 @@ SMJ_MAX_SPAN_TILES = 64
 
 K1 = "predicate_mask"
 K1C = "predicate_block_counts"  # K1's block-count entry, same source
+K1P = "predicate_block_counts_packed"  # K1c over bit-packed planes, same source
+K1H = "hybrid_block_counts"  # K1c over base + delta planes, same source
 K2 = "sorted_intersect"
 K2F = "sorted_intersect_fences"  # K2's fence-array entry, same source
 BLOCK_ROWS = 8192  # K1c's count granularity (the resident scan's block)
@@ -155,9 +162,12 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
                         f"{lib.hs_predicate_param_bytes()} bytes; ops/kernels.py "
                         f"packs {_PARAM_DTYPE.itemsize}."
                     )
-                for entry in (lib.hs_predicate_mask, lib.hs_predicate_block_counts):
+                for entry in (lib.hs_predicate_mask, lib.hs_predicate_block_counts,
+                              lib.hs_predicate_block_counts_packed):
                     entry.argtypes = [ctypes.c_char_p, vp]
                     entry.restype = ci
+                lib.hs_hybrid_block_counts.argtypes = [ctypes.c_char_p, ctypes.c_char_p, vp]
+                lib.hs_hybrid_block_counts.restype = ci
             else:
                 lib.hs_sorted_intersect_fences.argtypes = [vp, ll, vp, vp]
                 lib.hs_sorted_intersect_fences.restype = ci
@@ -309,7 +319,7 @@ def narrow_arrays_to_i32(
 # ---------------------------------------------------------------------------
 # Kernel 1: predicate mask
 # ---------------------------------------------------------------------------
-OP_CMP_LIT, OP_CMP_COL, OP_AND, OP_OR, OP_NOT = range(5)
+OP_CMP_LIT, OP_CMP_COL, OP_AND, OP_OR, OP_NOT, OP_PACK = range(6)
 _CMP_CODE = {"eq": 0, "ne": 1, "lt": 2, "le": 3, "gt": 4, "ge": 5}
 _SWAP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq", "ne": "ne"}
 
@@ -457,10 +467,14 @@ class K1Program:
     addresses filled in. A program longer than ``K1_MAX_PARAM_INSTR`` is
     staged: it is copied to each card once (``on_device``) and every CTA
     loads it into shared memory. One that fits neither the parameter block
-    nor shared memory raises. A program over more than ``K1_MAX_COLS``
-    columns takes its addresses from a device array (``col_table``)."""
+    nor shared memory raises. A launch over more than ``K1_MAX_COLS``
+    column addresses takes them from a device array (``col_table``).
 
-    def __init__(self, prog: np.ndarray, n_cols: int):
+    ``header`` (K1p) is one descriptor per column, ``(OP_PACK, bits, vpw,
+    ref0)``, sent ahead of the program (``code``); ``prog`` is the program
+    alone."""
+
+    def __init__(self, prog: np.ndarray, n_cols: int, header: Optional[np.ndarray] = None):
         prog = np.ascontiguousarray(prog, dtype=np.int32).reshape(-1, 4)
         if n_cols < 1:
             raise HyperspaceException("Mask kernel: a program over no columns.")
@@ -471,18 +485,25 @@ class K1Program:
         self.prog = prog
         self.n_cols = n_cols
         self.depth = program_depth(prog)
-        smem = k1_smem_bytes(len(prog), self.depth, K1C_THREADS)
+        if header is not None:
+            header = np.ascontiguousarray(header, dtype=np.int32).reshape(-1, 4)
+            if len(header) != n_cols or (header[:, 0] != OP_PACK).any():
+                raise HyperspaceException("Mask kernel: one OP_PACK descriptor per column.")
+            self.code = np.concatenate([header, prog])
+        else:
+            self.code = prog
+        smem = k1_smem_bytes(len(self.code), self.depth, K1C_THREADS)
         if smem > K1_MAX_SMEM:
             raise HyperspaceException(
-                f"Mask-kernel program of {len(prog)} instructions fits neither the "
+                f"Mask-kernel program of {len(self.code)} instructions fits neither the "
                 f"parameter block ({K1_MAX_PARAM_INSTR}) nor shared memory "
                 f"({smem} > {K1_MAX_SMEM} bytes)."
             )
-        self.staged = len(prog) > K1_MAX_PARAM_INSTR
+        self.staged = len(self.code) > K1_MAX_PARAM_INSTR
         rec = np.zeros(1, dtype=_PARAM_DTYPE)
         if not self.staged:
-            rec["prog"][0, : len(prog)] = prog
-        rec["n_cols"], rec["n_instr"], rec["depth"] = n_cols, len(prog), self.depth
+            rec["prog"][0, : len(self.code)] = self.code
+        rec["n_cols"], rec["n_instr"], rec["depth"] = n_cols, len(self.code), self.depth
         self.template = rec.tobytes()
         self._on_device: Dict[torch.device, torch.Tensor] = {}
 
@@ -490,21 +511,23 @@ class K1Program:
         """The staged program on ``dev``, copied there on first use."""
         t = self._on_device.get(dev)
         if t is None:
-            t = self._on_device[dev] = torch.from_numpy(self.prog.copy()).to(dev)
+            t = self._on_device[dev] = torch.from_numpy(self.code.copy()).to(dev)
         return t
 
     def params(self, addrs: List[int], n_rows: int, out_addr: int, staged_addr: int = 0,
-               table_addr: int = 0) -> bytes:
-        """The launch's parameter block, as the kernel reads it. Over
-        ``K1_MAX_COLS`` columns, ``table_addr`` is a device array of
+               table_addr: int = 0, sides: int = 1) -> bytes:
+        """The launch's parameter block, as the kernel reads it: ``sides``
+        (2 for K1h: base, then delta) times ``n_cols`` addresses. Over
+        ``K1_MAX_COLS`` addresses, ``table_addr`` is a device array of
         ``addrs`` (``col_table``) and the block holds no address."""
-        if len(addrs) != self.n_cols:
+        if len(addrs) != sides * self.n_cols:
             raise HyperspaceException(
-                f"Mask kernel: {len(addrs)} columns for a program over {self.n_cols}."
+                f"Mask kernel: {len(addrs)} columns for a program over {self.n_cols}"
+                + (f" on each of {sides} sides." if sides > 1 else ".")
             )
         if self.staged != bool(staged_addr):
             raise HyperspaceException("Mask kernel: staged address does not match the program.")
-        if (self.n_cols > K1_MAX_COLS) != bool(table_addr):
+        if (len(addrs) > K1_MAX_COLS) != bool(table_addr):
             raise HyperspaceException(
                 "Mask kernel: an address table goes with, and only with, more than "
                 f"{K1_MAX_COLS} columns."
@@ -563,22 +586,30 @@ def k1_column_addrs(cols: List[torch.Tensor], what: str) -> List[int]:
     return addrs
 
 
-def _launch_k1(entry: str, what: str, program: K1Program, cols, n: int, out) -> None:
+def _launch_k1(entry: str, what: str, program: K1Program, cols, n: int, out,
+               addrs: Optional[List[int]] = None, extra: Optional[bytes] = None) -> None:
+    """Launch one of K1's entries. ``addrs`` defaults to the checked
+    addresses of equal-length ``cols`` (K1p and K1h check their own);
+    ``extra`` is K1h's second parameter block."""
     for t in cols:
         _check_cuda(t, torch.int32, what)
     dev = cols[0].device
     staged = program.on_device(dev).data_ptr() if program.staged else 0
-    addrs = k1_column_addrs(cols, what)
+    if addrs is None:
+        addrs = k1_column_addrs(cols, what)
     table = None
     if len(addrs) > K1_MAX_COLS:
         # more addresses than the parameters hold: a device array for this
         # launch (freed after it, stream-ordered, by the caching allocator)
         table = torch.tensor(addrs, dtype=torch.int64).to(dev)
     params = program.params(addrs, n, out.data_ptr(), staged,
-                            0 if table is None else table.data_ptr())
+                            0 if table is None else table.data_ptr(),
+                            sides=len(addrs) // program.n_cols)
     if n == 0:  # nothing to launch, and so nothing to count
         return
-    rc = getattr(_lib(K1), entry)(params, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = getattr(_lib(K1), entry)
+    rc = fn(params, stream) if extra is None else fn(params, extra, stream)
     _check_launch(rc, what)
     count_launch(what)
 
@@ -651,6 +682,165 @@ def predicate_block_counts_tensor(
     if cols[0].device.type == "cpu":
         return predicate_block_counts_reference(bound, names, cols)
     return program_block_counts_tensor(lowered_predicate(bound, names), cols)
+
+
+# ---------------------------------------------------------------------------
+# K1p: K1c over bit-packed planes (the compressed and streaming tiers)
+# ---------------------------------------------------------------------------
+def _pack_descriptor(spec) -> Tuple[int, int, int, int]:
+    """K1p's descriptor of one column: ``(OP_PACK, bits, vpw, ref0)``, vpw
+    1 for a raw plane (``spec`` None)."""
+    if spec is None:
+        return (OP_PACK, 0, 1, 0)
+    if spec.block or spec.vpw not in (2, 4, 8, 16, 32) or not 1 <= spec.bits <= 16 \
+            or spec.vpw * spec.bits > 32 or not _fits_i32(spec.ref0):
+        raise HyperspaceException(f"{K1P}: cannot decode {spec} in the kernel.")
+    return (OP_PACK, spec.bits, spec.vpw, spec.ref0)
+
+
+_PACKED: "OrderedDict[tuple, K1Program]" = OrderedDict()
+
+
+def packed_program(bound: Expr, names: Tuple[str, ...], specs) -> K1Program:
+    """``lowered_predicate`` with K1p's column descriptors ahead of the
+    program, cached by ``(repr(bound), names, descriptors)``."""
+    header = tuple(_pack_descriptor(s) for s in specs)
+    key = (repr(bound), tuple(names), header)
+    with _LOWERED_LOCK:
+        hit = _PACKED.get(key)
+        if hit is not None:
+            _PACKED.move_to_end(key)
+            return hit
+    program = K1Program(lower_predicate(bound, names), len(names),
+                        np.array(header, dtype=np.int32))
+    with _LOWERED_LOCK:
+        _PACKED[key] = program
+        while len(_PACKED) > _LOWER_CACHE_SIZE:
+            _PACKED.popitem(last=False)
+    return program
+
+
+def predicate_block_counts_packed_reference(
+    bound: Expr, names: Tuple[str, ...], cols: List[torch.Tensor], specs, n_rows: int
+) -> torch.Tensor:
+    """Plain version of K1p: each packed plane decoded
+    (``bitpack.unpack_plain_torch``), then K1c's plain version."""
+    import dataclasses
+
+    from .bitpack import unpack_plain_torch
+
+    flat = [c if s is None else unpack_plain_torch(c, dataclasses.replace(s, n=n_rows))
+            for c, s in zip(cols, specs)]
+    return predicate_block_counts_reference(bound, names, flat)
+
+
+def _check_packed(cols: List[torch.Tensor], specs, n_rows: int) -> List[int]:
+    """The addresses of K1p's columns, checked: a raw plane holds
+    ``n_rows`` values and starts on 16 bytes, a packed one ``n_rows / vpw``
+    words and starts on 8."""
+    if n_rows % BLOCK_ROWS:
+        raise HyperspaceException(f"{K1P}: {n_rows} rows is not a multiple of {BLOCK_ROWS}.")
+    addrs = []
+    for t, s in zip(cols, specs):
+        want = n_rows if s is None else n_rows // s.vpw
+        if t.dim() != 1 or int(t.shape[0]) != want:
+            raise HyperspaceException(f"{K1P}: a plane of {tuple(t.shape)} where {want} belong.")
+        if t.data_ptr() % (16 if s is None else 8):
+            raise HyperspaceException(f"{K1P}: plane at {t.data_ptr():#x} is misaligned.")
+        addrs.append(t.data_ptr())
+    return addrs
+
+
+def predicate_block_counts_packed_tensor(
+    bound: Expr, names: Tuple[str, ...], cols: List[torch.Tensor], specs, n_rows: int
+) -> torch.Tensor:
+    """int32 match count per ``BLOCK_ROWS`` rows of ``n_rows`` rows whose
+    planes are raw int32 (``specs[i]`` None) or plain-packed words under
+    ``specs[i]`` (``ops/bitpack.py``: only bits, vpw and ref0 are read).
+    CPU tensors take the plain version; CUDA tensors launch K1p."""
+    specs = list(specs)
+    if len(specs) != len(cols) or len(cols) != len(names):
+        raise HyperspaceException(f"{K1P}: one spec per plane and one plane per name.")
+    addrs = _check_packed(cols, specs, n_rows)
+    if cols[0].device.type == "cpu":
+        return predicate_block_counts_packed_reference(bound, names, cols, specs, n_rows)
+    counts = torch.empty(n_rows // BLOCK_ROWS, dtype=torch.int32, device=cols[0].device)
+    _launch_k1("hs_predicate_block_counts_packed", K1P, packed_program(bound, names, specs),
+               cols, n_rows, counts, addrs=addrs)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# K1h: K1c over a resident base with deleted rows masked out, then over an
+# appended delta, in one launch (delta residency)
+# ---------------------------------------------------------------------------
+def pack_row_bitmask(rows: np.ndarray) -> np.ndarray:
+    """K1h's deletion mask: a 0/1 vector over a multiple of ``BLOCK_ROWS``
+    rows as int32 words, one bit a row, in the order K1h's threads read
+    them: row ``b*8192 + w*1024 + k*128 + l*4 + j`` is bit ``4k + j`` of
+    word ``b*256 + w*32 + l`` (the 32 rows the kernel's thread ``w*32 + l``
+    owns in block ``b``)."""
+    rows = np.asarray(rows).astype(bool)
+    if rows.size % BLOCK_ROWS:
+        raise HyperspaceException(f"{K1H}: {rows.size} rows is not a multiple of {BLOCK_ROWS}.")
+    bits = rows.reshape(-1, 8, 8, 32, 4).transpose(0, 1, 3, 2, 4).reshape(-1, 32)
+    return np.packbits(bits, axis=1, bitorder="little").view("<u4").reshape(-1).view(np.int32)
+
+
+def unpack_row_bitmask(words: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """``pack_row_bitmask``'s inverse in torch: bool (n_rows,)."""
+    u = words.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+    bits = (u[:, None] >> torch.arange(32, device=words.device)) & 1
+    return bits.view(-1, 8, 32, 8, 4).permute(0, 1, 3, 2, 4).reshape(-1)[:n_rows].bool()
+
+
+def hybrid_block_counts_reference(
+    bound: Expr,
+    names: Tuple[str, ...],
+    base_cols: List[torch.Tensor],
+    delta_cols: List[torch.Tensor],
+    del_words: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of K1h: K1's plain mask over the base with deleted
+    rows cleared, summed per block, then K1c's plain version over the
+    delta, concatenated."""
+    mb = predicate_mask_reference(bound, names, base_cols)
+    if del_words is not None:
+        mb = mb & ~unpack_row_bitmask(del_words, mb.shape[0])
+    cb = mb.view(-1, BLOCK_ROWS).sum(1, dtype=torch.int32)
+    return torch.cat([cb, predicate_block_counts_reference(bound, names, delta_cols)])
+
+
+def hybrid_block_counts_tensor(
+    bound: Expr,
+    names: Tuple[str, ...],
+    base_cols: List[torch.Tensor],
+    delta_cols: List[torch.Tensor],
+    del_words: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """int32 match counts of the narrowed predicate per ``BLOCK_ROWS`` rows
+    of the base planes, the rows set in ``del_words`` (``pack_row_bitmask``
+    over the base rows) not counted, then of the delta planes: one vector,
+    the base blocks first. Both sides are raw int32 planes, each side's
+    length a multiple of ``BLOCK_ROWS``. CPU tensors take the plain
+    version; CUDA tensors launch K1h."""
+    n_base, n_delta = _check_blocked(base_cols), _check_blocked(delta_cols)
+    if del_words is not None and int(del_words.shape[0]) * 32 != n_base:
+        raise HyperspaceException(f"{K1H}: a deletion mask of {del_words.shape[0]} words "
+                                  f"for {n_base} base rows.")
+    if base_cols[0].device.type == "cpu":
+        return hybrid_block_counts_reference(bound, names, base_cols, delta_cols, del_words)
+    if del_words is not None:
+        _check_cuda(del_words, torch.int32, K1H)
+    program = lowered_predicate(bound, names)
+    addrs = k1_column_addrs(base_cols, K1H) + k1_column_addrs(delta_cols, K1H)
+    n = n_base + n_delta
+    counts = torch.empty(n // BLOCK_ROWS, dtype=torch.int32, device=base_cols[0].device)
+    extra = struct.pack("<qq", 0 if del_words is None else del_words.data_ptr(),
+                        n_base // BLOCK_ROWS)
+    _launch_k1("hs_hybrid_block_counts", K1H, program, list(base_cols) + list(delta_cols),
+               n, counts, addrs=addrs, extra=extra)
+    return counts
 
 
 def prepare_predicate(

@@ -149,8 +149,8 @@ def transform_plan_to_use_hybrid_scan(
 # ---------------------------------------------------------------------------
 # Delta-residency plumbing: expose the hybrid union's appended/deleted file
 # sets to the scan layer. The rule above OWNS the union's shape, so the one
-# recognizer lives here beside it. The executor does not call it yet: it
-# runs every union side by side until delta residency is ported.
+# recognizer lives here beside it; the executor's delta-resident arm
+# (exec/executor.py:_try_resident_hybrid) reads it.
 # ---------------------------------------------------------------------------
 
 

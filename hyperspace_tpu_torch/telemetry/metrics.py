@@ -13,7 +13,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 
 class Metrics:
@@ -65,3 +65,30 @@ class Metrics:
 
 
 metrics = Metrics()
+
+
+def residency_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
+    """The tier ladder's counters in one dict: which tier served scans,
+    what bit-packing bought (packed against raw bytes), and the streaming
+    loop's windows, uploads, prefetch hits and stalls. The reference's
+    mesh keys are left out with the mesh, and its window-failure count
+    with its host recovery (a failed window raises here)."""
+    r = registry if registry is not None else metrics
+    raw = r.get("residency.compressed.raw_bytes")
+    packed = r.get("residency.compressed.packed_bytes")
+    out: Dict[str, object] = {
+        "scans_resident": r.get("scan.path.resident_device"),
+        "scans_compressed": r.get("scan.path.resident_compressed"),
+        "scans_streaming": r.get("scan.path.resident_streaming"),
+        "compressed_tables_built": r.get("residency.tier.compressed_built"),
+        "streaming_tables_built": r.get("residency.tier.streaming_built"),
+        "compressed_raw_bytes": raw,
+        "compressed_packed_bytes": packed,
+        "stream_windows": r.get("residency.stream.windows"),
+        "stream_prefetch_hit": r.get("residency.stream.prefetch_hit"),
+        "stream_prefetch_stall": r.get("residency.stream.prefetch_stall"),
+        "stream_h2d_bytes": r.get("residency.stream.h2d_bytes"),
+    }
+    if packed:
+        out["effective_capacity_x"] = round(raw / packed, 2)
+    return out

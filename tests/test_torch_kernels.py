@@ -837,3 +837,228 @@ def test_cuda_k1_long_not_in_program_matches_plain_version():
         got = tk.predicate_mask(pred, arrs, n, device="cuda")
         assert np.array_equal(got, want) and 0 < want.sum() < n
     assert launch_counts() == {tk.K1: 2}
+
+
+# ---------------------------------------------------------------------------
+# K1p (packed planes) and K1h (base + delta): plain versions on the CPU
+# against the reference's XLA programs, and on a card against the kernels
+# ---------------------------------------------------------------------------
+def _packed_planes(n, seed, widths=(1, 3, 6, 12, 16)):
+    """One plain-packed plane per width (vpw 32, 8, 4, 2, 2), frames with
+    negative ``ref0``, plus a raw plane; values are numpy int64."""
+    from hyperspace_tpu_torch.ops import bitpack as tb
+
+    rng = np.random.default_rng(seed)
+    vals, words, specs = {}, {}, {}
+    for b in widths:
+        lo = -int(rng.integers(0, 3000))
+        v = rng.integers(lo, lo + (1 << b), n).astype(np.int64)
+        spec = tb.pack_spec(lo, lo + (1 << b) - 1, n)
+        name = f"p{b:02d}"
+        vals[name], words[name], specs[name] = v, tb.pack_plain(v, spec), spec
+    vals["r"] = rng.integers(-1000, 1000, n).astype(np.int64)
+    words["r"], specs["r"] = vals["r"].astype(np.int32), None
+    return vals, words, specs
+
+
+def _packed_preds(m, vals):
+    c = m.col
+    return [
+        (c("p01") == 1) & (c("p06") >= int(np.median(vals["p06"]))),
+        # literals below and above every frame
+        (c("p03") < -5000) | (c("p12") > 10**6) | (c("p16") == int(vals["p16"][7])),
+        m.is_in(c("p06"), [int(x) for x in vals["p06"][:40]]) & ~(c("r") > 0),
+        (c("p12") < c("p16")) & (c("r") <= 100) & (c("p03") != int(vals["p03"][0])),
+    ]
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_packed_block_counts_plain_version_matches_reference(i):
+    """K1p's plain version (``unpack_plain_torch`` then K1c's plain
+    version) against the reference's compressed arm of ``_counts_fn``
+    (``_flatten_operands`` through ``unpack_plain_jnp``), over a table
+    whose rows end mid-word: the pad rows decode to ``ref0`` on both
+    sides."""
+    from hyperspace_tpu.exec import hbm_cache as jh
+    from hyperspace_tpu.ops import bitpack as jb
+
+    n_pad, n_real = 32768, 32768 - 4097
+    vals, _w, specs = _packed_planes(n_real, i)
+    names = tuple(sorted(vals))
+    host, jspecs = {}, {}
+    for nm in names:
+        s = specs[nm]
+        if s is None:
+            host[nm] = np.zeros(n_pad, dtype=np.int32)
+            host[nm][:n_real] = vals[nm]
+            jspecs[nm] = None
+            continue
+        padded = np.full(n_pad, s.ref0, dtype=np.int64)
+        padded[:n_real] = vals[nm]
+        specs[nm] = type(s)(s.bits, s.vpw, n_pad, s.ref0)
+        jspecs[nm] = jb.pack_spec(s.ref0, s.ref0 + (1 << s.bits) - 1, n_pad)
+        host[nm] = jb.pack_plain(padded, jspecs[nm])
+    jn = jk.narrow_expr_to_i32(_packed_preds(jexpr, vals)[i])
+    tn = tk.narrow_expr_to_i32(_packed_preds(texpr, vals)[i])
+    used = tuple(sorted(tn.columns()))
+    fn = jh._counts_fn(jn, used, n_pad // jk.LANES, False, tuple(jspecs[u] for u in used))
+    with jk._x32():
+        want = np.asarray(fn([host[u] if jspecs[u] else host[u].reshape(-1, jk.LANES)
+                              for u in used]))
+    reset_launch_counts()
+    got = tk.predicate_block_counts_packed_tensor(
+        tn, used, [torch.from_numpy(host[u]) for u in used], [specs[u] for u in used], n_pad)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert launch_counts() == {}
+    # the real rows' matches, from numpy, are all counted
+    from hyperspace_tpu.storage.columnar import Column, ColumnarBatch
+
+    batch = ColumnarBatch({k: Column("int64", v) for k, v in vals.items()})
+    mask = np.asarray(jexpr.eval_mask(_packed_preds(jexpr, vals)[i], batch))
+    assert int(got.sum()) >= int(mask.sum())
+
+
+def test_packed_program_descriptors_and_checks():
+    from hyperspace_tpu_torch.ops import bitpack as tb
+
+    spec = tb.pack_spec(-7, 20, 8192)
+    pred = (texpr.col("a") > 3) & (texpr.col("b") < 9)
+    prog = tk.packed_program(pred, ("a", "b"), [spec, None])
+    assert prog.code[:2].tolist() == [[tk.OP_PACK, 5, 4, -7], [tk.OP_PACK, 0, 1, 0]]
+    assert np.array_equal(prog.code[2:], tk.lower_predicate(pred, ("a", "b")))
+    assert prog.n_cols == 2 and not prog.staged
+    assert tk.packed_program(pred, ("a", "b"), [spec, None]) is prog  # cached
+    # 239 instructions fit the parameters, but not with their 2 descriptors
+    chain = texpr.is_in(texpr.col("a"), list(range(120)))
+    narrowed = tk.narrow_expr_to_i32(chain & (texpr.col("b") < 9))
+    assert len(tk.lower_predicate(narrowed, ("a", "b"))) == 241
+    assert tk.packed_program(narrowed, ("a", "b"), [spec, None]).staged
+    words = torch.from_numpy(tb.pack_plain(np.zeros(8192, dtype=np.int64) - 7, spec))
+    raw = torch.zeros(8192, dtype=torch.int32)
+    with pytest.raises(HyperspaceException, match="where 2048 belong"):
+        tk.predicate_block_counts_packed_tensor(pred, ("a", "b"), [words[:-1], raw],
+                                                [spec, None], 8192)
+    with pytest.raises(HyperspaceException, match="multiple of 8192"):
+        tk.predicate_block_counts_packed_tensor(pred, ("a", "b"), [words, raw],
+                                                [spec, None], 4096)
+    with pytest.raises(HyperspaceException, match="cannot decode"):
+        tk._pack_descriptor(tb.PackSpec(bits=5, vpw=4, n=8192, block=128))
+    with pytest.raises(HyperspaceException, match="OP_PACK"):
+        tk.K1Program(tk.lower_predicate(pred, ("a", "b")), 2, np.zeros((1, 4), np.int32))
+
+
+def test_row_bitmask_layout():
+    """Row r = b*8192 + w*1024 + k*128 + l*4 + j is bit 4k + j of word
+    b*256 + w*32 + l: the 32 rows K1h's thread w*32 + l owns in block b."""
+    rng = np.random.default_rng(5)
+    rows = rng.random(3 * tk.BLOCK_ROWS) < 0.4
+    words = tk.pack_row_bitmask(rows)
+    assert words.dtype == np.int32 and words.shape == (3 * tk.BLOCK_ROWS // 32,)
+    u = words.view(np.uint32)
+    for r in rng.choice(len(rows), 500, replace=False).tolist() + [0, len(rows) - 1]:
+        b, w, k, lane, j = (r // 8192, r % 8192 // 1024, r % 1024 // 128, r % 128 // 4, r % 4)
+        bit = (int(u[b * 256 + w * 32 + lane]) >> (4 * k + j)) & 1
+        assert bit == int(rows[r]), r
+    back = tk.unpack_row_bitmask(torch.from_numpy(words), len(rows)).numpy()
+    assert np.array_equal(back, rows)
+    with pytest.raises(HyperspaceException, match="multiple of 8192"):
+        tk.pack_row_bitmask(rows[:-1])
+
+
+@pytest.mark.parametrize("has_mask", [False, True])
+def test_hybrid_block_counts_plain_version_matches_reference(has_mask):
+    """K1h's plain version against the reference's ``_hybrid_counts_fn``
+    (base counts with the deleted rows' int32 0/1 plane applied, then the
+    delta's, one vector), the mask here one bit a row."""
+    from hyperspace_tpu.exec import hbm_cache as jh
+
+    rng = np.random.default_rng(11)
+    nb, nd = 3 * 32768, 32768
+    names = ("a", "b")
+    base = {c: rng.integers(-300, 300, nb).astype(np.int32) for c in names}
+    delta = {c: rng.integers(-300, 300, nd).astype(np.int32) for c in names}
+    deleted = (rng.random(nb) < 0.25).astype(np.int32)
+    for mk in (lambda m: (m.col("a") <= 10) & (m.col("b") > -30),
+               lambda m: m.is_in(m.col("a"), [1, 2, 3]) | ~(m.col("b") < 250)):
+        jn = jk.narrow_expr_to_i32(mk(jexpr))
+        fn = jh._hybrid_counts_fn(jn, names, nb // jk.LANES, nd // jk.LANES, has_mask)
+        args = [[base[c].reshape(-1, jk.LANES) for c in names],
+                [delta[c].reshape(-1, jk.LANES) for c in names]]
+        if has_mask:
+            args.append(deleted.reshape(-1, jk.LANES))
+        with jk._x32():
+            want = np.asarray(fn(*args))
+        mask = torch.from_numpy(tk.pack_row_bitmask(deleted)) if has_mask else None
+        got = tk.hybrid_block_counts_tensor(
+            tk.narrow_expr_to_i32(mk(texpr)), names, [torch.from_numpy(base[c]) for c in names],
+            [torch.from_numpy(delta[c]) for c in names], mask)
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    with pytest.raises(HyperspaceException, match="deletion mask"):
+        tk.hybrid_block_counts_tensor(texpr.col("a") > 0, ("a",), [torch.from_numpy(base["a"])],
+                                      [torch.from_numpy(delta["a"])],
+                                      torch.zeros(7, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_packed_and_hybrid_kernels_match_plain_versions():
+    """K1p over every width, raw and f64-sized planes mixed, a staged
+    program and more columns than the registers hold; K1h with no mask
+    and masks of none, all and random rows, deltas of 1 and several
+    blocks, and more addresses than the parameters hold: each against its
+    plain version on the card, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    reset_launch_counts()
+    n = 5 * tk.BLOCK_ROWS
+    calls_p = 0
+    for bits in range(1, 17):
+        vals, words, specs = _packed_planes(n, bits, widths=(bits, 1 + bits % 16, 9, 16))
+        names = tuple(sorted(vals))
+        for p in _packed_preds_any(texpr, vals, names):
+            narrowed = tk.narrow_expr_to_i32(p)
+            used = tuple(sorted(narrowed.columns()))
+            host = [torch.from_numpy(words[u]) for u in used]
+            sp = [specs[u] for u in used]
+            want = tk.predicate_block_counts_packed_tensor(narrowed, used, host, sp, n)
+            got = tk.predicate_block_counts_packed_tensor(narrowed, used,
+                                                          [h.cuda() for h in host], sp, n)
+            assert torch.equal(got.cpu(), want), (bits, p)
+            calls_p += 1
+    rng = np.random.default_rng(2)
+    calls_h = 0
+    for n_cols in (1, 3, 9):
+        names = tuple(f"c{i}" for i in range(n_cols))
+        pred = texpr.col("c0") < 40
+        for nm in names[1:]:
+            pred = pred & (texpr.col(nm) > -40)
+        for nb, nd in ((3, 1), (2, 4)):
+            base = [torch.from_numpy(rng.integers(-99, 99, nb * tk.BLOCK_ROWS).astype(np.int32))
+                    for _ in names]
+            delta = [torch.from_numpy(rng.integers(-99, 99, nd * tk.BLOCK_ROWS).astype(np.int32))
+                     for _ in names]
+            for rows in (None, np.zeros(nb * tk.BLOCK_ROWS, bool),
+                         np.ones(nb * tk.BLOCK_ROWS, bool), rng.random(nb * tk.BLOCK_ROWS) < 0.3):
+                mask = None if rows is None else torch.from_numpy(tk.pack_row_bitmask(rows))
+                want = tk.hybrid_block_counts_tensor(pred, names, base, delta, mask)
+                got = tk.hybrid_block_counts_tensor(
+                    pred, names, [t.cuda() for t in base], [t.cuda() for t in delta],
+                    None if mask is None else mask.cuda())
+                assert torch.equal(got.cpu(), want), (n_cols, nb, nd)
+                calls_h += 1
+    assert launch_counts() == {tk.K1P: calls_p, tk.K1H: calls_h}
+
+
+def _packed_preds_any(m, vals, names):
+    """Predicates over whatever planes ``_packed_planes`` made."""
+    c = m.col
+    packed = [nm for nm in names if nm != "r"]
+    first, last = packed[0], packed[-1]
+    chain = m.is_in(c(first), [int(x) for x in vals[first][:130]])
+    return [
+        (c(first) >= int(np.median(vals[first]))) & (c("r") < 0),
+        (c(last) < -10**6) | (c(last) > 10**6) | (c(first) == int(vals[first][3])),
+        chain & (c(last) != int(vals[last][1])),  # over 240 instructions: staged
+        # every plane: more columns than K1p holds in registers
+        (c(first) < c(last)) & (c("r") > -500) & (c(packed[1]) >= int(vals[packed[1]][5]))
+        & (c(packed[2]) != int(vals[packed[2]][2])) & (c(first) != 1),
+    ]
