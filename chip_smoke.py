@@ -3,10 +3,14 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py [--seed 0] [--scale 1.0]
+    python3 chip_smoke.py [--seed 0] [--scale 1.0] [--phases kernels,main,...]
 
 It needs a CUDA card and exits non-zero, printing no result, without one
-(or without the ``hyperspace_tpu_torch`` package beside it). Phases:
+(or without the ``hyperspace_tpu_torch`` package beside it).
+``--phases`` takes a comma list of ``kernels``, ``main``, ``aggregate``,
+``resident``, ``front_end``, ``lifecycle``, ``hybrid`` and ``streaming``
+(default: all, in that order; aggregate, resident and front_end run in the
+main path's session and bring ``main``). Phases:
 
 1. header — the card's name and power limit (``nvidia-smi``); the CUDA
    kernels build from ``hyperspace_tpu_torch/csrc`` (timed as set-up),
@@ -37,7 +41,11 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    against numpy. K1p (K1c over bit-packed planes) runs every width 1 to
    16 bits with negative frames, literals off the frame, packed, raw and
    f64 planes in one program, staged programs and rows ending mid-word,
-   and is timed at li_st's packed shape beside K1c at the same rows raw;
+   then the edges of its staged design (a 2^20-row window, one block, a
+   block count off the persistent grid, sub-tile plans over 12 raw + 4
+   packed, 40 raw and 18 planes, a 64-slot program, every sub-tile from
+   8192 to 128 rows forced), and is timed at li_st's packed shape and at
+   one streaming window, each beside K1c at the same rows raw;
    K1h (base and delta in one launch) runs no mask and masks of none, all
    and random rows, deltas of 1 row and several blocks, 1 to 9 columns,
    and is timed at li_hy's shape;
@@ -137,7 +145,8 @@ It needs a CUDA card and exits non-zero, printing no result, without one
    each with the resident phase's 30 queries, one launch a query (a
    window a query when streaming), rows against numpy and block counts
    against the resident tier's;
-9. one ``kernels`` JSON line, then the last line
+9. one ``kernels`` JSON line (with the kernels phase; a kernel's
+   launches are null where none of its paths ran), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero without the last
@@ -167,6 +176,10 @@ H100_BYTES_PER_S = 3.35e12
 H100_OPS_PER_S = 67e12  # 32-bit, outside the tensor cores
 LARGE_ROWS = 1 << 28  # K1c's large case: 3 int32 columns, 3 GiB
 LI_RESIDENT = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
+# the phases of a run, in order (--phases); aggregate, resident and
+# front_end run in the main path's session and so need main
+PHASES = ("kernels", "main", "aggregate", "resident", "front_end", "lifecycle", "hybrid",
+          "streaming")
 DAY_1992_01_01 = 8035  # days since 1970-01-01
 DAY_1998_08_02 = 10440
 DAY_1993_06_01 = 8552
@@ -629,16 +642,44 @@ def _timed_counts(name: str, run, plain, kernel: str, nbytes: float, ops: float,
     return rec
 
 
+def li_st_planes(rng, n: int, top: int) -> dict:
+    """li_st's three predicate planes over ``n`` rows as the compressed
+    tier holds them: l_orderkey raw, l_quantity (1..50: 6 bits, vpw 4)
+    and l_shipdate (1992-01-02..1998-07-02: 12 bits, vpw 2) packed."""
+    from hyperspace_tpu_torch.ops import bitpack
+
+    qty = rng.integers(1, 51, n).astype(np.int64)
+    ship = rng.integers(8036, 10411, n).astype(np.int64)
+    return {"l_orderkey": (rng.integers(1, top, n).astype(np.int64), None),
+            "l_quantity": (qty, bitpack.pack_spec(int(qty.min()), int(qty.max()), n)),
+            "l_shipdate": (ship, bitpack.pack_spec(int(ship.min()), int(ship.max()), n))}
+
+
+def li_st_pred(top: int):
+    """The range filter over li_st's planes (order keys below ``top``)."""
+    from hyperspace_tpu_torch.plan.expr import col
+
+    return ((col("l_orderkey") >= top // 6) & (col("l_orderkey") < top // 2)
+            & (col("l_quantity") < 24) & (col("l_shipdate") >= DAY_1995_03_15 - 365)
+            & (col("l_shipdate") < DAY_1995_03_15))
+
+
 def residency_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
     """K1p and K1h against their plain versions on the card, exactly.
 
     K1p: every width 1-16 (every vpw 32, 16, 8, 4, 2) with negative frames,
     literals below and above each frame, packed, raw and f64 planes in one
-    program, a staged program of over 240 instructions, more columns than
-    the registers hold, and a table whose real rows end mid-word (pad rows
-    decode to ref0, as the compressed tier stores them); timed at li_st's
+    program, a staged program of over 240 instructions, and a table whose
+    real rows end mid-word (pad rows decode to ref0, as the compressed
+    tier stores them); then the edges of its staged design: a 2^20-row
+    window (128 blocks, fewer than the SMs), one block, a block count that
+    is no multiple of the persistent grid, programs that fit two ring
+    stages only as sub-tiles (12 raw + 4 packed planes, 64 stack slots, 40
+    raw planes), 18 planes (a device address table), a staged IN chain,
+    and every sub-tile from 8192 down to 128 rows forced; timed at li_st's
     packed shape (SF3: l_orderkey raw, l_quantity 6 bits, l_shipdate 12
-    bits) beside K1c at the same rows raw. K1h: no mask and masks of none,
+    bits) and at one streaming window of it, each beside K1c at the same
+    rows raw. K1h: no mask and masks of none,
     all and random rows, deltas of 1 row and of several blocks, 1 to 9
     columns (18 addresses: a device table); timed at li_hy's shape (SF1
     base, two RF1 batches of delta, one file of eight deleted)."""
@@ -655,6 +696,7 @@ def residency_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
 
     rng = np.random.default_rng(seed + 10)
     B = tk.BLOCK_ROWS
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     k1p, k1h = {}, {}
 
     def packed_case(name, planes, pred, n_pad):
@@ -689,7 +731,8 @@ def residency_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
         prog = tk.packed_program(narrowed, names, specs)
         k1p[name] = dict(max_abs_err=err, rows=n_pad, cols=len(names),
                          packed=sum(s is not None for s in specs), instr=len(prog.prog),
-                         staged=prog.staged, matches=int(want.sum().item()))
+                         staged=prog.staged, sub_rows=prog.plan.sub_rows,
+                         matches=int(want.sum().item()))
         return narrowed, names, cols, specs, want
 
     # every width, negative frames, literals off the frame; rows end mid-word
@@ -716,42 +759,113 @@ def residency_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
         f"the frame, packed + raw + f64 planes, staged programs of "
         f"{max(c['instr'] for c in k1p.values())} instructions, rows ending mid-word) exact=yes")
 
-    # timed: li_st's shape, packed (K1p) and raw (K1c)
-    n = LI_ST_ROWS
-    n_pad = -(-n // B) * B
-    ok = rng.integers(1, 18_000_000, n).astype(np.int64)
-    qty = rng.integers(1, 51, n).astype(np.int64)
-    ship = rng.integers(8036, 10411, n).astype(np.int64)
+    # the staged design's edges: a streaming window (2^20 rows, 128
+    # blocks: fewer than the SMs), one block, a block count that is no
+    # multiple of the persistent grid, a staged program, and programs whose
+    # slices fit two stages only as sub-tiles (12 raw + 4 packed planes; 64
+    # stack slots; 40 raw planes: sub-tiles under 1024 rows, some warps
+    # idle), over 16 planes (addresses in col_table)
     top = 18_000_000
-    planes = {"l_orderkey": (ok, None),
-              "l_quantity": (qty, bitpack.pack_spec(int(qty.min()), int(qty.max()), n)),
-              "l_shipdate": (ship, bitpack.pack_spec(int(ship.min()), int(ship.max()), n))}
-    pred = ((col("l_orderkey") >= top // 6) & (col("l_orderkey") < top // 2)
-            & (col("l_quantity") < 24) & (col("l_shipdate") >= DAY_1995_03_15 - 365)
-            & (col("l_shipdate") < DAY_1995_03_15))
-    narrowed, names, cols, specs, _w = packed_case("li_st_packed_3col", planes, pred, n_pad)
-    rec = k1p.pop("li_st_packed_3col")
-    words = sum(int(c.numel()) for c in cols)
-    k1p["li_st_packed_3col"] = _timed_counts(
-        "K1p li_st_packed_3col",
-        lambda: tk.predicate_block_counts_packed_tensor(narrowed, names, cols, specs, n_pad),
-        lambda: tk.predicate_block_counts_packed_reference(narrowed, names, cols, specs, n_pad),
-        "predicate_block_counts_packed_kernel", 4 * words + 4 * (n_pad // B),
-        float(n_pad) * len(tk.lower_predicate(narrowed, names)),
-        specs="/".join("raw" if s is None else f"{s.bits}b_vpw{s.vpw}" for s in specs), **rec)
-    raw = [torch.zeros(n_pad, dtype=torch.int32, device=dev) for _ in names]
-    for t, nm in zip(raw, names):
-        t[:n] = torch.from_numpy(planes[nm][0].astype(np.int32)).to(dev)
-    err = _held("K1c li_st_raw_3col", tk.predicate_block_counts_tensor(narrowed, names, raw),
-                tk.predicate_block_counts_reference(narrowed, names, raw))
-    k1p["li_st_raw_3col_k1c"] = _timed_counts(
-        "K1c li_st_raw_3col (beside K1p)",
-        lambda: tk.predicate_block_counts_tensor(narrowed, names, raw),
-        lambda: tk.predicate_block_counts_reference(narrowed, names, raw),
-        "predicate_block_counts_kernel", 4 * len(names) * n_pad + 4 * (n_pad // B),
-        float(n_pad) * len(tk.lower_predicate(narrowed, names)), max_abs_err=err, rows=n_pad)
-    del cols, raw
-    torch.cuda.empty_cache()
+    st_pred = li_st_pred(top)
+
+    def li_st_case(name, n_real, pred=st_pred):
+        return packed_case(name, li_st_planes(rng, n_real, top), pred, -(-n_real // B) * B)
+
+    li_st_case("window_2p20", 1 << 20)
+    li_st_case("one_block", B - 5)
+    # the grid is the SMs times the 1 or 2 CTAs each holds: 2 * SMs + 3
+    # blocks is a multiple of neither
+    li_st_case(f"blocks_2x{sm}_plus_3", (2 * sm + 3) * B - 1)
+    keys = [int(x) for x in rng.integers(1, top, 130)]
+    li_st_case("staged_in_chain", 5 * B, is_in(col("l_orderkey"), keys) | (
+        col("l_quantity") < 3) | ((col("l_shipdate") > 10_000) & (col("l_quantity") > 47)))
+
+    def wide_planes(n_raw, packed_bits, n_real):
+        planes = {f"r{i:02d}": (rng.integers(-10**6, 10**6, n_real).astype(np.int64), None)
+                  for i in range(n_raw)}
+        for i, b in enumerate(packed_bits):
+            lo = -int(rng.integers(1, 5000))
+            planes[f"q{i:02d}"] = (rng.integers(lo, lo + (1 << b), n_real).astype(np.int64),
+                                   bitpack.pack_spec(lo, lo + (1 << b) - 1, n_real))
+        pred = None
+        for nm, (v, sp) in sorted(planes.items()):
+            c = (col(nm) > -900_000) if sp is None else (col(nm) >= int(np.percentile(v, 15)))
+            pred = c if pred is None else pred & c
+        return planes, pred
+
+    for name, n_raw, bits in (("subtile_12raw_4packed", 12, (3, 6, 12, 16)),
+                              ("subtile_40raw", 40, ()),
+                              ("cols_18_table", 9, (1, 2, 4, 5, 8, 9, 12, 15, 16))):
+        planes, pred = wide_planes(n_raw, bits, 5 * B - 3)
+        packed_case(name, planes, pred, 5 * B)
+
+    # a hand-written program 64 stack slots deep over li_st's planes and a
+    # fourth, raw one: its stack leaves room for two stages of 4096 rows
+    planes = li_st_planes(rng, 5 * B, top)
+    planes["l_extendedprice"] = (rng.integers(90_000, 10_500_000, 5 * B).astype(np.int64), None)
+    names = ("l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice")
+    specs = [planes[nm][1] for nm in names]
+    cols = [torch.from_numpy(planes[nm][0].astype(np.int32) if sp is None
+                             else bitpack.pack_plain(planes[nm][0], sp)).to(dev)
+            for nm, sp in zip(names, specs)]
+    spans = [(int(planes[nm][0].min()), int(planes[nm][0].max())) for nm in names]
+    deep = tk.K1Program(deep_program(64, spans), len(names), tk.packed_header(specs))
+    want = tk.program_block_counts_packed_reference(deep, cols, specs, 5 * B)
+    k1p["deep64_4col"] = dict(
+        max_abs_err=_held("K1p deep64_4col",
+                          tk.program_block_counts_packed_tensor(deep, cols, specs, 5 * B), want),
+        rows=5 * B, cols=len(names), packed=2, instr=len(deep.prog), staged=deep.staged,
+        sub_rows=deep.plan.sub_rows, matches=int(want.sum().item()))
+    # every sub-tile the plan could choose, on this table under the deep
+    # program and the range filter: KC 8, 4, 2, 1 and sub-tiles under 1024
+    # rows (some warps idle)
+    sweep = {}
+    for label, program in (("deep64_4col", deep),
+                           ("range_4col", tk.packed_program(st_pred, names, specs))):
+        want = tk.program_block_counts_packed_reference(program, cols, specs, 5 * B)
+        for rows in tk.K1P_SUB_ROWS:
+            if rows <= program.plan.sub_rows:
+                got = tk.program_block_counts_packed_tensor(program, cols, specs, 5 * B, rows)
+                sweep[f"{label}_{rows}"] = _held(f"K1p {label} sub_rows={rows}", got, want)
+    k1p["sub_rows_sweep"] = dict(max_abs_err=max(sweep.values()), cases=sorted(sweep))
+    log(f"K1p: the staged design's edges exact=yes: " + ", ".join(
+        f"{nm} (rows {r['rows']}, {r['cols']} planes, {r['instr']} instr, sub_rows "
+        f"{r.get('sub_rows')})" for nm, r in k1p.items()
+        if not nm.startswith("width_") and "rows" in r)
+        + f"; {len(sweep)} forced sub-tiles (8192 down to 128 rows)")
+
+    # timed: li_st's shape and one streaming window, packed (K1p) and raw
+    # (K1c)
+    for label, n in (("li_st", LI_ST_ROWS), ("window", 1 << 20)):
+        n_pad = -(-n // B) * B
+        planes = li_st_planes(rng, n, top)
+        name = f"{label}_packed_3col"
+        narrowed, names, cols, specs, _w = packed_case(name, planes, st_pred, n_pad)
+        rec = k1p.pop(name)
+        words = sum(int(c.numel()) for c in cols)
+        n_instr = len(tk.lower_predicate(narrowed, names))
+        k1p[name] = _timed_counts(
+            f"K1p {name}",
+            lambda: tk.predicate_block_counts_packed_tensor(narrowed, names, cols, specs, n_pad),
+            lambda: tk.predicate_block_counts_packed_reference(narrowed, names, cols, specs,
+                                                               n_pad),
+            "predicate_block_counts_packed_kernel", 4 * words + 4 * (n_pad // B),
+            float(n_pad) * n_instr,
+            specs="/".join("raw" if s is None else f"{s.bits}b_vpw{s.vpw}" for s in specs),
+            **rec)
+        raw = [torch.zeros(n_pad, dtype=torch.int32, device=dev) for _ in names]
+        for t, nm in zip(raw, names):
+            t[:n] = torch.from_numpy(planes[nm][0].astype(np.int32)).to(dev)
+        err = _held(f"K1c {label}_raw_3col", tk.predicate_block_counts_tensor(narrowed, names, raw),
+                    tk.predicate_block_counts_reference(narrowed, names, raw))
+        k1p[f"{label}_raw_3col_k1c"] = _timed_counts(
+            f"K1c {label}_raw_3col (beside K1p)",
+            lambda: tk.predicate_block_counts_tensor(narrowed, names, raw),
+            lambda: tk.predicate_block_counts_reference(narrowed, names, raw),
+            "predicate_block_counts_kernel", 4 * len(names) * n_pad + 4 * (n_pad // B),
+            float(n_pad) * n_instr, max_abs_err=err, rows=n_pad)
+        del cols, raw
+        torch.cuda.empty_cache()
 
     # K1h: masks, delta sizes and column counts, exactly
     for n_cols in (1, 3, 9):
@@ -1129,12 +1243,29 @@ class _Profiled:
 
 
 def run_main_path(
-    lineitem, orders, workdir: Path, device: str, seed: int, profile: bool = False
+    lineitem, orders, workdir: Path, device: str, seed: int, profile: bool = False,
+    phases=PHASES,
 ) -> dict:
     """Build both indexes and run the three queries on ``device`` with
     residency off, then the aggregate, resident and front-end phases in the
     same session, then the lifecycle and hybrid phases, each in its own;
-    every result is checked against numpy. Returns timings and counts."""
+    every result is checked against numpy. ``phases`` (``PHASES``) names
+    the ones to run: the same-session ones need "main", the lifecycle and
+    hybrid phases run without it. Returns timings and counts."""
+    out = {}
+    if "main" in phases:
+        out.update(_main_session(lineitem, orders, workdir, device, seed, profile, phases))
+    if "lifecycle" in phases:
+        out["lifecycle"] = lifecycle_phase(lineitem, orders, workdir, device, seed, profile)
+    if "hybrid" in phases:
+        out["hybrid"] = hybrid_phase(lineitem, orders, workdir, device, seed, profile)
+    return out
+
+
+def _main_session(lineitem, orders, workdir: Path, device: str, seed: int, profile: bool,
+                  phases) -> dict:
+    """The main path's session: both indexes, the three queries, then the
+    aggregate, resident and front-end phases named in ``phases``."""
     import hyperspace_tpu_torch as hs
     from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
     from hyperspace_tpu_torch.plan.expr import col
@@ -1231,16 +1362,17 @@ def run_main_path(
            q3_want)
     for q in out["query_s"]:
         log(f"query {q}: {out['query_s'][q]:.4f} s rows={out['rows'][q]} matches numpy reference")
-    out["aggregate"] = aggregate_phase(session, li, od, q3, L, O, profile)
-    out["resident"] = resident_phase(session, hsp, li, L, seed, profile)
-    q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
-               "o_totalprice"]
-    out["front_end"] = front_end_phase(
-        session, hsp, li_dir, od_dir, q3, [np.asarray(results["q3_join"].columns[c].data)
-                                           for c in q3_cols],
-        q3_want, L, workdir, seed, profile)
-    out["lifecycle"] = lifecycle_phase(lineitem, orders, workdir, device, seed, profile)
-    out["hybrid"] = hybrid_phase(lineitem, orders, workdir, device, seed, profile)
+    if "aggregate" in phases:
+        out["aggregate"] = aggregate_phase(session, li, od, q3, L, O, profile)
+    if "resident" in phases:
+        out["resident"] = resident_phase(session, hsp, li, L, seed, profile)
+    if "front_end" in phases:
+        q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
+                   "o_totalprice"]
+        out["front_end"] = front_end_phase(
+            session, hsp, li_dir, od_dir, q3, [np.asarray(results["q3_join"].columns[c].data)
+                                               for c in q3_cols],
+            q3_want, L, workdir, seed, profile)
     return out
 
 
@@ -2568,8 +2700,11 @@ def ladder_phase(session, hsp, L: dict, li_dir: Path, seed: int, budgets=LADDER_
         if m.get(path, 0) != n_queries or got_launches != want_launches or launches.get(K1, 0):
             raise AssertionError(f"ladder {label}: {m.get(path, 0)} of {n_queries} served by "
                                  f"{path}, launches {launches} (want {want_launches})")
-        if tier == "compressed" and on_card and not launches.get(K1P):
-            raise AssertionError(f"ladder {label}: K1p never launched")
+        # K1p serves the queries that read a packed plane: the range filters
+        want_k1p = len(shapes["range_filter"]) * per_query if on_card and tier != "resident" else 0
+        if launches.get(K1P, 0) != want_k1p:
+            raise AssertionError(f"ladder {label}: K1p launched {launches.get(K1P, 0)} times, "
+                                 f"want {want_k1p}")
         for q, qs in shapes.items():
             for i, (_p, mask) in enumerate(qs):
                 _check(f"ladder {label} {q}[{i}]", results[(q, i)], LI_RESIDENT,
@@ -2893,6 +3028,19 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
     return out
 
 
+def _phases(arg: str) -> tuple:
+    """``--phases``: a comma list of ``PHASES``, in run order; main joins
+    any phase that runs in its session."""
+    want = {p.strip() for p in arg.split(",") if p.strip()}
+    unknown = want - set(PHASES)
+    if unknown or not want:
+        raise argparse.ArgumentTypeError(
+            f"--phases takes a comma list of {','.join(PHASES)} (got {arg!r})")
+    if want & {"aggregate", "resident", "front_end"}:
+        want.add("main")
+    return tuple(p for p in PHASES if p in want)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2901,7 +3049,11 @@ def main() -> int:
     ap.add_argument("--workdir", default=None, help="scratch directory (default: a temp dir)")
     ap.add_argument("--profile", action="store_true",
                     help="print host and device profiles of each main-path step")
+    ap.add_argument("--phases", type=_phases, default=PHASES,
+                    help="comma list of the phases to run, of " + ",".join(PHASES)
+                    + " (default: all; aggregate, resident and front_end bring main)")
     args = ap.parse_args()
+    phases = args.phases
 
     import torch
 
@@ -2912,7 +3064,6 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         from hyperspace_tpu_torch.ops import kernels as tk
-        from hyperspace_tpu_torch.ops import launch_counts
     except ImportError as e:
         print(f"chip_smoke: the hyperspace_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
@@ -2922,6 +3073,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    if phases != PHASES:
+        log(f"phases: {','.join(phases)} (of {','.join(PHASES)})")
     t_start = time.perf_counter()
     t0 = time.perf_counter()
     tk.build_kernels()
@@ -2945,89 +3098,93 @@ def main() -> int:
     lineitem, orders = make_tables(args.seed, n_o, n_l)
     log(f"setup: tables generated in {time.perf_counter() - t0:.3f} s")
 
-    kphase = kernel_phase(lineitem, orders, args.seed)
-    # launches above compared kernels with their plain versions; the main
-    # path's counts start from zero inside run_main_path
+    kphase = kernel_phase(lineitem, orders, args.seed) if "kernels" in phases else None
+    # launches above compared kernels with their plain versions; each
+    # path's counts start from zero inside its phase
     workdir = Path(args.workdir) if args.workdir else Path(tempfile.mkdtemp(prefix="hs_smoke_"))
+    stream_out = None
     try:
-        main_out = run_main_path(lineitem, orders, workdir, "cuda", args.seed, args.profile)
-        cut = {}
-        if args.scale != 1.0:  # a cut: the threshold and chunks shrink with the tables
-            cut = {"chunk_rows": max(1024, int((1 << 21) * args.scale)),
-                   "threshold": int(STREAM_THRESHOLD * args.scale)}
-            log(f"CUT: streaming phase at scale {args.scale}: {cut}")
-        stream_out = streaming_phase(workdir / "streaming", "cuda", args.seed, args.profile,
-                                     scale=args.scale, **cut)
+        main_out = run_main_path(lineitem, orders, workdir, "cuda", args.seed, args.profile,
+                                 phases)
+        if "streaming" in phases:
+            cut = {}
+            if args.scale != 1.0:  # a cut: the threshold and chunks shrink with the tables
+                cut = {"chunk_rows": max(1024, int((1 << 21) * args.scale)),
+                       "threshold": int(STREAM_THRESHOLD * args.scale)}
+                log(f"CUT: streaming phase at scale {args.scale}: {cut}")
+            stream_out = streaming_phase(workdir / "streaming", "cuda", args.seed, args.profile,
+                                         scale=args.scale, **cut)
     finally:
         if not args.workdir:
             shutil.rmtree(workdir, ignore_errors=True)
-    launches = main_out["launches"]
-    for kname in (tk.K1, tk.K2, tk.K2F):
-        if launches.get(kname, 0) <= 0:
-            raise AssertionError(f"{kname} was not launched on the main path")
-    res_launches = main_out["resident"]["launches"]
-    # K1p on the ladder's compressed and streaming tiers, K1h on the hybrid
-    # phase's resident-hybrid queries (each counted from 0 in its phase)
-    k1p_launches = sum(t["launches"].get(tk.K1P, 0)
-                       for t in stream_out["ladder"]["tiers"].values())
-    k1h_launches = sum(main_out["hybrid"][s]["launches"].get(tk.K1H, 0)
-                       for s in ("h2_delta", "h3_delta"))
-    if k1p_launches <= 0 or k1h_launches <= 0:
-        raise AssertionError(f"K1p launched {k1p_launches} times on the ladder, K1h "
-                             f"{k1h_launches} times on the hybrid phase")
-    k1p = kphase["k1p"]["li_st_packed_3col"]
-    k1h = kphase["k1h"]["li_hy_3col"]
+    # each kernel's launches on its paths (None where no phase of them ran)
+    launches = {k: None for k in (tk.K1, tk.K1C, tk.K1P, tk.K1H, tk.K2, tk.K2F)}
+    if "launches" in main_out:
+        for kname in (tk.K1, tk.K2, tk.K2F):
+            launches[kname] = main_out["launches"].get(kname, 0)
+    if "resident" in main_out:
+        launches[tk.K1C] = main_out["resident"]["launches"].get(tk.K1C, 0)
+    if stream_out is not None:
+        # K1p on the ladder's compressed and streaming tiers
+        launches[tk.K1P] = sum(t["launches"].get(tk.K1P, 0)
+                               for t in stream_out["ladder"]["tiers"].values())
+    if "hybrid" in main_out:
+        # K1h on the hybrid phase's resident-hybrid queries
+        launches[tk.K1H] = sum(main_out["hybrid"][s]["launches"].get(tk.K1H, 0)
+                               for s in ("h2_delta", "h3_delta"))
+    for kname, n in launches.items():
+        if n is not None and n <= 0:
+            raise AssertionError(f"{kname} was not launched on its path ({launches})")
 
-    k1 = kphase["k1"]["range_3col"]
-    k1c = kphase["k1c"]["range_3col"]
-    k2 = kphase["k2"]["index_layout"]
-    k2f = kphase["k2f"]
-    line = {"kernels": [
-        {"name": tk.K1, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/predicate_mask.cu",
-         "replaces": "hyperspace_tpu/ops/kernels.py:237", "launches": launches[tk.K1],
-         "max_abs_err": max(c["max_abs_err"] for c in kphase["k1"].values()), "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "device_ms": k1["device_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None},
-        {"name": tk.K1C, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/predicate_mask.cu",
-         "replaces": "hyperspace_tpu/exec/hbm_cache.py:476", "launches": res_launches[tk.K1C],
-         "max_abs_err": max(c["max_abs_err"] for c in kphase["k1c"].values()), "ms": k1c["ms"],
-         "plain_ms": k1c["plain_ms"], "device_ms": k1c["device_ms"], "bound_ms": k1c["bound_ms"],
-         "bound_by": k1c["bound_by"], "library_ms": None},
-        {"name": tk.K1P, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/predicate_mask.cu",
-         "replaces": "hyperspace_tpu/exec/hbm_cache.py:447", "launches": k1p_launches,
-         "max_abs_err": max(c["max_abs_err"] for c in kphase["k1p"].values()), "ms": k1p["ms"],
-         "plain_ms": k1p["plain_ms"], "device_ms": k1p["device_ms"], "bound_ms": k1p["bound_ms"],
-         "bound_by": k1p["bound_by"], "library_ms": None},
-        {"name": tk.K1H, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/predicate_mask.cu",
-         "replaces": "hyperspace_tpu/exec/hbm_cache.py:671", "launches": k1h_launches,
-         "max_abs_err": max(c["max_abs_err"] for c in kphase["k1h"].values()), "ms": k1h["ms"],
-         "plain_ms": k1h["plain_ms"], "device_ms": k1h["device_ms"], "bound_ms": k1h["bound_ms"],
-         "bound_by": k1h["bound_by"], "library_ms": None},
-        {"name": tk.K2, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/sorted_intersect.cu",
-         "replaces": "hyperspace_tpu/ops/kernels.py:549", "launches": launches[tk.K2],
-         "max_abs_err": max(c["max_abs_err"] for c in kphase["k2"].values()), "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "device_ms": k2["device_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": k2["library_ms"]},
-        {"name": tk.K2F, "route": "cuda", "source": "hyperspace_tpu_torch/csrc/sorted_intersect.cu",
-         "replaces": "hyperspace_tpu/ops/kernels.py:549", "launches": launches[tk.K2F],
-         "max_abs_err": k2f["max_abs_err"], "ms": k2f["ms"], "plain_ms": k2f["plain_ms"],
-         "device_ms": k2f["device_ms"], "bound_ms": k2f["bound_ms"], "bound_by": k2f["bound_by"],
-         "library_ms": k2f["library_ms"]},
-    ]}
-    log(json.dumps({"main_path": {k: main_out[k] for k in ("build_s", "query_s", "rows")},
-                    "aggregate": main_out["aggregate"],
-                    "resident_path": main_out["resident"],
-                    "front_end": main_out["front_end"],
-                    "lifecycle": main_out["lifecycle"],
-                    "hybrid": main_out["hybrid"],
-                    "streaming": stream_out,
-                    "kernel_cases": kphase, "ptxas": ptxas,
-                    "total_s": time.perf_counter() - t_start}))
-    log(json.dumps(line))
+    details = {}
+    if "launches" in main_out:
+        details["main_path"] = {k: main_out[k] for k in ("build_s", "query_s", "rows")}
+    for key, name in (("aggregate", "aggregate"), ("resident", "resident_path"),
+                      ("front_end", "front_end"), ("lifecycle", "lifecycle"),
+                      ("hybrid", "hybrid")):
+        if key in main_out:
+            details[name] = main_out[key]
+    log(json.dumps({**details, "streaming": stream_out, "kernel_cases": kphase, "ptxas": ptxas,
+                    "phases": list(phases), "total_s": time.perf_counter() - t_start}))
+    if kphase is not None:
+        log(json.dumps(kernels_line(tk, kphase, launches)))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernels_line(tk, kphase: dict, launches: dict) -> dict:
+    """The ``kernels`` JSON line: each kernel's route, source, the TPU
+    kernel it replaces, its launches on its paths (None where none of them
+    ran), its worst error over every case and its times at the main
+    path's shape."""
+    k1p = kphase["k1p"]["li_st_packed_3col"]
+    k1h = kphase["k1h"]["li_hy_3col"]
+    k1 = kphase["k1"]["range_3col"]
+    k1c = kphase["k1c"]["range_3col"]
+    k2 = kphase["k2"]["index_layout"]
+    k2f = kphase["k2f"]
+    mask_src = "hyperspace_tpu_torch/csrc/predicate_mask.cu"
+    join_src = "hyperspace_tpu_torch/csrc/sorted_intersect.cu"
+    rows = (
+        (tk.K1, mask_src, "hyperspace_tpu/ops/kernels.py:237", "k1", k1),
+        (tk.K1C, mask_src, "hyperspace_tpu/exec/hbm_cache.py:476", "k1c", k1c),
+        (tk.K1P, mask_src, "hyperspace_tpu/exec/hbm_cache.py:447", "k1p", k1p),
+        (tk.K1H, mask_src, "hyperspace_tpu/exec/hbm_cache.py:671", "k1h", k1h),
+        (tk.K2, join_src, "hyperspace_tpu/ops/kernels.py:549", "k2", k2),
+        (tk.K2F, join_src, "hyperspace_tpu/ops/kernels.py:549", "k2f", k2f),
+    )
+    out = []
+    for name, src, replaces, key, rec in rows:
+        cases = kphase[key].values() if key != "k2f" else [k2f]
+        out.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                    "launches": launches[name],
+                    "max_abs_err": max(c["max_abs_err"] for c in cases),
+                    "ms": rec["ms"], "plain_ms": rec["plain_ms"], "device_ms": rec["device_ms"],
+                    "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                    "library_ms": rec.get("library_ms")})
+    return {"kernels": out}
 
 
 if __name__ == "__main__":

@@ -11,8 +11,8 @@ become CUDA C++ for Hopper (``csrc/``):
    predicate. Its second entry, K1c (``predicate_block_counts_tensor``),
    fuses a match count per 8192-row block for the HBM-resident scan
    (``exec/hbm_cache.py``); K1p (``predicate_block_counts_packed_tensor``)
-   is K1c over bit-packed planes, decoded in registers (the compressed and
-   streaming tiers), and K1h (``hybrid_block_counts_tensor``) K1c over a
+   is K1c over bit-packed planes (the compressed and streaming tiers),
+   staged through a shared-memory ring and decoded there, and K1h (``hybrid_block_counts_tensor``) K1c over a
    resident base with deleted rows masked out and an appended delta, in
    one launch (delta residency).
 2. **Sorted-intersection join counts** (``sorted_intersect_counts`` →
@@ -45,6 +45,7 @@ into ``hyperspace_tpu_torch/_build/`` and load through ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -162,12 +163,12 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
                         f"{lib.hs_predicate_param_bytes()} bytes; ops/kernels.py "
                         f"packs {_PARAM_DTYPE.itemsize}."
                     )
-                for entry in (lib.hs_predicate_mask, lib.hs_predicate_block_counts,
-                              lib.hs_predicate_block_counts_packed):
+                for entry in (lib.hs_predicate_mask, lib.hs_predicate_block_counts):
                     entry.argtypes = [ctypes.c_char_p, vp]
                     entry.restype = ci
-                lib.hs_hybrid_block_counts.argtypes = [ctypes.c_char_p, ctypes.c_char_p, vp]
-                lib.hs_hybrid_block_counts.restype = ci
+                for entry in (lib.hs_predicate_block_counts_packed, lib.hs_hybrid_block_counts):
+                    entry.argtypes = [ctypes.c_char_p, ctypes.c_char_p, vp]
+                    entry.restype = ci
             else:
                 lib.hs_sorted_intersect_fences.argtypes = [vp, ll, vp, vp]
                 lib.hs_sorted_intersect_fences.restype = ci
@@ -461,6 +462,53 @@ def k1_smem_bytes(n_instr: int, depth: int, threads: int) -> int:
     return (16 * n_instr if staged else 0) + 4 * depth * threads
 
 
+# K1p's launch plan (csrc/predicate_mask.cu: PackedPlan, packed_smem_bytes)
+K1P_SUB_ROWS = (8192, 4096, 2048, 1024, 512, 256, 128)  # rows of a block a stage holds
+K1P_STAGES = 2  # the ring
+K1P_SLICE_BYTES = 16  # shared memory per column beside the ring (struct Slice)
+
+
+@dataclasses.dataclass(frozen=True)
+class K1pPlan:
+    """How K1p stages a launch: ``sub_rows`` rows of a block (a sub-tile)
+    come into one of the ring's stages as one bulk copy per column
+    (``slice_bytes``, their sum ``stage_bytes``); ``smem`` is the launch's
+    dynamic shared memory (ring, column table, staged program, stack). The
+    kernel's entry derives the same shared memory and sizes its grid of
+    persistent CTAs from it."""
+
+    sub_rows: int
+    slice_bytes: Tuple[int, ...]
+    stage_bytes: int
+    smem: int
+
+    def params(self) -> bytes:
+        """The plan as the kernel's ``PackedPlan``."""
+        return struct.pack("<2i", self.sub_rows, self.stage_bytes)
+
+
+def k1p_plan(vpws, n_instr: int, depth: int, sub_rows: Optional[int] = None) -> K1pPlan:
+    """K1p's plan for columns of ``vpws`` values a word (1: raw) under a
+    program of ``n_instr`` instructions (descriptors included) and stack
+    ``depth``: the largest sub-tile of ``K1P_SUB_ROWS`` whose two stages
+    fit ``K1_MAX_SMEM`` beside the column table, the staged program and
+    the stack. ``sub_rows`` fixes the sub-tile, for measuring one plan
+    against another (``tools/k1p_probe.py``: at li_st's shape smaller
+    sub-tiles do not beat whole blocks). Raises when nothing fits."""
+    fixed = K1P_SLICE_BYTES * len(vpws) + k1_smem_bytes(n_instr, depth, K1C_THREADS)
+    for rows in (K1P_SUB_ROWS if sub_rows is None else (sub_rows,)):
+        if rows not in K1P_SUB_ROWS:
+            raise HyperspaceException(f"{K1P}: no sub-tile of {rows} rows.")
+        slices = tuple(4 * rows // v for v in vpws)
+        stage = sum(slices)
+        if K1P_STAGES * stage + fixed <= K1_MAX_SMEM:
+            return K1pPlan(rows, slices, stage, K1P_STAGES * stage + fixed)
+    raise HyperspaceException(
+        f"{K1P}: {len(vpws)} planes under a program of {n_instr} instructions fit no "
+        f"ring of {K1P_SUB_ROWS[-1]}-row sub-tiles in shared memory ({K1_MAX_SMEM} bytes)."
+    )
+
+
 class K1Program:
     """A postfix program ready to launch: its instructions, stack depth and
     column count, and a parameter block with everything but the launch's
@@ -472,7 +520,7 @@ class K1Program:
 
     ``header`` (K1p) is one descriptor per column, ``(OP_PACK, bits, vpw,
     ref0)``, sent ahead of the program (``code``); ``prog`` is the program
-    alone."""
+    alone, and ``plan`` K1p's staging (``k1p_plan``)."""
 
     def __init__(self, prog: np.ndarray, n_cols: int, header: Optional[np.ndarray] = None):
         prog = np.ascontiguousarray(prog, dtype=np.int32).reshape(-1, 4)
@@ -485,11 +533,13 @@ class K1Program:
         self.prog = prog
         self.n_cols = n_cols
         self.depth = program_depth(prog)
+        self.plan: Optional[K1pPlan] = None
         if header is not None:
             header = np.ascontiguousarray(header, dtype=np.int32).reshape(-1, 4)
             if len(header) != n_cols or (header[:, 0] != OP_PACK).any():
                 raise HyperspaceException("Mask kernel: one OP_PACK descriptor per column.")
             self.code = np.concatenate([header, prog])
+            self.plan = k1p_plan(header[:, 2].tolist(), len(self.code), self.depth)
         else:
             self.code = prog
         smem = k1_smem_bytes(len(self.code), self.depth, K1C_THREADS)
@@ -590,7 +640,8 @@ def _launch_k1(entry: str, what: str, program: K1Program, cols, n: int, out,
                addrs: Optional[List[int]] = None, extra: Optional[bytes] = None) -> None:
     """Launch one of K1's entries. ``addrs`` defaults to the checked
     addresses of equal-length ``cols`` (K1p and K1h check their own);
-    ``extra`` is K1h's second parameter block."""
+    ``extra`` is the second parameter block of K1h (``HybridParams``) or
+    K1p (``PackedPlan``)."""
     for t in cols:
         _check_cuda(t, torch.int32, what)
     dev = cols[0].device
@@ -687,6 +738,11 @@ def predicate_block_counts_tensor(
 # ---------------------------------------------------------------------------
 # K1p: K1c over bit-packed planes (the compressed and streaming tiers)
 # ---------------------------------------------------------------------------
+def packed_header(specs) -> np.ndarray:
+    """K1p's descriptors of planes under ``specs``, int32 ``(n, 4)``."""
+    return np.array([_pack_descriptor(s) for s in specs], dtype=np.int32).reshape(-1, 4)
+
+
 def _pack_descriptor(spec) -> Tuple[int, int, int, int]:
     """K1p's descriptor of one column: ``(OP_PACK, bits, vpw, ref0)``, vpw
     1 for a raw plane (``spec`` None)."""
@@ -704,15 +760,14 @@ _PACKED: "OrderedDict[tuple, K1Program]" = OrderedDict()
 def packed_program(bound: Expr, names: Tuple[str, ...], specs) -> K1Program:
     """``lowered_predicate`` with K1p's column descriptors ahead of the
     program, cached by ``(repr(bound), names, descriptors)``."""
-    header = tuple(_pack_descriptor(s) for s in specs)
-    key = (repr(bound), tuple(names), header)
+    header = packed_header(specs)
+    key = (repr(bound), tuple(names), header.tobytes())
     with _LOWERED_LOCK:
         hit = _PACKED.get(key)
         if hit is not None:
             _PACKED.move_to_end(key)
             return hit
-    program = K1Program(lower_predicate(bound, names), len(names),
-                        np.array(header, dtype=np.int32))
+    program = K1Program(lower_predicate(bound, names), len(names), header)
     with _LOWERED_LOCK:
         _PACKED[key] = program
         while len(_PACKED) > _LOWER_CACHE_SIZE:
@@ -725,8 +780,6 @@ def predicate_block_counts_packed_reference(
 ) -> torch.Tensor:
     """Plain version of K1p: each packed plane decoded
     (``bitpack.unpack_plain_torch``), then K1c's plain version."""
-    import dataclasses
-
     from .bitpack import unpack_plain_torch
 
     flat = [c if s is None else unpack_plain_torch(c, dataclasses.replace(s, n=n_rows))
@@ -734,10 +787,24 @@ def predicate_block_counts_packed_reference(
     return predicate_block_counts_reference(bound, names, flat)
 
 
+def program_block_counts_packed_reference(
+    program: K1Program, cols: List[torch.Tensor], specs, n_rows: int
+) -> torch.Tensor:
+    """Plain version of K1p for a launchable program: each packed plane
+    decoded, then the program interpreted in torch
+    (``run_postfix_reference``) and summed per block."""
+    from .bitpack import unpack_plain_torch
+
+    flat = [c if s is None else unpack_plain_torch(c, dataclasses.replace(s, n=n_rows))
+            for c, s in zip(cols, specs)]
+    mask = run_postfix_reference(program.prog, flat)
+    return mask.view(-1, BLOCK_ROWS).sum(1, dtype=torch.int32)
+
+
 def _check_packed(cols: List[torch.Tensor], specs, n_rows: int) -> List[int]:
     """The addresses of K1p's columns, checked: a raw plane holds
-    ``n_rows`` values and starts on 16 bytes, a packed one ``n_rows / vpw``
-    words and starts on 8."""
+    ``n_rows`` values, a packed one ``n_rows / vpw`` words, and each starts
+    on 16 bytes (the kernel copies its slices in bulk)."""
     if n_rows % BLOCK_ROWS:
         raise HyperspaceException(f"{K1P}: {n_rows} rows is not a multiple of {BLOCK_ROWS}.")
     addrs = []
@@ -745,7 +812,7 @@ def _check_packed(cols: List[torch.Tensor], specs, n_rows: int) -> List[int]:
         want = n_rows if s is None else n_rows // s.vpw
         if t.dim() != 1 or int(t.shape[0]) != want:
             raise HyperspaceException(f"{K1P}: a plane of {tuple(t.shape)} where {want} belong.")
-        if t.data_ptr() % (16 if s is None else 8):
+        if t.data_ptr() % 16:
             raise HyperspaceException(f"{K1P}: plane at {t.data_ptr():#x} is misaligned.")
         addrs.append(t.data_ptr())
     return addrs
@@ -761,12 +828,35 @@ def predicate_block_counts_packed_tensor(
     specs = list(specs)
     if len(specs) != len(cols) or len(cols) != len(names):
         raise HyperspaceException(f"{K1P}: one spec per plane and one plane per name.")
+    if cols[0].device.type == "cpu":
+        _check_packed(cols, specs, n_rows)
+        return predicate_block_counts_packed_reference(bound, names, cols, specs, n_rows)
+    return program_block_counts_packed_tensor(packed_program(bound, names, specs), cols, specs,
+                                              n_rows)
+
+
+def program_block_counts_packed_tensor(
+    program: K1Program, cols: List[torch.Tensor], specs, n_rows: int,
+    sub_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """``predicate_block_counts_packed_tensor`` for a launchable program
+    with K1p's descriptors (``packed_program``, or ``K1Program`` with
+    ``header=packed_header(specs)``). CPU tensors take the plain version
+    (``run_postfix_reference`` over the decoded planes); CUDA tensors
+    launch K1p under ``program.plan``, or under the plan with ``sub_rows``
+    rows a stage (``k1p_plan``; for measuring one plan against another)."""
+    specs = list(specs)
+    if program.plan is None or len(cols) != program.n_cols or len(specs) != len(cols) or \
+            not np.array_equal(program.code[: len(cols)], packed_header(specs)):
+        raise HyperspaceException(f"{K1P}: the program's descriptors do not match the planes.")
     addrs = _check_packed(cols, specs, n_rows)
     if cols[0].device.type == "cpu":
-        return predicate_block_counts_packed_reference(bound, names, cols, specs, n_rows)
+        return program_block_counts_packed_reference(program, cols, specs, n_rows)
+    plan = program.plan if sub_rows is None else k1p_plan(
+        packed_header(specs)[:, 2].tolist(), len(program.code), program.depth, sub_rows)
     counts = torch.empty(n_rows // BLOCK_ROWS, dtype=torch.int32, device=cols[0].device)
-    _launch_k1("hs_predicate_block_counts_packed", K1P, packed_program(bound, names, specs),
-               cols, n_rows, counts, addrs=addrs)
+    _launch_k1("hs_predicate_block_counts_packed", K1P, program, cols, n_rows, counts,
+               addrs=addrs, extra=plan.params())
     return counts
 
 

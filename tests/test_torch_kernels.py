@@ -12,6 +12,8 @@ shares with its source, and the CUDA kernels themselves on a card (marked
 ``gpu``; skipped without one). Tolerance: exact throughout.
 """
 
+import struct
+
 import numpy as np
 import pytest
 import torch
@@ -947,6 +949,122 @@ def test_packed_program_descriptors_and_checks():
         tk.K1Program(tk.lower_predicate(pred, ("a", "b")), 2, np.zeros((1, 4), np.int32))
 
 
+# K1p's launch plan: what it stages a sub-tile at and its shared memory,
+# for every mix of widths, 1 to 18 planes, short, staged and 64-slot-deep
+# programs
+_PLAN_PROGRAMS = {"short": (9, 2), "staged": (599, 2), "deep64": (128, 64)}
+
+
+def _vpw_mixes(n_cols, seed):
+    """Every width alone over ``n_cols`` planes, then random mixes."""
+    rng = np.random.default_rng(seed)
+    vpws = (1, 2, 4, 8, 16, 32)
+    return [[v] * n_cols for v in vpws] + [
+        rng.choice(vpws, n_cols).tolist() for _ in range(12)]
+
+
+@pytest.mark.parametrize("program", sorted(_PLAN_PROGRAMS))
+@pytest.mark.parametrize("n_cols", range(1, 19))
+def test_k1p_plan_fits_shared_memory_and_copies_in_16_bytes(n_cols, program):
+    n_instr, depth = _PLAN_PROGRAMS[program]
+    n_instr += n_cols  # the descriptors ride ahead of the program
+    for vpws in _vpw_mixes(n_cols, 100 * n_cols + n_instr):
+        plan = tk.k1p_plan(vpws, n_instr, depth)
+        rest = tk.K1P_SLICE_BYTES * n_cols + tk.k1_smem_bytes(n_instr, depth, tk.K1C_THREADS)
+        assert tk.BLOCK_ROWS % plan.sub_rows == 0 and plan.sub_rows in tk.K1P_SUB_ROWS
+        assert plan.slice_bytes == tuple(4 * plan.sub_rows // v for v in vpws)
+        assert all(b > 0 and b % 16 == 0 for b in plan.slice_bytes), vpws
+        assert plan.stage_bytes == sum(plan.slice_bytes)
+        assert plan.smem == 2 * plan.stage_bytes + rest <= tk.K1_MAX_SMEM
+        # the largest sub-tile whose two stages fit
+        bigger = 2 * plan.sub_rows
+        assert bigger > tk.BLOCK_ROWS or 2 * 4 * sum(bigger // v for v in vpws) + rest > \
+            tk.K1_MAX_SMEM
+        assert struct.unpack("<2i", plan.params()) == (plan.sub_rows, plan.stage_bytes)
+        # a forced sub-tile is planned where its two stages fit, and raises
+        # where they do not
+        for rows in tk.K1P_SUB_ROWS:
+            ring = 2 * 4 * sum(rows // v for v in vpws)
+            if ring + rest <= tk.K1_MAX_SMEM:
+                assert rows <= plan.sub_rows
+                assert tk.k1p_plan(vpws, n_instr, depth, rows).smem == ring + rest
+            else:
+                assert rows > plan.sub_rows
+                with pytest.raises(HyperspaceException, match="fit no ring"):
+                    tk.k1p_plan(vpws, n_instr, depth, rows)
+
+
+def test_k1p_plan_mirrors_the_kernel_source_and_raises_when_nothing_fits():
+    import re
+
+    src = _cu_source()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["MIN_SUB_ROWS"]) == tk.K1P_SUB_ROWS[-1]
+    assert int(consts["K1P_STAGES"]) == tk.K1P_STAGES == 2
+    assert int(consts["BLOCK_ROWS"]) == tk.BLOCK_ROWS == tk.K1P_SUB_ROWS[0]
+    assert re.search(r"static_assert\(sizeof\(Slice\) == (\d+)", src).group(1) == str(
+        tk.K1P_SLICE_BYTES)
+    fields = re.search(r"struct PackedPlan \{([^}]*)\}", src).group(1)
+    assert re.findall(r"int (\w+);", fields) == ["sub_rows", "stage_bytes"]
+    # li_st's planes: l_orderkey raw, l_quantity at vpw 4, l_shipdate at 2
+    plan = tk.k1p_plan([1, 4, 2], 12, 2)
+    assert (plan.sub_rows, plan.stage_bytes) == (8192, 57344)
+    assert plan.smem == 2 * 57344 + 3 * 16 + 2 * 1024
+    assert tk.k1p_plan([1, 4, 2], 12, 2, 4096).smem == 2 * 28672 + 3 * 16 + 2 * 1024
+    # 300 raw planes fit no ring of 128-row sub-tiles
+    with pytest.raises(HyperspaceException, match="fit no ring"):
+        tk.k1p_plan([1] * 300, 900, 2)
+    with pytest.raises(HyperspaceException, match="no sub-tile"):
+        tk.k1p_plan([1, 4], 9, 2, 3000)
+    # 40 raw planes: two stages of 512 rows fit, of 1024 rows do not
+    assert tk.k1p_plan([1] * 40, 49, 2).sub_rows == 512
+    with pytest.raises(HyperspaceException, match="fit no ring"):
+        tk.k1p_plan([1] * 40, 49, 2, 1024)
+
+
+def test_program_block_counts_packed_plain_version():
+    """The program-level K1p entry on the CPU: a lowered program gives the
+    predicate-level counts; a hand-written 64-slot-deep program over packed
+    planes gives its postfix interpretation over the decoded planes; a
+    program whose descriptors do not match the planes raises."""
+    from hyperspace_tpu_torch.ops import bitpack as tb
+
+    n_pad, n_real = 3 * tk.BLOCK_ROWS, 3 * tk.BLOCK_ROWS - 5
+    vals, words, specs = _packed_planes(n_real, 9, widths=(3, 12))
+    names = tuple(sorted(vals))
+    cols, sps = [], []
+    for nm in names:
+        s = specs[nm]
+        if s is None:
+            cols.append(torch.from_numpy(np.pad(words[nm], (0, n_pad - n_real))))
+        else:
+            s = tb.PackSpec(s.bits, s.vpw, n_pad, s.ref0)
+            padded = np.full(n_pad, s.ref0, dtype=np.int64)
+            padded[:n_real] = vals[nm]
+            cols.append(torch.from_numpy(tb.pack_plain(padded, s)))
+        sps.append(s)
+    narrowed = tk.narrow_expr_to_i32((texpr.col("p03") >= int(vals["p03"][1]))
+                                     & (texpr.col("r") < 300) & ~(texpr.col("p12") == 7))
+    used = tuple(sorted(narrowed.columns()))
+    assert used == names
+    program = tk.packed_program(narrowed, names, sps)
+    assert torch.equal(tk.program_block_counts_packed_tensor(program, cols, sps, n_pad),
+                       tk.predicate_block_counts_packed_tensor(narrowed, names, cols, sps, n_pad))
+    deep = tk.K1Program(_deep_program(64, n_cols=3), 3, tk.packed_header(sps))
+    assert deep.depth == 64 and deep.plan.sub_rows == 8192
+    got = tk.program_block_counts_packed_tensor(deep, cols, sps, n_pad)
+    flat = [tb.unpack_plain_torch(c, s) if s is not None else c for c, s in zip(cols, sps)]
+    want = tk.run_postfix_reference(deep.prog, flat).view(-1, tk.BLOCK_ROWS).sum(
+        1, dtype=torch.int32)
+    assert torch.equal(got, want) and 0 < int(got.sum()) < n_pad
+    assert torch.equal(got, tk.program_block_counts_packed_reference(deep, cols, sps, n_pad))
+    with pytest.raises(HyperspaceException, match="descriptors do not match"):
+        tk.program_block_counts_packed_tensor(deep, cols, [None, None, None], n_pad)
+    with pytest.raises(HyperspaceException, match="descriptors do not match"):
+        tk.program_block_counts_packed_tensor(tk.K1Program(_deep_program(8, n_cols=3), 3),
+                                              cols, sps, n_pad)
+
+
 def test_row_bitmask_layout():
     """Row r = b*8192 + w*1024 + k*128 + l*4 + j is bit 4k + j of word
     b*256 + w*32 + l: the 32 rows K1h's thread w*32 + l owns in block b."""
@@ -1002,7 +1120,9 @@ def test_hybrid_block_counts_plain_version_matches_reference(has_mask):
 @pytest.mark.gpu
 def test_cuda_packed_and_hybrid_kernels_match_plain_versions():
     """K1p over every width, raw and f64-sized planes mixed, a staged
-    program and more columns than the registers hold; K1h with no mask
+    program and more columns than the registers hold, a streaming window's
+    shape, every sub-tile its plan could choose, 12 raw + 4 packed
+    planes and a 64-slot-deep program; K1h with no mask
     and masks of none, all and random rows, deltas of 1 and several
     blocks, and more addresses than the parameters hold: each against its
     plain version on the card, one launch a call."""
@@ -1024,6 +1144,7 @@ def test_cuda_packed_and_hybrid_kernels_match_plain_versions():
                                                           [h.cuda() for h in host], sp, n)
             assert torch.equal(got.cpu(), want), (bits, p)
             calls_p += 1
+    calls_p += _cuda_packed_window_and_subtile_cases()
     rng = np.random.default_rng(2)
     calls_h = 0
     for n_cols in (1, 3, 9):
@@ -1046,6 +1167,63 @@ def test_cuda_packed_and_hybrid_kernels_match_plain_versions():
                 assert torch.equal(got.cpu(), want), (n_cols, nb, nd)
                 calls_h += 1
     assert launch_counts() == {tk.K1P: calls_p, tk.K1H: calls_h}
+
+
+def _cuda_packed_window_and_subtile_cases():
+    """K1p on the card at a streaming window's shape (2^20 rows, 128
+    blocks), under every sub-tile a 3-plane table fits,
+    over 12 raw + 4 packed planes (a sub-tile plan) and under a 64-slot
+    program; each against the plain version. Returns the launches."""
+    from hyperspace_tpu_torch.ops import bitpack as tb
+
+    calls = 0
+
+    def on_card(n_pad, widths, n_raw, seed):
+        vals, words, specs = _packed_planes(n_pad, seed, widths=widths)
+        rng = np.random.default_rng(seed)
+        for i in range(1, n_raw):
+            vals[f"r{i:02d}"] = rng.integers(-1000, 1000, n_pad).astype(np.int64)
+            words[f"r{i:02d}"], specs[f"r{i:02d}"] = vals[f"r{i:02d}"].astype(np.int32), None
+        names = tuple(sorted(vals))
+        host = [torch.from_numpy(words[nm]) for nm in names]
+        return vals, names, host, [h.cuda() for h in host], [specs[nm] for nm in names]
+
+    # a window of li_st's shape: raw, 6 bits at vpw 4, 12 bits at vpw 2
+    n = 1 << 20
+    vals, names, host, dev, sp = on_card(n, (6, 12), 1, 21)
+    pred = tk.narrow_expr_to_i32((texpr.col("r") < 0) & (texpr.col("p06") < int(vals["p06"][0]))
+                                 & (texpr.col("p12") >= int(np.median(vals["p12"]))))
+    want = tk.predicate_block_counts_packed_tensor(pred, names, host, sp, n)
+    assert torch.equal(tk.predicate_block_counts_packed_tensor(pred, names, dev, sp, n).cpu(),
+                       want)
+    calls += 1
+    # every sub-tile over 5 blocks of the same planes, and a hand-written
+    # program 64 stack slots deep
+    n = 5 * tk.BLOCK_ROWS
+    vals, names, host, dev, sp = on_card(n, (6, 12), 1, 22)
+    program = tk.packed_program(pred, names, sp)
+    want = tk.predicate_block_counts_packed_tensor(pred, names, host, sp, n)
+    assert program.plan.sub_rows == tk.BLOCK_ROWS
+    for rows in tk.K1P_SUB_ROWS:
+        got = tk.program_block_counts_packed_tensor(program, dev, sp, n, rows)
+        assert torch.equal(got.cpu(), want), rows
+        calls += 1
+    deep = tk.K1Program(_deep_program(64, n_cols=3), 3, tk.packed_header(sp))
+    assert torch.equal(tk.program_block_counts_packed_tensor(deep, dev, sp, n).cpu(),
+                       tk.program_block_counts_packed_tensor(deep, host, sp, n))
+    calls += 1
+    # 12 raw + 4 packed planes: two stages fit only as sub-tiles
+    vals, names, host, dev, sp = on_card(n, (3, 6, 12, 16), 12, 23)
+    pred = None
+    for nm in names:
+        c = texpr.col(nm) >= int(np.percentile(vals[nm], 10))
+        pred = c if pred is None else pred & c
+    pred = tk.narrow_expr_to_i32(pred)
+    assert tk.packed_program(pred, names, sp).plan.sub_rows < tk.BLOCK_ROWS
+    assert torch.equal(tk.predicate_block_counts_packed_tensor(pred, names, dev, sp, n).cpu(),
+                       tk.predicate_block_counts_packed_tensor(pred, names, host, sp, n))
+    assert tb.MAX_PACK_BITS == 16
+    return calls + 1
 
 
 def _packed_preds_any(m, vals, names):

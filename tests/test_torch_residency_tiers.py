@@ -51,8 +51,7 @@ ENV = {  # the reference's environment knobs, by the port's conf key
 }
 
 
-@pytest.fixture(autouse=True)
-def _force_residency(monkeypatch):
+def _residency_env(monkeypatch):
     monkeypatch.setenv("HYPERSPACE_TPU_HBM", "force")
     monkeypatch.setenv("HYPERSPACE_TPU_HBM_MIN_ROWS", "1")
     monkeypatch.setenv("HYPERSPACE_TPU_KERNELS", "interpret")
@@ -61,6 +60,11 @@ def _force_residency(monkeypatch):
     monkeypatch.setenv("HYPERSPACE_TPU_HBM_MAX_BLOCK_FRAC", "1.0")
     for var in ENV.values():
         monkeypatch.delenv(var, raising=False)
+
+
+@pytest.fixture(autouse=True)
+def _force_residency(monkeypatch):
+    _residency_env(monkeypatch)
     jknobs.reset_conf_defaults()
     jh.hbm_cache.reset()
     th.hbm_cache.reset()
@@ -142,6 +146,7 @@ class Ladder:
         s = self.session("jax", {})
         hs_jax.Hyperspace(s).create_index(s.read.avro(str(self.src)),
                                           hs_jax.IndexConfig("lidx", ["k"], ["v"]))
+        self._source_rows = {}
 
     def session(self, key, knobs, **extra):
         values = {**self.base, **extra}
@@ -158,6 +163,16 @@ class Ladder:
 
     def query(self, s, key, pred):
         return s.read.avro(str(self.src)).filter(pred(EXPR[key])).select("k", "v")
+
+    def source_rows(self, i, pred):
+        """Rows of ``PREDS[i]`` (``pred``) through the JAX package with
+        Hyperspace off: the source itself, which no test changes, so each
+        predicate's rows are read once a module."""
+        if i not in self._source_rows:
+            s = self.session("jax", {})
+            s.disable_hyperspace()
+            self._source_rows[i] = _rows(self.query(s, "jax", pred).collect())
+        return self._source_rows[i]
 
     def files(self):
         from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
@@ -182,9 +197,19 @@ def _rows(b):
     return sorted(zip(b.columns["k"].data.tolist(), b.columns["v"].data.tolist()))
 
 
-@pytest.fixture()
-def ladder(tmp_path):
-    return Ladder(tmp_path)
+@pytest.fixture(scope="module")
+def ladder(tmp_path_factory):
+    """One index tree for the module, built under the tests' environment:
+    the tests only read it, and each starts from empty caches, its own
+    knobs and its own sessions (``_force_residency``, ``_prefetch``)."""
+    with pytest.MonkeyPatch.context() as mp:
+        _residency_env(mp)
+        jknobs.reset_conf_defaults()
+        built = Ladder(tmp_path_factory.mktemp("ladder"))
+    jh.hbm_cache.reset()
+    th.hbm_cache.reset()
+    jknobs.reset_conf_defaults()
+    return built
 
 
 def _prefetch(ladder, monkeypatch, knobs):
@@ -214,9 +239,7 @@ def _counts_and_rows(ladder, js, ts, metric):
             val = reg.counter(metric) if key == "jax" else reg.get(metric)
             assert val == 1, (key, i, metric)
         assert out["torch"] == out["jax"], i
-        s = ladder.session("jax", {})
-        s.disable_hyperspace()
-        assert out["torch"] == _rows(ladder.query(s, "jax", p).collect()), i
+        assert out["torch"] == ladder.source_rows(i, p), i
 
 
 def test_compressed_tier_parity_and_budget_accounting(ladder, monkeypatch):
