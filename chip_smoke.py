@@ -8,9 +8,9 @@ Run from the repository root with no arguments:
 It needs a CUDA card and exits non-zero, printing no result, without one
 (or without the ``hyperspace_tpu_torch`` package beside it).
 ``--phases`` takes a comma list of ``kernels``, ``main``, ``aggregate``,
-``resident``, ``front_end``, ``lifecycle``, ``hybrid`` and ``streaming``
-(default: all, in that order; aggregate, resident and front_end run in the
-main path's session and bring ``main``). Phases:
+``resident``, ``join``, ``front_end``, ``lifecycle``, ``hybrid`` and
+``streaming`` (default: all, in that order; aggregate, resident, join and
+front_end run in the main path's session and bring ``main``). Phases:
 
 1. header — the card's name and power limit (``nvidia-smi``); the CUDA
    kernels build from ``hyperspace_tpu_torch/csrc`` (timed as set-up),
@@ -48,7 +48,15 @@ main path's session and bring ``main``). Phases:
    one streaming window, each beside K1c at the same rows raw;
    K1h (base and delta in one launch) runs no mask and masks of none, all
    and random rows, deltas of 1 row and several blocks, 1 to 9 columns,
-   and is timed at li_hy's shape;
+   and is timed at li_hy's shape; K2p (K2 over FoR-packed right keys)
+   runs at the join region's shape (lineitem's order keys in index
+   layout against orders' sorted keys packed in blocks of 128) and on its
+   edge cases at vpw 2, 4, 8, 16 and 32 (runs of equal keys across a line
+   and across a block, keys on fences, an all-pad tail), held against its
+   plain version on every padded row and timed beside raw K2 over the
+   same codes and ``torch.searchsorted`` x2; the torch epilogue of the
+   resident Q17 aggregate (``index_add_`` over 200,000 slots) is timed
+   alone and held against numpy;
 3. main path — TPC-H-shaped data at scale factor 1 (lineitem 6,001,215
    rows, orders 1,500,000, made with numpy from ``--seed`` and written as
    avro), two covering indexes with 200 buckets built in memory on the
@@ -71,7 +79,21 @@ main path's session and bring ``main``). Phases:
    float64 bound 5 times run through K1c. Every result must equal numpy
    and the same query's per-file result; K1c must have launched once per
    query and K1 never;
-5. front end — in the same session, residency off: Q3 written the
+5. join — in the same session, residency ``auto``: Q17's shape (J1) runs
+   once on the host arm (its ranges from the ranges cache where the
+   aggregate phase ran it; else the presorted route, K2 once, no argsort),
+   which schedules the join region of li_idx and ord_idx; then 10 warm
+   calls through the resident fused aggregate (one K2p launch each, no
+   upload). The unfiltered join of lineitem to orders (J2, 6,001,215 rows)
+   runs once on the host arm with residency off, then warm through the
+   resident materializing join (one K2p launch each, the gather on the
+   host). The main path's Q3 (J3, filtered sides) declines residency and
+   hits the groups and setup caches on its repeat. J1 and J2 run again with
+   ``hyperspace.residency.forDelta`` off from a reset cache: raw right
+   codes, one K2 launch a warm call. Each query's seconds, the region's
+   build seconds and MB (packed and raw), and ``join_region_key``'s time
+   are printed; every result equals numpy;
+6. front end — in the same session, residency off: Q3 written the
    natural way (``li.join(od, ...).filter(...).select(...)``, nothing
    under the join) must be rewritten to li_idx and ord_idx by predicate
    pushdown, column pruning and JoinIndexRule (``explain``'s "Indexes
@@ -85,7 +107,7 @@ main path's session and bring ``main``). Phases:
    li_year_skip (min/max on l_orderkey, bloom filter on l_partkey) keeps
    at most 14 of 28 files for a 2,000-key window, and a point filter on
    l_partkey equals numpy;
-6. lifecycle — in a session of its own with lineage on: the same rows
+7. lifecycle — in a session of its own with lineage on: the same rows
    written anew as ``src/lineitem_lc`` (8 avro files) and ``src/orders_lc``
    (2), covering indexes li_lc and ord_lc (200 buckets), then TPC-H's
    refresh functions as files appended to and removed from the sources
@@ -100,7 +122,7 @@ main path's session and bring ``main``). Phases:
    launches once per index file the scan reads, K2 and its fence build
    once per Q3, none while the index is deleted. Every step is timed and
    every result equals numpy over the source as it stands;
-7. hybrid — in a session of its own with hybrid scan and lineage on: the
+8. hybrid — in a session of its own with hybrid scan and lineage on: the
    same rows written anew as ``src/lineitem_hy`` (8 files) and
    ``src/orders_hy`` (2), covering indexes li_hy and ord_hy, served while
    the sources run ahead of them: H1 baseline (index only), H2 two RF1
@@ -120,7 +142,7 @@ main path's session and bring ``main``). Phases:
    takes the host union and populates the resident delta in the
    background, then 5 range filters each launch K1h once (no K1, no read
    of the appended files); after H4's refresh no delta is left;
-8. streaming — in a session of its own with lineage on: TPC-H lineitem
+9. streaming — in a session of its own with lineage on: TPC-H lineitem
    and orders at SF3 (18,003,645 and 4,500,000 rows, l_partkey in
    1..600,000) written as avro into ``src/lineitem_st`` (24 files, over
    the 256 MiB streaming threshold) and ``src/orders_st`` (6 files, under
@@ -137,15 +159,18 @@ main path's session and bring ``main``). Phases:
    plus per-bucket files), RF2 removes it through the lineage rewrite
    over the run files, and ``compact_index`` converges it to 200
    per-bucket files at 64 buckets a committed step. Each step runs the
-   range filter (K1 once per index file read) and Q3 (K2 and its fence
-   build once), each held against numpy. After S1 the ladder runs on
+   range filter (K1 once per index file read) and Q3 (one arm of the
+   join's ladder; K2 and its fence build once where the arm runs K2 — over
+   li_st's per-bucket files the presorted route's flat codes pass int32 at
+   SF3, K2's plan declines and the host searches them), each held against
+   numpy. After S1 the ladder runs on
    li_st, residency auto, each tier from a fresh cache: budgetMB 4096
    (resident, K1c), 320 (compressed: l_quantity and l_shipdate packed,
    K1p) and 64 (streaming: 18 windows of 2^20 rows through a slab pair),
    each with the resident phase's 30 queries, one launch a query (a
    window a query when streaming), rows against numpy and block counts
    against the resident tier's;
-9. one ``kernels`` JSON line (with the kernels phase; a kernel's
+10. one ``kernels`` JSON line (with the kernels phase; a kernel's
    launches are null where none of its paths ran), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -176,9 +201,9 @@ H100_BYTES_PER_S = 3.35e12
 H100_OPS_PER_S = 67e12  # 32-bit, outside the tensor cores
 LARGE_ROWS = 1 << 28  # K1c's large case: 3 int32 columns, 3 GiB
 LI_RESIDENT = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
-# the phases of a run, in order (--phases); aggregate, resident and
+# the phases of a run, in order (--phases); aggregate, resident, join and
 # front_end run in the main path's session and so need main
-PHASES = ("kernels", "main", "aggregate", "resident", "front_end", "lifecycle", "hybrid",
+PHASES = ("kernels", "main", "aggregate", "resident", "join", "front_end", "lifecycle", "hybrid",
           "streaming")
 DAY_1992_01_01 = 8035  # days since 1970-01-01
 DAY_1998_08_02 = 10440
@@ -380,13 +405,16 @@ def _fmt(ms) -> str:
 
 def ptxas_summary(report: str) -> dict:
     """Per kernel of a ``ptxas -v`` report: registers, stack frame and
-    spill bytes (template arguments of the mask kernels spelled out)."""
+    spill bytes (template arguments of the mask kernels and K2p's vpw
+    spelled out)."""
     import re
 
     def name(mangled: str) -> str:
-        m = re.search(r"([a-z_]+_kernel)(?:ILb([01])ELi(\d+)E)?", mangled)
+        m = re.search(r"([a-z_]+_kernel)(?:ILb([01])ELi(\d+)E|ILi(\d+)EE)?", mangled)
         if not m:
             return mangled
+        if m.group(4) is not None:
+            return f"{m.group(1)}<{m.group(4)}>"
         if m.group(2) is None:
             return m.group(1)
         flag = "staged" if m.group(2) == "1" else "params"
@@ -487,6 +515,99 @@ def k2_case(name: str, l: np.ndarray, r: np.ndarray, dev):
         f"pad_rows={len(l_p) - n} exact=yes (plain version, span semantics on every padded "
         f"row, numpy)")
     return rec, args, max_span
+
+
+K2P_KERNEL = "sorted_intersect_packed_kernel"
+
+
+def k2p_operands(l: np.ndarray, r: np.ndarray, dev):
+    """K2p's operands for left keys ``l`` and ascending right keys ``r``,
+    as a join region holds them: K2's plan, the right keys FoR-packed
+    (block 128) and padded, the raw fences of the narrowed padded keys.
+    Returns (planned tensors (s_tile, span, base, l_p), words, refs,
+    fences, spec, lo_all, the padded raw right keys, the host plan)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import bitpack
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    plan = tk._plan_sorted_intersect(l, r)
+    spec = bitpack.for_spec(r, block=128)
+    if plan is None or spec is None:
+        raise AssertionError("K2p: the plan or the FoR spec declined")
+    r_p = plan[4]
+    words, refs = tk.packed_right_operands(r, spec, len(r_p))
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return ([put(a) for a in plan[:4]], put(words), put(refs), put(r_p[:: tk.K2_FENCE]), spec,
+            min(int(l.min()), int(r.min())), put(r_p), plan)
+
+
+def k2p_case(name: str, l: np.ndarray, r: np.ndarray, dev):
+    """K2p over one input, held exactly against its plain version
+    (``sorted_intersect_packed_reference``) on every padded row, and on
+    real rows of tiles the plan does not mark wide against numpy's
+    searchsorted. Returns (record, operands)."""
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    ops = k2p_operands(l, r, dev)
+    t, words, refs, fences, spec, lo_all, _r_p, plan = ops
+    max_span = int(plan[1].max())
+    lt, eq = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
+                                                max_span=max_span)
+    p_lt, p_eq = tk.sorted_intersect_packed_reference(*t, words, refs, spec, lo_all,
+                                                      int(fences.shape[0]) * tk.K2_FENCE)
+    err = max(int((lt - p_lt).abs().max().item()), int((eq - p_eq).abs().max().item()))
+    n = len(l)
+    keep = ~np.repeat(plan[-1], tk.SMJ_TILE)[:n]
+    want = np.searchsorted(r, l, side="left")
+    np_ok = (np.array_equal(lt[:n].cpu().numpy()[keep], want[keep]) and np.array_equal(
+        eq[:n].cpu().numpy()[keep], (np.searchsorted(r, l, side="right") - want)[keep]))
+    if err or not np_ok:
+        raise AssertionError(f"K2p {name}: kernel disagrees with plain version (err {err}, "
+                             f"numpy {np_ok})")
+    rec = dict(max_abs_err=err, n_l=n, n_r=len(r), bits=spec.bits, vpw=spec.vpw,
+               wide_tiles=int(plan[-1].sum()), max_span=max_span)
+    log(f"K2p {name}: n_l={n} n_r={len(r)} bits={spec.bits} vpw={spec.vpw} "
+        f"wide_tiles={rec['wide_tiles']} max_span={max_span} exact=yes (plain version on every "
+        f"padded row, numpy on the rows of tiles not wide)")
+    return rec, ops
+
+
+def j1_epilogue_case(lineitem: dict, orders: dict, l_order: np.ndarray, lt, eq, dev) -> dict:
+    """J1's torch epilogue alone (``join_residency._core_agg``): f64 sum
+    and non-null count of o_totalprice per l_partkey slot over the match
+    ranges K2p gave, against numpy; timed with CUDA events."""
+    import torch
+
+    from hyperspace_tpu_torch.exec.join_residency import _core_agg, encode_join_payload
+    from hyperspace_tpu_torch.storage.columnar import Column
+
+    n = len(l_order)
+    part = lineitem["l_partkey"][l_order]
+    mn = int(part.min())
+    span = int(part.max()) - mn + 1
+    slots = torch.from_numpy((part - mn).astype(np.int32)).to(dev)
+    planes, enc = encode_join_payload(Column("float64", orders["o_totalprice"]))
+    flat = tuple(torch.from_numpy(p).to(dev) for p in planes)
+    lo, cnt = lt[:n].to(torch.int64), eq[:n].to(torch.int64)
+    specs = [("r", enc, 2, ("nn", "sum"))]
+
+    def run():
+        return _core_agg(specs, span, True, lo, cnt, slots, flat)
+
+    rows, nn, sums = (o.cpu().numpy() for o in run())
+    pos = np.searchsorted(orders["o_orderkey"], lineitem["l_orderkey"][l_order])
+    want = np.bincount(part - mn, weights=orders["o_totalprice"][pos], minlength=span)
+    if not (np.array_equal(rows, np.bincount(part - mn, minlength=span)) and np.array_equal(nn, rows)
+            and np.allclose(sums, want, rtol=1e-9, atol=0.0)):
+        raise AssertionError("J1 epilogue: disagrees with numpy")
+    # bytes: the ranges (int64) and slots read, the payload gathered per
+    # left row, three span-sized vectors written
+    b_ms, b_by = bound(16 * n + 4 * n + 8 * n + 3 * 8 * span, 0.0)
+    rec = dict(ms=time_ms(run), rows=n, groups=span, bound_ms=b_ms, bound_by=b_by)
+    log(f"J1 epilogue (index_add_ sum and count over 200,000 slots): rows={n} "
+        f"ms={rec['ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) matches numpy (sums rtol 1e-9)")
+    return rec
 
 
 def fence_case(r, fences) -> dict:
@@ -1096,6 +1217,49 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
     # tests feed the reference's Pallas kernel
     for name, (l, r) in k2_edge_cases(seed).items():
         k2[f"edge_{name}"] = k2_case(f"edge {name}", l, r, dev)[0]
+    # K2p at the join region's shape: the same left keys in index layout,
+    # orders' sorted keys FoR-packed; raw K2 over the same codes beside it
+    k2p = {}
+    rec, ops = k2p_case("region_layout", l_codes, r_sorted, dev)
+    t, words, refs, fences_p, spec, lo_all, r_p, plan = ops
+    max_span = int(plan[1].max())
+    run_p = lambda: tk.sorted_intersect_packed_tensors(  # noqa: E731
+        *t, words, refs, fences_p, spec, lo_all, max_span=max_span)
+    run_raw = lambda: tk.sorted_intersect_tensors(  # noqa: E731
+        *t, r_p, fences_p, max_span=max_span)
+    n_r_pad = int(r_p.shape[0])
+    # the function's bytes, each input read once and each output written
+    # once: the left keys, the packed words and refs, the fence array,
+    # (lt, eq)
+    b_ms, b_by = bound(4 * len(plan[3]) + 4 * int(words.shape[0]) + 4 * int(refs.shape[0])
+                       + 4 * int(fences_p.shape[0]) + 8 * len(plan[3]), 0.0)
+    rec.update(ms=time_ms(run_p), device_ms=device_ms(run_p, K2P_KERNEL),
+               plain_ms=time_ms(lambda: tk.sorted_intersect_packed_reference(
+                   *t, words, refs, spec, lo_all, n_r_pad), repeats=5),
+               library_ms=time_ms(lambda: searchsorted_pair(r_p, t[3])),
+               raw_k2_ms=time_ms(run_raw), raw_k2_device_ms=device_ms(run_raw,
+                                                                      "sorted_intersect_kernel"),
+               bound_ms=b_ms, bound_by=b_by, packed_mb=spec.packed_nbytes / 1e6,
+               raw_mb=4 * len(r_sorted) / 1e6)
+    k2p["region_layout"] = rec
+    log(f"K2p region_layout: ms={rec['ms']:.4f} device_ms={_fmt(rec['device_ms'])} | raw K2 "
+        f"over the same codes ms={rec['raw_k2_ms']:.4f} device_ms={_fmt(rec['raw_k2_device_ms'])} "
+        f"| plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} (torch.searchsorted "
+        f"x2) bound_ms={b_ms:.4f} ({b_by}) | right codes {rec['packed_mb']:.3f} MB packed, "
+        f"{rec['raw_mb']:.3f} MB raw")
+    from hyperspace_tpu_torch.ops.k2_cases import k2p_edge_cases
+
+    for name, (l, r) in k2p_edge_cases(seed).items():
+        k2p[f"edge_{name}"] = k2p_case(f"edge {name}", l, r, dev)[0]
+    lt_p, eq_p = run_p()
+    if plan[-1].any():  # the region patches its wide rows; here numpy does
+        wide_rows = np.flatnonzero(np.repeat(plan[-1], tk.SMJ_TILE)[: len(l_codes)])
+        q = l_codes[wide_rows]
+        w_lo = np.searchsorted(r_sorted, q, side="left")
+        lt_p[torch.from_numpy(wide_rows).to(dev)] = torch.from_numpy(w_lo.astype(np.int32)).to(dev)
+        eq_p[torch.from_numpy(wide_rows).to(dev)] = torch.from_numpy(
+            (np.searchsorted(r_sorted, q, side="right") - w_lo).astype(np.int32)).to(dev)
+    j1_epi = j1_epilogue_case(lineitem, orders, np.lexsort((l_keys, bucket)), lt_p, eq_p, dev)
     # K2 over resident operands. At index_layout the 199 tiles that
     # straddle a bucket boundary are wide, and the resident entry points
     # decline them as the reference does; the same keys in key order (no
@@ -1173,7 +1337,8 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
                          bound_ms=b_ms, bound_by=b_by)
         log(f"fused_agg {name}: arm={arm} ms={agg[name]['ms']:.4f} "
             f"plain_ms={agg[name]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) exact=yes")
-    out = {"k1": k1, "k1c": k1c, "k2": k2, "k2f": k2f, "fused_agg": agg}
+    out = {"k1": k1, "k1c": k1c, "k2": k2, "k2f": k2f, "k2p": k2p, "j1_epilogue": j1_epi,
+           "fused_agg": agg}
     out.update(residency_kernel_cases(lineitem, seed, dev))
     return out
 
@@ -1253,12 +1418,15 @@ def run_main_path(
     the ones to run: the same-session ones need "main", the lifecycle and
     hybrid phases run without it. Returns timings and counts."""
     out = {}
+    t0 = time.perf_counter()
     if "main" in phases:
         out.update(_main_session(lineitem, orders, workdir, device, seed, profile, phases))
-    if "lifecycle" in phases:
-        out["lifecycle"] = lifecycle_phase(lineitem, orders, workdir, device, seed, profile)
-    if "hybrid" in phases:
-        out["hybrid"] = hybrid_phase(lineitem, orders, workdir, device, seed, profile)
+        log(f"phase seconds: the main path's session {time.perf_counter() - t0:.1f} s")
+    for name, fn in (("lifecycle", lifecycle_phase), ("hybrid", hybrid_phase)):
+        if name in phases:
+            t0 = time.perf_counter()
+            out[name] = fn(lineitem, orders, workdir, device, seed, profile)
+            log(f"phase seconds: {name} {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1362,10 +1530,17 @@ def _main_session(lineitem, orders, workdir: Path, device: str, seed: int, profi
            q3_want)
     for q in out["query_s"]:
         log(f"query {q}: {out['query_s'][q]:.4f} s rows={out['rows'][q]} matches numpy reference")
+    t0 = time.perf_counter()
     if "aggregate" in phases:
         out["aggregate"] = aggregate_phase(session, li, od, q3, L, O, profile)
     if "resident" in phases:
         out["resident"] = resident_phase(session, hsp, li, L, seed, profile)
+    if "join" in phases:
+        t1 = time.perf_counter()
+        out["join"] = join_phase(session, li, od, q3, q3_want, L, O, profile)
+        out["join"]["phase_s"] = time.perf_counter() - t1
+        log(f"phase seconds: join {out['join']['phase_s']:.1f} s")
+    log(f"phase seconds: aggregate, resident and join {time.perf_counter() - t0:.1f} s")
     if "front_end" in phases:
         q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
                    "o_totalprice"]
@@ -1505,13 +1680,18 @@ def aggregate_phase(session, li, od, q3, L: dict, O: dict, profile: bool = False
         res, t_q, launches, m, _times = timed_query(session, f"aggregate {name}", profile, df)
         _check_agg(f"aggregate {name}", res, keys, want[name])
         fused = m.get("aggregate.path.join_fused", 0)
-        join_arm = [k for k in ("join.path.device_kernel", "join.path.host_searchsorted")
-                    if m.get(k, 0)]
+        join_arm = list(join_arms(m))
         read = m.get("scan.files_read", 0)
         k2_want = (1 if on_card else 0) if arm != "scan" else 0
         if (launches.get(tk.K2, 0), launches.get(tk.K2F, 0)) != (k2_want, k2_want) or \
                 fused != (1 if arm == "fused" else 0):
             raise AssertionError(f"aggregate {name}: launches {launches}, counters {m}")
+        # the first run of each join shape: both index sides key-sorted
+        # per bucket, so the presorted route, K2 over the flat-remapped
+        # codes and no argsort (a repeat would hit the caches)
+        if arm != "scan" and join_arm != ["join.path.presorted_merge_flat"]:
+            raise AssertionError(f"aggregate {name}: join arms {join_arm}, not the presorted "
+                                 f"route alone")
         if arm == "scan" and (read <= 0 or launches.get(tk.K1, 0) != (read if on_card else 0)):
             raise AssertionError(f"aggregate {name}: K1 launches {launches}, files read {read}")
         out[name] = {"s": t_q, "groups": res.num_rows, "launches": launches, "arm": arm,
@@ -1624,6 +1804,173 @@ def resident_phase(session, hsp, li, L, seed: int, profile: bool = False) -> dic
     return out
 
 
+JOIN_WARM = 10  # warm J1 calls per residency setting (J2: JOIN_WARM_J2)
+JOIN_WARM_J2 = 3
+
+
+def join_phase(session, li, od, q3, q3_want, L: dict, O: dict, profile: bool = False) -> dict:
+    """Join residency and the join caches, in the main path's session with
+    residency ``auto`` (``force`` off the card), over li_idx and ord_idx,
+    each query with launch counts from zero:
+
+    * J1 ``q17_shape`` (the aggregate phase's A1): the first call takes
+      the host arm — its ranges from the ranges cache where A1 ran before
+      in this process, else the presorted route with K2 and K2F once and
+      no argsort — and schedules the join region; after
+      ``wait_background`` the warm calls take ``scan.path.resident_join_agg``,
+      each one K2p launch (forDelta on), no K2, no upload;
+    * J2, the unfiltered join ``li.join(od).select(l_orderkey,
+      l_extendedprice, o_orderdate)``, 6,001,215 rows: once with residency
+      off (the host arm), then warm calls through ``scan.path.resident_join``,
+      one K2p launch each;
+    * J3, the main path's Q3 (filtered sides) twice: declined as filtered,
+      the repeat hitting the groups and setup caches, K2 once a call;
+    * J1 and J2 again with ``hyperspace.residency.forDelta`` off from a
+      reset cache: raw codes, one K2 launch a warm call, no K2p.
+
+    Every result is held against numpy (group sums to rtol 1e-9)."""
+    from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
+    from hyperspace_tpu_torch.exec.join_residency import join_region_key
+    from hyperspace_tpu_torch.ops.kernels import K2, K2F, K2P
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    on_card = session.device.type == "cuda"
+    mode = "auto" if on_card else "force"
+    one = 1 if on_card else 0
+    session.conf.set("hyperspace.torch.hbm.mode", mode)
+    q17_want = q17_truth(L, O)
+    j2 = li.join(od, col("l_orderkey") == col("o_orderkey")).select(
+        "l_orderkey", "l_extendedprice", "o_orderdate")
+    pos = np.searchsorted(O["o_orderkey"], L["l_orderkey"])  # orders keys ascend
+    j2_cols = ["l_orderkey", "l_extendedprice", "o_orderdate"]
+    j2_want = [L["l_orderkey"], L["l_extendedprice"], O["o_orderdate"][pos]]
+    out = {"launches_k2p": 0}  # K2p's launches over the warm calls with forDelta on
+
+    entries = {e.name: e for e in session.collection_manager.get_indexes()}
+    l_files = entries["li_idx"].content.files()
+    r_files = entries["ord_idx"].content.files()
+    key_s = []
+    for _ in range(5):
+        t = time.perf_counter()
+        join_region_key(l_files, r_files, ["l_orderkey"], ["o_orderkey"])
+        key_s.append(time.perf_counter() - t)
+    out["region_key_s"] = {"median": float(np.median(key_s)), "max": max(key_s),
+                           "files": len(l_files) + len(r_files)}
+    log(f"join: join_region_key over {len(l_files) + len(r_files)} files: median "
+        f"{np.median(key_s):.6f} s max {max(key_s):.6f} s")
+
+    def run(label, df):
+        return timed_query(session, f"join {label}", profile, df)
+
+    def region_row(label):
+        snap = hbm_cache.snapshot_joins()
+        if snap["regions"] != 1:
+            raise AssertionError(f"join {label}: {snap['regions']} regions resident")
+        return snap["per_region"][0]
+
+    for for_delta in ("on", "off"):
+        session.conf.set("hyperspace.residency.forDelta", for_delta)
+        route, k_res = ("k2p", K2P) if for_delta == "on" else ("k2", K2)
+        tag = f"forDelta={for_delta}"
+        rec = out[f"for_delta_{for_delta}"] = {}
+        if for_delta == "off":
+            hbm_cache.reset()  # the regions again from nothing, raw this time
+        # J1: the first call takes the host arm and schedules the region
+        res, t_host, launches, m, _t = run(f"J1 {tag} first", q17_shape(li, od))
+        _check_agg(f"join J1 {tag} first", res, ["l_partkey"], q17_want)
+        arms = join_arms(m)
+        if m.get("join.ranges_cache.hit"):
+            first_ok = not arms and launches.get(K2, 0) == 0
+        else:
+            first_ok = (arms == {"join.path.presorted_merge_flat": 1}
+                        and (launches.get(K2, 0), launches.get(K2F, 0)) == (one, one))
+        if not first_ok or m.get("aggregate.path.join_fused") != 1 or \
+                m.get("scan.path.resident_join_agg"):
+            raise AssertionError(f"join J1 {tag} first call: launches {launches}, counters {m}")
+        hbm_cache.wait_background()
+        build_s = metrics.timings().get("hbm.join.prefetch", (0.0, 0))[0]
+        reg = region_row(f"J1 {tag}")
+        if reg["route"] != route or "l_partkey" not in reg["payload"]:
+            raise AssertionError(f"join J1 {tag}: region {reg}")
+        rec["j1"] = {"host_s": t_host, "ranges_cache_hit": bool(m.get("join.ranges_cache.hit")),
+                     "first_launches": launches, "first_arms": arms, "build_s": build_s,
+                     "region": reg}
+        times, keys = [], []
+        for i in range(JOIN_WARM):
+            res, t_q, launches, m, tm = run(f"J1 {tag} warm", q17_shape(li, od))
+            _check_agg(f"join J1 {tag} warm {i}", res, ["l_partkey"], q17_want)
+            want_l = {k_res: one} if on_card else {}
+            if m.get("scan.path.resident_join_agg") != 1 or launches != want_l or \
+                    m.get("hbm.join.h2d_bytes"):
+                raise AssertionError(f"join J1 {tag} warm: launches {launches}, counters {m}")
+            times.append(t_q)
+            keys.append(tm.get("hbm.join.region_key", (0.0, 0))[0])
+            out["launches_k2p"] += launches.get(K2P, 0)
+        rec["j1"].update(resident_median_s=float(np.median(times)), resident_max_s=max(times),
+                         warm_launches=launches, region_key_s=float(np.median(keys)),
+                         device_s=tm.get("scan.resident_join_agg.device", (0.0, 0))[0])
+        j = rec["j1"]
+        log(f"join J1 q17_shape {tag}: host arm {j['host_s']:.4f} s (ranges cache hit "
+            f"{j['ranges_cache_hit']}, launches {j['first_launches']}, arms {j['first_arms']}) | "
+            f"region {reg['route']} {reg['mb']} MB (right codes raw {reg['raw_mb']} MB) built "
+            f"{build_s:.3f} s | resident x{JOIN_WARM} median {j['resident_median_s']:.4f} s max "
+            f"{j['resident_max_s']:.4f} s, launches {launches} each, device {j['device_s']:.4f} "
+            f"s, join_region_key {j['region_key_s']:.6f} s | {res.num_rows}-group table matches "
+            f"numpy")
+
+        # J2: the host arm once (residency off), then warm resident calls
+        session.conf.set("hyperspace.torch.hbm.mode", "off")
+        res, t_host, launches, m, _t = run(f"J2 {tag} host", j2)
+        session.conf.set("hyperspace.torch.hbm.mode", mode)
+        _check(f"join J2 {tag} host", res, j2_cols, j2_want)
+        if res.num_rows != len(L["l_orderkey"]) or launches.get(K2, 0) != one:
+            raise AssertionError(f"join J2 {tag} host: {res.num_rows} rows, launches {launches}")
+        times = []
+        for i in range(JOIN_WARM_J2):
+            res, t_q, launches, m, _t = run(f"J2 {tag} warm", j2)
+            if i in (0, JOIN_WARM_J2 - 1):
+                _check(f"join J2 {tag} warm {i}", res, j2_cols, j2_want)
+            want_l = {k_res: one} if on_card else {}
+            if m.get("scan.path.resident_join") != 1 or launches != want_l or \
+                    m.get("hbm.join.h2d_bytes") or res.num_rows != len(L["l_orderkey"]):
+                raise AssertionError(f"join J2 {tag} warm: launches {launches}, counters {m}")
+            times.append(t_q)
+            out["launches_k2p"] += launches.get(K2P, 0)
+        rec["j2"] = {"host_s": t_host, "rows": res.num_rows,
+                     "resident_median_s": float(np.median(times)), "resident_max_s": max(times),
+                     "warm_launches": launches,
+                     "device_s": _t.get("scan.resident_join.device", (0.0, 0))[0]}
+        j = rec["j2"]
+        log(f"join J2 materializing {tag}: host arm {j['host_s']:.4f} s | resident "
+            f"x{JOIN_WARM_J2} median {j['resident_median_s']:.4f} s max "
+            f"{j['resident_max_s']:.4f} s, launches {launches} each, ranges on the card "
+            f"{j['device_s']:.4f} s | {res.num_rows} rows match numpy")
+
+    # J3: the main path's Q3, filtered sides: declined, the caches serve
+    session.conf.set("hyperspace.residency.forDelta", "on")
+    q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
+               "o_totalprice"]
+    j3 = []
+    for i in range(2):
+        res, t_q, launches, m, _t = run(f"J3 q3 {i}", q3)
+        _check(f"join J3 {i}", res, q3_cols, q3_want)
+        arms = join_arms(m)
+        if m.get("hbm.join.declined.filtered") != 1 or launches.get(K2, 0) != one or \
+                arms != {"join.path.presorted_merge_flat": 1}:
+            raise AssertionError(f"join J3 {i}: launches {launches}, counters {m}")
+        if i == 1 and (m.get("join.cache.hit") != 2 or m.get("join.setup_cache.hit") != 1):
+            raise AssertionError(f"join J3 repeat: cache counters {m}")
+        j3.append({"s": t_q, "launches": launches, "groups_cache_hit": m.get("join.cache.hit", 0),
+                   "setup_cache_hit": m.get("join.setup_cache.hit", 0)})
+    out["j3"] = j3
+    log(f"join J3 q3 (filtered): declined as filtered | {j3[0]['s']:.4f} s then "
+        f"{j3[1]['s']:.4f} s with groups cache hits {j3[1]['groups_cache_hit']} and setup cache "
+        f"hits {j3[1]['setup_cache_hit']} | K2 {launches.get(K2, 0)} a call | matches numpy")
+    session.conf.set("hyperspace.torch.hbm.mode", "off")
+    return out
+
+
 def _scan_files_kept(df) -> int:
     """The source files the optimized plan's one Scan still reads."""
     from hyperspace_tpu_torch.plan.ir import Scan
@@ -1686,11 +2033,11 @@ def front_end_phase(session, hsp, li_dir, od_dir, q3_hand, q3_hand_rows, q3_want
     nat, t_nat = timed("natural Q3", natural)
     launches = launch_counts()
     want_k2 = 1 if on_card else 0
-    if (launches.get(K2, 0), launches.get(K2F, 0)) != (want_k2, want_k2) or not (
-        metrics.get("join.path.device_kernel") + metrics.get("join.path.host_searchsorted")
-    ):
-        raise AssertionError(f"natural Q3 did not run the bucketed join through K2: "
-                             f"launches {launches}")
+    arms = join_arms(metrics.snapshot())
+    if (launches.get(K2, 0), launches.get(K2F, 0)) != (want_k2, want_k2) or \
+            arms != {"join.path.presorted_merge_flat": 1}:
+        raise AssertionError(f"natural Q3 did not run the bucketed join's presorted route "
+                             f"through K2: launches {launches}, arms {arms}")
     _check("natural Q3", nat, q3_cols, q3_want)
     _check("natural Q3 against the hand-placed Q3", nat, q3_cols, q3_hand_rows)
     # then both in turns, so that the host's drift falls on both alike
@@ -1896,6 +2243,25 @@ def plan_with_indexes(df) -> str:
     return df.explain().split("Plan without indexes")[0]
 
 
+JOIN_ARMS = ("join.path.presorted_merge_flat", "join.path.presorted_merge",
+             "join.path.device_kernel", "join.path.host_searchsorted")
+
+
+def join_arms(m: dict) -> dict:
+    """The bucketed join's routing-ladder counters a query counted
+    (``exec/joins.py``): the presorted route (K2 over flat-remapped
+    codes, or the per-segment host loop), the argsort route (K2), or the
+    host search where K2's plan declined."""
+    return {k: m[k] for k in JOIN_ARMS if m.get(k)}
+
+
+def k2_of_arms(arms: dict, on_card: bool) -> int:
+    """K2 launches (and fence builds) a query's join arms imply: one for
+    an arm that runs K2 on the card, none for the host arms."""
+    return int(on_card) * sum(arms.get(k, 0) for k in ("join.path.presorted_merge_flat",
+                                                       "join.path.device_kernel"))
+
+
 def range_bounds(lineitem) -> tuple:
     """The range filter's order-key window and ship-date floor."""
     top = int(lineitem["l_orderkey"].max())
@@ -2060,10 +2426,11 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
                 raise AssertionError(f"lifecycle {step}: Q3 indexes used {used3.split()}")
             res3, t_q3, l3, m3 = run(f"{step} Q3", q3_q)
             _check(f"lifecycle {step} Q3", res3, q3_cols, want_q3)
-            bucketed = rewritten and not (m3.get("join.path.device_kernel", 0)
-                                          + m3.get("join.path.host_searchsorted", 0) == 0)
-            want_k2 = 1 if on_card and rewritten else l3.get(K2, 0)
-            if (l3.get(K2, 0), l3.get(K2F, 0)) != (want_k2, want_k2) or (rewritten and not bucketed):
+            arms = join_arms(m3)
+            bucketed = rewritten and sum(arms.values()) == 1
+            want_k2 = k2_of_arms(arms, on_card) if rewritten else l3.get(K2, 0)
+            if (l3.get(K2, 0), l3.get(K2F, 0)) != (want_k2, want_k2) or (rewritten and not bucketed) \
+                    or (on_card and rewritten and not want_k2):
                 raise AssertionError(f"lifecycle {step}: Q3 launches {l3}, paths {m3}")
             row.update(q3_s=t_q3, q3_rows=res3.num_rows, q3_launches=l3,
                        q3_join_path={k: v for k, v in m3.items() if k.startswith("join.path")})
@@ -2302,9 +2669,9 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
                                          f"index files read {read}")
             else:
                 want_k2 = 1 if on_card else 0
+                arms = join_arms(m)
                 if (launches.get(tk.K2, 0), launches.get(tk.K2F, 0)) != (want_k2, want_k2) or \
-                        m.get("join.path.device_kernel", 0) + m.get("join.path.host_searchsorted",
-                                                                     0) != 1:
+                        sum(arms.values()) != 1 or k2_of_arms(arms, on_card) != want_k2:
                     raise AssertionError(f"hybrid {step} Q3: launches {launches}, paths {m}")
             key = "range" if q == "range" else "q3"
             row.update({f"{key}_s": t_q, f"{key}_rows": res.num_rows,
@@ -2773,7 +3140,8 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
       until no run file is left.
 
     Every query runs with launch counts from zero (K1 once per index file
-    read, K2 and its fence build once per Q3) and equals numpy over the
+    read; one join arm per Q3, K2 and its fence build once where the arm
+    runs K2) and equals numpy over the
     sources as they stand. ``chunk_rows`` and ``threshold`` are for
     rehearsals off the card at a small ``scale`` only."""
     import os
@@ -2859,15 +3227,19 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
             raise AssertionError(f"streaming {step}: K1 launches {launches}, files read {read}")
         res3, t_q3, l3, m3, _t3 = timed_query(session, f"streaming {step} Q3", profile, q3_q)
         _check(f"streaming {step} Q3", res3, Q3_COLS, want_q3)
-        want_k2 = 1 if on_card else 0
-        if (l3.get(K2, 0), l3.get(K2F, 0)) != (want_k2, want_k2):
+        # one arm of the join's ladder, and K2 where that arm runs it: at
+        # SF3 the presorted route's flat codes (200 buckets x 18M keys)
+        # pass int32, K2's plan declines, and the host searches them
+        arms = join_arms(m3)
+        want_k2 = k2_of_arms(arms, on_card)
+        if (l3.get(K2, 0), l3.get(K2F, 0)) != (want_k2, want_k2) or sum(arms.values()) != 1:
             raise AssertionError(f"streaming {step}: Q3 launches {l3}, paths {m3}")
         n_files = len(files(index))
         n_runs = sum(layout.is_run_file(f) for f in files(index))
         row = {"step": step, "verb_s": verb_s, "files": n_files, "run_files": n_runs,
                "range_s": t_r, "range_rows": res.num_rows, "range_files_read": read,
                "range_launches": launches, "range_sweeps": m.get("io.segment.sweeps", 0),
-               "q3_s": t_q3, "q3_rows": res3.num_rows, "q3_launches": l3,
+               "q3_s": t_q3, "q3_rows": res3.num_rows, "q3_launches": l3, "q3_join_arms": arms,
                "q3_sweeps": m3.get("io.segment.sweeps", 0),
                "q3_segments": m3.get("io.segment.ranges", 0) + m3.get("io.segment.coalesced", 0)}
         out["steps"].append(row)
@@ -3036,7 +3408,7 @@ def _phases(arg: str) -> tuple:
     if unknown or not want:
         raise argparse.ArgumentTypeError(
             f"--phases takes a comma list of {','.join(PHASES)} (got {arg!r})")
-    if want & {"aggregate", "resident", "front_end"}:
+    if want & {"aggregate", "resident", "join", "front_end"}:
         want.add("main")
     return tuple(p for p in PHASES if p in want)
 
@@ -3051,7 +3423,7 @@ def main() -> int:
                     help="print host and device profiles of each main-path step")
     ap.add_argument("--phases", type=_phases, default=PHASES,
                     help="comma list of the phases to run, of " + ",".join(PHASES)
-                    + " (default: all; aggregate, resident and front_end bring main)")
+                    + " (default: all; aggregate, resident, join and front_end bring main)")
     args = ap.parse_args()
     phases = args.phases
 
@@ -3098,7 +3470,9 @@ def main() -> int:
     lineitem, orders = make_tables(args.seed, n_o, n_l)
     log(f"setup: tables generated in {time.perf_counter() - t0:.3f} s")
 
+    t0 = time.perf_counter()
     kphase = kernel_phase(lineitem, orders, args.seed) if "kernels" in phases else None
+    log(f"phase seconds: kernels {time.perf_counter() - t0:.1f} s")
     # launches above compared kernels with their plain versions; each
     # path's counts start from zero inside its phase
     workdir = Path(args.workdir) if args.workdir else Path(tempfile.mkdtemp(prefix="hs_smoke_"))
@@ -3114,16 +3488,20 @@ def main() -> int:
                 log(f"CUT: streaming phase at scale {args.scale}: {cut}")
             stream_out = streaming_phase(workdir / "streaming", "cuda", args.seed, args.profile,
                                          scale=args.scale, **cut)
+            log(f"phase seconds: streaming {stream_out['phase_s']:.1f} s")
     finally:
         if not args.workdir:
             shutil.rmtree(workdir, ignore_errors=True)
     # each kernel's launches on its paths (None where no phase of them ran)
-    launches = {k: None for k in (tk.K1, tk.K1C, tk.K1P, tk.K1H, tk.K2, tk.K2F)}
+    launches = {k: None for k in (tk.K1, tk.K1C, tk.K1P, tk.K1H, tk.K2, tk.K2F, tk.K2P)}
     if "launches" in main_out:
         for kname in (tk.K1, tk.K2, tk.K2F):
             launches[kname] = main_out["launches"].get(kname, 0)
     if "resident" in main_out:
         launches[tk.K1C] = main_out["resident"]["launches"].get(tk.K1C, 0)
+    if "join" in main_out:
+        # K2p on the join phase's warm resident calls (forDelta on)
+        launches[tk.K2P] = main_out["join"]["launches_k2p"]
     if stream_out is not None:
         # K1p on the ladder's compressed and streaming tiers
         launches[tk.K1P] = sum(t["launches"].get(tk.K1P, 0)
@@ -3140,7 +3518,7 @@ def main() -> int:
     if "launches" in main_out:
         details["main_path"] = {k: main_out[k] for k in ("build_s", "query_s", "rows")}
     for key, name in (("aggregate", "aggregate"), ("resident", "resident_path"),
-                      ("front_end", "front_end"), ("lifecycle", "lifecycle"),
+                      ("join", "join"), ("front_end", "front_end"), ("lifecycle", "lifecycle"),
                       ("hybrid", "hybrid")):
         if key in main_out:
             details[name] = main_out[key]
@@ -3165,6 +3543,7 @@ def kernels_line(tk, kphase: dict, launches: dict) -> dict:
     k1c = kphase["k1c"]["range_3col"]
     k2 = kphase["k2"]["index_layout"]
     k2f = kphase["k2f"]
+    k2p = kphase["k2p"]["region_layout"]
     mask_src = "hyperspace_tpu_torch/csrc/predicate_mask.cu"
     join_src = "hyperspace_tpu_torch/csrc/sorted_intersect.cu"
     rows = (
@@ -3174,6 +3553,7 @@ def kernels_line(tk, kphase: dict, launches: dict) -> dict:
         (tk.K1H, mask_src, "hyperspace_tpu/exec/hbm_cache.py:671", "k1h", k1h),
         (tk.K2, join_src, "hyperspace_tpu/ops/kernels.py:549", "k2", k2),
         (tk.K2F, join_src, "hyperspace_tpu/ops/kernels.py:549", "k2f", k2f),
+        (tk.K2P, join_src, "hyperspace_tpu/exec/join_residency.py:952", "k2p", k2p),
     )
     out = []
     for name, src, replaces, key, rec in rows:

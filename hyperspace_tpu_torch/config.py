@@ -293,6 +293,9 @@ class HyperspaceConf:
             window_rows=(
                 window if window > 0 else C.RESIDENCY_STREAMING_WINDOW_ROWS_DEFAULT
             ),
+            for_delta=str(
+                self.get(C.RESIDENCY_FOR_DELTA, C.RESIDENCY_FOR_DELTA_DEFAULT)
+            ).lower() not in C.RESIDENCY_FOR_DELTA_OFF,
         )
 
 
@@ -311,6 +314,8 @@ class ResidencyConf:
     compression: str = C.RESIDENCY_COMPRESSION_DEFAULT
     streaming: str = C.RESIDENCY_STREAMING_DEFAULT
     window_rows: int = C.RESIDENCY_STREAMING_WINDOW_ROWS_DEFAULT
+    # resident join regions FoR-pack their sorted right codes (K2p)
+    for_delta: bool = True
 
     @property
     def budget_bytes(self) -> int:

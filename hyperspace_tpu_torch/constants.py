@@ -211,3 +211,10 @@ RESIDENCY_STREAMING_DEFAULT = "auto"
 # are charged against the budget
 RESIDENCY_STREAMING_WINDOW_ROWS = "hyperspace.residency.streaming.windowRows"
 RESIDENCY_STREAMING_WINDOW_ROWS_DEFAULT = 1 << 20
+# forDelta: the resident join regions' globally sorted right codes are
+# FoR-delta packed (ops/bitpack.py:for_spec) when the codec wins, and the
+# region's queries run K2p over the packed words; "off", "false", "0" or
+# "no" keep them raw (K2)
+RESIDENCY_FOR_DELTA = "hyperspace.residency.forDelta"
+RESIDENCY_FOR_DELTA_DEFAULT = "on"
+RESIDENCY_FOR_DELTA_OFF = ("off", "false", "0", "no")

@@ -59,6 +59,21 @@
 //     run longer than a line searches the slice again for #fences <= key.
 // FENCE = 8 was chosen on the card against 16 and 32 (PERF.md): a longer
 // line halves the slices but reads two or four sectors of r per key.
+//
+// K2p (hs_sorted_intersect_packed) is the same function over right keys
+// kept FoR-delta packed (ops/bitpack.py:for_spec/pack_for, block 128):
+// value i is refs[i / 128] + ((words[i / vpw] >> (i % vpw) * bits) & mask),
+// the codes before the plan's narrowing, so the kernel subtracts lo_all
+// after the decode; rows at or past n_r read as INT32_MAX, K2's pads. It
+// replaces the reference's XLA programs ranges_fn_packed and
+// unpack_for_jnp (hyperspace_tpu/exec/join_residency.py:952,
+// hyperspace_tpu/ops/bitpack.py:171). Only the line read changes: line k
+// of 8 keys lies in FoR block 8k / 128, so it reads that block's ref and
+// 8 / vpw packed words (at most 16 bytes, bits <= 16 giving vpw >= 2;
+// one word from vpw 8 up), aligned to their size at every vpw, and the
+// decode is specialised by vpw, a template chosen once per launch. The
+// fence array stays raw int32: the region build uploads the host's
+// narrowed sorted keys' every 8th once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -114,6 +129,57 @@ __device__ __forceinline__ void line_counts(const int32_t* p, int x, int& lt, in
   }
 }
 
+// The lines of a span's raw right keys (K2): line k is rw[8k .. 8k + 8).
+struct RawLines {
+  const int32_t* rw;  // r + s_tile * TILE
+  __device__ __forceinline__ void counts(int line, int x, int& lt, int& le) const {
+    line_counts(rw + line * FENCE, x, lt, le);
+  }
+};
+
+// The lines of a span's FoR-packed right keys (K2p), decoded in
+// registers: the line's block ref and its VPW-specialised word loads.
+template <int VPW>
+struct PackedLines {
+  static_assert(VPW >= 2 && VPW <= 32 && (VPW & (VPW - 1)) == 0, "vpw is a power of two");
+  static_assert(FENCE == 8 && 128 % FENCE == 0, "a line lies inside one FoR block");
+  const int32_t* words;
+  const int32_t* refs;
+  int first;  // the value index of the span's line 0: s_tile * TILE (< 2^31)
+  int n_r;    // real keys; rows at or past it read as INT32_MAX
+  int bits, lo_all;
+  __device__ __forceinline__ void counts(int line, int x, int& lt, int& le) const {
+    const int i0 = first + line * FENCE;
+    // ref - lo_all + offset: the plan's narrowed key, computed unsigned
+    // (a pad block's ref may be anything; its rows are masked below)
+    const unsigned ref = (unsigned)__ldg(refs + (i0 >> 7)) - (unsigned)lo_all;
+    const unsigned mask = (1u << bits) - 1u;
+    unsigned off[FENCE];
+    if constexpr (VPW == 2) {  // 4 words, 2 keys each
+      const int4 q = __ldg(reinterpret_cast<const int4*>(words + (i0 >> 1)));
+      const unsigned w[4] = {(unsigned)q.x, (unsigned)q.y, (unsigned)q.z, (unsigned)q.w};
+#pragma unroll
+      for (int j = 0; j < FENCE; ++j) off[j] = (w[j / 2] >> ((j % 2) * bits)) & mask;
+    } else if constexpr (VPW == 4) {  // 2 words, 4 keys each
+      const int2 q = __ldg(reinterpret_cast<const int2*>(words + (i0 >> 2)));
+      const unsigned w[2] = {(unsigned)q.x, (unsigned)q.y};
+#pragma unroll
+      for (int j = 0; j < FENCE; ++j) off[j] = (w[j / 4] >> ((j % 4) * bits)) & mask;
+    } else {  // one word holds the line, from lane (i0 % VPW) on
+      const unsigned w = (unsigned)__ldg(words + i0 / VPW);
+      const int shift0 = (int)(i0 % VPW) * bits;
+#pragma unroll
+      for (int j = 0; j < FENCE; ++j) off[j] = (w >> (shift0 + j * bits)) & mask;
+    }
+    int v[FENCE];
+#pragma unroll
+    for (int j = 0; j < FENCE; ++j) v[j] = i0 + j < n_r ? (int)(ref + off[j]) : INT32_MAX;
+    lt = le = 0;
+    count4(make_int4(v[0], v[1], v[2], v[3]), x, lt, le);
+    count4(make_int4(v[4], v[5], v[6], v[7]), x, lt, le);
+  }
+};
+
 // One search step of size S for a key x whose count c of fences below it
 // is held as the shared-memory address a of fence c: c += S where fence
 // c + S - 1 < x. Three instructions (a load at an immediate offset, a
@@ -140,10 +206,11 @@ __device__ __forceinline__ void search_steps(unsigned (&a)[KEYS], const int (&x)
   if constexpr (S > 1) search_steps<S / 2>(a, x, top);
 }
 
-// Span-relative bounds of a thread's KEYS keys x over the right keys
-// rw[0 .. nf * FENCE), whose fences are in slice[0 .. nf):
-// lo = #rw < x, hi = #rw <= x.
-__device__ __forceinline__ void span_counts(const int* slice, int nf, const int32_t* rw,
+// Span-relative bounds of a thread's KEYS keys x over the span's right
+// keys (the lines of rl, nf * FENCE keys), whose fences are in
+// slice[0 .. nf): lo = #keys < x, hi = #keys <= x.
+template <class Lines>
+__device__ __forceinline__ void span_counts(const int* slice, int nf, const Lines& rl,
                                             const int (&x)[KEYS], int (&lo)[KEYS],
                                             int (&hi)[KEYS]) {
   // 1. c = #fences < x. The first step aligns the range to a power of
@@ -173,7 +240,7 @@ __device__ __forceinline__ void span_counts(const int* slice, int nf, const int3
 #pragma unroll
   for (int j = 0; j < KEYS; ++j) {
     line[j] = c[j] > 0 ? c[j] - 1 : 0;
-    line_counts(rw + line[j] * FENCE, x[j], lo[j], hi[j]);
+    rl.counts(line[j], x[j], lo[j], hi[j]);
     lo[j] += line[j] * FENCE;
     hi[j] += line[j] * FENCE;
   }
@@ -191,7 +258,7 @@ __device__ __forceinline__ void span_counts(const int* slice, int nf, const int3
         }
       }
       int n_lt, n_le;
-      line_counts(rw + (c2 - 1) * FENCE, x[j], n_lt, n_le);
+      rl.counts(c2 - 1, x[j], n_lt, n_le);
       hi[j] = (c2 - 1) * FENCE + n_le;
     }
   }
@@ -206,20 +273,22 @@ __device__ __forceinline__ int key_at(int j) {
   return (threadIdx.x >> 5) * (32 * KEYS) + j * 32 + (threadIdx.x & 31);
 }
 
-// One CTA per left tile t: it copies the fences of t's span into shared
-// memory, searches them for each of its keys, reads one line of r a key
-// and writes the span's counts.
-__global__ void __launch_bounds__(THREADS) sorted_intersect_kernel(
-    const int32_t* __restrict__ l, const int32_t* __restrict__ r,
-    const int32_t* __restrict__ fences, const int32_t* __restrict__ s_tile,
-    const int32_t* __restrict__ span, const int32_t* __restrict__ base, int max_span,
-    int32_t* __restrict__ lt, int32_t* __restrict__ eq) {
-  extern __shared__ int4 slice4[];  // max_span * TILE / FENCE fences
+// The part of a CTA's work common to K2 and K2p: it loads the tile's
+// keys, answers a span-0 tile (or one over max_span) at once, and copies
+// the fences of the tile's span into shared memory. False: the CTA is done.
+__device__ __forceinline__ bool tile_prologue(const int32_t* __restrict__ l,
+                                              const int32_t* __restrict__ fences,
+                                              const int32_t* __restrict__ s_tile,
+                                              const int32_t* __restrict__ span,
+                                              const int32_t* __restrict__ base, int max_span,
+                                              int32_t* __restrict__ lt, int32_t* __restrict__ eq,
+                                              int4* slice4, int (&x)[KEYS], int& sp, int& b,
+                                              int& s) {
   const long long at = (long long)blockIdx.x * TILE;  // the tile's first key
-  int x[KEYS];
 #pragma unroll
   for (int j = 0; j < KEYS; ++j) x[j] = __ldg(l + at + key_at(j));
-  const int sp = __ldg(span + blockIdx.x), b = __ldg(base + blockIdx.x);
+  sp = __ldg(span + blockIdx.x);
+  b = __ldg(base + blockIdx.x);
   if (sp <= 0 || sp > max_span) {
     // span 0: lt = base, eq = 0 (the reference's initialisation). A span
     // over the launch's max_span (the wrapper passes the plan's largest):
@@ -230,9 +299,9 @@ __global__ void __launch_bounds__(THREADS) sorted_intersect_kernel(
       lt[at + key_at(j)] = v;
       eq[at + key_at(j)] = e;
     }
-    return;  // the whole CTA: the barrier below is not reached
+    return false;  // the whole CTA: the barrier below is not reached
   }
-  const int s = __ldg(s_tile + blockIdx.x);
+  s = __ldg(s_tile + blockIdx.x);
   // the span's fences, 16 bytes a thread at a time, straight into shared
   // memory (cp.async: no register holds them on the way)
   const int4* src = reinterpret_cast<const int4*>(fences) + s * (TILE / FENCE / 4);
@@ -243,13 +312,53 @@ __global__ void __launch_bounds__(THREADS) sorted_intersect_kernel(
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst + 16 * i), "l"(src + i));
   asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
-  int lo[KEYS], hi[KEYS];
-  span_counts(reinterpret_cast<const int*>(slice4), sp * (TILE / FENCE), r + s * TILE, x, lo, hi);
+  return true;
+}
+
+__device__ __forceinline__ void tile_store(int32_t* __restrict__ lt, int32_t* __restrict__ eq,
+                                           int b, const int (&lo)[KEYS], const int (&hi)[KEYS]) {
+  const long long at = (long long)blockIdx.x * TILE;
 #pragma unroll
   for (int j = 0; j < KEYS; ++j) {
     lt[at + key_at(j)] = b + lo[j];
     eq[at + key_at(j)] = hi[j] - lo[j];
   }
+}
+
+// One CTA per left tile t: it copies the fences of t's span into shared
+// memory, searches them for each of its keys, reads one line of r a key
+// and writes the span's counts.
+__global__ void __launch_bounds__(THREADS) sorted_intersect_kernel(
+    const int32_t* __restrict__ l, const int32_t* __restrict__ r,
+    const int32_t* __restrict__ fences, const int32_t* __restrict__ s_tile,
+    const int32_t* __restrict__ span, const int32_t* __restrict__ base, int max_span,
+    int32_t* __restrict__ lt, int32_t* __restrict__ eq) {
+  extern __shared__ int4 slice4[];  // max_span * TILE / FENCE fences
+  int x[KEYS], sp, b, s;
+  if (!tile_prologue(l, fences, s_tile, span, base, max_span, lt, eq, slice4, x, sp, b, s))
+    return;
+  int lo[KEYS], hi[KEYS];
+  span_counts(reinterpret_cast<const int*>(slice4), sp * (TILE / FENCE), RawLines{r + s * TILE},
+              x, lo, hi);
+  tile_store(lt, eq, b, lo, hi);
+}
+
+// K2p: K2 over FoR-packed right keys (words, refs), VPW values a word.
+template <int VPW>
+__global__ void __launch_bounds__(THREADS) sorted_intersect_packed_kernel(
+    const int32_t* __restrict__ l, const int32_t* __restrict__ words,
+    const int32_t* __restrict__ refs, const int32_t* __restrict__ fences,
+    const int32_t* __restrict__ s_tile, const int32_t* __restrict__ span,
+    const int32_t* __restrict__ base, int max_span, int bits, int lo_all, int n_r,
+    int32_t* __restrict__ lt, int32_t* __restrict__ eq) {
+  extern __shared__ int4 slice4[];
+  int x[KEYS], sp, b, s;
+  if (!tile_prologue(l, fences, s_tile, span, base, max_span, lt, eq, slice4, x, sp, b, s))
+    return;
+  int lo[KEYS], hi[KEYS];
+  const PackedLines<VPW> rl{words, refs, s * TILE, n_r, bits, lo_all};
+  span_counts(reinterpret_cast<const int*>(slice4), sp * (TILE / FENCE), rl, x, lo, hi);
+  tile_store(lt, eq, b, lo, hi);
 }
 
 }  // namespace
@@ -282,5 +391,59 @@ extern "C" int hs_sorted_intersect(const void* l, const void* r, const void* fen
   sorted_intersect_kernel<<<(unsigned)(n_l / TILE), THREADS, smem, (cudaStream_t)stream>>>(
       (const int32_t*)l, (const int32_t*)r, (const int32_t*)fences, (const int32_t*)s_tile,
       (const int32_t*)span, (const int32_t*)base, max_span, (int32_t*)lt, (int32_t*)eq);
+  return (int)cudaGetLastError();
+}
+
+// K2p. l, fences, s_tile, span, base, max_span, lt, eq as for
+// hs_sorted_intersect, n_r_pad = 8 * the fences' length; words: device
+// int32 FoR words of the right keys, vpw values a word (2, 4, 8, 16 or
+// 32) of ``bits`` bits, at least n_r_pad / vpw of them (16-byte
+// aligned); refs: device int32 block references, one per 128 keys, at
+// least n_r_pad / 128; lo_all: the plan's narrowing, subtracted after the
+// decode; n_r: the real keys. Launches on ``stream``; returns the
+// launch's cudaGetLastError().
+extern "C" int hs_sorted_intersect_packed(const void* l, const void* words, const void* refs,
+                                          const void* fences, const void* s_tile,
+                                          const void* span, const void* base, long long n_l,
+                                          int max_span, int vpw, int bits, int lo_all,
+                                          long long n_r, void* lt, void* eq, void* stream) {
+  if (n_l <= 0) return 0;
+  if (max_span < 0 || max_span > MAX_SPAN_TILES || bits < 1 || bits > 16 || vpw * bits > 32 ||
+      n_r < 0 || n_r >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)max_span * (TILE / FENCE) * sizeof(int);
+  const dim3 grid((unsigned)(n_l / TILE));
+  const auto L = (const int32_t*)l;
+  const auto W = (const int32_t*)words;
+  const auto R = (const int32_t*)refs;
+  const auto F = (const int32_t*)fences;
+  const auto S = (const int32_t*)s_tile;
+  const auto P = (const int32_t*)span;
+  const auto B = (const int32_t*)base;
+  const auto st = (cudaStream_t)stream;
+  switch (vpw) {
+    case 2:
+      sorted_intersect_packed_kernel<2><<<grid, THREADS, smem, st>>>(
+          L, W, R, F, S, P, B, max_span, bits, lo_all, (int)n_r, (int32_t*)lt, (int32_t*)eq);
+      break;
+    case 4:
+      sorted_intersect_packed_kernel<4><<<grid, THREADS, smem, st>>>(
+          L, W, R, F, S, P, B, max_span, bits, lo_all, (int)n_r, (int32_t*)lt, (int32_t*)eq);
+      break;
+    case 8:
+      sorted_intersect_packed_kernel<8><<<grid, THREADS, smem, st>>>(
+          L, W, R, F, S, P, B, max_span, bits, lo_all, (int)n_r, (int32_t*)lt, (int32_t*)eq);
+      break;
+    case 16:
+      sorted_intersect_packed_kernel<16><<<grid, THREADS, smem, st>>>(
+          L, W, R, F, S, P, B, max_span, bits, lo_all, (int)n_r, (int32_t*)lt, (int32_t*)eq);
+      break;
+    case 32:
+      sorted_intersect_packed_kernel<32><<<grid, THREADS, smem, st>>>(
+          L, W, R, F, S, P, B, max_span, bits, lo_all, (int)n_r, (int32_t*)lt, (int32_t*)eq);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,22 @@ BucketUnion and Repartition:
   Aggregate runs its child, then exec.aggregate.hash_aggregate;
 * everything else evaluates bottom-up over ColumnarBatches.
 
-The compiled-pipeline, join residency and mesh arms are not ported.
+Join residency (exec/join_residency.py): a bucketed join or aggregate
+over two pristine index sides whose join region is resident on the card
+is served there — the aggregate in one K2/K2p launch and a torch epilogue
+(``scan.path.resident_join_agg``), the materializing join by K2/K2p's
+match ranges and a host gather from the cached groups
+(``scan.path.resident_join``); a miss schedules the region's background
+build. A device error in these arms raises (the reference drops the
+region and answers on the host).
+
+A join side's bucket groups are cached across queries (the groups cache
+below): keyed by file identities and projection, carrying a cache token
+that the join layer's setup and ranges caches key on; a filtered side
+derives its token from the predicate's ``repr``, a hybrid merge carries
+none (``join.cache.optout.*``).
+
+The compiled-pipeline and mesh arms are not ported.
 """
 
 from __future__ import annotations
@@ -336,6 +351,9 @@ class Executor:
                                 base_counts, path_metric=None)
         parts += hbm_cache.delta_parts(res.delta, predicate, out_cols, delta_counts)
         metrics.incr("scan.path.resident_hybrid")
+        from .scan_gate import scan_gate
+
+        scan_gate.note_resident_bypass("hybrid")
         if parts:
             return ColumnarBatch.concat(parts)
         empty = empty_batch_for(out_cols, info.entry.schema)
@@ -380,16 +398,36 @@ class Executor:
     ) -> Dict[int, ColumnarBatch]:
         """Read a bucketed index side grouped by bucket (parts in log order
         within a bucket); the side's predicate applies per bucket after
-        grouping."""
-        groups = self._read_groups_by_bucket(
-            node.entry.content.files(), list(node.required_columns)
-        )
+        grouping. The PRE-predicate groups are cached across queries by
+        file identity and projection (index files are immutable): a repeat
+        join skips the read, the concat and the dictionary unification.
+        The predicate builds fresh batches, so cached groups never change;
+        a filtered side carries a DERIVED token ``(token, ("pred",
+        repr(predicate)))`` so its joins hit the setup and ranges caches
+        too."""
+        files = node.entry.content.files()
+        columns = list(node.required_columns)
+        cache_key = _groups_key(files, columns)
+        groups = _cached_bucket_groups(cache_key)
+        if groups is None:
+            groups = self._read_groups_by_bucket(files, columns)
+            groups = _store_bucket_groups(cache_key, groups) or groups
+        if predicate is None:
+            return groups
         out: Dict[int, ColumnarBatch] = {}
         for b, v in groups.items():
             v = self._apply_predicate(v, predicate)
             if v.num_rows:
                 out[b] = v
-        return out
+        tok = getattr(groups, "cache_token", None)
+        if tok is None:
+            # never cached (budget 0, an unstat-able file): the filtered
+            # side cannot derive a token and opts out of the join caches
+            metrics.incr("join.cache.optout.filtered")
+            return out
+        tagged = BucketGroups(out)
+        tagged.cache_token = (tok, ("pred", repr(predicate)))
+        return tagged
 
     @staticmethod
     def _read_groups_by_bucket(files, columns) -> Dict[int, ColumnarBatch]:
@@ -406,10 +444,14 @@ class Executor:
         seg_map: Dict = {}
         sweep_segments: Dict[str, List] = {}
         if run_files:
+            from .scan_gate import note_bucket_heat
+
             plan = layout.plan_segment_reads(run_files)
             seg_map = layout.execute_segment_reads(plan, columns=columns)
             for sw in plan:
                 sweep_segments[sw.path] = sw.segments
+            # the compactor's priority signal: these buckets are hot
+            note_bucket_heat(layout.index_root_of(run_files[0]), {b for (_p, b) in seg_map})
         groups: Dict[int, List[ColumnarBatch]] = {}
         for f in files:
             if layout.is_run_file(f):
@@ -466,7 +508,7 @@ class Executor:
             if inner is None:
                 return None
             by_bucket, idx = inner
-            return {b: v.select(list(node.columns)) for b, v in by_bucket.items()}, idx
+            return _project_groups(by_bucket, list(node.columns)), idx
         if isinstance(node, Repartition):
             return self._repartition_by_bucket(node, predicate), None
         if isinstance(node, BucketUnion):
@@ -485,6 +527,9 @@ class Executor:
                         merged[b] = v
             if idx is None:
                 return None
+            # the merge folds appended data in: a plain dict, which opts
+            # out of every cross-query join cache (BucketGroups)
+            metrics.incr("join.cache.optout.hybrid")
             return merged, idx
         return None
 
@@ -506,6 +551,20 @@ class Executor:
         l2r = {l.lower(): r for l, r in zip(l_keys, r_keys)}
         l_keys = list(l_node.entry.indexed_columns)
         r_keys = [l2r[k.lower()] for k in l_keys]
+        # the resident materializing join: match ranges on the card over
+        # the region's codes, the gather from the cached groups
+        from .join_residency import resolve_join_residency
+
+        res = resolve_join_residency(join.left, join.right, l_keys, r_keys, self.residency,
+                                     self.device)
+        if res.status == "ok":
+            served = self._resident_join_pairs(
+                res.region, l_by_bucket, r_by_bucket, list(res.l_keys), list(res.r_keys)
+            )
+            if served is not None:
+                return served
+        elif res.status == "no_region":
+            self._note_join_touch(res, join.left, join.right, ())
         parts = bucketed_join_pairs(
             l_by_bucket, r_by_bucket, l_keys, r_keys, self.device
         )
@@ -535,8 +594,11 @@ class Executor:
         left_plan, right_plan, lk, rk, group_by, aggs = oriented
         if not _co_bucketed(left_plan, right_plan, lk, rk):
             return None
-        # (the reference tries its device-resident fused aggregate-join,
-        # ``_try_resident_join_agg``, here; it lands with join residency)
+        # the resident fused aggregate-join first: one K2/K2p launch and a
+        # torch epilogue over the region ship the group table home
+        fused = self._try_resident_join_agg(left_plan, right_plan, lk, rk, group_by, aggs)
+        if fused is not None:
+            return fused
         # decidable before any bucket I/O: an ineligible shape would load
         # both sides, decline, then load everything again on the fallback
         if any(a.fn not in ("count", "sum", "avg") for a in aggs):
@@ -557,6 +619,81 @@ class Executor:
         l_all, r_all, lo, counts, r_order = ranges
         return aggregate_join_ranges(l_all, r_all, group_by, aggs, lo, counts, r_order)
 
+    def _try_resident_join_agg(
+        self, left_plan, right_plan, l_keys, r_keys, group_by, aggs
+    ) -> Optional[ColumnarBatch]:
+        """The resident fused aggregate-join arm: eligibility is
+        ``resolve_join_residency`` (shared with the materializing arm); a
+        miss schedules the region with the aggregate's payload columns.
+        None routes the host fusion (no region, or a spec the device
+        cannot serve exactly: ``hbm.join.declined.dtype``)."""
+        from .hbm_cache import hbm_cache
+        from .join_residency import resolve_join_residency
+        from .scan_gate import scan_gate
+
+        need = list(dict.fromkeys(list(group_by) + [a.column for a in aggs if a.column]))
+        res = resolve_join_residency(left_plan, right_plan, l_keys, r_keys, self.residency,
+                                     self.device, payload_columns=need)
+        if res.status == "no_region":
+            self._note_join_touch(res, left_plan, right_plan, need)
+            return None
+        if res.status != "ok":
+            return None
+        out = hbm_cache.join_agg(res.region, group_by, aggs)
+        if out is None:
+            return None
+        metrics.incr("scan.path.resident_join_agg")
+        scan_gate.note_resident_bypass("join")
+        return out
+
+    def _note_join_touch(self, res, left_plan, right_plan, payload) -> None:
+        """Schedule the join region's background build for the NEXT query
+        (never blocks). The loader re-derives both sides' bucket groups on
+        the background thread, from the groups cache on a warm repeat."""
+        from .hbm_cache import hbm_cache
+
+        if not hbm_cache.auto_enabled(self.residency, self.device):
+            return
+
+        def loader():
+            lload = self._side_by_bucket(left_plan)
+            rload = self._side_by_bucket(right_plan)
+            if lload is None or rload is None:
+                return None
+            return lload[0], rload[0]
+
+        hbm_cache.note_touch_join(
+            res.l_node.entry.content.files(), res.r_node.entry.content.files(),
+            res.l_keys, res.r_keys, payload, loader, self.device, self.residency,
+        )
+
+    def _resident_join_pairs(
+        self, region, l_by_bucket, r_by_bucket, l_keys, r_keys
+    ) -> Optional[ColumnarBatch]:
+        """The materializing resident join: K2/K2p's match ranges over the
+        region's resident codes (one launch, no upload; the (lo, counts)
+        vectors come home), expanded through the region's ``r_order`` and
+        gathered on the host from the (cached) setup. None when the groups
+        drifted from the region (the host join serves)."""
+        from .hbm_cache import hbm_cache
+        from .joins import _bucketed_join_setup, _expand_ranges
+        from .scan_gate import scan_gate
+
+        setup, _ck = _bucketed_join_setup(l_by_bucket, r_by_bucket, list(l_keys), list(r_keys))
+        if setup is None:
+            return None
+        l_all, r_all = setup[0], setup[1]
+        if l_all.num_rows != region.n_l or r_all.num_rows != region.n_r:
+            return None
+        lo, counts = hbm_cache.join_ranges(region)
+        l_idx, r_idx = _expand_ranges(lo, counts, region.r_order)
+        out: Dict[str, object] = {}
+        out.update(l_all.take(l_idx).columns)
+        out.update(r_all.take(r_idx).columns)
+        metrics.incr("scan.path.resident_join")
+        scan_gate.note_resident_bypass("join")
+        return ColumnarBatch(out)
+
     def _side_by_bucket(self, plan: LogicalPlan):
         """[Project?] over a bucketed source (index scan / hybrid union),
         the Project applied: the reference's ``_scan_side_by_bucket``
@@ -570,7 +707,7 @@ class Executor:
             return None
         by_bucket, idx_node = inner
         if project is not None:
-            by_bucket = {b: v.select(list(project.columns)) for b, v in by_bucket.items()}
+            by_bucket = _project_groups(by_bucket, list(project.columns))
         return by_bucket, idx_node
 
     @staticmethod
@@ -590,3 +727,79 @@ class Executor:
                 f"by index {idx_node.entry.name}'s schema."
             )
         return empty
+
+
+# ---------------------------------------------------------------------------
+# the cross-query bucket-groups cache (join sides)
+# ---------------------------------------------------------------------------
+# Index files are immutable, so the bucket-grouped, dictionary-unified
+# arrays a join side loads are a pure function of (file identities,
+# projection). This byte-capped LRU (HYPERSPACE_TPU_TORCH_JOIN_CACHE_MB,
+# 0 disables; exec/bytecache.py) keeps the PRE-predicate groups.
+from .bytecache import ByteCappedLru, batch_nbytes, join_cache_budget  # noqa: E402
+
+
+def _groups_cache_cap() -> int:
+    return join_cache_budget()
+
+
+_GROUPS_CACHE = ByteCappedLru(_groups_cache_cap)
+
+
+class BucketGroups(dict):
+    """A bucket -> batch dict carrying the identity it was cached under,
+    which the join layer's setup and ranges caches key on. The token is
+    sound only while the groups are a pure function of it: pristine loads
+    carry (file identities, projection); a projection extends it with the
+    column list; a predicate with its ``repr``. A transform not derivable
+    from the token (a hybrid merge with appended rows) builds a plain
+    dict, which opts out (``join.cache.optout.{hybrid,filtered}``)."""
+
+    cache_token: tuple = None
+
+
+def _groups_key(files, columns) -> Optional[tuple]:
+    # the one file-identity rule of every cross-query cache (hbm_cache's)
+    from .hbm_cache import _file_identity
+
+    try:
+        idents = [_file_identity(f) for f in files]
+    except OSError:
+        return None
+    return (tuple(sorted(idents)), tuple(columns))
+
+
+def _cached_bucket_groups(key):
+    if key is None:
+        return None
+    hit = _GROUPS_CACHE.get(key)
+    metrics.incr("join.cache.hit" if hit is not None else "join.cache.miss")
+    return hit
+
+
+def _store_bucket_groups(key, groups):
+    """Cache and return the tagged groups (None when not cached), so the
+    FIRST query's join already runs over the token-carrying object."""
+    if key is None or key in _GROUPS_CACHE:
+        return _GROUPS_CACHE.get(key) if key is not None else None
+    nbytes = sum(batch_nbytes(g) for g in groups.values())
+    tagged = BucketGroups(groups)
+    tagged.cache_token = key
+    return _GROUPS_CACHE.put(key, tagged, nbytes)
+
+
+def reset_groups_cache() -> None:
+    _GROUPS_CACHE.reset()
+
+
+def _project_groups(by_bucket, columns):
+    """``columns`` selected in every bucket batch, the cache token kept
+    (extended with the column list): a projection of immutable cached
+    groups is still a pure function of the files."""
+    out = {b: v.select(columns) for b, v in by_bucket.items()}
+    tok = getattr(by_bucket, "cache_token", None)
+    if tok is not None:
+        tagged = BucketGroups(out)
+        tagged.cache_token = (tok, tuple(columns))
+        return tagged
+    return out

@@ -45,10 +45,17 @@ budget pressure deltas go before tables; dropping a base drops its
 deltas; a refresh or optimize of the index invalidates them
 (``invalidate_deltas``).
 
-Tables and deltas are populated synchronously (``prefetch``,
-``prefetch_delta``) or on first touch (``note_touch``,
-``note_touch_delta``, background threads), and LRU-evicted against a byte
-budget. The knobs are session conf (``config.ResidencyConf``): ``mode``
+Join regions (``exec/join_residency.py``) keep one (left version, right
+version, keys) pair's join codes and an aggregate's payload columns on the
+device; ``join_ranges`` and ``join_agg`` serve the executor's resident
+join arms through K2 or K2p. Under budget pressure deltas go first, then
+join regions, then tables; a refresh or optimize of either index drops
+the regions that read it (``invalidate_joins``).
+
+Tables, deltas and join regions are populated synchronously (``prefetch``,
+``prefetch_delta``, ``prefetch_join``) or on first touch (``note_touch``,
+``note_touch_delta``, ``note_touch_join``, background threads), and
+LRU-evicted against a byte budget. The knobs are session conf (``config.ResidencyConf``): ``mode``
 auto | off | force, ``budgetMB``, ``minRows``, ``maxBlockFrac``, and the
 ladder's ``compression``, ``streaming`` and ``window_rows``.
 
@@ -58,8 +65,7 @@ error on a background thread is kept and raised by the next
 in a window loop or a hybrid launch raises on the query thread. A file
 that vanished before population is a skip, as in the reference.
 
-Not ported yet: join residency, and the batched count programs of the
-serving layer.
+Not ported yet: the batched count programs of the serving layer.
 """
 
 from __future__ import annotations
@@ -82,6 +88,7 @@ from ..ops.bitpack import PackSpec
 from ..plan.expr import Expr, eval_mask
 from ..storage.columnar import Column, ColumnarBatch, is_string
 from ..telemetry.metrics import metrics
+from .bytecache import batch_nbytes, vocab_heap_bytes  # noqa: F401 (one copy, re-exported)
 
 BLOCK_ROWS = K.BLOCK_ROWS  # count granularity: 4 B D2H per 8192 rows
 
@@ -90,14 +97,6 @@ _MAX_FAILED_MEMO = 1024  # per-file-version keys; bounded paranoia
 # become resident: they are id-like, their global vocab would pin
 # unbounded host memory, and dictionary compares stop paying anyway
 _MAX_VOCAB = 1 << 22
-
-
-def vocab_heap_bytes(vocab) -> int:
-    """Host-heap estimate of one string dictionary (bytes objects + ~50 B
-    of Python overhead per entry); None counts as zero."""
-    if vocab is None:
-        return 0
-    return sum(len(v) + 50 for v in vocab)
 
 
 def _budget_bytes(conf: ResidencyConf) -> int:
@@ -109,11 +108,6 @@ def _budget_bytes(conf: ResidencyConf) -> int:
     from ..residency.tiers import claimant_bytes
 
     return conf.budget_bytes - held_bytes() - claimant_bytes()
-
-
-def batch_nbytes(batch: ColumnarBatch) -> int:
-    """Host bytes of a batch, its string dictionaries included."""
-    return sum(c.data.nbytes + vocab_heap_bytes(c.vocab) for c in batch.columns.values())
 
 
 def _device(device: DeviceLike) -> torch.device:
@@ -416,6 +410,11 @@ class ResidentCacheBase:
         # delta regions, one per base at most (the hybrid scan's appended
         # side); under budget pressure they go before any table
         self._deltas: List[DeltaRegion] = []
+        # join regions (exec/join_residency.py): under budget pressure they
+        # go after the deltas and before any table
+        self._joins: list = []
+        # bumped on every join-region register, evict and invalidate
+        self._join_version = 0
         self._pending: set = set()
         # (file-set key, frozenset(columns)) that can never materialize
         # (nothing encodable, too small): without this memo every query
@@ -440,12 +439,102 @@ class ResidentCacheBase:
         with self._lock:
             return not self._tables
 
-    def drop(self, table: ResidentTable) -> None:
-        """Unregister a table; the deltas built over it go with it (no
-        query could reach them without their base)."""
+    def drop(self, table) -> None:
+        """Unregister a table or a join region; the deltas built over a
+        table go with it (no query could reach them without their base)."""
         with self._lock:
             self._tables = [t for t in self._tables if t is not table]
-            self._deltas = [d for d in self._deltas if d.base_key != table.key]
+            if any(j is table for j in self._joins):
+                self._joins = [j for j in self._joins if j is not table]
+                self._join_version += 1
+            key = getattr(table, "key", None)
+            self._deltas = [d for d in self._deltas if d.base_key != key]
+
+    def invalidate_joins(self, index_root: Optional[str] = None) -> None:
+        """Drop the join regions that read a file under ``index_root``, on
+        either side (None: all). The refresh and optimize hook, scoped like
+        ``invalidate_deltas``; a quick refresh changes no index file and
+        keeps them."""
+        from .join_residency import region_roots
+
+        prefix = None if index_root is None else str(index_root).rstrip("/") + "/"
+        with self._lock:
+            keep = [
+                j for j in self._joins
+                if prefix is not None
+                and not any(str(p).startswith(prefix) for p in region_roots(j))
+            ]
+            n = len(self._joins) - len(keep)
+            self._joins[:] = keep
+            if n:
+                self._join_version += 1
+        if n:
+            metrics.incr("hbm.join.invalidated", n)
+
+    def join_region_version(self) -> int:
+        """The join regions' generation: bumped on every register, evict,
+        drop and invalidate."""
+        with self._lock:
+            return self._join_version
+
+    def _register_join(self, region, budget: int, epoch: Optional[int] = None) -> bool:
+        """Register a join region under the shared budget: a build over
+        the same key supersedes the old one (a widened payload); under
+        pressure claimants shed, deltas go, then OTHER regions, never a
+        table (the region is refused instead)."""
+        from ..residency.tiers import shed_claimants
+
+        with self._lock:
+            if epoch is not None and epoch != self._epoch:
+                return False  # reset() since the build started
+            for j in self._joins:
+                if j.key == region.key:
+                    metrics.incr("hbm.join.superseded")
+            self._joins = [j for j in self._joins if j.key != region.key]
+            self._joins.append(region)
+            if self._total_locked() > budget:
+                budget += shed_claimants(self._total_locked() - budget)
+            while self._total_locked() > budget and self._deltas:
+                self._deltas.remove(min(self._deltas, key=lambda d: d.last_used))
+                metrics.incr("hbm.delta.evicted")
+            while self._total_locked() > budget and len(self._joins) > 1:
+                victim = min((j for j in self._joins if j is not region),
+                             key=lambda j: j.last_used)
+                self._joins.remove(victim)
+                metrics.incr("hbm.join.evicted")
+            self._join_version += 1
+            if self._total_locked() > budget:
+                self._joins.remove(region)
+                metrics.incr("hbm.join.over_budget_refused")
+                return False
+            metrics.incr("hbm.join.registered")
+            return True
+
+    def snapshot_joins(self) -> dict:
+        """Join regions held: count, MB, generation, and per region its
+        rows, keys, payload, route (k2, k2p or searchsorted), MB and the
+        MB its right codes would take raw."""
+        with self._lock:
+            return {
+                "regions": len(self._joins),
+                "mb": round(sum(j.nbytes for j in self._joins) / 1e6, 1),
+                "version": self._join_version,
+                "per_region": [
+                    {
+                        "rows_l": j.n_l,
+                        "rows_r": j.n_r,
+                        "keys": list(j.key[2]),
+                        "payload": sorted(j.l_cols) + sorted(j.r_cols),
+                        "route": j.route,
+                        "mb": round(j.nbytes / 1e6, 3),
+                        "for_delta": j.r_pack is not None,
+                        "raw_mb": round((j.nbytes + (
+                            4 * j.n_r - j.r_pack.packed_nbytes if j.r_pack is not None else 0
+                        )) / 1e6, 3),
+                    }
+                    for j in self._joins
+                ],
+            }
 
     def invalidate_deltas(self, index_root: Optional[str] = None) -> None:
         """Drop the delta regions whose base files lie under ``index_root``
@@ -466,7 +555,8 @@ class ResidentCacheBase:
             metrics.incr("hbm.delta.invalidated", n)
 
     def _total_locked(self) -> int:
-        return sum(t.nbytes for t in self._tables) + sum(d.nbytes for d in self._deltas)
+        return (sum(t.nbytes for t in self._tables) + sum(d.nbytes for d in self._deltas)
+                + sum(j.nbytes for j in self._joins))
 
     def _register_delta(self, delta: DeltaRegion, budget: int,
                         epoch: Optional[int] = None) -> bool:
@@ -536,6 +626,10 @@ class ResidentCacheBase:
             while self._total_locked() > budget and self._deltas:
                 self._deltas.remove(min(self._deltas, key=lambda d: d.last_used))
                 metrics.incr("hbm.delta.evicted")
+            while self._total_locked() > budget and self._joins:
+                self._joins.remove(min(self._joins, key=lambda j: j.last_used))
+                self._join_version += 1
+                metrics.incr("hbm.join.evicted")
             while self._total_locked() > budget and len(self._tables) > 1:
                 victim = min(
                     (t for t in self._tables if t is not table),
@@ -567,6 +661,8 @@ class ResidentCacheBase:
         with self._lock:
             self._tables.clear()
             self._deltas.clear()
+            self._joins.clear()
+            self._join_version += 1
             self._pending.clear()
             self._failed.clear()
             self._bg_error = None
@@ -603,6 +699,7 @@ class ResidentCacheBase:
             return {
                 "tables": len(self._tables),
                 "deltas": len(self._deltas),
+                "joins": len(self._joins),
                 "resident_mb": round(self._total_locked() / 1e6, 1),
                 "per_table": [
                     {"files": len(t.files), "rows": t.n_rows, "columns": sorted(t.columns),
@@ -1229,6 +1326,173 @@ class HbmIndexCache(ResidentCacheBase):
             if idx.size:
                 parts.append(sub.take(idx).select(list(output_columns)))
         return parts
+
+
+    # -- join regions (the resident bucketed join) ---------------------------
+    def join_for(
+        self, l_files, r_files, l_keys, r_keys, columns=(),
+        conf: ResidencyConf = ResidencyConf(), device: DeviceLike = None,
+    ):
+        """The registered join region on ``device`` for exactly this (left
+        version, right version, keys) with every column of ``columns``
+        resident, else None. Mode "off" disables serving too. Raises a
+        device error a background population hit."""
+        from .join_residency import join_region_key
+
+        self._raise_background_error()
+        if conf.mode == "off":
+            return None
+        with self._lock:
+            if not self._joins:
+                return None  # skip the per-file stats on a cold cache
+        dev = _device(device)
+        t0 = time.perf_counter()
+        try:
+            key = join_region_key(l_files, r_files, l_keys, r_keys)
+        except OSError:
+            return None
+        finally:
+            metrics.record_time("hbm.join.region_key", time.perf_counter() - t0)
+        with self._lock:
+            for j in reversed(self._joins):
+                if j.key == key and j.device == dev and all(
+                    c in j.l_cols or c in j.r_cols for c in columns
+                ):
+                    j.last_used = time.monotonic()
+                    return j
+        return None
+
+    def note_touch_join(
+        self, l_files, r_files, l_keys, r_keys, payload_columns, loader,
+        device: DeviceLike = None, conf: ResidencyConf = ResidencyConf(),
+    ) -> None:
+        """First-touch join-region population: a background build of this
+        pair's codes (and the payload an aggregate needs) so repeat joins
+        take the resident arms. ``loader`` returns (l_by_bucket,
+        r_by_bucket) or None and runs on the background thread (from the
+        groups cache on a warm repeat). Never blocks; a device error is
+        kept for the query thread."""
+        from .join_residency import build_join_region, join_region_key
+
+        dev = _device(device)
+        if not _auto_enabled(conf, dev):
+            return
+        try:
+            key = join_region_key(l_files, r_files, l_keys, r_keys)
+        except OSError:
+            return
+        want = frozenset(payload_columns)
+        memo = ("join", key, want)
+        pending = ("join", key)
+        with self._lock:
+            if pending in self._pending or memo in self._failed:
+                return
+            if any(j.key == key and all(c in j.l_cols or c in j.r_cols for c in want)
+                   for j in self._joins):
+                return
+            self._pending.add(pending)
+            epoch = self._epoch
+
+        def bg():
+            failed = False
+            try:
+                if dev.type == "cuda":
+                    torch.cuda.set_device(dev)
+                groups = loader()
+                if groups is None:
+                    return
+                # widen rather than replace: alternating aggregate shapes
+                # converge on one region
+                with self._lock:
+                    prior = next((j for j in self._joins if j.key == key), None)
+                cols = list(dict.fromkeys(
+                    list(payload_columns)
+                    + (sorted(set(prior.l_cols) | set(prior.r_cols)) if prior else [])))
+                region, permanent = build_join_region(
+                    self, groups[0], groups[1], key[2], key[3], key, cols, dev, conf)
+                if region is not None:
+                    self._register_join(region, _budget_bytes(conf), epoch=epoch)
+                    # a payload column that can never encode for this
+                    # version pair: no rebuild on every query
+                    failed = not all(c in region.l_cols or c in region.r_cols for c in want)
+                else:
+                    failed = permanent
+            except OSError:  # a file vanished mid-population: skip
+                metrics.incr("hbm.prefetch_read_error")
+            except Exception as e:  # noqa: BLE001 - kept, raised on the query thread
+                metrics.incr("hbm.join.populate_failed")
+                with self._lock:
+                    if epoch == self._epoch and self._bg_error is None:
+                        self._bg_error = e
+            finally:
+                with self._lock:
+                    self._pending.discard(pending)
+                    if failed:
+                        if len(self._failed) >= _MAX_FAILED_MEMO:
+                            self._failed.clear()
+                        self._failed.add(memo)
+
+        t = threading.Thread(target=bg, daemon=True, name="hbm-join-populate")
+        self._track_for_exit(t)
+        t.start()
+
+    def prefetch_join(
+        self, l_by_bucket, r_by_bucket, l_files, r_files, l_keys, r_keys,
+        payload_columns=(), device: DeviceLike = None, conf: ResidencyConf = ResidencyConf(),
+    ):
+        """Synchronously build and register a join region. Idempotent; a
+        region with a narrower payload is rebuilt widened."""
+        from .join_residency import build_join_region, join_region_key
+
+        try:
+            key = join_region_key(l_files, r_files, l_keys, r_keys)
+        except OSError:
+            return None
+        existing = self.join_for(l_files, r_files, l_keys, r_keys, payload_columns, conf,
+                                 device)
+        if existing is not None:
+            return existing
+        region, _ = build_join_region(self, l_by_bucket, r_by_bucket, list(l_keys),
+                                      list(r_keys), key, list(payload_columns),
+                                      _device(device), conf)
+        if region is None:
+            return None
+        return region if self._register_join(region, _budget_bytes(conf)) else None
+
+    def join_ranges(self, region) -> Tuple[np.ndarray, np.ndarray]:
+        """(lo, counts) int64 of the resident join: one K2 or K2p launch
+        over the region's codes (``torch.searchsorted`` where K2's plan
+        declined), no upload; left row i matches sorted-right positions
+        [lo[i], lo[i] + counts[i]), which ``region.r_order`` maps to rows.
+        A device error raises."""
+        from .join_residency import region_ranges
+
+        t0 = time.perf_counter()
+        lo, counts = region_ranges(region)
+        lo = lo.cpu().numpy()
+        counts = counts.cpu().numpy()
+        metrics.record_time("scan.resident_join.device", time.perf_counter() - t0)
+        metrics.incr("scan.resident_join.d2h_bytes", int(lo.nbytes + counts.nbytes))
+        return lo.astype(np.int64), counts.astype(np.int64)
+
+    def join_agg(self, region, group_by, aggs):
+        """The fused aggregate-join: the match ranges (one K2 or K2p
+        launch) feeding the segment sums, counts, mins and maxes on the
+        device, and one copy home of the span-sized group vectors. None
+        when the spec cannot ride the device exactly
+        (``hbm.join.declined.dtype``: the caller routes the host fusion).
+        A device error raises."""
+        from .join_residency import finish_join_agg, join_agg_outputs, region_agg_plan
+
+        plan = region_agg_plan(region, list(group_by), list(aggs))
+        if plan is None:
+            metrics.incr("hbm.join.declined.dtype")
+            return None
+        t0 = time.perf_counter()
+        outs = [o.cpu().numpy() for o in join_agg_outputs(region, plan)]
+        metrics.record_time("scan.resident_join_agg.device", time.perf_counter() - t0)
+        metrics.incr("scan.resident_join.d2h_bytes", sum(int(o.nbytes) for o in outs))
+        return finish_join_agg(region, plan, list(group_by), list(aggs), outs)
 
 
 hbm_cache = HbmIndexCache()

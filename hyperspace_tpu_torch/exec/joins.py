@@ -8,12 +8,32 @@ buckets and the common buckets join in ONE merge.
 
 Join keys reduce to exact int64 *join codes* (numerics through
 value-preserving casts, strings through a unified dictionary). The match
-ranges come from a stable argsort of the right codes and the
-sorted-intersect kernel (ops.kernels.sorted_intersect_counts) on the
-session's device. The reference routes presorted bucket segments to its
-native C++ merge or host binary search instead; the pairs, and their
-order, are the same (the argsort is stable and equal codes never cross
-buckets).
+ranges come from ``segmented_join_ranges``, the reference's routing
+ladder over the common buckets' segments:
+
+* right segments ascending (index data is key-sorted per bucket by
+  construction) and the flat remap fits int64: the codes remapped to
+  ``segment * span + (code - min)`` are globally sorted, so ONE pass of
+  the sorted-intersect kernel (ops.kernels.sorted_intersect_counts, K2 and
+  its fence build) over them gives every range with no argsort
+  (``join.path.presorted_merge_flat``); where K2's plan declines (the
+  flat codes span more than int32), the reference's own host binary
+  search over them (``join.path.host_searchsorted``). The reference
+  searches the flat codes on the host: the route differs, not the result;
+* right segments ascending, no flat remap: a host binary search per
+  segment (``join.path.presorted_merge``);
+* otherwise a stable argsort of the right codes and K2
+  (``merge_join_ranges``: ``join.path.device_kernel``).
+
+The pairs, and their order, are the same on every arm (the argsort is
+stable and equal codes never cross buckets). The reference's native C++
+arms (``smj_pairs``, ``smj_ranges``, the fused gather) are not ported.
+
+Two cross-query caches keep a repeat join's host work: the setup (the
+common buckets' concatenation, codes, segment bounds and sortedness) and
+the presorted route's ranges, keyed by the sides' cache tokens
+(``exec/executor.py:BucketGroups``) in one byte-capped LRU
+(``exec/bytecache.py``, ``HYPERSPACE_TPU_TORCH_JOIN_CACHE_MB``).
 """
 
 from __future__ import annotations
@@ -26,6 +46,7 @@ from ..exceptions import HyperspaceException
 from ..ops import DeviceLike
 from ..storage.columnar import Column, ColumnarBatch, is_string, unify_dictionaries
 from ..telemetry.metrics import metrics
+from .bytecache import ByteCappedLru, batch_nbytes, join_cache_budget
 
 
 def _exact_codes(l_col: Column, r_col: Column) -> Tuple[np.ndarray, np.ndarray]:
@@ -160,30 +181,193 @@ def inner_join(
     return ColumnarBatch(out)
 
 
-def _bucketed_join_setup(
-    left_by_bucket: Dict[int, ColumnarBatch],
-    right_by_bucket: Dict[int, ColumnarBatch],
-    l_keys: List[str],
-    r_keys: List[str],
-):
-    """Common-bucket concat + join codes, shared by the materializing join
-    and the range-only (aggregate-fused) join: (l_all, r_all, l_codes,
-    r_codes), or None when no bucket is common. Only the common buckets
-    join; they are concatenated per side in ascending bucket order, and
-    hash partitioning guarantees equal keys share a bucket id, so the
-    concatenation introduces no false matches. The reference keeps this
-    setup in a cross-query cache, which is not ported."""
+def _segments_sorted(codes: np.ndarray, bounds: np.ndarray) -> bool:
+    """True when every [bounds[k], bounds[k+1]) slice of ``codes`` is
+    ascending: descents are permitted only at segment boundaries."""
+    if len(codes) < 2:
+        return True
+    descents = np.flatnonzero(np.diff(codes) < 0)
+    if not len(descents):
+        return True
+    allowed = set((np.asarray(bounds[1:-1]) - 1).tolist())
+    return all(int(d) in allowed for d in descents)
+
+
+def merge_join_indices_segmented(
+    l_codes: np.ndarray,
+    r_codes: np.ndarray,
+    l_bounds: np.ndarray,
+    r_bounds: np.ndarray,
+    presorted: Optional[Tuple[bool, bool]] = None,
+    device: DeviceLike = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Inner-join row indices for segment-aligned codes (segment k of the
+    left joins only segment k of the right): the expanded form of
+    ``segmented_join_ranges``."""
+    lo, counts, r_order = segmented_join_ranges(
+        l_codes, r_codes, l_bounds, r_bounds, presorted=presorted, device=device
+    )
+    return _expand_ranges(lo, counts, r_order)
+
+
+def segmented_join_ranges(
+    l_codes: np.ndarray,
+    r_codes: np.ndarray,
+    l_bounds: np.ndarray,
+    r_bounds: np.ndarray,
+    presorted: Optional[Tuple[bool, bool]] = None,
+    device: DeviceLike = None,
+) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """The routing ladder (module docstring) producing (lo, counts,
+    r_order) for segment-aligned codes, shared by the materializing join
+    (which expands) and the aggregate fusion (which never does).
+    ``presorted`` carries each side's already-computed sortedness;
+    ``r_order`` is None where right positions index the right side
+    directly (the presorted arms)."""
+    if presorted is None:
+        presorted = (
+            _segments_sorted(l_codes, l_bounds),
+            _segments_sorted(r_codes, r_bounds),
+        )
+    if not presorted[1]:
+        return merge_join_ranges(l_codes, r_codes, device)
+    flat = _flat_segment_remap(l_codes, r_codes, l_bounds, r_bounds)
+    if flat is not None:
+        from ..ops import kernels
+
+        l_flat, r_flat = flat
+        res = kernels.sorted_intersect_counts(l_flat, r_flat, device)
+        if res is not None:
+            metrics.incr("join.path.presorted_merge_flat")
+            lo, counts = res
+        else:
+            metrics.incr("join.path.host_searchsorted")
+            lo = np.searchsorted(r_flat, l_flat, side="left")
+            counts = np.searchsorted(r_flat, l_flat, side="right") - lo
+        return lo, counts, None
+    metrics.incr("join.path.presorted_merge")
+    lo = np.empty(len(l_codes), dtype=np.int64)
+    counts = np.empty(len(l_codes), dtype=np.int64)
+    for k in range(len(l_bounds) - 1):
+        ls, le = int(l_bounds[k]), int(l_bounds[k + 1])
+        rs, re = int(r_bounds[k]), int(r_bounds[k + 1])
+        seg = r_codes[rs:re]
+        q = l_codes[ls:le]
+        left_pos = np.searchsorted(seg, q, side="left")
+        lo[ls:le] = rs + left_pos
+        counts[ls:le] = np.searchsorted(seg, q, side="right") - left_pos
+    return lo, counts, None
+
+
+def _flat_segment_remap(
+    l_codes: np.ndarray,
+    r_codes: np.ndarray,
+    l_bounds: np.ndarray,
+    r_bounds: np.ndarray,
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Segment-aligned codes remapped into one global order,
+    ``code -> segment * span + (code - min)``, or None when
+    ``n_segments * span`` does not fit int64 (float bit patterns or
+    factorized codes with huge spans) or a side is empty."""
+    if len(l_codes) == 0 or len(r_codes) == 0:
+        return None
+    n_seg = len(l_bounds) - 1
+    mn = int(min(l_codes.min(), r_codes.min()))
+    mx = int(max(l_codes.max(), r_codes.max()))
+    span = mx - mn + 1
+    if span <= 0 or n_seg * span >= (1 << 62):
+        return None
+    l_seg = np.repeat(np.arange(n_seg, dtype=np.int64), np.diff(np.asarray(l_bounds)))
+    r_seg = np.repeat(np.arange(n_seg, dtype=np.int64), np.diff(np.asarray(r_bounds)))
+    sp = np.int64(span)
+    return l_seg * sp + (l_codes - mn), r_seg * sp + (r_codes - mn)
+
+
+# The setup of a join over cross-query-cached sides is a pure function of
+# (the sides' file identities, projections, predicates, join keys): index
+# files are immutable. Keyed by the sides' cache tokens; one budget
+# (HYPERSPACE_TPU_TORCH_JOIN_CACHE_MB) bounds this LRU and, separately,
+# the groups cache, so the join caches hold at most twice the knob. The
+# entry cap covers setup and ranges entries (2 per join shape).
+def _setup_cache_budget() -> int:
+    return join_cache_budget()
+
+
+_SETUP_CACHE = ByteCappedLru(_setup_cache_budget, entry_cap=24)
+
+
+def _setup_nbytes(setup) -> int:
+    l_all, r_all, l_codes, r_codes, _lb, _rb, _ps = setup
+    return l_codes.nbytes + r_codes.nbytes + batch_nbytes(l_all) + batch_nbytes(r_all)
+
+
+def reset_setup_cache() -> None:
+    _SETUP_CACHE.reset()
+
+
+def _cached_smj_ranges(cache_key, l_codes, r_codes, l_bounds, r_bounds, presorted,
+                       device: DeviceLike = None):
+    """(lo, counts) of a presorted setup, from the ranges cache under
+    ``(cache_key, "ranges")`` (``join.ranges_cache.hit``: no kernel runs)
+    or computed by ``segmented_join_ranges`` and stored there. The
+    reference caches its native range walk under the same key."""
+    rk = (cache_key, "ranges") if cache_key is not None else None
+    if rk is not None:
+        hit = _SETUP_CACHE.get(rk)
+        if hit is not None:
+            metrics.incr("join.ranges_cache.hit")
+            return hit
+    lo, counts, _ = segmented_join_ranges(
+        l_codes, r_codes, l_bounds, r_bounds, presorted=presorted, device=device
+    )
+    if rk is not None:
+        _SETUP_CACHE.put(rk, (lo, counts), int(lo.nbytes + counts.nbytes))
+    return lo, counts
+
+
+def _bucketed_join_setup(left_by_bucket, right_by_bucket, l_keys, r_keys):
+    """(setup, cache_key): the common buckets' concatenation per side in
+    ascending bucket order, their join codes, segment bounds and per-side
+    sortedness — ``(l_all, r_all, l_codes, r_codes, l_bounds, r_bounds,
+    presorted)`` — shared by the materializing join and the range-only
+    (aggregate-fused) join; ``(None, None)`` when no bucket is common.
+    Hash partitioning puts equal keys in one bucket, so the concatenation
+    introduces no false matches. Every consumer treats the setup as
+    immutable, which is what makes the cross-query cache sound: sides that
+    carry cache tokens hit it (``join.setup_cache.hit``)."""
+    l_token = getattr(left_by_bucket, "cache_token", None)
+    r_token = getattr(right_by_bucket, "cache_token", None)
+    cache_key = None
+    if l_token is not None and r_token is not None:
+        cache_key = (l_token, r_token, tuple(l_keys), tuple(r_keys))
+        hit = _SETUP_CACHE.get(cache_key)
+        if hit is not None:
+            metrics.incr("join.setup_cache.hit")
+            return hit, cache_key
     common = sorted(set(left_by_bucket) & set(right_by_bucket))
     if not common:
         metrics.incr("join.path.no_common_buckets")
-        return None
-    l_all = ColumnarBatch.concat([left_by_bucket[b] for b in common])
-    r_all = ColumnarBatch.concat([right_by_bucket[b] for b in common])
+        return None, None
+    l_batches = [left_by_bucket[b] for b in common]
+    r_batches = [right_by_bucket[b] for b in common]
+    l_all = ColumnarBatch.concat(l_batches)
+    r_all = ColumnarBatch.concat(r_batches)
     _check_no_overlap(l_all, r_all)
     l_codes, r_codes = join_codes(l_all, r_all, l_keys, r_keys)
-    return l_all, r_all, l_codes, r_codes
+    l_bounds = np.cumsum([0] + [b.num_rows for b in l_batches])
+    r_bounds = np.cumsum([0] + [b.num_rows for b in r_batches])
+    presorted = (
+        _segments_sorted(l_codes, l_bounds),
+        _segments_sorted(r_codes, r_bounds),
+    )
+    setup = (l_all, r_all, l_codes, r_codes, l_bounds, r_bounds, presorted)
+    if cache_key is not None:
+        if _SETUP_CACHE.put(cache_key, setup, _setup_nbytes(setup)) is setup:
+            metrics.incr("join.setup_cache.stored")
+    return setup, cache_key
 
 
+@metrics.timer("join.bucketed")
 def bucketed_join_pairs(
     left_by_bucket: Dict[int, ColumnarBatch],
     right_by_bucket: Dict[int, ColumnarBatch],
@@ -192,12 +376,15 @@ def bucketed_join_pairs(
     device: DeviceLike = None,
 ) -> List[ColumnarBatch]:
     """Bucket-batched inner join over bucket-aligned data — the
-    shuffle-free SMJ: the common buckets merged in ONE kernel launch."""
-    setup = _bucketed_join_setup(left_by_bucket, right_by_bucket, l_keys, r_keys)
+    shuffle-free SMJ: the common buckets merged in ONE pass of the
+    routing ladder (module docstring)."""
+    setup, _key = _bucketed_join_setup(left_by_bucket, right_by_bucket, l_keys, r_keys)
     if setup is None:
         return []
-    l_all, r_all, l_codes, r_codes = setup
-    l_idx, r_idx = merge_join_indices(l_codes, r_codes, device)
+    l_all, r_all, l_codes, r_codes, l_bounds, r_bounds, presorted = setup
+    l_idx, r_idx = merge_join_indices_segmented(
+        l_codes, r_codes, l_bounds, r_bounds, presorted=presorted, device=device
+    )
     out: Dict[str, Column] = {}
     out.update(l_all.take(l_idx).columns)
     out.update(r_all.take(r_idx).columns)
@@ -215,16 +402,21 @@ def bucketed_join_ranges(
 ):
     """Match RANGES of the bucketed inner join, never the pair arrays:
     (l_all, r_all, lo, counts, r_order) where left row i matches right
-    rows ``r_order[lo[i]:lo[i]+counts[i]]``. The aggregate-over-join
-    fusion consumes this: sums and counts over match ranges need only
-    prefix arithmetic, not the expanded (l_idx, r_idx) pairs and the
-    gathers they feed. The ranges come from merge_join_ranges (the
-    sorted-intersect kernel on ``device``), so ``r_order`` is never None
-    here, where the reference's native arm returns None for presorted
-    segments. Returns None when there are no common buckets."""
-    setup = _bucketed_join_setup(left_by_bucket, right_by_bucket, l_keys, r_keys)
+    positions ``r_order[lo[i]:lo[i]+counts[i]]`` (``r_order`` None:
+    positions index ``r_all`` directly). The aggregate-over-join fusion
+    consumes this: sums and counts over match ranges need only prefix
+    arithmetic. Both sides presorted: the ranges come from the ranges
+    cache or the presorted route and are stored there. Returns None when
+    there are no common buckets."""
+    setup, cache_key = _bucketed_join_setup(left_by_bucket, right_by_bucket, l_keys, r_keys)
     if setup is None:
         return None
-    l_all, r_all, l_codes, r_codes = setup
-    lo, counts, r_order = merge_join_ranges(l_codes, r_codes, device)
+    l_all, r_all, l_codes, r_codes, l_bounds, r_bounds, presorted = setup
+    if presorted[0] and presorted[1]:
+        lo, counts = _cached_smj_ranges(cache_key, l_codes, r_codes, l_bounds, r_bounds,
+                                        presorted, device)
+        return l_all, r_all, lo, counts, None
+    lo, counts, r_order = segmented_join_ranges(
+        l_codes, r_codes, l_bounds, r_bounds, presorted=presorted, device=device
+    )
     return l_all, r_all, lo, counts, r_order

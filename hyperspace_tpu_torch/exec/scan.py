@@ -26,8 +26,9 @@ table's background upload when the session's residency mode allows.
 
 Multi-bucket run files (the streaming build's finalizeMode=runs) are read
 whole, or, under an equality predicate that pins buckets, at those buckets'
-row ranges through the coalesced segment planner. The measured scan gate
-of the reference is not ported.
+row ranges through the coalesced segment planner, each read counting the
+buckets it touched as bucket heat (``exec/scan_gate.py``). The reference's
+measured routing gate is not ported: the mask always runs on the device.
 """
 
 from __future__ import annotations
@@ -211,7 +212,10 @@ def _resident_scan(
         metrics.incr("scan.resident.declined")
         return None
     # the path metric names the tier that served: raw planes, packed
-    # planes (K1p), or the window loop
+    # planes (K1p), or the window loop; the gate's bypass counter too
+    from .scan_gate import scan_gate
+
+    scan_gate.note_resident_bypass("plain" if table.tier == "resident" else table.tier)
     return _resident_parts(table, files, output_columns, predicate, counts,
                            path_metric=_TIER_PATH_METRIC[table.tier])
 
@@ -343,13 +347,20 @@ def _read_run_segments(run_files: List[Path], need: List[str], pinned: set) -> d
     got = layout.execute_segment_reads(plan, columns=need)
     out: dict = {f: None for f in run_files}
     n_segments = 0
+    touched: set = set()
     for sw in plan:
         parts = [got[(sw.path, b)] for b, _lo, _hi in sw.segments]
         n_segments += len(parts)
+        touched.update(b for b, _lo, _hi in sw.segments)
         match = next(f for f in run_files if str(f) == sw.path)
         out[match] = parts[0] if len(parts) == 1 else ColumnarBatch.concat(parts)
     if n_segments:
         metrics.incr("scan.run_bucket_segments", n_segments)
+    if touched and run_files:
+        # the compactor's priority signal: these buckets are hot
+        from .scan_gate import note_bucket_heat
+
+        note_bucket_heat(layout.index_root_of(run_files[0]), touched)
     return out
 
 

@@ -47,11 +47,12 @@ from .stats import IndexStatistics
 
 def _invalidate_resident_deltas(index_root) -> None:
     """Drop the resident delta regions whose base lies under this index's
-    directory, after a verb that rewrote its data (the other indexes'
-    deltas stay)."""
+    directory, and the join regions that read it on either side, after a
+    verb that rewrote its data (the other indexes' stay)."""
     from ..exec.hbm_cache import hbm_cache
 
     hbm_cache.invalidate_deltas(str(index_root))
+    hbm_cache.invalidate_joins(str(index_root))
 
 
 class IndexCollectionManager:

@@ -234,10 +234,14 @@ class CompactionStep(Action, CreateActionBase, MaintenanceActionBase):
     def _chosen_buckets(self, eligible: set) -> List[int]:
         if self._buckets is not None:
             return sorted(set(self._buckets) & eligible)
-        # no bucket heat is recorded in this package (the scan gate is not
-        # ported): the reference's tie order, by bucket id
+        # the hottest buckets first (exec/scan_gate.py's heat, counted by
+        # the run-file reads), bucket id breaking ties
+        from ..exec.scan_gate import bucket_heat
+
+        root = getattr(self.log_manager, "index_path", None)
+        heat = bucket_heat(root) if root is not None else {}
         k = self.conf.compaction_buckets_per_step()
-        return sorted(eligible)[:k]
+        return sorted(eligible, key=lambda b: (-heat.get(b, 0), b))[:k]
 
     def op(self) -> None:
         prev = self.previous_entry

@@ -75,6 +75,7 @@ from .kernels import (  # noqa: E402,F401
     K1P,
     K2,
     K2F,
+    K2P,
     hybrid_block_counts_tensor,
     predicate_block_counts_packed_tensor,
 )

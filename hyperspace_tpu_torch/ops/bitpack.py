@@ -12,12 +12,13 @@ word load, a shift and a mask. Packing is adopted only at ``vpw >= 2``
 (``bits <= 16``): a guaranteed 2x or better.
 
 The frame-of-reference delta pack (``for_spec``, ``pack_for``) serves the
-reference's sorted join codes; it is host code here, kept for the join
-residency that comes later.
+resident join regions' globally sorted right codes (``exec/join_residency.py``):
+one raw reference per block of 128 values and the in-block offsets packed.
 
-On the card the decode runs inside K1p (``csrc/predicate_mask.cu``,
-``hs_predicate_block_counts_packed``); ``unpack_plain_torch`` is its plain
-version. Words live as int32; shifts and masks run on the unsigned value,
+On the card the plain decode runs inside K1p (``csrc/predicate_mask.cu``,
+``hs_predicate_block_counts_packed``) and the FoR decode inside K2p
+(``csrc/sorted_intersect.cu``, ``hs_sorted_intersect_packed``);
+``unpack_plain_torch`` and ``unpack_for_torch`` are their plain versions. Words live as int32; shifts and masks run on the unsigned value,
 so a word whose top bit is set never smears ones into its neighbour's
 lanes.
 """
@@ -146,3 +147,16 @@ def unpack_plain_torch(words: torch.Tensor, spec: PackSpec) -> torch.Tensor:
     shift = (idx % spec.vpw) * spec.bits
     off = (w >> shift) & ((1 << spec.bits) - 1)
     return (off + spec.ref0).to(torch.int32)
+
+
+def unpack_for_torch(words: torch.Tensor, refs: torch.Tensor, spec: PackSpec) -> torch.Tensor:
+    """Plain version of K2p's decode (the reference's ``unpack_for_jnp``):
+    (words, per-block refs) -> (n,) int32 sorted values,
+    ``refs[i // block] + ((word[i // vpw] >> (i % vpw) * bits) & mask)``,
+    on the words' device. Words and refs may be longer than the spec needs
+    (padding)."""
+    idx = torch.arange(spec.n, device=words.device, dtype=torch.int64)
+    u = words.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+    w = u[idx // spec.vpw]
+    off = (w >> ((idx % spec.vpw) * spec.bits)) & ((1 << spec.bits) - 1)
+    return (refs.reshape(-1).to(torch.int64)[idx // spec.block] + off).to(torch.int32)

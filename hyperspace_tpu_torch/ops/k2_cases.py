@@ -94,3 +94,44 @@ def k2_edge_cases(seed: int = 0) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
     cases["ragged"] = (np.sort(rng.choice(r, 2500) + rng.integers(-1, 2, 2500)), r)
     assert tuple(cases) == CASES
     return cases
+
+
+# K2p's vpw values and the widths that give them (bitpack._vpw)
+K2P_BITS = {2: 10, 4: 6, 8: 4, 16: 2, 32: 1}
+
+
+def k2p_edge_cases(seed: int = 0) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """``{"vpw_<v>": (left keys, ascending right keys)}`` for K2p, the K2
+    entry over FoR-packed right keys (block 128): for each vpw a right
+    side whose widest FoR block needs exactly the bits that give it, runs
+    of equal keys across a line of 8 and across a block boundary, left
+    keys on every fence value, beside and between right keys, and above
+    every right key (a tail of pad rows, the right length a multiple of
+    neither 8 nor 1024). Accepted by the join plan with no wide tile."""
+    rng = np.random.default_rng(seed + 17)
+    cases = {}
+    for vpw, bits in K2P_BITS.items():
+        top = (1 << bits) - 1
+        n_blocks = 37
+        blocks = []
+        last = int(rng.integers(-5000, 5000))
+        for b in range(n_blocks):
+            off = np.sort(rng.integers(0, top + 1, 128))
+            off[0], off[-1] = 0, top  # the block's span needs all the bits
+            if b % 3 == 1:
+                off[40:60] = off[40]  # a run across lines 5 to 7
+            if b % 4 == 2:
+                # the previous block's last key runs on across the boundary
+                off[:12] = 0
+                ref = last
+            else:
+                ref = last + int(rng.integers(1, 3))
+            blocks.append(ref + off)
+            last = int(blocks[-1][-1])
+        r = np.concatenate(blocks)[: n_blocks * 128 - 45].astype(np.int64)
+        fences = r[::K2_FENCE]
+        extra = np.concatenate([fences, fences - 1, fences + 1, r[rng.integers(0, len(r), 500)],
+                                [r[-1], r[-1] + 1, r[-1] + 1000]])
+        l = np.sort(extra)
+        cases[f"vpw_{vpw}"] = (l.astype(np.int64), r)
+    return cases

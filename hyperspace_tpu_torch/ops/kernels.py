@@ -21,7 +21,10 @@ become CUDA C++ for Hopper (``csrc/``):
    the match range of the bucketed sort-merge join. One CTA per left tile
    searches its span's slice of a fence array (every ``K2_FENCE``-th
    right key, built by the source's second entry, ``K2F``) in shared
-   memory, then reads one line of the right keys per key.
+   memory, then reads one line of the right keys per key. K2p
+   (``sorted_intersect_packed_tensors``) is K2 over right keys kept
+   FoR-delta packed (the resident join regions, ``exec/join_residency.py``),
+   decoding each line in registers.
 
 The ``resident_*`` entry points run the same kernels over operands
 uploaded once (the reference's microbench primitives and its fused
@@ -36,7 +39,8 @@ Each tensor-level wrapper decides by the device its tensors lie on: a CPU
 tensor goes to the plain torch version beside the kernel
 (``predicate_mask_reference``, ``predicate_block_counts_reference``,
 ``predicate_block_counts_packed_reference``,
-``hybrid_block_counts_reference``, ``sorted_intersect_counts_reference``); a
+``hybrid_block_counts_reference``, ``sorted_intersect_counts_reference``,
+``sorted_intersect_packed_reference``); a
 CUDA tensor launches the kernel or raises. There is no fallback from a
 failed launch. The kernels build with ``nvcc`` for ``sm_90a`` on first use
 into ``hyperspace_tpu_torch/_build/`` and load through ``ctypes``.
@@ -81,6 +85,7 @@ K1P = "predicate_block_counts_packed"  # K1c over bit-packed planes, same source
 K1H = "hybrid_block_counts"  # K1c over base + delta planes, same source
 K2 = "sorted_intersect"
 K2F = "sorted_intersect_fences"  # K2's fence-array entry, same source
+K2P = "sorted_intersect_packed"  # K2 over FoR-packed right keys, same source
 BLOCK_ROWS = 8192  # K1c's count granularity (the resident scan's block)
 K2_THREADS = 256  # K2's CTA: one left tile, 4 keys a thread
 K2_FENCE = 8  # right keys per fence: K2 searches the fences in shared memory first
@@ -174,6 +179,9 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
                 lib.hs_sorted_intersect_fences.restype = ci
                 lib.hs_sorted_intersect.argtypes = [vp, vp, vp, vp, vp, vp, ll, ci, vp, vp, vp]
                 lib.hs_sorted_intersect.restype = ci
+                lib.hs_sorted_intersect_packed.argtypes = [
+                    vp, vp, vp, vp, vp, vp, vp, ll, ci, ci, ci, ci, ll, vp, vp, vp]
+                lib.hs_sorted_intersect_packed.restype = ci
             _LIBS[n] = lib
         return dict(_LIBS)
 
@@ -1082,16 +1090,24 @@ def _check_k2_right(r: torch.Tensor) -> int:
     return n_r
 
 
-def sorted_intersect_fences(r: torch.Tensor) -> torch.Tensor:
+def sorted_intersect_fences(r: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2's fence array of the padded right keys ``r``: every
     ``K2_FENCE``-th key, which K2 searches in shared memory before it reads
     one line of ``r``. CPU tensors take the plain version; CUDA tensors
-    launch K2's fence entry (counted as ``K2F``, not as a K2 launch)."""
+    launch K2's fence entry (counted as ``K2F``, not as a K2 launch) on the
+    current stream, into ``out`` when given (a caller that builds on a side
+    stream allocates it on its own)."""
     if r.device.type == "cpu":
         return sorted_intersect_fences_reference(r)
     _check_cuda(r, torch.int32, f"{K2F} r")
     n_r = _check_k2_right(r)
-    fences = torch.empty(n_r // K2_FENCE, dtype=torch.int32, device=r.device)
+    fences = out
+    if fences is None:
+        fences = torch.empty(n_r // K2_FENCE, dtype=torch.int32, device=r.device)
+    _check_cuda(fences, torch.int32, f"{K2F} out")
+    if int(fences.shape[0]) != n_r // K2_FENCE:
+        raise HyperspaceException(f"{K2F}: out holds {int(fences.shape[0])} fences, not "
+                                  f"{n_r // K2_FENCE}.")
     rc = _lib(K2).hs_sorted_intersect_fences(
         r.data_ptr(), n_r, fences.data_ptr(), torch.cuda.current_stream(r.device).cuda_stream
     )
@@ -1152,6 +1168,90 @@ def sorted_intersect_tensors(
     )
     _check_launch(rc, K2)
     count_launch(K2)
+    return lt, eq
+
+
+def packed_right_operands(r_sorted: np.ndarray, spec, n_r_pad: int) -> Tuple[np.ndarray, np.ndarray]:
+    """K2p's right operands on the host: the FoR words and block refs of
+    the ascending keys ``r_sorted`` under ``spec`` (``bitpack.pack_for``),
+    zero-padded to cover ``n_r_pad`` rows (the pad rows' decode is masked
+    by the kernel)."""
+    from .bitpack import pack_for
+
+    words, refs = pack_for(r_sorted, spec)
+    w = np.zeros(-(-n_r_pad // spec.vpw), dtype=np.int32)
+    w[: len(words)] = words
+    f = np.zeros(-(-n_r_pad // spec.block), dtype=np.int32)
+    f[: len(refs)] = refs
+    return w, f
+
+
+def sorted_intersect_packed_reference(
+    s_tile: torch.Tensor, span: torch.Tensor, base: torch.Tensor, l: torch.Tensor,
+    words: torch.Tensor, refs: torch.Tensor, spec, lo_all: int, n_r_pad: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2p: the right keys decoded (``unpack_for_torch``),
+    narrowed by the plan's ``lo_all`` after the decode, padded with
+    INT32_MAX to ``n_r_pad``, then K2's span semantics
+    (``sorted_intersect_span_reference``) on every padded row."""
+    from .bitpack import unpack_for_torch
+
+    r = torch.full((n_r_pad,), _I32_MAX, dtype=torch.int32, device=l.device)
+    r[: spec.n] = (unpack_for_torch(words, refs, spec).to(torch.int64) - lo_all).to(torch.int32)
+    return sorted_intersect_span_reference(s_tile, span, base, l, r)
+
+
+def sorted_intersect_packed_tensors(
+    s_tile: torch.Tensor,
+    span: torch.Tensor,
+    base: torch.Tensor,
+    l: torch.Tensor,
+    words: torch.Tensor,
+    refs: torch.Tensor,
+    fences: torch.Tensor,
+    spec,
+    lo_all: int,
+    *,
+    max_span: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2p: (lt, eq) int32 for padded, planned left keys against right
+    keys FoR-packed under ``spec`` (``ops/bitpack.py:for_spec``, block
+    128; ``words``/``refs`` from ``pack_for``, padded to cover the
+    ``8 * len(fences)`` padded rows), which the plan narrowed by
+    ``lo_all``. ``fences`` is the narrowed, padded right keys' every
+    ``K2_FENCE``-th key, raw. Bit for bit K2 on the decoded keys: wide
+    tiles come back as their base. CPU tensors take the plain version
+    (``sorted_intersect_packed_reference``); CUDA tensors launch K2p
+    (counted as ``K2P``) or raise."""
+    n_r_pad = int(fences.shape[0]) * K2_FENCE
+    n_l = int(l.shape[0])
+    if n_l % SMJ_TILE or int(span.shape[0]) != n_l // SMJ_TILE:
+        raise HyperspaceException(f"{K2P}: left keys not tile-padded.")
+    if n_r_pad % SMJ_TILE or n_r_pad >= 2**31 or spec.n > n_r_pad or spec.block != 128:
+        raise HyperspaceException(
+            f"{K2P}: {spec.n} right keys in {n_r_pad} padded rows, FoR block {spec.block} "
+            "(the kernel reads lines of 8 inside blocks of 128).")
+    if int(words.shape[0]) * spec.vpw < n_r_pad or int(refs.shape[0]) * 128 < n_r_pad:
+        raise HyperspaceException(f"{K2P}: words or refs do not cover {n_r_pad} padded rows.")
+    if l.device.type == "cpu":
+        return sorted_intersect_packed_reference(s_tile, span, base, l, words, refs, spec,
+                                                 lo_all, n_r_pad)
+    for t, what in ((s_tile, "s_tile"), (span, "span"), (base, "base"), (l, "l"),
+                    (words, "words"), (refs, "refs"), (fences, "fences")):
+        _check_cuda(t, torch.int32, f"{K2P} {what}")
+    if max_span > SMJ_MAX_SPAN_TILES:
+        raise HyperspaceException(f"{K2P}: a span of {max_span} right tiles.")
+    for what, t in (("words", words), ("fences", fences)):
+        _check_aligned(K2P, what, t)
+    lt = torch.empty(n_l, dtype=torch.int32, device=l.device)
+    eq = torch.empty(n_l, dtype=torch.int32, device=l.device)
+    rc = _lib(K2).hs_sorted_intersect_packed(
+        l.data_ptr(), words.data_ptr(), refs.data_ptr(), fences.data_ptr(), s_tile.data_ptr(),
+        span.data_ptr(), base.data_ptr(), n_l, max_span, spec.vpw, spec.bits, int(lo_all),
+        spec.n, lt.data_ptr(), eq.data_ptr(), torch.cuda.current_stream(l.device).cuda_stream,
+    )
+    _check_launch(rc, K2P)
+    count_launch(K2P)
     return lt, eq
 
 

@@ -49,7 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..exec.hbm_cache import vocab_heap_bytes
+from ..exec.bytecache import vocab_heap_bytes
 from ..ops.bitpack import PackSpec, pack_plain
 from ..telemetry.metrics import metrics
 

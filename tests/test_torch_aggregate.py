@@ -311,8 +311,10 @@ def test_aggregate_over_indexed_join_fuses(q17_tree):
     assert isinstance(plan, torch_ir.Aggregate)
     assert len(plan.collect(lambda n: isinstance(n, torch_ir.IndexScan))) == 2
     assert counters.get("aggregate.path.join_fused") == 1
-    assert counters.get("join.path.host_searchsorted", 0) + counters.get(
-        "join.path.device_kernel", 0) == 1
+    # both index sides are key-sorted per bucket: the presorted route
+    # (K2 over the flat-remapped codes; its plain version here), no argsort
+    assert counters.get("join.path.presorted_merge_flat", 0) == 1
+    assert counters.get("join.path.device_kernel", 0) == 0
     assert "aggregate.path.join_fused_native" not in counters
     assert rows.num_rows > 100
 
@@ -523,9 +525,10 @@ def test_fused_declines_minmax_and_string_values(case):
 
 
 def test_bucketed_join_ranges_match_the_reference():
-    """The port's ranges index ``r_order``; the reference's may index the
-    right rows directly (r_order None). Both name the same right rows for
-    every left row, over the same concatenated sides."""
+    """Over key-sorted buckets both packages take the presorted route, so
+    both ranges index the right rows directly (r_order None); either way
+    they name the same right rows for every left row, over the same
+    concatenated sides."""
     rng = np.random.default_rng(5)
     left = JaxBatch({"lk": JaxColumn("int64", rng.integers(0, 300, 2000))})
     right = JaxBatch({"rk": JaxColumn("int64", rng.integers(0, 300, 700))})
@@ -538,7 +541,8 @@ def test_bucketed_join_ranges_match_the_reference():
     assert np.array_equal(t[0].columns["lk"].data, j[0].columns["lk"].data)
     assert np.array_equal(t[1].columns["rk"].data, j[1].columns["rk"].data)
     assert np.array_equal(t[3], j[3])
-    t_order = t[4]
+    assert t[4] is None and j[4] is None
+    t_order = np.arange(t[1].num_rows) if t[4] is None else t[4]
     j_order = np.arange(j[1].num_rows) if j[4] is None else j[4]
     for i in range(len(t[2])):
         got = sorted(t_order[t[2][i]:t[2][i] + t[3][i]].tolist())
@@ -725,7 +729,7 @@ def test_fused_ranges_come_from_k2_on_the_card():
     reset_launch_counts()
     torch_metrics.reset()
     ranges = tjoins.bucketed_join_ranges(lb, rb, ["lk"], ["rk"], "cuda")
-    assert torch_metrics.get("join.path.device_kernel") == 1
+    assert torch_metrics.get("join.path.presorted_merge_flat") == 1
     assert launch_counts().get(tk.K2) == 1 and launch_counts().get(tk.K2F) == 1
     got = tagg.aggregate_join_ranges(*ranges[:2], ["g"], aggs, *ranges[2:])
     assert_same(got, want)

@@ -191,7 +191,8 @@ def test_index_bytes_entries_and_queries_match(tmp_path, fmt):
     # on the CPU the kernels' plain versions ran: no kernel launched
     assert launch_counts() == {}
     assert metrics.get("scan.path.kernel_mask") > 0
-    assert metrics.get("join.path.device_kernel") == 1
+    # the join's index sides are key-sorted per bucket: the presorted route
+    assert metrics.get("join.path.presorted_merge_flat") == 1
 
 
 @pytest.mark.parametrize("fmt", ["avro", "parquet"])

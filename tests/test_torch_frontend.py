@@ -201,7 +201,9 @@ def test_natural_q3_runs_the_bucketed_join(trees):
     assert len(scans) == 2 and all(s.use_bucket_spec for s in scans)
     metrics.reset()
     q.collect()
-    assert metrics.get("join.path.device_kernel") == 1
+    # index sides are key-sorted per bucket: K2 over the flat-remapped
+    # codes, no argsort (the presorted route)
+    assert metrics.get("join.path.presorted_merge_flat") == 1
 
 
 @pytest.mark.parametrize("mode", ["html", "console", "plaintext_custom_tags"])

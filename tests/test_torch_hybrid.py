@@ -243,8 +243,9 @@ def test_join_bucket_union(tree, built_by):
     # the bucketed join served it: the appended rows were hashed into the
     # index's buckets, not joined through the host join
     assert torch_metrics.get("union.repartition.rows") == 60
-    assert torch_metrics.get("join.path.device_kernel") + \
-        torch_metrics.get("join.path.host_searchsorted") == 1
+    # the right side (orders) is index-only, key-sorted per bucket: the
+    # presorted route over the flat-remapped codes
+    assert torch_metrics.get("join.path.presorted_merge_flat") == 1
 
 
 def test_join_with_appends_on_both_sides_and_a_delete(tree):

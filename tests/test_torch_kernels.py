@@ -1240,3 +1240,115 @@ def _packed_preds_any(m, vals, names):
         (c(first) < c(last)) & (c("r") > -500) & (c(packed[1]) >= int(vals[packed[1]][5]))
         & (c(packed[2]) != int(vals[packed[2]][2])) & (c(first) != 1),
     ]
+
+
+# ---------------------------------------------------------------------------
+# K2p: K2 over FoR-packed right keys (the resident join regions)
+# ---------------------------------------------------------------------------
+def _k2p_operands(l, r):
+    """K2's plan of (l, r) and K2p's right operands: (s_tile, span, base,
+    l_p) as tensors, words, refs, fences, the FoR spec, lo_all and the
+    plan's padded raw right keys."""
+    from hyperspace_tpu_torch.ops import bitpack as tb
+
+    plan = tk._plan_sorted_intersect(l, r)
+    s_tile, span, base, l_p, r_p = plan[:5]
+    spec = tb.for_spec(r, block=128)
+    words, refs = tk.packed_right_operands(r, spec, len(r_p))
+    lo_all = min(int(l.min()), int(r.min()))
+    t = [torch.from_numpy(a) for a in (s_tile, span, base, l_p)]
+    return (t, torch.from_numpy(words), torch.from_numpy(refs),
+            torch.from_numpy(np.ascontiguousarray(r_p[:: tk.K2_FENCE])), spec, lo_all,
+            torch.from_numpy(r_p), plan)
+
+
+@pytest.mark.parametrize("bits", range(1, 17))
+def test_unpack_for_torch_matches_unpack_for_jnp(bits):
+    """K2p's decode, plain: sorted values whose widest 128-value block
+    needs exactly ``bits`` bits, decoded by both packages from the same
+    words and refs (the port's words padded past the spec)."""
+    from hyperspace_tpu.ops import bitpack as jb
+
+    from hyperspace_tpu_torch.ops import bitpack as tb
+
+    rng = np.random.default_rng(bits)
+    n = 128 * 9 + 37
+    off = np.sort(rng.integers(0, 1 << bits, (10, 128)), axis=1)
+    off[:, 0], off[0, -1] = 0, (1 << bits) - 1
+    v = (np.cumsum(off[:, -1] + 3)[:, None] - 40_000 + off).reshape(-1)[:n]
+    v = np.sort(v).astype(np.int64)
+    js, ts = jb.for_spec(v, block=128), tb.for_spec(v, block=128)
+    assert (ts.bits, ts.vpw, ts.n, ts.block) == (js.bits, js.vpw, js.n, js.block)
+    assert ts.bits == bits
+    words, refs = tb.pack_for(v, ts)
+    jw, jr = jb.pack_for(v, js)
+    assert np.array_equal(words, jw) and np.array_equal(refs, jr)
+    want = np.asarray(jb.unpack_for_jnp(jw, jr, js))
+    padded = np.concatenate([words, np.full(5, -1, dtype=np.int32)])
+    got = tb.unpack_for_torch(torch.from_numpy(padded), torch.from_numpy(refs), ts)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(want, v)
+
+
+@pytest.mark.parametrize("name", [f"vpw_{v}" for v in k2_cases.K2P_BITS])
+def test_k2p_plain_version_matches_numpy(name):
+    """K2p's plain version (``unpack_for_torch``, narrowed by the plan's
+    lo_all, then K2's span semantics) on its edge cases: runs of equal
+    keys across a line and across a FoR block, keys on fences, an
+    all-pad tail. Real rows equal numpy's searchsorted over the decoded
+    keys; every padded row equals K2's span semantics over the raw keys;
+    the CPU wrapper takes the plain version and launches nothing."""
+    l, r = k2_cases.k2p_edge_cases(0)[name]
+    (t, words, refs, fences, spec, lo_all, r_p, plan) = _k2p_operands(l, r)
+    assert spec.vpw == int(name.split("_")[1]) and not plan[-1].any()
+    reset_launch_counts()
+    lt, eq = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
+                                                max_span=int(plan[1].max()))
+    assert launch_counts() == {}
+    n = len(l)
+    want_lt = np.searchsorted(r, l, side="left")
+    assert np.array_equal(lt[:n].numpy(), want_lt)
+    assert np.array_equal(eq[:n].numpy(), np.searchsorted(r, l, side="right") - want_lt)
+    s_lt, s_eq = tk.sorted_intersect_span_reference(*t, r_p)
+    assert torch.equal(lt, s_lt) and torch.equal(eq, s_eq)
+
+
+def test_k2p_plain_version_on_the_index_layout_with_wide_tiles():
+    """The resident region's shape: left keys in bucket layout (tiles that
+    straddle buckets are wide), right keys sorted globally. K2p's plain
+    version equals K2's on every padded row, wide tiles as their base."""
+    l, r = _clustered(40_000, 100_000, 4, 5)
+    r = np.sort(np.concatenate([r, r[::7]]))  # duplicate right keys
+    (t, words, refs, fences, spec, lo_all, r_p, plan) = _k2p_operands(l, r)
+    assert plan[-1].any() and spec is not None
+    lt, eq = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
+                                                max_span=int(plan[1].max()))
+    s_lt, s_eq = tk.sorted_intersect_span_reference(*t, r_p)
+    assert torch.equal(lt, s_lt) and torch.equal(eq, s_eq)
+    with pytest.raises(HyperspaceException, match="do not cover"):
+        tk.sorted_intersect_packed_tensors(*t, words, refs[:1], fences, spec, lo_all,
+                                           max_span=int(plan[1].max()))
+
+
+@pytest.mark.gpu
+def test_cuda_k2p_matches_plain_version():
+    """K2p on the card against its plain version on every padded row: the
+    edge cases at every vpw and the index layout with wide tiles, one
+    launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    reset_launch_counts()
+    inputs = list(k2_cases.k2p_edge_cases(0).values())
+    l, r = _clustered(300_000, 90_000, 16, 7)
+    inputs.append((l, np.sort(np.concatenate([r, r[::5]]))))
+    for l, r in inputs:
+        (t, words, refs, fences, spec, lo_all, _r_p, plan) = _k2p_operands(l, r)
+        max_span = int(plan[1].max())
+        want = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
+                                                  max_span=max_span)
+        got = tk.sorted_intersect_packed_tensors(*(x.cuda() for x in t), words.cuda(),
+                                                 refs.cuda(), fences.cuda(), spec, lo_all,
+                                                 max_span=max_span)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]), \
+            (spec.vpw, len(l))
+    assert launch_counts() == {tk.K2P: len(inputs)}

@@ -192,7 +192,7 @@ def test_scan_and_join_over_runs_match_reference(jax_tree):
     assert tmetrics.get("scan.run_bucket_segments") > 0
     assert tmetrics.get("io.segment.sweeps") > 0
     assert tmetrics.get("join.path.device_kernel") + tmetrics.get(
-        "join.path.host_searchsorted") >= 1
+        "join.path.host_searchsorted") + tmetrics.get("join.path.presorted_merge_flat") >= 1
     assert _serve("torch", tree, li, od, **{"hyperspace.storage.segmentIo": "naive"}) == truth
     from hyperspace_tpu_torch.storage import layout as tl
 
