@@ -14,7 +14,8 @@ front_end run in the main path's session and bring ``main``). Phases:
 
 1. header — the card's name and power limit (``nvidia-smi``); the CUDA
    kernels build from ``hyperspace_tpu_torch/csrc`` (timed as set-up),
-   and ``ptxas -v``'s registers, stack frame and spills per kernel;
+   and ``ptxas -v``'s registers, static shared memory, stack frame and
+   spills per kernel (each of K2p's vpw instantiations apart);
 2. kernels — each kernel against its plain torch version on the card, at
    the main path's shapes, exact equality; times (median of repeats, CUDA
    events around the wrapper call; and the kernel's own device time from
@@ -50,11 +51,16 @@ front_end run in the main path's session and bring ``main``). Phases:
    and random rows, deltas of 1 row and several blocks, 1 to 9 columns,
    and is timed at li_hy's shape; K2p (K2 over FoR-packed right keys)
    runs at the join region's shape (lineitem's order keys in index
-   layout against orders' sorted keys packed in blocks of 128) and on its
+   layout against orders' sorted keys packed in blocks of 128) under its
+   group plan for the card and under the minimal window capacity, on its
    edge cases at vpw 2, 4, 8, 16 and 32 (runs of equal keys across a line
-   and across a block, keys on fences, an all-pad tail), held against its
-   plain version on every padded row and timed beside raw K2 over the
-   same codes and ``torch.searchsorted`` x2; the torch epilogue of the
+   and across a block, keys on fences, an all-pad tail) and on its region
+   cases (``k2p_region_cases``: index layouts over 64 and 80 buckets at
+   vpw 2 and 4, spans of 64, wide and span-0 tiles interleaved, duplicate
+   runs across lines and blocks, a ragged right side) under three group
+   plans each (the card's target, a target of 4, the minimal capacity),
+   held against its plain version on every padded row and timed beside
+   raw K2 over the same codes and ``torch.searchsorted`` x2; the torch epilogue of the
    resident Q17 aggregate (``index_add_`` over 200,000 slots) is timed
    alone and held against numpy;
 3. main path — TPC-H-shaped data at scale factor 1 (lineitem 6,001,215
@@ -404,9 +410,10 @@ def _fmt(ms) -> str:
 
 
 def ptxas_summary(report: str) -> dict:
-    """Per kernel of a ``ptxas -v`` report: registers, stack frame and
-    spill bytes (template arguments of the mask kernels and K2p's vpw
-    spelled out)."""
+    """Per kernel of a ``ptxas -v`` report: registers, static shared
+    memory, stack frame and spill bytes (template arguments of the mask
+    kernels and K2p's vpw spelled out). Dynamic shared memory is the
+    launch's: K2p's records carry theirs (``smem_bytes``)."""
     import re
 
     def name(mangled: str) -> str:
@@ -433,6 +440,8 @@ def ptxas_summary(report: str) -> dict:
             out[current].update(stack_frame=nums[0], spill_stores=nums[1], spill_loads=nums[2])
         elif current and "Used" in ln and "registers" in ln:
             out[current]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[current]["static_smem"] = int(smem.group(1)) if smem else 0
     return {k: v for k, v in out.items() if v}
 
 
@@ -542,35 +551,55 @@ def k2p_operands(l: np.ndarray, r: np.ndarray, dev):
             min(int(l.min()), int(r.min())), put(r_p), plan)
 
 
-def k2p_case(name: str, l: np.ndarray, r: np.ndarray, dev):
-    """K2p over one input, held exactly against its plain version
-    (``sorted_intersect_packed_reference``) on every padded row, and on
-    real rows of tiles the plan does not mark wide against numpy's
-    searchsorted. Returns (record, operands)."""
+def k2p_groups(plan, spec, dev, target=None, tight=False):
+    """K2p's group plan for a K2 host plan, on ``dev``: the card's target
+    (``k2p_group_target``) unless ``target`` is given; ``tight`` forces the
+    minimal capacity, the plan's largest span."""
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    target = tk.k2p_group_target(dev) if target is None else target
+    capacity = int(plan[1].max()) if tight else None
+    return tk.plan_k2p_groups(plan[0], plan[1], spec.vpw, target, capacity=capacity).to(dev)
+
+
+def k2p_case(name: str, l: np.ndarray, r: np.ndarray, dev, plans=((None, False),)):
+    """K2p over one input under each group plan of ``plans`` ((target,
+    tight) pairs for ``k2p_groups``), held exactly against its plain
+    version (``sorted_intersect_packed_reference``) on every padded row,
+    and on real rows of tiles the plan does not mark wide against numpy's
+    searchsorted. Returns (record, operands, the first plan's groups)."""
     from hyperspace_tpu_torch.ops import kernels as tk
 
     ops = k2p_operands(l, r, dev)
     t, words, refs, fences, spec, lo_all, _r_p, plan = ops
-    max_span = int(plan[1].max())
-    lt, eq = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
-                                                max_span=max_span)
     p_lt, p_eq = tk.sorted_intersect_packed_reference(*t, words, refs, spec, lo_all,
                                                       int(fences.shape[0]) * tk.K2_FENCE)
-    err = max(int((lt - p_lt).abs().max().item()), int((eq - p_eq).abs().max().item()))
     n = len(l)
     keep = ~np.repeat(plan[-1], tk.SMJ_TILE)[:n]
     want = np.searchsorted(r, l, side="left")
-    np_ok = (np.array_equal(lt[:n].cpu().numpy()[keep], want[keep]) and np.array_equal(
-        eq[:n].cpu().numpy()[keep], (np.searchsorted(r, l, side="right") - want)[keep]))
-    if err or not np_ok:
-        raise AssertionError(f"K2p {name}: kernel disagrees with plain version (err {err}, "
-                             f"numpy {np_ok})")
+    want_eq = np.searchsorted(r, l, side="right") - want
+    err, shapes, first = 0, [], None
+    for target, tight in plans:
+        groups = k2p_groups(plan, spec, dev, target, tight)
+        first = first or groups
+        lt, eq = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
+                                                    groups=groups)
+        e = max(int((lt - p_lt).abs().max().item()), int((eq - p_eq).abs().max().item()))
+        np_ok = (np.array_equal(lt[:n].cpu().numpy()[keep], want[keep])
+                 and np.array_equal(eq[:n].cpu().numpy()[keep], want_eq[keep]))
+        if e or not np_ok:
+            raise AssertionError(f"K2p {name} (groups: target {target}, tight {tight}): kernel "
+                                 f"disagrees with plain version (err {e}, numpy {np_ok})")
+        err = max(err, e)
+        shapes.append(f"{groups.n_groups} groups, window <= {groups.max_window}"
+                      + (" (tight)" if tight else ""))
     rec = dict(max_abs_err=err, n_l=n, n_r=len(r), bits=spec.bits, vpw=spec.vpw,
-               wide_tiles=int(plan[-1].sum()), max_span=max_span)
+               wide_tiles=int(plan[-1].sum()), max_span=int(plan[1].max()),
+               groups=first.n_groups, max_window=first.max_window, smem_bytes=first.smem_bytes)
     log(f"K2p {name}: n_l={n} n_r={len(r)} bits={spec.bits} vpw={spec.vpw} "
-        f"wide_tiles={rec['wide_tiles']} max_span={max_span} exact=yes (plain version on every "
-        f"padded row, numpy on the rows of tiles not wide)")
-    return rec, ops
+        f"wide_tiles={rec['wide_tiles']} max_span={rec['max_span']} plans: {'; '.join(shapes)} "
+        f"exact=yes (plain version on every padded row, numpy on the rows of tiles not wide)")
+    return rec, ops, first
 
 
 def j1_epilogue_case(lineitem: dict, orders: dict, l_order: np.ndarray, lt, eq, dev) -> dict:
@@ -1220,11 +1249,12 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
     # K2p at the join region's shape: the same left keys in index layout,
     # orders' sorted keys FoR-packed; raw K2 over the same codes beside it
     k2p = {}
-    rec, ops = k2p_case("region_layout", l_codes, r_sorted, dev)
+    rec, ops, groups = k2p_case("region_layout", l_codes, r_sorted, dev,
+                                plans=((None, False), (None, True)))
     t, words, refs, fences_p, spec, lo_all, r_p, plan = ops
     max_span = int(plan[1].max())
     run_p = lambda: tk.sorted_intersect_packed_tensors(  # noqa: E731
-        *t, words, refs, fences_p, spec, lo_all, max_span=max_span)
+        *t, words, refs, fences_p, spec, lo_all, groups=groups)
     run_raw = lambda: tk.sorted_intersect_tensors(  # noqa: E731
         *t, r_p, fences_p, max_span=max_span)
     n_r_pad = int(r_p.shape[0])
@@ -1242,15 +1272,23 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
                bound_ms=b_ms, bound_by=b_by, packed_mb=spec.packed_nbytes / 1e6,
                raw_mb=4 * len(r_sorted) / 1e6)
     k2p["region_layout"] = rec
-    log(f"K2p region_layout: ms={rec['ms']:.4f} device_ms={_fmt(rec['device_ms'])} | raw K2 "
+    log(f"K2p region_layout: {groups.n_groups} groups, windows <= {groups.max_window} right "
+        f"tiles ({groups.smem_bytes} B of shared memory) | ms={rec['ms']:.4f} "
+        f"device_ms={_fmt(rec['device_ms'])} | raw K2 "
         f"over the same codes ms={rec['raw_k2_ms']:.4f} device_ms={_fmt(rec['raw_k2_device_ms'])} "
         f"| plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} (torch.searchsorted "
         f"x2) bound_ms={b_ms:.4f} ({b_by}) | right codes {rec['packed_mb']:.3f} MB packed, "
         f"{rec['raw_mb']:.3f} MB raw")
-    from hyperspace_tpu_torch.ops.k2_cases import k2p_edge_cases
+    from hyperspace_tpu_torch.ops.k2_cases import k2p_edge_cases, k2p_region_cases
 
     for name, (l, r) in k2p_edge_cases(seed).items():
         k2p[f"edge_{name}"] = k2p_case(f"edge {name}", l, r, dev)[0]
+    # the region cases (index layouts, spans of 64, wide and span-0 tiles,
+    # duplicate runs, a ragged right side) under the card's target, a
+    # target of 4 (groups of many tiles) and the minimal capacity
+    for name, (l, r) in k2p_region_cases(seed).items():
+        k2p[f"region_{name}"] = k2p_case(f"region {name}", l, r, dev,
+                                         plans=((None, False), (4, False), (4, True)))[0]
     lt_p, eq_p = run_p()
     if plan[-1].any():  # the region patches its wide rows; here numpy does
         wide_rows = np.flatnonzero(np.repeat(plan[-1], tk.SMJ_TILE)[: len(l_codes)])
@@ -3456,6 +3494,7 @@ def main() -> int:
         ptxas[kname] = ptxas_summary(tk.build_report(kname))
         for fn, info in sorted(ptxas[kname].items()):
             log(f"setup: ptxas {fn}: registers={info.get('registers')} "
+                f"static_smem={info.get('static_smem')} "
                 f"stack_frame={info.get('stack_frame')} spill_stores={info.get('spill_stores')} "
                 f"spill_loads={info.get('spill_loads')}")
             if info.get("stack_frame") or info.get("spill_stores") or info.get("spill_loads"):

@@ -67,16 +67,54 @@
 // after the decode; rows at or past n_r read as INT32_MAX, K2's pads. It
 // replaces the reference's XLA programs ranges_fn_packed and
 // unpack_for_jnp (hyperspace_tpu/exec/join_residency.py:952,
-// hyperspace_tpu/ops/bitpack.py:171). Only the line read changes: line k
-// of 8 keys lies in FoR block 8k / 128, so it reads that block's ref and
-// 8 / vpw packed words (at most 16 bytes, bits <= 16 giving vpw >= 2;
-// one word from vpw 8 up), aligned to their size at every vpw, and the
-// decode is specialised by vpw, a template chosen once per launch. The
-// fence array stays raw int32: the region build uploads the host's
-// narrowed sorted keys' every 8th once.
+// hyperspace_tpu/ops/bitpack.py:171).
+//
+// What bounds K2p. Bytes: the left keys, the words, refs and fences read
+// once, (lt, eq) written once, 75.8 MB at the join region's shape (TPC-H
+// SF1: 6,001,215 lineitem keys in index layout against 1,500,000 order
+// keys packed at 9 bits, vpw 2), 0.0226 ms at 3.35 TB/s. K2's way of
+// reaching the right keys is what wastes time here: each tile (one hash
+// bucket's keys) spans ~51 right tiles of the globally sorted right side,
+// so a CTA a tile copies a ~26 KB fence slice from L2 (~150 MB over the
+// 5,861 tiles) and each key waits on one L2 round trip for its line.
+//
+// The design puts the whole right side of a span in shared memory, which
+// packing makes possible. A right tile takes 4 * (1024 / vpw + 128 + 8)
+// bytes in a window (words, raw fences, refs): 2,592 at vpw 2, the widest
+// case (bits <= 16), so the plan's 64-tile span cap needs 165,888 bytes,
+// inside the 232,448 a CTA may use; raw keys (4,608 bytes a tile, 294,912
+// at the cap) would not fit. The host's group plan (ops/kernels.py:
+// plan_k2p_groups) orders the tiles with a span by s_tile and cuts that
+// order into groups whose union of spans, the group's window, fits this
+// shared memory: tiles of different buckets at the same place in their
+// buckets cover almost the same right keys, so ~44 tiles share one window
+// of ~62 right tiles at the region's shape. So:
+//   * one CTA a group, 1024 threads in four teams of 256; each team takes
+//     every fourth tile of the group (four tiles in flight: a window of
+//     ~160 KB leaves room for one CTA an SM, and its 32 warps hide the
+//     shared-memory search's latency), 4 keys a thread laid out as K2's
+//     (key_at), and loads its next tile (span, base, s_tile, keys) into
+//     registers while it searches the current one;
+//   * one thread brings the window in with three 1-D bulk copies
+//     (cp.async.bulk, no register on the way; bulk_copy.cuh): the fences
+//     on one mbarrier, the words and refs on a second, so the first
+//     tiles' searches start while the words land; meanwhile the CTA loads
+//     its first keys. The window's bytes come from L2 (the distinct right
+//     side is 3.8 MB), ~23 MB over all windows in place of ~150 MB of
+//     slices;
+//   * each tile then runs K2's search (span_counts) over its span's fence
+//     slice in the window, and reads its line of 8 keys from the window's
+//     words and ref, decoded in registers and specialised by vpw (a
+//     template chosen once per launch): no key waits on L2;
+//   * tiles with span 0 (wide ones, answered on the host) ride in the
+//     groups, spread over them, and write base and 0, as K2's do.
+// What remains is the HBM stream of keys in and counts out.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "bulk_copy.cuh"
 
 namespace {
 
@@ -94,6 +132,27 @@ static_assert(FENCE % 4 == 0 && TILE % FENCE == 0, "a line of r moves as int4");
 constexpr int ilog2(int n) { return n > 1 ? 1 + ilog2(n / 2) : 0; }
 constexpr int LOG_MAX_FENCES = ilog2(MAX_FENCES);  // the search's depth
 static_assert(MAX_FENCES == 1 << LOG_MAX_FENCES, "the span cap is a power of two");
+
+// K2p's CTA and window (ops/kernels.py mirrors these: k2p_tile_bytes,
+// k2p_window_capacity)
+constexpr int K2P_THREADS = 1024;    // one CTA a group: 32 warps
+constexpr int K2P_IN_FLIGHT = 4;     // tiles a CTA searches at once, one a team
+constexpr int K2P_TEAM = K2P_THREADS / K2P_IN_FLIGHT;
+constexpr int K2P_KEYS = TILE / K2P_TEAM;  // left keys a thread of a team
+constexpr int FOR_BLOCK = 128;             // values a FoR block ref covers
+constexpr int K2P_SMEM_MAX = 232448;       // dynamic shared memory a CTA may use (H100)
+constexpr int K2P_SMEM_FIXED = 16;         // the window's two mbarriers
+static_assert(K2P_TEAM % 32 == 0 && K2P_KEYS * K2P_TEAM == TILE,
+              "a team covers a tile at a time, a warp 32 * K2P_KEYS keys of it");
+// bytes of one right tile in a window: its packed words, raw fences and
+// block refs, each a multiple of 16 (bulk copies move 16-byte units)
+__host__ __device__ constexpr int k2p_tile_bytes(int vpw) {
+  return 4 * (TILE / vpw + TILE / FENCE + TILE / FOR_BLOCK);
+}
+static_assert((TILE / 32) % 4 == 0 && (TILE / FENCE) % 4 == 0 && (TILE / FOR_BLOCK) % 4 == 0,
+              "each part of a window tile is whole 16-byte units at every vpw");
+static_assert(K2P_SMEM_FIXED + MAX_SPAN_TILES * k2p_tile_bytes(2) <= K2P_SMEM_MAX,
+              "a window of the largest span fits at vpw 2, the widest packing");
 
 __global__ void __launch_bounds__(256) fence_build_kernel(const int32_t* __restrict__ r,
                                                           long long n_fences,
@@ -131,52 +190,82 @@ __device__ __forceinline__ void line_counts(const int32_t* p, int x, int& lt, in
 
 // The lines of a span's raw right keys (K2): line k is rw[8k .. 8k + 8).
 struct RawLines {
+  static constexpr bool kKeyReads = false;  // a key costs a line's L2 round trip
   const int32_t* rw;  // r + s_tile * TILE
   __device__ __forceinline__ void counts(int line, int x, int& lt, int& le) const {
     line_counts(rw + line * FENCE, x, lt, le);
   }
 };
 
-// The lines of a span's FoR-packed right keys (K2p), decoded in
-// registers: the line's block ref and its VPW-specialised word loads.
+// The lines of a span's FoR-packed right keys (K2p), read from the
+// group's window in shared memory and decoded in registers: the line's
+// block ref and its VPW-specialised word loads.
 template <int VPW>
 struct PackedLines {
   static_assert(VPW >= 2 && VPW <= 32 && (VPW & (VPW - 1)) == 0, "vpw is a power of two");
-  static_assert(FENCE == 8 && 128 % FENCE == 0, "a line lies inside one FoR block");
-  const int32_t* words;
-  const int32_t* refs;
-  int first;  // the value index of the span's line 0: s_tile * TILE (< 2^31)
-  int n_r;    // real keys; rows at or past it read as INT32_MAX
+  static_assert(FENCE == 8 && FOR_BLOCK % FENCE == 0, "a line lies inside one FoR block");
+  static constexpr bool kKeyReads = true;  // a key costs a shared-memory read
+  const uint32_t* words;  // the window's words (shared memory)
+  const int* refs;        // the window's block refs (shared memory)
+  int first;   // the window-relative value index of the span's line 0: (s_tile - w0) * TILE
+  int n_real;  // real keys from the window's start on: rows at or past it read as INT32_MAX
   int bits, lo_all;
+  // The span's key idx (0 <= idx < the span's keys), decoded.
+  __device__ __forceinline__ int key(int idx) const {
+    const int i = first + idx;
+    const unsigned u = (unsigned)i;
+    const unsigned off = (words[u / VPW] >> ((u % VPW) * bits)) & ((1u << bits) - 1u);
+    const int v = (int)((unsigned)refs[u / FOR_BLOCK] - (unsigned)lo_all + off);
+    return i < n_real ? v : INT32_MAX;
+  }
+  // The line's 8 offsets f[j] and its block's narrowed ref: key j is
+  // ref + f[j]. A word's top lane needs no mask (the bits above it are 0).
+  __device__ __forceinline__ unsigned load(int i0, int (&f)[FENCE]) const {
+    const unsigned u0 = (unsigned)i0;  // i0 >= 0; unsigned: divisions are shifts
+    const unsigned mask = (1u << bits) - 1u;
+    if constexpr (VPW == 2) {  // 4 words, 2 keys each: one 16-byte load
+      const uint4 q = *reinterpret_cast<const uint4*>(words + u0 / 2);
+      const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        f[2 * k] = (int)(w[k] & mask);
+        f[2 * k + 1] = (int)(w[k] >> bits);
+      }
+    } else if constexpr (VPW == 4) {  // 2 words, 4 keys each
+      const uint2 q = *reinterpret_cast<const uint2*>(words + u0 / 4);
+      const unsigned w[2] = {q.x, q.y};
+#pragma unroll
+      for (int j = 0; j < FENCE; ++j)
+        f[j] = (int)(j % 4 == 3 ? w[j / 4] >> (3 * bits) : (w[j / 4] >> ((j % 4) * bits)) & mask);
+    } else {  // one word holds the line, from lane (i0 % VPW) on
+      const unsigned w = words[u0 / VPW];
+      const int shift0 = (int)(u0 % VPW) * bits;
+#pragma unroll
+      for (int j = 0; j < FENCE; ++j) f[j] = (int)((w >> (shift0 + j * bits)) & mask);
+    }
+    // ref - lo_all: the plan's narrowed key, computed unsigned (a pad
+    // block's ref may be anything; its rows are masked)
+    return (unsigned)refs[u0 / FOR_BLOCK] - (unsigned)lo_all;
+  }
   __device__ __forceinline__ void counts(int line, int x, int& lt, int& le) const {
     const int i0 = first + line * FENCE;
-    // ref - lo_all + offset: the plan's narrowed key, computed unsigned
-    // (a pad block's ref may be anything; its rows are masked below)
-    const unsigned ref = (unsigned)__ldg(refs + (i0 >> 7)) - (unsigned)lo_all;
-    const unsigned mask = (1u << bits) - 1u;
-    unsigned off[FENCE];
-    if constexpr (VPW == 2) {  // 4 words, 2 keys each
-      const int4 q = __ldg(reinterpret_cast<const int4*>(words + (i0 >> 1)));
-      const unsigned w[4] = {(unsigned)q.x, (unsigned)q.y, (unsigned)q.z, (unsigned)q.w};
-#pragma unroll
-      for (int j = 0; j < FENCE; ++j) off[j] = (w[j / 2] >> ((j % 2) * bits)) & mask;
-    } else if constexpr (VPW == 4) {  // 2 words, 4 keys each
-      const int2 q = __ldg(reinterpret_cast<const int2*>(words + (i0 >> 2)));
-      const unsigned w[2] = {(unsigned)q.x, (unsigned)q.y};
-#pragma unroll
-      for (int j = 0; j < FENCE; ++j) off[j] = (w[j / 4] >> ((j % 4) * bits)) & mask;
-    } else {  // one word holds the line, from lane (i0 % VPW) on
-      const unsigned w = (unsigned)__ldg(words + i0 / VPW);
-      const int shift0 = (int)(i0 % VPW) * bits;
-#pragma unroll
-      for (int j = 0; j < FENCE; ++j) off[j] = (w >> (shift0 + j * bits)) & mask;
-    }
-    int v[FENCE];
-#pragma unroll
-    for (int j = 0; j < FENCE; ++j) v[j] = i0 + j < n_r ? (int)(ref + off[j]) : INT32_MAX;
+    int f[FENCE];
+    const unsigned ref = load(i0, f);
+    // Branch-free, so the loads of a thread's lines can all be in flight
+    // at once. Key j is ref + f[j] < x exactly where f[j] < d = x - ref
+    // (both in [0, 2^31 - 1): no overflow), with d clamped into [-1, 2^16]
+    // as offsets lie in [0, 2^16). Rows at or past n_real (the line's
+    // last `pads`) are packed as offset 0 (pack_for pads with zeros) and
+    // read as INT32_MAX: their offset-0 counts come off (below d where
+    // d > 0, up to it where d >= 0), and they are up to x only where x is
+    // INT32_MAX. A line of pads alone has a stale ref: d wraps, harmless.
+    const int d = min(max((int)((unsigned)x - ref), -1), 1 << 16);
+    const int pads = min(max(i0 + FENCE - n_real, 0), FENCE);
     lt = le = 0;
-    count4(make_int4(v[0], v[1], v[2], v[3]), x, lt, le);
-    count4(make_int4(v[4], v[5], v[6], v[7]), x, lt, le);
+    count4(make_int4(f[0], f[1], f[2], f[3]), d, lt, le);
+    count4(make_int4(f[4], f[5], f[6], f[7]), d, lt, le);
+    lt -= pads * (d > 0);
+    le += pads * ((x == INT32_MAX) - (d >= 0));
   }
 };
 
@@ -196,23 +285,29 @@ __device__ __forceinline__ void search_step(unsigned& a, int x) {
 }
 
 // The steps of sizes S, S / 2, .., 1 that lie below top, for each of a
-// thread's keys in turn: KEYS independent chains.
-template <int S>
-__device__ __forceinline__ void search_steps(unsigned (&a)[KEYS], const int (&x)[KEYS], int top) {
+// thread's N keys in turn: N independent chains.
+template <int S, int N>
+__device__ __forceinline__ void search_steps(unsigned (&a)[N], const int (&x)[N], int top) {
   if (S < top) {
 #pragma unroll
-    for (int j = 0; j < KEYS; ++j) search_step<S>(a[j], x[j]);
+    for (int j = 0; j < N; ++j) search_step<S>(a[j], x[j]);
   }
-  if constexpr (S > 1) search_steps<S / 2>(a, x, top);
+  if constexpr (S > 1) search_steps<S / 2, N>(a, x, top);
 }
 
-// Span-relative bounds of a thread's KEYS keys x over the span's right
+struct NoWait {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// Span-relative bounds of a thread's N keys x over the span's right
 // keys (the lines of rl, nf * FENCE keys), whose fences are in
-// slice[0 .. nf): lo = #keys < x, hi = #keys <= x.
-template <class Lines>
+// slice[0 .. nf): lo = #keys < x, hi = #keys <= x. before_lines() runs
+// between the fence search and the first line read (K2p: the wait for
+// its window's words on the first tile).
+template <int N, class Lines, class Wait = NoWait>
 __device__ __forceinline__ void span_counts(const int* slice, int nf, const Lines& rl,
-                                            const int (&x)[KEYS], int (&lo)[KEYS],
-                                            int (&hi)[KEYS]) {
+                                            const int (&x)[N], int (&lo)[N], int (&hi)[N],
+                                            const Wait& before_lines = Wait{}) {
   // 1. c = #fences < x. The first step aligns the range to a power of
   // two, so no later step checks a bound; every thread of the CTA takes
   // the same steps, unrolled (a step's size is an immediate offset of its
@@ -220,25 +315,26 @@ __device__ __forceinline__ void span_counts(const int* slice, int nf, const Line
   const int top = 1 << (31 - __clz(nf));  // largest power of two <= nf
   const int first = nf - top;
   const unsigned at0 = (unsigned)__cvta_generic_to_shared(slice);
-  unsigned a[KEYS];
+  unsigned a[N];
 #pragma unroll
-  for (int j = 0; j < KEYS; ++j)
+  for (int j = 0; j < N; ++j)
     a[j] = at0 + 4 * ((first > 0 && slice[first - 1] < x[j]) ? first : 0);
-  search_steps<1 << (LOG_MAX_FENCES - 1)>(a, x, top);
-  int c[KEYS];
+  search_steps<1 << (LOG_MAX_FENCES - 1), N>(a, x, top);
+  int c[N];
 #pragma unroll
-  for (int j = 0; j < KEYS; ++j) {
+  for (int j = 0; j < N; ++j) {
     c[j] = (a[j] - at0) >> 2;
     c[j] += slice[c[j]] < x[j];  // here c[j] < nf
   }
+  before_lines();
 
   // 2. the line below fence c holds the lower bound (line 0 when c = 0:
   // then all of it is >= x), and the upper bound too unless x's run of
   // equal keys fills the line to its end: one 32-byte sector of r a key,
-  // the loads of the thread's KEYS keys in flight together
-  int line[KEYS];
+  // the loads of the thread's N keys in flight together
+  int line[N];
 #pragma unroll
-  for (int j = 0; j < KEYS; ++j) {
+  for (int j = 0; j < N; ++j) {
     line[j] = c[j] > 0 ? c[j] - 1 : 0;
     rl.counts(line[j], x[j], lo[j], hi[j]);
     lo[j] += line[j] * FENCE;
@@ -246,11 +342,20 @@ __device__ __forceinline__ void span_counts(const int* slice, int nf, const Line
   }
   // 3. a run that fills its line and equals the next fence goes on:
   // c2 = #fences <= x is at least line + 2; a run longer than a line
-  // searches the slice on from there
+  // searches the slice on from there. Where the lines can hand out one
+  // key (K2p's, from shared memory), a run that ends at that fence (the
+  // key after it above x: every unique key equal to a fence) takes one
+  // key's read in place of the next line's.
 #pragma unroll
-  for (int j = 0; j < KEYS; ++j) {
+  for (int j = 0; j < N; ++j) {
     int c2 = line[j] + 2;
     if (hi[j] == c2 * FENCE - FENCE && c2 <= nf && slice[c2 - 1] <= x[j]) {
+      if constexpr (Lines::kKeyReads) {
+        if (rl.key((c2 - 1) * FENCE + 1) > x[j]) {
+          hi[j] = (c2 - 1) * FENCE + 1;
+          continue;
+        }
+      }
       if (c2 < nf && slice[c2] <= x[j]) {
         for (int s = top; s > 0; s >>= 1) {
           const int k = c2 + s;
@@ -273,9 +378,9 @@ __device__ __forceinline__ int key_at(int j) {
   return (threadIdx.x >> 5) * (32 * KEYS) + j * 32 + (threadIdx.x & 31);
 }
 
-// The part of a CTA's work common to K2 and K2p: it loads the tile's
-// keys, answers a span-0 tile (or one over max_span) at once, and copies
-// the fences of the tile's span into shared memory. False: the CTA is done.
+// A K2 CTA's prologue: it loads the tile's keys, answers a span-0 tile
+// (or one over max_span) at once, and copies the fences of the tile's
+// span into shared memory. False: the CTA is done.
 __device__ __forceinline__ bool tile_prologue(const int32_t* __restrict__ l,
                                               const int32_t* __restrict__ fences,
                                               const int32_t* __restrict__ s_tile,
@@ -343,22 +448,151 @@ __global__ void __launch_bounds__(THREADS) sorted_intersect_kernel(
   tile_store(lt, eq, b, lo, hi);
 }
 
-// K2p: K2 over FoR-packed right keys (words, refs), VPW values a word.
+// Where a K2p thread's key 0 lies in its team's tile: key_at's layout
+// over the team's threads; key j lies 32 * j after it.
+__device__ __forceinline__ int team_key0() {
+  const int t = threadIdx.x % K2P_TEAM;
+  return (t >> 5) * (32 * K2P_KEYS) + (t & 31);
+}
+
+// What a team reads of tile order[k] before its search: the tile, its
+// span, base and s_tile, and the thread's keys.
+struct TeamTile {
+  int t, sp, b, s;
+  int x[K2P_KEYS];
+};
+
+__device__ __forceinline__ void team_load(const int32_t* __restrict__ l,
+                                          const int32_t* __restrict__ order,
+                                          const int32_t* __restrict__ span,
+                                          const int32_t* __restrict__ base,
+                                          const int32_t* __restrict__ s_tile, int k,
+                                          TeamTile& in) {
+  in.t = __ldg(order + k);
+  in.sp = __ldg(span + in.t);
+  in.b = __ldg(base + in.t);
+  in.s = __ldg(s_tile + in.t);
+  const int32_t* p = l + (long long)in.t * TILE + team_key0();
+#pragma unroll
+  for (int j = 0; j < K2P_KEYS; ++j) in.x[j] = __ldg(p + 32 * j);
+}
+
+// K2p: one CTA a group g of the group plan (ops/kernels.py:
+// plan_k2p_groups): tiles order[group_at[g] .. group_at[g + 1]), whose
+// spans lie in the window of right tiles [win_lo[g], win_lo[g] +
+// win_len[g]). The window's fences, words and refs are copied into shared
+// memory once; each team then answers every K2P_IN_FLIGHT-th tile of the
+// group from there. max_window (the launch's largest window, which sized
+// the shared memory) and n_r_tiles bound what a window may copy; a tile
+// whose span lies outside its group's window comes back as -1s, an
+// impossible count.
 template <int VPW>
-__global__ void __launch_bounds__(THREADS) sorted_intersect_packed_kernel(
+__global__ void __launch_bounds__(K2P_THREADS, 1) sorted_intersect_packed_kernel(
     const int32_t* __restrict__ l, const int32_t* __restrict__ words,
     const int32_t* __restrict__ refs, const int32_t* __restrict__ fences,
     const int32_t* __restrict__ s_tile, const int32_t* __restrict__ span,
-    const int32_t* __restrict__ base, int max_span, int bits, int lo_all, int n_r,
-    int32_t* __restrict__ lt, int32_t* __restrict__ eq) {
-  extern __shared__ int4 slice4[];
-  int x[KEYS], sp, b, s;
-  if (!tile_prologue(l, fences, s_tile, span, base, max_span, lt, eq, slice4, x, sp, b, s))
-    return;
-  int lo[KEYS], hi[KEYS];
-  const PackedLines<VPW> rl{words, refs, s * TILE, n_r, bits, lo_all};
-  span_counts(reinterpret_cast<const int*>(slice4), sp * (TILE / FENCE), rl, x, lo, hi);
-  tile_store(lt, eq, b, lo, hi);
+    const int32_t* __restrict__ base, const int32_t* __restrict__ order,
+    const int32_t* __restrict__ group_at, const int32_t* __restrict__ win_lo,
+    const int32_t* __restrict__ win_len, int max_window, int n_r_tiles, int bits, int lo_all,
+    int n_r, int32_t* __restrict__ lt, int32_t* __restrict__ eq) {
+  extern __shared__ __align__(16) unsigned char win[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(win);
+  const int w0 = __ldg(win_lo + blockIdx.x);
+  int wn = __ldg(win_len + blockIdx.x);
+  if (wn < 0 || wn > max_window || w0 < 0 || w0 > n_r_tiles - wn) wn = 0;
+  int* fs = reinterpret_cast<int*>(win + K2P_SMEM_FIXED);       // wn * TILE / FENCE fences
+  const uint32_t* ws = reinterpret_cast<const uint32_t*>(fs + wn * (TILE / FENCE));
+  const int* rs = reinterpret_cast<const int*>(ws + wn * (TILE / VPW));  // wn * TILE / 128 refs
+  if (threadIdx.x == 0 && wn > 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // the fences first (bar[0]: the search starts on them), then the words
+  // and refs (bar[1]: the line reads wait for them on the first tile)
+  if (threadIdx.x == 0 && wn > 0) {
+    const int fb = wn * (TILE / FENCE) * 4, wb = wn * (TILE / VPW) * 4;
+    const int rb = wn * (TILE / FOR_BLOCK) * 4;
+    mbar_expect_tx(bar, fb);
+    bulk_copy(fs, fences + (long long)w0 * (TILE / FENCE), fb, bar);
+    mbar_expect_tx(bar + 1, wb + rb);
+    bulk_copy((void*)ws, words + (long long)w0 * (TILE / VPW), wb, bar + 1);
+    bulk_copy((void*)rs, refs + (long long)w0 * (TILE / FOR_BLOCK), rb, bar + 1);
+  }
+  // the team's first tile loads while the window comes in
+  const int end = __ldg(group_at + blockIdx.x + 1);
+  int k = __ldg(group_at + blockIdx.x) + (int)(threadIdx.x / K2P_TEAM);
+  TeamTile cur;
+  if (k < end) team_load(l, order, span, base, s_tile, k, cur);
+  if (wn > 0) mbar_wait(bar, 0);
+  bool words_in = false;
+  const auto wait_words = [&] {
+    if (!words_in) {
+      mbar_wait(bar + 1, 0);
+      words_in = true;
+    }
+  };
+  const int n_real = n_r - w0 * TILE;
+  for (; k < end; k += K2P_IN_FLIGHT) {
+    // the team's next tile, in flight during this one's search
+    TeamTile nxt;
+    if (k + K2P_IN_FLIGHT < end) team_load(l, order, span, base, s_tile, k + K2P_IN_FLIGHT, nxt);
+    const int sp = cur.sp, b = cur.b, s = cur.s;
+    const int(&x)[K2P_KEYS] = cur.x;
+    const long long at = (long long)cur.t * TILE + team_key0();  // key j at at + 32 * j
+    if (sp <= 0 || s < w0 || s - w0 > wn - sp) {
+      // span 0: lt = base, eq = 0 (the reference's initialisation)
+      const int v = sp <= 0 ? b : -1, e = sp <= 0 ? 0 : -1;
+#pragma unroll
+      for (int j = 0; j < K2P_KEYS; ++j) {
+        lt[at + 32 * j] = v;
+        eq[at + 32 * j] = e;
+      }
+    } else {
+      int lo[K2P_KEYS], hi[K2P_KEYS];
+      const PackedLines<VPW> rl{ws, rs, (s - w0) * TILE, n_real, bits, lo_all};
+      span_counts(fs + (s - w0) * (TILE / FENCE), sp * (TILE / FENCE), rl, x, lo, hi,
+                  wait_words);
+#pragma unroll
+      for (int j = 0; j < K2P_KEYS; ++j) {
+        lt[at + 32 * j] = b + lo[j];
+        eq[at + 32 * j] = hi[j] - lo[j];
+      }
+    }
+    cur = nxt;
+  }
+  // no copy may outlive the CTA (a team whose tiles all lack a span
+  // never waited for the words)
+  if (threadIdx.x == 0 && wn > 0) mbar_wait(bar + 1, 0);
+}
+
+using PackedKernel = void (*)(const int32_t*, const int32_t*, const int32_t*, const int32_t*,
+                              const int32_t*, const int32_t*, const int32_t*, const int32_t*,
+                              const int32_t*, const int32_t*, const int32_t*, int, int, int,
+                              int, int, int32_t*, int32_t*);
+// K2p's instantiations by log2(vpw) - 1
+const PackedKernel PACKED_KERNELS[5] = {
+    sorted_intersect_packed_kernel<2>, sorted_intersect_packed_kernel<4>,
+    sorted_intersect_packed_kernel<8>, sorted_intersect_packed_kernel<16>,
+    sorted_intersect_packed_kernel<32>};
+
+// Per device, a bit for each instantiation already allowed K2P_SMEM_MAX
+// of dynamic shared memory: the attribute is set on first need.
+constexpr int MAX_DEVICES = 64;
+std::atomic<uint32_t> big_smem_set[MAX_DEVICES];
+
+int allow_big_smem(int which) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const uint32_t bit = 1u << which;
+  if (dev < MAX_DEVICES && (big_smem_set[dev].load(std::memory_order_relaxed) & bit)) return 0;
+  e = cudaFuncSetAttribute(PACKED_KERNELS[which], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           K2P_SMEM_MAX);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < MAX_DEVICES) big_smem_set[dev].fetch_or(bit, std::memory_order_relaxed);
+  return 0;
 }
 
 }  // namespace
@@ -394,56 +628,43 @@ extern "C" int hs_sorted_intersect(const void* l, const void* r, const void* fen
   return (int)cudaGetLastError();
 }
 
-// K2p. l, fences, s_tile, span, base, max_span, lt, eq as for
-// hs_sorted_intersect, n_r_pad = 8 * the fences' length; words: device
-// int32 FoR words of the right keys, vpw values a word (2, 4, 8, 16 or
-// 32) of ``bits`` bits, at least n_r_pad / vpw of them (16-byte
-// aligned); refs: device int32 block references, one per 128 keys, at
-// least n_r_pad / 128; lo_all: the plan's narrowing, subtracted after the
-// decode; n_r: the real keys. Launches on ``stream``; returns the
-// launch's cudaGetLastError().
+// K2p. l, fences, s_tile, span, base, lt, eq as for hs_sorted_intersect
+// (n_l = TILE * the tiles of order), n_r_pad = 8 * the fences' length;
+// words: device int32 FoR words of the right keys, vpw values a word (2,
+// 4, 8, 16 or 32) of ``bits`` bits, at least n_r_pad / vpw of them, the
+// rows at or past n_r packed as offset 0 (pack_for's padding); refs:
+// device int32 block references, one per 128 keys, at least n_r_pad / 128;
+// words, refs and fences 16-byte aligned (bulk copies); lo_all: the plan's
+// narrowing, subtracted after the decode; n_r: the real keys. The group
+// plan: order (every tile once), group_at (n_groups + 1 offsets into
+// order), win_lo/win_len (each group's window of right tiles, each inside
+// [0, n_r_pad / TILE)); max_window: the largest win_len, which sizes the
+// launch's shared memory (K2P_SMEM_FIXED + max_window *
+// k2p_tile_bytes(vpw), at most K2P_SMEM_MAX). Launches on ``stream``;
+// returns the launch's cudaGetLastError().
 extern "C" int hs_sorted_intersect_packed(const void* l, const void* words, const void* refs,
                                           const void* fences, const void* s_tile,
-                                          const void* span, const void* base, long long n_l,
-                                          int max_span, int vpw, int bits, int lo_all,
+                                          const void* span, const void* base, const void* order,
+                                          const void* group_at, const void* win_lo,
+                                          const void* win_len, int n_groups, int max_window,
+                                          long long n_r_pad, int vpw, int bits, int lo_all,
                                           long long n_r, void* lt, void* eq, void* stream) {
-  if (n_l <= 0) return 0;
-  if (max_span < 0 || max_span > MAX_SPAN_TILES || bits < 1 || bits > 16 || vpw * bits > 32 ||
-      n_r < 0 || n_r >= (1LL << 31))
+  if (n_groups <= 0) return 0;
+  if (vpw < 2 || vpw > 32 || (vpw & (vpw - 1)) || bits < 1 || bits > 16 || vpw * bits > 32 ||
+      n_r < 0 || n_r_pad % TILE || n_r > n_r_pad || n_r_pad >= (1LL << 31) || max_window < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)max_span * (TILE / FENCE) * sizeof(int);
-  const dim3 grid((unsigned)(n_l / TILE));
-  const auto L = (const int32_t*)l;
-  const auto W = (const int32_t*)words;
-  const auto R = (const int32_t*)refs;
-  const auto F = (const int32_t*)fences;
-  const auto S = (const int32_t*)s_tile;
-  const auto P = (const int32_t*)span;
-  const auto B = (const int32_t*)base;
-  const auto st = (cudaStream_t)stream;
-  switch (vpw) {
-    case 2:
-      sorted_intersect_packed_kernel<2><<<grid, THREADS, smem, st>>>(
-          L, W, R, F, S, P, B, max_span, bits, lo_all, (int)n_r, (int32_t*)lt, (int32_t*)eq);
-      break;
-    case 4:
-      sorted_intersect_packed_kernel<4><<<grid, THREADS, smem, st>>>(
-          L, W, R, F, S, P, B, max_span, bits, lo_all, (int)n_r, (int32_t*)lt, (int32_t*)eq);
-      break;
-    case 8:
-      sorted_intersect_packed_kernel<8><<<grid, THREADS, smem, st>>>(
-          L, W, R, F, S, P, B, max_span, bits, lo_all, (int)n_r, (int32_t*)lt, (int32_t*)eq);
-      break;
-    case 16:
-      sorted_intersect_packed_kernel<16><<<grid, THREADS, smem, st>>>(
-          L, W, R, F, S, P, B, max_span, bits, lo_all, (int)n_r, (int32_t*)lt, (int32_t*)eq);
-      break;
-    case 32:
-      sorted_intersect_packed_kernel<32><<<grid, THREADS, smem, st>>>(
-          L, W, R, F, S, P, B, max_span, bits, lo_all, (int)n_r, (int32_t*)lt, (int32_t*)eq);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  const int which = __builtin_ctz((unsigned)vpw) - 1;  // vpw 2 -> 0 .. 32 -> 4
+  const long long smem = K2P_SMEM_FIXED + (long long)max_window * k2p_tile_bytes(vpw);
+  if (smem > K2P_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const int e = allow_big_smem(which);
+    if (e) return e;
   }
+  PACKED_KERNELS[which]<<<(unsigned)n_groups, K2P_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+      (const int32_t*)l, (const int32_t*)words, (const int32_t*)refs, (const int32_t*)fences,
+      (const int32_t*)s_tile, (const int32_t*)span, (const int32_t*)base,
+      (const int32_t*)order, (const int32_t*)group_at, (const int32_t*)win_lo,
+      (const int32_t*)win_len, max_window, (int)(n_r_pad / TILE), bits, lo_all, (int)n_r,
+      (int32_t*)lt, (int32_t*)eq);
   return (int)cudaGetLastError();
 }

@@ -30,7 +30,9 @@ the reference's own program (``scan.resident_join.path.searchsorted``).
 Under ``hyperspace.residency.forDelta`` (on by default) the sorted right
 codes are FoR-delta packed when the codec wins (``ops/bitpack.py:for_spec``,
 block 128; sorted order keys need 9-10 bits) and the queries run K2p,
-which decodes each line in registers; the fences stay raw.
+which decodes each line in registers; the fences stay raw. The build also
+plans K2p's groups of tiles that share one window of packed right keys
+(``ops/kernels.py:plan_k2p_groups``), uploaded and charged with the rest.
 
 Eligibility is one procedure, ``resolve_join_residency``, shared by the
 executor's two arms. Filtered and hybrid sides decline (their rows are not
@@ -97,8 +99,9 @@ class JoinRegion:
     ``k2p`` (FoR-packed) or ``searchsorted`` (K2's plan declined). On the
     K2 routes ``l_codes`` is the plan's padded, narrowed left operand and
     ``r_codes`` the padded, narrowed right keys (``k2``) or the FoR words
-    (``k2p``, with ``r_refs``); on ``searchsorted`` they are the int32
-    codes themselves. ``wide_*`` patch the wide tiles' rows."""
+    (``k2p``, with ``r_refs`` and K2p's group plan ``k2p_groups``); on
+    ``searchsorted`` they are the int32 codes themselves. ``wide_*`` patch
+    the wide tiles' rows."""
 
     key: tuple  # (l_ident, r_ident, l_keys, r_keys)
     n_l: int
@@ -115,6 +118,7 @@ class JoinRegion:
     r_refs: Optional[torch.Tensor] = None
     route: str = "k2"
     plan: Optional[tuple] = None  # device (s_tile, span, base), K2 routes
+    k2p_groups: Optional[object] = None  # ops.kernels.K2pGroups on the card, k2p route
     fences: Optional[torch.Tensor] = None
     max_span: int = 0
     lo_all: int = 0
@@ -367,8 +371,8 @@ def build_join_region(
     permanent refusals are structural for this version pair (no common
     bucket, codes past int32), budget refusals are not. Plans K2 once over
     the region's codes, packs the sorted right codes FoR when ``conf``
-    asks and the codec wins, computes the wide tiles' exact rows, and
-    uploads everything in one go."""
+    asks and the codec wins (then plans K2p's groups too), computes the
+    wide tiles' exact rows, and uploads everything in one go."""
     from ..ops import kernels as K
     from .hbm_cache import _budget_bytes
     from .joins import _bucketed_join_setup
@@ -404,6 +408,7 @@ def build_join_region(
     arrays: List[np.ndarray] = []
     fence_of = None
     wide_rows = wide_lo = wide_cnt = None
+    groups = None
     if plan is not None:
         s_tile, span, base, l_p, r_p, pl32, pr32, wide = plan
         lo_all = int(min(int(l32.min()), int(r_sorted.min())))
@@ -416,6 +421,9 @@ def build_join_region(
             arrays = [l_p, r_p]
             fence_of = 1
         arrays += [s_tile, span, base]
+        if route == "k2p":  # K2p's groups, a pure function of the plan
+            groups = K.plan_k2p_groups(s_tile, span, r_pack.vpw, K.k2p_group_target(dev))
+            arrays += list(groups.arrays())
         if wide.any():
             rows = np.concatenate([np.arange(t * K.SMJ_TILE, min((t + 1) * K.SMJ_TILE, n_l))
                                    for t in np.flatnonzero(wide)]).astype(np.int64)
@@ -468,6 +476,8 @@ def build_join_region(
         if route == "k2p":
             r_refs, fences = next(it), next(it)
         region_plan = (next(it), next(it), next(it))
+        if groups is not None:
+            groups = groups.with_arrays([next(it) for _ in range(4)])
         if wide_rows is not None:
             wide_rows, wide_lo, wide_cnt = next(it), next(it), next(it)
     l_cols: Dict[str, JoinPayloadColumn] = {}
@@ -489,7 +499,7 @@ def build_join_region(
     return JoinRegion(
         key, n_l, n_r, l_dev, r_dev, r_order, uniq_right, l_cols, r_cols,
         dev_bytes + host_bytes, r_pack=r_pack, r_refs=r_refs, route=route,
-        plan=region_plan, fences=fences,
+        plan=region_plan, k2p_groups=groups, fences=fences,
         max_span=int(plan[1].max()) if plan is not None else 0, lo_all=lo_all,
         wide_rows=wide_rows, wide_lo=wide_lo, wide_counts=wide_cnt, device=dev, ready=ready,
     ), False
@@ -522,7 +532,7 @@ def region_ranges(region: JoinRegion) -> Tuple[torch.Tensor, torch.Tensor]:
     if region.route == "k2p":
         lt, eq = K.sorted_intersect_packed_tensors(
             s_tile, span, base, region.l_codes, region.r_codes, region.r_refs, region.fences,
-            region.r_pack, region.lo_all, max_span=region.max_span)
+            region.r_pack, region.lo_all, groups=region.k2p_groups)
     else:
         lt, eq = K.sorted_intersect_tensors(s_tile, span, base, region.l_codes, region.r_codes,
                                             region.fences, max_span=region.max_span)

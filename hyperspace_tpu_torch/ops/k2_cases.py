@@ -135,3 +135,88 @@ def k2p_edge_cases(seed: int = 0) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
         l = np.sort(extra)
         cases[f"vpw_{vpw}"] = (l.astype(np.int64), r)
     return cases
+
+
+# K2p's region cases and the vpw each packs at
+K2P_REGION_VPW = {"index_vpw2": 2, "index_vpw4": 4, "span_cap": 2, "wide_and_idle": 2,
+                  "duplicates": 4, "ragged": 2}
+
+
+def _index_layout(rng, r: np.ndarray, n_l: int, buckets: int) -> np.ndarray:
+    """``n_l`` left keys drawn from ``r`` (a quarter of them one off, so
+    misses too) laid out as the index stores them: grouped by hash bucket,
+    key-sorted within."""
+    l = rng.choice(r, n_l) + np.where(rng.random(n_l) < 0.25, rng.integers(-1, 2, n_l), 0)
+    bucket = (l * 2654435761) % buckets
+    return l[np.lexsort((l, bucket))].astype(np.int64)
+
+
+def _span_tile(rng, r: np.ndarray, first: int, n_tiles: int) -> np.ndarray:
+    """A sorted left tile whose keys run from right tile ``first``'s first
+    key to right tile ``first + n_tiles - 1``'s last: its span is exactly
+    ``n_tiles`` right tiles."""
+    a, b = int(r[first * SMJ_TILE]), int(r[(first + n_tiles) * SMJ_TILE - 1])
+    return _fill(rng, np.array([a, b]), a, b)
+
+
+def k2p_region_cases(seed: int = 0) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """``{name: (left keys, ascending right keys)}`` for K2p at the join
+    region's layout, small: what its group plan (``plan_k2p_groups``)
+    must cut right. Each right side packs at ``K2P_REGION_VPW[name]``.
+
+    - ``index_vpw2``/``index_vpw4``: the index layout over 64 and 80
+      hash buckets (tiles of one bucket span a fifth to a sixth of the
+      right side, neighbouring buckets' tiles almost the same right keys;
+      the tiles straddling two buckets are wide);
+    - ``span_cap``: tiles spanning exactly 64 right tiles (the plan's cap)
+      beside spans of 63, 33, 17, 2 and 1, at staggered starts;
+    - ``wide_and_idle``: wide tiles and span-0 tiles (every key in the gap
+      between two right tiles) interleaved with ordinary ones;
+    - ``duplicates``: runs of 9 to 300 equal right keys across lines of 8
+      and FoR blocks of 128, left keys on, beside and between them;
+    - ``ragged``: a right length that is a multiple of neither 8 nor 1,024
+      and a short left tail tile (pad rows).
+    """
+    rng = np.random.default_rng(seed + 29)
+    cases = {}
+
+    # gaps of 1..7: blocks of 128 span ~512 (9-10 bits, vpw 2)
+    r = np.cumsum(rng.integers(1, 8, 100_000)).astype(np.int64)
+    cases["index_vpw2"] = (_index_layout(rng, r, 64 * 6 * SMJ_TILE, 64), r)
+    # gaps of 1..2: blocks span ~190 (8 bits, vpw 4)
+    r = np.cumsum(rng.integers(1, 3, 110_000)).astype(np.int64)
+    cases["index_vpw4"] = (_index_layout(rng, r, 80 * 5 * SMJ_TILE, 80), r)
+
+    r = np.cumsum(rng.integers(1, 8, 150 * SMJ_TILE)).astype(np.int64)
+    tiles = [_span_tile(rng, r, first, n) for first, n in (
+        (0, 64), (3, 64), (40, 63), (86, 64), (10, 33), (20, 17), (5, 2), (140, 1),
+        (149, 1), (60, 64), (77, 17), (2, 64))]
+    cases["span_cap"] = (np.concatenate(tiles), r)
+
+    # gaps of 1..7, and of 50 before right tiles 10, 30 and 50: a tile of
+    # keys inside such a gap has span 0 (its base counts every key below)
+    gaps = rng.integers(1, 8, 80 * SMJ_TILE)
+    gaps[[10 * SMJ_TILE, 30 * SMJ_TILE, 50 * SMJ_TILE]] = 50
+    r = np.cumsum(gaps).astype(np.int64)
+    idle = lambda k: np.sort(rng.integers(r[k * SMJ_TILE - 1] + 1, r[k * SMJ_TILE], SMJ_TILE))  # noqa: E731
+    wide = lambda: _fill(rng, np.array([r[0], r[-1]]), int(r[0]), int(r[-1]))  # noqa: E731
+    tiles = [_span_tile(rng, r, 0, 3), wide(), _span_tile(rng, r, 8, 5), idle(10),
+             _span_tile(rng, r, 9, 2), idle(30), wide(), _span_tile(rng, r, 29, 4),
+             _span_tile(rng, r, 60, 20), idle(50), _span_tile(rng, r, 45, 12), wide(),
+             _span_tile(rng, r, 70, 10), idle(10)[:700]]
+    cases["wide_and_idle"] = (np.concatenate(tiles), r)
+
+    # gaps of 0..3 with runs of 9..300 equal keys: 8 bits, vpw 4
+    g = rng.integers(1, 3, 40_000)
+    for at in rng.choice(len(g) - 300, 120, replace=False):
+        g[at: at + int(rng.integers(8, 300))] = 0
+    r = np.cumsum(g).astype(np.int64)
+    runs = np.flatnonzero(np.diff(r) == 0)
+    must = np.concatenate([r[runs], r[runs] - 1, r[runs] + 1])
+    l = np.concatenate([must, rng.choice(r, 3 * SMJ_TILE)])
+    cases["duplicates"] = (np.sort(l[: 6 * SMJ_TILE - 5]).astype(np.int64), r)
+
+    r = np.sort(rng.choice(np.arange(600_000, dtype=np.int64), 50_001, replace=False))
+    cases["ragged"] = (_index_layout(rng, r, 40 * SMJ_TILE + 333, 8), r)
+    assert tuple(cases) == tuple(K2P_REGION_VPW)
+    return cases

@@ -23,8 +23,11 @@ become CUDA C++ for Hopper (``csrc/``):
    right key, built by the source's second entry, ``K2F``) in shared
    memory, then reads one line of the right keys per key. K2p
    (``sorted_intersect_packed_tensors``) is K2 over right keys kept
-   FoR-delta packed (the resident join regions, ``exec/join_residency.py``),
-   decoding each line in registers.
+   FoR-delta packed (the resident join regions, ``exec/join_residency.py``):
+   one CTA per group of tiles (``plan_k2p_groups``) brings the group's
+   window of packed right keys into shared memory by bulk copies and
+   answers every tile of the group from there, decoding each line in
+   registers.
 
 The ``resident_*`` entry points run the same kernels over operands
 uploaded once (the reference's microbench primitives and its fused
@@ -89,6 +92,14 @@ K2P = "sorted_intersect_packed"  # K2 over FoR-packed right keys, same source
 BLOCK_ROWS = 8192  # K1c's count granularity (the resident scan's block)
 K2_THREADS = 256  # K2's CTA: one left tile, 4 keys a thread
 K2_FENCE = 8  # right keys per fence: K2 searches the fences in shared memory first
+# K2p's CTA and window, as csrc/sorted_intersect.cu has them
+K2P_THREADS = 1024  # one CTA a group of tiles, four tiles in flight
+K2P_FOR_BLOCK = 128  # values a FoR block ref covers (K2p takes block 128 only)
+K2P_SMEM_MAX = 232448  # dynamic shared memory a CTA may use (H100)
+K2P_SMEM_FIXED = 16  # the window's two mbarriers
+# K2p's group target: this many groups an SM (tools/k2_probe.py chose it)
+K2P_GROUPS_PER_SM = 1
+H100_SMS = 132  # the target's SM count where no card is asked (the CPU)
 
 # ---------------------------------------------------------------------------
 # build + load (nvcc -> plain-C shared library -> ctypes)
@@ -118,9 +129,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Tuple[Path, Path]:
+    """A kernel's source and its library, named by a digest of the
+    source and the headers beside it (``csrc/*.cuh``)."""
     src = _CSRC / _SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return src, _BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return src, _BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
@@ -180,7 +195,8 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
                 lib.hs_sorted_intersect.argtypes = [vp, vp, vp, vp, vp, vp, ll, ci, vp, vp, vp]
                 lib.hs_sorted_intersect.restype = ci
                 lib.hs_sorted_intersect_packed.argtypes = [
-                    vp, vp, vp, vp, vp, vp, vp, ll, ci, ci, ci, ci, ll, vp, vp, vp]
+                    vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ll, ci, ci, ci, ll,
+                    vp, vp, vp]
                 lib.hs_sorted_intersect_packed.restype = ci
             _LIBS[n] = lib
         return dict(_LIBS)
@@ -1186,6 +1202,163 @@ def packed_right_operands(r_sorted: np.ndarray, spec, n_r_pad: int) -> Tuple[np.
     return w, f
 
 
+def k2p_tile_bytes(vpw: int) -> int:
+    """Bytes of one right tile in a K2p window: its packed words, raw
+    fences and block refs (``k2p_tile_bytes`` in the kernel source)."""
+    return 4 * (SMJ_TILE // vpw + SMJ_TILE // K2_FENCE + SMJ_TILE // K2P_FOR_BLOCK)
+
+
+def k2p_window_capacity(vpw: int) -> int:
+    """The most right tiles one K2p window holds at ``vpw``: what a CTA's
+    shared memory takes after its fixed part (89 at vpw 2, 345 at 32)."""
+    return (K2P_SMEM_MAX - K2P_SMEM_FIXED) // k2p_tile_bytes(vpw)
+
+
+def k2p_group_target(dev: torch.device) -> int:
+    """K2p's target group count on ``dev``: ``K2P_GROUPS_PER_SM`` for each
+    of the card's SMs (an H100's 132 where there is no card)."""
+    sms = H100_SMS
+    if dev.type == "cuda":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return K2P_GROUPS_PER_SM * sms
+
+
+@dataclasses.dataclass(frozen=True)
+class K2pGroups:
+    """K2p's group plan: the tiles ``order[offsets[g] .. offsets[g + 1])``
+    make group ``g``, one CTA, whose window of right tiles
+    ``[win_lo[g], win_lo[g] + win_len[g])`` holds every span of its tiles.
+    The four arrays are int32, numpy on the host (``plan_k2p_groups``) or
+    tensors on a device (``to``); ``vpw`` is the packing the windows were
+    sized for, ``max_window`` the largest ``win_len`` and ``window_end``
+    the largest window end, in right tiles."""
+
+    order: object
+    offsets: object
+    win_lo: object
+    win_len: object
+    vpw: int
+    max_window: int
+    window_end: int
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.order.shape[0])
+
+    @property
+    def n_groups(self) -> int:
+        return int(self.win_lo.shape[0])
+
+    @property
+    def smem_bytes(self) -> int:
+        """The dynamic shared memory of a launch over this plan."""
+        return K2P_SMEM_FIXED + self.max_window * k2p_tile_bytes(self.vpw)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(a.nbytes) if isinstance(a, np.ndarray) else a.numel() * a.element_size()
+                   for a in self.arrays())
+
+    def arrays(self) -> tuple:
+        return self.order, self.offsets, self.win_lo, self.win_len
+
+    def to(self, dev) -> "K2pGroups":
+        """The plan with its arrays as tensors on ``dev``."""
+        return self.with_arrays(
+            [torch.from_numpy(np.ascontiguousarray(a)).to(dev) if isinstance(a, np.ndarray)
+             else a.to(dev) for a in self.arrays()])
+
+    def with_arrays(self, arrays) -> "K2pGroups":
+        """The same plan over other copies of its four arrays (uploads)."""
+        order, offsets, win_lo, win_len = arrays
+        return dataclasses.replace(self, order=order, offsets=offsets, win_lo=win_lo,
+                                   win_len=win_len)
+
+
+def _check_k2p_groups(g: K2pGroups, s_tile: np.ndarray, span: np.ndarray) -> None:
+    """Raise unless the host plan ``g`` covers every tile exactly once and
+    each group's window holds its tiles' spans and fits a CTA."""
+    order, offsets = g.order, g.offsets
+    n = len(span)
+    ok = (len(order) == n and len(offsets) == g.n_groups + 1 and offsets[0] == 0
+          and offsets[-1] == n and (np.diff(offsets) >= 0).all()
+          and np.array_equal(np.sort(order), np.arange(n, dtype=np.int32)))
+    if ok and n:
+        grp = np.repeat(np.arange(g.n_groups), np.diff(offsets))
+        lo, ln = g.win_lo[grp], g.win_len[grp]
+        sp, st = span[order], s_tile[order]
+        act = sp > 0
+        ok = bool((~act | ((st >= lo) & (st + sp <= lo + ln))).all())
+    ok = ok and g.max_window <= k2p_window_capacity(g.vpw)
+    if not ok:
+        raise HyperspaceException(f"{K2P}: a group plan that does not cover its "
+                                  f"{n} tiles once inside windows that fit.")
+
+
+def plan_k2p_groups(
+    s_tile: np.ndarray, span: np.ndarray, vpw: int, target: int = K2P_GROUPS_PER_SM * H100_SMS,
+    *, capacity: Optional[int] = None,
+) -> K2pGroups:
+    """K2p's group plan over K2's host plan (``_plan_sorted_intersect``'s
+    ``s_tile`` and ``span``) for right keys packed ``vpw`` values a word.
+    Tiles with a span are ordered stably by ``s_tile`` and cut greedily
+    into groups: a group takes the next tile while the union of its spans,
+    the window ``[min s_tile, max(s_tile + span))``, stays within
+    ``capacity`` right tiles (default: what a CTA's shared memory holds
+    at ``vpw``, ``k2p_window_capacity``) and it holds at most
+    ``ceil(active / target)`` such tiles. Span-0 tiles (wide ones, which
+    the caller fixes up) are spread over the groups after their own tiles
+    (in groups of as many with empty windows where no tile has a span).
+    Raises where a tile's span alone exceeds the capacity (the join
+    plan's 64-tile cap fits at every vpw)."""
+    s_tile = np.asarray(s_tile, dtype=np.int32)
+    span = np.asarray(span, dtype=np.int32)
+    cap = k2p_window_capacity(vpw) if capacity is None else int(capacity)
+    if cap > k2p_window_capacity(vpw):
+        raise HyperspaceException(f"{K2P}: a window of {cap} right tiles does not fit at "
+                                  f"vpw {vpw}.")
+    act = np.flatnonzero(span > 0)
+    act = act[np.argsort(s_tile[act], kind="stable")]
+    lo, hi = s_tile[act].astype(np.int64), (s_tile[act] + span[act]).astype(np.int64)
+    if len(act) and int(span[act].max()) > cap:
+        raise HyperspaceException(f"{K2P}: a span of {int(span[act].max())} right tiles; a "
+                                  f"window holds {cap}.")
+    per = max(1, -(-len(act) // max(1, int(target))))
+    starts, g_lo, g_hi, count = [], 0, 0, 0
+    for i in range(len(act)):
+        top = max(g_hi, int(hi[i]))
+        if count and count < per and top - g_lo <= cap:
+            g_hi, count = top, count + 1
+        else:
+            starts.append(i)
+            g_lo, g_hi, count = int(lo[i]), int(hi[i]), 1
+    starts = np.asarray(starts, dtype=np.int64)
+    win_lo = lo[starts] if len(act) else np.zeros(0, np.int64)
+    win_len = (np.maximum.reduceat(hi, starts) - win_lo) if len(act) else np.zeros(0, np.int64)
+    # span-0 tiles follow each group's own, spread over the groups (in
+    # groups of ``per`` with empty windows where no tile has a span)
+    idle = np.flatnonzero(span <= 0)
+    bounds = np.append(starts, len(act))
+    if len(starts):
+        members = [np.concatenate([act[bounds[k]:bounds[k + 1]], idle[k::len(starts)]])
+                   for k in range(len(starts))]
+    else:
+        per = max(1, -(-len(idle) // max(1, int(target))))
+        members = [idle[i:i + per] for i in range(0, len(idle), per)]
+        win_lo = win_len = np.zeros(len(members), np.int64)
+    g = K2pGroups(
+        order=(np.concatenate(members) if members else np.zeros(0, np.int64)).astype(np.int32),
+        offsets=np.cumsum([0] + [len(m) for m in members]).astype(np.int32),
+        win_lo=win_lo.astype(np.int32),
+        win_len=win_len.astype(np.int32),
+        vpw=int(vpw),
+        max_window=int(win_len.max()) if len(win_len) else 0,
+        window_end=int((win_lo + win_len).max()) if len(win_len) else 0,
+    )
+    _check_k2p_groups(g, s_tile, span)
+    return g
+
+
 def sorted_intersect_packed_reference(
     s_tile: torch.Tensor, span: torch.Tensor, base: torch.Tensor, l: torch.Tensor,
     words: torch.Tensor, refs: torch.Tensor, spec, lo_all: int, n_r_pad: int,
@@ -1212,14 +1385,19 @@ def sorted_intersect_packed_tensors(
     spec,
     lo_all: int,
     *,
-    max_span: int,
+    groups: K2pGroups,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2p: (lt, eq) int32 for padded, planned left keys against right
     keys FoR-packed under ``spec`` (``ops/bitpack.py:for_spec``, block
-    128; ``words``/``refs`` from ``pack_for``, padded to cover the
-    ``8 * len(fences)`` padded rows), which the plan narrowed by
+    128; ``words``/``refs`` from ``pack_for``, zero-padded to cover the
+    ``8 * len(fences)`` padded rows, as ``packed_right_operands`` makes
+    them: the kernel reads a padded row's offset as 0), which the plan narrowed by
     ``lo_all``. ``fences`` is the narrowed, padded right keys' every
-    ``K2_FENCE``-th key, raw. Bit for bit K2 on the decoded keys: wide
+    ``K2_FENCE``-th key, raw. ``groups`` is the plan's group plan
+    (``plan_k2p_groups``, every tile once, checked there), which the
+    launch takes as it is: one CTA a group, shared memory sized by its
+    largest window; one that does not fit, or that was made for another
+    vpw or other tiles, raises. Bit for bit K2 on the decoded keys: wide
     tiles come back as their base. CPU tensors take the plain version
     (``sorted_intersect_packed_reference``); CUDA tensors launch K2p
     (counted as ``K2P``) or raise."""
@@ -1227,28 +1405,44 @@ def sorted_intersect_packed_tensors(
     n_l = int(l.shape[0])
     if n_l % SMJ_TILE or int(span.shape[0]) != n_l // SMJ_TILE:
         raise HyperspaceException(f"{K2P}: left keys not tile-padded.")
-    if n_r_pad % SMJ_TILE or n_r_pad >= 2**31 or spec.n > n_r_pad or spec.block != 128:
+    if (n_r_pad % SMJ_TILE or n_r_pad >= 2**31 or spec.n > n_r_pad
+            or spec.block != K2P_FOR_BLOCK):
         raise HyperspaceException(
             f"{K2P}: {spec.n} right keys in {n_r_pad} padded rows, FoR block {spec.block} "
             "(the kernel reads lines of 8 inside blocks of 128).")
     if int(words.shape[0]) * spec.vpw < n_r_pad or int(refs.shape[0]) * 128 < n_r_pad:
         raise HyperspaceException(f"{K2P}: words or refs do not cover {n_r_pad} padded rows.")
+    if (not isinstance(groups, K2pGroups) or groups.vpw != spec.vpw
+            or groups.n_tiles != n_l // SMJ_TILE
+            or int(groups.offsets.shape[0]) != groups.n_groups + 1
+            or int(groups.win_len.shape[0]) != groups.n_groups
+            or groups.window_end > n_r_pad // SMJ_TILE):
+        raise HyperspaceException(f"{K2P}: the group plan is not this launch's "
+                                  f"({n_l // SMJ_TILE} tiles, vpw {spec.vpw}).")
+    if groups.smem_bytes > K2P_SMEM_MAX:
+        raise HyperspaceException(
+            f"{K2P}: a window of {groups.max_window} right tiles takes {groups.smem_bytes} "
+            f"bytes of shared memory at vpw {spec.vpw}; a CTA has {K2P_SMEM_MAX}.")
     if l.device.type == "cpu":
         return sorted_intersect_packed_reference(s_tile, span, base, l, words, refs, spec,
                                                  lo_all, n_r_pad)
     for t, what in ((s_tile, "s_tile"), (span, "span"), (base, "base"), (l, "l"),
-                    (words, "words"), (refs, "refs"), (fences, "fences")):
+                    (words, "words"), (refs, "refs"), (fences, "fences"),
+                    (groups.order, "group order"), (groups.offsets, "group offsets"),
+                    (groups.win_lo, "group windows"), (groups.win_len, "group windows")):
+        if not isinstance(t, torch.Tensor):
+            raise HyperspaceException(f"{K2P}: {what} is not a tensor.")
         _check_cuda(t, torch.int32, f"{K2P} {what}")
-    if max_span > SMJ_MAX_SPAN_TILES:
-        raise HyperspaceException(f"{K2P}: a span of {max_span} right tiles.")
-    for what, t in (("words", words), ("fences", fences)):
+    for what, t in (("words", words), ("refs", refs), ("fences", fences)):
         _check_aligned(K2P, what, t)
     lt = torch.empty(n_l, dtype=torch.int32, device=l.device)
     eq = torch.empty(n_l, dtype=torch.int32, device=l.device)
     rc = _lib(K2).hs_sorted_intersect_packed(
         l.data_ptr(), words.data_ptr(), refs.data_ptr(), fences.data_ptr(), s_tile.data_ptr(),
-        span.data_ptr(), base.data_ptr(), n_l, max_span, spec.vpw, spec.bits, int(lo_all),
-        spec.n, lt.data_ptr(), eq.data_ptr(), torch.cuda.current_stream(l.device).cuda_stream,
+        span.data_ptr(), base.data_ptr(), groups.order.data_ptr(), groups.offsets.data_ptr(),
+        groups.win_lo.data_ptr(), groups.win_len.data_ptr(), groups.n_groups,
+        groups.max_window, n_r_pad, spec.vpw, spec.bits, int(lo_all), spec.n, lt.data_ptr(),
+        eq.data_ptr(), torch.cuda.current_stream(l.device).cuda_stream,
     )
     _check_launch(rc, K2P)
     count_launch(K2P)

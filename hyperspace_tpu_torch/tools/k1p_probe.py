@@ -123,7 +123,7 @@ def _build(tk, build_dir: Path) -> dict:
         cu.write_text(text)
         procs[name] = subprocess.Popen(
             [tk._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o",
+             "-Xptxas", "-v", "-I", str(tk._CSRC), "-shared", "-Xcompiler", "-fPIC", "-o",
              str(build_dir / f"lib{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     libs = {}

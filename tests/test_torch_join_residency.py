@@ -370,6 +370,41 @@ def test_regions_of_both_packages_match(tmp_path, monkeypatch, for_delta, uniq):
     assert_agg_same(got, exp)
     if treg.route != "searchsorted":
         assert treg.max_span > 0
+    assert (treg.k2p_groups is not None) == (treg.route == "k2p")
+
+
+def test_k2p_region_carries_and_charges_its_group_plan(tmp_path, monkeypatch):
+    """A ``k2p`` region holds K2p's group plan, cut from the region's own
+    K2 plan for its packing, on the region's device, and charges its
+    bytes: the region's size is its tensors' bytes and ``r_order``'s,
+    the group plan's four arrays among them."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    monkeypatch.setenv("HYPERSPACE_TPU_HBM", "force")
+    t = JoinTree(tmp_path, seed=12, n=6000, n_r=3000)
+    s = t.session("jax")
+    entries = {e.name: e for e in s.collection_manager.get_indexes()}
+    lf, rf = entries["jl"].content.files(), entries["jr"].content.files()
+    conf = ResidencyConf(mode="force", min_rows=1, for_delta=True)
+    reg = th.hbm_cache.prefetch_join(_groups(tex, lf, ["lk", "lv"]), _groups(tex, rf, ["rk"]),
+                                     lf, rf, ["lk"], ["rk"], ["lv"], "cpu", conf)
+    assert reg is not None and reg.route == "k2p"
+    g = reg.k2p_groups
+    s_tile, span = (a.numpy() for a in reg.plan[:2])
+    want = tk.plan_k2p_groups(s_tile, span, reg.r_pack.vpw, tk.k2p_group_target(reg.device))
+    assert (g.vpw, g.max_window, g.window_end) == (want.vpw, want.max_window, want.window_end)
+    for a, b in zip(g.arrays(), want.arrays()):
+        assert isinstance(a, torch.Tensor) and a.device == reg.device
+        assert np.array_equal(a.numpy(), b)
+    tensors = [reg.l_codes, reg.r_codes, reg.r_refs, reg.fences, *reg.plan, *g.arrays()]
+    tensors += [x for x in (reg.wide_rows, reg.wide_lo, reg.wide_counts) if x is not None]
+    for pc in (*reg.l_cols.values(), *reg.r_cols.values()):
+        tensors += list(pc.arrays) + ([pc.slots] if pc.slots is not None else [])
+    charged = sum(x.numel() * x.element_size() for x in tensors) + reg.r_order.nbytes
+    assert reg.nbytes == charged and g.nbytes == sum(
+        x.numel() * x.element_size() for x in g.arrays()) > 0
 
 
 @pytest.mark.parametrize("seed", range(6))

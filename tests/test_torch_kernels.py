@@ -12,6 +12,7 @@ shares with its source, and the CUDA kernels themselves on a card (marked
 ``gpu``; skipped without one). Tolerance: exact throughout.
 """
 
+import functools
 import struct
 
 import numpy as np
@@ -1303,7 +1304,7 @@ def test_k2p_plain_version_matches_numpy(name):
     assert spec.vpw == int(name.split("_")[1]) and not plan[-1].any()
     reset_launch_counts()
     lt, eq = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
-                                                max_span=int(plan[1].max()))
+                                                groups=_k2p_groups(plan, spec))
     assert launch_counts() == {}
     n = len(l)
     want_lt = np.searchsorted(r, l, side="left")
@@ -1321,34 +1322,204 @@ def test_k2p_plain_version_on_the_index_layout_with_wide_tiles():
     r = np.sort(np.concatenate([r, r[::7]]))  # duplicate right keys
     (t, words, refs, fences, spec, lo_all, r_p, plan) = _k2p_operands(l, r)
     assert plan[-1].any() and spec is not None
+    groups = _k2p_groups(plan, spec)
     lt, eq = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
-                                                max_span=int(plan[1].max()))
+                                                groups=groups)
     s_lt, s_eq = tk.sorted_intersect_span_reference(*t, r_p)
     assert torch.equal(lt, s_lt) and torch.equal(eq, s_eq)
     with pytest.raises(HyperspaceException, match="do not cover"):
         tk.sorted_intersect_packed_tensors(*t, words, refs[:1], fences, spec, lo_all,
-                                           max_span=int(plan[1].max()))
+                                           groups=groups)
+
+
+def _k2p_groups(plan, spec, target=tk.K2P_GROUPS_PER_SM * tk.H100_SMS, capacity=None):
+    return tk.plan_k2p_groups(plan[0], plan[1], spec.vpw, target, capacity=capacity)
+
+
+@functools.lru_cache(maxsize=None)
+def _k2p_plan_source(source):
+    """A K2 host plan the group plan is cut from: the region's index
+    layout at a small size, tiles spanning the 64-tile cap, or skewed keys
+    (a hot key range most tiles fall in)."""
+    if source in ("index_layout", "span_64"):
+        l, r = k2_cases.k2p_region_cases(0)["index_vpw2" if source == "index_layout" else
+                                            "span_cap"]
+    else:
+        rng = np.random.default_rng(11)
+        r = np.sort(rng.choice(np.arange(2_000_000, dtype=np.int64), 120_000, replace=False))
+        l = np.concatenate([rng.choice(r[40_000:52_000], 150_000), rng.choice(r, 30_000)])
+        l = l[np.lexsort((l, (l * 2654435761) % 24))]
+    plan = tk._plan_sorted_intersect(l, r)
+    assert plan is not None
+    return plan
+
+
+@pytest.mark.parametrize("source", ["index_layout", "skewed", "span_64"])
+@pytest.mark.parametrize("vpw", [2, 4, 8, 16, 32])
+def test_k2p_group_plan_covers_every_tile_in_windows_that_fit(source, vpw):
+    """``plan_k2p_groups`` over K2's host plans at every vpw: each tile in
+    exactly one group, each active tile's span inside its group's window,
+    every window within what a CTA's shared memory holds at that vpw
+    (the capacity mirrored from the kernel source), span-0 and wide tiles
+    spread over the groups after each group's own tiles, never widening a
+    window; a forced minimal capacity (the plan's
+    largest span) gives at least as many groups, more where a window was
+    wider, and still covers everything."""
+    s_tile, span = _k2p_plan_source(source)[:2]
+    cap = tk.k2p_window_capacity(vpw)
+    for target in (1, 7, 132):
+        g = tk.plan_k2p_groups(s_tile, span, vpw, target)
+        assert g.vpw == vpw and g.n_tiles == len(span)
+        for a in g.arrays():
+            assert a.dtype == np.int32
+        assert np.array_equal(np.sort(g.order), np.arange(len(span)))
+        sizes = np.diff(g.offsets)
+        assert g.offsets[0] == 0 and g.offsets[-1] == len(span) and (sizes > 0).all()
+        grp = np.repeat(np.arange(g.n_groups), sizes)
+        st, sp = s_tile[g.order], span[g.order]
+        lo, ln = g.win_lo[grp], g.win_len[grp]
+        act = sp > 0
+        per = -(-int(act.sum()) // target)
+        assert np.bincount(grp[act], minlength=g.n_groups).max() <= per
+        assert g.n_groups == len(np.unique(grp[act]))  # idle tiles add no group
+        assert ((st >= lo) & (st + sp <= lo + ln))[act].all() and (ln[act] > 0).all()
+        # each group's span-0 tiles come after its tiles with a span, spread evenly
+        for k in range(g.n_groups):
+            a = act[g.offsets[k]:g.offsets[k + 1]]
+            assert not (a[1:] & ~a[:-1]).any()
+        n_idle = np.bincount(grp[~act], minlength=g.n_groups)
+        assert n_idle.max() - n_idle.min() <= 1
+        assert g.max_window == int(g.win_len.max()) <= cap
+        assert g.smem_bytes <= tk.K2P_SMEM_MAX
+        # a window is the union of its tiles' spans, no wider
+        for k in range(g.n_groups):
+            a = slice(g.offsets[k], g.offsets[k + 1])
+            if act[a].any():
+                assert g.win_lo[k] == st[a][act[a]].min()
+                assert g.win_lo[k] + g.win_len[k] == (st[a] + sp[a])[act[a]].max()
+        tight = tk.plan_k2p_groups(s_tile, span, vpw, target, capacity=int(span.max()))
+        assert tight.n_groups >= g.n_groups and tight.max_window <= int(span.max())
+        if g.max_window > int(span.max()):
+            assert tight.n_groups > g.n_groups
+        assert np.array_equal(np.sort(tight.order), np.arange(len(span)))
+    with pytest.raises(HyperspaceException, match="a window holds"):
+        tk.plan_k2p_groups(s_tile, span, vpw, capacity=int(span.max()) - 1)
+    with pytest.raises(HyperspaceException, match="does not fit"):
+        tk.plan_k2p_groups(s_tile, span, vpw, capacity=cap + 1)
+
+
+def test_k2p_window_constants_match_the_kernel_source():
+    """K2p's CTA, FoR block and shared-memory sizes are the kernel
+    source's, and so is the bytes a window tile takes; a window of the
+    plan's 64-tile span cap fits at vpw 2 (the widest packing), where raw
+    right keys would not."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tk.__file__).resolve().parent.parent / "csrc" / "sorted_intersect.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["K2P_THREADS"] == tk.K2P_THREADS
+    assert consts["FOR_BLOCK"] == tk.K2P_FOR_BLOCK
+    assert consts["K2P_SMEM_MAX"] == tk.K2P_SMEM_MAX
+    assert consts["K2P_SMEM_FIXED"] == tk.K2P_SMEM_FIXED
+    assert "return 4 * (TILE / vpw + TILE / FENCE + TILE / FOR_BLOCK);" in src
+    assert [tk.k2p_tile_bytes(v) for v in (2, 4, 8, 16, 32)] == [2592, 1568, 1056, 800, 672]
+    assert tk.k2p_window_capacity(2) >= tk.SMJ_MAX_SPAN_TILES
+    raw_tile = 4 * (tk.SMJ_TILE + tk.SMJ_TILE // tk.K2_FENCE)
+    assert tk.K2P_SMEM_FIXED + tk.SMJ_MAX_SPAN_TILES * raw_tile > tk.K2P_SMEM_MAX
+
+
+def test_k2p_wrapper_raises_on_a_group_plan_that_is_not_its_own():
+    """The wrapper takes the group plan as given and checks it: a window
+    past a CTA's shared memory, another vpw's plan, another plan's tiles
+    or windows past the right side raise, on the CPU as on the card."""
+    import dataclasses
+
+    l, r = k2_cases.k2p_region_cases(0)["span_cap"]
+    (t, words, refs, fences, spec, lo_all, _r_p, plan) = _k2p_operands(l, r)
+    g = _k2p_groups(plan, spec, 4)
+    cap = tk.k2p_window_capacity(spec.vpw)
+    bad = dataclasses.replace(g, max_window=cap + 1)
+    with pytest.raises(HyperspaceException, match="shared memory"):
+        tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all, groups=bad)
+    for bad in (tk.plan_k2p_groups(plan[0], plan[1], 2 * spec.vpw),
+                tk.plan_k2p_groups(plan[0][:-1], plan[1][:-1], spec.vpw),
+                dataclasses.replace(g, window_end=len(fences) // 128 + 1)):
+        with pytest.raises(HyperspaceException, match="not this launch's"):
+            tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
+                                               groups=bad)
+
+
+@pytest.mark.parametrize("name", list(k2_cases.K2P_REGION_VPW))
+def test_k2p_region_cases_plain_version(name):
+    """K2p's region cases (``k2_cases.k2p_region_cases``) through the CPU
+    wrapper under three group plans (the default target, a target of 4,
+    the forced minimal capacity): real rows of tiles the plan does not
+    mark wide equal numpy's searchsorted, every padded row equals K2's
+    span semantics over the raw keys, span-0 and wide tiles keep base and
+    0. The plain version ignores the groups: what this holds is the case,
+    for the card test and ``chip_smoke.py`` to hold the kernel to."""
+    l, r = k2_cases.k2p_region_cases(0)[name]
+    (t, words, refs, fences, spec, lo_all, r_p, plan) = _k2p_operands(l, r)
+    assert spec.vpw == k2_cases.K2P_REGION_VPW[name]
+    n = len(l)
+    keep = ~np.repeat(plan[-1], tk.SMJ_TILE)[:n]
+    want_lt = np.searchsorted(r, l, side="left")
+    want_eq = np.searchsorted(r, l, side="right") - want_lt
+    s_lt, s_eq = tk.sorted_intersect_span_reference(*t, r_p)
+    idle = np.repeat(plan[1] == 0, tk.SMJ_TILE)
+    for groups in (_k2p_groups(plan, spec), _k2p_groups(plan, spec, 4),
+                   _k2p_groups(plan, spec, 4, capacity=int(plan[1].max()))):
+        lt, eq = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
+                                                    groups=groups)
+        assert np.array_equal(lt[:n].numpy()[keep], want_lt[keep])
+        assert np.array_equal(eq[:n].numpy()[keep], want_eq[keep])
+        assert torch.equal(lt, s_lt) and torch.equal(eq, s_eq)
+        assert np.array_equal(lt.numpy()[idle], np.repeat(plan[2], tk.SMJ_TILE)[idle])
+        assert not eq.numpy()[idle].any()
+    if name == "wide_and_idle":
+        assert plan[-1].sum() == 3 and (plan[1] == 0).sum() == 7
+    if name == "span_cap":
+        assert int(plan[1].max()) == tk.SMJ_MAX_SPAN_TILES
+    if name == "ragged":
+        assert len(r) % tk.K2_FENCE and len(r) % tk.SMJ_TILE and n % tk.SMJ_TILE
+
+
+def _k2p_cuda_inputs():
+    """The card test's inputs: K2p's edge cases at every vpw, the index
+    layout with wide tiles and duplicate right keys, and the region cases;
+    each with its group plans (the default target, then for the region
+    cases a target of 4 and the forced minimal capacity)."""
+    inputs = [(l, r, (None,)) for l, r in k2_cases.k2p_edge_cases(0).values()]
+    l, r = _clustered(300_000, 90_000, 16, 7)
+    inputs.append((l, np.sort(np.concatenate([r, r[::5]])), (None,)))
+    for l, r in k2_cases.k2p_region_cases(0).values():
+        inputs.append((l, r, (None, 4, "tight")))
+    return inputs
 
 
 @pytest.mark.gpu
 def test_cuda_k2p_matches_plain_version():
     """K2p on the card against its plain version on every padded row: the
-    edge cases at every vpw and the index layout with wide tiles, one
-    launch a call."""
+    edge cases at every vpw, the index layout with wide tiles and the
+    region cases under three group plans (the default target, a target of
+    4, the forced minimal capacity), one launch a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     reset_launch_counts()
-    inputs = list(k2_cases.k2p_edge_cases(0).values())
-    l, r = _clustered(300_000, 90_000, 16, 7)
-    inputs.append((l, np.sort(np.concatenate([r, r[::5]]))))
-    for l, r in inputs:
+    launches = 0
+    for l, r, plans in _k2p_cuda_inputs():
         (t, words, refs, fences, spec, lo_all, _r_p, plan) = _k2p_operands(l, r)
-        max_span = int(plan[1].max())
-        want = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
-                                                  max_span=max_span)
-        got = tk.sorted_intersect_packed_tensors(*(x.cuda() for x in t), words.cuda(),
-                                                 refs.cuda(), fences.cuda(), spec, lo_all,
-                                                 max_span=max_span)
-        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]), \
-            (spec.vpw, len(l))
-    assert launch_counts() == {tk.K2P: len(inputs)}
+        for how in plans:
+            groups = (_k2p_groups(plan, spec) if how is None else
+                      _k2p_groups(plan, spec, 4, capacity=int(plan[1].max()))
+                      if how == "tight" else _k2p_groups(plan, spec, how))
+            want = tk.sorted_intersect_packed_tensors(*t, words, refs, fences, spec, lo_all,
+                                                      groups=groups)
+            got = tk.sorted_intersect_packed_tensors(*(x.cuda() for x in t), words.cuda(),
+                                                     refs.cuda(), fences.cuda(), spec, lo_all,
+                                                     groups=groups.to("cuda"))
+            launches += 1
+            assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]), \
+                (spec.vpw, len(l), how)
+    assert launch_counts() == {tk.K2P: launches}
