@@ -8,13 +8,16 @@ Run from the repository root with no arguments:
 It needs a CUDA card and exits non-zero, printing no result, without one
 (or without the ``hyperspace_tpu_torch`` package beside it).
 ``--phases`` takes a comma list of ``kernels``, ``main``, ``aggregate``,
-``resident``, ``join``, ``front_end``, ``lifecycle``, ``hybrid`` and
-``streaming`` (default: all, in that order; aggregate, resident, join and
-front_end run in the main path's session and bring ``main``). Phases:
+``resident``, ``join``, ``native``, ``front_end``, ``lifecycle``,
+``hybrid`` and ``streaming`` (default: all, in that order; aggregate,
+resident, join, native and front_end run in the main path's session and
+bring ``main``). Phases:
 
 1. header — the card's name and power limit (``nvidia-smi``); the CUDA
-   kernels build from ``hyperspace_tpu_torch/csrc`` (timed as set-up),
-   and ``ptxas -v``'s registers, static shared memory, stack frame and
+   kernels build from ``hyperspace_tpu_torch/csrc`` while g++ builds the
+   native IO runtime from ``hyperspace_tpu_torch/native/tcb_io.cc``
+   (both timed as set-up; the host's CPU count and model printed), and
+   ``ptxas -v``'s registers, static shared memory, stack frame and
    spills per kernel (each of K2p's vpw instantiations apart);
 2. kernels — each kernel against its plain torch version on the card, at
    the main path's shapes, exact equality; times (median of repeats, CUDA
@@ -67,14 +70,16 @@ front_end run in the main path's session and bring ``main``). Phases:
    rows, orders 1,500,000, made with numpy from ``--seed`` and written as
    avro), two covering indexes with 200 buckets built in memory on the
    card, then a point lookup, a range filter and a Q3-shaped join with
-   Hyperspace enabled and residency off (the per-file scan). Every result
+   Hyperspace enabled and residency off (the per-file scan: the files'
+   columns load through the native runtime's parallel ``pread``, Q3's
+   ranges from K2 expand and gather in its C++). Every result
    must equal a plain numpy evaluation of the same query, ``explain`` must
    show the index scans, and K1 and K2 must have launched; then, in the
    same session, the aggregates: Q17's shape (lineitem joined to orders,
    grouped by part: the join's match ranges from K2 fused into the
-   aggregate), the Q3 join grouped by (order key, order date) as TPC-H Q3
-   ends (keys on both sides: the join is materialized, then
-   hash-aggregated), Q1's shape (the range filter's order-key and
+   aggregate by the native single-pass arm), the Q3 join grouped by (order
+   key, order date) as TPC-H Q3 ends (keys on both sides: the join is
+   materialized through the C++ gather, then hash-aggregated), Q1's shape (the range filter's order-key and
    ship-date windows through K1, grouped by quantity, all five functions)
    with a HAVING filter, and Q6's shape (a global aggregate over the range
    filter). Each shows its index scans under the Aggregate in
@@ -98,7 +103,19 @@ front_end run in the main path's session and bring ``main``). Phases:
    ``hyperspace.residency.forDelta`` off from a reset cache: raw right
    codes, one K2 launch a warm call. Each query's seconds, the region's
    build seconds and MB (packed and raw), and ``join_region_key``'s time
-   are printed; every result equals numpy;
+   are printed; every result equals numpy. J2's host arm and J3 take
+   their ranges from K2 on a first run (the setup cache emptied before),
+   from the ranges cache on a repeat;
+5b. native — in the same session: each entry of the native runtime at
+   the main path's sizes (``hs_pread_many`` over li_idx's 200 files, then
+   the 400-file read with its bytes and resident growth, in the page cache
+   and, where the host can evict them, out of it, ``read_batches``
+   choosing mmap and pread; J2's
+   ``hs_expand_gather`` and ``hs_expand_pairs`` over 6,001,215 pairs;
+   A1's ``hs_group_agg_ranges_f64``/``_i64`` into 200,000 slots;
+   ``hs_write_file_atomic`` of one index file), timed against its plain
+   version (the port's numpy arm of the step) and held against it bit for
+   bit; the SF3 walk (``hs_smj_ranges``) is the streaming phase's;
 6. front end — in the same session, residency off: Q3 written the
    natural way (``li.join(od, ...).filter(...).select(...)``, nothing
    under the join) must be rewritten to li_idx and ord_idx by predicate
@@ -168,17 +185,21 @@ front_end run in the main path's session and bring ``main``). Phases:
    range filter (K1 once per index file read) and Q3 (one arm of the
    join's ladder; K2 and its fence build once where the arm runs K2 — over
    li_st's per-bucket files the presorted route's flat codes pass int32 at
-   SF3, K2's plan declines and the host searches them), each held against
-   numpy. After S1 the ladder runs on
+   SF3, K2's plan declines and the native runtime walks the segments, S1
+   and S4), each held against numpy; after S4 the walk is timed over
+   li_runs and ord_st against the host search it replaced. After S1 the ladder runs on
    li_st, residency auto, each tier from a fresh cache: budgetMB 4096
    (resident, K1c), 320 (compressed: l_quantity and l_shipdate packed,
    K1p) and 64 (streaming: 18 windows of 2^20 rows through a slab pair),
    each with the resident phase's 30 queries, one launch a query (a
    window a query when streaming), rows against numpy and block counts
    against the resident tier's;
-10. one ``kernels`` JSON line (with the kernels phase; a kernel's
-   launches are null where none of its paths ran), then the last line
-   ``{"ok": true, "device": {...}}``.
+10. one ``native:`` line (each native entry's calls on the main,
+   aggregate, join and streaming paths, counted from zero at each path's
+   start, null where the path did not run; its native and plain ms and
+   ``max_abs_err``; the host's CPU count and model), one ``kernels`` JSON
+   line (with the kernels phase; a kernel's launches are null where none
+   of its paths ran), then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero without the last
 line. ``--scale`` below 1 cuts both tables' row counts (printed).
@@ -188,7 +209,9 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -207,10 +230,10 @@ H100_BYTES_PER_S = 3.35e12
 H100_OPS_PER_S = 67e12  # 32-bit, outside the tensor cores
 LARGE_ROWS = 1 << 28  # K1c's large case: 3 int32 columns, 3 GiB
 LI_RESIDENT = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
-# the phases of a run, in order (--phases); aggregate, resident, join and
-# front_end run in the main path's session and so need main
-PHASES = ("kernels", "main", "aggregate", "resident", "join", "front_end", "lifecycle", "hybrid",
-          "streaming")
+# the phases of a run, in order (--phases); aggregate, resident, join,
+# native and front_end run in the main path's session and so need main
+PHASES = ("kernels", "main", "aggregate", "resident", "join", "native", "front_end", "lifecycle",
+          "hybrid", "streaming")
 DAY_1992_01_01 = 8035  # days since 1970-01-01
 DAY_1998_08_02 = 10440
 DAY_1993_06_01 = 8552
@@ -1473,11 +1496,13 @@ def _main_session(lineitem, orders, workdir: Path, device: str, seed: int, profi
     """The main path's session: both indexes, the three queries, then the
     aggregate, resident and front-end phases named in ``phases``."""
     import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch import native
     from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
     from hyperspace_tpu_torch.plan.expr import col
 
-    # the main path starts here: kernel launch counts from zero
+    # the main path starts here: kernel launches and native calls from zero
     reset_launch_counts()
+    native.reset_call_counts()
     t0 = time.perf_counter()
     li_dir = write_avro_dir(workdir / "src" / "lineitem", lineitem, LINEITEM_SCHEMA, 8)
     od_dir = write_avro_dir(workdir / "src" / "orders", orders, ORDERS_SCHEMA, 2)
@@ -1561,6 +1586,12 @@ def _main_session(lineitem, orders, workdir: Path, device: str, seed: int, profi
         out["query_s"][q] = time.perf_counter() - t0
         out["rows"][q] = results[q].num_rows
     out["launches"] = launch_counts()
+    # Q3's two presorted sides join through K2's ranges and the C++
+    # gather (the range filter's 200 files, just written, are in the page
+    # cache: read_batches maps them, and hs_pread_many counts 0)
+    out["native_calls"] = native.call_counts()
+    if out["native_calls"].get("hs_expand_gather") != 1:
+        raise AssertionError(f"main path: native calls {out['native_calls']}")
     for q, (_df, cols, mask) in queries.items():
         _check(q, results[q], cols, [L[c][mask] for c in cols])
     _check("q3_join", results["q3_join"],
@@ -1568,6 +1599,7 @@ def _main_session(lineitem, orders, workdir: Path, device: str, seed: int, profi
            q3_want)
     for q in out["query_s"]:
         log(f"query {q}: {out['query_s'][q]:.4f} s rows={out['rows'][q]} matches numpy reference")
+    log(f"main path: native calls {out['native_calls']}")
     t0 = time.perf_counter()
     if "aggregate" in phases:
         out["aggregate"] = aggregate_phase(session, li, od, q3, L, O, profile)
@@ -1579,6 +1611,10 @@ def _main_session(lineitem, orders, workdir: Path, device: str, seed: int, profi
         out["join"]["phase_s"] = time.perf_counter() - t1
         log(f"phase seconds: join {out['join']['phase_s']:.1f} s")
     log(f"phase seconds: aggregate, resident and join {time.perf_counter() - t0:.1f} s")
+    if "native" in phases:
+        t0 = time.perf_counter()
+        out["native"] = native_phase(session, L, workdir)
+        log(f"phase seconds: native {time.perf_counter() - t0:.1f} s")
     if "front_end" in phases:
         q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
                    "o_totalprice"]
@@ -1640,10 +1676,13 @@ def aggregate_phase(session, li, od, q3, L: dict, O: dict, profile: bool = False
 
     * A1 ``q17_shape``: Q17's aggregate over the join, 200,000 groups; the
       group key is on lineitem's side, so the executor fuses the join's
-      match ranges (K2 and its fence build once) into the aggregate;
+      match ranges (K2 and its fence build once) into the aggregate, on
+      the native single-pass arm (``join_fused_native``: one C++ pass of
+      ``hs_group_agg_ranges_f64`` for o_totalprice's sum and average);
     * A2 ``q3_grouped``: the main path's Q3 ending as TPC-H Q3 ends,
       grouped by (l_orderkey, o_orderdate) — keys on both sides, so the
-      join is materialized (K2 once) and hash-aggregated;
+      join is materialized (K2 once, then the C++ gather) and
+      hash-aggregated;
     * A3 ``q1_shape``: the range filter's order-key and ship-date windows
       through K1 (once per index file read), grouped by l_quantity (50
       groups) with all five functions, min/max over date32; then a HAVING
@@ -1653,9 +1692,11 @@ def aggregate_phase(session, li, od, q3, L: dict, O: dict, profile: bool = False
     Each query's explain must show the index scans under the Aggregate,
     and its result equal numpy's."""
     import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch import native
     from hyperspace_tpu_torch.ops import kernels as tk
     from hyperspace_tpu_torch.plan.expr import col
 
+    native.reset_call_counts()
     on_card = session.device.type == "cuda"
     lo_k, hi_k, d_lo = range_bounds(L)
     window = ((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
@@ -1717,12 +1758,16 @@ def aggregate_phase(session, li, od, q3, L: dict, O: dict, profile: bool = False
                                  f"{n_scans} index scans:\n{plan}")
         res, t_q, launches, m, _times = timed_query(session, f"aggregate {name}", profile, df)
         _check_agg(f"aggregate {name}", res, keys, want[name])
-        fused = m.get("aggregate.path.join_fused", 0)
+        fused = m.get("aggregate.path.join_fused_native", 0)
         join_arm = list(join_arms(m))
+        expand = expand_arms(m)
         read = m.get("scan.files_read", 0)
         k2_want = (1 if on_card else 0) if arm != "scan" else 0
+        # A1 on the native single-pass arm alone; A2's join expands and
+        # gathers in C++
         if (launches.get(tk.K2, 0), launches.get(tk.K2F, 0)) != (k2_want, k2_want) or \
-                fused != (1 if arm == "fused" else 0):
+                fused != (1 if arm == "fused" else 0) or m.get("aggregate.path.join_fused") or \
+                expand != ({"join.path.native_smj_gather": 1} if arm == "materialized" else {}):
             raise AssertionError(f"aggregate {name}: launches {launches}, counters {m}")
         # the first run of each join shape: both index sides key-sorted
         # per bucket, so the presorted route, K2 over the flat-remapped
@@ -1733,16 +1778,22 @@ def aggregate_phase(session, li, od, q3, L: dict, O: dict, profile: bool = False
         if arm == "scan" and (read <= 0 or launches.get(tk.K1, 0) != (read if on_card else 0)):
             raise AssertionError(f"aggregate {name}: K1 launches {launches}, files read {read}")
         out[name] = {"s": t_q, "groups": res.num_rows, "launches": launches, "arm": arm,
-                     "join_fused": fused, "join_path": join_arm, "files_read": read,
+                     "join_fused_native": fused, "join_path": join_arm,
+                     "join_expand": list(expand), "files_read": read,
                      "aggregate_total_s": _times.get("aggregate.total", (0.0, 0))[0],
                      "aggregate_join_ranges_s": _times.get("aggregate.join_ranges", (0.0, 0))[0],
                      "join_bucketed_ranges_s": _times.get("join.bucketed_ranges", (0.0, 0))[0]}
         log(f"aggregate {name}: {t_q:.4f} s groups={res.num_rows} arm={arm} "
-            f"join_fused={fused} join path={join_arm} files read={read} launches={launches} "
+            f"join_fused_native={fused} join path={join_arm} expand={list(expand)} "
+            f"files read={read} launches={launches} "
             f"| timers aggregate.total={out[name]['aggregate_total_s']:.4f} s "
             f"aggregate.join_ranges={out[name]['aggregate_join_ranges_s']:.4f} s "
             f"join.bucketed_ranges={out[name]['join_bucketed_ranges_s']:.4f} s "
             f"| matches numpy")
+    out["native_calls"] = native.call_counts()
+    if out["native_calls"].get("hs_group_agg_ranges_f64") != 1:
+        raise AssertionError(f"aggregate: native calls {out['native_calls']}")
+    log(f"aggregate: native calls {out['native_calls']}")
     return out
 
 
@@ -1854,25 +1905,33 @@ def join_phase(session, li, od, q3, q3_want, L: dict, O: dict, profile: bool = F
     * J1 ``q17_shape`` (the aggregate phase's A1): the first call takes
       the host arm — its ranges from the ranges cache where A1 ran before
       in this process, else the presorted route with K2 and K2F once and
-      no argsort — and schedules the join region; after
+      no argsort — and schedules the join region (the raw region's build
+      launches K2F once more for its fences, counted once the build is
+      done); after
       ``wait_background`` the warm calls take ``scan.path.resident_join_agg``,
       each one K2p launch (forDelta on), no K2, no upload;
     * J2, the unfiltered join ``li.join(od).select(l_orderkey,
       l_extendedprice, o_orderdate)``, 6,001,215 rows: once with residency
-      off (the host arm), then warm calls through ``scan.path.resident_join``,
-      one K2p launch each;
-    * J3, the main path's Q3 (filtered sides) twice: declined as filtered,
-      the repeat hitting the groups and setup caches, K2 once a call;
+      off (the host arm: its ranges from K2, or from the ranges cache on
+      the second round, then the C++ gather), then warm calls through
+      ``scan.path.resident_join``, one K2p launch each;
+    * J3, the main path's Q3 (filtered sides) twice from an empty setup
+      cache: declined as filtered, K2 once and the C++ gather; the repeat
+      hits the groups, setup and ranges caches (no K2);
     * J1 and J2 again with ``hyperspace.residency.forDelta`` off from a
       reset cache: raw codes, one K2 launch a warm call, no K2p.
 
     Every result is held against numpy (group sums to rtol 1e-9)."""
+    from hyperspace_tpu_torch import native
+    from hyperspace_tpu_torch.exec import joins
     from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
     from hyperspace_tpu_torch.exec.join_residency import join_region_key
+    from hyperspace_tpu_torch.ops import launch_counts
     from hyperspace_tpu_torch.ops.kernels import K2, K2F, K2P
     from hyperspace_tpu_torch.plan.expr import col
     from hyperspace_tpu_torch.telemetry.metrics import metrics
 
+    native.reset_call_counts()
     on_card = session.device.type == "cuda"
     mode = "auto" if on_card else "force"
     one = 1 if on_card else 0
@@ -1914,19 +1973,25 @@ def join_phase(session, li, od, q3, q3_want, L: dict, O: dict, profile: bool = F
         rec = out[f"for_delta_{for_delta}"] = {}
         if for_delta == "off":
             hbm_cache.reset()  # the regions again from nothing, raw this time
-        # J1: the first call takes the host arm and schedules the region
-        res, t_host, launches, m, _t = run(f"J1 {tag} first", q17_shape(li, od))
+        # J1: the first call takes the host arm and schedules the region,
+        # whose build on another thread launches K2F for the raw route's
+        # fences, before or after the query returns: the launches are read
+        # once the build is done
+        res, t_host, _launches, m, _t = run(f"J1 {tag} first", q17_shape(li, od))
         _check_agg(f"join J1 {tag} first", res, ["l_partkey"], q17_want)
+        hbm_cache.wait_background()
+        launches = launch_counts()
+        region_fences = one if route == "k2" else 0
         arms = join_arms(m)
         if m.get("join.ranges_cache.hit"):
-            first_ok = not arms and launches.get(K2, 0) == 0
+            first_ok = arms == {"join.ranges_cache.hit": 1} and launches.get(K2, 0) == 0
         else:
             first_ok = (arms == {"join.path.presorted_merge_flat": 1}
-                        and (launches.get(K2, 0), launches.get(K2F, 0)) == (one, one))
-        if not first_ok or m.get("aggregate.path.join_fused") != 1 or \
+                        and (launches.get(K2, 0), launches.get(K2F, 0))
+                        == (one, one + region_fences))
+        if not first_ok or m.get("aggregate.path.join_fused_native") != 1 or \
                 m.get("scan.path.resident_join_agg"):
             raise AssertionError(f"join J1 {tag} first call: launches {launches}, counters {m}")
-        hbm_cache.wait_background()
         build_s = metrics.timings().get("hbm.join.prefetch", (0.0, 0))[0]
         reg = region_row(f"J1 {tag}")
         if reg["route"] != route or "l_partkey" not in reg["payload"]:
@@ -1957,13 +2022,22 @@ def join_phase(session, li, od, q3, q3_want, L: dict, O: dict, profile: bool = F
             f"s, join_region_key {j['region_key_s']:.6f} s | {res.num_rows}-group table matches "
             f"numpy")
 
-        # J2: the host arm once (residency off), then warm resident calls
+        # J2: the host arm once (residency off; the first round from an
+        # empty setup cache, so K2 runs), then warm resident calls
         session.conf.set("hyperspace.torch.hbm.mode", "off")
+        if for_delta == "on":
+            joins.reset_setup_cache()
         res, t_host, launches, m, _t = run(f"J2 {tag} host", j2)
         session.conf.set("hyperspace.torch.hbm.mode", mode)
         _check(f"join J2 {tag} host", res, j2_cols, j2_want)
-        if res.num_rows != len(L["l_orderkey"]) or launches.get(K2, 0) != one:
-            raise AssertionError(f"join J2 {tag} host: {res.num_rows} rows, launches {launches}")
+        arms = join_arms(m)
+        if res.num_rows != len(L["l_orderkey"]) or sum(arms.values()) != 1 or \
+                (launches.get(K2, 0), launches.get(K2F, 0)) != (k2_of_arms(arms, on_card),) * 2 \
+                or (for_delta == "on" and arms != {"join.path.presorted_merge_flat": 1}) or \
+                expand_arms(m) != {"join.path.native_smj_gather": 1}:
+            raise AssertionError(f"join J2 {tag} host: {res.num_rows} rows, launches {launches}, "
+                                 f"counters {m}")
+        j2_host_arms = arms
         times = []
         for i in range(JOIN_WARM_J2):
             res, t_q, launches, m, _t = run(f"J2 {tag} warm", j2)
@@ -1975,12 +2049,13 @@ def join_phase(session, li, od, q3, q3_want, L: dict, O: dict, profile: bool = F
                 raise AssertionError(f"join J2 {tag} warm: launches {launches}, counters {m}")
             times.append(t_q)
             out["launches_k2p"] += launches.get(K2P, 0)
-        rec["j2"] = {"host_s": t_host, "rows": res.num_rows,
+        rec["j2"] = {"host_s": t_host, "host_arms": j2_host_arms, "rows": res.num_rows,
                      "resident_median_s": float(np.median(times)), "resident_max_s": max(times),
                      "warm_launches": launches,
                      "device_s": _t.get("scan.resident_join.device", (0.0, 0))[0]}
         j = rec["j2"]
-        log(f"join J2 materializing {tag}: host arm {j['host_s']:.4f} s | resident "
+        log(f"join J2 materializing {tag}: host arm {j['host_s']:.4f} s (ranges "
+            f"{list(j['host_arms'])}, C++ gather) | resident "
             f"x{JOIN_WARM_J2} median {j['resident_median_s']:.4f} s max "
             f"{j['resident_max_s']:.4f} s, launches {launches} each, ranges on the card "
             f"{j['device_s']:.4f} s | {res.num_rows} rows match numpy")
@@ -1990,23 +2065,394 @@ def join_phase(session, li, od, q3, q3_want, L: dict, O: dict, profile: bool = F
     q3_cols = ["l_orderkey", "l_extendedprice", "l_shipdate", "o_orderkey", "o_orderdate",
                "o_totalprice"]
     j3 = []
+    joins.reset_setup_cache()
     for i in range(2):
         res, t_q, launches, m, _t = run(f"J3 q3 {i}", q3)
         _check(f"join J3 {i}", res, q3_cols, q3_want)
         arms = join_arms(m)
-        if m.get("hbm.join.declined.filtered") != 1 or launches.get(K2, 0) != one or \
-                arms != {"join.path.presorted_merge_flat": 1}:
+        want_arms, want_k2 = (({"join.path.presorted_merge_flat": 1}, one) if i == 0
+                              else ({"join.ranges_cache.hit": 1}, 0))
+        if m.get("hbm.join.declined.filtered") != 1 or launches.get(K2, 0) != want_k2 or \
+                arms != want_arms or expand_arms(m) != {"join.path.native_smj_gather": 1}:
             raise AssertionError(f"join J3 {i}: launches {launches}, counters {m}")
         if i == 1 and (m.get("join.cache.hit") != 2 or m.get("join.setup_cache.hit") != 1):
             raise AssertionError(f"join J3 repeat: cache counters {m}")
         j3.append({"s": t_q, "launches": launches, "groups_cache_hit": m.get("join.cache.hit", 0),
-                   "setup_cache_hit": m.get("join.setup_cache.hit", 0)})
+                   "setup_cache_hit": m.get("join.setup_cache.hit", 0),
+                   "ranges_cache_hit": m.get("join.ranges_cache.hit", 0)})
     out["j3"] = j3
-    log(f"join J3 q3 (filtered): declined as filtered | {j3[0]['s']:.4f} s then "
-        f"{j3[1]['s']:.4f} s with groups cache hits {j3[1]['groups_cache_hit']} and setup cache "
-        f"hits {j3[1]['setup_cache_hit']} | K2 {launches.get(K2, 0)} a call | matches numpy")
+    log(f"join J3 q3 (filtered): declined as filtered | {j3[0]['s']:.4f} s (K2 "
+        f"{j3[0]['launches'].get(K2, 0)}) then {j3[1]['s']:.4f} s with groups cache hits "
+        f"{j3[1]['groups_cache_hit']}, setup cache hits {j3[1]['setup_cache_hit']} and ranges "
+        f"cache hits {j3[1]['ranges_cache_hit']} (K2 {launches.get(K2, 0)}) | C++ gather | "
+        f"matches numpy")
     session.conf.set("hyperspace.torch.hbm.mode", "off")
+    out["native_calls"] = native.call_counts()
+    log(f"join: native calls {out['native_calls']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# native phase: the C++ runtime's entries at the main path's sizes
+# ---------------------------------------------------------------------------
+NATIVE_REPEATS = 5  # timed calls of each native entry (median)
+PLAIN_REPEATS = 3  # timed calls of each plain version (median)
+
+
+def host_ms(fn, repeats: int):
+    """(median wall ms of ``repeats`` calls, the last call's result)."""
+    times, res = [], None
+    for _ in range(repeats):
+        t = time.perf_counter()
+        res = fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times)), res
+
+
+def _max_abs_err(got, want) -> float:
+    """0.0 where ``got`` and ``want`` are equal bit for bit, else raise:
+    every native entry is held exactly against its plain version."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype != want.dtype or got.shape != want.shape or got.tobytes() != want.tobytes():
+        diff = np.abs(got.astype(np.float64) - want.astype(np.float64)) if \
+            got.shape == want.shape else np.inf
+        raise AssertionError(f"native entry differs from its plain version: max abs err "
+                             f"{np.max(diff) if np.size(diff) else diff}")
+    return 0.0
+
+
+def _files_by_bucket(files, columns) -> dict:
+    """{bucket: batch} of per-bucket index files, read through
+    ``read_batches`` (the native loads)."""
+    from hyperspace_tpu_torch.storage import layout
+
+    files = sorted(files)
+    return {layout.bucket_of_file(f): b
+            for f, b in zip(files, layout.read_batches(files, columns=columns))}
+
+
+def _touch_pages(batches) -> int:
+    """Fault in every page of mmap-backed columns (one byte a page)."""
+    return sum(int(np.asarray(c.data).view(np.uint8)[::4096].sum())
+               for b in batches for c in b.columns.values())
+
+
+def _evict(files) -> int:
+    """Drop ``files`` from the page cache (fsync, then
+    ``POSIX_FADV_DONTNEED``), after the reader cache's maps, which pin the
+    pages they touched; returns how many files then have some page out of
+    the cache."""
+    from hyperspace_tpu_torch.storage import layout
+
+    with layout._READER_CACHE_LOCK:
+        layout._READER_CACHE.clear()
+    gc.collect()
+    out = 0
+    for f in files:
+        fd = os.open(f, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+        mm = np.memmap(f, dtype=np.uint8, mode="r")
+        out += not layout.pages_cached(mm, 0, len(mm))
+        del mm
+    return out
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def native_phase(session, L: dict, workdir: Path) -> dict:
+    """Each entry of the native runtime (``hyperspace_tpu_torch/native``,
+    built by g++ from ``native/tcb_io.cc``) at the main path's sizes over
+    li_idx and ord_idx, in the main path's session, timed (median wall of
+    5 calls) against its plain version — the port's numpy arm of the same
+    step (3 calls) — on the same inputs, and held against it bit for bit:
+
+    * ``hs_pread_many``: ``read_batches``' pread arm over li_idx's 200
+      files, every column, in the page cache, against mmap views with
+      every page touched; then the 400-file read of li_idx and ord_idx,
+      native and plain in turns (past the reader cache's 256 handles, so
+      every read maps its files anew), with the files in the page cache
+      and evicted before each read where the host lets a file be evicted,
+      ``read_batches`` choosing the mmap arm for the first and pread for
+      the second, with the bytes it
+      allocates and the process's resident growth;
+    * ``hs_expand_gather``: J2's gather (li_idx's l_orderkey and
+      l_extendedprice, ord_idx's o_orderkey and o_orderdate, 6,001,215
+      pairs) from K2's ranges, against ``_expand_ranges`` + ``take``;
+    * ``hs_expand_pairs``: the same ranges into pair arrays, against
+      ``_expand_ranges``;
+    * ``hs_group_agg_ranges_f64``/``_i64``: A1's 6,001,215 left rows into
+      200,000 l_partkey slots over o_totalprice and o_custkey, against the
+      generic arm's steps (the right value per left row, then bincount or
+      ``np.add.at``);
+    * ``hs_write_file_atomic``: one li_idx file written anew, against
+      Python's write, fsync and rename.
+
+    The SF3 range walk where K2 declines is the streaming phase's
+    (``sf3_range_walk``). Calls made here are no path's."""
+    from hyperspace_tpu_torch import native
+    from hyperspace_tpu_torch.exec import joins
+    from hyperspace_tpu_torch.storage import layout
+
+    entries = {e.name: e for e in session.collection_manager.get_indexes()}
+    li_files = sorted(entries["li_idx"].content.files())
+    od_files = sorted(entries["ord_idx"].content.files())
+    out = {}
+
+    # hs_pread_many: li_idx's 200 files, then li_idx and ord_idx's 400
+    def plain_read(files):
+        batches = [layout.read_batch(f) for f in files]
+        _touch_pages(batches)
+        return batches
+
+    def native_read(files):
+        batches = layout.load_buffers(layout.read_plan(files))
+        _touch_pages(batches)
+        return batches
+
+    t_plain, mm = host_ms(lambda: plain_read(li_files), PLAIN_REPEATS)
+    t_nat, got = host_ms(lambda: native_read(li_files), NATIVE_REPEATS)
+    err = max(_max_abs_err(g.columns[n].data, m.columns[n].data)
+              for g, m in zip(got, mm) for n in m.column_names)
+    n_bytes = sum(c.data.nbytes for b in got for c in b.columns.values())
+    del got, mm
+    # 400 files pass the reader cache's 256 handles: each read maps its
+    # files anew. In the page cache (warm), then evicted before every read
+    # (cold), in turns, plain, native, native, plain; read_batches itself
+    # serves the cold native turns and must choose hs_pread_many there,
+    # and the mmap arm on the warm files
+    both = li_files + od_files
+    native.reset_call_counts()
+    _touch_pages(layout.read_batches(both))
+    if native.call_counts().get("hs_pread_many", 0):
+        raise AssertionError("native phase: read_batches read 400 cached files by pread")
+    plan = layout.read_plan(both)
+    t_check, _ = host_ms(lambda: [layout.pages_cached(rd._raw, 0, len(rd._raw))
+                                  for rd, _names, _metas in plan], NATIVE_REPEATS)
+    del plan
+    t400 = {"warm": {"plain": [], "native": []}, "cold": {"plain": [], "native": []}}
+    evicted = []
+    for temp in ("warm", "cold"):
+        for arm in ("plain", "native", "native", "plain"):
+            if temp == "cold":
+                evicted.append(_evict(both))
+                if not evicted[-1]:
+                    break  # a page cache that keeps every page: no cold read here
+            native.reset_call_counts()
+            rss0 = _rss_bytes()
+            t = time.perf_counter()
+            if arm == "plain":
+                res = plain_read(both)
+            elif temp == "warm":
+                res = native_read(both)
+            else:
+                res = layout.read_batches(both)
+                _touch_pages(res)
+            t400[temp][arm].append((time.perf_counter() - t) * 1e3)
+            if temp == "cold" and arm == "native" and evicted[-1] == len(both) \
+                    and native.call_counts().get("hs_pread_many") != 1:
+                raise AssertionError("native phase: read_batches mapped 400 evicted files")
+            if arm == "native":
+                b400 = sum(c.data.nbytes for b in res for c in b.columns.values())
+                rss400 = _rss_bytes() - rss0
+            del res
+    out["hs_pread_many"] = {
+        "replaces": "storage/layout.py:read_batches' mmap arm", "rows": int(len(L["l_orderkey"])),
+        "shape": f"li_idx: {len(li_files)} files, 5 columns, {n_bytes} bytes, in the page cache",
+        "ms": t_nat, "plain_ms": t_plain, "max_abs_err": err,
+        "read_400_files": {"warm": t400["warm"], "cold": t400["cold"], "files_evicted": evicted,
+                           "page_cache_test_ms": t_check, "bytes": b400,
+                           "rss_growth_bytes": rss400}}
+
+    # J2's and A1's join: li_idx and ord_idx by bucket, K2's ranges
+    lmap = _files_by_bucket(li_files, ["l_orderkey", "l_partkey", "l_extendedprice"])
+    rmap = _files_by_bucket(od_files, ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"])
+    setup, _key = joins._bucketed_join_setup(lmap, rmap, ["l_orderkey"], ["o_orderkey"])
+    l_all, r_all, l_codes, r_codes, lb, rb, presorted = setup
+    if presorted != (True, True):
+        raise AssertionError(f"native phase: li_idx and ord_idx not presorted {presorted}")
+    ranges = joins._cached_smj_ranges(None, l_codes, r_codes, lb, rb, presorted, session.device)
+    lo, cnt, _off, total = ranges
+    l_data = {n: l_all.columns[n].data for n in ("l_orderkey", "l_extendedprice")}
+    r_data = {n: r_all.columns[n].data for n in ("o_orderkey", "o_orderdate")}
+
+    def plain_gather():
+        li, ri = joins._expand_ranges(lo, cnt, None)
+        return ({n: a[li] for n, a in l_data.items()}, {n: a[ri] for n, a in r_data.items()})
+
+    t_plain, want = host_ms(plain_gather, PLAIN_REPEATS)
+    t_nat, got = host_ms(lambda: native.smj_join_gather(
+        l_codes, r_codes, lb, rb, l_data, r_data, ranges=ranges), NATIVE_REPEATS)
+    err = max(_max_abs_err(got[side][n], want[side][n]) for side in (0, 1) for n in want[side])
+    out["hs_expand_gather"] = {
+        "replaces": "exec/joins.py:_expand_ranges + ColumnarBatch.take", "rows": int(total),
+        "shape": f"J2: {len(lo)} left rows, 2 + 2 columns", "ms": t_nat, "plain_ms": t_plain,
+        "max_abs_err": err}
+    del got, want
+    t_plain, want = host_ms(lambda: joins._expand_ranges(lo, cnt, None), PLAIN_REPEATS)
+    t_nat, got = host_ms(lambda: native.expand_pairs(lo, cnt, ranges), NATIVE_REPEATS)
+    out["hs_expand_pairs"] = {
+        "replaces": "exec/joins.py:_expand_ranges", "rows": int(total),
+        "shape": f"J2: {len(lo)} left rows", "ms": t_nat, "plain_ms": t_plain,
+        "max_abs_err": max(_max_abs_err(g, w) for g, w in zip(got, want))}
+    del got, want
+
+    # A1: l_partkey slots over o_totalprice (f64) and o_custkey (i64)
+    if int(cnt.max()) > 1:
+        raise AssertionError("native phase: A1's right side is not unique")
+    keys = l_all.columns["l_partkey"].data.astype(np.int64)
+    keys = keys - keys.min()
+    span = int(keys.max()) + 1
+    hit = cnt > 0
+    pos = np.where(hit, lo, 0)
+    for entry, name in (("hs_group_agg_ranges_f64", "o_totalprice"),
+                        ("hs_group_agg_ranges_i64", "o_custkey")):
+        vals = r_all.columns[name].data
+
+        def plain_agg():
+            v = vals[pos]
+            if vals.dtype.kind == "f":
+                ok = hit & ~np.isnan(v)
+                sums = np.bincount(keys, weights=np.where(ok, v, 0.0), minlength=span)
+            else:
+                ok = hit
+                sums = np.zeros(span, dtype=np.int64)
+                np.add.at(sums, keys, np.where(ok, v, 0))
+            nn = np.bincount(keys, weights=ok, minlength=span).astype(np.int64)
+            rows = np.bincount(keys, weights=cnt, minlength=span).astype(np.int64)
+            return sums, nn, rows
+
+        t_plain, want = host_ms(plain_agg, PLAIN_REPEATS)
+        t_nat, got = host_ms(lambda: native.group_agg_ranges(keys, lo, cnt, vals, span),
+                             NATIVE_REPEATS)
+        out[entry] = {
+            "replaces": "exec/aggregate.py:aggregate_join_ranges' generic arm",
+            "rows": int(len(keys)), "shape": f"A1: {len(keys)} left rows into {span} slots, "
+            f"{name}", "ms": t_nat, "plain_ms": t_plain,
+            "max_abs_err": max(_max_abs_err(g, w) for g, w in zip(got, want))}
+
+    # hs_write_file_atomic: one li_idx file written anew
+    data = Path(li_files[0]).read_bytes()
+    dst = workdir / "native_write"
+    dst.mkdir(exist_ok=True)
+
+    def plain_write():
+        tmp = dst / ".plain.tcb.tmp"
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, dst / "plain.tcb")
+
+    t_plain, _ = host_ms(plain_write, PLAIN_REPEATS)
+    t_nat, _ = host_ms(lambda: native.write_file_atomic(str(dst / "native.tcb"), data),
+                       NATIVE_REPEATS)
+    out["hs_write_file_atomic"] = {
+        "replaces": "Python's write, fsync and os.replace", "rows": len(data),
+        "shape": f"one li_idx file, {len(data)} bytes", "ms": t_nat, "plain_ms": t_plain,
+        "max_abs_err": _max_abs_err(np.frombuffer((dst / "native.tcb").read_bytes(), np.uint8),
+                                    np.frombuffer((dst / "plain.tcb").read_bytes(), np.uint8))}
+    for entry, rec in out.items():
+        log(f"native {entry}: {rec['shape']} | native {rec['ms']:.3f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms ({rec['replaces']}) | max_abs_err {rec['max_abs_err']}")
+    r4 = out["hs_pread_many"]["read_400_files"]
+    for temp in ("warm", "cold"):
+        if not r4[temp]["native"]:
+            log(f"native read of li_idx and ord_idx's 400 files, {temp}: not measurable on this "
+                f"host (fsync and POSIX_FADV_DONTNEED evicted no file)")
+            continue
+        log(f"native read of li_idx and ord_idx's 400 files, {temp}, in turns: native (pread) "
+            f"{[round(t, 3) for t in r4[temp]['native']]} ms, plain (mmap, every page touched) "
+            f"{[round(t, 3) for t in r4[temp]['plain']]} ms")
+    log(f"native read of 400 files: files evicted before each cold turn {r4['files_evicted']} "
+        f"| page cache test (mincore) over the 400 files {r4['page_cache_test_ms']:.3f} ms | "
+        f"{r4['bytes']} bytes loaded, resident growth {r4['rss_growth_bytes']} bytes")
+    return out
+
+
+def sf3_range_walk(l_files, r_files, device) -> dict:
+    """``hs_smj_ranges`` at SF3 where K2 declines: li and orders' 200
+    per-bucket files each (18,003,645 and 4,500,000 order keys), the flat
+    codes K2's plan declines, the native walk against the host search
+    that served them before (``np.searchsorted`` x2), bit for bit."""
+    from hyperspace_tpu_torch import native
+    from hyperspace_tpu_torch.exec import joins
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    setup, _key = joins._bucketed_join_setup(
+        _files_by_bucket(l_files, ["l_orderkey"]), _files_by_bucket(r_files, ["o_orderkey"]),
+        ["l_orderkey"], ["o_orderkey"])
+    _l_all, _r_all, l_codes, r_codes, lb, rb, presorted = setup
+    if presorted != (True, True):
+        raise AssertionError(f"native SF3 walk: sides not presorted {presorted}")
+    l_flat, r_flat = joins._flat_segment_remap(l_codes, r_codes, lb, rb)
+    declines = tk.sorted_intersect_counts(l_flat, r_flat, device) is None
+
+    def plain():
+        lo = np.searchsorted(r_flat, l_flat, side="left")
+        return lo, np.searchsorted(r_flat, l_flat, side="right") - lo
+
+    t_plain, want = host_ms(plain, PLAIN_REPEATS)
+    t_nat, got = host_ms(lambda: native.smj_ranges(l_codes, r_codes, lb, rb), NATIVE_REPEATS)
+    rec = {"replaces": "exec/joins.py:segmented_join_ranges' host search",
+           "rows": int(len(l_codes)), "shape": f"SF3: {len(l_codes)} left x {len(r_codes)} "
+           f"right keys in {len(lb) - 1} segments, K2 declines: {declines}",
+           "ms": t_nat, "plain_ms": t_plain, "k2_declines": declines,
+           "max_abs_err": max(_max_abs_err(g, w) for g, w in zip(got, want))}
+    log(f"native hs_smj_ranges: {rec['shape']} | native {t_nat:.3f} ms, plain {t_plain:.3f} ms "
+        f"({rec['replaces']}) | max_abs_err {rec['max_abs_err']}")
+    return rec
+
+
+def cpu_model() -> str:
+    """The host CPU's model name, with its vendor, family and model
+    numbers (a virtual machine may report the name as "unknown")."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                key = key.strip()
+                if key in ("model name", "vendor_id", "cpu family", "model") and key not in fields:
+                    fields[key] = val.strip()
+                if not line.strip() and fields:
+                    break
+    except OSError:
+        pass
+    return (f"{fields.get('model name', 'unknown')} ({fields.get('vendor_id', '?')}, family "
+            f"{fields.get('cpu family', '?')}, model {fields.get('model', '?')})")
+
+
+def native_line(main_out: dict, stream_out) -> dict:
+    """The ``native:`` line: each entry's calls on the main, aggregate,
+    join and streaming paths (None where the path did not run), its times
+    against its plain version and its error, with the host's CPU."""
+    calls = {"main": main_out.get("native_calls"),
+             "aggregate": (main_out.get("aggregate") or {}).get("native_calls"),
+             "join": (main_out.get("join") or {}).get("native_calls"),
+             "streaming": (stream_out or {}).get("native_calls")}
+    timed = dict(main_out.get("native") or {})
+    if stream_out is not None:
+        timed["hs_smj_ranges"] = stream_out["native_walk"]
+    out = []
+    for entry in ("hs_pread_many", "hs_smj_ranges", "hs_expand_pairs", "hs_expand_gather",
+                  "hs_group_agg_ranges_f64", "hs_group_agg_ranges_i64", "hs_write_file_atomic"):
+        rec = timed.get(entry, {})
+        out.append({"entry": entry, "source": "hyperspace_tpu_torch/native/tcb_io.cc",
+                    "calls": {p: (None if c is None else c.get(entry, 0))
+                              for p, c in calls.items()},
+                    "rows": rec.get("rows"), "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
+                    "max_abs_err": rec.get("max_abs_err")})
+    return {"entries": out, "cpu_count": os.cpu_count(), "cpu_model": cpu_model()}
 
 
 def _scan_files_kept(df) -> int:
@@ -2028,7 +2474,8 @@ def front_end_phase(session, hsp, li_dir, od_dir, q3_hand, q3_hand_rows, q3_want
     """The query front end at SF1, after the resident phase, residency
     off. (1) Q3 written the natural way, a join with one filter and one
     select above it: pushdown and pruning must let JoinIndexRule rewrite
-    it to li_idx and ord_idx, and it must run through K2. (2) lineitem
+    it to li_idx and ord_idx, and its first run must run through K2 and
+    the C++ gather. (2) lineitem
     again as a hive-partitioned source, ``l_shipyear=YYYY/part-NNN.avro``
     (7 years x 4 files in order-key order; the partition column is not in
     the files): a partition-pruned scan with Hyperspace off, then a
@@ -2039,6 +2486,7 @@ def front_end_phase(session, hsp, li_dir, od_dir, q3_hand, q3_hand_rows, q3_want
     start from zero before each query that must launch a kernel; every
     result is held against numpy."""
     import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.exec import joins
     from hyperspace_tpu_torch.index.sketches import BloomFilterSketch, MinMaxSketch
     from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
     from hyperspace_tpu_torch.ops.kernels import K1, K2, K2F
@@ -2066,6 +2514,9 @@ def front_end_phase(session, hsp, li_dir, od_dir, q3_hand, q3_hand_rows, q3_want
     used = _indexes_used(natural)
     if "li_idx:" not in used or "ord_idx:" not in used:
         raise AssertionError(f"natural Q3: explain's indexes used are {used.split()}")
+    # its first run from an empty setup cache: the hand-placed Q3's cached
+    # ranges would otherwise serve it without K2
+    joins.reset_setup_cache()
     reset_launch_counts()
     metrics.reset()
     nat, t_nat = timed("natural Q3", natural)
@@ -2073,9 +2524,10 @@ def front_end_phase(session, hsp, li_dir, od_dir, q3_hand, q3_hand_rows, q3_want
     want_k2 = 1 if on_card else 0
     arms = join_arms(metrics.snapshot())
     if (launches.get(K2, 0), launches.get(K2F, 0)) != (want_k2, want_k2) or \
-            arms != {"join.path.presorted_merge_flat": 1}:
+            arms != {"join.path.presorted_merge_flat": 1} or \
+            expand_arms(metrics.snapshot()) != {"join.path.native_smj_gather": 1}:
         raise AssertionError(f"natural Q3 did not run the bucketed join's presorted route "
-                             f"through K2: launches {launches}, arms {arms}")
+                             f"through K2 and the C++ gather: launches {launches}, arms {arms}")
     _check("natural Q3", nat, q3_cols, q3_want)
     _check("natural Q3 against the hand-placed Q3", nat, q3_cols, q3_hand_rows)
     # then both in turns, so that the host's drift falls on both alike
@@ -2282,15 +2734,24 @@ def plan_with_indexes(df) -> str:
 
 
 JOIN_ARMS = ("join.path.presorted_merge_flat", "join.path.presorted_merge",
-             "join.path.device_kernel", "join.path.host_searchsorted")
+             "join.path.device_kernel", "join.path.host_searchsorted",
+             "join.path.native_smj_ranges", "join.ranges_cache.hit")
+EXPAND_ARMS = ("join.path.native_smj_gather", "join.path.native_expand_pairs")
 
 
 def join_arms(m: dict) -> dict:
-    """The bucketed join's routing-ladder counters a query counted
+    """Where a query's bucketed join took its match ranges
     (``exec/joins.py``): the presorted route (K2 over flat-remapped
-    codes, or the per-segment host loop), the argsort route (K2), or the
-    host search where K2's plan declined."""
+    codes), the native walk where K2's plan declines and both sides are
+    ascending, the host search or the per-segment host loop where only
+    the right side is, the argsort route (K2), or the ranges cache."""
     return {k: m[k] for k in JOIN_ARMS if m.get(k)}
+
+
+def expand_arms(m: dict) -> dict:
+    """How a materializing join expanded its ranges in C++: fused with the
+    output gather (both sides presorted) or into pair arrays."""
+    return {k: m[k] for k in EXPAND_ARMS if m.get(k)}
 
 
 def k2_of_arms(arms: dict, on_card: bool) -> int:
@@ -2859,15 +3320,15 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
     _check_agg("hybrid H-agg", res, ["l_partkey"], q17_truth(L_now, O_now))
     want_k2 = 1 if on_card else 0
     if (launches.get(tk.K2, 0), launches.get(tk.K2F, 0)) != (want_k2, want_k2) or \
-            m.get("aggregate.path.join_fused", 0) != 1:
+            m.get("aggregate.path.join_fused_native", 0) != 1:
         raise AssertionError(f"hybrid H-agg: launches {launches}, counters {m}")
     moved = m.get("union.repartition.rows", 0)
     out["h_agg"] = {"s": t_q, "groups": res.num_rows, "launches": launches,
-                    "join_fused": m.get("aggregate.path.join_fused", 0),
+                    "join_fused_native": m.get("aggregate.path.join_fused_native", 0),
                     "union_repartition_rows": moved,
                     "aggregate_join_ranges_s": times.get("aggregate.join_ranges", (0.0, 0))[0],
                     "join_bucketed_ranges_s": times.get("join.bucketed_ranges", (0.0, 0))[0]}
-    log(f"hybrid H-agg q17_shape: {t_q:.4f} s groups={res.num_rows} join_fused=1 "
+    log(f"hybrid H-agg q17_shape: {t_q:.4f} s groups={res.num_rows} join_fused_native=1 "
         f"union.repartition.rows={moved} launches={launches} | matches numpy")
 
     t = verb(hsp.refresh_index, "li_hy", "incremental")
@@ -3179,12 +3640,15 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
 
     Every query runs with launch counts from zero (K1 once per index file
     read; one join arm per Q3, K2 and its fence build once where the arm
-    runs K2) and equals numpy over the
-    sources as they stand. ``chunk_rows`` and ``threshold`` are for
-    rehearsals off the card at a small ``scale`` only."""
-    import os
-
+    runs K2; at S1 and S4, where both sides are per-bucket files and K2's
+    plan declines SF3's flat codes, the native walk, and the C++ gather
+    at S1) and equals numpy over the sources as they stand. The native
+    runtime's calls are counted over the phase; after S4,
+    ``sf3_range_walk`` times its walk over li_runs and ord_st.
+    ``chunk_rows`` and ``threshold`` are for rehearsals off the card at a
+    small ``scale`` only."""
     import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch import native
     from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
     from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
     from hyperspace_tpu_torch.ops import fence
@@ -3196,6 +3660,7 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
     from hyperspace_tpu_torch.telemetry.metrics import metrics
 
     on_card = device == "cuda"
+    native.reset_call_counts()
     t_phase = time.perf_counter()
     n_l = int(round(SF1_LINEITEM * STREAM_SF * scale))
     n_o = int(round(SF1_ORDERS * STREAM_SF * scale))
@@ -3251,8 +3716,9 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
         Op = {c: np.concatenate([p[1][c] for p in present.values()]) for c in O}
         return Lp, range_and_q3_truth(Lp, Op, bounds, "streaming")
 
-    def measure(step, index, verb_s, extra=""):
-        """The range filter and Q3, launch counts from zero, against numpy."""
+    def measure(step, index, verb_s, extra="", want_arms=None):
+        """The range filter and Q3, launch counts from zero, against numpy;
+        ``want_arms``: the join's arms Q3 must count, where they are fixed."""
         _Lp, (want_r, want_q3) = truth()
         rng_q, q3_q = range_and_q3(session, li_dir, od_dir, bounds)
         used = rng_q.explain().split("Indexes used:")[1]
@@ -3270,7 +3736,8 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
         # pass int32, K2's plan declines, and the host searches them
         arms = join_arms(m3)
         want_k2 = k2_of_arms(arms, on_card)
-        if (l3.get(K2, 0), l3.get(K2F, 0)) != (want_k2, want_k2) or sum(arms.values()) != 1:
+        if (l3.get(K2, 0), l3.get(K2F, 0)) != (want_k2, want_k2) or sum(arms.values()) != 1 \
+                or (want_arms is not None and {**arms, **expand_arms(m3)} != want_arms):
             raise AssertionError(f"streaming {step}: Q3 launches {l3}, paths {m3}")
         n_files = len(files(index))
         n_runs = sum(layout.is_run_file(f) for f in files(index))
@@ -3278,6 +3745,7 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
                "range_s": t_r, "range_rows": res.num_rows, "range_files_read": read,
                "range_launches": launches, "range_sweeps": m.get("io.segment.sweeps", 0),
                "q3_s": t_q3, "q3_rows": res3.num_rows, "q3_launches": l3, "q3_join_arms": arms,
+               "q3_expand_arms": expand_arms(m3),
                "q3_sweeps": m3.get("io.segment.sweeps", 0),
                "q3_segments": m3.get("io.segment.ranges", 0) + m3.get("io.segment.coalesced", 0)}
         out["steps"].append(row)
@@ -3285,7 +3753,8 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
             f"range filter {t_r:.4f} s rows={res.num_rows} files read={read} "
             f"segment sweeps={row['range_sweeps']} launches={launches} | Q3 {t_q3:.4f} s "
             f"rows={res3.num_rows} segment sweeps={row['q3_sweeps']} segments="
-            f"{row['q3_segments']} launches={l3}{extra} | matches numpy")
+            f"{row['q3_segments']} launches={l3} join arms={list(arms)} expand="
+            f"{list(expand_arms(m3))}{extra} | matches numpy")
         return row
 
     # S1: li_st streams under auto (finalizeMode merge), ord_st in memory
@@ -3331,7 +3800,12 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
     log(f"streaming S1 build ord_st (under the threshold: in memory): {t:.3f} s")
     out["staged_programs"] = staged_programs(L, cap, STREAM_RUN_CHUNKS, device)
     session.enable_hyperspace()
-    measure("S1 li_st", "li_st", build_s)
+    # per-bucket files on both sides, K2's plan declining SF3's flat codes
+    # (200 buckets x 18M keys pass int32): the native walk, then the C++
+    # gather; at a rehearsal's cut scale K2 accepts them
+    native_arms = ({"join.path.native_smj_ranges": 1, "join.path.native_smj_gather": 1}
+                   if scale == 1.0 else None)
+    measure("S1 li_st", "li_st", build_s, want_arms=native_arms)
     out["ladder"] = ladder_phase(session, hsp, L, li_dir, seed, ladder_budgets,
                                  ladder_window_rows, profile)
 
@@ -3432,7 +3906,12 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
         raise AssertionError(f"streaming S4: {len(step_s)} steps, {len(after)} files, ids {ids}")
     out["compaction"] = {"steps_s": step_s, "files_before": before, "files_after": len(after)}
     measure("S4 compacted", "li_runs", sum(step_s),
-            f" | {len(step_s)} steps, files {before} -> {len(after)}")
+            f" | {len(step_s)} steps, files {before} -> {len(after)}", want_arms=native_arms)
+    out["native_calls"] = native.call_counts()
+    log(f"streaming: native calls {out['native_calls']}")
+    if on_card and scale == 1.0 and out["native_calls"].get("hs_smj_ranges", 0) < 2:
+        raise AssertionError(f"streaming: S1 and S4 did not walk natively: {out['native_calls']}")
+    out["native_walk"] = sf3_range_walk(files("li_runs"), files("ord_st"), device)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"streaming: the phase took {out['phase_s']:.3f} s, the source write included")
     return out
@@ -3446,7 +3925,7 @@ def _phases(arg: str) -> tuple:
     if unknown or not want:
         raise argparse.ArgumentTypeError(
             f"--phases takes a comma list of {','.join(PHASES)} (got {arg!r})")
-    if want & {"aggregate", "resident", "join", "front_end"}:
+    if want & {"aggregate", "resident", "join", "native", "front_end"}:
         want.add("main")
     return tuple(p for p in PHASES if p in want)
 
@@ -3461,7 +3940,8 @@ def main() -> int:
                     help="print host and device profiles of each main-path step")
     ap.add_argument("--phases", type=_phases, default=PHASES,
                     help="comma list of the phases to run, of " + ",".join(PHASES)
-                    + " (default: all; aggregate, resident, join and front_end bring main)")
+                    + " (default: all; aggregate, resident, join, native and front_end bring "
+                    "main)")
     args = ap.parse_args()
     phases = args.phases
 
@@ -3486,9 +3966,18 @@ def main() -> int:
     if phases != PHASES:
         log(f"phases: {','.join(phases)} (of {','.join(PHASES)})")
     t_start = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hyperspace_tpu_torch import native
+
+    # g++ builds the native runtime while nvcc builds the kernels
     t0 = time.perf_counter()
-    tk.build_kernels()
-    log(f"setup: kernels built and loaded in {time.perf_counter() - t0:.3f} s")
+    with ThreadPoolExecutor(1) as pool:
+        g_build = pool.submit(lambda: (native.available(), time.perf_counter() - t0)[1])
+        tk.build_kernels()
+        log(f"setup: kernels built and loaded in {time.perf_counter() - t0:.3f} s")
+        log(f"setup: the native runtime ({native._lib_path().name}) built by g++ and loaded in "
+            f"{g_build.result():.3f} s | host: {os.cpu_count()} CPUs, {cpu_model()}")
     ptxas = {}
     for kname in (tk.K1, tk.K2):
         ptxas[kname] = ptxas_summary(tk.build_report(kname))
@@ -3557,12 +4046,13 @@ def main() -> int:
     if "launches" in main_out:
         details["main_path"] = {k: main_out[k] for k in ("build_s", "query_s", "rows")}
     for key, name in (("aggregate", "aggregate"), ("resident", "resident_path"),
-                      ("join", "join"), ("front_end", "front_end"), ("lifecycle", "lifecycle"),
-                      ("hybrid", "hybrid")):
+                      ("join", "join"), ("native", "native"), ("front_end", "front_end"),
+                      ("lifecycle", "lifecycle"), ("hybrid", "hybrid")):
         if key in main_out:
             details[name] = main_out[key]
     log(json.dumps({**details, "streaming": stream_out, "kernel_cases": kphase, "ptxas": ptxas,
                     "phases": list(phases), "total_s": time.perf_counter() - t_start}))
+    log("native: " + json.dumps(native_line(main_out, stream_out)))
     if kphase is not None:
         log(json.dumps(kernels_line(tk, kphase, launches)))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

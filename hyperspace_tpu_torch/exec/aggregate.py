@@ -15,13 +15,15 @@ appearance. The reference factorizes the latter with pandas; the port
 uses numpy alone (``_first_appearance_codes``), since the machine with the
 card has no pandas.
 
-``aggregate_join_ranges`` runs the reference's generic arm only. Its
-native single-pass arm (``_join_ranges_native``, the reference's C++
-``group_agg_ranges``) waits with the native IO runtime; the one shape it
-accepts that the generic arm declines — float right columns under
-duplicate matches — is served by the caller's fallback, materialize plus
-``hash_aggregate``, as in the reference when its native library is absent.
-So ``aggregate.path.join_fused_native`` never counts here.
+``aggregate_join_ranges`` tries the reference's native single-pass arm
+first (``_join_ranges_native``: one integer group key over a dense span,
+right-side values; the C++ ``native.group_agg_ranges`` accumulates each
+value column through the match ranges into interleaved slots,
+``aggregate.path.join_fused_native``), then its generic arm (prefix
+arithmetic and bincounts, ``aggregate.path.join_fused``). The native arm
+sums float right columns directly, so it also serves them under duplicate
+matches, which the generic arm declines. Both packages run the same C++
+over the same ranges, so their float sums agree bit for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..exceptions import HyperspaceException
 from ..plan.aggregates import AggSpec, output_dtype
 from ..storage.columnar import Column, ColumnarBatch, is_string, numpy_dtype
@@ -273,6 +276,75 @@ def hash_aggregate(
     return ColumnarBatch(out)
 
 
+def _join_ranges_native(l_all, r_all, group_by, aggs, lo, counts, r_order):
+    """The native single-pass arm for the dense-int-key aggregate over a
+    join (Q17's shape): one integer group key column over a span of at
+    most ``max(4 * n_l, 2^16)``, aggregates over right-side numeric
+    columns only. One ``native.group_agg_ranges`` pass per value column
+    replaces the factorize, the per-aggregate bincounts and their
+    full-width temporaries. None when the shape is not this one."""
+    if len(group_by) != 1:
+        return None
+    kcol = l_all.columns[group_by[0]]
+    if is_string(kcol.dtype_str) or kcol.data.dtype.kind not in "iu":
+        return None
+    rcols = []
+    for a in aggs:
+        if a.column is None:
+            continue
+        if a.column in l_all.column_names or a.column not in r_all.column_names:
+            return None  # left-side values take the generic arm
+        c = r_all.columns[a.column]
+        if is_string(c.dtype_str) or c.data.dtype.kind not in "iuf":
+            return None
+        if a.column not in rcols:
+            rcols.append(a.column)
+    n_l = l_all.num_rows
+    # int64 BEFORE the subtraction: a narrow key (int8, int16) would wrap
+    # across the sign and hand the C++ negative slots
+    keys = kcol.data.astype(np.int64, copy=False)
+    mn = int(keys.min())
+    span = int(keys.max()) - mn + 1
+    if span <= 0 or span > max(4 * n_l, 1 << 16):  # _dense's rule
+        return None
+    offset_keys = keys - mn
+    per_col = {}
+    rows = None
+    for name in rcols:
+        vals = r_all.columns[name].data
+        if r_order is not None:
+            vals = vals[r_order]
+        vals = vals.astype(np.float64 if vals.dtype.kind == "f" else np.int64, copy=False)
+        per_col[name] = native.group_agg_ranges(offset_keys, lo, counts, vals, span)
+        rows = per_col[name][2]
+    if rows is None:  # count(*) only
+        rows = np.bincount(offset_keys, weights=counts.astype(np.float64),
+                           minlength=span).astype(np.int64)
+    keep = np.flatnonzero(rows > 0)
+    schema = r_all.schema()
+    out: Dict[str, Column] = {
+        group_by[0]: Column(kcol.dtype_str, (keep + mn).astype(kcol.data.dtype), kcol.vocab)
+    }
+    for a in aggs:
+        if a.column is None:
+            out[a.name] = Column("int64", rows[keep])
+            continue
+        sums, nn, _ = per_col[a.column]
+        dt = output_dtype(a, schema[a.column])
+        if a.fn == "count":
+            out[a.name] = Column("int64", nn[keep])
+        elif a.fn == "avg":
+            with np.errstate(invalid="ignore", divide="ignore"):
+                out[a.name] = Column("float64", sums[keep].astype(np.float64) / nn[keep])
+        else:
+            s = sums[keep].astype(numpy_dtype(dt))
+            if dt.startswith("float"):
+                # SQL NULL: sum of an all-NULL group is NULL
+                s = np.where(nn[keep] == 0, np.nan, s)
+            out[a.name] = Column(dt, s)
+    return ColumnarBatch(out)
+
+
 @metrics.timer("aggregate.join_ranges")
 def aggregate_join_ranges(
     l_all: ColumnarBatch,
@@ -299,11 +371,14 @@ def aggregate_join_ranges(
       Q17's shape);
     * groups whose total count is 0 do not appear (inner-join semantics).
 
-    Returns None when the shape isn't supported (min/max, string values,
-    float right columns under duplicate matches — the float prefix-sum
-    difference loses precision that bincount never does; the caller falls
-    back to materialize + hash_aggregate). Supported combinations produce
-    hash_aggregate's results, NULL semantics included.
+    The native single-pass arm (``_join_ranges_native``) runs first where
+    the shape is its own; it sums float right columns directly. Returns
+    None when neither arm supports the shape (min/max, string values,
+    float right columns under duplicate matches outside the native arm's
+    shape — the float prefix-sum difference loses precision that bincount
+    never does; the caller falls back to materialize + hash_aggregate).
+    Supported combinations produce hash_aggregate's results, NULL
+    semantics included.
     """
     lset = set(l_all.column_names)
     rset = set(r_all.column_names)
@@ -316,6 +391,10 @@ def aggregate_join_ranges(
     for a in aggs:
         if a.fn not in ("count", "sum", "avg"):
             return None
+    fast = _join_ranges_native(l_all, r_all, group_by, aggs, lo, counts, r_order)
+    if fast is not None:
+        metrics.incr("aggregate.path.join_fused_native")
+        return fast
     for a in aggs:
         if a.column is None:
             continue

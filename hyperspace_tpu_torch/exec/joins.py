@@ -16,23 +16,32 @@ ladder over the common buckets' segments:
   ``segment * span + (code - min)`` are globally sorted, so ONE pass of
   the sorted-intersect kernel (ops.kernels.sorted_intersect_counts, K2 and
   its fence build) over them gives every range with no argsort
-  (``join.path.presorted_merge_flat``); where K2's plan declines (the
-  flat codes span more than int32), the reference's own host binary
-  search over them (``join.path.host_searchsorted``). The reference
-  searches the flat codes on the host: the route differs, not the result;
-* right segments ascending, no flat remap: a host binary search per
-  segment (``join.path.presorted_merge``);
-* otherwise a stable argsort of the right codes and K2
-  (``merge_join_ranges``: ``join.path.device_kernel``).
+  (``join.path.presorted_merge_flat``). The reference walks them in C++
+  instead: the route differs, not the result;
+* where K2's plan declines (the flat codes span more than int32) or no
+  flat remap fits, and both sides are ascending: the native two-pointer
+  walk over the segments (``native.smj_ranges``,
+  ``join.path.native_smj_ranges``);
+* where K2 declines and only the right side is ascending: the host
+  binary search over the flat codes (``join.path.host_searchsorted``),
+  else one per segment (``join.path.presorted_merge``);
+* right segments not ascending: a stable argsort of the right codes and
+  K2 (``merge_join_ranges``: ``join.path.device_kernel``).
 
-The pairs, and their order, are the same on every arm (the argsort is
-stable and equal codes never cross buckets). The reference's native C++
-arms (``smj_pairs``, ``smj_ranges``, the fused gather) are not ported.
+The ranges are expanded in C++ (``native``, the runtime of
+``native/tcb_io.cc``): the materializing join over two presorted sides
+fuses the expansion with the output gather (``native.smj_join_gather``,
+``join.path.native_smj_gather``); elsewhere, wherever right positions
+index the right side directly, ``native.expand_pairs``
+(``join.path.native_expand_pairs``) writes the pair arrays. The argsort
+route expands through ``_expand_ranges`` and ``r_order``. The pairs, and
+their order, are the same on every arm (the argsort is stable and equal
+codes never cross buckets).
 
 Two cross-query caches keep a repeat join's host work: the setup (the
 common buckets' concatenation, codes, segment bounds and sortedness) and
-the presorted route's ranges, keyed by the sides' cache tokens
-(``exec/executor.py:BucketGroups``) in one byte-capped LRU
+the presorted sides' ranges with their prefix, keyed by the sides' cache
+tokens (``exec/executor.py:BucketGroups``) in one byte-capped LRU
 (``exec/bytecache.py``, ``HYPERSPACE_TPU_TORCH_JOIN_CACHE_MB``).
 """
 
@@ -42,6 +51,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..exceptions import HyperspaceException
 from ..ops import DeviceLike
 from ..storage.columnar import Column, ColumnarBatch, is_string, unify_dictionaries
@@ -203,10 +213,14 @@ def merge_join_indices_segmented(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Inner-join row indices for segment-aligned codes (segment k of the
     left joins only segment k of the right): the expanded form of
-    ``segmented_join_ranges``."""
+    ``segmented_join_ranges``, in C++ where right positions index the right
+    side directly."""
     lo, counts, r_order = segmented_join_ranges(
         l_codes, r_codes, l_bounds, r_bounds, presorted=presorted, device=device
     )
+    if r_order is None:
+        metrics.incr("join.path.native_expand_pairs")
+        return native.expand_pairs(lo, counts)
     return _expand_ranges(lo, counts, r_order)
 
 
@@ -239,11 +253,15 @@ def segmented_join_ranges(
         res = kernels.sorted_intersect_counts(l_flat, r_flat, device)
         if res is not None:
             metrics.incr("join.path.presorted_merge_flat")
-            lo, counts = res
-        else:
-            metrics.incr("join.path.host_searchsorted")
-            lo = np.searchsorted(r_flat, l_flat, side="left")
-            counts = np.searchsorted(r_flat, l_flat, side="right") - lo
+            return res[0], res[1], None
+    if presorted[0]:
+        metrics.incr("join.path.native_smj_ranges")
+        lo, counts = native.smj_ranges(l_codes, r_codes, l_bounds, r_bounds)
+        return lo, counts, None
+    if flat is not None:
+        metrics.incr("join.path.host_searchsorted")
+        lo = np.searchsorted(r_flat, l_flat, side="left")
+        counts = np.searchsorted(r_flat, l_flat, side="right") - lo
         return lo, counts, None
     metrics.incr("join.path.presorted_merge")
     lo = np.empty(len(l_codes), dtype=np.int64)
@@ -307,10 +325,13 @@ def reset_setup_cache() -> None:
 
 def _cached_smj_ranges(cache_key, l_codes, r_codes, l_bounds, r_bounds, presorted,
                        device: DeviceLike = None):
-    """(lo, counts) of a presorted setup, from the ranges cache under
-    ``(cache_key, "ranges")`` (``join.ranges_cache.hit``: no kernel runs)
-    or computed by ``segmented_join_ranges`` and stored there. The
-    reference caches its native range walk under the same key."""
+    """``(lo, counts, off, total)`` of a setup whose sides are both
+    presorted: from the ranges cache under ``(cache_key, "ranges")``
+    (``join.ranges_cache.hit``: no kernel and no walk runs), or the ranges
+    of ``segmented_join_ranges`` (K2, or the native walk where K2
+    declines) made contiguous int64 once, with their prefix, and stored
+    there, charged lo + counts + off bytes. The reference caches its
+    native range walk under the same key."""
     rk = (cache_key, "ranges") if cache_key is not None else None
     if rk is not None:
         hit = _SETUP_CACHE.get(rk)
@@ -320,9 +341,12 @@ def _cached_smj_ranges(cache_key, l_codes, r_codes, l_bounds, r_bounds, presorte
     lo, counts, _ = segmented_join_ranges(
         l_codes, r_codes, l_bounds, r_bounds, presorted=presorted, device=device
     )
+    lo, counts = native.as_int64(lo), native.as_int64(counts)
+    off, total = native.range_offsets(counts)
+    ranges = (lo, counts, off, total)
     if rk is not None:
-        _SETUP_CACHE.put(rk, (lo, counts), int(lo.nbytes + counts.nbytes))
-    return lo, counts
+        _SETUP_CACHE.put(rk, ranges, int(lo.nbytes + counts.nbytes + off.nbytes))
+    return ranges
 
 
 def _bucketed_join_setup(left_by_bucket, right_by_bucket, l_keys, r_keys):
@@ -377,15 +401,36 @@ def bucketed_join_pairs(
 ) -> List[ColumnarBatch]:
     """Bucket-batched inner join over bucket-aligned data — the
     shuffle-free SMJ: the common buckets merged in ONE pass of the
-    routing ladder (module docstring)."""
-    setup, _key = _bucketed_join_setup(left_by_bucket, right_by_bucket, l_keys, r_keys)
+    routing ladder (module docstring). Both sides presorted and every
+    column 4 or 8 bytes wide: the ranges (from the ranges cache, or K2's)
+    expand and gather the output in one C++ pass
+    (``join.path.native_smj_gather``)."""
+    setup, cache_key = _bucketed_join_setup(left_by_bucket, right_by_bucket, l_keys, r_keys)
     if setup is None:
         return []
     l_all, r_all, l_codes, r_codes, l_bounds, r_bounds, presorted = setup
+    l_data = {n: c.data for n, c in l_all.columns.items()}
+    r_data = {n: c.data for n, c in r_all.columns.items()}
+    if presorted[0] and presorted[1] and native.smj_gather_supported(l_data, r_data):
+        # the ranges (cached, or K2's) expand and gather in one C++ pass:
+        # no pair arrays, no numpy gather
+        ranges = _cached_smj_ranges(cache_key, l_codes, r_codes, l_bounds, r_bounds,
+                                    presorted, device)
+        l_out, r_out, total = native.smj_join_gather(
+            l_codes, r_codes, l_bounds, r_bounds, l_data, r_data, ranges=ranges)
+        metrics.incr("join.path.native_smj_gather")
+        if total == 0:
+            return []
+        out: Dict[str, Column] = {}
+        for n, c in l_all.columns.items():
+            out[n] = Column(c.dtype_str, l_out[n], c.vocab)
+        for n, c in r_all.columns.items():
+            out[n] = Column(c.dtype_str, r_out[n], c.vocab)
+        return [ColumnarBatch(out)]
     l_idx, r_idx = merge_join_indices_segmented(
         l_codes, r_codes, l_bounds, r_bounds, presorted=presorted, device=device
     )
-    out: Dict[str, Column] = {}
+    out = {}
     out.update(l_all.take(l_idx).columns)
     out.update(r_all.take(r_idx).columns)
     j = ColumnarBatch(out)
@@ -413,8 +458,8 @@ def bucketed_join_ranges(
         return None
     l_all, r_all, l_codes, r_codes, l_bounds, r_bounds, presorted = setup
     if presorted[0] and presorted[1]:
-        lo, counts = _cached_smj_ranges(cache_key, l_codes, r_codes, l_bounds, r_bounds,
-                                        presorted, device)
+        lo, counts, _off, _total = _cached_smj_ranges(cache_key, l_codes, r_codes, l_bounds,
+                                                      r_bounds, presorted, device)
         return l_all, r_all, lo, counts, None
     lo, counts, r_order = segmented_join_ranges(
         l_codes, r_codes, l_bounds, r_bounds, presorted=presorted, device=device

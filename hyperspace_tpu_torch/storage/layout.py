@@ -9,7 +9,9 @@ other's index data.
   ``r<seq>-<uuid>.tcb``, bucket-grouped and key-sorted, whose footer
   ``bucketCounts`` give each bucket's row range;
 * raw little-endian fixed-width column buffers, each aligned to 128 bytes,
-  so a read is an ``np.memmap`` view with no decode step;
+  so a read is an ``np.memmap`` view, or (``read_batches`` over files not
+  in the page cache) one ``pread`` into a fresh buffer, with no decode
+  step;
 * a JSON footer (schema, row count, per-column offset/nbytes, per-column
   min/max for numeric pruning, string vocabs, sort/bucket info) followed by
   an 8-byte little-endian footer length and the magic ``TCB1`` — parquet-
@@ -18,7 +20,10 @@ other's index data.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
+import mmap
 import os
 import re
 import uuid
@@ -29,6 +34,7 @@ from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 import numpy as np
 
 from .. import constants as C
+from .. import native
 from ..exceptions import HyperspaceException
 from .columnar import CODE_DTYPE, Column, ColumnarBatch, is_string, numpy_dtype
 
@@ -355,13 +361,82 @@ def read_batch(
     return TcbReader(path, mmap=mmap).read(columns, row_range)
 
 
+def _column_from_buffer(meta: Dict[str, Any], buf: np.ndarray, n: int,
+                        vocab: Optional[np.ndarray]) -> Column:
+    """A column over a loaded buffer of its raw bytes (the reference's
+    ``_column_from_buffer``; a string column's vocab comes decoded from
+    the file's reader)."""
+    dt = CODE_DTYPE if is_string(meta["dtype"]) else numpy_dtype(meta["dtype"])
+    return Column(meta["dtype"], buf.view(dt)[:n], vocab)
+
+
+def pages_cached(mm: np.ndarray, start: int, stop: int) -> bool:
+    """Whether every page of bytes ``[start, stop)`` of the file that the
+    map ``mm`` (an ``np.memmap`` from offset 0) views is in the page cache
+    (``mincore``; mapping a file touches none of its pages). False where
+    the call fails."""
+    if stop <= start:
+        return True
+    page = mmap.PAGESIZE
+    lo = start - start % page
+    vec = np.empty((stop - lo + page - 1) // page, dtype=np.uint8)
+    rc = _libc().mincore(ctypes.c_void_p(mm.ctypes.data + lo), ctypes.c_size_t(stop - lo),
+                         vec.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)))
+    return rc == 0 and bool((vec & 1).all())
+
+
+@functools.lru_cache(maxsize=1)
+def _libc() -> ctypes.CDLL:
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_ubyte)]
+    libc.mincore.restype = ctypes.c_int
+    return libc
+
+
+def read_plan(paths: List[str | Path],
+              columns: Optional[Iterable[str]] = None) -> List[tuple]:
+    """``(shared reader, column names, column metas)`` per file: what
+    ``read_batches`` reads, before any column byte is touched."""
+    want = list(columns) if columns is not None else None
+    plan = []
+    for p in paths:
+        rd = cached_reader(p)
+        names = _resolve_names(rd.footer, want, rd.path)
+        plan.append((rd, names, [rd._by_name[nm] for nm in names]))
+    return plan
+
+
 def read_batches(
     paths: List[str | Path],
     columns: Optional[Iterable[str]] = None,
 ) -> List[ColumnarBatch]:
-    """Read (projections of) many TCB files as mmap views, one file after
-    another (pages fault in when the data is first touched)."""
-    return [read_batch(p, columns) for p in paths]
+    """Read (projections of) many TCB files. Where the wanted columns of
+    every file are in the page cache, or only one file or one CPU is at
+    hand, they are mmap views, one file after another: a view of cached
+    pages costs no copy, which a read into a fresh buffer cannot beat.
+    Otherwise every column buffer of every file loads at once through the
+    native runtime's parallel ``pread`` (``load_buffers``), so the disk
+    reads overlap."""
+    plan = read_plan(paths, columns)
+    if len(plan) > 1 and (os.cpu_count() or 1) > 1 and not all(
+            pages_cached(rd._raw, min((m["offset"] for m in metas), default=0),
+                         max((m["offset"] + m["nbytes"] for m in metas), default=0))
+            for rd, _names, metas in plan):
+        return load_buffers(plan)
+    return [rd.read(names) for rd, names, _metas in plan]
+
+
+def load_buffers(plan) -> List[ColumnarBatch]:
+    """``read_batches``' parallel arm over its plan, ``(reader, names,
+    column metas)`` per file: every column buffer into a fresh array
+    through one ``native.load_columns`` call."""
+    specs = [(str(rd.path), [(m["offset"], m["nbytes"]) for m in metas])
+             for rd, _names, metas in plan]
+    return [ColumnarBatch({
+                nm: _column_from_buffer(m, buf, rd.num_rows,
+                                        rd._vocab(nm) if is_string(m["dtype"]) else None)
+                for nm, m, buf in zip(names, metas, bufs)})
+            for (rd, names, metas), bufs in zip(plan, native.load_columns(specs))]
 
 
 # --- coalesced run-segment IO (the segment-read planner) ---------------------

@@ -310,12 +310,14 @@ def test_aggregate_over_indexed_join_fuses(q17_tree):
     plan, rows, counters = serve_both(q17_tree, q17, ["pkey"])
     assert isinstance(plan, torch_ir.Aggregate)
     assert len(plan.collect(lambda n: isinstance(n, torch_ir.IndexScan))) == 2
-    assert counters.get("aggregate.path.join_fused") == 1
+    # one integer group key over right-side values: the native
+    # single-pass arm, as in the reference
+    assert counters.get("aggregate.path.join_fused_native") == 1
+    assert "aggregate.path.join_fused" not in counters
     # both index sides are key-sorted per bucket: the presorted route
     # (K2 over the flat-remapped codes; its plain version here), no argsort
     assert counters.get("join.path.presorted_merge_flat", 0) == 1
     assert counters.get("join.path.device_kernel", 0) == 0
-    assert "aggregate.path.join_fused_native" not in counters
     assert rows.num_rows > 100
 
 
@@ -472,8 +474,13 @@ def test_fused_aggregate_parity_fuzz(seed):
     aggs_full = lambda m: aggs_r(m) + [m.agg_sum("lv", "ls")]  # noqa: E731
     for aggs in (aggs_r, aggs_full):
         exp = materialized("jax", lb, rb, ["g"], aggs)
+        torch_metrics.reset()
         got = fused("torch", lb, rb, ["g"], aggs)
-        declines = val_dt.startswith("float") and dup_matches
+        # right-side values alone take the native arm, which sums floats
+        # under duplicate matches too; a left value takes the generic arm
+        native = aggs is aggs_r
+        assert torch_metrics.get("aggregate.path.join_fused_native") == int(native)
+        declines = val_dt.startswith("float") and dup_matches and not native
         assert (got is None) == declines, (seed, val_dt, dup_matches)
         if got is None:  # the executor's fallback: materialize + hash_aggregate
             got = materialized("torch", lb, rb, ["g"], aggs)
@@ -481,6 +488,9 @@ def test_fused_aggregate_parity_fuzz(seed):
         ref = fused("jax", lb, rb, ["g"], aggs)
         if ref is not None:
             assert_same(got, ref)  # and the reference's group order
+        if native:  # one C++ over the same ranges: bit for bit
+            assert all(got.columns[n].data.tobytes() == ref.columns[n].data.tobytes()
+                       for n in ref.column_names)
 
 
 def fused_counts(lb, rb):
@@ -699,7 +709,7 @@ def test_aggregate_over_hybrid_join(tmp_path):
     plan, rows, counters = serve_both(t, q17, ["pkey"])
     names = {type(n).__name__ for n in plan.collect(lambda n: True)}
     assert {"BucketUnion", "Repartition", "Aggregate"} <= names
-    assert counters.get("aggregate.path.join_fused") == 1
+    assert counters.get("aggregate.path.join_fused_native") == 1
     assert counters.get("union.repartition.rows") == 220
     assert rows.num_rows > 100
 

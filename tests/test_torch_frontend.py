@@ -28,6 +28,8 @@ from hyperspace_tpu.storage import parquet_io as jax_parquet
 from hyperspace_tpu.storage.columnar import ColumnarBatch as JaxBatch
 
 import hyperspace_tpu_torch as hs_torch
+from hyperspace_tpu_torch.exec import executor as torch_executor
+from hyperspace_tpu_torch.exec import joins as torch_joins
 from hyperspace_tpu_torch.plan import aggregates as torch_aggregates
 from hyperspace_tpu_torch.plan import ir as torch_ir
 from hyperspace_tpu_torch.plan.rules.column_pruning import prune_columns as torch_prune
@@ -199,11 +201,15 @@ def test_natural_q3_runs_the_bucketed_join(trees):
     assert "li_i:" in used and "od_i:" in used
     scans = q.optimized_plan().collect(lambda n: isinstance(n, torch_ir.IndexScan))
     assert len(scans) == 2 and all(s.use_bucket_spec for s in scans)
+    # the join's first run: an earlier run's cached ranges would skip K2
+    torch_executor.reset_groups_cache()
+    torch_joins.reset_setup_cache()
     metrics.reset()
     q.collect()
     # index sides are key-sorted per bucket: K2 over the flat-remapped
-    # codes, no argsort (the presorted route)
+    # codes, no argsort (the presorted route), then the C++ gather
     assert metrics.get("join.path.presorted_merge_flat") == 1
+    assert metrics.get("join.path.native_smj_gather") == 1
 
 
 @pytest.mark.parametrize("mode", ["html", "console", "plaintext_custom_tags"])

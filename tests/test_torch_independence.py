@@ -30,6 +30,8 @@ def test_import_leaves_jax_and_reference_out():
         "from hyperspace_tpu_torch.actions import create_skipping\n"
         "from hyperspace_tpu_torch.plan.rules import column_pruning, data_skipping_rule\n"
         "from hyperspace_tpu_torch.storage import partitions\n"
+        "from hyperspace_tpu_torch import native\n"
+        "native.available()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'hyperspace_tpu' or m.startswith('hyperspace_tpu.'))\n"
         "print(bad)\n"
@@ -50,6 +52,20 @@ def test_sources_import_no_jax_and_no_reference(path):
     src = path.read_text()
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path
     assert not re.search(r"^\s*(import|from)\s+hyperspace_tpu(\.|\s|$)", src, re.M), path
+
+
+def test_native_runtime_stands_alone_with_no_off_switch():
+    """The native runtime's directory holds its bindings and its own copy
+    of the C++ source; neither names the reference's directory or
+    package, and no source of the port reads a switch that turns the
+    runtime off (the reference's ``HYPERSPACE_TPU_NATIVE``)."""
+    ndir = PKG / "native"
+    assert sorted(p.name for p in ndir.iterdir() if p.name != "__pycache__") == [
+        "__init__.py", "tcb_io.cc"]
+    init = (ndir / "__init__.py").read_text()
+    assert "hyperspace_tpu/" not in init and "parent.parent.parent" not in init
+    for path in sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]:
+        assert "HYPERSPACE_TPU_NATIVE" not in path.read_text(), path
 
 
 def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):

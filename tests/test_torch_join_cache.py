@@ -181,10 +181,16 @@ LADDER = {
                       "join.path.presorted_merge_flat"),
     "right_unsorted": (dict(seed=3, n_seg=6, sorted_left=True, sorted_right=False, dup=True),
                        "join.path.device_kernel"),
+    # K2's plan declines or no flat remap fits: both sides ascending take
+    # the native walk, a left side out of order the host searches
     "flat_beyond_int32": (dict(seed=4, n_seg=8, sorted_left=True, sorted_right=True,
-                               span=1 << 29), "join.path.host_searchsorted"),
+                               span=1 << 29), "join.path.native_smj_ranges"),
     "no_flat_remap": (dict(seed=5, n_seg=4, sorted_left=True, sorted_right=True,
-                           span=1 << 61), "join.path.presorted_merge"),
+                           span=1 << 61), "join.path.native_smj_ranges"),
+    "left_unsorted_beyond_int32": (dict(seed=6, n_seg=8, sorted_left=False, sorted_right=True,
+                                        span=1 << 29, dup=True), "join.path.host_searchsorted"),
+    "left_unsorted_no_flat_remap": (dict(seed=7, n_seg=4, sorted_left=False, sorted_right=True,
+                                         span=1 << 61, dup=True), "join.path.presorted_merge"),
 }
 
 
@@ -199,7 +205,7 @@ def test_ladder_matches_the_reference(name):
     assert tjoins._segments_sorted(r, rb) == jjoins._segments_sorted(r, rb)
     tflat = tjoins._flat_segment_remap(l, r, lb, rb)
     jflat = jjoins._flat_segment_remap(l, r, lb, rb)
-    assert (tflat is None) == (jflat is None) == (name == "no_flat_remap")
+    assert (tflat is None) == (jflat is None) == name.endswith("no_flat_remap")
     if tflat is not None:
         assert all(np.array_equal(a, b) for a, b in zip(tflat, jflat))
     tmetrics.reset()
@@ -238,12 +244,15 @@ def test_repeat_join_hits_groups_and_setup_caches(tree):
     assert rows(got) == rows(exp) and got.num_rows > 1000
     assert m.get("join.cache.miss") == 2 and m.get("join.setup_cache.stored") == 1
     assert m.get("join.path.presorted_merge_flat") == 1
+    assert m.get("join.path.native_smj_gather") == 1
     again, _exp, m = both(tree, join_q)
     assert rows(again) == rows(exp)
     assert m.get("join.cache.hit") == 2 and m.get("join.setup_cache.hit") == 1
     assert not m.get("join.cache.miss")
-    # the materializing join keeps no ranges: the route runs again
-    assert m.get("join.path.presorted_merge_flat") == 1
+    # the materializing join over presorted sides caches its ranges, as
+    # the reference does: the repeat runs no route, only the C++ gather
+    assert m.get("join.ranges_cache.hit") == 1 and not m.get("join.path.presorted_merge_flat")
+    assert m.get("join.path.native_smj_gather") == 1
 
 
 def test_repeat_aggregate_join_hits_the_ranges_cache(tree):
