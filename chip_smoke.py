@@ -8,10 +8,13 @@ Run from the repository root with no arguments:
 It needs a CUDA card and exits non-zero, printing no result, without one
 (or without the ``hyperspace_tpu_torch`` package beside it).
 ``--phases`` takes a comma list of ``kernels``, ``main``, ``aggregate``,
-``resident``, ``join``, ``native``, ``front_end``, ``lifecycle``,
-``hybrid`` and ``streaming`` (default: all, in that order; aggregate,
-resident, join, native and front_end run in the main path's session and
-bring ``main``). Phases:
+``resident``, ``join``, ``serve``, ``native``, ``front_end``,
+``lifecycle``, ``hybrid`` and ``streaming`` (default: all, in that order;
+aggregate, resident, join, serve, native and front_end run in the main
+path's session and bring ``main``). Every query runs through the
+whole-plan compiler (``hyperspace.compile.mode`` defaults to ``auto``):
+its launches are the interpreter's, N = 1 counts land under
+``compile.fused.*``. Phases:
 
 1. header — the card's name and power limit (``nvidia-smi``); the CUDA
    kernels build from ``hyperspace_tpu_torch/csrc`` while g++ builds the
@@ -65,7 +68,12 @@ bring ``main``). Phases:
    held against its plain version on every padded row and timed beside
    raw K2 over the same codes and ``torch.searchsorted`` x2; the torch epilogue of the
    resident Q17 aggregate (``index_add_`` over 200,000 slots) is timed
-   alone and held against numpy;
+   alone and held against numpy; K1b (N programs in one launch) runs N =
+   1, 2, 16, 64 and 300, depths 1 to 9 in one batch, packed planes of
+   every width beside raw and f64 planes, rows ending mid-word, 40 raw
+   planes and a 2^20-row window, and K1hb no mask, all rows deleted and
+   random deletions; both are timed at the serving bursts' shapes (B1,
+   B2, L2, the hybrid burst) beside the N single launches they replace;
 3. main path — TPC-H-shaped data at scale factor 1 (lineitem 6,001,215
    rows, orders 1,500,000, made with numpy from ``--seed`` and written as
    avro), two covering indexes with 200 buckets built in memory on the
@@ -106,6 +114,16 @@ bring ``main``). Phases:
    are printed; every result equals numpy. J2's host arm and J3 take
    their ranges from K2 on a first run (the setup cache emptied before),
    from the ranges cache on a repeat;
+5a. serve — in the same session, residency ``auto``, li_idx's five
+   columns prefetched: the resident phase's 30 queries twice through the
+   compiled pipelines (the second round with fresh literals must hit the
+   pipeline cache 30 times; one K1c launch a query), two group-bys on the
+   card (``agg_scan``: A3's Q1 shape and Q17's inner aggregate over
+   lineitem, 200,000 slots; one K1 launch each, the mask and the epilogue
+   timed apart), then three bursts through a paused ``QueryServer``: B1 64
+   point lookups (one K1b launch, N = 64), B2 16 range filters (one K1b
+   launch, N = 16), B3 8 copies of J1 (one join-aggregate dispatch); every
+   ticket equals numpy and the same query's ``collect()``;
 5b. native — in the same session: each entry of the native runtime at
    the main path's sizes (``hs_pread_many`` over li_idx's 200 files, then
    the 400-file read with its bytes and resident growth, in the page cache
@@ -164,7 +182,9 @@ bring ``main``). Phases:
    auto: li_hy's predicate planes prefetched, the first range filter
    takes the host union and populates the resident delta in the
    background, then 5 range filters each launch K1h once (no K1, no read
-   of the appended files); after H4's refresh no delta is left;
+   of the appended files); at H2 a burst of 16 range filters through a
+   paused ``QueryServer`` then launches K1hb once for the batch; after
+   H4's refresh no delta is left;
 9. streaming — in a session of its own with lineage on: TPC-H lineitem
    and orders at SF3 (18,003,645 and 4,500,000 rows, l_partkey in
    1..600,000) written as avro into ``src/lineitem_st`` (24 files, over
@@ -193,7 +213,9 @@ bring ``main``). Phases:
    K1p) and 64 (streaming: 18 windows of 2^20 rows through a slab pair),
    each with the resident phase's 30 queries, one launch a query (a
    window a query when streaming), rows against numpy and block counts
-   against the resident tier's;
+   against the resident tier's; on the compressed and streaming tiers a
+   burst of 16 range filters through a paused ``QueryServer`` launches
+   K1b once (a window at a time when streaming: 18 launches);
 10. one ``native:`` line (each native entry's calls on the main,
    aggregate, join and streaming paths, counted from zero at each path's
    start, null where the path did not run; its native and plain ms and
@@ -231,9 +253,9 @@ H100_OPS_PER_S = 67e12  # 32-bit, outside the tensor cores
 LARGE_ROWS = 1 << 28  # K1c's large case: 3 int32 columns, 3 GiB
 LI_RESIDENT = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
 # the phases of a run, in order (--phases); aggregate, resident, join,
-# native and front_end run in the main path's session and so need main
-PHASES = ("kernels", "main", "aggregate", "resident", "join", "native", "front_end", "lifecycle",
-          "hybrid", "streaming")
+# serve, native and front_end run in the main path's session and so need main
+PHASES = ("kernels", "main", "aggregate", "resident", "join", "serve", "native", "front_end",
+          "lifecycle", "hybrid", "streaming")
 DAY_1992_01_01 = 8035  # days since 1970-01-01
 DAY_1998_08_02 = 10440
 DAY_1993_06_01 = 8552
@@ -1103,6 +1125,249 @@ def residency_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
     return {"k1p": k1p, "k1h": k1h}
 
 
+def batch_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
+    """K1b and K1hb (N programs in one launch: the serving layer's
+    micro-batches) against their plain versions on the card, exactly:
+
+    * K1b: N = 1, 2, 16, 64 and 300 (past the 240 instructions a K1
+      parameter block holds: programs, offsets, descriptors and addresses
+      ride a device buffer), programs of depth 1 to 9 in one batch, packed
+      planes of every width 1-16 beside raw and f64 planes, real rows that
+      end mid-word with pad rows (zeros raw, ref0 packed), 40 raw planes
+      (a sub-tile under 1024 rows), and a 2^20-row streaming window;
+    * K1hb: no mask, every base row deleted and random deletions, deltas of
+      1 row and of several blocks, N = 1, 16 and 64.
+
+    Timed at the serving bursts' shapes beside N launches of the single
+    kernel that the batch replaces: B1 (64 point lookups over li_idx's
+    order keys), B2 (16 range filters over order key and ship date), L2
+    (16 range filters over li_st's packed planes) and the hybrid burst (16
+    filters over li_hy's base and delta)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import bitpack
+    from hyperspace_tpu_torch.ops import kernels as tk
+    from hyperspace_tpu_torch.ops.floatbits import f64_to_ordered_i64, ordered_i64_planes
+    from hyperspace_tpu_torch.plan.expr import col
+
+    rng = np.random.default_rng(seed + 20)
+    B = tk.BLOCK_ROWS
+    k1b, k1hb = {}, {}
+
+    def planes_for(n_real, n_pad, widths, n_raw, f64=True):
+        """Packed planes of ``widths`` bits, ``n_raw`` raw planes and an f64
+        column's two planes over ``n_real`` rows padded to ``n_pad``."""
+        cols, specs, names, values = [], [], [], {}
+        for bits in widths:
+            lo = -int(rng.integers(0, 5000))
+            v = rng.integers(lo, lo + (1 << bits), n_real)
+            sp = bitpack.pack_spec(lo, lo + (1 << bits) - 1, n_real)
+            sp = bitpack.PackSpec(sp.bits, sp.vpw, n_pad, sp.ref0)
+            padded = np.full(n_pad, sp.ref0, dtype=np.int64)
+            padded[:n_real] = v
+            cols.append(torch.from_numpy(bitpack.pack_plain(padded, sp)).to(dev))
+            specs.append(sp)
+            names.append(f"p{bits:02d}")
+            values[names[-1]] = (lo, 1 << bits)
+        raw = [rng.integers(-10**6, 10**6, n_real).astype(np.int32) for _ in range(n_raw)]
+        if f64:
+            hi, lo_plane = ordered_i64_planes(f64_to_ordered_i64(
+                np.round(rng.uniform(-100.0, 100.0, n_real), 2)))
+            raw += [hi, lo_plane]
+        for i, a in enumerate(raw):
+            t = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+            t[:n_real] = torch.from_numpy(a).to(dev)
+            cols.append(t)
+            specs.append(None)
+            names.append(f"r{i:02d}")
+            values[names[-1]] = (-10**6, 2 * 10**6)
+        return cols, specs, tuple(names), values
+
+    def programs(names, values, n_progs):
+        out = []
+        for i in range(n_progs):
+            a = names[i % len(names)]
+            lo, width = values[a]
+            e = col(a) >= lo + int(rng.integers(0, width))
+            for d in range(i % 9):
+                b = names[(3 * i + d) % len(names)]
+                lo_b, w_b = values[b]
+                c = col(b) < lo_b + int(rng.integers(0, w_b))
+                e = (e & c) if d % 2 else (e | ~c)
+            out.append(tk.lower_predicate(tk.narrow_expr_to_i32(e), names))
+        return out
+
+    def held_batch(name, progs, cols, specs, n_pad, **rec):
+        got = tk.program_block_counts_batch_tensor(progs, cols, specs, n_pad)
+        want = tk.program_block_counts_batch_tensor(progs, [c.cpu() for c in cols], specs, n_pad)
+        k1b[name] = dict(max_abs_err=_held(f"K1b {name}", got, want.to(dev)), n=len(progs),
+                         planes=len(cols), rows=n_pad,
+                         sub_rows=tk.k1b_plan(tk.packed_header(specs)[:, 2].tolist(), len(progs),
+                                              max(tk.program_depth(p) for p in progs))[0],
+                         matches=int(want.sum().item()), **rec)
+
+    n_real, n_pad = 5 * B - 3, 5 * B
+    cols, specs, names, values = planes_for(n_real, n_pad, range(1, 17), 2)
+    progs = programs(names, values, 300)
+    for N in (1, 2, 16, 64, 300):
+        held_batch(f"mixed_N{N}", progs[:N], cols, specs, n_pad, instr=sum(len(p) for p in progs[:N]))
+    cols40, specs40, names40, values40 = planes_for(n_real, n_pad, (), 40, f64=False)
+    held_batch("raw40_N16", programs(names40, values40, 16), cols40, specs40, n_pad)
+    del cols40
+    wcols, wspecs, wnames, wvalues = planes_for(1 << 20, 1 << 20, (6, 12), 1, f64=False)
+    held_batch("window_2p20_N16", programs(wnames, wvalues, 16), wcols, wspecs, 1 << 20)
+    del wcols
+    log(f"K1b: {len(k1b)} cases (N 1-300, depths 1-9 in one batch, widths 1-16 beside raw and "
+        f"f64 planes, rows ending mid-word, 40 raw planes (sub_rows "
+        f"{k1b['raw40_N16']['sub_rows']}), a 2^20-row window) exact=yes")
+
+    for nb, d_real in ((3, 1), (2, 4 * B - 100)):
+        names_h = ("a", "b", "c")
+        base = [torch.from_numpy(rng.integers(-99, 99, nb * B).astype(np.int32)).to(dev)
+                for _ in names_h]
+        delta = [torch.zeros(-(-d_real // B) * B, dtype=torch.int32, device=dev) for _ in names_h]
+        for t in delta:
+            t[:d_real] = torch.from_numpy(rng.integers(-99, 99, d_real).astype(np.int32)).to(dev)
+        hvals = {n: (-99, 198) for n in names_h}
+        hprogs = programs(names_h, hvals, 64)
+        for label, rows in (("no_mask", None), ("all", np.ones(nb * B, bool)),
+                            ("random", rng.random(nb * B) < 0.3)):
+            words = None if rows is None else torch.from_numpy(tk.pack_row_bitmask(rows)).to(dev)
+            for N in (1, 16, 64):
+                got = tk.program_hybrid_counts_batch_tensor(hprogs[:N], base, delta, words)
+                want = tk.program_hybrid_counts_batch_tensor(
+                    hprogs[:N], [t.cpu() for t in base], [t.cpu() for t in delta],
+                    None if words is None else words.cpu())
+                case = f"base{nb}_delta{d_real}_{label}_N{N}"
+                k1hb[case] = dict(max_abs_err=_held(f"K1hb {case}", got, want.to(dev)),
+                                  matches=int(want.sum().item()))
+    log(f"K1hb: {len(k1hb)} cases (no mask, all rows deleted, random deletions; deltas of 1 row "
+        f"and of several blocks; N 1, 16, 64) exact=yes")
+
+    # timed at the serving bursts' shapes, each beside N single launches
+    L = lineitem
+    n = len(L["l_orderkey"])
+    n_pad = -(-n // B) * B
+    top = int(L["l_orderkey"].max())
+
+    def plane(a, n_rows=n, pad=n_pad):
+        t = torch.zeros(pad, dtype=torch.int32, device=dev)
+        t[:n_rows] = torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
+        return t
+
+    def timed_batch(name, preds, cols, specs, n_rows, single, single_kernel):
+        """K1b over ``preds`` against len(preds) launches of ``single``."""
+        names = tuple(sorted({nm for _b, pn in preds for nm in pn}))
+        got = tk.predicate_block_counts_batch_tensor(preds, names, cols, specs, n_rows)
+        want = tk.predicate_block_counts_batch_reference(preds, names, cols, specs, n_rows)
+        err = _held(f"K1b {name}", got, want)
+        N = len(preds)
+        words = sum(int(c.numel()) for c in cols)
+        instr = sum(len(tk.lower_predicate(b, names)) for b, _ in preds)
+        rec = _timed_counts(
+            f"K1b {name}",
+            lambda: tk.predicate_block_counts_batch_tensor(preds, names, cols, specs, n_rows),
+            lambda: tk.predicate_block_counts_batch_reference(preds, names, cols, specs, n_rows),
+            "block_counts_batch_kernel", 4 * words + 4 * N * (n_rows // B),
+            float(n_rows) * instr, max_abs_err=err, n=N, rows=n_rows,
+            specs="/".join("raw" if s is None else f"{s.bits}b_vpw{s.vpw}" for s in specs))
+        loop = lambda: [single(b, pn) for b, pn in preds]  # noqa: E731
+        per = device_ms(lambda: single(*preds[0]), single_kernel)
+        rec.update(single_n_ms=time_ms(loop, repeats=10),
+                   single_n_device_ms=None if per is None else per * N)
+        log(f"K1b {name}: {N} launches of {single_kernel}: ms={rec['single_n_ms']:.4f} device_ms="
+            f"{_fmt(rec['single_n_device_ms'])} (the route the batch replaces)")
+        k1b[name] = rec
+
+    ok = L["l_orderkey"]
+    cols = [plane(ok)]
+    keys = rng.choice(np.unique(ok), 64, replace=False)
+    preds = [(tk.narrow_expr_to_i32(col("l_orderkey") == int(k)), ("l_orderkey",)) for k in keys]
+    timed_batch("B1_point_N64", preds, cols, [None], n_pad,
+                lambda b, pn: tk.predicate_block_counts_tensor(b, pn, cols),
+                "predicate_block_counts_kernel")
+    cols = [plane(ok), plane(L["l_shipdate"])]
+    preds = []
+    for i in range(16):
+        lo = int(rng.integers(1, top - top // 10))
+        d = int(rng.integers(DAY_1992_01_01, DAY_1998_08_02 - 400))
+        preds.append((tk.narrow_expr_to_i32(
+            (col("l_orderkey") >= lo) & (col("l_orderkey") < lo + top // 10)
+            & (col("l_shipdate") >= d) & (col("l_shipdate") < d + 365)),
+            ("l_orderkey", "l_shipdate")))
+    timed_batch("B2_range_N16", preds, cols, [None, None], n_pad,
+                lambda b, pn: tk.predicate_block_counts_tensor(b, pn, cols),
+                "predicate_block_counts_kernel")
+    st_top = 18_000_000
+    st = li_st_planes(rng, LI_ST_ROWS, st_top)
+    st_pad = -(-LI_ST_ROWS // B) * B
+    st_names = ("l_orderkey", "l_quantity", "l_shipdate")
+    st_cols, st_specs = [], []
+    for nm in st_names:
+        v, sp = st[nm]
+        if sp is None:
+            st_cols.append(plane(v, LI_ST_ROWS, st_pad))
+        else:
+            sp = bitpack.PackSpec(sp.bits, sp.vpw, st_pad, sp.ref0)
+            padded = np.full(st_pad, sp.ref0, dtype=np.int64)
+            padded[:LI_ST_ROWS] = v
+            st_cols.append(torch.from_numpy(bitpack.pack_plain(padded, sp)).to(dev))
+        st_specs.append(sp)
+    preds = []
+    for i in range(16):
+        lo = int(rng.integers(1, st_top - st_top // 6))
+        preds.append((tk.narrow_expr_to_i32(
+            (col("l_orderkey") >= lo) & (col("l_orderkey") < lo + st_top // 6)
+            & (col("l_quantity") < int(rng.integers(5, 50)))
+            & (col("l_shipdate") >= DAY_1995_03_15 - 365) & (col("l_shipdate") < DAY_1995_03_15)),
+            st_names))
+    timed_batch("L2_packed_N16", preds, st_cols, st_specs, st_pad,
+                lambda b, pn: tk.predicate_block_counts_packed_tensor(b, pn, st_cols, st_specs,
+                                                                      st_pad),
+                "predicate_block_counts_packed_kernel")
+    del st_cols
+    # the hybrid burst: li_hy's base, two RF1 batches of delta, one file of
+    # eight deleted
+    d_rows = 11_891
+    nd_pad = -(-d_rows // B) * B
+    pick = rng.integers(0, n, d_rows)
+    names_h = ("l_orderkey", "l_quantity", "l_shipdate")
+    base = [plane(L[c]) for c in names_h]
+    delta = [plane(L[c][pick], d_rows, nd_pad) for c in names_h]
+    deleted = np.zeros(n_pad, dtype=bool)
+    deleted[2 * n // 8: 3 * n // 8] = True
+    words = torch.from_numpy(tk.pack_row_bitmask(deleted)).to(dev)
+    preds = []
+    for i in range(16):
+        lo = int(rng.integers(1, top - top // 3))
+        preds.append((tk.narrow_expr_to_i32(
+            (col("l_orderkey") >= lo) & (col("l_orderkey") < lo + top // 3)
+            & (col("l_quantity") < 24) & (col("l_shipdate") >= DAY_1995_03_15 - 365)
+            & (col("l_shipdate") < DAY_1995_03_15)), names_h))
+    got = tk.hybrid_block_counts_batch_tensor(preds, names_h, base, delta, words)
+    want = tk.hybrid_block_counts_batch_reference(preds, names_h, base, delta, words)
+    err = _held("K1hb li_hy_N16", got, want)
+    instr = sum(len(tk.lower_predicate(b, names_h)) for b, _ in preds)
+    rec = _timed_counts(
+        "K1hb li_hy_N16",
+        lambda: tk.hybrid_block_counts_batch_tensor(preds, names_h, base, delta, words),
+        lambda: tk.hybrid_block_counts_batch_reference(preds, names_h, base, delta, words),
+        "block_counts_batch_kernel",
+        4 * len(names_h) * (n_pad + nd_pad) + n_pad // 8 + 4 * 16 * ((n_pad + nd_pad) // B),
+        float(n_pad + nd_pad) * instr, max_abs_err=err, n=16, base_rows=n_pad,
+        delta_rows=nd_pad)
+    single = lambda b, pn: tk.hybrid_block_counts_tensor(b, pn, base, delta, words)  # noqa: E731
+    per = device_ms(lambda: single(*preds[0]), "hybrid_block_counts_kernel")
+    rec.update(single_n_ms=time_ms(lambda: [single(b, pn) for b, pn in preds], repeats=10),
+               single_n_device_ms=None if per is None else per * 16)
+    log(f"K1hb li_hy_N16: 16 launches of K1h: ms={rec['single_n_ms']:.4f} device_ms="
+        f"{_fmt(rec['single_n_device_ms'])} (the route the batch replaces)")
+    k1hb["li_hy_N16"] = rec
+    del base, delta, cols
+    torch.cuda.empty_cache()
+    return {"k1b": k1b, "k1hb": k1hb}
+
+
 def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
     import torch
 
@@ -1401,6 +1666,7 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
     out = {"k1": k1, "k1c": k1c, "k2": k2, "k2f": k2f, "k2p": k2p, "j1_epilogue": j1_epi,
            "fused_agg": agg}
     out.update(residency_kernel_cases(lineitem, seed, dev))
+    out.update(batch_kernel_cases(lineitem, seed, dev))
     return out
 
 
@@ -1610,6 +1876,11 @@ def _main_session(lineitem, orders, workdir: Path, device: str, seed: int, profi
         out["join"] = join_phase(session, li, od, q3, q3_want, L, O, profile)
         out["join"]["phase_s"] = time.perf_counter() - t1
         log(f"phase seconds: join {out['join']['phase_s']:.1f} s")
+    if "serve" in phases:
+        t1 = time.perf_counter()
+        out["serve"] = serve_phase(session, hsp, li, od, L, O, seed, profile)
+        out["serve"]["phase_s"] = time.perf_counter() - t1
+        log(f"phase seconds: serve {out['serve']['phase_s']:.1f} s")
     log(f"phase seconds: aggregate, resident and join {time.perf_counter() - t0:.1f} s")
     if "native" in phases:
         t0 = time.perf_counter()
@@ -1890,6 +2161,251 @@ def resident_phase(session, hsp, li, L, seed: int, profile: bool = False) -> dic
             f"p90={sh['per_file_p90_s']:.4f} s | results match numpy and per-file")
     log(f"resident: {n_queries} queries, {launches.get(K1C, 0)} K1c launches, "
         f"K1 launches {launches.get(K1, 0)}, blocks touched {touched} of {total}")
+    return out
+
+
+SERVE_COLS = ["l_orderkey", "l_partkey", "l_quantity", "l_shipdate", "l_extendedprice"]
+
+
+def serve_phase(session, hsp, li, od, L: dict, O: dict, seed: int, profile: bool = False) -> dict:
+    """The whole-plan compiler and the query server on li_idx (SF1, 200
+    buckets), in the main path's session with residency ``auto`` (``force``
+    off the card) and li_idx's five columns prefetched (six int32 planes):
+
+    1. compiled scans: the resident phase's 30 queries, then again with
+       fresh literals: ``compile.run.scan`` 30 a round, the second round
+       all pipeline cache hits, one K1c launch a query; rows against numpy;
+    2. ``agg_scan`` on the card: A3's ``q1_shape`` (50 groups, five
+       functions) and Q17's inner aggregate over lineitem alone
+       (``group_by("l_partkey")``, 200,000 slots): ``compile.agg.device``
+       and one K1 launch each, groups against numpy; the mask and the
+       epilogue timed apart;
+    3. micro-batched serving through a paused server (submit the burst,
+       then ``start()``): B1 64 point lookups with distinct keys (one K1b
+       launch, N = 64), B2 16 range filters over order key and ship date
+       (one K1b launch, N = 16), B3 8 copies of J1 (one ``join_agg``
+       dispatch: one K2 or K2p launch); every ticket against numpy and the
+       same query's ``collect()``.
+
+    Launch and path counts start from zero before each step."""
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.compile.cache import pipeline_cache
+    from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache, prepare_resident_predicate
+    from hyperspace_tpu_torch.exec.scan_agg import _raw_planes, core_scan_agg, plan_plane_names, \
+        scan_agg_plan
+    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.ops import kernels as tk
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.serve import QueryServer, ServeConfig
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    import torch
+
+    on_card = session.device.type == "cuda"
+    one = 1 if on_card else 0
+    session.conf.set("hyperspace.torch.hbm.mode", "auto" if on_card else "force")
+    session.conf.set("hyperspace.serve.tenant.defaultMaxQueue", 256)
+    if not on_card:  # a rehearsal: the zone gate would route small tables away
+        session.conf.set("hyperspace.torch.hbm.maxBlockFrac", 1.0)
+    t0 = time.perf_counter()
+    if not hsp.prefetch_index("li_idx", SERVE_COLS):
+        raise AssertionError("serve: prefetch_index(li_idx) did not make the index resident")
+    hbm_cache.wait_background()
+    fence(session.device)
+    table = next(t for t in hbm_cache._tables if set(SERVE_COLS) <= set(t.columns))
+    out = {"prefetch_s": time.perf_counter() - t0, "resident_mb": round(table.nbytes / 1e6, 1)}
+    log(f"serve: prefetch_index(li_idx, {len(SERVE_COLS)} columns) {out['prefetch_s']:.3f} s, "
+        f"{out['resident_mb']} MB, tier {table.tier}")
+    rng = np.random.default_rng(seed + 30)
+    ok = L["l_orderkey"]
+    top = int(ok.max())
+
+    # 1. compiled scans, twice
+    def round_queries(r):
+        keys = r.choice(np.unique(ok), 20, replace=False)
+        lo = top // 6 + int(r.integers(0, top // 12))
+        hi, d_lo = lo + top // 3, DAY_1995_03_15 - 365 - int(r.integers(0, 60))
+        price = 50_000.0 + float(r.integers(0, 5000))
+        q = [(col("l_orderkey") == int(k), ok == k) for k in keys]
+        q += [((col("l_orderkey") >= lo) & (col("l_orderkey") < hi) & (col("l_quantity") < 24)
+               & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15),
+               (ok >= lo) & (ok < hi) & (L["l_quantity"] < 24) & (L["l_shipdate"] >= d_lo)
+               & (L["l_shipdate"] < DAY_1995_03_15))] * 5
+        q += [((col("l_orderkey") >= lo) & (col("l_orderkey") < hi)
+               & (col("l_extendedprice") > price),
+               (ok >= lo) & (ok < hi) & (L["l_extendedprice"] > price))] * 5
+        return q
+
+    rounds = []
+    for i in range(2):
+        qs = round_queries(np.random.default_rng(seed + 40 + i))
+        reset_launch_counts()
+        metrics.reset()
+        t = time.perf_counter()
+        res = [li.filter(p).select(*LI_RESIDENT).collect() for p, _m in qs]
+        fence(session.device)
+        wall = time.perf_counter() - t
+        launches, m = launch_counts(), metrics.snapshot()
+        for j, ((_p, mask), r) in enumerate(zip(qs, res)):
+            _check(f"serve compiled round {i} [{j}]", r, LI_RESIDENT, [L[c][mask] for c in LI_RESIDENT])
+        rec = {"s": wall, "queries": len(qs), "runs": m.get("compile.run.scan", 0),
+               "hits": m.get("compile.cache.hit", 0), "misses": m.get("compile.cache.miss", 0),
+               "k1c": launches.get(tk.K1C, 0), "fused": m.get("compile.fused.dispatches", 0)}
+        if rec["runs"] != len(qs) or rec["fused"] != len(qs) or rec["k1c"] != one * len(qs) or \
+                (i == 1 and (rec["misses"] or rec["hits"] != len(qs))) or \
+                m.get("scan.path.resident_device") != len(qs):
+            raise AssertionError(f"serve compiled round {i}: {rec}, launches {launches}")
+        rounds.append(rec)
+        log(f"serve compiled scans round {i} ({'fresh literals' if i else 'first'}): "
+            f"{len(qs)} queries {wall:.4f} s compile.run.scan={rec['runs']} pipeline cache "
+            f"hits={rec['hits']} misses={rec['misses']} K1c={rec['k1c']} "
+            f"compile.fused.dispatches={rec['fused']} | rows match numpy")
+    out["compiled"] = rounds
+    out["pipelines"] = pipeline_cache.snapshot()
+
+    # 2. agg_scan on the card
+    lo_k, hi_k, d_lo = range_bounds(L)
+    window = ((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+              & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15))
+    w_mask = ((ok >= lo_k) & (ok < hi_k) & (L["l_shipdate"] >= d_lo)
+              & (L["l_shipdate"] < DAY_1995_03_15))
+    qty, price, ship = L["l_quantity"][w_mask], L["l_extendedprice"][w_mask], L["l_shipdate"][w_mask]
+    uniq, inv = np.unique(qty, return_inverse=True)
+    inv = inv.reshape(-1)
+    cnt = np.bincount(inv, minlength=len(uniq)).astype(np.int64)
+    sums = np.bincount(inv, weights=price, minlength=len(uniq))
+    mins = np.full(len(uniq), np.iinfo(np.int32).max, dtype=np.int32)
+    maxs = np.full(len(uniq), np.iinfo(np.int32).min, dtype=np.int32)
+    np.minimum.at(mins, inv, ship)
+    np.maximum.at(maxs, inv, ship)
+    q17_lo, q17_hi = top // 4, top // 4 + top // 3
+    q17_mask = (ok >= q17_lo) & (ok < q17_hi)
+    pk, pinv = np.unique(L["l_partkey"][q17_mask], return_inverse=True)
+    pinv = pinv.reshape(-1)
+    pcnt = np.bincount(pinv, minlength=len(pk)).astype(np.int64)
+    aggs = {
+        "A3_q1_shape": (
+            li.filter(window).group_by("l_quantity").agg(
+                hs.agg_sum("l_extendedprice"), hs.agg_avg("l_extendedprice"),
+                hs.agg_min("l_shipdate"), hs.agg_max("l_shipdate"), hs.agg_count()),
+            window, ["l_quantity"],
+            {"l_quantity": uniq, "sum_l_extendedprice": sums, "avg_l_extendedprice": sums / cnt,
+             "min_l_shipdate": mins, "max_l_shipdate": maxs, "count": cnt}),
+        "Q17_inner": (
+            li.filter((col("l_orderkey") >= q17_lo) & (col("l_orderkey") < q17_hi))
+            .group_by("l_partkey").agg(hs.agg_avg("l_quantity"), hs.agg_count()),
+            (col("l_orderkey") >= q17_lo) & (col("l_orderkey") < q17_hi), ["l_partkey"],
+            {"l_partkey": pk, "avg_l_quantity": np.bincount(
+                pinv, weights=L["l_quantity"][q17_mask].astype(np.float64),
+                minlength=len(pk)) / pcnt, "count": pcnt}),
+    }
+    out["agg_scan"] = {}
+    for name, (df, pred, keys, want) in aggs.items():
+        res, t_q, launches, m, _t = timed_query(session, f"serve {name}", profile, df)
+        _check_agg(f"serve {name}", res, keys, want)
+        if m.get("compile.agg.device") != 1 or m.get("compile.run.agg_scan") != 1 or \
+                launches.get(tk.K1, 0) != one or sum(launches.values()) != one or \
+                any(k.startswith("compile.agg.declined") for k in m):
+            raise AssertionError(f"serve {name}: launches {launches}, counters {m}")
+        # the device aggregate's two parts, timed apart on the same inputs
+        agg_node = df.optimized_plan()
+        plan, _r = scan_agg_plan(table, list(agg_node.group_by), list(agg_node.aggs))
+        narrowed, names = prepare_resident_predicate(table.columns, pred)
+        mask_planes = _raw_planes(table, names)
+        value_planes = _raw_planes(table, plan_plane_names(plan))
+
+        def mask_fn():
+            return tk.predicate_mask_tensor(narrowed, names, mask_planes)
+
+        mask = mask_fn()
+        live = mask & (torch.arange(table.n_pad, device=mask.device) < table.n_rows)
+        rec = {"s": t_q, "groups": res.num_rows, "span": plan.span, "launches": launches}
+        if on_card:
+            rec["mask_ms"] = time_ms(mask_fn)
+            rec["epilogue_ms"] = time_ms(
+                lambda: core_scan_agg(plan, live, value_planes[0], value_planes[1:]))
+            n_out = 1 + sum(len(c.ops) for c in plan.cols)
+            rec["mask_bound_ms"], rec["mask_bound_by"] = bound(
+                4 * len(names) * table.n_pad + table.n_pad, 0.0)
+            rec["epilogue_bound_ms"], rec["epilogue_bound_by"] = bound(
+                table.n_pad + 4 * len(value_planes) * table.n_pad + 8 * n_out * (plan.span + 1),
+                0.0)
+        out["agg_scan"][name] = rec
+        log(f"serve agg_scan {name}: {t_q:.4f} s groups={res.num_rows} span={plan.span} "
+            f"compile.agg.device=1 launches={launches} | mask ms={_fmt(rec.get('mask_ms'))} "
+            f"(bound {_fmt(rec.get('mask_bound_ms'))}) epilogue ms={_fmt(rec.get('epilogue_ms'))} "
+            f"(bound {_fmt(rec.get('epilogue_bound_ms'))}) | matches numpy")
+        del mask_planes, value_planes, mask, live
+
+    # 3. micro-batched serving through a paused server
+    keys = rng.choice(np.unique(ok), 64, replace=False)
+    bursts = {"B1_point_N64": [(li.filter(col("l_orderkey") == int(k)).select(*LI_RESIDENT),
+                                ok == k) for k in keys]}
+    b2 = []
+    for i in range(16):
+        lo = int(rng.integers(1, top - top // 10))
+        d = int(rng.integers(DAY_1992_01_01, DAY_1998_08_02 - 400))
+        b2.append((li.filter((col("l_orderkey") >= lo) & (col("l_orderkey") < lo + top // 10)
+                             & (col("l_shipdate") >= d) & (col("l_shipdate") < d + 365))
+                   .select(*LI_RESIDENT),
+                   (ok >= lo) & (ok < lo + top // 10) & (L["l_shipdate"] >= d)
+                   & (L["l_shipdate"] < d + 365)))
+    bursts["B2_range_N16"] = b2
+    j1 = q17_shape(li, od)
+    j1.collect()  # a region missing here (--phases without join) is built now
+    hbm_cache.wait_background()
+    bursts["B3_j1_x8"] = [(q17_shape(li, od), None) for _ in range(8)]
+    j1_want = q17_truth(L, O)
+    out["bursts"] = {}
+    for name, items in bursts.items():
+        serial = [df.collect() for df, _m in items]
+        reset_launch_counts()
+        metrics.reset()
+        server = QueryServer(session, ServeConfig(max_workers=4, max_queue=256, batch_max=64,
+                                                  autostart=False))
+        t = time.perf_counter()
+        tickets = [server.submit(df) for df, _m in items]
+        server.start()
+        got = [tk_.result(timeout=600) for tk_ in tickets]
+        fence(session.device)
+        wall = time.perf_counter() - t
+        launches, m = launch_counts(), metrics.snapshot()
+        stats = server.stats()
+        server.close()
+        n = len(items)
+        for i, ((_df, mask), r, s_r) in enumerate(zip(items, got, serial)):
+            if mask is None:
+                _check_agg(f"serve {name}[{i}]", r, ["l_partkey"], j1_want)
+                _check_agg(f"serve {name}[{i}] collect", s_r, ["l_partkey"], j1_want)
+            else:
+                want = [L[c][mask] for c in LI_RESIDENT]
+                _check(f"serve {name}[{i}]", r, LI_RESIDENT, want)
+                _check(f"serve {name}[{i}] collect", s_r, LI_RESIDENT, want)
+        if name.startswith("B3"):
+            k2_l = launches.get(tk.K2, 0) + launches.get(tk.K2P, 0)
+            ok_counts = (m.get("scan.path.resident_join_agg") == n and k2_l == one
+                         and m.get("serve.batch.coalesced") == n)
+        else:
+            ok_counts = (launches.get(tk.K1B, 0) == one and launches.get(tk.K1C, 0) == 0
+                         and m.get("serve.batch.dispatches") == 1
+                         and m.get("serve.batch.queries") == n)
+        if not ok_counts or stats["batch_size_hist"] != {n: 1} or stats["completed"] != n:
+            raise AssertionError(f"serve {name}: launches {launches}, hist "
+                                 f"{stats['batch_size_hist']}, counters {m}")
+        rec = {"queries": n, "wall_s": wall, "qps": n / wall, "launches": launches,
+               "batch_size_hist": stats["batch_size_hist"],
+               "batch_dispatches": stats["batch_dispatches"],
+               "latency_p50_ms": stats.get("latency_p50_ms"),
+               "latency_p99_ms": stats.get("latency_p99_ms"),
+               "batch_device_s": metrics.timings().get("serve.batch.device", (0.0, 0))[0]}
+        out["bursts"][name] = rec
+        log(f"serve burst {name}: {n} queries in {wall:.4f} s ({rec['qps']:.1f} queries/s) | "
+            f"batch_size_hist={rec['batch_size_hist']} dispatches={rec['batch_dispatches']} "
+            f"p50={rec['latency_p50_ms']} ms p99={rec['latency_p99_ms']} ms | launches {launches} "
+            f"| every ticket matches numpy and collect()")
+    out["launches_k1b"] = sum(b["launches"].get(tk.K1B, 0) for b in out["bursts"].values())
+    session.conf.set("hyperspace.torch.hbm.mode", "off")
+    session.conf.unset("hyperspace.torch.hbm.maxBlockFrac")
     return out
 
 
@@ -3251,6 +3767,57 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
             f"{launches}, no union.side.source | rows match numpy and residency off")
         return rec
 
+    def hybrid_burst(n: int = 16) -> dict:
+        """A burst of ``n`` range filters (the range filter's widths over
+        other order keys) through a paused server while li_hy's base and
+        its delta are resident: one K1hb launch serves the batch, base,
+        delta and deletion mask at once; every ticket against numpy."""
+        from hyperspace_tpu_torch.ops import launch_counts, reset_launch_counts
+        from hyperspace_tpu_torch.serve import QueryServer, ServeConfig
+        from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+        session.conf.set("hyperspace.torch.hbm.mode", "auto" if on_card else "force")
+        lo_k, hi_k, d_lo = bounds
+        L = {c: np.concatenate([p[c] for p in li_parts.values()]) for c in lineitem}
+        r = np.random.default_rng(seed + 50)
+        items = []
+        for _ in range(n):
+            lo = int(r.integers(1, int(L["l_orderkey"].max()) - (hi_k - lo_k)))
+            b = (lo, lo + hi_k - lo_k, d_lo)
+            m = ((L["l_orderkey"] >= b[0]) & (L["l_orderkey"] < b[1]) & (L["l_quantity"] < 24)
+                 & (L["l_shipdate"] >= d_lo) & (L["l_shipdate"] < DAY_1995_03_15))
+            items.append((range_and_q3(session, li_dir, od_dir, b)[0], [L[c][m] for c in R_COLS]))
+        reset_launch_counts()
+        metrics.reset()
+        server = QueryServer(session, ServeConfig(max_workers=4, autostart=False))
+        t = time.perf_counter()
+        tickets = [server.submit(df) for df, _w in items]
+        server.start()
+        got = [x.result(timeout=600) for x in tickets]
+        fence(session.device)
+        wall = time.perf_counter() - t
+        launches, m = launch_counts(), metrics.snapshot()
+        stats = server.stats()
+        server.close()
+        for i, (res, (_df, want)) in enumerate(zip(got, items)):
+            _check(f"hybrid H2 burst [{i}]", res, R_COLS, want)
+        one = 1 if on_card else 0
+        if launches.get(tk.K1HB, 0) != one or launches.get(tk.K1H, 0) or \
+                m.get("scan.path.resident_hybrid") != n or stats["batch_size_hist"] != {n: 1} \
+                or m.get("serve.batch.dispatches") != 1:
+            raise AssertionError(f"hybrid H2 burst: launches {launches}, hist "
+                                 f"{stats['batch_size_hist']}, counters {m}")
+        session.conf.set("hyperspace.torch.hbm.mode", "off")
+        rec = {"queries": n, "wall_s": wall, "qps": n / wall, "launches": launches,
+               "batch_size_hist": stats["batch_size_hist"],
+               "latency_p50_ms": stats.get("latency_p50_ms"),
+               "latency_p99_ms": stats.get("latency_p99_ms")}
+        log(f"hybrid H2 burst: {n} range filters in {wall:.4f} s ({rec['qps']:.1f} queries/s) | "
+            f"batch_size_hist={rec['batch_size_hist']} launches {launches} "
+            f"p50={rec['latency_p50_ms']} ms p99={rec['latency_p99_ms']} ms | every ticket "
+            f"matches numpy")
+        return rec
+
     t_create = verb(hsp.create_index, session.read.avro(str(li_dir)), hs.IndexConfig(
         "li_hy", ["l_orderkey"], ["l_partkey", "l_quantity", "l_shipdate", "l_extendedprice"]))
     t_create += verb(hsp.create_index, session.read.avro(str(od_dir)), hs.IndexConfig(
@@ -3275,6 +3842,7 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
     measure("H2 two RF1 batches appended", time.perf_counter() - t,
             ["Union", "(2 files)"], q3_hybrid, absent=("_data_file_id in",))
     out["h2_delta"] = delta_arm("H2")
+    out["h2_burst"] = hybrid_burst()
 
     t = time.perf_counter()
     for name in ("rf1_a",):  # RF2
@@ -3604,10 +4172,72 @@ def ladder_phase(session, hsp, L: dict, li_dir: Path, seed: int, budgets=LADDER_
                f"prefetch hits {rec['prefetch_hit']} stalls {rec['prefetch_stall']} "
                f"({rec['stall_s']:.4f} s)" if tier == "streaming" else "")
             + " | rows match numpy, counts match L1's")
+        if tier != "resident":
+            rec["burst"] = ladder_burst(session, li, L, table, label, seed, on_card)
+    out["launches_k1b"] = sum(t["burst"]["launches"].get("predicate_block_counts_batch", 0)
+                              for t in out["tiers"].values() if "burst" in t)
     hbm_cache.reset()
     session.conf.set("hyperspace.torch.hbm.budgetMB", 4096)
     session.conf.set("hyperspace.torch.hbm.mode", "off")
     return out
+
+
+def ladder_burst(session, li, L: dict, table, label: str, seed: int, on_card: bool,
+                 n: int = 16) -> dict:
+    """A burst of ``n`` range filters (order key, the packed l_quantity,
+    ship date) through a paused server on a compressed or streaming li_st:
+    one K1b launch over the packed planes on the compressed tier, one a
+    window on the streaming tier; every ticket against numpy."""
+    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.ops.kernels import K1B, K1C, K1P
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.serve import QueryServer, ServeConfig
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    ok = L["l_orderkey"]
+    top = int(ok.max())
+    r = np.random.default_rng(seed + 60)
+    items = []
+    for _ in range(n):
+        lo = int(r.integers(1, top - top // 3))
+        q = int(r.integers(5, 50))
+        d_lo = DAY_1995_03_15 - 365
+        items.append((
+            li.filter((col("l_orderkey") >= lo) & (col("l_orderkey") < lo + top // 3)
+                      & (col("l_quantity") < q) & (col("l_shipdate") >= d_lo)
+                      & (col("l_shipdate") < DAY_1995_03_15)).select(*LI_RESIDENT),
+            (ok >= lo) & (ok < lo + top // 3) & (L["l_quantity"] < q)
+            & (L["l_shipdate"] >= d_lo) & (L["l_shipdate"] < DAY_1995_03_15)))
+    reset_launch_counts()
+    metrics.reset()
+    server = QueryServer(session, ServeConfig(max_workers=4, autostart=False))
+    t = time.perf_counter()
+    tickets = [server.submit(df) for df, _m in items]
+    server.start()
+    got = [x.result(timeout=600) for x in tickets]
+    fence(session.device)
+    wall = time.perf_counter() - t
+    launches, m = launch_counts(), metrics.snapshot()
+    stats = server.stats()
+    server.close()
+    for i, (res, (_df, mask)) in enumerate(zip(got, items)):
+        _check(f"ladder {label} burst [{i}]", res, LI_RESIDENT, [L[c][mask] for c in LI_RESIDENT])
+    per = table.n_windows if table.tier == "streaming" else 1
+    if launches.get(K1B, 0) != (per if on_card else 0) or launches.get(K1C, 0) or \
+            launches.get(K1P, 0) or stats["batch_size_hist"] != {n: 1} or \
+            m.get("serve.batch.dispatches") != 1:
+        raise AssertionError(f"ladder {label} burst: launches {launches}, hist "
+                             f"{stats['batch_size_hist']}, counters {m}")
+    rec = {"queries": n, "wall_s": wall, "qps": n / wall, "launches": launches,
+           "batch_size_hist": stats["batch_size_hist"],
+           "latency_p50_ms": stats.get("latency_p50_ms"),
+           "latency_p99_ms": stats.get("latency_p99_ms"),
+           "batch_device_s": metrics.timings().get("serve.batch.device", (0.0, 0))[0]}
+    log(f"ladder {label} burst ({table.tier}): {n} range filters in {wall:.4f} s "
+        f"({rec['qps']:.1f} queries/s) | batch_size_hist={rec['batch_size_hist']} launches "
+        f"{launches} ({per} a batch) | serve.batch.device {rec['batch_device_s']:.4f} s | "
+        f"every ticket matches numpy")
+    return rec
 
 
 def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False,
@@ -3925,7 +4555,7 @@ def _phases(arg: str) -> tuple:
     if unknown or not want:
         raise argparse.ArgumentTypeError(
             f"--phases takes a comma list of {','.join(PHASES)} (got {arg!r})")
-    if want & {"aggregate", "resident", "join", "native", "front_end"}:
+    if want & {"aggregate", "resident", "join", "serve", "native", "front_end"}:
         want.add("main")
     return tuple(p for p in PHASES if p in want)
 
@@ -3940,7 +4570,8 @@ def main() -> int:
                     help="print host and device profiles of each main-path step")
     ap.add_argument("--phases", type=_phases, default=PHASES,
                     help="comma list of the phases to run, of " + ",".join(PHASES)
-                    + " (default: all; aggregate, resident, join, native and front_end bring "
+                    + " (default: all; aggregate, resident, join, serve, native and front_end "
+                    "bring "
                     "main)")
     args = ap.parse_args()
     phases = args.phases
@@ -4021,7 +4652,8 @@ def main() -> int:
         if not args.workdir:
             shutil.rmtree(workdir, ignore_errors=True)
     # each kernel's launches on its paths (None where no phase of them ran)
-    launches = {k: None for k in (tk.K1, tk.K1C, tk.K1P, tk.K1H, tk.K2, tk.K2F, tk.K2P)}
+    launches = {k: None for k in (tk.K1, tk.K1C, tk.K1P, tk.K1H, tk.K1B, tk.K1HB, tk.K2, tk.K2F,
+                                  tk.K2P)}
     if "launches" in main_out:
         for kname in (tk.K1, tk.K2, tk.K2F):
             launches[kname] = main_out["launches"].get(kname, 0)
@@ -4035,9 +4667,15 @@ def main() -> int:
         launches[tk.K1P] = sum(t["launches"].get(tk.K1P, 0)
                                for t in stream_out["ladder"]["tiers"].values())
     if "hybrid" in main_out:
-        # K1h on the hybrid phase's resident-hybrid queries
+        # K1h on the hybrid phase's resident-hybrid queries, K1hb on its burst
         launches[tk.K1H] = sum(main_out["hybrid"][s]["launches"].get(tk.K1H, 0)
                                for s in ("h2_delta", "h3_delta"))
+        launches[tk.K1HB] = main_out["hybrid"]["h2_burst"]["launches"].get(tk.K1HB, 0)
+    if "serve" in main_out or stream_out is not None:
+        # K1b on the serve phase's bursts and the ladder's compressed and
+        # streaming bursts
+        launches[tk.K1B] = main_out.get("serve", {}).get("launches_k1b", 0) + (
+            0 if stream_out is None else stream_out["ladder"]["launches_k1b"])
     for kname, n in launches.items():
         if n is not None and n <= 0:
             raise AssertionError(f"{kname} was not launched on its path ({launches})")
@@ -4046,7 +4684,8 @@ def main() -> int:
     if "launches" in main_out:
         details["main_path"] = {k: main_out[k] for k in ("build_s", "query_s", "rows")}
     for key, name in (("aggregate", "aggregate"), ("resident", "resident_path"),
-                      ("join", "join"), ("native", "native"), ("front_end", "front_end"),
+                      ("join", "join"), ("serve", "serve"), ("native", "native"),
+                      ("front_end", "front_end"),
                       ("lifecycle", "lifecycle"), ("hybrid", "hybrid")):
         if key in main_out:
             details[name] = main_out[key]
@@ -4073,6 +4712,8 @@ def kernels_line(tk, kphase: dict, launches: dict) -> dict:
     k2 = kphase["k2"]["index_layout"]
     k2f = kphase["k2f"]
     k2p = kphase["k2p"]["region_layout"]
+    k1b = kphase["k1b"]["B1_point_N64"]
+    k1hb = kphase["k1hb"]["li_hy_N16"]
     mask_src = "hyperspace_tpu_torch/csrc/predicate_mask.cu"
     join_src = "hyperspace_tpu_torch/csrc/sorted_intersect.cu"
     rows = (
@@ -4080,6 +4721,8 @@ def kernels_line(tk, kphase: dict, launches: dict) -> dict:
         (tk.K1C, mask_src, "hyperspace_tpu/exec/hbm_cache.py:476", "k1c", k1c),
         (tk.K1P, mask_src, "hyperspace_tpu/exec/hbm_cache.py:447", "k1p", k1p),
         (tk.K1H, mask_src, "hyperspace_tpu/exec/hbm_cache.py:671", "k1h", k1h),
+        (tk.K1B, mask_src, "hyperspace_tpu/exec/hbm_cache.py:617", "k1b", k1b),
+        (tk.K1HB, mask_src, "hyperspace_tpu/exec/hbm_cache.py:728", "k1hb", k1hb),
         (tk.K2, join_src, "hyperspace_tpu/ops/kernels.py:549", "k2", k2),
         (tk.K2F, join_src, "hyperspace_tpu/ops/kernels.py:549", "k2f", k2f),
         (tk.K2P, join_src, "hyperspace_tpu/exec/join_residency.py:952", "k2p", k2p),

@@ -19,14 +19,19 @@ class HyperspaceConf:
 
     def __init__(self, values: Optional[Dict[str, Any]] = None):
         self._values: Dict[str, Any] = dict(values or {})
+        # bumped by every set/unset: the pipeline cache memoizes its conf
+        # token per (conf, generation) instead of sorting the dict per query
+        self.generation = 0
 
     # -- generic access ------------------------------------------------------
     def set(self, key: str, value: Any) -> "HyperspaceConf":
         self._values[key] = value
+        self.generation += 1
         return self
 
     def unset(self, key: str) -> "HyperspaceConf":
         self._values.pop(key, None)
+        self.generation += 1
         return self
 
     def get(self, key: str, default: Any = None) -> Any:
@@ -233,6 +238,126 @@ class HyperspaceConf:
                 )
             ),
         )
+
+    def _choice(self, key: str, default: str, modes) -> str:
+        v = str(self.get(key, default)).lower()
+        if v not in modes:
+            raise HyperspaceException(f"Unknown {key}={v!r}; expected one of {modes}.")
+        return v
+
+    def compaction_enabled(self) -> bool:
+        return self._choice(C.INDEX_COMPACTION, C.INDEX_COMPACTION_DEFAULT,
+                            C.INDEX_COMPACTION_MODES) == C.INDEX_COMPACTION_AUTO
+
+    def compaction_interval_seconds(self) -> float:
+        return float(self.get(C.INDEX_COMPACTION_INTERVAL_SECONDS,
+                              C.INDEX_COMPACTION_INTERVAL_SECONDS_DEFAULT))
+
+    # -- whole-plan compilation ------------------------------------------------
+    def compile_mode(self) -> str:
+        return self._choice(C.COMPILE_MODE, C.COMPILE_MODE_DEFAULT, C.COMPILE_MODES)
+
+    def compile_cache_entries(self) -> int:
+        return int(self.get(C.COMPILE_CACHE_ENTRIES, C.COMPILE_CACHE_ENTRIES_DEFAULT))
+
+    def compile_result_cache_enabled(self) -> bool:
+        return self._choice(C.COMPILE_RESULT_CACHE, C.COMPILE_RESULT_CACHE_DEFAULT,
+                            C.COMPILE_RESULT_CACHE_MODES) == C.COMPILE_RESULT_CACHE_ON
+
+    def compile_result_cache_entries(self) -> int:
+        return int(self.get(C.COMPILE_RESULT_CACHE_ENTRIES,
+                            C.COMPILE_RESULT_CACHE_ENTRIES_DEFAULT))
+
+    def compile_result_cache_max_bytes(self) -> int:
+        return int(self.get(C.COMPILE_RESULT_CACHE_MAX_BYTES,
+                            C.COMPILE_RESULT_CACHE_MAX_BYTES_DEFAULT))
+
+    def compile_result_cache_window(self) -> int:
+        return max(int(self.get(C.COMPILE_RESULT_CACHE_WINDOW,
+                                C.COMPILE_RESULT_CACHE_WINDOW_DEFAULT)), 1)
+
+    def compile_result_cache_byte_rate(self) -> int:
+        return max(int(self.get(C.COMPILE_RESULT_CACHE_BYTE_RATE,
+                                C.COMPILE_RESULT_CACHE_BYTE_RATE_DEFAULT)), 1)
+
+    def compile_result_cache_budget_share(self) -> float:
+        v = float(self.get(C.COMPILE_RESULT_CACHE_BUDGET_SHARE,
+                           C.COMPILE_RESULT_CACHE_BUDGET_SHARE_DEFAULT))
+        return min(max(v, 0.0), 0.5)
+
+    # -- serving ----------------------------------------------------------------
+    def serve_tenant_policy(self, tenant: str):
+        """The TenantPolicy for ``tenant``: the per-tenant keys
+        (``hyperspace.serve.tenant.<name>.weight`` / ``.maxQueue`` /
+        ``.maxInflight``) over the defaults, resolved at the tenant's first
+        submit on a server."""
+        from .serve.tenancy import TenantPolicy
+
+        def over(field: str, key: str, default):
+            return self.get(f"{C.SERVE_TENANT_PREFIX}.{tenant}.{field}", self.get(key, default))
+
+        weight = float(over("weight", C.SERVE_TENANT_DEFAULT_WEIGHT,
+                            C.SERVE_TENANT_DEFAULT_WEIGHT_DEFAULT))
+        if weight <= 0:
+            raise HyperspaceException(f"tenant {tenant!r}: weight must be > 0, got {weight}.")
+        return TenantPolicy(
+            weight=weight,
+            max_queue=int(over("maxQueue", C.SERVE_TENANT_DEFAULT_MAX_QUEUE,
+                               C.SERVE_TENANT_DEFAULT_MAX_QUEUE_DEFAULT)),
+            max_inflight=int(over("maxInflight", C.SERVE_TENANT_DEFAULT_MAX_INFLIGHT,
+                                  C.SERVE_TENANT_DEFAULT_MAX_INFLIGHT_DEFAULT)),
+        )
+
+    def serve_breaker_miss_threshold(self) -> int:
+        return int(self.get(C.SERVE_BREAKER_MISS_THRESHOLD,
+                            C.SERVE_BREAKER_MISS_THRESHOLD_DEFAULT))
+
+    def serve_breaker_open_seconds(self) -> float:
+        return float(self.get(C.SERVE_BREAKER_OPEN_SECONDS,
+                              C.SERVE_BREAKER_OPEN_SECONDS_DEFAULT))
+
+    def serve_shed_highwater_fraction(self) -> float:
+        return float(self.get(C.SERVE_SHED_HIGHWATER_FRACTION,
+                              C.SERVE_SHED_HIGHWATER_FRACTION_DEFAULT))
+
+    def serve_shed_batch_off_fraction(self) -> float:
+        return float(self.get(C.SERVE_SHED_BATCH_OFF_FRACTION,
+                              C.SERVE_SHED_BATCH_OFF_FRACTION_DEFAULT))
+
+    def serve_drain_rate_window_seconds(self) -> float:
+        return float(self.get(C.SERVE_DRAIN_RATE_WINDOW_SECONDS,
+                              C.SERVE_DRAIN_RATE_WINDOW_SECONDS_DEFAULT))
+
+    # -- tracing and export -------------------------------------------------------
+    def telemetry_tracing_enabled(self) -> bool:
+        return self._choice(C.TELEMETRY_TRACING, C.TELEMETRY_TRACING_DEFAULT,
+                            C.TELEMETRY_TRACING_MODES) == C.TELEMETRY_TRACING_ON
+
+    def telemetry_recorder_entries(self) -> int:
+        return int(self.get(C.TELEMETRY_RECORDER_ENTRIES, C.TELEMETRY_RECORDER_ENTRIES_DEFAULT))
+
+    def telemetry_recorder_snapshots(self) -> int:
+        return int(self.get(C.TELEMETRY_RECORDER_SNAPSHOTS,
+                            C.TELEMETRY_RECORDER_SNAPSHOTS_DEFAULT))
+
+    def telemetry_export_dir(self) -> Optional[str]:
+        """The metrics-rotation directory, or None (off). "auto" resolves
+        next to the operation log under the system path."""
+        v = self.get(C.TELEMETRY_EXPORT_DIR)
+        if not v:
+            return None
+        if str(v).lower() == C.TELEMETRY_EXPORT_DIR_AUTO:
+            from pathlib import Path
+
+            return str(Path(self.system_path()) / C.TELEMETRY_METRICS_DIRNAME)
+        return str(v)
+
+    def telemetry_export_rotate_bytes(self) -> int:
+        return int(self.get(C.TELEMETRY_EXPORT_ROTATE_BYTES,
+                            C.TELEMETRY_EXPORT_ROTATE_BYTES_DEFAULT))
+
+    def telemetry_export_keep(self) -> int:
+        return int(self.get(C.TELEMETRY_EXPORT_KEEP, C.TELEMETRY_EXPORT_KEEP_DEFAULT))
 
     def segment_io_mode(self) -> str:
         v = str(

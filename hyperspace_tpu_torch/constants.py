@@ -99,9 +99,17 @@ OPTIMIZE_MODE_FULL = "full"
 OPTIMIZE_MODES = (OPTIMIZE_MODE_QUICK, OPTIMIZE_MODE_FULL)
 
 # --- background compaction of runs-layout indexes (index/compactor.py) -------
-# buckets compacted per committed step (also the step's host-memory bound);
-# the reference's .enabled and .intervalSeconds drive a serving loop's
-# timed sweeps, which come with the serve layer
+# "auto" lets a QueryServer host timed sweeps (serve/server.py); "off" (the
+# default) keeps compaction an explicit verb
+INDEX_COMPACTION = "hyperspace.index.compaction.enabled"
+INDEX_COMPACTION_AUTO = "auto"
+INDEX_COMPACTION_OFF = "off"
+INDEX_COMPACTION_MODES = (INDEX_COMPACTION_AUTO, INDEX_COMPACTION_OFF)
+INDEX_COMPACTION_DEFAULT = INDEX_COMPACTION_OFF
+# how often a hosting server's submit path may start a sweep; <= 0 disables
+INDEX_COMPACTION_INTERVAL_SECONDS = "hyperspace.index.compaction.intervalSeconds"
+INDEX_COMPACTION_INTERVAL_SECONDS_DEFAULT = 30.0
+# buckets compacted per committed step (also the step's host-memory bound)
 INDEX_COMPACTION_BUCKETS_PER_STEP = "hyperspace.index.compaction.bucketsPerStep"
 INDEX_COMPACTION_BUCKETS_PER_STEP_DEFAULT = 64
 INDEX_COMPACTION_MAX_STEPS_PER_SWEEP = (
@@ -218,3 +226,80 @@ RESIDENCY_STREAMING_WINDOW_ROWS_DEFAULT = 1 << 20
 RESIDENCY_FOR_DELTA = "hyperspace.residency.forDelta"
 RESIDENCY_FOR_DELTA_DEFAULT = "on"
 RESIDENCY_FOR_DELTA_OFF = ("off", "false", "0", "no")
+
+# --- whole-plan compilation (compile/) ----------------------------------------
+# "auto" runs every executed plan through the compiled-pipeline cache (the
+# interpreter stays the fallback leg); "off" interprets per operator
+COMPILE_MODE = "hyperspace.compile.mode"
+COMPILE_MODE_AUTO = "auto"
+COMPILE_MODE_OFF = "off"
+COMPILE_MODES = (COMPILE_MODE_AUTO, COMPILE_MODE_OFF)
+COMPILE_MODE_DEFAULT = COMPILE_MODE_AUTO
+# pipelines the cache keeps (routing state, a few hundred bytes each)
+COMPILE_CACHE_ENTRIES = "hyperspace.compile.cacheEntries"
+COMPILE_CACHE_ENTRIES_DEFAULT = 256
+# the serve tier's result cache (compile/result_cache.py): off by default
+COMPILE_RESULT_CACHE = "hyperspace.compile.resultCache"
+COMPILE_RESULT_CACHE_ON = "on"
+COMPILE_RESULT_CACHE_OFF = "off"
+COMPILE_RESULT_CACHE_MODES = (COMPILE_RESULT_CACHE_ON, COMPILE_RESULT_CACHE_OFF)
+COMPILE_RESULT_CACHE_DEFAULT = COMPILE_RESULT_CACHE_OFF
+COMPILE_RESULT_CACHE_ENTRIES = "hyperspace.compile.resultCache.entries"
+COMPILE_RESULT_CACHE_ENTRIES_DEFAULT = 64
+# a result larger than this never enters the cache
+COMPILE_RESULT_CACHE_MAX_BYTES = "hyperspace.compile.resultCache.maxResultBytes"
+COMPILE_RESULT_CACHE_MAX_BYTES_DEFAULT = 8 * 1024 * 1024
+# admission (serve/cache_policy.py): the repeat-rate window, and the rate
+# that turns seconds saved into bytes worth keeping
+COMPILE_RESULT_CACHE_WINDOW = "hyperspace.compile.resultCache.windowSize"
+COMPILE_RESULT_CACHE_WINDOW_DEFAULT = 512
+COMPILE_RESULT_CACHE_BYTE_RATE = "hyperspace.compile.resultCache.byteRatePerSec"
+COMPILE_RESULT_CACHE_BYTE_RATE_DEFAULT = 64 * 1024 * 1024
+# share of the residency budget the cache may hold (clamped to [0, 0.5])
+COMPILE_RESULT_CACHE_BUDGET_SHARE = "hyperspace.compile.resultCache.budgetShare"
+COMPILE_RESULT_CACHE_BUDGET_SHARE_DEFAULT = 0.05
+
+# --- multi-tenant serving (serve/) ----------------------------------------------
+# per-tenant overrides are the runtime-built family
+# f"{SERVE_TENANT_PREFIX}.<tenant>.weight" / ".maxQueue" / ".maxInflight"
+SERVE_TENANT_PREFIX = "hyperspace.serve.tenant"
+SERVE_TENANT_DEFAULT_WEIGHT = "hyperspace.serve.tenant.defaultWeight"
+SERVE_TENANT_DEFAULT_WEIGHT_DEFAULT = 1.0
+SERVE_TENANT_DEFAULT_MAX_QUEUE = "hyperspace.serve.tenant.defaultMaxQueue"
+SERVE_TENANT_DEFAULT_MAX_QUEUE_DEFAULT = 32
+# 0 or negative: no in-flight cap
+SERVE_TENANT_DEFAULT_MAX_INFLIGHT = "hyperspace.serve.tenant.defaultMaxInflight"
+SERVE_TENANT_DEFAULT_MAX_INFLIGHT_DEFAULT = 0
+# consecutive deadline misses that open a tenant's circuit, and its cooldown
+SERVE_BREAKER_MISS_THRESHOLD = "hyperspace.serve.tenant.breaker.missThreshold"
+SERVE_BREAKER_MISS_THRESHOLD_DEFAULT = 5
+SERVE_BREAKER_OPEN_SECONDS = "hyperspace.serve.tenant.breaker.openSeconds"
+SERVE_BREAKER_OPEN_SECONDS_DEFAULT = 5.0
+# the shed ladder: above highWater the lowest-weight tenants shed, above
+# batchOff micro-batch widening stops
+SERVE_SHED_HIGHWATER_FRACTION = "hyperspace.serve.shed.highWaterFraction"
+SERVE_SHED_HIGHWATER_FRACTION_DEFAULT = 0.75
+SERVE_SHED_BATCH_OFF_FRACTION = "hyperspace.serve.shed.batchOffFraction"
+SERVE_SHED_BATCH_OFF_FRACTION_DEFAULT = 0.9
+# the window the drain rate behind retry-after is measured over
+SERVE_DRAIN_RATE_WINDOW_SECONDS = "hyperspace.serve.retryAfter.windowSeconds"
+SERVE_DRAIN_RATE_WINDOW_SECONDS_DEFAULT = 10.0
+
+# --- tracing and export (telemetry/) ----------------------------------------------
+TELEMETRY_TRACING = "hyperspace.telemetry.tracing"
+TELEMETRY_TRACING_ON = "on"
+TELEMETRY_TRACING_OFF = "off"
+TELEMETRY_TRACING_MODES = (TELEMETRY_TRACING_ON, TELEMETRY_TRACING_OFF)
+TELEMETRY_TRACING_DEFAULT = TELEMETRY_TRACING_ON
+TELEMETRY_RECORDER_ENTRIES = "hyperspace.telemetry.recorder.entries"
+TELEMETRY_RECORDER_ENTRIES_DEFAULT = 64
+TELEMETRY_RECORDER_SNAPSHOTS = "hyperspace.telemetry.recorder.snapshots"
+TELEMETRY_RECORDER_SNAPSHOTS_DEFAULT = 8
+# unset: off; "auto": <system path>/_hyperspace_metrics
+TELEMETRY_EXPORT_DIR = "hyperspace.telemetry.export.dir"
+TELEMETRY_EXPORT_DIR_AUTO = "auto"
+TELEMETRY_METRICS_DIRNAME = "_hyperspace_metrics"
+TELEMETRY_EXPORT_ROTATE_BYTES = "hyperspace.telemetry.export.rotateBytes"
+TELEMETRY_EXPORT_ROTATE_BYTES_DEFAULT = 4 * 1024 * 1024
+TELEMETRY_EXPORT_KEEP = "hyperspace.telemetry.export.keep"
+TELEMETRY_EXPORT_KEEP_DEFAULT = 4

@@ -117,12 +117,44 @@ class DataFrame(EventLogging):
         return new_plan
 
     def collect(self) -> ColumnarBatch:
-        from .exec.executor import Executor
+        """Optimize and execute, under a per-query trace (conf
+        ``hyperspace.telemetry.tracing``): the plan and execute stages as
+        spans, the query's scoped metrics and its compiled pipeline on the
+        trace's meta (what ``session.last_trace`` and explain(verbose)
+        read), the finished trace rung into the flight recorder."""
+        import contextlib
 
-        plan = self.optimized_plan(log_usage=True)
-        return Executor(
-            self.session.device, self.session.conf.residency()
-        ).execute(plan)
+        from .exec.executor import Executor
+        from .telemetry.metrics import metrics
+        from .telemetry.recorder import flight_recorder
+        from .telemetry.trace import span, start_trace
+
+        conf = self.session.conf
+        executor = Executor(self.session.device, conf.residency(), conf)
+        tracing = conf.telemetry_tracing_enabled()
+        with (start_trace("query.collect") if tracing else contextlib.nullcontext()) as qtrace:
+            try:
+                with span("plan.optimize"):
+                    plan = self.optimized_plan(log_usage=True)
+                with metrics.scoped() as query_metrics, span("query.execute"):
+                    result = executor.execute(plan)
+            except BaseException as e:
+                # a failed query's trace is the one a post-mortem needs
+                if qtrace is not None:
+                    qtrace.finish(e)
+                    flight_recorder.record(qtrace)
+                raise
+        if qtrace is not None:
+            qtrace.meta["metrics"] = query_metrics.report()
+            pipeline = executor.last_pipeline
+            qtrace.meta["pipeline"] = pipeline.describe() if pipeline is not None else None
+            qtrace.finish()
+            self.session.last_trace = qtrace
+            flight_recorder.record(qtrace)
+        else:
+            # tracing off: no attribution rather than a previous query's
+            self.session.last_trace = None
+        return result
 
     def to_pandas(self):
         """The collected rows as a pandas DataFrame (needs ``pandas``,

@@ -40,7 +40,11 @@ that the join layer's setup and ranges caches key on; a filtered side
 derives its token from the predicate's ``repr``, a hybrid merge carries
 none (``join.cache.optout.*``).
 
-The compiled-pipeline and mesh arms are not ported.
+``execute`` runs a plan through the whole-plan compiler (``compile/``)
+unless conf ``hyperspace.compile.mode`` is ``off``: the plan's structural
+fingerprint finds a compiled pipeline in the process cache (lowered on a
+miss), and the pipeline runs with this interpreter as its fallback leg.
+The mesh arms come with multi-device.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..config import ResidencyConf
+from ..config import HyperspaceConf, ResidencyConf
 from ..exceptions import HyperspaceException
 from ..ops import DeviceLike
 from ..plan.expr import Expr, eval_mask
@@ -116,13 +120,36 @@ def _has_index_scan(plan: LogicalPlan) -> bool:
 
 class Executor:
     def __init__(
-        self, device: DeviceLike = None, residency: ResidencyConf = ResidencyConf()
+        self,
+        device: DeviceLike = None,
+        residency: ResidencyConf = ResidencyConf(),
+        conf: Optional[HyperspaceConf] = None,
     ):
         self.device = device
         self.residency = residency
+        self.conf = conf if conf is not None else HyperspaceConf()
+        # the CompiledPipeline the last execute() ran (None when the
+        # interpreter served directly): explain(verbose) attribution
+        self.last_pipeline = None
 
-    def execute(self, plan: LogicalPlan) -> ColumnarBatch:
-        return self._exec(plan, predicate=None)
+    def execute(
+        self, plan: LogicalPlan, version_token: Optional[tuple] = None
+    ) -> ColumnarBatch:
+        """Execute ``plan``, through the whole-plan compiler unless the
+        conf turns it off. ``version_token`` is the serve tier's pinned
+        index-log snapshot, folded into the pipeline cache's key (None
+        outside serving: the fingerprint already pins every leaf)."""
+        if self.conf.compile_mode() != "off":
+            from ..compile.cache import pipeline_cache
+
+            pipeline = pipeline_cache.get_or_lower(plan, self, version_token)
+            if pipeline is not None:
+                self.last_pipeline = pipeline
+                return pipeline.run(plan, self)
+        from ..telemetry.trace import span
+
+        with span("query.interpret"):
+            return self._exec(plan, predicate=None)
 
     # -- dispatch ------------------------------------------------------------
     def _exec(
@@ -282,6 +309,17 @@ class Executor:
             fused = self._try_resident_hybrid(plan, predicate)
             if fused is not None:
                 return fused
+        return self._exec_union_host(plan, predicate, columns)
+
+    def _exec_union_host(
+        self,
+        plan: Union,
+        predicate: Optional[Expr],
+        columns: Optional[List[str]],
+    ) -> ColumnarBatch:
+        """The union's two sides at once (``_exec_union``'s host arm): split
+        out so that the compiled hybrid pipeline's fallback never resolves
+        residency a second time."""
         import contextvars
         import time
         from concurrent.futures import ThreadPoolExecutor
@@ -310,7 +348,9 @@ class Executor:
                 )
         return ColumnarBatch.concat(parts)
 
-    def _try_resident_hybrid(self, plan: Union, predicate: Expr) -> Optional[ColumnarBatch]:
+    def _try_resident_hybrid(
+        self, plan: Union, predicate: Expr, structure_keyed: bool = False
+    ) -> Optional[ColumnarBatch]:
         """The delta-resident hybrid path: when ``plan`` is a hybrid union
         whose base table and appended delta are resident, one K1h launch
         counts base and delta (deleted base rows masked out on the
@@ -319,7 +359,10 @@ class Executor:
         decoded appended rows. None routes the host union, which, with a
         resident base and no delta yet, schedules the delta's background
         population so the next query lands here. Rows equal the host
-        union's: the host re-evaluates every candidate block exactly."""
+        union's: the host re-evaluates every candidate block exactly.
+        ``structure_keyed`` (the compiled hybrid pipeline): the count goes
+        through ``hybrid_block_counts_batch`` as a single, the same K1h
+        launch, counted under ``compile.fused.*``."""
         from ..plan.rules.hybrid_scan import parse_hybrid_union
         from .delta import resolve_hybrid_residency
         from .hbm_cache import hbm_cache
@@ -343,7 +386,12 @@ class Executor:
         if res.status != "ok":
             return None  # the union's index side schedules note_touch
         out_cols = list(info.user_cols)
-        counts = hbm_cache.hybrid_block_counts(res.table, res.delta, predicate)
+        if structure_keyed:
+            pairs = hbm_cache.hybrid_block_counts_batch(res.table, res.delta, [predicate],
+                                                        metric_ns="compile.fused")
+            counts = None if pairs is None else pairs[0]
+        else:
+            counts = hbm_cache.hybrid_block_counts(res.table, res.delta, predicate)
         if counts is None:
             return None
         base_counts, delta_counts = counts

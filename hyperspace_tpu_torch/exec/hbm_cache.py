@@ -65,7 +65,15 @@ error on a background thread is kept and raised by the next
 in a window loop or a hybrid launch raises on the query thread. A file
 that vanished before population is a skip, as in the reference.
 
-Not ported yet: the batched count programs of the serving layer.
+The serving layer's batched counts count N predicates over one table in
+one launch: ``block_counts_batch`` (K1b over raw or packed planes, the
+window loop on a streaming table) and ``hybrid_block_counts_batch`` (K1hb
+over base and delta). With N = 1 (the compiled pipelines' singles) they
+launch K1c, K1p or K1h as ``block_counts`` does: the program and its
+literals ride every launch's parameters, so no per-literal build exists
+to share. ``agg_scan`` aggregates a filtered resident table on the card
+(``exec/scan_agg.py``): K1's mask, then segment sums, counts, mins and
+maxes into the dense group slots, and the group table home.
 """
 
 from __future__ import annotations
@@ -88,6 +96,8 @@ from ..ops.bitpack import PackSpec
 from ..plan.expr import Expr, eval_mask
 from ..storage.columnar import Column, ColumnarBatch, is_string
 from ..telemetry.metrics import metrics
+from ..telemetry.trace import add_bytes as _trace_bytes
+from ..telemetry.trace import span as _trace_span
 from .bytecache import batch_nbytes, vocab_heap_bytes  # noqa: F401 (one copy, re-exported)
 
 BLOCK_ROWS = K.BLOCK_ROWS  # count granularity: 4 B D2H per 8192 rows
@@ -989,6 +999,7 @@ class HbmIndexCache(ResidentCacheBase):
                 uploads.extend(host_planes[name][3])
                 lengths.extend([n_pad] * len(host_planes[name][3]))
         device_planes = iter(_upload_planes(uploads, lengths, dev))
+        _trace_bytes("h2d_bytes", 4 * sum(lengths))
         cols: Dict[str, ResidentColumn] = {}
         nbytes = 0
         for name in order:
@@ -1055,6 +1066,19 @@ class HbmIndexCache(ResidentCacheBase):
                 t.last_used = time.monotonic()
             return t
 
+    def tier_of(self, files, columns, device: DeviceLike = None) -> Optional[str]:
+        """The tier of the table that would serve ``files`` x ``columns``
+        on ``device``, or None: a lookup for labels (explain), which
+        neither raises a background error nor counts as a use."""
+        try:
+            dev = _device(device)
+            want = {str(p): _file_identity(p) for p in files}
+        except (OSError, HyperspaceException):
+            return None
+        with self._lock:
+            t = self._covering_locked(want, set(columns), dev) if self._tables else None
+        return None if t is None else t.tier
+
     # -- the resident query --------------------------------------------------
     def block_counts(
         self, table: ResidentTable, predicate: Expr
@@ -1072,21 +1096,54 @@ class HbmIndexCache(ResidentCacheBase):
         prepared = prepare_resident_predicate(table.columns, predicate)
         if prepared is None:
             return None
-        narrowed, names = prepared
-        cols = resident_arrays_for(table.columns, names)
-        specs = resident_specs_for(table.columns, names)
+        names = prepared[1]
         t0 = time.perf_counter()
-        if any(s is not None for s in specs):
-            counts = K.predicate_block_counts_packed_tensor(
-                narrowed, names, cols, specs, table.n_pad
-            )
-        else:
-            counts = K.predicate_block_counts_tensor(narrowed, names, cols)
-        counts = counts.cpu().numpy()
+        counts = K.resident_counts_tensor(
+            [prepared], names, resident_arrays_for(table.columns, names),
+            resident_specs_for(table.columns, names), table.n_pad)[0].cpu().numpy()
         metrics.record_time("scan.resident.device", time.perf_counter() - t0)
         n_blocks = -(-table.n_rows // BLOCK_ROWS)
         metrics.incr("scan.resident.d2h_bytes", int(counts.nbytes))
+        _trace_bytes("d2h_bytes", int(counts.nbytes))
         return counts[:n_blocks]
+
+    def block_counts_batch(
+        self,
+        table,
+        predicates: List[Expr],
+        prepared: Optional[list] = None,
+        metric_ns: str = "serve.batch",
+    ) -> Optional[np.ndarray]:
+        """``(N, n_blocks)`` per-block match counts of N predicates over one
+        resident table, one count matrix home: K1b over the union of their
+        planes (raw or packed) for N > 1; for N = 1 the launch
+        ``block_counts`` makes (K1c or K1p). ``prepared`` carries each
+        predicate's ``prepare_resident_predicate`` result when the caller
+        has it (the serve classifier). None when any predicate does not
+        narrow (the caller serves the batch query by query). A streaming
+        table runs the window loop, one launch a window for the batch.
+        ``metric_ns`` names the counter family: "serve.batch" for the
+        micro-batcher, "compile.fused" for the compiled pipelines'
+        singles."""
+        if table.tier == "streaming":
+            from ..residency.streaming import stream_block_counts_batch
+
+            return stream_block_counts_batch(table, predicates, prepared, metric_ns)
+        if prepared is None:
+            prepared = [prepare_resident_predicate(table.columns, p) for p in predicates]
+        if any(p is None for p in prepared):
+            return None
+        union = tuple(dict.fromkeys(n for _, names in prepared for n in names))
+        t0 = time.perf_counter()
+        counts = K.resident_counts_tensor(
+            prepared, union, resident_arrays_for(table.columns, union),
+            resident_specs_for(table.columns, union), table.n_pad).cpu().numpy()
+        metrics.record_time(f"{metric_ns}.device", time.perf_counter() - t0)
+        metrics.incr(f"{metric_ns}.dispatches")
+        metrics.incr(f"{metric_ns}.queries", len(prepared))
+        metrics.incr("scan.resident.d2h_bytes", int(counts.nbytes))
+        _trace_bytes("d2h_bytes", int(counts.nbytes))
+        return counts[:, : -(-table.n_rows // BLOCK_ROWS)]
 
     # -- delta residency (the hybrid scan's appended side) --------------------
     def delta_for(
@@ -1258,6 +1315,7 @@ class HbmIndexCache(ResidentCacheBase):
                                         n_pad * 4 * (2 if enc == "f64" else 1), vocab, data2)
         del_mask = next(device_planes) if dels else None
         metrics.incr("hbm.delta.h2d_bytes", dev_bytes)
+        _trace_bytes("h2d_bytes", dev_bytes)
         metrics.record_time("hbm.delta.prefetch", time.perf_counter() - t0)
         return DeltaRegion(delta_snapshot_key(appended), table.key, dels, n_rows, n_pad, cols,
                            oov, host_batch, del_mask, zones,
@@ -1293,20 +1351,58 @@ class HbmIndexCache(ResidentCacheBase):
         prepared = prepare_hybrid_predicate(table.columns, delta.oov, predicate)
         if prepared is None:
             return None
-        narrowed, names = prepared
+        names = prepared[1]
         if any(n.split("\x00", 1)[0] not in delta.columns for n in names):
             return None
-        bcols = resident_arrays_for(table.columns, names)
-        dcols = resident_arrays_for(delta.columns, names)
         t0 = time.perf_counter()
-        counts = K.hybrid_block_counts_tensor(narrowed, names, bcols, dcols,
-                                              delta.del_mask).cpu().numpy()
+        counts = K.hybrid_counts_tensor(
+            [prepared], names, resident_arrays_for(table.columns, names),
+            resident_arrays_for(delta.columns, names), delta.del_mask)[0].cpu().numpy()
         metrics.record_time("scan.resident_hybrid.device", time.perf_counter() - t0)
         metrics.incr("scan.resident.d2h_bytes", int(counts.nbytes))
+        _trace_bytes("d2h_bytes", int(counts.nbytes))
         nb_pad = table.n_pad // BLOCK_ROWS
         nb = -(-table.n_rows // BLOCK_ROWS)
         nd = -(-delta.n_rows // BLOCK_ROWS)
         return counts[:nb], counts[nb_pad : nb_pad + nd]
+
+    def hybrid_block_counts_batch(
+        self,
+        table: ResidentTable,
+        delta: DeltaRegion,
+        predicates: List[Expr],
+        prepared: Optional[list] = None,
+        metric_ns: str = "serve.batch",
+    ) -> Optional[list]:
+        """Per predicate (base counts, delta counts) of N hybrid queries
+        over one base and its delta: K1hb once for N > 1, K1h for N = 1 (the
+        compiled hybrid pipeline's single). None when any predicate cannot
+        ride the shared encodings (the caller serves the batch query by
+        query). ``metric_ns`` as ``block_counts_batch``'s."""
+        from .delta import prepare_hybrid_predicate
+
+        if prepared is None:
+            prepared = [prepare_hybrid_predicate(table.columns, delta.oov, p)
+                        for p in predicates]
+        if any(p is None for p in prepared):
+            return None
+        if any(n.split("\x00", 1)[0] not in delta.columns
+               for _, names in prepared for n in names):
+            return None
+        union = tuple(dict.fromkeys(n for _, names in prepared for n in names))
+        t0 = time.perf_counter()
+        counts = K.hybrid_counts_tensor(
+            prepared, union, resident_arrays_for(table.columns, union),
+            resident_arrays_for(delta.columns, union), delta.del_mask).cpu().numpy()
+        metrics.record_time(f"{metric_ns}.device", time.perf_counter() - t0)
+        metrics.incr(f"{metric_ns}.dispatches")
+        metrics.incr(f"{metric_ns}.queries", len(prepared))
+        metrics.incr("scan.resident.d2h_bytes", int(counts.nbytes))
+        _trace_bytes("d2h_bytes", int(counts.nbytes))
+        nb_pad = table.n_pad // BLOCK_ROWS
+        nb = -(-table.n_rows // BLOCK_ROWS)
+        nd = -(-delta.n_rows // BLOCK_ROWS)
+        return [(c[:nb], c[nb_pad : nb_pad + nd]) for c in counts]
 
     def delta_parts(
         self, delta: DeltaRegion, predicate: Expr, output_columns, counts: np.ndarray
@@ -1473,6 +1569,7 @@ class HbmIndexCache(ResidentCacheBase):
         counts = counts.cpu().numpy()
         metrics.record_time("scan.resident_join.device", time.perf_counter() - t0)
         metrics.incr("scan.resident_join.d2h_bytes", int(lo.nbytes + counts.nbytes))
+        _trace_bytes("d2h_bytes", int(lo.nbytes + counts.nbytes))
         return lo.astype(np.int64), counts.astype(np.int64)
 
     def join_agg(self, region, group_by, aggs):
@@ -1492,7 +1589,39 @@ class HbmIndexCache(ResidentCacheBase):
         outs = [o.cpu().numpy() for o in join_agg_outputs(region, plan)]
         metrics.record_time("scan.resident_join_agg.device", time.perf_counter() - t0)
         metrics.incr("scan.resident_join.d2h_bytes", sum(int(o.nbytes) for o in outs))
+        _trace_bytes("d2h_bytes", sum(int(o.nbytes) for o in outs))
         return finish_join_agg(region, plan, list(group_by), list(aggs), outs)
+
+    def agg_scan(self, table, predicate: Expr, group_by, aggs):
+        """The device aggregate of an ``agg_scan`` pipeline
+        (``exec/scan_agg.py``): K1's mask of the predicate over the resident
+        planes, then dense-key segment sums, counts, mins and maxes on the
+        card, and one copy home of the span-sized group vectors, the
+        finished group table. ``(batch, "ok")``, or ``(None, reason)`` when
+        the spec or predicate cannot ride the device exactly (the caller
+        counts ``compile.agg.declined.<reason>`` and aggregates on the
+        host). No selectivity gate: the host reads nothing here. A device
+        error raises."""
+        from .scan_agg import finish_scan_agg, scan_agg_outputs, scan_agg_plan
+
+        plan, reason = scan_agg_plan(table, list(group_by), list(aggs))
+        if plan is None:
+            return None, reason
+        prepared = prepare_resident_predicate(table.columns, predicate)
+        if prepared is None:
+            return None, "predicate"
+        t0 = time.perf_counter()
+        with _trace_span("scan.agg_dispatch", tier=table.tier,
+                         agg="segment_" + ",".join(sorted({a.fn for a in aggs})),
+                         span_slots=plan.span):
+            outs = [o.cpu().numpy() for o in scan_agg_outputs(table, prepared, plan)]
+        metrics.record_time("scan.resident_agg.device", time.perf_counter() - t0)
+        d2h = sum(int(o.nbytes) for o in outs)
+        metrics.incr("scan.resident.d2h_bytes", d2h)
+        _trace_bytes("d2h_bytes", d2h)
+        batch = finish_scan_agg(table, plan, list(group_by), list(aggs), outs)
+        metrics.incr("scan.path.resident_agg")
+        return batch, "ok"
 
 
 hbm_cache = HbmIndexCache()

@@ -59,6 +59,7 @@ import torch
 from ..plan.ir import BucketUnion, Filter, IndexScan, Join, Project, Repartition, Union
 from ..storage.columnar import Column, ColumnarBatch, is_string, numpy_dtype
 from ..telemetry.metrics import metrics
+from ..telemetry.trace import add_bytes as _trace_bytes
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 # the reference's mesh pads (kept so both packages refuse the same code
@@ -495,6 +496,7 @@ def build_join_region(
             pc.nbytes += int(slots.nbytes)
         (l_cols if side == "l" else r_cols)[name] = pc
     metrics.incr("hbm.join.h2d_bytes", dev_bytes)
+    _trace_bytes("h2d_bytes", dev_bytes)
     metrics.record_time("hbm.join.prefetch", time.perf_counter() - t0)
     return JoinRegion(
         key, n_l, n_r, l_dev, r_dev, r_order, uniq_right, l_cols, r_cols,
@@ -652,6 +654,29 @@ def _decode(flat, i: int, enc: str):
     return flat[i].to(torch.int64), None
 
 
+def segment_sum(x: torch.Tensor, slots: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-slot sums of ``x`` into ``n`` slots (``index_add_``: int64 wraps
+    as the host's accumulator does; float64 adds in an order the device
+    picks)."""
+    return torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(0, slots, x)
+
+
+def segment_reduce(x: torch.Tensor, slots64: torch.Tensor, n: int, how: str,
+                   identity) -> torch.Tensor:
+    """Per-slot ``how`` ("amin"/"amax") of ``x`` into ``n`` slots that start
+    at ``identity`` (an empty slot keeps it); ``slots64`` int64."""
+    out = torch.full((n,), identity, dtype=x.dtype, device=x.device)
+    return out.scatter_reduce_(0, slots64, x, how, include_self=True)
+
+
+def extreme(dtype: torch.dtype, high: bool):
+    """The identity of a segment min (``high``) or max over ``dtype``:
+    +-inf for float64, the int64 bounds otherwise."""
+    if dtype == torch.float64:
+        return float("inf") if high else float("-inf")
+    return torch.iinfo(torch.int64).max if high else torch.iinfo(torch.int64).min
+
+
 def _core_agg(specs, span, uniq_right, lo, counts, slots, flat) -> list:
     """The segment aggregates of the fused join-aggregate: ``lo``/``counts``
     (int64, one per left row) are the match ranges, ``slots`` the group
@@ -665,14 +690,13 @@ def _core_agg(specs, span, uniq_right, lo, counts, slots, flat) -> list:
     slots64 = None
 
     def seg_sum(x):
-        return torch.zeros(span, dtype=x.dtype, device=dev).index_add_(0, slots, x)
+        return segment_sum(x, slots, span)
 
     def seg_reduce(x, how, identity):
         nonlocal slots64
         if slots64 is None:
             slots64 = slots.to(torch.int64)
-        out = torch.full((span,), identity, dtype=x.dtype, device=dev)
-        return out.scatter_reduce_(0, slots64, x, how, include_self=True)
+        return segment_reduce(x, slots64, span, how, identity)
 
     outs = [seg_sum(counts)]
     hit = counts > 0
@@ -716,12 +740,11 @@ def _core_agg(specs, span, uniq_right, lo, counts, slots, flat) -> list:
             elif op == "nn":
                 outs.append(seg_sum(per_nn))
             elif op == "min":
-                big = float("inf") if vals.dtype == torch.float64 else torch.iinfo(torch.int64).max
+                big = extreme(vals.dtype, True)
                 outs.append(seg_reduce(torch.where(contrib, vals, torch.full_like(vals, big)),
                                        "amin", big))
             else:  # max
-                small = (float("-inf") if vals.dtype == torch.float64
-                         else torch.iinfo(torch.int64).min)
+                small = extreme(vals.dtype, False)
                 outs.append(seg_reduce(torch.where(contrib, vals, torch.full_like(vals, small)),
                                        "amax", small))
     return outs

@@ -47,6 +47,9 @@ from ..plan.expr import Expr, bind_string_literals, bounds_for_column, eval_mask
 from ..storage import layout
 from ..storage.columnar import Column, ColumnarBatch
 from ..telemetry.metrics import metrics
+from ..telemetry.trace import add_bytes as _trace_bytes
+from ..telemetry.trace import annotate as _trace_annotate
+from ..telemetry.trace import span as _trace_span
 
 
 def buckets_for_predicate(
@@ -96,6 +99,7 @@ def device_mask(
     mask = _mask_kernel(bound, batch, names, n, device)
     if mask is not None:
         metrics.incr("scan.path.kernel_mask")
+        _trace_bytes("d2h_bytes", mask.nbytes)
         return mask
     # not int32-narrowable: the same predicate in torch ops on the device
     metrics.incr("scan.path.torch_mask")
@@ -144,6 +148,7 @@ def _resident_parts(
         metrics.incr(path_metric)
     metrics.incr("scan.resident.blocks_touched", int(len(candid)))
     metrics.incr("scan.resident.blocks_total", int(len(counts)))
+    _trace_annotate(host_blocks=int(len(candid)))
     if candid.size == 0:
         return []
     need = list(dict.fromkeys(list(output_columns) + sorted(predicate.columns())))
@@ -182,12 +187,17 @@ def _resident_scan(
     predicate: Expr,
     device: DeviceLike,
     residency: ResidencyConf,
+    structure_keyed: bool = False,
 ) -> Optional[List[ColumnarBatch]]:
     """The resident arm of ``index_scan``: its result parts, or None when
     the query takes the per-file path (no covering table, the zone gate
     routed host, or the predicate does not narrow to the resident
     encodings). A miss schedules first-touch population over the index
-    version's FULL file list, so one table serves every later subset."""
+    version's FULL file list, so one table serves every later subset.
+    ``structure_keyed``: the count goes through ``block_counts_batch`` as
+    a single (the compiled pipeline's entry, counted under
+    ``compile.fused.*``), the same launch ``block_counts`` makes; a
+    streaming table keeps the single window loop."""
     from .hbm_cache import hbm_cache, zone_block_fraction
 
     pred_cols = sorted(predicate.columns())
@@ -207,7 +217,13 @@ def _resident_scan(
         if residency.max_block_frac < 1.0 and frac >= residency.max_block_frac:
             metrics.incr("scan.gate.resident_selectivity")
             return None
-    counts = hbm_cache.block_counts(table, predicate)
+    with _trace_span("scan.device_dispatch", tier=table.tier,
+                     structure_keyed=bool(structure_keyed)):
+        if structure_keyed and table.tier != "streaming":
+            m = hbm_cache.block_counts_batch(table, [predicate], metric_ns="compile.fused")
+            counts = None if m is None else m[0]
+        else:
+            counts = hbm_cache.block_counts(table, predicate)
     if counts is None:
         metrics.incr("scan.resident.declined")
         return None
@@ -279,12 +295,14 @@ def index_scan(
     dtypes: Optional[dict] = None,
     num_buckets: Optional[int] = None,
     residency: ResidencyConf = ResidencyConf(),
+    structure_keyed: bool = False,
 ) -> ColumnarBatch:
     """Scan index data files, returning the filtered projection in file
     order. When ``indexed_columns``/``dtypes``/``num_buckets`` describe the
     index's bucketing, equality predicates prune to their hash buckets
     before any file is opened. ``residency`` is the session's HBM
-    residency policy (exec.hbm_cache)."""
+    residency policy (exec.hbm_cache); ``structure_keyed`` is the compiled
+    pipeline's entry (``_resident_scan``)."""
     all_files = [Path(p) for p in data_files]
     pinned = None
     if predicate is not None and indexed_columns and dtypes and num_buckets:
@@ -305,34 +323,35 @@ def index_scan(
     )
     if predicate is not None and files:
         resident = _resident_scan(
-            all_files, files, output_columns, predicate, device, residency
+            all_files, files, output_columns, predicate, device, residency, structure_keyed
         )
         if resident is not None:
             if resident:
                 return ColumnarBatch.concat(resident)
             return _empty_result(files, output_columns, dtypes)
-    # run files under pinned buckets are read at those buckets' row ranges
-    # only (the runs layout's stand-in for file-level bucket pruning)
-    special: dict = {}
-    if pinned is not None and any(layout.is_run_file(f) for f in files):
-        with metrics.timer("scan.run_segment_io"):
-            special = _read_run_segments(
-                [f for f in files if layout.is_run_file(f)], need, pinned
-            )
-    bulk_files = [f for f in files if f not in special]
-    bmap = dict(zip(bulk_files, layout.read_batches(bulk_files, columns=need)))
-    bmap.update(special)
     parts: List[ColumnarBatch] = []
-    for f in files:
-        batch = bmap[f]
-        if batch is None or batch.num_rows == 0:
-            continue
-        if predicate is not None:
-            idx = np.flatnonzero(device_mask(predicate, batch, device))
-            if idx.size == 0:
+    with _trace_span("scan.host_scan", files=len(files)):
+        # run files under pinned buckets are read at those buckets' row
+        # ranges only (the runs layout's stand-in for file-level pruning)
+        special: dict = {}
+        if pinned is not None and any(layout.is_run_file(f) for f in files):
+            with metrics.timer("scan.run_segment_io"):
+                special = _read_run_segments(
+                    [f for f in files if layout.is_run_file(f)], need, pinned
+                )
+        bulk_files = [f for f in files if f not in special]
+        bmap = dict(zip(bulk_files, layout.read_batches(bulk_files, columns=need)))
+        bmap.update(special)
+        for f in files:
+            batch = bmap[f]
+            if batch is None or batch.num_rows == 0:
                 continue
-            batch = batch.take(idx)
-        parts.append(batch.select(output_columns))
+            if predicate is not None:
+                idx = np.flatnonzero(device_mask(predicate, batch, device))
+                if idx.size == 0:
+                    continue
+                batch = batch.take(idx)
+            parts.append(batch.select(output_columns))
     if not parts:
         return _empty_result(files, output_columns, dtypes)
     return ColumnarBatch.concat(parts)

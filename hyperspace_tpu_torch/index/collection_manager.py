@@ -7,14 +7,13 @@ index listing that every mutating verb clears), plus ``prefetch`` (HBM
 residency, a verb the reference package added).
 
 A full or incremental refresh and an optimize drop this index's resident
-deltas (``_invalidate_resident_deltas``): the new version's file
-identities change their base keys, so they could never serve again. A
-quick refresh changes no index file and keeps them. The reference also
-drops caches this package does not have yet; they come with items of
-ROADMAP.md's queue A: resident join regions and the mesh cache
-(residency), and compiled pipelines with their memoized results
-(compiler and serving). The resident tables this package keeps are keyed
-by file identity, so a new version never reads an old one's planes.
+deltas and join regions (``_invalidate_resident_deltas``): the new
+version's file identities change their keys, so they could never serve
+again; they drop the compiled pipelines and memoized results scoped to
+the index too (``_invalidate_compiled``), as a delete does. A quick
+refresh changes no index file and keeps them all. The resident tables
+are keyed by file identity, so a new version never reads an old one's
+planes. (The reference's mesh cache comes with multi-device.)
 """
 
 from __future__ import annotations
@@ -53,6 +52,20 @@ def _invalidate_resident_deltas(index_root) -> None:
 
     hbm_cache.invalidate_deltas(str(index_root))
     hbm_cache.invalidate_joins(str(index_root))
+    _invalidate_compiled(index_root)
+
+
+def _invalidate_compiled(index_root) -> None:
+    """Drop the compiled pipelines and memoized results scoped to this
+    index's directory (a join pipeline carries both sides' roots, so
+    either side's change drops it). Their keys would miss on their own;
+    the eager drop keeps the bounded caches from pinning dead routing
+    state."""
+    from ..compile.cache import pipeline_cache
+    from ..compile.result_cache import result_cache
+
+    pipeline_cache.invalidate(str(index_root))
+    result_cache.invalidate(str(index_root))
 
 
 class IndexCollectionManager:
@@ -97,6 +110,9 @@ class IndexCollectionManager:
 
     def delete(self, name: str) -> None:
         DeleteAction(self._existing_log_manager(name), self.conf).run()
+        # pipelines over a deleted index could serve only until their keys
+        # missed: drop them, and their memoized results, now
+        _invalidate_compiled(self.path_resolver.get_index_path(name))
 
     def restore(self, name: str) -> None:
         RestoreAction(self._existing_log_manager(name), self.conf).run()

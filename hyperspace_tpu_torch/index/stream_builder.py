@@ -67,6 +67,8 @@ from ..residency import slabs as slab_budget
 from ..storage import layout
 from ..storage.columnar import Column, ColumnarBatch, is_string
 from ..telemetry.metrics import metrics
+from ..telemetry.trace import add_bytes as _trace_bytes
+from ..telemetry.trace import span as _span
 from ..utils.memo import bounded_memo_put
 
 SPILL_DIR_NAME = ".spill"
@@ -424,6 +426,7 @@ class _DeviceRunStager:
             self.slab.fence(stream)
         metrics.incr("build.stream.h2d_bytes", h2d_bytes)
         metrics.incr("build.device.staged_chunks")
+        _trace_bytes("h2d_bytes", h2d_bytes)
         self.union = union
         self.pending.append(staged)
         self.batches.append(batch)
@@ -460,6 +463,7 @@ class _DeviceRunStager:
         del staged  # the fetch keeps what the copies still read
         d2h_bytes = 4 * r * w.chunk_capacity + 8 * w.num_buckets
         metrics.incr("build.device.staged_runs")
+        _trace_bytes("d2h_bytes", d2h_bytes)
 
         def finish(fetch=fetch, batches=batches, d2h_bytes=d2h_bytes):
             from ..ops.build import _canonicalize_f64
@@ -1206,20 +1210,26 @@ def write_index_data_streaming(
         else:
             batched = True
         wait_s = 0.0
-        while True:
-            t0 = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
-                break
-            wait_s += time.perf_counter() - t0
-            if batched:
-                for chunk in item:
-                    writer.add_chunk(chunk)
-            else:
-                writer.add_chunk(item)
+        # the build loop's stages as spans (under a trace the caller opened):
+        # the ingest + dispatch loop, with its ingest wait, then finalize
+        with _span("build.ingest_dispatch") as ingest_span:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    break
+                wait_s += time.perf_counter() - t0
+                if batched:
+                    for chunk in item:
+                        writer.add_chunk(chunk)
+                else:
+                    writer.add_chunk(item)
+            if ingest_span is not None:
+                ingest_span.labels["ingest_wait_s"] = round(wait_s, 4)
         metrics.record_time("build.stream.ingest_wait", wait_s)
-        return writer.finalize()
+        with _span("build.finalize"):
+            return writer.finalize()
     except BaseException:
         if it is not None and hasattr(it, "close"):
             it.close()  # join the ingest workers before the spill teardown

@@ -70,8 +70,10 @@ def fence(device: Optional[torch.device] = None) -> None:
 # tiers' kernels (K1p: packed planes; K1h: base + delta)
 from .kernels import (  # noqa: E402,F401
     K1,
+    K1B,
     K1C,
     K1H,
+    K1HB,
     K1P,
     K2,
     K2F,

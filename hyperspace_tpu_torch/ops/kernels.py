@@ -86,6 +86,8 @@ K1 = "predicate_mask"
 K1C = "predicate_block_counts"  # K1's block-count entry, same source
 K1P = "predicate_block_counts_packed"  # K1c over bit-packed planes, same source
 K1H = "hybrid_block_counts"  # K1c over base + delta planes, same source
+K1B = "predicate_block_counts_batch"  # N programs over one table, same source
+K1HB = "hybrid_block_counts_batch"  # K1h with N programs, same source
 K2 = "sorted_intersect"
 K2F = "sorted_intersect_fences"  # K2's fence-array entry, same source
 K2P = "sorted_intersect_packed"  # K2 over FoR-packed right keys, same source
@@ -188,6 +190,18 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
                     entry.restype = ci
                 for entry in (lib.hs_predicate_block_counts_packed, lib.hs_hybrid_block_counts):
                     entry.argtypes = [ctypes.c_char_p, ctypes.c_char_p, vp]
+                    entry.restype = ci
+                lib.hs_batch_param_bytes.argtypes = []
+                lib.hs_batch_param_bytes.restype = ci
+                if lib.hs_batch_param_bytes() != _BATCH_PARAM_BYTES:
+                    raise HyperspaceException(
+                        "predicate_mask.cu's BatchParams is "
+                        f"{lib.hs_batch_param_bytes()} bytes; ops/kernels.py packs "
+                        f"{_BATCH_PARAM_BYTES}."
+                    )
+                for entry in (lib.hs_predicate_block_counts_batch,
+                              lib.hs_hybrid_block_counts_batch):
+                    entry.argtypes = [ctypes.c_char_p, vp]
                     entry.restype = ci
             else:
                 lib.hs_sorted_intersect_fences.argtypes = [vp, ll, vp, vp]
@@ -955,6 +969,239 @@ def hybrid_block_counts_tensor(
     _launch_k1("hs_hybrid_block_counts", K1H, program, list(base_cols) + list(delta_cols),
                n, counts, addrs=addrs, extra=extra)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# K1b / K1hb: N programs over one table's planes in one launch (the serving
+# layer's micro-batches); the programs, offsets, descriptors and addresses
+# ride a device buffer copied for the launch (csrc/predicate_mask.cu:
+# BatchParams), not the 4 KB parameter block
+# ---------------------------------------------------------------------------
+_BATCH_PARAM_BYTES = 88
+K1B_COUNT_BYTES = 4  # shared memory a program's block counter takes
+
+
+def k1b_plan(vpws, n_progs: int, depth: int) -> Tuple[int, int, int]:
+    """(sub_rows, stage_bytes, smem) of a K1b/K1hb launch over planes of
+    ``vpws`` values a word (1: raw) for ``n_progs`` programs whose deepest
+    needs ``depth`` stack slots: the largest sub-tile of ``K1P_SUB_ROWS``
+    whose slices fit shared memory beside the slice table (16 bytes a
+    plane), the counters and the stack. Raises when nothing fits."""
+    fixed = 16 * len(vpws) + (-(-K1B_COUNT_BYTES * n_progs // 16) * 16) \
+        + 4 * depth * K1C_THREADS
+    for rows in K1P_SUB_ROWS:
+        stage = sum(4 * rows // v for v in vpws)
+        if stage + fixed <= K1_MAX_SMEM:
+            return rows, stage, stage + fixed
+    raise HyperspaceException(
+        f"{K1B}: {len(vpws)} planes and {n_progs} programs of depth {depth} fit no "
+        f"{K1P_SUB_ROWS[-1]}-row sub-tile in shared memory ({K1_MAX_SMEM} bytes)."
+    )
+
+
+def batch_programs(preds, names: Tuple[str, ...]) -> List[K1Program]:
+    """Each narrowed predicate of ``preds`` (``(bound, its names)`` pairs)
+    lowered over the union ``names`` (column operands index ``names``), from
+    the lowering cache: checked and sized once, reused by every batch."""
+    return [lowered_predicate(bound, tuple(names)) for bound, _ in preds]
+
+
+def _as_programs(progs, n_cols: int) -> List[K1Program]:
+    """``progs`` as launchable programs over ``n_cols`` planes: a raw
+    ``(n, 4)`` program is checked (``K1Program``), a ``K1Program`` must
+    name as many planes."""
+    out = [p if isinstance(p, K1Program) else K1Program(p, n_cols) for p in progs]
+    if any(p.n_cols != n_cols for p in out):
+        raise HyperspaceException(f"{K1B}: a program over other planes than the launch's.")
+    return out
+
+
+def _batch_launch(entry: str, what: str, progs: List[K1Program], addrs: List[int],
+                  descs: np.ndarray, n_rows: int, nb_base: int, del_addr: int,
+                  out: torch.Tensor, dev: torch.device) -> None:
+    """Pack the programs, offsets, descriptors and addresses into one device
+    buffer, fill BatchParams around it and launch ``entry``."""
+    n_cols = len(descs)
+    depth = max(p.depth for p in progs)
+    sub_rows, stage, _smem = k1b_plan(descs[:, 2].tolist(), len(progs), depth)
+    code = np.concatenate([p.prog for p in progs])
+    offs = np.zeros(len(progs) + 1, dtype=np.int32)
+    offs[1:] = np.cumsum([len(p.prog) for p in progs])
+    # one buffer, each part on 16 bytes: addresses, descriptors, code, offsets
+    parts = [np.ascontiguousarray(a, dtype=dt).reshape(-1).view(np.uint8)
+             for a, dt in ((addrs, np.int64), (descs, np.int32), (code, np.int32),
+                           (offs, np.int32))]
+    starts, total = [], 0
+    for a in parts:
+        starts.append(total)
+        total += -(-a.size // 16) * 16
+    host = np.zeros(total, dtype=np.uint8)
+    for a, st in zip(parts, starts):
+        host[st : st + a.size] = a
+    buf = torch.from_numpy(host).to(dev)
+    base = buf.data_ptr()
+    params = struct.pack(
+        "<6q2q6i", base + starts[2], base + starts[3], base + starts[1], base + starts[0],
+        del_addr, out.data_ptr(), n_rows, nb_base, len(progs), n_cols, sub_rows, stage,
+        depth, 0,
+    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _check_launch(getattr(_lib(K1), entry)(params, stream), what)
+    count_launch(what)
+
+
+def resident_counts_tensor(prepared, names: Tuple[str, ...], cols: List[torch.Tensor], specs,
+                           n_rows: int) -> torch.Tensor:
+    """int32 ``(N, n_rows / BLOCK_ROWS)`` counts of N prepared predicates
+    (``(bound, its names)`` pairs) over one table's planes ``cols`` named
+    ``names`` (raw, or packed under ``specs``): the launch the residency
+    tiers choose. N = 1 takes the single entries, K1p where a plane is
+    packed, else K1c; N > 1 takes K1b (plain versions on the CPU)."""
+    if len(prepared) > 1:
+        return predicate_block_counts_batch_tensor(prepared, names, cols, specs, n_rows)
+    bound, pn = prepared[0]
+    if tuple(pn) != tuple(names):
+        raise HyperspaceException(f"{K1C}: one predicate's planes are the launch's planes.")
+    if any(s is not None for s in specs):
+        return predicate_block_counts_packed_tensor(bound, pn, cols, specs, n_rows)[None]
+    return predicate_block_counts_tensor(bound, pn, cols)[None]
+
+
+def predicate_block_counts_batch_reference(
+    preds, names: Tuple[str, ...], cols: List[torch.Tensor], specs, n_rows: int
+) -> torch.Tensor:
+    """Plain version of K1b: ``predicate_block_counts_packed_reference`` (its
+    planes decoded, then K1c's plain version) for each predicate, stacked."""
+    at = {n: i for i, n in enumerate(names)}
+    return torch.stack([
+        predicate_block_counts_packed_reference(
+            bound, tuple(pn), [cols[at[n]] for n in pn], [specs[at[n]] for n in pn], n_rows)
+        for bound, pn in preds
+    ])
+
+
+def predicate_block_counts_batch_tensor(
+    preds, names: Tuple[str, ...], cols: List[torch.Tensor], specs, n_rows: int
+) -> torch.Tensor:
+    """int32 ``(N, n_rows / BLOCK_ROWS)`` match counts of N narrowed
+    predicates (``preds``: ``(bound, its plane names)`` pairs) over one
+    table's planes ``cols`` named ``names``, each raw (``specs[i]`` None) or
+    plain-packed under ``specs[i]``, ``n_rows`` a multiple of ``BLOCK_ROWS``.
+    CPU tensors take the plain version; CUDA tensors launch K1b once."""
+    specs = list(specs)
+    if len(specs) != len(cols) or len(cols) != len(names) or not preds:
+        raise HyperspaceException(f"{K1B}: one spec per plane, one plane per name, a predicate.")
+    addrs = _check_packed(cols, specs, n_rows)
+    if cols[0].device.type == "cpu":
+        return predicate_block_counts_batch_reference(preds, names, cols, specs, n_rows)
+    return program_block_counts_batch_tensor(batch_programs(preds, names), cols, specs, n_rows,
+                                             addrs=addrs)
+
+
+def program_block_counts_batch_tensor(
+    progs: List[np.ndarray], cols: List[torch.Tensor], specs, n_rows: int, addrs=None,
+) -> torch.Tensor:
+    """``predicate_block_counts_batch_tensor`` for lowered programs (raw
+    ``(n, 4)`` arrays or ``K1Program``s) over ``cols`` (column operands
+    index ``cols``). CPU tensors interpret each program over the decoded
+    planes (``run_postfix_reference``); CUDA tensors launch K1b."""
+    specs = list(specs)
+    if addrs is None:
+        addrs = _check_packed(cols, specs, n_rows)
+    progs = _as_programs(progs, len(cols))
+    if cols[0].device.type == "cpu":
+        return torch.stack([program_block_counts_packed_reference(p, cols, specs, n_rows)
+                            for p in progs])
+    for t in cols:
+        _check_cuda(t, torch.int32, K1B)
+    dev = cols[0].device
+    nb = n_rows // BLOCK_ROWS
+    out = torch.empty((len(progs), nb), dtype=torch.int32, device=dev)
+    if nb:
+        _batch_launch("hs_predicate_block_counts_batch", K1B, progs, addrs, packed_header(specs),
+                      n_rows, nb, 0, out, dev)
+    return out
+
+
+def hybrid_counts_tensor(prepared, names: Tuple[str, ...], base_cols, delta_cols,
+                         del_words: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int32 ``(N, base blocks + delta blocks)`` of N prepared predicates
+    over raw base and delta planes named ``names``: K1h for N = 1, K1hb
+    for more (plain versions on the CPU)."""
+    if len(prepared) > 1:
+        return hybrid_block_counts_batch_tensor(prepared, names, base_cols, delta_cols, del_words)
+    bound, pn = prepared[0]
+    if tuple(pn) != tuple(names):
+        raise HyperspaceException(f"{K1H}: one predicate's planes are the launch's planes.")
+    return hybrid_block_counts_tensor(bound, pn, base_cols, delta_cols, del_words)[None]
+
+
+def hybrid_block_counts_batch_reference(
+    preds, names: Tuple[str, ...], base_cols, delta_cols, del_words=None
+) -> torch.Tensor:
+    """Plain version of K1hb: ``hybrid_block_counts_reference`` for each
+    predicate, stacked."""
+    at = {n: i for i, n in enumerate(names)}
+    return torch.stack([
+        hybrid_block_counts_reference(bound, tuple(pn), [base_cols[at[n]] for n in pn],
+                                      [delta_cols[at[n]] for n in pn], del_words)
+        for bound, pn in preds
+    ])
+
+
+def hybrid_block_counts_batch_tensor(
+    preds, names: Tuple[str, ...], base_cols: List[torch.Tensor],
+    delta_cols: List[torch.Tensor], del_words: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """int32 ``(N, base blocks + delta blocks)``: K1h's counts of N narrowed
+    predicates (``(bound, its plane names)`` pairs) over raw base and delta
+    planes named ``names``, the rows set in ``del_words`` not counted. CPU
+    tensors take the plain version; CUDA tensors launch K1hb once."""
+    if not preds or len(base_cols) != len(names) or len(delta_cols) != len(names):
+        raise HyperspaceException(f"{K1HB}: one base and one delta plane per name, a predicate.")
+    n_base, n_delta = _check_blocked(base_cols), _check_blocked(delta_cols)
+    if del_words is not None and int(del_words.shape[0]) * 32 != n_base:
+        raise HyperspaceException(f"{K1HB}: a deletion mask of {del_words.shape[0]} words "
+                                  f"for {n_base} base rows.")
+    if base_cols[0].device.type == "cpu":
+        return hybrid_block_counts_batch_reference(preds, names, base_cols, delta_cols, del_words)
+    return program_hybrid_counts_batch_tensor(batch_programs(preds, names), base_cols,
+                                              delta_cols, del_words)
+
+
+def program_hybrid_counts_batch_tensor(
+    progs: List[np.ndarray], base_cols: List[torch.Tensor], delta_cols: List[torch.Tensor],
+    del_words: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``hybrid_block_counts_batch_tensor`` for lowered programs. CPU
+    tensors interpret each program (K1h's plain version's semantics); CUDA
+    tensors launch K1hb."""
+    n_base, n_delta = _check_blocked(base_cols), _check_blocked(delta_cols)
+    progs = _as_programs(progs, len(base_cols))
+    if base_cols[0].device.type == "cpu":
+        out = []
+        for p in progs:
+            mb = run_postfix_reference(p.prog, base_cols)
+            if del_words is not None:
+                mb = mb & ~unpack_row_bitmask(del_words, mb.shape[0])
+            md = run_postfix_reference(p.prog, delta_cols)
+            out.append(torch.cat([mb.view(-1, BLOCK_ROWS).sum(1, dtype=torch.int32),
+                                  md.view(-1, BLOCK_ROWS).sum(1, dtype=torch.int32)]))
+        return torch.stack(out)
+    for t in list(base_cols) + list(delta_cols):
+        _check_cuda(t, torch.int32, K1HB)
+    if del_words is not None:
+        _check_cuda(del_words, torch.int32, K1HB)
+    dev = base_cols[0].device
+    addrs = k1_column_addrs(base_cols, K1HB) + k1_column_addrs(delta_cols, K1HB)
+    nb = (n_base + n_delta) // BLOCK_ROWS
+    out = torch.empty((len(progs), nb), dtype=torch.int32, device=dev)
+    if nb:
+        _batch_launch("hs_hybrid_block_counts_batch", K1HB, progs, addrs,
+                      packed_header([None] * len(base_cols)), n_base + n_delta,
+                      n_base // BLOCK_ROWS, 0 if del_words is None else del_words.data_ptr(),
+                      out, dev)
+    return out
 
 
 def prepare_predicate(

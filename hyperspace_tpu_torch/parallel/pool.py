@@ -21,10 +21,16 @@ write → per-bucket merge — and every stage runs on these:
 
 No blocking call runs under a lock: waits go through ``Condition.wait`` /
 ``Queue`` timeouts so a failed pipeline can always tear down.
+
+Every task runs in a copy of its submitter's ``contextvars`` context, so a
+query's scoped metrics and its active trace span follow it into the
+workers (``telemetry/metrics.py:scoped``, ``telemetry/trace.py``): a
+batch's counters are not split across threads.
 """
 
 from __future__ import annotations
 
+import contextvars
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, List, Optional, TypeVar
@@ -132,9 +138,11 @@ class WorkerPool:
         """Bounded enqueue. Returns False (task NOT queued) once the
         pipeline has failed or the pool is draining — the caller should
         then ``failure.check()`` to surface the original error."""
+        ctx = contextvars.copy_context()
+        run = lambda: ctx.run(task)  # noqa: E731 - the submitter's context
         while not self._discard.is_set() and not self.failure.failed.is_set():
             try:
-                self._q.put(task, timeout=0.05)
+                self._q.put(run, timeout=0.05)
                 return True
             except queue.Full:
                 continue
@@ -220,8 +228,10 @@ def ordered_map(
                 results[seq] = res
                 cond.notify_all()
 
+    # each worker runs in its own copy of the consumer's context
     threads = [
-        threading.Thread(target=work, daemon=True, name=f"{name}-{i}")
+        threading.Thread(target=contextvars.copy_context().run, args=(work,), daemon=True,
+                         name=f"{name}-{i}")
         for i in range(workers)
     ]
     for t in threads:

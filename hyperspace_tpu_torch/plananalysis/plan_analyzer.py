@@ -136,4 +136,72 @@ def explain_string(
             total_s, calls = timers[name]
             buf.write_line(f"{name:<40}{total_s:>10.4f}s{calls:>8} call(s)")
         buf.write_line()
+        _write_last_query(buf, session)
     return buf.with_tag()
+
+
+def _write_last_query(buf: BufferStream, session) -> None:
+    """The last query's sections, all rendered from ONE record, its trace
+    (``session.last_trace``: serve attribution, compiled pipeline, scoped
+    metrics, spans), so they always describe the same query. (The
+    reference's shuffle-plan section comes with multi-device.)"""
+    last_trace = getattr(session, "last_trace", None)
+    if last_trace is None:
+        return
+    serve_info = last_trace.meta.get("serve")
+    pipe_info = last_trace.meta.get("pipeline")
+    last = last_trace.meta.get("metrics")
+    if serve_info is not None:
+        buf.write_line(_BANNER)
+        buf.write_line("Last served query (serve tier):")
+        buf.write_line(_BANNER)
+        buf.write_line(f"Tenant: {serve_info.get('tenant')}")
+        buf.write_line(f"Pinned log version: {serve_info.get('pinned_log_version')}")
+        buf.write_line()
+    if pipe_info is not None:
+        buf.write_line(_BANNER)
+        buf.write_line("Whole-plan compilation (last query):")
+        buf.write_line(_BANNER)
+        buf.write_line(f"Pipeline kind: {pipe_info.get('kind')}")
+        buf.write_line(f"Residency tier at lowering: {pipe_info.get('tier')}")
+        for line in pipe_info.get("boundary", ()):
+            buf.write_line(line)
+        buf.write_line(f"Pipeline runs: {pipe_info.get('runs')}"
+                       f" (fused dispatches: {pipe_info.get('fused_dispatches')})")
+        # where the aggregate ran, from the trace's scoped counters: the
+        # device paths count their own, anything else is the host hash
+        if pipe_info.get("kind") in ("agg_scan", "join_agg") and last:
+            c = last["counters"]
+            if c.get("scan.path.resident_agg"):
+                where = "device segment-sum"
+            elif c.get("scan.path.resident_join_agg"):
+                where = "device segment-sum (join region)"
+            else:
+                where = "host hash"
+            buf.write_line(f"Aggregate ran: {where}")
+        buf.write_line()
+    # where the last query's wall time went, stage by stage
+    buf.write_line(_BANNER)
+    buf.write_line("Last query trace (spans):")
+    buf.write_line(_BANNER)
+    for line in last_trace.root.render():
+        buf.write_line(line)
+    buf.write_line()
+    if last is not None:
+        buf.write_line(_BANNER)
+        buf.write_line("Last query metrics (scoped to that query):")
+        buf.write_line(_BANNER)
+        tier_paths = (
+            ("scan.path.resident_streaming", "streaming"),
+            ("scan.path.resident_compressed", "compressed"),
+            ("scan.path.resident_device", "resident"),
+            ("scan.path.resident_hybrid", "resident (hybrid)"),
+        )
+        served = [label for key, label in tier_paths if last["counters"].get(key)]
+        buf.write_line("Residency tier served: " + (", ".join(served) if served else "host"))
+        for name in sorted(last["counters"]):
+            buf.write_line(f"{name:<40}{last['counters'][name]:>12}")
+        for name in sorted(last["timers_s"]):
+            calls = last["timer_counts"].get(name, 0)
+            buf.write_line(f"{name:<40}{last['timers_s'][name]:>10.4f}s{calls:>8} call(s)")
+        buf.write_line()

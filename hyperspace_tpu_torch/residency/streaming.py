@@ -32,10 +32,14 @@ window slices on word and block boundaries at once. Pad rows decode to
 ``ref0`` (packed) or 0 (raw) and can only add counts in tail blocks; the
 host leg re-evaluates candidate blocks exactly.
 
-Not ported yet: the batched window loop (``stream_block_counts_batch``,
-the serving layer's, with the window generation its batches key on) and
-the mesh streaming tables. A device error mid-window raises; the
-reference's host recovery is not ported.
+The serving layer's batch (``stream_block_counts_batch``) runs the same
+loop once for N predicates: each window uploads the union of their planes
+once and launches K1b over them (K1c or K1p for N = 1), and one
+``(N, n_blocks)`` matrix comes home. Batches key on the table's
+``window_gen``, the generation the reference bumps when a device failure
+tears its slab pair down; here a device error mid-window raises (the
+reference's host recovery is not ported), so the generation stays 0 until
+that recovery comes. The mesh streaming tables come with multi-device.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 from ..exec.bytecache import vocab_heap_bytes
 from ..ops.bitpack import PackSpec, pack_plain
 from ..telemetry.metrics import metrics
+from ..telemetry.trace import add_bytes as _trace_bytes
 
 _WINDOW_GRAIN = 8192  # BLOCK_ROWS: the count block and every word width divide it
 
@@ -106,6 +111,8 @@ class StreamingResidentTable:
     zones: Dict[str, Tuple[str, np.ndarray, np.ndarray]] = field(default_factory=dict)
     last_used: float = field(default_factory=time.monotonic)
     copy_stream: Optional["torch.cuda.Stream"] = None
+    # the serve batches' generation key (module note)
+    window_gen: int = 0
     # one window loop at a time: the budget charges one slab pair
     _stream_lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
@@ -240,7 +247,9 @@ def _windowed_counts_locked(table, planes, launch) -> List[np.ndarray]:
             ev = torch.cuda.Event()
             ev.record(copy)
         uploaded[slot] = ev
-        metrics.incr("residency.stream.h2d_bytes", sum(4 * p.slots[slot].numel() for p in planes))
+        nbytes = sum(4 * p.slots[slot].numel() for p in planes)
+        metrics.incr("residency.stream.h2d_bytes", nbytes)
+        _trace_bytes("h2d_bytes", nbytes)
         metrics.record_time("residency.stream.h2d", time.perf_counter() - t0)
 
     # the slots' previous contents may still be read by queued work
@@ -272,6 +281,22 @@ def _windowed_counts_locked(table, planes, launch) -> List[np.ndarray]:
     return out
 
 
+def _stream_counts(table: StreamingResidentTable, prepared) -> np.ndarray:
+    """``(N, n_pad / 8192)`` counts of N prepared predicates over every
+    window: each window uploads the union of their planes once and
+    launches ``ops/kernels.py:resident_counts_tensor`` (K1c or K1p for N =
+    1, K1b for more)."""
+    from ..ops import kernels as K
+
+    union = tuple(dict.fromkeys(n for _, names in prepared for n in names))
+    planes = [_resolve_plane(table, n) for n in union]
+    W = table.window_rows
+    specs = [dataclasses.replace(p.spec, n=W) if p.spec is not None else None for p in planes]
+    parts = _run_window_loop(
+        table, planes, lambda cols: K.resident_counts_tensor(prepared, union, cols, specs, W))
+    return np.concatenate(parts, axis=1)
+
+
 def stream_block_counts(table: StreamingResidentTable, predicate) -> Optional[np.ndarray]:
     """Per-8192-row-block match counts over the whole streamed table: the
     streaming twin of ``HbmIndexCache.block_counts``. Each window launches
@@ -279,25 +304,34 @@ def stream_block_counts(table: StreamingResidentTable, predicate) -> Optional[np
     the predicate cannot ride the resident encodings (the caller routes
     host); device errors raise."""
     from ..exec.hbm_cache import BLOCK_ROWS, prepare_resident_predicate
-    from ..ops import kernels as K
 
     prepared = prepare_resident_predicate(table.columns, predicate)
     if prepared is None:
         return None
-    narrowed, names = prepared
-    planes = [_resolve_plane(table, n) for n in names]
-    W = table.window_rows
-    specs = [dataclasses.replace(p.spec, n=W) if p.spec is not None else None for p in planes]
-    packed = any(s is not None for s in specs)
-
-    def launch(cols):
-        if packed:
-            return K.predicate_block_counts_packed_tensor(narrowed, names, cols, specs, W)
-        return K.predicate_block_counts_tensor(narrowed, names, cols)
-
     t0 = time.perf_counter()
-    parts = _run_window_loop(table, planes, launch)
+    counts = _stream_counts(table, [prepared])[0]
     metrics.record_time("scan.resident.device", time.perf_counter() - t0)
-    counts = np.concatenate(parts)
     metrics.incr("scan.resident.d2h_bytes", int(counts.nbytes))
+    _trace_bytes("d2h_bytes", int(counts.nbytes))
     return counts[: -(-table.n_rows // BLOCK_ROWS)]
+
+
+def stream_block_counts_batch(table: StreamingResidentTable, predicates, prepared=None,
+                              metric_ns: str = "serve.batch") -> Optional[np.ndarray]:
+    """``(N, n_blocks)`` counts of N predicates over the streamed table,
+    each window uploaded and counted once for the whole batch. None when
+    any predicate does not narrow. ``metric_ns`` as ``block_counts_batch``'s."""
+    from ..exec.hbm_cache import BLOCK_ROWS, prepare_resident_predicate
+
+    if prepared is None:
+        prepared = [prepare_resident_predicate(table.columns, p) for p in predicates]
+    if any(p is None for p in prepared):
+        return None
+    t0 = time.perf_counter()
+    counts = _stream_counts(table, prepared)
+    metrics.record_time(f"{metric_ns}.device", time.perf_counter() - t0)
+    metrics.incr(f"{metric_ns}.dispatches")
+    metrics.incr(f"{metric_ns}.queries", len(prepared))
+    metrics.incr("scan.resident.d2h_bytes", int(counts.nbytes))
+    _trace_bytes("d2h_bytes", int(counts.nbytes))
+    return counts[:, : -(-table.n_rows // BLOCK_ROWS)]

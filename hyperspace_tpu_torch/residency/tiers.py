@@ -16,9 +16,9 @@ Compression ``force`` skips the resident rung for packable columns.
 
 Budget claimants are the non-residency holders of budget-charged bytes
 (the reference's result caches): each exposes ``held_bytes() -> int`` and
-``shed(nbytes) -> int``, and the eviction ladder sheds them first. None
-registers in this package yet: the result caches come with the serving
-layer.
+``shed(nbytes) -> int``, and the eviction ladder sheds them first. The
+serve tier's result cache registers here (``compile/result_cache.py``);
+the reference's router-level twin comes with multi-device.
 """
 
 from __future__ import annotations

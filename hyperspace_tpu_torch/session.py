@@ -127,10 +127,77 @@ class HyperspaceSession:
             from .storage import layout as _layout
 
             _layout.set_segment_io_default(self.conf.segment_io_mode())
+        # the flight recorder's bounds (process-global rings: the last
+        # session constructed wins, as in the reference)
+        from .telemetry.recorder import adopt_conf as adopt_recorder_conf
+
+        adopt_recorder_conf(self.conf)
         self.sources = FileBasedSourceProviderManager(self.conf)
         self.catalog = Catalog(self)
         self._hyperspace_enabled = False
         self._collection_manager = None  # lazy (circular import)
+        # the last finished query's trace (telemetry.trace.QueryTrace): the
+        # one record explain(verbose)'s last-query sections render from
+        self.last_trace = None
+        self._server = None  # lazy QueryServer (serve())
+        self._server_lock = threading.Lock()
+
+    # -- last-query attribution (all read from last_trace) --------------------
+    @property
+    def last_query_metrics(self) -> Optional[dict]:
+        """The last query's scoped metrics, from its trace."""
+        t = self.last_trace
+        return None if t is None else t.meta.get("metrics")
+
+    @property
+    def last_serve_info(self) -> Optional[dict]:
+        """Tenant and pinned log version of the last query, when the serve
+        tier ran it."""
+        t = self.last_trace
+        return None if t is None else t.meta.get("serve")
+
+    @property
+    def last_pipeline_info(self) -> Optional[dict]:
+        """The compiled pipeline the last query rode (None when the
+        interpreter served it)."""
+        t = self.last_trace
+        return None if t is None else t.meta.get("pipeline")
+
+    def last_traces(self, n: Optional[int] = None):
+        """The flight recorder's most recent completed traces, newest
+        first."""
+        from .telemetry.recorder import flight_recorder
+
+        return flight_recorder.last(n)
+
+    def serve(self, **options):
+        """The session's query server (``serve.QueryServer``), created on
+        the first call; ``options`` are ServeConfig fields and apply only
+        to that creation. It admits concurrent queries per tenant,
+        micro-batches compatible resident scans into one launch, and
+        caches optimized plans across queries."""
+        with self._server_lock:
+            if self._server is None or self._server.closed:
+                from .serve import QueryServer, ServeConfig
+
+                self._server = QueryServer(self, ServeConfig(**options))
+            elif options:
+                from .exceptions import HyperspaceException
+
+                raise HyperspaceException(
+                    "serve() options apply only when the server is created; "
+                    "close() the running server first."
+                )
+            return self._server
+
+    def submit(self, df, deadline_s: Optional[float] = None, tenant: Optional[str] = None):
+        """``serve().submit(df, deadline_s, tenant)`` (None: the default
+        tenant); returns the QueryTicket."""
+        if tenant is None:
+            from .serve.tenancy import DEFAULT_TENANT
+
+            tenant = DEFAULT_TENANT
+        return self.serve().submit(df, deadline_s=deadline_s, tenant=tenant)
 
     def table(self, name: str):
         """DataFrame over a registered view or table (Catalog.table)."""

@@ -36,6 +36,7 @@ import numpy as np
 from .. import constants as C
 from .. import native
 from ..exceptions import HyperspaceException
+from ..telemetry.trace import span as _span
 from .columnar import CODE_DTYPE, Column, ColumnarBatch, is_string, numpy_dtype
 
 MAGIC = b"TCB1"
@@ -569,28 +570,31 @@ def execute_segment_reads(
         row_bytes = _segment_row_bytes(reader, want)
         n_reads = 0
         nbytes = 0
-        if coalesce:
-            seg_i = 0
-            for lo, hi in sw.ranges:
-                block = reader.read(want, row_range=(lo, hi))
-                n_reads += 1
-                nbytes += (hi - lo) * row_bytes
-                while seg_i < len(sw.segments) and sw.segments[seg_i][2] <= hi:
-                    b, slo, shi = sw.segments[seg_i]
-                    got[(sw.path, b)] = _slice_batch(block, slo - lo, shi - lo)
-                    seg_i += 1
-        else:
-            for b, lo, hi in sw.segments:
-                got[(sw.path, b)] = reader.read(want, row_range=(lo, hi))
-                n_reads += 1
-                nbytes += (hi - lo) * row_bytes
+        with _span("io.segment_sweep", file=os.path.basename(sw.path),
+                   segments=len(sw.segments), planned_ranges=len(sw.ranges),
+                   coalesced=bool(coalesce)):
+            if coalesce:
+                seg_i = 0
+                for lo, hi in sw.ranges:
+                    block = reader.read(want, row_range=(lo, hi))
+                    n_reads += 1
+                    nbytes += (hi - lo) * row_bytes
+                    while seg_i < len(sw.segments) and sw.segments[seg_i][2] <= hi:
+                        b, slo, shi = sw.segments[seg_i]
+                        got[(sw.path, b)] = _slice_batch(block, slo - lo, shi - lo)
+                        seg_i += 1
+            else:
+                for b, lo, hi in sw.segments:
+                    got[(sw.path, b)] = reader.read(want, row_range=(lo, hi))
+                    n_reads += 1
+                    nbytes += (hi - lo) * row_bytes
         metrics.incr("io.segment.ranges", n_reads)
         metrics.incr("io.segment.coalesced", len(sw.segments) - n_reads)
         metrics.incr("io.segment.bytes", nbytes)
         return got
 
     metrics.incr("io.segment.sweeps", len(sweeps))
-    with metrics.timer("io.segment.sweep_wall"):
+    with metrics.timer("io.segment.sweep_wall"), _span("io.segment_io", sweeps=len(sweeps)):
         if workers is None:
             workers = min(len(sweeps), os.cpu_count() or 1)
         if workers <= 1 or len(sweeps) == 1:

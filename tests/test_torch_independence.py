@@ -31,6 +31,10 @@ def test_import_leaves_jax_and_reference_out():
         "from hyperspace_tpu_torch.plan.rules import column_pruning, data_skipping_rule\n"
         "from hyperspace_tpu_torch.storage import partitions\n"
         "from hyperspace_tpu_torch import native\n"
+        "from hyperspace_tpu_torch import compile, serve\n"
+        "from hyperspace_tpu_torch.telemetry import trace, recorder, export\n"
+        "from hyperspace_tpu_torch.exec import scan_agg\n"
+        "from hyperspace_tpu_torch.reliability import retry\n"
         "native.available()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'hyperspace_tpu' or m.startswith('hyperspace_tpu.'))\n"
