@@ -72,8 +72,11 @@ its launches are the interpreter's, N = 1 counts land under
    1, 2, 16, 64 and 300, depths 1 to 9 in one batch, packed planes of
    every width beside raw and f64 planes, rows ending mid-word, 40 raw
    planes and a 2^20-row window, and K1hb no mask, all rows deleted and
-   random deletions; both are timed at the serving bursts' shapes (B1,
-   B2, L2, the hybrid burst) beside the N single launches they replace;
+   random deletions; both run the cases aimed at their range test
+   (``ops/k1b_cases.py``) under every sub-tile and ring, and are timed at
+   the serving bursts' shapes (B1, B2, L2, L3's window, the hybrid burst)
+   over the index layout the bursts serve, in key order and shuffled,
+   beside the N single launches they replace;
 3. main path — TPC-H-shaped data at scale factor 1 (lineitem 6,001,215
    rows, orders 1,500,000, made with numpy from ``--seed`` and written as
    avro), two covering indexes with 200 buckets built in memory on the
@@ -462,11 +465,14 @@ def ptxas_summary(report: str) -> dict:
     import re
 
     def name(mangled: str) -> str:
-        m = re.search(r"([a-z_]+_kernel)(?:ILb([01])ELi(\d+)E|ILi(\d+)EE)?", mangled)
+        m = re.search(r"([a-z_]+_kernel)(?:ILb([01])ELi(\d+)E|ILi(\d+)ELi(\d+)EE|ILi(\d+)EE)?",
+                      mangled)
         if not m:
             return mangled
         if m.group(4) is not None:
-            return f"{m.group(1)}<{m.group(4)}>"
+            return f"{m.group(1)}<{m.group(4)},{m.group(5)}>"
+        if m.group(6) is not None:
+            return f"{m.group(1)}<{m.group(6)}>"
         if m.group(2) is None:
             return m.group(1)
         flag = "staged" if m.group(2) == "1" else "params"
@@ -859,6 +865,286 @@ def li_st_pred(top: int):
             & (col("l_shipdate") < DAY_1995_03_15))
 
 
+def index_order(keys: np.ndarray, dev) -> np.ndarray:
+    """The permutation that lays rows out as a covering index on ``keys``
+    stores them: grouped by bucket (the build's hash, ``NUM_BUCKETS``),
+    key-sorted within each."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import build
+
+    bucket = build.device_bucket_ids({"k": torch.from_numpy(keys.astype(np.int64)).to(dev)},
+                                     {"k": "int64"}, ["k"], {}, NUM_BUCKETS).cpu().numpy()
+    return np.lexsort((keys, bucket))
+
+
+def k1b_verdicts(progs, values, chunk_rows: int) -> np.ndarray:
+    """K1b's range test in numpy: (N, chunks) verdicts of raw ``(n, 4)``
+    programs over planes ``values`` (int64, decoded, pad rows included) cut
+    into chunks of ``chunk_rows``: 0 no row, 3 every row, 1 counted row by
+    row (csrc/predicate_mask.cu: box_verdict for a conjunction of literal
+    compares, with a chunk of two ascending runs covered by [first, max]
+    and [min, last]; program_verdict for any other program)."""
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    chunks = [v.reshape(-1, chunk_rows) for v in values]
+    lo = [c.min(1) for c in chunks]
+    hi = [c.max(1) for c in chunks]
+    two = [(np.diff(c, axis=1) < 0).sum(1) <= 1 for c in chunks]
+    first = [np.where(t, c[:, 0], a) for t, c, a in zip(two, chunks, lo)]
+    last = [np.where(t, c[:, -1], b) for t, c, b in zip(two, chunks, hi)]
+    out = []
+    for prog in progs:
+        box = tk.program_box(prog)
+        if box is not None:
+            if box == "never":
+                out.append(np.zeros(len(lo[0]), dtype=np.int64))
+                continue
+            none = np.zeros(len(lo[0]), dtype=bool)
+            every = np.ones(len(lo[0]), dtype=bool)
+            for c, blo, bhi in box:
+                none |= ((hi[c] < blo) | (first[c] > bhi)) & ((last[c] < blo) | (lo[c] > bhi))
+                every &= (blo <= lo[c]) & (hi[c] <= bhi)
+            out.append(np.where(none, 0, np.where(every, 3, 1)))
+            continue
+        st = []
+        for op, a, cmp, b in np.asarray(prog).tolist():
+            if op in (tk.OP_CMP_LIT, tk.OP_CMP_COL):
+                blo, bhi = (b, b) if op == tk.OP_CMP_LIT else (lo[b], hi[b])
+                alo, ahi = lo[a], hi[a]
+                may, must = (
+                    ((alo <= bhi) & (blo <= ahi), (alo == ahi) & (blo == bhi) & (alo == blo)),
+                    (~((alo == ahi) & (blo == bhi) & (alo == blo)), (ahi < blo) | (bhi < alo)),
+                    (alo < bhi, ahi < blo), (alo <= bhi, ahi <= blo),
+                    (ahi > blo, alo > bhi), (ahi >= blo, alo >= bhi))[cmp]
+                st.append((np.broadcast_to(may, alo.shape), np.broadcast_to(must, alo.shape)))
+            elif op == tk.OP_NOT:
+                m, u = st.pop()
+                st.append((~u, ~m))
+            else:
+                (m2, u2), (m1, u1) = st.pop(), st.pop()
+                st.append((m1 & m2, u1 & u2) if op == tk.OP_AND else (m1 | m2, u1 | u2))
+        m, u = st[-1]
+        out.append(np.where(u, 3, np.where(m, 1, 0)))
+    return np.stack(out)
+
+
+def k1b_needed_ops(progs, values, sub_rows: int) -> float:
+    """The operations these inputs need of K1b under a plan of ``sub_rows``
+    (its chunks are ``max(sub_rows // 8, 128)`` rows): one a row and
+    instruction of each program in each chunk the range test leaves to the
+    rows, one a chunk and instruction for the test itself."""
+    chunk = max(sub_rows // 8, 128)
+    v = k1b_verdicts(progs, values, chunk)
+    lens = np.array([len(p) for p in progs], dtype=np.float64)
+    return float(((v == 1).sum(1) * lens).sum() * chunk + v.shape[1] * lens.sum())
+
+
+# K1b/K1hb's timed cases at the serving bursts' shapes, each at its layouts:
+# "index" as li_idx / li_st hold the rows (bucket, then key: the main path),
+# "source" in key order (make_tables' order), "shuffled" a random order (no
+# chunk resolves; li_st's planes are random as made)
+K1B_TIMED = {"B1": ("index", "source", "shuffled"), "B2": ("index", "source", "shuffled"),
+             "L2": ("index", "shuffled"), "L3": ("index", "shuffled"),
+             "K1hb": ("index", "source", "shuffled")}
+K1B_RECORD = {"B1": "B1_point_N64", "B2": "B2_range_N16", "L2": "L2_packed_N16",
+              "L3": "L3_window_N16", "K1hb": "li_hy_N16"}
+LI_HY_DELTA_ROWS = 11_891  # li_hy's delta at H2: two RF1 batches of lineitems
+
+
+class K1bInputs:
+    """The operands of K1b/K1hb's timed cases, made once per layout from
+    SF1's lineitem (``lineitem``) and li_st's planes (made here at SF3)."""
+
+    def __init__(self, lineitem: dict, dev):
+        self.L, self.dev = lineitem, dev
+        self.top = int(lineitem["l_orderkey"].max())
+        self.n = len(lineitem["l_orderkey"])
+        self.perm = {}
+        self._st = None
+
+    def order(self, layout: str, keys: np.ndarray, tag: str) -> np.ndarray:
+        if (tag, layout) not in self.perm:
+            n = len(keys)
+            self.perm[(tag, layout)] = (np.arange(n) if layout == "source" else
+                                        index_order(keys, self.dev) if layout == "index" else
+                                        np.random.default_rng(len(tag)).permutation(n))
+        return self.perm[(tag, layout)]
+
+    def plane(self, a, pad_to: int):
+        import torch
+
+        t = torch.zeros(pad_to, dtype=torch.int32, device=self.dev)
+        t[: len(a)] = torch.from_numpy(np.asarray(a).astype(np.int32)).to(self.dev)
+        return t
+
+    def padded(self, a, pad_to: int, fill: int = 0) -> np.ndarray:
+        out = np.full(pad_to, fill, dtype=np.int64)
+        out[: len(a)] = a
+        return out
+
+    def case(self, case: str, layout: str) -> dict:
+        """{kind, preds, names, cols, specs, n_rows, values, singles, single_kernel, ...}."""
+        from hyperspace_tpu_torch.ops import kernels as tk
+        from hyperspace_tpu_torch.plan.expr import col
+
+        B, L, top = tk.BLOCK_ROWS, self.L, self.top
+        rng = np.random.default_rng({"B1": 1, "B2": 2, "K1hb": 3}.get(case, 4))
+        n_pad = -(-self.n // B) * B
+        if case in ("B1", "B2", "K1hb"):
+            perm = self.order(layout, L["l_orderkey"], "li")
+        if case == "B1":
+            ok = L["l_orderkey"][perm]
+            keys = rng.choice(np.unique(ok), 64, replace=False)
+            preds = [(tk.narrow_expr_to_i32(col("l_orderkey") == int(k)), ("l_orderkey",))
+                     for k in keys]
+            cols = [self.plane(ok, n_pad)]
+            return dict(kind="k1b", preds=preds, names=("l_orderkey",), cols=cols, specs=[None],
+                        n_rows=n_pad, values=[self.padded(ok, n_pad)],
+                        single=lambda b, pn: tk.predicate_block_counts_tensor(b, pn, cols),
+                        single_kernel="predicate_block_counts_kernel")
+        if case == "B2":
+            names = ("l_orderkey", "l_shipdate")
+            arrs = [L[c][perm] for c in names]
+            preds = []
+            for _ in range(16):
+                lo = int(rng.integers(1, top - top // 10))
+                d = int(rng.integers(DAY_1992_01_01, DAY_1998_08_02 - 400))
+                preds.append((tk.narrow_expr_to_i32(
+                    (col("l_orderkey") >= lo) & (col("l_orderkey") < lo + top // 10)
+                    & (col("l_shipdate") >= d) & (col("l_shipdate") < d + 365)), names))
+            cols = [self.plane(a, n_pad) for a in arrs]
+            return dict(kind="k1b", preds=preds, names=names, cols=cols, specs=[None, None],
+                        n_rows=n_pad, values=[self.padded(a, n_pad) for a in arrs],
+                        single=lambda b, pn: tk.predicate_block_counts_tensor(b, pn, cols),
+                        single_kernel="predicate_block_counts_kernel")
+        if case == "K1hb":
+            names = ("l_orderkey", "l_quantity", "l_shipdate")
+            pick = np.random.default_rng(7).integers(0, self.n, LI_HY_DELTA_ROWS)
+            nd_pad = -(-LI_HY_DELTA_ROWS // B) * B
+            deleted = np.zeros(n_pad, dtype=bool)  # one source file of eight: its rows
+            deleted[: self.n] = (np.arange(self.n) >= 2 * self.n // 8) & \
+                (np.arange(self.n) < 3 * self.n // 8)
+            deleted[: self.n] = deleted[: self.n][perm]
+            base = [self.plane(L[c][perm], n_pad) for c in names]
+            delta = [self.plane(L[c][pick], nd_pad) for c in names]
+            words = self.plane(tk.pack_row_bitmask(deleted).astype(np.int64), n_pad // 32)
+            preds = []
+            for _ in range(16):
+                lo = int(rng.integers(1, top - top // 3))
+                preds.append((tk.narrow_expr_to_i32(
+                    (col("l_orderkey") >= lo) & (col("l_orderkey") < lo + top // 3)
+                    & (col("l_quantity") < 24) & (col("l_shipdate") >= DAY_1995_03_15 - 365)
+                    & (col("l_shipdate") < DAY_1995_03_15)), names))
+            values = [self.padded(L[c][perm], n_pad) for c in names]
+            dvalues = [self.padded(L[c][pick], nd_pad) for c in names]
+            return dict(kind="k1hb", preds=preds, names=names, base=base, delta=delta,
+                        words=words, n_rows=n_pad + nd_pad, n_base=n_pad, values=values,
+                        delta_values=dvalues,
+                        single=lambda b, pn: tk.hybrid_block_counts_tensor(b, pn, base, delta,
+                                                                           words),
+                        single_kernel="hybrid_block_counts_kernel")
+        return self._st_case(case, layout)
+
+    def _st_case(self, case: str, layout: str) -> dict:
+        """L2 (li_st's three predicate planes, l_quantity and l_shipdate
+        packed, 18,006,016 rows) and L3 (its first 2^20-row window)."""
+        from hyperspace_tpu_torch.ops import bitpack
+        from hyperspace_tpu_torch.ops import kernels as tk
+        from hyperspace_tpu_torch.plan.expr import col
+
+        B, st_top = tk.BLOCK_ROWS, 18_000_000
+        if self._st is None:
+            self._st = li_st_planes(np.random.default_rng(1234), LI_ST_ROWS, st_top)
+        names = ("l_orderkey", "l_quantity", "l_shipdate")
+        perm = self.order(layout, self._st["l_orderkey"][0], "li_st")
+        n = LI_ST_ROWS if case == "L2" else 1 << 20
+        n_pad = -(-n // B) * B
+        cols, specs, values = [], [], []
+        for nm in names:
+            v, sp = self._st[nm]
+            v = v[perm][:n]
+            if sp is None:
+                cols.append(self.plane(v, n_pad))
+                values.append(self.padded(v, n_pad))
+            else:
+                sp = bitpack.PackSpec(sp.bits, sp.vpw, n_pad, sp.ref0)
+                full = self.padded(v, n_pad, sp.ref0)
+                import torch
+
+                cols.append(torch.from_numpy(bitpack.pack_plain(full, sp)).to(self.dev))
+                values.append(full)
+            specs.append(sp)
+        rng = np.random.default_rng(16)
+        preds = []
+        for _ in range(16):
+            lo = int(rng.integers(1, st_top - st_top // 6))
+            preds.append((tk.narrow_expr_to_i32(
+                (col("l_orderkey") >= lo) & (col("l_orderkey") < lo + st_top // 6)
+                & (col("l_quantity") < int(rng.integers(5, 50)))
+                & (col("l_shipdate") >= DAY_1995_03_15 - 365)
+                & (col("l_shipdate") < DAY_1995_03_15)), names))
+        return dict(kind="k1b", preds=preds, names=names, cols=cols, specs=specs, n_rows=n_pad,
+                    values=values,
+                    single=lambda b, pn: tk.predicate_block_counts_packed_tensor(
+                        b, pn, cols, specs, n_pad),
+                    single_kernel="predicate_block_counts_packed_kernel")
+
+
+def k1b_run(inp: dict, **plan):
+    """One call of the K1b/K1hb wrapper the burst would make over ``inp``
+    (``plan``: sub_rows / stages / shape overrides, see
+    ``ops/kernels.py:k1b_plan``)."""
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    progs = tk.batch_programs(inp["preds"], inp["names"])
+    if inp["kind"] == "k1hb":
+        return tk.program_hybrid_counts_batch_tensor(progs, inp["base"], inp["delta"],
+                                                     inp["words"], **plan)
+    return tk.program_block_counts_batch_tensor(progs, inp["cols"], inp["specs"], inp["n_rows"],
+                                                **plan)
+
+
+def k1b_wrapper(inp: dict):
+    """The entry point the serving layer calls (lowering cache included)."""
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    if inp["kind"] == "k1hb":
+        return tk.hybrid_block_counts_batch_tensor(inp["preds"], inp["names"], inp["base"],
+                                                   inp["delta"], inp["words"])
+    return tk.predicate_block_counts_batch_tensor(inp["preds"], inp["names"], inp["cols"],
+                                                  inp["specs"], inp["n_rows"])
+
+
+def k1b_plain(inp: dict):
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    if inp["kind"] == "k1hb":
+        return tk.hybrid_block_counts_batch_reference(inp["preds"], inp["names"], inp["base"],
+                                                      inp["delta"], inp["words"])
+    return tk.predicate_block_counts_batch_reference(inp["preds"], inp["names"], inp["cols"],
+                                                     inp["specs"], inp["n_rows"])
+
+
+def k1b_bound(inp: dict, sub_rows: int):
+    """(bound ms, by, needed ops): the planes read once, the counts written
+    once (and K1hb's mask, one bit a base row), against the operations
+    these inputs need under a plan of ``sub_rows`` (``k1b_needed_ops``)."""
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    progs = [p.prog for p in tk.batch_programs(inp["preds"], inp["names"])]
+    N, nb = len(progs), inp["n_rows"] // tk.BLOCK_ROWS
+    if inp["kind"] == "k1hb":
+        nbytes = 4 * len(inp["names"]) * inp["n_rows"] + inp["n_base"] // 8 + 4 * N * nb
+        ops = k1b_needed_ops(progs, inp["values"], sub_rows) + \
+            k1b_needed_ops(progs, inp["delta_values"], sub_rows)
+    else:
+        nbytes = sum(4 * int(c.numel()) for c in inp["cols"]) + 4 * N * nb
+        ops = k1b_needed_ops(progs, inp["values"], sub_rows)
+    ms, by = bound(nbytes, ops)
+    return ms, by, ops
+
+
 def residency_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
     """K1p and K1h against their plain versions on the card, exactly.
 
@@ -1136,16 +1422,25 @@ def batch_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
       end mid-word with pad rows (zeros raw, ref0 packed), 40 raw planes
       (a sub-tile under 1024 rows), and a 2^20-row streaming window;
     * K1hb: no mask, every base row deleted and random deletions, deltas of
-      1 row and of several blocks, N = 1, 16 and 64.
+      1 row and of several blocks, N = 1, 16 and 64;
+    * both on the cases aimed at their range test (``ops/k1b_cases.py``:
+      constant chunks, literals at chunk minima and maxima and one past,
+      the int32 extremes, pad rows inside resolved chunks, packed widths
+      1-16 with ref0 below zero, deletions of whole and partial chunks), N
+      = 1, 2, 16, 64 (in the parameter block) and 300 (staged), every
+      sub-tile from 4096 to 128 rows and rings of 2 to 4 stages.
 
-    Timed at the serving bursts' shapes beside N launches of the single
-    kernel that the batch replaces: B1 (64 point lookups over li_idx's
-    order keys), B2 (16 range filters over order key and ship date), L2
-    (16 range filters over li_st's packed planes) and the hybrid burst (16
-    filters over li_hy's base and delta)."""
+    Timed at the serving bursts' shapes (``K1B_TIMED``): B1 (64 point
+    lookups over li_idx's order keys), B2 (16 range filters over order key
+    and ship date), L2 (16 range filters over li_st's packed planes), L3
+    (the same over one 2^20-row window: 128 blocks) and the hybrid burst
+    (16 filters over li_hy's base and delta), each at the index layout the
+    served planes have and at a shuffled one (where no chunk resolves),
+    B1, B2 and the hybrid burst also in key order; at the index layout
+    beside N launches of the single kernel the batch replaces."""
     import torch
 
-    from hyperspace_tpu_torch.ops import bitpack
+    from hyperspace_tpu_torch.ops import bitpack, k1b_cases
     from hyperspace_tpu_torch.ops import kernels as tk
     from hyperspace_tpu_torch.ops.floatbits import f64_to_ordered_i64, ordered_i64_planes
     from hyperspace_tpu_torch.plan.expr import col
@@ -1200,10 +1495,10 @@ def batch_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
     def held_batch(name, progs, cols, specs, n_pad, **rec):
         got = tk.program_block_counts_batch_tensor(progs, cols, specs, n_pad)
         want = tk.program_block_counts_batch_tensor(progs, [c.cpu() for c in cols], specs, n_pad)
+        shape = []
+        tk.program_block_counts_batch_tensor(progs, cols, specs, n_pad, shape=shape)
         k1b[name] = dict(max_abs_err=_held(f"K1b {name}", got, want.to(dev)), n=len(progs),
-                         planes=len(cols), rows=n_pad,
-                         sub_rows=tk.k1b_plan(tk.packed_header(specs)[:, 2].tolist(), len(progs),
-                                              max(tk.program_depth(p) for p in progs))[0],
+                         planes=len(cols), rows=n_pad, sub_rows=shape[3].sub_rows,
                          matches=int(want.sum().item()), **rec)
 
     n_real, n_pad = 5 * B - 3, 5 * B
@@ -1244,126 +1539,80 @@ def batch_kernel_cases(lineitem: dict, seed: int, dev) -> dict:
     log(f"K1hb: {len(k1hb)} cases (no mask, all rows deleted, random deletions; deltas of 1 row "
         f"and of several blocks; N 1, 16, 64) exact=yes")
 
-    # timed at the serving bursts' shapes, each beside N single launches
-    L = lineitem
-    n = len(L["l_orderkey"])
-    n_pad = -(-n // B) * B
-    top = int(L["l_orderkey"].max())
+    # the cases aimed at the range test (ops/k1b_cases.py), every N, plan and
+    # deletion, as tests/test_torch_serve.py runs them
+    cases = k1b_cases.k1b_range_cases(seed)
+    n = k1b_cases.N_BLOCKS * B
+    for kind in ("raw", "packed"):
+        c = cases[kind]
+        planes = [torch.from_numpy(p).to(dev) for p in c["planes"]]
+        for N in (1, 2, 16, 64, 300):
+            want = tk.program_block_counts_batch_tensor(c["progs"][:N], [p.cpu() for p in planes],
+                                                        c["specs"], n).to(dev)
+            for sub, stages in k1b_cases.PLANS[kind]:
+                got = tk.program_block_counts_batch_tensor(c["progs"][:N], planes, c["specs"], n,
+                                                           sub_rows=sub, stages=stages)
+                k1b[f"range_{kind}_N{N}_sub{sub}_st{stages}"] = dict(
+                    max_abs_err=_held(f"K1b range {kind} N{N} sub {sub} stages {stages}", got, want),
+                    matches=int(want.sum().item()))
+    h = cases["hybrid"]
+    hb = [torch.from_numpy(x).to(dev) for x in h["base"]]
+    hd = [torch.from_numpy(x).to(dev) for x in h["delta"]]
+    for name in k1b_cases.DELETIONS:
+        words = torch.from_numpy(tk.pack_row_bitmask(k1b_cases.deletion_rows(name, h["n_base"])))
+        want = tk.program_hybrid_counts_batch_tensor(h["progs"], [t.cpu() for t in hb],
+                                                     [t.cpu() for t in hd], words).to(dev)
+        for sub in (None, 2048, 512):
+            got = tk.program_hybrid_counts_batch_tensor(h["progs"], hb, hd, words.to(dev),
+                                                        sub_rows=sub)
+            k1hb[f"range_{name}_sub{sub}"] = dict(
+                max_abs_err=_held(f"K1hb range {name} sub {sub}", got, want),
+                matches=int(want.sum().item()))
+    log(f"K1b/K1hb range test: {sum(k.startswith('range_') for k in k1b)} K1b cases (constant "
+        f"chunks, chunk-edge literals, int32 extremes, pad rows in resolved chunks, widths 1-16 "
+        f"with ref0 < 0; N 1-300, sub-tiles 4096-128, 2-4 stages) and "
+        f"{sum(k.startswith('range_') for k in k1hb)} K1hb cases (deletions: "
+        f"{', '.join(k1b_cases.DELETIONS)}) exact=yes")
 
-    def plane(a, n_rows=n, pad=n_pad):
-        t = torch.zeros(pad, dtype=torch.int32, device=dev)
-        t[:n_rows] = torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
-        return t
-
-    def timed_batch(name, preds, cols, specs, n_rows, single, single_kernel):
-        """K1b over ``preds`` against len(preds) launches of ``single``."""
-        names = tuple(sorted({nm for _b, pn in preds for nm in pn}))
-        got = tk.predicate_block_counts_batch_tensor(preds, names, cols, specs, n_rows)
-        want = tk.predicate_block_counts_batch_reference(preds, names, cols, specs, n_rows)
-        err = _held(f"K1b {name}", got, want)
-        N = len(preds)
-        words = sum(int(c.numel()) for c in cols)
-        instr = sum(len(tk.lower_predicate(b, names)) for b, _ in preds)
-        rec = _timed_counts(
-            f"K1b {name}",
-            lambda: tk.predicate_block_counts_batch_tensor(preds, names, cols, specs, n_rows),
-            lambda: tk.predicate_block_counts_batch_reference(preds, names, cols, specs, n_rows),
-            "block_counts_batch_kernel", 4 * words + 4 * N * (n_rows // B),
-            float(n_rows) * instr, max_abs_err=err, n=N, rows=n_rows,
-            specs="/".join("raw" if s is None else f"{s.bits}b_vpw{s.vpw}" for s in specs))
-        loop = lambda: [single(b, pn) for b, pn in preds]  # noqa: E731
-        per = device_ms(lambda: single(*preds[0]), single_kernel)
-        rec.update(single_n_ms=time_ms(loop, repeats=10),
-                   single_n_device_ms=None if per is None else per * N)
-        log(f"K1b {name}: {N} launches of {single_kernel}: ms={rec['single_n_ms']:.4f} device_ms="
-            f"{_fmt(rec['single_n_device_ms'])} (the route the batch replaces)")
-        k1b[name] = rec
-
-    ok = L["l_orderkey"]
-    cols = [plane(ok)]
-    keys = rng.choice(np.unique(ok), 64, replace=False)
-    preds = [(tk.narrow_expr_to_i32(col("l_orderkey") == int(k)), ("l_orderkey",)) for k in keys]
-    timed_batch("B1_point_N64", preds, cols, [None], n_pad,
-                lambda b, pn: tk.predicate_block_counts_tensor(b, pn, cols),
-                "predicate_block_counts_kernel")
-    cols = [plane(ok), plane(L["l_shipdate"])]
-    preds = []
-    for i in range(16):
-        lo = int(rng.integers(1, top - top // 10))
-        d = int(rng.integers(DAY_1992_01_01, DAY_1998_08_02 - 400))
-        preds.append((tk.narrow_expr_to_i32(
-            (col("l_orderkey") >= lo) & (col("l_orderkey") < lo + top // 10)
-            & (col("l_shipdate") >= d) & (col("l_shipdate") < d + 365)),
-            ("l_orderkey", "l_shipdate")))
-    timed_batch("B2_range_N16", preds, cols, [None, None], n_pad,
-                lambda b, pn: tk.predicate_block_counts_tensor(b, pn, cols),
-                "predicate_block_counts_kernel")
-    st_top = 18_000_000
-    st = li_st_planes(rng, LI_ST_ROWS, st_top)
-    st_pad = -(-LI_ST_ROWS // B) * B
-    st_names = ("l_orderkey", "l_quantity", "l_shipdate")
-    st_cols, st_specs = [], []
-    for nm in st_names:
-        v, sp = st[nm]
-        if sp is None:
-            st_cols.append(plane(v, LI_ST_ROWS, st_pad))
-        else:
-            sp = bitpack.PackSpec(sp.bits, sp.vpw, st_pad, sp.ref0)
-            padded = np.full(st_pad, sp.ref0, dtype=np.int64)
-            padded[:LI_ST_ROWS] = v
-            st_cols.append(torch.from_numpy(bitpack.pack_plain(padded, sp)).to(dev))
-        st_specs.append(sp)
-    preds = []
-    for i in range(16):
-        lo = int(rng.integers(1, st_top - st_top // 6))
-        preds.append((tk.narrow_expr_to_i32(
-            (col("l_orderkey") >= lo) & (col("l_orderkey") < lo + st_top // 6)
-            & (col("l_quantity") < int(rng.integers(5, 50)))
-            & (col("l_shipdate") >= DAY_1995_03_15 - 365) & (col("l_shipdate") < DAY_1995_03_15)),
-            st_names))
-    timed_batch("L2_packed_N16", preds, st_cols, st_specs, st_pad,
-                lambda b, pn: tk.predicate_block_counts_packed_tensor(b, pn, st_cols, st_specs,
-                                                                      st_pad),
-                "predicate_block_counts_packed_kernel")
-    del st_cols
-    # the hybrid burst: li_hy's base, two RF1 batches of delta, one file of
-    # eight deleted
-    d_rows = 11_891
-    nd_pad = -(-d_rows // B) * B
-    pick = rng.integers(0, n, d_rows)
-    names_h = ("l_orderkey", "l_quantity", "l_shipdate")
-    base = [plane(L[c]) for c in names_h]
-    delta = [plane(L[c][pick], d_rows, nd_pad) for c in names_h]
-    deleted = np.zeros(n_pad, dtype=bool)
-    deleted[2 * n // 8: 3 * n // 8] = True
-    words = torch.from_numpy(tk.pack_row_bitmask(deleted)).to(dev)
-    preds = []
-    for i in range(16):
-        lo = int(rng.integers(1, top - top // 3))
-        preds.append((tk.narrow_expr_to_i32(
-            (col("l_orderkey") >= lo) & (col("l_orderkey") < lo + top // 3)
-            & (col("l_quantity") < 24) & (col("l_shipdate") >= DAY_1995_03_15 - 365)
-            & (col("l_shipdate") < DAY_1995_03_15)), names_h))
-    got = tk.hybrid_block_counts_batch_tensor(preds, names_h, base, delta, words)
-    want = tk.hybrid_block_counts_batch_reference(preds, names_h, base, delta, words)
-    err = _held("K1hb li_hy_N16", got, want)
-    instr = sum(len(tk.lower_predicate(b, names_h)) for b, _ in preds)
-    rec = _timed_counts(
-        "K1hb li_hy_N16",
-        lambda: tk.hybrid_block_counts_batch_tensor(preds, names_h, base, delta, words),
-        lambda: tk.hybrid_block_counts_batch_reference(preds, names_h, base, delta, words),
-        "block_counts_batch_kernel",
-        4 * len(names_h) * (n_pad + nd_pad) + n_pad // 8 + 4 * 16 * ((n_pad + nd_pad) // B),
-        float(n_pad + nd_pad) * instr, max_abs_err=err, n=16, base_rows=n_pad,
-        delta_rows=nd_pad)
-    single = lambda b, pn: tk.hybrid_block_counts_tensor(b, pn, base, delta, words)  # noqa: E731
-    per = device_ms(lambda: single(*preds[0]), "hybrid_block_counts_kernel")
-    rec.update(single_n_ms=time_ms(lambda: [single(b, pn) for b, pn in preds], repeats=10),
-               single_n_device_ms=None if per is None else per * 16)
-    log(f"K1hb li_hy_N16: 16 launches of K1h: ms={rec['single_n_ms']:.4f} device_ms="
-        f"{_fmt(rec['single_n_device_ms'])} (the route the batch replaces)")
-    k1hb["li_hy_N16"] = rec
-    del base, delta, cols
+    # timed at the serving bursts' shapes, at each layout of K1B_TIMED; at
+    # the index layout (the main path's) also the plain version and the N
+    # single launches the batch replaces
+    inputs = K1bInputs(lineitem, dev)
+    for case, layouts in K1B_TIMED.items():
+        for layout in layouts:
+            inp = inputs.case(case, layout)
+            name = K1B_RECORD[case] + ("" if layout == "index" else f"@{layout}")
+            what = "K1hb" if inp["kind"] == "k1hb" else "K1b"
+            err = _held(f"{what} {name}", k1b_wrapper(inp), k1b_plain(inp))
+            shape = []
+            k1b_run(inp, shape=shape)
+            grid, per_sm, inst, plan = shape
+            b_ms, b_by, ops = k1b_bound(inp, plan.sub_rows)
+            rec = dict(max_abs_err=err, n=len(inp["preds"]), rows=inp["n_rows"], layout=layout,
+                       sub_rows=plan.sub_rows, stages=plan.stages, staged=plan.staged, grid=grid,
+                       ctas_per_sm=per_sm, instantiation=inst, needed_ops=ops,
+                       ms=time_ms(lambda: k1b_wrapper(inp)),
+                       device_ms=device_ms(lambda: k1b_wrapper(inp), "block_counts_batch_kernel"),
+                       plain_ms=time_ms(lambda: k1b_plain(inp), repeats=5)
+                       if layout == "index" else None,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            msg = (f"{what} {name}: N={rec['n']} rows={rec['rows']} sub_rows={plan.sub_rows} "
+                   f"stages={plan.stages} grid={grid} ctas_per_sm={per_sm} ms={rec['ms']:.4f} "
+                   f"device_ms={_fmt(rec['device_ms'])} plain_ms={_fmt(rec['plain_ms'])} "
+                   f"bound_ms={b_ms:.4f} ({b_by}; needed ops {ops:.0f}) library_ms=null exact=yes")
+            if layout == "index":
+                single, N = inp["single"], len(inp["preds"])
+                per = device_ms(lambda: single(*inp["preds"][0]), inp["single_kernel"])
+                rec.update(single_n_ms=time_ms(lambda: [single(b_, pn) for b_, pn in inp["preds"]],
+                                               repeats=10),
+                           single_n_device_ms=None if per is None else per * N)
+                msg += (f" | {N} launches of {inp['single_kernel']}: ms={rec['single_n_ms']:.4f} "
+                        f"device_ms={_fmt(rec['single_n_device_ms'])} (the route the batch "
+                        f"replaces)")
+            log(msg)
+            (k1hb if inp["kind"] == "k1hb" else k1b)[name] = rec
+            del inp
+    del inputs
     torch.cuda.empty_cache()
     return {"k1b": k1b, "k1hb": k1hb}
 
@@ -3401,10 +3650,15 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
     def queries():
         return range_and_q3(session, li_dir, od_dir, bounds)
 
+    truths = {}  # numpy's answers, by the batches present (steps share them)
+
     def truth():
-        L = {c: np.concatenate([p[0][c] for p in present.values()]) for c in lineitem}
-        O = {c: np.concatenate([p[1][c] for p in present.values()]) for c in orders}
-        return range_and_q3_truth(L, O, bounds, "lifecycle")
+        key = tuple(present)
+        if key not in truths:
+            L = {c: np.concatenate([p[0][c] for p in present.values()]) for c in lineitem}
+            O = {c: np.concatenate([p[1][c] for p in present.values()]) for c in orders}
+            truths[key] = range_and_q3_truth(L, O, bounds, "lifecycle")
+        return truths[key]
 
     def run(label, df):
         return timed_query(session, f"lifecycle {label}", profile, df)[:4]
@@ -3649,10 +3903,15 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
 
     bounds = range_bounds(lineitem)
 
+    truths = {}  # numpy's answers, by the parts present (steps share them)
+
     def truth():
-        L = {c: np.concatenate([p[c] for p in li_parts.values()]) for c in lineitem}
-        O = {c: np.concatenate([p[c] for p in od_parts.values()]) for c in orders}
-        return range_and_q3_truth(L, O, bounds, "hybrid")
+        key = (tuple(li_parts), tuple(od_parts))
+        if key not in truths:
+            L = {c: np.concatenate([p[c] for p in li_parts.values()]) for c in lineitem}
+            O = {c: np.concatenate([p[c] for p in od_parts.values()]) for c in orders}
+            truths[key] = range_and_q3_truth(L, O, bounds, "hybrid")
+        return truths[key]
 
     def run(label, df):
         return timed_query(session, f"hybrid {label}", profile, df)
@@ -4341,15 +4600,20 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
     present = {"base": (L, O)}  # the sources as they stand, by file
     bounds = range_bounds(L)
 
+    truths = {}  # numpy's answers, by the batches present (steps share them)
+
     def truth():
-        Lp = {c: np.concatenate([p[0][c] for p in present.values()]) for c in L}
-        Op = {c: np.concatenate([p[1][c] for p in present.values()]) for c in O}
-        return Lp, range_and_q3_truth(Lp, Op, bounds, "streaming")
+        key = tuple(present)
+        if key not in truths:
+            Lp = {c: np.concatenate([p[0][c] for p in present.values()]) for c in L}
+            Op = {c: np.concatenate([p[1][c] for p in present.values()]) for c in O}
+            truths[key] = range_and_q3_truth(Lp, Op, bounds, "streaming")
+        return truths[key]
 
     def measure(step, index, verb_s, extra="", want_arms=None):
         """The range filter and Q3, launch counts from zero, against numpy;
         ``want_arms``: the join's arms Q3 must count, where they are fixed."""
-        _Lp, (want_r, want_q3) = truth()
+        want_r, want_q3 = truth()
         rng_q, q3_q = range_and_q3(session, li_dir, od_dir, bounds)
         used = rng_q.explain().split("Indexes used:")[1]
         if f"{index}:" not in used:
@@ -4479,7 +4743,7 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
     rng_q, _q3 = range_and_q3(session, li_dir, od_dir, bounds)
     res, t_res, launches, m, _t = timed_query(session, "streaming S2 resident", profile, rng_q)
     session.conf.set("hyperspace.torch.hbm.mode", "off")
-    _check("streaming S2 resident range filter", res, R_COLS, truth()[1][0])
+    _check("streaming S2 resident range filter", res, R_COLS, truth()[0])
     if m.get("scan.path.resident_device", 0) != 1 or launches.get(K1C, 0) != (
             1 if on_card else 0) or launches.get(K1, 0):
         raise AssertionError(f"streaming S2 resident: launches {launches}, counters {m}")

@@ -1,5 +1,5 @@
 // Bulk asynchronous copies into shared memory, for Hopper (sm_90a): the
-// helpers K1p (predicate_mask.cu) and K2p (sorted_intersect.cu) share.
+// helpers K1p, K1b (predicate_mask.cu) and K2p (sorted_intersect.cu) share.
 // One thread arms an mbarrier with the bytes it expects and issues 1-D
 // bulk copies (cp.async.bulk) that count their bytes on it; every thread
 // waits on the barrier's phase before it reads what they brought.
@@ -14,8 +14,17 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+// ``count`` arrivals complete a phase (one, the copies' issuer, unless a
+// consumer barrier counts its warps).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// One arrival on ``bar`` (release: this thread's shared-memory accesses
+// before it are visible to whoever waits on the phase).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {

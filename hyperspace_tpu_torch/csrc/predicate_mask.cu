@@ -103,29 +103,58 @@
 // K1b (hs_predicate_block_counts_batch) replaces the serving layer's
 // batched counts, hyperspace_tpu/exec/hbm_cache.py:_batched_counts_fn
 // (:617): N predicates over one table's planes (raw, or bit-packed as
-// K1p takes them) -> an (N, n_blocks) count matrix from one launch. The
-// N programs, their offsets, the planes' descriptors and addresses do
-// not fit the 4 KB parameter block (64 programs of a few instructions
-// each already overflow it), so they ride one device buffer that the
-// wrapper fills and copies for the launch (struct BatchParams points into
-// it); the parameters hold only its pointers and sizes. One CTA of 256
-// threads counts one block: the block's rows come in sub-tiles of
-// ``sub_rows`` (the largest that fits shared memory beside the stack and
-// the per-program counts, chosen by ops/kernels.py:k1b_plan); every
-// plane's slice of a sub-tile is copied into shared memory ONCE (16-byte
-// loads by all threads) and all N programs evaluate over it, each
-// decoding its compares in registers as K1p does (same layout: bit
-// 4k + j of a thread's word is row k*128 + lane*4 + j of its warp's
-// chunk). A warp's count of a program goes to a shared-memory counter
-// with one atomicAdd; thread q writes program q's count of the block.
-// Bound: memory, each plane read once for all N programs; for large N the
-// N interpretations dominate (operations). Pad rows count as in K1c/K1p.
+// K1p takes them) -> an (N, n_blocks) count matrix from one launch. Bound:
+// memory, each plane read once for all N programs, where the data lets
+// most chunks be judged whole; operations (N programs' compares a row)
+// where it does not. The design:
+//
+// * A ring fed by bulk copies and persistent CTAs, as K1p, warp
+//   specialised: a producer warp arms a stage's mbarrier and issues one
+//   cp.async.bulk a plane for the CTA's next sub-tile once all eight
+//   consumer warps have released the stage (an mbarrier they arrive on),
+//   while they work on earlier ones, so no barrier of the whole CTA waits
+//   on the slowest warp; the grid is the CTAs the card holds at once, CTA b
+//   walks blocks b, b + gridDim.x, ...; a launch of few blocks (a streaming
+//   window: 128) takes smaller sub-tiles so each CTA still has items in
+//   flight (ops/kernels.py:k1b_plan).
+// * Each value decoded once a sub-tile: a thread decodes its rows of every
+//   plane once, into registers when the launch has at most
+//   K1B_CACHED_COLS planes (every program then compares against them),
+//   else from the stage again, only for the chunks left undecided below.
+// * A range test per warp chunk, exact: each warp takes the (min, max) of
+//   every plane over its chunk (warp reductions, a cost that does not grow
+//   with N), and its lanes judge the programs in parallel over those
+//   intervals in three values, none / all / maybe. A program that is a
+//   conjunction of literal compares is a box (one interval a plane, found
+//   by the host: ops/kernels.py:program_box) and is judged and counted as
+//   one unsigned range test a plane; any other is interpreted in three
+//   values (AND, OR, NOT act on them; a compare is decided only when its
+//   intervals decide it). None adds nothing, all the chunk's live rows (pad
+//   rows count, as in K1c and K1p); only maybe programs are counted row by
+//   row, and in them a plane or compare the intervals decide is skipped.
+//   The planes of an index are key-sorted within buckets, so a point lookup
+//   is maybe in one chunk or two of thousands; a chunk across a bucket
+//   boundary holds two ascending runs, which the warp detects (at most one
+//   descent) and covers by [first, max] and [min, last], so a key between
+//   the runs is none there too.
+// * The programs in the launch's parameters (struct BatchParams,
+//   __grid_constant__): addresses, descriptors, code, offsets and boxes as
+//   one blob, copied into shared memory once a CTA. The block is 4 KB, as
+//   K1's: the served batches fit it (64 point lookups take 2.9 KB), and a
+//   batch whose blob does not rides a device buffer the wrapper copies
+//   (``staged``), staged into shared memory the same way.
+// * Counts without atomics on them: lane l of a warp owns programs l, l +
+//   32, ... and adds to its warp's row of shared memory; the last warp to
+//   finish a block sums the rows and writes program q's count.
+//   Deterministic.
 //
 // K1hb (hs_hybrid_block_counts_batch) replaces hbm_cache.py:
 // _hybrid_batched_counts_fn (:728): K1b over a resident base then a delta
-// (raw planes, as K1h), the base's deleted rows cleared with K1h's 1-bit
-// mask (a thread gathers its rows' bits from the words K1h's threads own),
-// -> (N, base blocks + delta blocks).
+// (raw planes, as K1h) in one launch, -> (N, base blocks + delta blocks).
+// The base's deleted rows are cleared with K1h's 1-bit mask: a thread
+// gathers its rows' bits from the words K1h's threads own, before it waits
+// on the stage, and folds them into the chunk's live rows, which an "all"
+// program counts.
 
 #include <atomic>
 #include <cstddef>
@@ -688,31 +717,92 @@ predicate_block_counts_packed_kernel(const __grid_constant__ Params p,
 // ---------------------------------------------------------------------------
 // K1b / K1hb: N programs over one table's planes, one launch
 // ---------------------------------------------------------------------------
-// The launch's parameters; everything of variable size lives in the
-// device buffer the pointers address. ops/kernels.py:_pack_batch_params
-// packs this layout (hs_batch_param_bytes() lets it check).
-struct BatchParams {
-  const int4* code;               // the N programs, back to back
-  const int* prog_off;            // N + 1 instruction offsets into code
-  const int4* desc;               // per plane {OP_PACK, bits, vpw, ref0}
-  const int32_t* const* cols;     // plane addresses (K1hb: base's, then delta's)
-  const uint32_t* del;            // K1hb: deletion mask over the base rows, or null
-  int32_t* out;                   // n_progs x blocks counts, program-major
-  long long n_rows;               // rows counted (K1hb: base + delta)
-  long long nb_base;              // K1hb: base blocks (K1b: all blocks)
-  int n_progs;
-  int n_cols;                     // planes a side
-  int sub_rows;                   // rows of a block a sub-tile holds
-  int stage_bytes;                // bytes of a sub-tile's slices
-  int depth;                      // stack slots the deepest program needs
-  int pad_;
-};
-static_assert(sizeof(BatchParams) == 88 && offsetof(BatchParams, n_rows) == 48 &&
-                  offsetof(BatchParams, n_progs) == 64 && offsetof(BatchParams, depth) == 80,
-              "ops/kernels.py:_pack_batch_params mirrors this");
+// The launch's parameter block, 4 KB as K1's: a head, then the batch's
+// blob (the plane addresses, their descriptors {OP_PACK, bits, vpw, ref0},
+// the programs back to back and their N + 1 offsets, each part on 16
+// bytes) when it fits, else the blob lies on the card (``staged``).
+// ops/kernels.py:pack_batch_params packs both; hs_batch_param_bytes() lets
+// it check the size.
+constexpr int K1B_PARAM_BYTES = 4096;
+constexpr int K1B_SUB_MAX = 4096;    // the largest sub-tile: a thread's chunks KC <= 4
+constexpr int K1B_MAX_STAGES = 4;    // the ring's stages (the plan picks 2..4)
+// planes a thread keeps decoded in registers: ptxas -v (PR 16) spills a
+// third and a fourth plane's 16 values a thread beside the rest
+constexpr int K1B_CACHED_COLS = 2;
+constexpr int WARPS = COUNT_THREADS / 32;  // consumer warps
+constexpr int K1B_THREADS = COUNT_THREADS + 32;  // and one producer warp
 
-// One plane's slice in the shared-memory stage: its byte offset, log2 of
-// its vpw, and its descriptor's bits and ref0.
+struct BatchHead {
+  const int4* staged;   // the blob on the card, or null: it follows the head
+  const uint32_t* del;  // K1hb: deletion mask over the base rows, or null
+  int32_t* out;         // n_progs x blocks counts, program-major
+  long long n_rows;     // rows counted (K1hb: base + delta)
+  long long nb_base;    // K1hb: base blocks (K1b: all blocks)
+  int n_progs;
+  int n_cols;           // planes a side
+  int n_addrs;          // plane addresses: n_cols, or 2 * n_cols for K1hb (base's, delta's)
+  int n_instr;          // instructions of all programs
+  int depth;            // stack slots the deepest program needs
+  int sub_rows;         // rows of a block a sub-tile holds
+  int stages;           // the ring's stages
+  int stage_bytes;      // bytes of a sub-tile's slices
+  int blob_bytes;
+  int n_boxes;          // box entries, over the programs that are conjunctions (bx)
+};
+static_assert(sizeof(BatchHead) == 80 && offsetof(BatchHead, n_rows) == 24 &&
+                  offsetof(BatchHead, n_progs) == 40 && offsetof(BatchHead, blob_bytes) == 72,
+              "ops/kernels.py:pack_batch_params mirrors this");
+constexpr int K1B_BLOB_CAP = K1B_PARAM_BYTES - (int)sizeof(BatchHead);
+struct BatchParams {
+  BatchHead h;
+  int4 blob[K1B_BLOB_CAP / 16];
+};
+static_assert(sizeof(BatchParams) == K1B_PARAM_BYTES, "the head and the blob fill 4 KB");
+
+__host__ __device__ __forceinline__ int round16(int bytes) { return (bytes + 15) & ~15; }
+
+// Byte offsets of the blob's parts, and its size: after the offsets, one
+// int2 a program (bx: its first box entry and their count; -1: interpret
+// the program, -2: no row can satisfy it) and the box entries, int4
+// {plane, lo, hi - lo as unsigned, 0} each. A program that is a
+// conjunction of compares of planes with literals (no NE) is the box of
+// rows with lo <= value <= hi on each plane it names
+// (ops/kernels.py:program_box).
+struct BlobLayout {
+  int addrs, desc, code, offs, bx, boxes, bytes;
+};
+__host__ __device__ __forceinline__ BlobLayout blob_layout(const BatchHead& h) {
+  BlobLayout b;
+  b.addrs = 0;
+  b.desc = round16(8 * h.n_addrs);
+  b.code = b.desc + 16 * h.n_cols;
+  b.offs = b.code + 16 * h.n_instr;
+  b.bx = b.offs + round16(4 * (h.n_progs + 1));
+  b.boxes = b.bx + round16(8 * h.n_progs);
+  b.bytes = b.boxes + 16 * h.n_boxes;
+  return b;
+}
+
+// Dynamic shared memory: the ring, the blob, a slice table, each warp's
+// intervals of every plane ({lo, hi, first, last}), each warp's count of every program (one
+// buffer a stage: the warps run at most that many items, so blocks, apart),
+// the stack.
+struct SmemLayout {
+  int blob, tab, iv, cnt, stk, bytes;
+};
+__host__ __device__ __forceinline__ SmemLayout batch_smem(const BatchHead& h) {
+  SmemLayout s;
+  s.blob = h.stages * h.stage_bytes;
+  s.tab = s.blob + round16(h.blob_bytes);
+  s.iv = s.tab + 16 * h.n_cols;
+  s.cnt = s.iv + 16 * WARPS * h.n_cols;
+  s.stk = s.cnt + round16(4 * h.stages * WARPS * h.n_progs);
+  s.bytes = s.stk + 4 * h.depth * K1B_THREADS;
+  return s;
+}
+
+// One plane's slice in a stage: its byte offset, log2 of its vpw, and its
+// descriptor's bits and ref0.
 struct BSlice {
   int off;
   int lg;
@@ -726,137 +816,561 @@ __device__ __forceinline__ void decode_slice(const unsigned char* stage, const B
                                              unsigned r0, int4 (&v)[KC]) {
   const uint32_t* w = reinterpret_cast<const uint32_t*>(stage + s.off);
   const int4 d = make_int4(OP_PACK, s.bits, 1 << s.lg, s.ref);
-  switch (s.lg) {
-    case 0: decode<1, KC>(w, r0, d, v); break;
-    case 1: decode<2, KC>(w, r0, d, v); break;
-    case 2: decode<4, KC>(w, r0, d, v); break;
-    case 3: decode<8, KC>(w, r0, d, v); break;
-    case 4: decode<16, KC>(w, r0, d, v); break;
-    default: decode<32, KC>(w, r0, d, v); break;
+  if (s.lg == 0) decode<1, KC>(w, r0, d, v);
+  else if (s.lg == 1) decode<2, KC>(w, r0, d, v);
+  else if (s.lg == 2) decode<4, KC>(w, r0, d, v);
+  else if (s.lg == 3) decode<8, KC>(w, r0, d, v);
+  else if (s.lg == 4) decode<16, KC>(w, r0, d, v);
+  else decode<32, KC>(w, r0, d, v);
+}
+
+// The warp's interval (min, max) of its rows of one plane, in every lane;
+// and, where its rows in order (k, lane, j) descend at most once (two
+// ascending runs: a chunk across a bucket boundary of an index), its
+// first and last values, so that every value lies in [first, hi] or in
+// [lo, last]; else first = lo and last = hi (the cover is [lo, hi]).
+template <int KC>
+__device__ __forceinline__ void chunk_interval(const int4 (&a)[KC], int& lo, int& hi, int& first,
+                                               int& last) {
+  const int lane = threadIdx.x & 31;
+  int down = 0;  // descents from each of this thread's rows to the next row
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    down += (a[k].y < a[k].x) + (a[k].z < a[k].y) + (a[k].w < a[k].z);
+    const int nx = __shfl_down_sync(0xffffffffu, a[k].x, 1);         // lane + 1's first
+    const int wrap = __shfl_sync(0xffffffffu, a[k + 1 < KC ? k + 1 : k].x, 0);  // next k's first
+    if (lane < 31) down += nx < a[k].w;
+    else if (k + 1 < KC) down += wrap < a[k].w;
+  }
+  const int descents = __reduce_add_sync(0xffffffffu, down);
+  first = __shfl_sync(0xffffffffu, a[0].x, 0);
+  last = __shfl_sync(0xffffffffu, a[KC - 1].w, 31);
+  int mn = min(min(a[0].x, a[0].y), min(a[0].z, a[0].w));
+  int mx = max(max(a[0].x, a[0].y), max(a[0].z, a[0].w));
+#pragma unroll
+  for (int k = 1; k < KC; ++k) {
+    mn = min(mn, min(min(a[k].x, a[k].y), min(a[k].z, a[k].w)));
+    mx = max(mx, max(max(a[k].x, a[k].y), max(a[k].z, a[k].w)));
+  }
+  lo = __reduce_min_sync(0xffffffffu, mn);
+  hi = __reduce_max_sync(0xffffffffu, mx);
+  if (descents > 1) {
+    first = lo;
+    last = hi;
   }
 }
 
-// Program [i0, i1) of ``code`` over the thread's rows of the staged
-// sub-tile; the stack as eval_rows's.
+// A compare in canonical form: EQ or LT of (x, y), of (y, x) when
+// swapped, negated or not. Bits: 1 swap, 2 EQ (else LT), 4 negate. EQ 2,
+// NE 6, LT 0, LE 5 (!(y < x)), GT 1 (y < x), GE 4 (!(x < y)). Each CTA
+// rewrites its staged programs' compares into this form, so no compare
+// of the hot loops dispatches on six operators.
+__host__ __device__ constexpr int cmp_form(int op) {
+  return ((0x18 >> op) & 1) | ((op < 2) << 1) | (((0x2A >> op) & 1) << 2);
+}
+static_assert(cmp_form(CMP_EQ) == 2 && cmp_form(CMP_NE) == 6 && cmp_form(CMP_LT) == 0 &&
+                  cmp_form(CMP_LE) == 5 && cmp_form(CMP_GT) == 1 && cmp_form(CMP_GE) == 4,
+              "canonical compares");
+
+// Whether some row of a chunk may, and whether every row must, satisfy a
+// compare of canonical ``form`` between values in [alo, ahi] and [blo,
+// bhi] (a literal is the interval [lit, lit]); signed, as cmp1. Exact for
+// the two answers it gives: may == false means no row, must == true every
+// row. Selects only, no branch.
+__device__ __forceinline__ void form_interval(int form, int alo, int ahi, int blo, int bhi,
+                                              bool& may, bool& must) {
+  const bool sw = form & 1;
+  const int xlo = sw ? blo : alo, xhi = sw ? bhi : ahi;
+  const int ylo = sw ? alo : blo, yhi = sw ? ahi : bhi;
+  const bool eq = form & 2;
+  const bool m = eq ? (xlo <= yhi && ylo <= xhi) : xlo < yhi;
+  const bool u = eq ? (xlo == xhi && ylo == yhi && xlo == ylo) : xhi < ylo;
+  const bool neg = form & 4;
+  may = neg ? !u : m;
+  must = neg ? !m : u;
+}
+
+// The thread's rows of a compare of canonical ``form``: a plane against a
+// literal, or against another plane.
 template <int KC>
-__device__ __forceinline__ uint32_t eval_batch(const int4* code, int i0, int i1,
-                                               const BSlice* tab, const unsigned char* stage,
-                                               uint32_t* stk, unsigned r0) {
-  const int T = blockDim.x;
+__device__ __forceinline__ uint32_t form_lit(const int4 (&x)[KC], int lit, int form) {
+  const uint32_t w = (form & 2)   ? cmp_chunks<CMP_EQ, KC>(x, Lit{lit})
+                     : (form & 1) ? cmp_chunks<CMP_GT, KC>(x, Lit{lit})
+                                  : cmp_chunks<CMP_LT, KC>(x, Lit{lit});
+  return (form & 4) ? ~w : w;
+}
+
+// A plane against another decoded from the stage a chunk k at a time (4
+// values a thread live, not 4 * KC).
+template <int KC>
+__device__ __forceinline__ uint32_t form_col_stage(const int4 (&x)[KC], const unsigned char* stage,
+                                                   const BSlice& s, unsigned r0, int form) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    int4 y[1];
+    decode_slice<1>(stage, s, r0 + 128 * k, y);
+    const int4 xs[1] = {x[k]};
+    const uint32_t n = (form & 2)   ? cmp_chunks<CMP_EQ, 1>(xs, Chunks<1>{y})
+                       : (form & 1) ? cmp_chunks<CMP_LT, 1>(y, Chunks<1>{xs})
+                                    : cmp_chunks<CMP_LT, 1>(xs, Chunks<1>{y});
+    w |= n << (4 * k);
+  }
+  return (form & 4) ? ~w : w;
+}
+
+template <int KC>
+__device__ __forceinline__ uint32_t form_col(const int4 (&x)[KC], const int4 (&y)[KC], int form) {
+  const uint32_t w = (form & 2)   ? cmp_chunks<CMP_EQ, KC>(x, Chunks<KC>{y})
+                     : (form & 1) ? cmp_chunks<CMP_LT, KC>(y, Chunks<KC>{x})
+                                  : cmp_chunks<CMP_LT, KC>(x, Chunks<KC>{y});
+  return (form & 4) ? ~w : w;
+}
+
+// The chunk's intervals: NC > 0 keeps them in registers (lo[c], hi[c],
+// warp uniform), else they sit in the warp's row of shared memory.
+template <int NC>
+struct Intervals {
+  int lo[NC > 0 ? NC : 1], hi[NC > 0 ? NC : 1], fi[NC > 0 ? NC : 1], la[NC > 0 ? NC : 1];
+  const int4* iv;  // NC == 0: {lo, hi, first, last} a plane
+  __device__ __forceinline__ void get(int c, int& l, int& h) const {
+    int f, t;
+    get(c, l, h, f, t);
+  }
+  __device__ __forceinline__ void get(int c, int& l, int& h, int& f, int& t) const {
+    if constexpr (NC > 0) {
+      l = lo[0];
+      h = hi[0];
+      f = fi[0];
+      t = la[0];
+#pragma unroll
+      for (int a = 1; a < NC; ++a) {
+        if (a == c) {
+          l = lo[a];
+          h = hi[a];
+          f = fi[a];
+          t = la[a];
+        }
+      }
+    } else {
+      const int4 v = iv[c];
+      l = v.x;
+      h = v.y;
+      f = v.z;
+      t = v.w;
+    }
+  }
+  // ``ins`` (a compare, canonical) over the chunk
+  __device__ __forceinline__ void judge(const int4 ins, bool& may, bool& must) const {
+    int alo, ahi, blo = ins.w, bhi = ins.w;
+    get(ins.y, alo, ahi);
+    if (ins.x == OP_CMP_COL) get(ins.w, blo, bhi);
+    form_interval(ins.z, alo, ahi, blo, bhi, may, must);
+  }
+};
+
+// A chunk's verdict on a program: no row (T_NONE), every row (T_ALL), or
+// to be counted row by row (T_MAYBE). Bit 0: some row may satisfy it; bit
+// 1: every row must.
+enum : int { T_NONE = 0, T_MAYBE = 1, T_ALL = 3 };
+
+// Program [i0, i1) of ``code`` in three values over the chunk's intervals:
+// a stack of (may, must) bits, the top at bit 0 (64 slots: the deepest
+// program). AND, OR and NOT act on both bits (NOT swaps them, negated).
+// The next instruction's load is issued before this one is judged.
+template <int NC>
+__device__ __forceinline__ int program_verdict(const int4* code, int i0, int i1,
+                                               const Intervals<NC>& iv) {
+  uint64_t may = 0, must = 0;
+  int4 next = code[i0];
+  for (int i = i0; i < i1; ++i) {
+    const int4 ins = next;
+    if (i + 1 < i1) next = code[i + 1];
+    if (ins.x <= OP_CMP_COL) {
+      bool m, u;
+      iv.judge(ins, m, u);
+      may = (may << 1) | (uint64_t)m;
+      must = (must << 1) | (uint64_t)u;
+    } else if (ins.x == OP_NOT) {
+      const uint64_t m = may & 1u, u = must & 1u;
+      may = (may ^ m) | (u ^ 1u);
+      must = (must ^ u) | (m ^ 1u);
+    } else {
+      const uint64_t m = ins.x == OP_AND ? may & (may >> 1) : may | (may >> 1);
+      const uint64_t u = ins.x == OP_AND ? must & (must >> 1) : must | (must >> 1);
+      may = ((may >> 1) & ~1ull) | (m & 1u);
+      must = ((must >> 1) & ~1ull) | (u & 1u);
+    }
+  }
+  return (int)(may & 1u) | ((int)(must & 1u) << 1);
+}
+
+// Program [i0, i1) over the thread's rows of the chunk: bit 4k + j for row
+// r0 + k*128 + j (k < KC). A compare the chunk's intervals decide pushes
+// its word untouched by the rows; an undecided one compares the rows, from
+// the registers (NC > 0: ``v`` holds every plane, decoded once) or decoded
+// from the stage. The stack's top two words live in registers and only a
+// third one goes to shared memory ([slot][thread]), so a program of depth
+// 2 or less (a point lookup, a chain of ANDs) touches none.
+template <int KC, int NC>
+__device__ __forceinline__ uint32_t program_rows(const int4* code, int i0, int i1,
+                                                 const Intervals<NC>& iv,
+                                                 const int4 (&v)[NC > 0 ? NC : 1][KC],
+                                                 const BSlice* tab, const unsigned char* stage,
+                                                 uint32_t* stk, unsigned r0) {
   uint32_t* my = stk + threadIdx.x;
   uint32_t top = 0, second = 0;
-  int sp = 0;
+  int n = 0;  // values on the stack: top, second, then slots n - 3 .. 0
+  int4 next = code[i0];
   for (int i = i0; i < i1; ++i) {
-    const int4 ins = __ldg(code + i);
-    if (ins.x == OP_CMP_LIT || ins.x == OP_CMP_COL) {
-      int4 a[KC];
-      decode_slice<KC>(stage, tab[ins.y], r0, a);
-      uint32_t w;
-      if (ins.x == OP_CMP_LIT) {
-        w = cmp_chunks_dispatch<KC>(a, Lit{ins.w}, ins.z);
-      } else {
-        int4 b[KC];
-        decode_slice<KC>(stage, tab[ins.w], r0, b);
-        w = cmp_chunks_dispatch<KC>(a, Chunks<KC>{b}, ins.z);
+    const int4 ins = next;
+    if (i + 1 < i1) next = code[i + 1];
+    if (ins.x <= OP_CMP_COL) {
+      bool may, must;
+      iv.judge(ins, may, must);
+      uint32_t w = must ? 0xffffffffu : 0u;
+      if (may && !must) {
+        if constexpr (NC > 0) {
+#pragma unroll
+          for (int a = 0; a < NC; ++a) {
+            if (a != ins.y) continue;
+            if (ins.x == OP_CMP_LIT) {
+              w = form_lit<KC>(v[a], ins.w, ins.z);
+            } else {
+#pragma unroll
+              for (int b = 0; b < NC; ++b) {
+                if (b == ins.w) w = form_col<KC>(v[a], v[b], ins.z);
+              }
+            }
+          }
+        } else {
+          int4 a[KC];
+          decode_slice<KC>(stage, tab[ins.y], r0, a);
+          w = ins.x == OP_CMP_LIT ? form_lit<KC>(a, ins.w, ins.z)
+                                  : form_col_stage<KC>(a, stage, tab[ins.w], r0, ins.z);
+        }
       }
-      my[sp * T] = second;
-      ++sp;
+      if (n >= 2) my[(n - 2) * K1B_THREADS] = second;
+      ++n;
       second = top;
       top = w;
     } else if (ins.x == OP_NOT) {
       top = ~top;
     } else {
       top = ins.x == OP_AND ? (second & top) : (second | top);
-      --sp;
-      second = my[sp * T];
+      if (--n >= 2) second = my[(n - 2) * K1B_THREADS];
     }
   }
   return top;
 }
 
-__host__ __device__ __forceinline__ int round16(int bytes) { return (bytes + 15) & ~15; }
-
-// Shared memory: the slice table, the per-program counts, the stack, then
-// the stage.
-__host__ __device__ __forceinline__ int batch_fixed_bytes(int n_cols, int n_progs, int depth) {
-  return 16 * n_cols + round16(4 * n_progs) + 4 * depth * COUNT_THREADS;
+// A box program's verdict over the chunk's intervals: no row when a
+// plane's interval misses the box's, every row when each lies inside it.
+template <int NC>
+__device__ __forceinline__ int box_verdict(const int4* e, int n, const Intervals<NC>& iv) {
+  bool all = true;
+  for (int k = 0; k < n; ++k) {
+    const int4 b = e[k];
+    int lo, hi, first, last;
+    iv.get(b.x, lo, hi, first, last);
+    const int bhi = (int)((unsigned)b.y + (unsigned)b.z);
+    // no value in [first, hi] nor in [lo, last] lies in the box
+    if ((hi < b.y || first > bhi) && (last < b.y || lo > bhi)) return T_NONE;
+    all = all && b.y <= lo && hi <= bhi;
+  }
+  return all ? T_ALL : T_MAYBE;
 }
 
-// One CTA per block. A sub-tile of S = p.sub_rows rows gives warp w the
-// rows w*KC*128 + k*128 + lane*4 + j (k < KC), as K1p: KC = S / 1024, or 1
-// with the first S / 128 warps at work when S < 1024.
-template <int KC, bool HYBRID>
-__global__ void __launch_bounds__(COUNT_THREADS, 1)
+// Rows lo <= x <= hi as one unsigned compare each: x - lo <= hi - lo.
+template <int KC>
+__device__ __forceinline__ uint32_t in_box(const int4 (&x)[KC], int lo, unsigned span) {
+  const unsigned l = (unsigned)lo;
+  uint32_t w = 0;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    w |= ((uint32_t)((unsigned)x[k].x - l <= span) << (4 * k)) |
+         ((uint32_t)((unsigned)x[k].y - l <= span) << (4 * k + 1)) |
+         ((uint32_t)((unsigned)x[k].z - l <= span) << (4 * k + 2)) |
+         ((uint32_t)((unsigned)x[k].w - l <= span) << (4 * k + 3));
+  }
+  return w;
+}
+
+// A box program over the thread's rows of the chunk: the AND of its
+// planes' range tests, a plane whose interval lies inside the box's
+// skipped.
+template <int KC, int NC>
+__device__ __forceinline__ uint32_t box_rows(const int4* e, int n, const Intervals<NC>& iv,
+                                             const int4 (&v)[NC > 0 ? NC : 1][KC],
+                                             const BSlice* tab, const unsigned char* stage,
+                                             unsigned r0) {
+  uint32_t w = 0xffffffffu;
+  for (int k = 0; k < n; ++k) {
+    const int4 b = e[k];
+    int lo, hi;
+    iv.get(b.x, lo, hi);
+    const unsigned span = (unsigned)b.z;
+    if ((unsigned)lo - (unsigned)b.y <= span && (unsigned)hi - (unsigned)b.y <= span) continue;
+    if constexpr (NC > 0) {
+#pragma unroll
+      for (int a = 0; a < NC; ++a) {
+        if (a == b.x) w &= in_box<KC>(v[a], b.y, span);
+      }
+    } else {
+      int4 x[KC];
+      decode_slice<KC>(stage, tab[b.x], r0, x);
+      w &= in_box<KC>(x, b.y, span);
+    }
+  }
+  return w;
+}
+
+// Box programs a warp counts row by row at once: their range tests are
+// independent, so their latencies overlap. One at a time where each
+// decodes its planes' 16 rows a thread from the stage (ptxas -v: two
+// spill there).
+__host__ __device__ constexpr int k1b_boxes_at_once(int nc, int kc) {
+  return nc == 0 && kc == 4 ? 1 : 4;
+}
+// CTAs an SM holds in registers, by instantiation (__launch_bounds__):
+// three (72 registers a thread) with one plane in registers, else two (96)
+constexpr int k1b_min_ctas(int nc) { return nc == 1 ? 3 : 2; }
+
+// K1b / K1hb. Persistent CTAs as K1p's: CTA b takes blocks b, b +
+// gridDim.x, ..., each cut into sub-tiles of S = sub_rows rows, its items
+// (block, sub-tile) in order, item i in stage i % stages of the ring. The
+// CTA is eight consumer warps and one producer warp (warp specialised):
+// the producer's lane 0 refills a stage with one bulk copy a plane once
+// every consumer warp has released it (the stage's ``empty`` mbarrier,
+// one arrival a warp), and the consumers wait on its ``full`` mbarrier,
+// so no barrier of the whole CTA holds a warp back for the slowest one. A
+// sub-tile gives consumer warp w the rows w*KC*128 + k*128 + lane*4 + j
+// (k < KC; KC = S / 1024, or 1 with the first S / 128 warps at work when S
+// < 1024): the warp's chunk. Per chunk a warp decodes every plane once
+// (into registers when NC > 0, else only for the intervals), takes each
+// plane's (min, max), and its lanes judge the programs in parallel, lane l
+// the programs l, l + 32, ... (a box program by its planes' intervals,
+// another by interpreting it over them): T_NONE adds nothing, T_ALL the
+// chunk's live rows (all of them: pad rows count; K1hb's base less its
+// deleted rows), and the T_MAYBE programs are counted row by row by the
+// whole warp, up to k1b_boxes_at_once box programs at a time, others one
+// after another. Lane l keeps the counts of its programs in the warp's
+// row of the block's count buffer (``stages`` buffers: warps run at most
+// that many items apart); the last warp to finish a block sums the rows,
+// writes program q's count, and zeroes the buffer (no atomics on counts).
+template <int KC, int NC>
+__global__ void __launch_bounds__(K1B_THREADS, k1b_min_ctas(NC))
 block_counts_batch_kernel(const __grid_constant__ BatchParams p) {
-  extern __shared__ __align__(16) unsigned char dsm[];
-  BSlice* tab = reinterpret_cast<BSlice*>(dsm);
-  int* cnt = reinterpret_cast<int*>(dsm + 16 * p.n_cols);
-  uint32_t* stk = reinterpret_cast<uint32_t*>(dsm + 16 * p.n_cols + round16(4 * p.n_progs));
-  unsigned char* stage = dsm + batch_fixed_bytes(p.n_cols, p.n_progs, p.depth);
-  const int S = p.sub_rows;
-  const long long blk = blockIdx.x;
-  const bool delta = HYBRID && blk >= p.nb_base;
-  const long long side_blk = delta ? blk - p.nb_base : blk;
-  const int cbase = delta ? p.n_cols : 0;
-  for (int q = threadIdx.x; q < p.n_progs; q += blockDim.x) cnt[q] = 0;
+  extern __shared__ __align__(128) unsigned char dsm[];
+  __shared__ uint64_t full[K1B_MAX_STAGES], empty[K1B_MAX_STAGES];
+  __shared__ int done[K1B_MAX_STAGES];
+  const BatchHead& h = p.h;
+  const SmemLayout L = batch_smem(h);
+  const BlobLayout B = blob_layout(h);
+  unsigned char* blob = dsm + L.blob;
+  BSlice* tab = reinterpret_cast<BSlice*>(dsm + L.tab);
+  int* cnt = reinterpret_cast<int*>(dsm + L.cnt);
+  uint32_t* stk = reinterpret_cast<uint32_t*>(dsm + L.stk);
+  const int S = h.sub_rows, sb = h.stage_bytes, nst = h.stages, np = h.n_progs;
+  const int n_active = S >= 1024 ? WARPS : S / 128;  // consumer warps with rows
+  {  // the blob into shared memory once a CTA, its compares made canonical;
+     // the counts zeroed
+    const int4* src = h.staged != nullptr ? h.staged : p.blob;
+    int4* dst = reinterpret_cast<int4*>(blob);
+    const int c0 = B.code >> 4, c1 = B.offs >> 4;
+    for (int i = threadIdx.x; i < (h.blob_bytes >> 4); i += K1B_THREADS) {
+      int4 x = src[i];
+      if (i >= c0 && i < c1 && x.x <= OP_CMP_COL) x.z = cmp_form(x.z);
+      dst[i] = x;
+    }
+    for (int i = threadIdx.x; i < nst * WARPS * np; i += K1B_THREADS) cnt[i] = 0;
+    if (threadIdx.x < K1B_MAX_STAGES) done[threadIdx.x] = 0;
+  }
+  __syncthreads();
+  const long long* addrs = reinterpret_cast<const long long*>(blob + B.addrs);
+  const int4* code = reinterpret_cast<const int4*>(blob + B.code);
+  const int* offs = reinterpret_cast<const int*>(blob + B.offs);
+  const int2* bx = reinterpret_cast<const int2*>(blob + B.bx);
+  const int4* boxes = reinterpret_cast<const int4*>(blob + B.boxes);
   if (threadIdx.x == 0) {
+    const int4* desc = reinterpret_cast<const int4*>(blob + B.desc);
     int off = 0;
-    for (int c = 0; c < p.n_cols; ++c) {
-      const int4 d = p.desc[c];
+    for (int c = 0; c < h.n_cols; ++c) {
+      const int4 d = desc[c];
       const int lg = __ffs(d.z) - 1;
       tab[c] = BSlice{off, lg, d.y, d.w};
       off += (S >> lg) * 4;
     }
+    for (int st = 0; st < nst; ++st) {
+      mbar_init(&full[st]);
+      mbar_init(&empty[st], n_active);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+
+  const long long nb = h.n_rows / BLOCK_ROWS;
+  const int lg_sub = __ffs(BLOCK_ROWS / S) - 1;  // 2^lg_sub sub-tiles a block
+  const int n_items = (long long)blockIdx.x < nb
+                          ? (int)((nb - 1 - (long long)blockIdx.x) / gridDim.x + 1) << lg_sub
+                          : 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned r0 = (unsigned)warp * (KC * 128) + lane * 4;
-  const bool active = r0 < (unsigned)S;  // warp uniform
-  const uint32_t valid = 0xffffffffu >> (32 - 4 * KC);
-  const int n_sub = BLOCK_ROWS / S;
-  for (int s = 0; s < n_sub; ++s) {
-    const long long row0 = side_blk * BLOCK_ROWS + (long long)s * S;
-    for (int c = 0; c < p.n_cols; ++c) {
-      const BSlice t = tab[c];
-      const int4* src = reinterpret_cast<const int4*>(p.cols[cbase + c]) + ((row0 >> t.lg) >> 2);
-      int4* dst = reinterpret_cast<int4*>(stage + t.off);
-      const int n16 = (S >> t.lg) >> 2;
-      for (int i = threadIdx.x; i < n16; i += blockDim.x) dst[i] = __ldg(src + i);
-    }
-    __syncthreads();
-    if (active) {
-      uint32_t live = valid;
-      if (HYBRID && !delta && p.del != nullptr) {
-        // the bits of this thread's rows in K1h's layout: row
-        // W*1024 + K*128 + lane*4 + j is bit 4K + j of word W*32 + lane
-        uint32_t gone = 0;
-#pragma unroll
-        for (int k = 0; k < KC; ++k) {
-          const unsigned rb = (unsigned)(s * S) + (unsigned)warp * (KC * 128) + k * 128;
-          const uint32_t word = __ldg(p.del + blk * COUNT_THREADS + (rb >> 10) * 32 + lane);
-          gone |= ((word >> (4 * ((rb >> 7) & 7))) & 0xFu) << (4 * k);
+  if (warp == WARPS) {  // the producer: item i's slices into stage i % nst
+    if (lane == 0) {
+      for (int i = 0, st = 0, round = 0; i < n_items; ++i) {
+        if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);  // item i - nst released
+        const long long blk = blockIdx.x + (long long)(i >> lg_sub) * gridDim.x;
+        const bool delta = blk >= h.nb_base;
+        const long long row0 = (delta ? blk - h.nb_base : blk) * BLOCK_ROWS +
+                               (long long)(i & ((1 << lg_sub) - 1)) * S;
+        const long long* a = addrs + (delta ? h.n_cols : 0);
+        unsigned char* stage = dsm + st * sb;
+        mbar_expect_tx(&full[st], sb);
+        for (int c = 0; c < h.n_cols; ++c) {
+          const BSlice t = tab[c];
+          bulk_copy(stage + t.off, reinterpret_cast<const char*>(a[c]) + ((row0 >> t.lg) << 2),
+                    (S >> t.lg) << 2, &full[st]);
         }
-        live &= ~gone;
-      }
-      for (int q = 0; q < p.n_progs; ++q) {
-        const uint32_t w = eval_batch<KC>(p.code, __ldg(p.prog_off + q),
-                                          __ldg(p.prog_off + q + 1), tab, stage, stk, r0) & live;
-        const int c = (int)__reduce_add_sync(0xffffffffu, __popc(w));
-        if (lane == 0 && c != 0) atomicAdd(&cnt[q], c);
+        if (++st == nst) {
+          st = 0;
+          ++round;
+        }
       }
     }
-    __syncthreads();  // the stage is free; the counts are in
+    return;
   }
-  const long long nb = p.n_rows / BLOCK_ROWS;
-  for (int q = threadIdx.x; q < p.n_progs; q += blockDim.x) p.out[(long long)q * nb + blk] = cnt[q];
+  if (warp >= n_active) return;  // a sub-tile under 1024 rows leaves this warp none
+
+  const unsigned r0 = (unsigned)warp * (KC * 128) + lane * 4;
+  const uint32_t valid = 0xffffffffu >> (32 - 4 * KC);
+  int4* ivs = reinterpret_cast<int4*>(dsm + L.iv) + warp * h.n_cols;
+  Intervals<NC> iv;
+  iv.iv = ivs;
+  uint32_t parity = 0;
+  for (int i = 0, st = 0; i < n_items; ++i) {
+    const int j = i >> lg_sub, s = i & ((1 << lg_sub) - 1);
+    const long long blk = blockIdx.x + (long long)j * gridDim.x;
+    uint32_t live = valid;
+    int n_live = KC * 128;
+    if (h.del != nullptr && blk < h.nb_base) {
+      // the bits of this thread's rows in K1h's layout: row
+      // W*1024 + K*128 + lane*4 + j is bit 4K + j of word W*32 + lane
+      uint32_t gone = 0;
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        const unsigned rb = (unsigned)(s * S) + (unsigned)warp * (KC * 128) + k * 128;
+        const uint32_t word = __ldg(h.del + blk * COUNT_THREADS + (rb >> 10) * 32 + lane);
+        gone |= ((word >> (4 * ((rb >> 7) & 7))) & 0xFu) << (4 * k);
+      }
+      live &= ~gone;
+      n_live = (int)__reduce_add_sync(0xffffffffu, __popc(live));
+    }
+    mbar_wait(&full[st], parity);
+    const unsigned char* stage = dsm + st * sb;
+    int4 v[NC > 0 ? NC : 1][KC];
+    if constexpr (NC > 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        decode_slice<KC>(stage, tab[c], r0, v[c]);
+        chunk_interval<KC>(v[c], iv.lo[c], iv.hi[c], iv.fi[c], iv.la[c]);
+      }
+    } else {
+      for (int c = 0; c < h.n_cols; ++c) {
+        int4 a[KC];
+        decode_slice<KC>(stage, tab[c], r0, a);
+        int lo, hi, first, last;
+        chunk_interval<KC>(a, lo, hi, first, last);
+        if (lane == 0) ivs[c] = make_int4(lo, hi, first, last);
+      }
+      __syncwarp();
+    }
+    const int buf = j % nst;
+    int* wc = cnt + (buf * WARPS + warp) * np;
+    for (int q0 = 0; q0 < np; q0 += 32) {
+      const int q = q0 + lane;
+      int t = T_NONE;
+      if (q < np) {
+        const int2 x = bx[q];
+        t = x.y >= 0    ? box_verdict<NC>(boxes + x.x, x.y, iv)
+            : x.y == -1 ? program_verdict<NC>(code, offs[q], offs[q + 1], iv)
+                        : T_NONE;
+      }
+      if (t == T_ALL) wc[q] += n_live;
+      uint32_t maybe = __ballot_sync(0xffffffffu, t == T_MAYBE);
+      while (maybe) {
+        const int b0 = __ffs(maybe) - 1;
+        if (bx[q0 + b0].y < 0) {  // interpreted alone
+          maybe &= maybe - 1;
+          const uint32_t w = program_rows<KC, NC>(code, offs[q0 + b0], offs[q0 + b0 + 1], iv,
+                                                  v, tab, stage, stk, r0) & live;
+          const int c = (int)__reduce_add_sync(0xffffffffu, __popc(w));
+          if (lane == b0) wc[q0 + b0] += c;
+          continue;
+        }
+        constexpr int U = k1b_boxes_at_once(NC, KC);
+        int bq[U];
+        uint32_t w[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          bq[u] = -1;
+          w[u] = 0;
+          if (maybe == 0) continue;
+          const int b = __ffs(maybe) - 1;
+          const int2 x = bx[q0 + b];
+          if (x.y < 0) continue;  // left for the next pass
+          maybe &= maybe - 1;
+          bq[u] = b;
+          w[u] = box_rows<KC, NC>(boxes + x.x, x.y, iv, v, tab, stage, r0) & live;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (bq[u] < 0) continue;
+          const int c = (int)__reduce_add_sync(0xffffffffu, __popc(w[u]));
+          if (lane == bq[u]) wc[q0 + bq[u]] += c;
+        }
+      }
+    }
+    if (s == (1 << lg_sub) - 1) {  // the block's last sub-tile: the last warp sums it
+      __syncwarp();
+      int last = 0;
+      if (lane == 0) {
+        __threadfence_block();
+        last = atomicAdd(&done[buf], 1) == n_active - 1;
+      }
+      if (__shfl_sync(0xffffffffu, last, 0)) {
+        __threadfence_block();
+        int* c0 = cnt + buf * WARPS * np;
+        for (int q = lane; q < np; q += 32) {
+          int total = 0;
+#pragma unroll
+          for (int w = 0; w < WARPS; ++w) {
+            total += c0[w * np + q];
+            c0[w * np + q] = 0;
+          }
+          h.out[(long long)q * nb + blk] = total;
+        }
+        if (lane == 0) done[buf] = 0;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // the warp is done with stage st
+    if (++st == nst) {
+      st = 0;
+      parity ^= 1u;
+    }
+  }
 }
 
 using BatchFn = void (*)(const BatchParams);
-const BatchFn BATCH_KERNELS[8] = {
-    block_counts_batch_kernel<1, false>, block_counts_batch_kernel<2, false>,
-    block_counts_batch_kernel<4, false>, block_counts_batch_kernel<8, false>,
-    block_counts_batch_kernel<1, true>,  block_counts_batch_kernel<2, true>,
-    block_counts_batch_kernel<4, true>,  block_counts_batch_kernel<8, true>};
+// KC 1, 2, 4, each by the planes cached in registers (0: more than
+// K1B_CACHED_COLS, decoded from the stage)
+#define HS_BY_NC_B(KC)                                                                  \
+  block_counts_batch_kernel<KC, 0>, block_counts_batch_kernel<KC, 1>,                   \
+      block_counts_batch_kernel<KC, 2>
+constexpr int N_BATCH_KERNELS = 3 * (K1B_CACHED_COLS + 1);
+const BatchFn BATCH_KERNELS[N_BATCH_KERNELS] = {HS_BY_NC_B(1), HS_BY_NC_B(2), HS_BY_NC_B(4)};
+#undef HS_BY_NC_B
+static_assert(K1B_CACHED_COLS == 2, "HS_BY_NC_B lists 0..2");
 
 static_assert(BLOCK_ROWS == COUNT_THREADS * ROWS_PER_THREAD,
               "one K1c CTA covers one block in one pass");
@@ -889,7 +1403,8 @@ static_assert(MAX_CACHED_COLS == 4, "HS_BY_NC lists 0..4");
       predicate_block_counts_packed_kernel<STAGED, 8>
 const PackedFn PACKED_KERNELS[8] = {HS_BY_KC(false), HS_BY_KC(true)};
 #undef HS_BY_KC
-static_assert(3 * N_PER_ENTRY + 8 + 8 <= 64, "one bit per instantiation in big_smem_set");
+static_assert(3 * N_PER_ENTRY + 8 + N_BATCH_KERNELS <= 64,
+              "one bit per instantiation in big_smem_set");
 
 int pick(int entry, const Params& p) {
   return entry * N_PER_ENTRY + (p.staged != nullptr) * (MAX_CACHED_COLS + 1) +
@@ -1065,38 +1580,90 @@ extern "C" int hs_batch_param_bytes() { return (int)sizeof(BatchParams); }
 namespace {
 
 // K1b and K1hb's shared entry: the launch checked (what the host can see
-// of it; the buffer's contents are the wrapper's), then one CTA a block.
-int launch_batch(const BatchParams& p, bool hybrid, cudaStream_t stream) {
-  if (p.n_rows <= 0) return 0;
-  const int S = p.sub_rows;
-  if (p.n_rows % BLOCK_ROWS || p.n_progs < 1 || p.n_cols < 1 || p.depth < 1 ||
-      p.depth > STACK_SLOTS || S < MIN_SUB_ROWS || S > BLOCK_ROWS || (S & (S - 1)) ||
-      p.stage_bytes <= 0 || p.stage_bytes % 16 || p.code == nullptr ||
-      p.prog_off == nullptr || p.desc == nullptr || p.cols == nullptr || p.out == nullptr)
+// of it: a staged blob's contents are the wrapper's), then the persistent
+// grid.
+// With ``shape`` set nothing is launched: it gets the grid, the CTAs an
+// SM holds at the launch's shared memory and registers, and the
+// instantiation's index.
+int launch_batch(const BatchParams& p, bool hybrid, cudaStream_t stream, int* shape = nullptr) {
+  const BatchHead& h = p.h;
+  if (h.n_rows <= 0) return 0;
+  const int S = h.sub_rows;
+  if (h.n_rows % BLOCK_ROWS || h.n_progs < 1 || h.n_cols < 1 || h.depth < 1 ||
+      h.depth > STACK_SLOTS || h.n_instr < h.n_progs || h.n_addrs != (hybrid ? 2 : 1) * h.n_cols ||
+      S < MIN_SUB_ROWS || S > K1B_SUB_MAX || (S & (S - 1)) || h.stages < 2 ||
+      h.stages > K1B_MAX_STAGES || h.stage_bytes <= 0 || h.stage_bytes % 16 ||
+      h.out == nullptr || h.blob_bytes != blob_layout(h).bytes ||
+      (h.staged == nullptr && h.blob_bytes > K1B_BLOB_CAP))
     return (int)cudaErrorInvalidValue;
-  const long long blocks = p.n_rows / BLOCK_ROWS;
-  if (blocks > 0x7fffffffLL || p.nb_base < 0 || p.nb_base > blocks ||
-      (!hybrid && (p.nb_base != blocks || p.del != nullptr)))
+  const long long blocks = h.n_rows / BLOCK_ROWS;
+  if (blocks > 0x7fffffffLL || h.nb_base < 0 || h.nb_base > blocks ||
+      (!hybrid && (h.nb_base != blocks || h.del != nullptr)))
     return (int)cudaErrorInvalidValue;
-  const long long smem =
-      (long long)batch_fixed_bytes(p.n_cols, p.n_progs, p.depth) + p.stage_bytes;
+  if (h.staged == nullptr) {  // the descriptors are in the parameters: the stage must match
+    const int4* desc = reinterpret_cast<const int4*>(
+        reinterpret_cast<const unsigned char*>(p.blob) + blob_layout(h).desc);
+    long long stage = 0;
+    for (int c = 0; c < h.n_cols; ++c) {
+      const int4 d = desc[c];
+      if (d.x != OP_PACK || d.z < 1 || d.z > 32 || (d.z & (d.z - 1)) || (hybrid && d.z != 1))
+        return (int)cudaErrorInvalidValue;
+      stage += 4LL * S / d.z;
+    }
+    if (stage != h.stage_bytes) return (int)cudaErrorInvalidValue;
+  }
+  const long long smem = batch_smem(h).bytes;
   if (smem > MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
   const int kc = S >= 1024 ? S / 1024 : 1;
-  const int k = hybrid * 4 + (__builtin_ffs(kc) - 1);
-  if (smem > 48 * 1024) {
-    const int e = allow_big_smem(BATCH_KERNELS[k], 3 * N_PER_ENTRY + 8 + k);
-    if (e != 0) return e;
+  const int k = (__builtin_ffs(kc) - 1) * (K1B_CACHED_COLS + 1) +
+                (h.n_cols <= K1B_CACHED_COLS ? h.n_cols : 0);
+  cudaError_t e = (cudaError_t)allow_big_smem(BATCH_KERNELS[k], 3 * N_PER_ENTRY + 8 + k, true);
+  if (e != cudaSuccess) return (int)e;
+  // persistent CTAs: as many as the card holds at once at this shared
+  // memory (the last answer kept per thread: a burst's launches share it)
+  thread_local int last_dev = -1, last_k = -1, last_sms = 0, last_per_sm = 0;
+  thread_local long long last_smem = -1;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if (dev == last_dev && k == last_k && smem == last_smem) {
+    sms = last_sms;
+    per_sm = last_per_sm;
+  } else {
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, BATCH_KERNELS[k],
+                                                           K1B_THREADS, smem)) != cudaSuccess)
+      return (int)e;
+    last_dev = dev;
+    last_k = k;
+    last_smem = smem;
+    last_sms = sms;
+    last_per_sm = per_sm;
   }
-  BATCH_KERNELS[k]<<<(unsigned)blocks, COUNT_THREADS, smem, stream>>>(p);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long grid = blocks < (long long)sms * per_sm ? blocks : (long long)sms * per_sm;
+  if (shape != nullptr) {
+    shape[0] = (int)grid;
+    shape[1] = per_sm;
+    shape[2] = k;
+    return 0;
+  }
+  BATCH_KERNELS[k]<<<(unsigned)grid, K1B_THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K1b: ``params`` a host pointer to a filled BatchParams whose pointers
-// address one device buffer (ops/kernels.py:_batch_launch); nb_base ==
-// n_rows / 8192 and del null. ``out`` holds n_progs x (n_rows / 8192)
-// counts.
+// What K1b (hybrid 0) or K1hb (1) would launch for ``params``: shape[0]
+// the grid, shape[1] the CTAs an SM holds (the occupancy API), shape[2]
+// the instantiation (KC's log2 times 3, plus the planes in registers).
+extern "C" int hs_batch_launch_shape(const void* params, int hybrid, int* shape) {
+  return launch_batch(*static_cast<const BatchParams*>(params), hybrid != 0, nullptr, shape);
+}
+
+// K1b: ``params`` a host pointer to a filled BatchParams
+// (ops/kernels.py:pack_batch_params): the blob in the parameters or
+// staged on the card; nb_base == n_rows / 8192 and del null. ``out`` holds
+// n_progs x (n_rows / 8192) counts.
 extern "C" int hs_predicate_block_counts_batch(const void* params, void* stream) {
   return launch_batch(*static_cast<const BatchParams*>(params), false, (cudaStream_t)stream);
 }

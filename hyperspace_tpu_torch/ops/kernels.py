@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -193,16 +194,18 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
                     entry.restype = ci
                 lib.hs_batch_param_bytes.argtypes = []
                 lib.hs_batch_param_bytes.restype = ci
-                if lib.hs_batch_param_bytes() != _BATCH_PARAM_BYTES:
+                if lib.hs_batch_param_bytes() != K1B_PARAM_BYTES:
                     raise HyperspaceException(
                         "predicate_mask.cu's BatchParams is "
                         f"{lib.hs_batch_param_bytes()} bytes; ops/kernels.py packs "
-                        f"{_BATCH_PARAM_BYTES}."
+                        f"{K1B_PARAM_BYTES}."
                     )
                 for entry in (lib.hs_predicate_block_counts_batch,
                               lib.hs_hybrid_block_counts_batch):
                     entry.argtypes = [ctypes.c_char_p, vp]
                     entry.restype = ci
+                lib.hs_batch_launch_shape.argtypes = [ctypes.c_char_p, ci, vp]
+                lib.hs_batch_launch_shape.restype = ci
             else:
                 lib.hs_sorted_intersect_fences.argtypes = [vp, ll, vp, vp]
                 lib.hs_sorted_intersect_fences.restype = ci
@@ -588,6 +591,12 @@ class K1Program:
                 f"({smem} > {K1_MAX_SMEM} bytes)."
             )
         self.staged = len(self.code) > K1_MAX_PARAM_INSTR
+        # K1b/K1hb's form of a conjunction, and its entries as the blob holds them
+        self.box = program_box(prog)
+        self.box_count = -1 if self.box is None else -2 if self.box == "never" else len(self.box)
+        self.box_entries = np.array(
+            [(c, lo, np.uint32(hi - lo).view(np.int32), 0) for c, lo, hi in self.box]
+            if self.box_count > 0 else [], dtype=np.int32).reshape(-1, 4)
         rec = np.zeros(1, dtype=_PARAM_DTYPE)
         if not self.staged:
             rec["prog"][0, : len(self.code)] = self.code
@@ -973,30 +982,246 @@ def hybrid_block_counts_tensor(
 
 # ---------------------------------------------------------------------------
 # K1b / K1hb: N programs over one table's planes in one launch (the serving
-# layer's micro-batches); the programs, offsets, descriptors and addresses
-# ride a device buffer copied for the launch (csrc/predicate_mask.cu:
-# BatchParams), not the 4 KB parameter block
+# layer's micro-batches). The programs, offsets, descriptors, addresses and
+# boxes form one blob that rides the launch's 4 KB parameter block after its head
+# (csrc/predicate_mask.cu: BatchParams), or a device buffer copied for the
+# launch when it does not fit; either way each CTA stages it in shared
+# memory once
 # ---------------------------------------------------------------------------
-_BATCH_PARAM_BYTES = 88
-K1B_COUNT_BYTES = 4  # shared memory a program's block counter takes
+K1B_PARAM_BYTES = 4096
+# BatchHead: staged, del, out, n_rows, nb_base; n_progs, n_cols, n_addrs,
+# n_instr, depth, sub_rows, stages, stage_bytes, blob_bytes, n_boxes
+_BATCH_HEAD = struct.Struct("<5q10i")
+K1B_BLOB_CAP = K1B_PARAM_BYTES - _BATCH_HEAD.size  # blob bytes the parameters hold
+K1B_SUB_ROWS = (4096, 2048, 1024, 512, 256, 128)  # rows of a block a ring stage holds
+K1B_STAGES = 3  # the ring's stages where they fit (else 2)
+K1B_MAX_STAGES = 4
+# a launch with fewer sub-tiles than this an SM takes smaller ones, down to
+# K1B_MIN_SPLIT rows, so that every CTA of the persistent grid has items in
+# flight (tools/k1b_probe.py: at a 2^20-row window of 128 blocks, 2048-row
+# sub-tiles beat 4096 and 1024)
+K1B_ITEMS_PER_SM = 2
+K1B_MIN_SPLIT = 2048
+K1B_WARPS = K1C_THREADS // 32  # consumer warps
+K1B_THREADS = K1C_THREADS + 32  # and the producer warp
+K1B_SM_SMEM = 228 * 1024  # shared memory an H100 SM holds
+K1B_CTA_RESERVE = 1024 + 128  # a CTA's reserve and its static barriers
+# shared memory a CTA takes where it can: two CTAs an SM
+K1B_CTA_SMEM = K1B_SM_SMEM // 2 - K1B_CTA_RESERVE
 
 
-def k1b_plan(vpws, n_progs: int, depth: int) -> Tuple[int, int, int]:
-    """(sub_rows, stage_bytes, smem) of a K1b/K1hb launch over planes of
-    ``vpws`` values a word (1: raw) for ``n_progs`` programs whose deepest
-    needs ``depth`` stack slots: the largest sub-tile of ``K1P_SUB_ROWS``
-    whose slices fit shared memory beside the slice table (16 bytes a
-    plane), the counters and the stack. Raises when nothing fits."""
-    fixed = 16 * len(vpws) + (-(-K1B_COUNT_BYTES * n_progs // 16) * 16) \
-        + 4 * depth * K1C_THREADS
-    for rows in K1P_SUB_ROWS:
-        stage = sum(4 * rows // v for v in vpws)
-        if stage + fixed <= K1_MAX_SMEM:
-            return rows, stage, stage + fixed
-    raise HyperspaceException(
-        f"{K1B}: {len(vpws)} planes and {n_progs} programs of depth {depth} fit no "
-        f"{K1P_SUB_ROWS[-1]}-row sub-tile in shared memory ({K1_MAX_SMEM} bytes)."
+def k1b_ctas_per_sm(smem: int) -> int:
+    """CTAs an SM holds at ``smem`` dynamic bytes, by shared memory alone."""
+    return K1B_SM_SMEM // (smem + K1B_CTA_RESERVE)
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def k1b_blob_layout(n_addrs: int, n_cols: int, n_instr: int, n_progs: int,
+                    n_boxes: int = 0) -> Tuple[int, ...]:
+    """Byte offsets of the blob's parts (addresses, descriptors, code,
+    offsets, each program's box reference, the box entries) and its size,
+    as csrc/predicate_mask.cu:blob_layout."""
+    desc = _round16(8 * n_addrs)
+    code = desc + 16 * n_cols
+    offs = code + 16 * n_instr
+    bx = offs + _round16(4 * (n_progs + 1))
+    boxes = bx + _round16(8 * n_progs)
+    return 0, desc, code, offs, bx, boxes, boxes + 16 * n_boxes
+
+
+def k1b_smem_bytes(stages: int, stage_bytes: int, blob_bytes: int, n_cols: int, n_progs: int,
+                   depth: int) -> int:
+    """A K1b/K1hb CTA's dynamic shared memory, as csrc/predicate_mask.cu:
+    batch_smem: the ring, the blob, a slice table (16 bytes a plane), each
+    consumer warp's intervals (16 bytes a plane) and counts (a buffer a
+    stage, 4 bytes a program), the stack."""
+    return (stages * stage_bytes + _round16(blob_bytes) + 16 * n_cols + 16 * K1B_WARPS * n_cols
+            + _round16(4 * stages * K1B_WARPS * n_progs) + 4 * depth * K1B_THREADS)
+
+
+@dataclasses.dataclass(frozen=True)
+class K1bPlan:
+    """How K1b/K1hb runs a launch: ``sub_rows`` rows of a block a ring
+    stage holds (``stage_bytes``: every plane's slice), ``stages`` stages,
+    a blob of ``blob_bytes`` in the parameters or, ``staged``, in a device
+    buffer; ``smem`` the launch's dynamic shared memory."""
+
+    sub_rows: int
+    stages: int
+    stage_bytes: int
+    blob_bytes: int
+    staged: bool
+    smem: int
+
+
+def k1b_plan(vpws, n_progs: int, depth: int, n_instr: int, n_blocks: int, sides: int = 1,
+             sms: int = H100_SMS, sub_rows: Optional[int] = None,
+             stages: Optional[int] = None, n_boxes: int = 0) -> K1bPlan:
+    """K1b/K1hb's plan for ``n_progs`` programs of ``n_instr`` instructions
+    in all (the deepest needing ``depth`` stack slots; ``n_boxes`` box
+    entries, ``batch_boxes``) over planes of ``vpws`` values a word (1:
+    raw) on each of ``sides`` sides, ``n_blocks`` blocks on a card of
+    ``sms`` SMs: the largest sub-tile of
+    ``K1B_SUB_ROWS`` whose ring of two stages fits ``K1B_CTA_SMEM`` (two
+    CTAs an SM; else all of ``K1_MAX_SMEM``) beside the blob and the
+    per-warp state, halved while the launch has fewer than
+    ``K1B_ITEMS_PER_SM`` sub-tiles an SM (not below ``K1B_MIN_SPLIT``), then
+    ``K1B_STAGES`` stages where they cost no CTA an SM. ``sub_rows`` and
+    ``stages`` fix the plan, for measuring one against another
+    (``tools/k1b_probe.py``). Raises when nothing fits."""
+    return _k1b_plan(tuple(int(v) for v in vpws), n_progs, depth, n_instr, n_blocks, sides, sms,
+                     sub_rows, stages, n_boxes)
+
+
+@functools.lru_cache(maxsize=256)
+def _k1b_plan(vpws, n_progs, depth, n_instr, n_blocks, sides, sms, sub_rows, stages,
+              n_boxes) -> K1bPlan:
+    if sub_rows is not None and sub_rows not in K1B_SUB_ROWS:
+        raise HyperspaceException(f"{K1B}: no sub-tile of {sub_rows} rows.")
+    if stages is not None and not 2 <= stages <= K1B_MAX_STAGES:
+        raise HyperspaceException(f"{K1B}: a ring of {stages} stages.")
+    blob = k1b_blob_layout(sides * len(vpws), len(vpws), n_instr, n_progs, n_boxes)[-1]
+
+    def stage(rows):
+        return sum(4 * rows // v for v in vpws)
+
+    def smem(st, rows):
+        return k1b_smem_bytes(st, stage(rows), blob, len(vpws), n_progs, depth)
+
+    rows_ = K1B_SUB_ROWS if sub_rows is None else (sub_rows,)
+    fit = [r for r in rows_ if smem(stages or 2, r) <= K1B_CTA_SMEM] or \
+        [r for r in rows_ if smem(stages or 2, r) <= K1_MAX_SMEM]
+    if not fit:
+        raise HyperspaceException(
+            f"{K1B}: {len(vpws)} planes and {n_progs} programs of {n_instr} instructions "
+            f"(depth {depth}) fit no ring of {K1B_SUB_ROWS[-1]}-row sub-tiles in shared memory "
+            f"({K1_MAX_SMEM} bytes)."
+        )
+    rows = fit[0]
+    if sub_rows is None:
+        while rows > K1B_MIN_SPLIT and n_blocks * (BLOCK_ROWS // rows) < K1B_ITEMS_PER_SM * sms:
+            rows //= 2
+    n_st = stages or (K1B_STAGES if smem(K1B_STAGES, rows) <= K1_MAX_SMEM and k1b_ctas_per_sm(
+        smem(K1B_STAGES, rows)) >= k1b_ctas_per_sm(smem(2, rows)) else 2)
+    return K1bPlan(rows, n_st, stage(rows), blob, blob > K1B_BLOB_CAP, smem(n_st, rows))
+
+
+_BOX_OF_CMP = {  # a literal compare as the rows' interval [lo, hi] (NE has none)
+    _CMP_CODE["eq"]: lambda x: (x, x), _CMP_CODE["lt"]: lambda x: (_I32_MIN, x - 1),
+    _CMP_CODE["le"]: lambda x: (_I32_MIN, x), _CMP_CODE["gt"]: lambda x: (x + 1, _I32_MAX),
+    _CMP_CODE["ge"]: lambda x: (x, _I32_MAX),
+}
+
+
+def program_box(prog: np.ndarray):
+    """A program's box, for K1b/K1hb: where it is a conjunction of compares
+    of planes with literals (only OP_CMP_LIT other than NE, and OP_AND), the
+    ``(plane, lo, hi)`` bounds of the rows it keeps, one per plane it
+    narrows (its other planes are unbounded); ``"never"`` when some plane's
+    bounds are empty; None for any other program (the kernel interprets
+    it)."""
+    box: Dict[int, Tuple[int, int]] = {}
+    for opc, c, cmp, lit in np.asarray(prog).tolist():
+        if opc == OP_AND:
+            continue
+        if opc != OP_CMP_LIT or cmp not in _BOX_OF_CMP:
+            return None
+        lo, hi = _BOX_OF_CMP[cmp](lit)
+        cur = box.get(c, (_I32_MIN, _I32_MAX))
+        box[c] = (max(cur[0], lo), min(cur[1], hi))
+    if any(hi < lo for lo, hi in box.values()):
+        return "never"
+    return [(c, lo, hi) for c, (lo, hi) in sorted(box.items()) if (lo, hi) != (_I32_MIN, _I32_MAX)]
+
+
+def batch_boxes(progs: List[K1Program]) -> Tuple[np.ndarray, np.ndarray]:
+    """The blob's box part: per program (first entry, count; count -1:
+    interpret, -2: never), and the entries {plane, lo, hi - lo, 0} (int32,
+    the span's bits unsigned)."""
+    bx = np.zeros((len(progs), 2), dtype=np.int32)
+    bx[:, 1] = [p.box_count for p in progs]
+    n = np.maximum(bx[:, 1], 0)
+    np.cumsum(n[:-1], out=bx[1:, 0])
+    bx[bx[:, 1] < 0, 0] = 0
+    parts = [p.box_entries for p in progs if p.box_count > 0]
+    return bx, (np.concatenate(parts) if parts else np.zeros((0, 4), dtype=np.int32))
+
+
+def batch_blob(progs: List[K1Program], addrs: List[int], descs: np.ndarray) -> bytes:
+    """The blob of a K1b/K1hb launch (``k1b_blob_layout``): the plane
+    addresses (int64), the descriptors and the programs back to back
+    (int32 x 4 each), the programs' N + 1 instruction offsets (int32), then
+    ``batch_boxes``' two parts, each part zero-padded to 16 bytes."""
+    code = np.concatenate([p.prog for p in progs]) if len(progs) > 1 else progs[0].prog
+    offs = np.zeros(len(progs) + 1, dtype=np.int32)
+    np.cumsum([len(p.prog) for p in progs], out=offs[1:])
+    bx, entries = batch_boxes(progs)
+    out = bytearray()
+    for a in (np.asarray(addrs, dtype="<i8"), np.ascontiguousarray(descs, dtype="<i4"),
+              np.ascontiguousarray(code, dtype="<i4"), offs, bx, entries):
+        b = a.tobytes()
+        out += b + bytes(_round16(len(b)) - len(b))
+    return bytes(out)
+
+
+def pack_batch_params(plan: K1bPlan, progs: List[K1Program], n_cols: int, n_addrs: int,
+                      blob: bytes, n_rows: int, nb_base: int, del_addr: int, out_addr: int,
+                      staged_addr: int = 0) -> bytes:
+    """The launch's 4 KB parameter block (BatchParams): the head, then the
+    blob when ``plan`` keeps it there (else ``staged_addr``, the blob on
+    the card, and zeros)."""
+    if plan.staged != bool(staged_addr) or len(blob) != plan.blob_bytes:
+        raise HyperspaceException(f"{K1B}: the blob does not match the launch's plan.")
+    head = _BATCH_HEAD.pack(
+        staged_addr, del_addr, out_addr, n_rows, nb_base, len(progs), n_cols, n_addrs,
+        sum(len(p.prog) for p in progs), max(p.depth for p in progs), plan.sub_rows,
+        plan.stages, plan.stage_bytes, len(blob), batch_n_boxes(progs),
     )
+    tail = bytes(K1B_BLOB_CAP) if staged_addr else blob + bytes(K1B_BLOB_CAP - len(blob))
+    return head + tail
+
+
+def batch_n_boxes(progs: List[K1Program]) -> int:
+    """Box entries of a batch's blob."""
+    return sum(max(p.box_count, 0) for p in progs)
+
+
+_SMS: Dict[torch.device, int] = {}
+# per device: a pinned host buffer for staged blobs, and the event of the
+# last copy out of it
+_STAGING: Dict[torch.device, list] = {}
+_STAGING_LOCK = threading.Lock()
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _SMS.get(dev)
+    if n is None:
+        n = _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
+def _stage_blob(blob: bytes, dev: torch.device) -> torch.Tensor:
+    """``blob`` in a device buffer for one launch, copied on the current
+    stream from the device's pinned host buffer (reused: it is refilled
+    only once the copy before has read it)."""
+    n = len(blob)
+    with _STAGING_LOCK:
+        slot = _STAGING.get(dev)
+        if slot is None or slot[0].numel() < n:
+            slot = _STAGING[dev] = [
+                torch.empty(max(n, 1 << 16), dtype=torch.uint8, pin_memory=True), None]
+        host, done = slot
+        if done is not None:
+            done.synchronize()
+        host[:n].numpy()[:] = np.frombuffer(blob, dtype=np.uint8)
+        buf = torch.empty(n, dtype=torch.uint8, device=dev)
+        buf.copy_(host[:n], non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record(torch.cuda.current_stream(dev))
+    return buf
 
 
 def batch_programs(preds, names: Tuple[str, ...]) -> List[K1Program]:
@@ -1016,35 +1241,38 @@ def _as_programs(progs, n_cols: int) -> List[K1Program]:
     return out
 
 
+def batch_launch_params(progs: List[K1Program], addrs: List[int], descs: np.ndarray,
+                        n_rows: int, nb_base: int, del_addr: int, out: torch.Tensor,
+                        dev: torch.device, sub_rows: Optional[int] = None,
+                        stages: Optional[int] = None):
+    """(parameter block, the staged blob's device buffer or None, plan) of
+    a K1b/K1hb launch: planned, its blob packed into the block or staged
+    on the card. The buffer must live until the launch is queued."""
+    n_cols = len(descs)
+    blob = batch_blob(progs, addrs, descs)
+    plan = k1b_plan(descs[:, 2].tolist(), len(progs), max(p.depth for p in progs),
+                    sum(len(p.prog) for p in progs), n_rows // BLOCK_ROWS, len(addrs) // n_cols,
+                    _sm_count(dev), sub_rows, stages, batch_n_boxes(progs))
+    buf = _stage_blob(blob, dev) if plan.staged else None
+    params = pack_batch_params(plan, progs, n_cols, len(addrs), blob, n_rows, nb_base, del_addr,
+                               out.data_ptr(), 0 if buf is None else buf.data_ptr())
+    return params, buf, plan
+
+
 def _batch_launch(entry: str, what: str, progs: List[K1Program], addrs: List[int],
                   descs: np.ndarray, n_rows: int, nb_base: int, del_addr: int,
-                  out: torch.Tensor, dev: torch.device) -> None:
-    """Pack the programs, offsets, descriptors and addresses into one device
-    buffer, fill BatchParams around it and launch ``entry``."""
-    n_cols = len(descs)
-    depth = max(p.depth for p in progs)
-    sub_rows, stage, _smem = k1b_plan(descs[:, 2].tolist(), len(progs), depth)
-    code = np.concatenate([p.prog for p in progs])
-    offs = np.zeros(len(progs) + 1, dtype=np.int32)
-    offs[1:] = np.cumsum([len(p.prog) for p in progs])
-    # one buffer, each part on 16 bytes: addresses, descriptors, code, offsets
-    parts = [np.ascontiguousarray(a, dtype=dt).reshape(-1).view(np.uint8)
-             for a, dt in ((addrs, np.int64), (descs, np.int32), (code, np.int32),
-                           (offs, np.int32))]
-    starts, total = [], 0
-    for a in parts:
-        starts.append(total)
-        total += -(-a.size // 16) * 16
-    host = np.zeros(total, dtype=np.uint8)
-    for a, st in zip(parts, starts):
-        host[st : st + a.size] = a
-    buf = torch.from_numpy(host).to(dev)
-    base = buf.data_ptr()
-    params = struct.pack(
-        "<6q2q6i", base + starts[2], base + starts[3], base + starts[1], base + starts[0],
-        del_addr, out.data_ptr(), n_rows, nb_base, len(progs), n_cols, sub_rows, stage,
-        depth, 0,
-    )
+                  out: torch.Tensor, dev: torch.device, sub_rows: Optional[int] = None,
+                  stages: Optional[int] = None, shape: Optional[list] = None) -> None:
+    """Launch ``entry`` with ``batch_launch_params``' block. With ``shape``
+    (a list) nothing is launched: it gets the launch's grid, its CTAs an
+    SM, its instantiation (``hs_batch_launch_shape``) and its plan."""
+    params, _buf, plan = batch_launch_params(progs, addrs, descs, n_rows, nb_base, del_addr, out,
+                                             dev, sub_rows, stages)
+    if shape is not None:
+        got = (ctypes.c_int * 3)()
+        _check_launch(_lib(K1).hs_batch_launch_shape(params, int(what == K1HB), got), what)
+        shape[:] = [*got, plan]
+        return
     stream = torch.cuda.current_stream(dev).cuda_stream
     _check_launch(getattr(_lib(K1), entry)(params, stream), what)
     count_launch(what)
@@ -1100,11 +1328,15 @@ def predicate_block_counts_batch_tensor(
 
 def program_block_counts_batch_tensor(
     progs: List[np.ndarray], cols: List[torch.Tensor], specs, n_rows: int, addrs=None,
+    sub_rows: Optional[int] = None, stages: Optional[int] = None, shape: Optional[list] = None,
 ) -> torch.Tensor:
     """``predicate_block_counts_batch_tensor`` for lowered programs (raw
     ``(n, 4)`` arrays or ``K1Program``s) over ``cols`` (column operands
     index ``cols``). CPU tensors interpret each program over the decoded
-    planes (``run_postfix_reference``); CUDA tensors launch K1b."""
+    planes (``run_postfix_reference``); CUDA tensors launch K1b, under the
+    plan with ``sub_rows`` and ``stages`` where given (``k1b_plan``; for
+    measuring one plan against another). ``shape``: see ``_batch_launch``
+    (the counts are then not computed)."""
     specs = list(specs)
     if addrs is None:
         addrs = _check_packed(cols, specs, n_rows)
@@ -1119,7 +1351,7 @@ def program_block_counts_batch_tensor(
     out = torch.empty((len(progs), nb), dtype=torch.int32, device=dev)
     if nb:
         _batch_launch("hs_predicate_block_counts_batch", K1B, progs, addrs, packed_header(specs),
-                      n_rows, nb, 0, out, dev)
+                      n_rows, nb, 0, out, dev, sub_rows, stages, shape)
     return out
 
 
@@ -1171,11 +1403,12 @@ def hybrid_block_counts_batch_tensor(
 
 def program_hybrid_counts_batch_tensor(
     progs: List[np.ndarray], base_cols: List[torch.Tensor], delta_cols: List[torch.Tensor],
-    del_words: Optional[torch.Tensor] = None,
+    del_words: Optional[torch.Tensor] = None, sub_rows: Optional[int] = None,
+    stages: Optional[int] = None, shape: Optional[list] = None,
 ) -> torch.Tensor:
     """``hybrid_block_counts_batch_tensor`` for lowered programs. CPU
     tensors interpret each program (K1h's plain version's semantics); CUDA
-    tensors launch K1hb."""
+    tensors launch K1hb (``sub_rows``, ``stages``, ``shape``: as K1b's)."""
     n_base, n_delta = _check_blocked(base_cols), _check_blocked(delta_cols)
     progs = _as_programs(progs, len(base_cols))
     if base_cols[0].device.type == "cpu":
@@ -1200,7 +1433,7 @@ def program_hybrid_counts_batch_tensor(
         _batch_launch("hs_hybrid_block_counts_batch", K1HB, progs, addrs,
                       packed_header([None] * len(base_cols)), n_base + n_delta,
                       n_base // BLOCK_ROWS, 0 if del_words is None else del_words.data_ptr(),
-                      out, dev)
+                      out, dev, sub_rows, stages, shape)
     return out
 
 

@@ -11,6 +11,8 @@ rows, counts and integer aggregates exact; float aggregates
 ``rtol=1e-9``.
 """
 
+import threading
+
 import numpy as np
 import pytest
 
@@ -216,16 +218,37 @@ def test_agg_scan_runs_on_the_device_with_parity(env):
     assert out["torch"][1]["compile.fused.dispatches"] == 1
 
 
+def gate_population(monkeypatch, cache) -> threading.Event:
+    """Hold ``cache``'s background population until the returned event is
+    set: a query that schedules it then finishes before the table can be
+    registered, whatever the threads' order."""
+    opened = threading.Event()
+    build = cache._build
+
+    def gated(*args, **kwargs):
+        opened.wait()
+        return build(*args, **kwargs)
+
+    monkeypatch.setattr(cache, "_build", gated)
+    return opened
+
+
 @pytest.mark.parametrize("reason", ["shape", "no_table"])
-def test_agg_scan_declines_are_counted(env, reason):
+def test_agg_scan_declines_are_counted(env, reason, monkeypatch):
     """A global aggregate declines ``shape``; a table not yet resident
     declines ``no_table`` and schedules the population of the predicate
-    and aggregate columns, so the next query aggregates on the card."""
+    and aggregate columns, so the next query aggregates on the card. The
+    population is held until the first query has returned (its host tail
+    must not find the table)."""
+    gates = {mod: gate_population(monkeypatch, (jh if mod is hs_jax else th).hbm_cache)
+             for mod in (hs_jax, hs_torch)}
+
     def run(env, s, mod):
         q = env.read(s).filter(mod.col("k") >= 300)
         q = q.group_by().agg(mod.agg_count()) if reason == "shape" else \
             q.group_by("g").agg(mod.agg_sum("v"))
         res = q.collect()
+        gates[mod].set()
         if reason == "no_table":
             (jh if mod is hs_jax else th).hbm_cache.wait_background()
             again = q.collect()

@@ -27,6 +27,7 @@ from hyperspace_tpu.storage.columnar import Column, ColumnarBatch
 from hyperspace_tpu_torch.config import ResidencyConf
 from hyperspace_tpu_torch.exec import hbm_cache as th
 from hyperspace_tpu_torch.exec import scan_agg as tsa
+from hyperspace_tpu_torch.ops import k1b_cases
 from hyperspace_tpu_torch.ops import kernels as tk
 from hyperspace_tpu_torch.plan import aggregates as tagg
 from hyperspace_tpu_torch.plan import expr as texpr
@@ -303,8 +304,9 @@ def test_hybrid_batch_matches_hybrid_batched_counts_fn(mask):
 def test_k1b_programs_of_many_depths_and_wide_batches():
     """K1b's program-level entry over N = 1, 2 and 100 programs of
     different depths over a raw and a packed plane equals its single plain
-    versions, row by row; the launch plan fits 300 programs beside the
-    deepest stack in one sub-tile of a whole block."""
+    versions, row by row; the launch plan fits 300 programs of 13
+    instructions beside the deepest stack in two CTAs an SM, their blob
+    staged, the two blocks cut into 2048-row sub-tiles."""
     from hyperspace_tpu_torch.ops import bitpack
 
     rng = np.random.default_rng(2)
@@ -328,5 +330,84 @@ def test_k1b_programs_of_many_depths_and_wide_batches():
         want = tk.program_block_counts_packed_reference(
             tk.K1Program(progs[i], 2, tk.packed_header(specs)), cols, specs, n)
         assert torch.equal(wide[i], want)
-    rows, stage, smem = tk.k1b_plan([1, spec.vpw], 300, 7)
-    assert rows == 8192 and smem <= tk.K1_MAX_SMEM
+    plan = tk.k1b_plan([1, spec.vpw], 300, 7, 300 * 13, n // tk.BLOCK_ROWS)
+    assert plan.staged and plan.sub_rows == 2048 and plan.smem <= tk.K1B_CTA_SMEM
+
+
+_CMP = (lambda x, y: x == y, lambda x, y: x != y, lambda x, y: x < y, lambda x, y: x <= y,
+        lambda x, y: x > y, lambda x, y: x >= y)
+
+
+def _range_test_preds(m, names, lits):
+    """One package's predicates over the range-test planes ``names``:
+    every compare of the first and last plane at ``lits`` (chunk minima and
+    maxima and one past each, the int32 extremes' neighbours), column
+    compares and mixes of NOT, AND and OR."""
+    a, b, c = m.col(names[0]), m.col(names[1]), m.col(names[-1])
+    out = []
+    for i, x in enumerate(lits):
+        out += [_CMP[i % 6](a, x), _CMP[(i + 3) % 6](c, x)]
+    return out + [a < c, c != c, b >= a, ~((a < lits[2]) & (b == lits[1])),
+                  ((a >= lits[1]) & (a < lits[-2])) | (b != lits[0]), ~(c == lits[3]) & (a > lits[4])]
+
+
+@pytest.mark.parametrize("case", ["raw", "packed"] + [f"hybrid_{d}" for d in k1b_cases.DELETIONS])
+def test_batched_counts_on_range_test_data_match_the_reference(case):
+    """K1b's and K1hb's plain versions against the reference's
+    ``_batched_counts_fn`` / ``_hybrid_batched_counts_fn`` on the planes the
+    card test aims at the kernels' range test (``ops/k1b_cases.py``:
+    constant chunks, chunk-edge literals, int32 extremes in the data, pad
+    rows, packed widths 1-16 with ref0 below zero, deletions of whole and
+    partial chunks)."""
+    from hyperspace_tpu.exec.hbm_cache import (_batched_counts_fn, _expr_literals,
+                                               _expr_structure, _hybrid_batched_counts_fn)
+    from hyperspace_tpu.ops import bitpack as jbitpack
+
+    cases = k1b_cases.k1b_range_cases(0)
+    n = k1b_cases.N_BLOCKS * tk.BLOCK_ROWS
+    if case == "packed":
+        c = cases["packed"]
+        names = tuple(f"p{b:02d}" for b in range(1, 17))
+        pick = (0, 6, 15)  # widths 1, 7 (sorted) and 16 (random)
+        lits = [x for i in pick for x in (c["specs"][i].ref0, c["specs"][i].ref0 - 1,
+                                          c["specs"][i].ref0 + (1 << (i + 1)) - 1,
+                                          c["specs"][i].ref0 + (1 << (i + 1)))]
+        used = tuple(names[i] for i in pick)
+    else:
+        c = cases["raw"]
+        names = used = ("a", "b", "c")
+        lits = [x for x in k1b_cases._edge_literals(c["values"][0])
+                if k1b_cases.I32_MIN < x < k1b_cases.I32_MAX]
+    preds = {pkg: _range_test_preds(m, used, lits) for pkg, m in EXPR.items()}
+    prepared = [(tk.narrow_expr_to_i32(p), tuple(sorted(p.columns()))) for p in preds["torch"]]
+    assert all(b is not None for b, _ in prepared)
+    jprep = [(p, tuple(sorted(p.columns()))) for p in preds["jax"]]
+    structures = tuple(_expr_structure(e) for e, _ in jprep)
+    lit_vecs = []
+    for e, _ in jprep:
+        vals: list = []
+        _expr_literals(e, vals)
+        lit_vecs.append(np.asarray(vals, dtype=np.int32))
+    if case.startswith("hybrid_"):
+        h = cases["hybrid"]
+        rows = k1b_cases.deletion_rows(case[len("hybrid_"):], h["n_base"])
+        base = [torch.from_numpy(x) for x in h["base"]]
+        delta = [torch.from_numpy(x) for x in h["delta"]]
+        got = tk.hybrid_block_counts_batch_tensor(
+            prepared, names, base, delta, torch.from_numpy(tk.pack_row_bitmask(rows))).numpy()
+        fn = _hybrid_batched_counts_fn(structures, tuple(nm for _, nm in jprep),
+                                       [e for e, _ in jprep], h["n_base"] // 128,
+                                       delta[0].numel() // 128, True)
+        exp = np.asarray(fn(dict(zip(names, h["base"])), dict(zip(names, h["delta"])),
+                            tuple(lit_vecs), rows.astype(np.int32)))
+    else:
+        planes = [torch.from_numpy(p) for p in c["planes"]]
+        got = tk.predicate_block_counts_batch_tensor(prepared, names, planes, c["specs"], n).numpy()
+        spec_map = None if case == "raw" else tuple(
+            (nm, jbitpack.PackSpec(bits=s.bits, vpw=s.vpw, n=s.n, ref0=s.ref0))
+            for nm, s in zip(names, c["specs"]))
+        fn = _batched_counts_fn(structures, tuple(nm for _, nm in jprep), [e for e, _ in jprep],
+                                n // 128, spec_map)
+        exp = np.asarray(fn(dict(zip(names, c["planes"])), tuple(lit_vecs)))
+    assert got.shape == exp.shape and np.array_equal(got, exp)
+    assert 0 < got.sum() < got.size * tk.BLOCK_ROWS  # neither empty nor everything

@@ -24,7 +24,7 @@ from hyperspace_tpu.telemetry.metrics import metrics as jmetrics
 
 from hyperspace_tpu_torch import serve as tserve
 from hyperspace_tpu_torch.exec import hbm_cache as th
-from hyperspace_tpu_torch.ops import bitpack
+from hyperspace_tpu_torch.ops import bitpack, k1b_cases
 from hyperspace_tpu_torch.ops import kernels as tk
 from hyperspace_tpu_torch.plan import expr as texpr
 from hyperspace_tpu_torch.serve import tenancy as tten
@@ -299,7 +299,12 @@ def test_cuda_k1b_and_k1hb_match_plain_versions():
     """K1b and K1hb on the card against their plain versions, exactly: N
     from 1 to 300 programs of different depths, raw, packed and f64
     planes in one batch, widths 1-16, a sub-tile under 1024 rows, and K1hb
-    with no mask, every row deleted and random deletions."""
+    with no mask, every row deleted and random deletions; then the cases
+    aimed at the range test (``ops/k1b_cases.py``: constant chunks,
+    literals at chunk minima and maxima and one past, the int32 extremes,
+    pad rows in resolved chunks, packed widths 1-16 with ref0 below zero,
+    deletions of whole and partial chunks) at N = 1, 2, 16, 64 (the
+    parameter block) and 300 (staged), under every sub-tile and ring."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     rng = np.random.default_rng(4)
@@ -343,3 +348,27 @@ def test_cuda_k1b_and_k1hb_match_plain_versions():
             hprogs, [t.cpu() for t in base], [t.cpu() for t in delta],
             None if words is None else words.cpu())
         assert torch.equal(got.cpu(), want)
+
+    cases = k1b_cases.k1b_range_cases(0)
+    n = k1b_cases.N_BLOCKS * B
+    for kind in ("raw", "packed"):
+        c = cases[kind]
+        cpu = [torch.from_numpy(p) for p in c["planes"]]
+        planes = [p.cuda() for p in cpu]
+        for N in (1, 2, 16, 64, 300):
+            want = tk.program_block_counts_batch_tensor(c["progs"][:N], cpu, c["specs"], n)
+            for sub, stages in k1b_cases.PLANS[kind]:
+                got = tk.program_block_counts_batch_tensor(c["progs"][:N], planes, c["specs"], n,
+                                                           sub_rows=sub, stages=stages)
+                assert torch.equal(got.cpu(), want), (kind, N, sub, stages)
+    h = cases["hybrid"]
+    base_cpu = [torch.from_numpy(p) for p in h["base"]]
+    delta_cpu = [torch.from_numpy(p) for p in h["delta"]]
+    for name in k1b_cases.DELETIONS:
+        words = torch.from_numpy(tk.pack_row_bitmask(k1b_cases.deletion_rows(name, h["n_base"])))
+        want = tk.program_hybrid_counts_batch_tensor(h["progs"], base_cpu, delta_cpu, words)
+        for sub in (None, 2048, 512):
+            got = tk.program_hybrid_counts_batch_tensor(
+                h["progs"], [t.cuda() for t in base_cpu], [t.cuda() for t in delta_cpu],
+                words.cuda(), sub_rows=sub)
+            assert torch.equal(got.cpu(), want), (name, sub)
