@@ -9,7 +9,8 @@ It needs a CUDA card and exits non-zero, printing no result, without one
 (or without the ``hyperspace_tpu_torch`` package beside it).
 ``--phases`` takes a comma list of ``kernels``, ``main``, ``aggregate``,
 ``resident``, ``join``, ``serve``, ``native``, ``front_end``,
-``lifecycle``, ``hybrid`` and ``streaming`` (default: all, in that order;
+``lifecycle``, ``hybrid``, ``reliability`` and ``streaming`` (default: all,
+in that order;
 aggregate, resident, join, serve, native and front_end run in the main
 path's session and bring ``main``). Every query runs through the
 whole-plan compiler (``hyperspace.compile.mode`` defaults to ``auto``):
@@ -188,7 +189,23 @@ its launches are the interpreter's, N = 1 counts land under
    of the appended files); at H2 a burst of 16 range filters through a
    paused ``QueryServer`` then launches K1hb once for the batch; after
    H4's refresh no delta is left;
-9. streaming — in a session of its own with lineage on: TPC-H lineitem
+9. reliability — in a session of its own with a 2 s writer lease: li_rel
+   and ord_rel (200 buckets) over the main path's avro source. R1 a create
+   killed at its final log entry (fault file system), rolled back by the
+   next session's listing once its lease expires, the doctor's torn
+   version directory vacuumed, the create again, the range filter and Q3
+   against numpy; R2 a full refresh with every log call failing once
+   under the retry layer (retries = faults); R3 a stalled delete fenced
+   by a forced cancel (LeaseFencedError); R4 the device probe; R5 B1's 64
+   point lookups through a paused one-worker server whose batched launch
+   raises once: every ticket answered through K1 per file, the server
+   degraded and the table dropped, then a fresh server with one K1b
+   launch. A ``reliability:`` JSON line gives each step's seconds, the
+   counters, the doctor's issue kinds, the probe's ms and the launches.
+   Every other phase ends with its device-loss degrade counters
+   (``scan.resident.device_failed``, ``scan.resident_join.device_failed``,
+   ``residency.stream.window_failed``, ``serve.degraded``) at 0;
+10. streaming — in a session of its own with lineage on: TPC-H lineitem
    and orders at SF3 (18,003,645 and 4,500,000 rows, l_partkey in
    1..600,000) written as avro into ``src/lineitem_st`` (24 files, over
    the 256 MiB streaming threshold) and ``src/orders_st`` (6 files, under
@@ -219,7 +236,7 @@ its launches are the interpreter's, N = 1 counts land under
    against the resident tier's; on the compressed and streaming tiers a
    burst of 16 range filters through a paused ``QueryServer`` launches
    K1b once (a window at a time when streaming: 18 launches);
-10. one ``native:`` line (each native entry's calls on the main,
+11. one ``native:`` line (each native entry's calls on the main,
    aggregate, join and streaming paths, counted from zero at each path's
    start, null where the path did not run; its native and plain ms and
    ``max_abs_err``; the host's CPU count and model), one ``kernels`` JSON
@@ -243,6 +260,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -258,7 +276,7 @@ LI_RESIDENT = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
 # the phases of a run, in order (--phases); aggregate, resident, join,
 # serve, native and front_end run in the main path's session and so need main
 PHASES = ("kernels", "main", "aggregate", "resident", "join", "serve", "native", "front_end",
-          "lifecycle", "hybrid", "streaming")
+          "lifecycle", "hybrid", "reliability", "streaming")
 DAY_1992_01_01 = 8035  # days since 1970-01-01
 DAY_1998_08_02 = 10440
 DAY_1993_06_01 = 8552
@@ -1989,20 +2007,33 @@ def run_main_path(
 ) -> dict:
     """Build both indexes and run the three queries on ``device`` with
     residency off, then the aggregate, resident and front-end phases in the
-    same session, then the lifecycle and hybrid phases, each in its own;
-    every result is checked against numpy. ``phases`` (``PHASES``) names
-    the ones to run: the same-session ones need "main", the lifecycle and
-    hybrid phases run without it. Returns timings and counts."""
+    same session, then the lifecycle, hybrid and reliability phases, each
+    in its own; every result is checked against numpy. ``phases``
+    (``PHASES``) names the ones to run: the same-session ones need "main",
+    the lifecycle, hybrid and reliability phases run without it. Each
+    phase but reliability ends with its degrade counters at 0. Returns
+    timings and counts."""
     out = {}
+    watch_degrades()
     t0 = time.perf_counter()
     if "main" in phases:
         out.update(_main_session(lineitem, orders, workdir, device, seed, profile, phases))
         log(f"phase seconds: the main path's session {time.perf_counter() - t0:.1f} s")
-    for name, fn in (("lifecycle", lifecycle_phase), ("hybrid", hybrid_phase)):
+        degrade_guard("the main path's session")
+    for name, fn in (("lifecycle", lifecycle_phase), ("hybrid", hybrid_phase),
+                     ("reliability", reliability_phase)):
         if name in phases:
             t0 = time.perf_counter()
             out[name] = fn(lineitem, orders, workdir, device, seed, profile)
             log(f"phase seconds: {name} {time.perf_counter() - t0:.1f} s")
+            if name == "reliability":  # R5 injected one loss: consume its latch
+                want = {**dict.fromkeys(DEGRADE_COUNTERS, 0), "serve.degraded": 1}
+                if _DEGRADES != want:
+                    raise AssertionError(f"reliability: degrade counters {_DEGRADES}, want {want}")
+                log(f"reliability: degrade counters {dict(_DEGRADES)} (R5's injected loss)")
+                _DEGRADES.update(dict.fromkeys(DEGRADE_COUNTERS, 0))
+            else:
+                degrade_guard(name)
     return out
 
 
@@ -4173,6 +4204,380 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# reliability phase: crash recovery, storage weather, fencing, the device
+# probe and device loss mid-burst
+# ---------------------------------------------------------------------------
+REL_LEASE_S = 2.0  # hyperspace.reliability.lease.durationSeconds of the phase
+# the device-loss degrade counters: a run counts them per phase, and only
+# the reliability phase, which injects the loss, may move them
+DEGRADE_COUNTERS = ("scan.resident.device_failed", "scan.resident_join.device_failed",
+                    "residency.stream.window_failed", "serve.degraded")
+_DEGRADES = dict.fromkeys(DEGRADE_COUNTERS, 0)
+
+
+def watch_degrades() -> None:
+    """Tally the degrade counters as the port records them, apart from the
+    registry (which phases reset). Idempotent."""
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    real = metrics.incr
+    if getattr(real, "watches_degrades", False):
+        return
+
+    def incr(name, n=1):
+        if name in _DEGRADES:
+            _DEGRADES[name] += int(n)
+        real(name, n)
+
+    incr.watches_degrades = True
+    metrics.incr = incr
+
+
+def degrade_guard(phase: str) -> dict:
+    """Fail the run where a phase other than reliability degraded: on the
+    card a degrade nobody injected is a fault, never a quiet re-route."""
+    got = dict(_DEGRADES)
+    if any(got.values()):
+        raise AssertionError(f"{phase}: device-loss degrades nobody injected: {got}")
+    log(f"{phase}: degrade counters {got}")
+    return got
+
+
+@contextmanager
+def _log_fs(fs):
+    """The collection manager's log managers over ``fs`` (the way the
+    reference's chaos tests put a fault file system under a verb)."""
+    from hyperspace_tpu_torch.index import collection_manager as cm
+    from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
+
+    orig = cm.IndexCollectionManager._log_manager
+    cm.IndexCollectionManager._log_manager = lambda self, name: IndexLogManagerImpl(
+        self.path_resolver.get_index_path(name), fs=fs, retry_policy=self.conf.retry_policy())
+    try:
+        yield
+    finally:
+        cm.IndexCollectionManager._log_manager = orig
+
+
+def reliability_phase(lineitem, orders, workdir: Path, device: str, seed: int,
+                      profile: bool = False) -> dict:
+    """Reliability at SF1, in its own session: indexes li_rel and ord_rel
+    (200 buckets) under their own system path with a 2 s writer lease, over
+    the main path's avro source (written here when the workdir lacks it).
+
+    R1 a crashed create: li_rel's create runs over a fault file system
+       that kills the process at the final log entry (create_if_absent
+       #2), so the data is written and the head is CREATING; once the
+       lease expires a new session's first listing rolls it back
+       (recovery.auto_rollback = 1); doctor() reports the torn version
+       directory, doctor(repair=True) vacuums it and a rescan is clean;
+       the create runs again and commits; the range filter (K1 per file)
+       and Q3 against ord_rel (K2 + K2F) return numpy's rows;
+    R2 storage weather: one RF1 batch of orders appended, ord_rel's full
+       refresh runs with every log call failing once (transient) under the
+       retrying file system; it commits, and storage.retry.attempts equals
+       the faults injected;
+    R3 a fenced zombie: a delete whose heartbeat stops is overtaken by a
+       forced cancel; its end raises LeaseFencedError, the log stays as the
+       cancel wrote it, lease.fenced_writer_refused = 1;
+    R4 the device probe: first_device_touch_ok() is True, its ms and the
+       latched verdict; a fresh touch timed apart;
+    R5 device loss mid-burst: li_rel prefetched, B1's 64 point lookups
+       through a paused one-worker server whose batched launch raises a
+       RuntimeError on its first call; every ticket returns numpy's rows,
+       stats() shows degraded with the injected reason, serve.degraded =
+       1, the table is dropped and the lookups launched K1 per file; a
+       fresh server after a re-prefetch serves the burst with one K1b
+       launch, not degraded."""
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.actions.metadata_actions import DeleteAction
+    from hyperspace_tpu_torch.exceptions import LeaseFencedError
+    from hyperspace_tpu_torch.exec.hbm_cache import HbmIndexCache, hbm_cache
+    from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
+    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.ops.kernels import K1, K1B, K1C, K2, K2F
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.reliability import (
+        FaultInjectingFileSystem, FaultRule, InjectedCrash, LeaseManager, crash_at, doctor)
+    from hyperspace_tpu_torch.serve import QueryServer, ServeConfig
+    from hyperspace_tpu_torch.storage.avro_io import write_avro
+    from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.storage.filesystem import PosixFileSystem
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+    from hyperspace_tpu_torch.utils import deviceprobe
+
+    on_card = device == "cuda"
+    one = int(on_card)
+    t_phase = time.perf_counter()
+    L, O = lineitem, orders
+    li_dir, od_dir = workdir / "src" / "lineitem", workdir / "src" / "orders"
+    if not (li_dir.is_dir() and od_dir.is_dir()):
+        li_dir = Path(write_avro_dir(li_dir, L, LINEITEM_SCHEMA, 8))
+        od_dir = Path(write_avro_dir(od_dir, O, ORDERS_SCHEMA, 2))
+    root = workdir / "indexes_rel"
+    conf = {"hyperspace.system.path": str(root),
+            "hyperspace.index.numBuckets": NUM_BUCKETS,
+            "hyperspace.index.build.mode": "inmemory",
+            "hyperspace.torch.device": device,
+            "hyperspace.torch.hbm.mode": "off",
+            "hyperspace.serve.tenant.defaultMaxQueue": 256,
+            "hyperspace.reliability.lease.durationSeconds": REL_LEASE_S}
+
+    def new_session():
+        s = hs.HyperspaceSession(hs.HyperspaceConf(dict(conf)))
+        return s, hs.Hyperspace(s)
+
+    def li_config():
+        return hs.IndexConfig("li_rel", ["l_orderkey"],
+                              ["l_partkey", "l_quantity", "l_shipdate", "l_extendedprice"])
+
+    out = {"steps_s": {}}
+    session, hsp = new_session()
+
+    # R1: a crashed create, recovered on the next session's listing
+    t = time.perf_counter()
+    hsp.create_index(session.read.avro(str(od_dir)), hs.IndexConfig(
+        "ord_rel", ["o_orderkey"], ["o_custkey", "o_orderdate", "o_totalprice"]))
+    split = {"ord_rel_create_s": time.perf_counter() - t}
+    t1 = time.perf_counter()
+    fault = FaultInjectingFileSystem(PosixFileSystem(), [crash_at("create_if_absent", 2)])
+    try:
+        with _log_fs(fault):
+            hsp.create_index(session.read.avro(str(li_dir)), li_config())
+        raise AssertionError("reliability R1: the create did not die at its final entry")
+    except InjectedCrash:
+        pass
+    split["crashed_create_s"] = time.perf_counter() - t1
+    li_path = root / "li_rel"
+    log_mgr = IndexLogManagerImpl(li_path)
+    head = log_mgr.get_latest_log().state
+    lease = LeaseManager(li_path, PosixFileSystem())
+    waited = time.perf_counter()
+    while not lease.current().is_abandoned():  # the dead writer's lease runs out
+        if time.perf_counter() - waited > 10 * REL_LEASE_S:
+            raise AssertionError(f"reliability R1: lease {lease.current()} never expired")
+        time.sleep(0.05)
+    waited = time.perf_counter() - waited
+    t1 = time.perf_counter()
+    metrics.reset()
+    session, hsp = new_session()
+    listed = [i.name for i in hsp.indexes()]
+    rollbacks = metrics.get("recovery.auto_rollback")
+    states = [log_mgr.get_log(i).state for i in range(log_mgr.get_latest_id() + 1)]
+    before = doctor(root)
+    repaired = doctor(root, repair=True)
+    after = doctor(root)
+    kinds = sorted({i.kind for i in before.issues})
+    if head != "CREATING" or rollbacks != 1 or listed != ["ord_rel"] or \
+            states[-1] != "DOESNOTEXIST" or "orphan-version-dir" not in kinds or \
+            not all(i.repaired for i in repaired.issues if i.repairable) or not after.ok \
+            or after.issues:
+        raise AssertionError(f"reliability R1: head {head} rollbacks {rollbacks} listed {listed} "
+                             f"states {states} doctor {kinds} -> {after.to_json_dict()}")
+    split["recover_and_doctor_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    hsp.create_index(session.read.avro(str(li_dir)), li_config())
+    split["create_again_s"] = time.perf_counter() - t1
+    if log_mgr.get_latest_log().state != "ACTIVE":
+        raise AssertionError("reliability R1: the second create did not commit")
+    session.enable_hyperspace()
+    bounds = range_bounds(L)
+    want_r, want_q3 = range_and_q3_truth(L, O, bounds, "reliability")
+    rng_q, q3_q = range_and_q3(session, li_dir, od_dir, bounds)
+    res, t_r, l_r, m_r, _t = timed_query(session, "reliability R1 range", profile, rng_q)
+    _check("reliability R1 range filter", res, R_COLS, want_r)
+    res3, t_q3, l_q3, m_q3, _t = timed_query(session, "reliability R1 Q3", profile, q3_q)
+    _check("reliability R1 Q3", res3, Q3_COLS, want_q3)
+    read = m_r.get("scan.files_read", 0)
+    want_k2 = k2_of_arms(join_arms(m_q3), on_card)
+    if l_r.get(K1, 0) != one * read or not read or (l_q3.get(K2, 0), l_q3.get(K2F, 0)) != (
+            want_k2, want_k2) or (on_card and want_k2 != 1):
+        raise AssertionError(f"reliability R1: range launches {l_r} files read {read}, Q3 "
+                             f"launches {l_q3} arms {join_arms(m_q3)}")
+    out["steps_s"]["R1"] = time.perf_counter() - t
+    out["R1"] = {"head": head, "lease_wait_s": waited, **split, "auto_rollback": rollbacks,
+                 "states": states, "doctor_before": kinds,
+                 "doctor_repaired": sorted({i.kind for i in repaired.issues if i.repaired}),
+                 "doctor_after": sorted({i.kind for i in after.issues}), "doctor_after_ok": after.ok,
+                 "range_s": t_r, "range_rows": res.num_rows, "q3_s": t_q3, "q3_rows": res3.num_rows,
+                 "launches": {"range": l_r, "q3": l_q3}}
+    log(f"reliability R1 crashed create: head {head}, lease expired after {waited:.3f} s, the "
+        f"next session's listing rolled it back (recovery.auto_rollback={rollbacks}, states "
+        f"{states}) | doctor {kinds} -> repaired {out['R1']['doctor_repaired']} -> rescan ok="
+        f"{after.ok} | create again committed | range filter {t_r:.4f} s rows={res.num_rows} "
+        f"launches {l_r} | Q3 {t_q3:.4f} s rows={res3.num_rows} launches {l_q3} | "
+        f"{out['steps_s']['R1']:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + ") | matches numpy")
+
+    # R2: a full refresh through storage weather
+    t = time.perf_counter()
+    n_new = max(1, int(round(1500 * len(O["o_orderkey"]) / SF1_ORDERS)))
+    _li_new, od_new = rf1_batches(O, seed + 17, n_new, n_batches=1)[0]
+    rf1_file = od_dir / "part-rel-rf1.avro"
+    write_avro(rf1_file, ColumnarBatch.from_pydict(od_new, schema=ORDERS_SCHEMA))
+    weather = FaultRule(kind="fail", op="*", every=2)
+    metrics.reset()
+    with _log_fs(FaultInjectingFileSystem(PosixFileSystem(), [weather])):
+        hsp.refresh_index("ord_rel", "full")
+    ord_mgr = IndexLogManagerImpl(root / "ord_rel")
+    attempts = metrics.get("storage.retry.attempts")
+    if attempts != weather._fired or not attempts or metrics.get("storage.retry.exhausted") or \
+            ord_mgr.get_latest_log().state != "ACTIVE" or not doctor(root).ok:
+        raise AssertionError(f"reliability R2: retries {attempts}, faults {weather._fired}, "
+                             f"state {ord_mgr.get_latest_log().state}")
+    out["steps_s"]["R2"] = time.perf_counter() - t
+    out["R2"] = {"faults": weather._fired, "retry_attempts": attempts,
+                 "retry_by_op": {k: v for k, v in metrics.snapshot().items()
+                                 if k.startswith("storage.retry.") and k != "storage.retry.attempts"}}
+    log(f"reliability R2 storage weather: RF1 {n_new} orders appended, ord_rel's full refresh "
+        f"committed with {weather._fired} log calls failed once each, "
+        f"storage.retry.attempts={attempts} {out['R2']['retry_by_op']} | "
+        f"{out['steps_s']['R2']:.3f} s")
+
+    # R3: a stalled writer fenced by a forced cancel
+    t = time.perf_counter()
+    zombie = DeleteAction(IndexLogManagerImpl(root / "ord_rel"), session.conf)
+    zombie.validate()
+    zombie._begin()
+    zombie._held_lease._stop.set()  # the writer stalls: no heartbeat
+    zombie._held_lease._thread.join(5.0)
+    hsp.cancel("ord_rel")
+    cancelled = [ord_mgr.get_log(i).state for i in range(ord_mgr.get_latest_id() + 1)]
+    metrics.reset()
+    try:
+        zombie._end()
+        raise AssertionError("reliability R3: the fenced writer committed")
+    except LeaseFencedError as e:
+        fenced_msg = str(e)
+    states = [ord_mgr.get_log(i).state for i in range(ord_mgr.get_latest_id() + 1)]
+    refused = metrics.get("lease.fenced_writer_refused")
+    if states != cancelled or states[-3:] != ["DELETING", "CANCELLING", "ACTIVE"] or refused != 1:
+        raise AssertionError(f"reliability R3: states {states} after cancel {cancelled}, "
+                             f"refused {refused}")
+    out["steps_s"]["R3"] = time.perf_counter() - t
+    out["R3"] = {"states": states[-3:], "fenced_writer_refused": refused}
+    log(f"reliability R3 fenced zombie: a delete with its heartbeat stopped, overtaken by a "
+        f"forced cancel; its end raised LeaseFencedError ({fenced_msg}); log tail "
+        f"{states[-3:]} as the cancel wrote it; lease.fenced_writer_refused={refused} | "
+        f"{out['steps_s']['R3']:.3f} s")
+
+    # R4: the device probe
+    t = time.perf_counter()
+    ok = deviceprobe.first_device_touch_ok(device=device)
+    probe_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    deviceprobe._touch(device)
+    touch_ms = 1e3 * (time.perf_counter() - t)
+    if ok is not True or deviceprobe.latched_verdict() is not True:
+        raise AssertionError(f"reliability R4: probe {ok}, latched {deviceprobe.latched_verdict()}"
+                             f", error {deviceprobe.first_touch_error()}")
+    out["steps_s"]["R4"] = (probe_ms + touch_ms) / 1e3
+    out["R4"] = {"ok": ok, "probe_ms": probe_ms, "touch_ms": touch_ms,
+                 "latched": deviceprobe.latched_verdict()}
+    log(f"reliability R4 device probe: first_device_touch_ok()={ok} in {probe_ms:.3f} ms "
+        f"(latched verdict {deviceprobe.latched_verdict()}); a fresh 16-element round trip and "
+        f"synchronize {touch_ms:.3f} ms")
+
+    # R5: device loss mid-burst
+    t = time.perf_counter()
+    session.conf.set("hyperspace.torch.hbm.mode", "auto" if on_card else "force")
+    if not on_card:  # a rehearsal: the zone gate would route small tables away
+        session.conf.set("hyperspace.torch.hbm.maxBlockFrac", 1.0)
+
+    def prefetch():
+        if not hsp.prefetch_index("li_rel", LI_RESIDENT):
+            raise AssertionError("reliability R5: prefetch_index(li_rel) did not make it resident")
+        hbm_cache.wait_background()
+        fence(session.device)
+
+    def li_tables():
+        return [x for x in hbm_cache._tables if str(li_path) in str(x.files[0])]
+
+    ok_keys = L["l_orderkey"]
+    keys = np.random.default_rng(seed + 50).choice(np.unique(ok_keys), 64, replace=False)
+    li = session.read.avro(str(li_dir))
+    burst = [(li.filter(col("l_orderkey") == int(k)).select(*LI_RESIDENT), ok_keys == k)
+             for k in keys]
+    real = HbmIndexCache.block_counts_batch
+    lost = []
+
+    def lossy(self, *a, **k):
+        if not lost:
+            lost.append(1)
+            raise RuntimeError("CUDA error: an illegal memory access was encountered "
+                               "(injected by chip_smoke R5)")
+        return real(self, *a, **k)
+
+    rounds = {}
+    for name in ("loss", "fresh"):
+        prefetch()
+        reset_launch_counts()
+        metrics.reset()
+        if name == "loss":
+            HbmIndexCache.block_counts_batch = lossy
+        try:
+            server = QueryServer(session, ServeConfig(max_workers=1, max_queue=256, batch_max=64,
+                                                      autostart=False))
+            t1 = time.perf_counter()
+            tickets = [server.submit(df) for df, _m in burst]
+            server.start()
+            got = [tk_.result(timeout=600) for tk_ in tickets]
+            fence(session.device)
+            wall = time.perf_counter() - t1
+            stats = server.stats()
+            server.close()
+        finally:
+            HbmIndexCache.block_counts_batch = real
+        launches, m = launch_counts(), metrics.snapshot()
+        for i, ((_df, mask), r) in enumerate(zip(burst, got)):
+            _check(f"reliability R5 {name}[{i}]", r, LI_RESIDENT, [L[c][mask] for c in LI_RESIDENT])
+        rounds[name] = {"wall_s": wall, "launches": launches, "degraded": stats["degraded"],
+                        "degraded_reason": stats["degraded_reason"],
+                        "serve_degraded": m.get("serve.degraded", 0),
+                        "files_read": m.get("scan.files_read", 0), "completed": stats["completed"],
+                        "batch_size_hist": stats["batch_size_hist"],
+                        "tables_after": len(li_tables())}
+    loss, fresh = rounds["loss"], rounds["fresh"]
+    if not (loss["degraded"] and "injected by chip_smoke R5" in (loss["degraded_reason"] or "")
+            and loss["serve_degraded"] == 1 and loss["completed"] == 64
+            and loss["tables_after"] == 0 and loss["files_read"] >= 64
+            and loss["launches"].get(K1, 0) == one * loss["files_read"]
+            and not loss["launches"].get(K1B, 0) and not loss["launches"].get(K1C, 0)):
+        raise AssertionError(f"reliability R5 loss: {loss}")
+    if fresh["degraded"] or fresh["launches"].get(K1B, 0) != one or fresh["launches"].get(K1, 0) \
+            or fresh["batch_size_hist"] != {64: 1} or fresh["completed"] != 64:
+        raise AssertionError(f"reliability R5 fresh server: {fresh}")
+    session.conf.set("hyperspace.torch.hbm.mode", "off")
+    session.conf.unset("hyperspace.torch.hbm.maxBlockFrac")
+    hbm_cache.reset()
+    rf1_file.unlink()
+    out["steps_s"]["R5"] = time.perf_counter() - t
+    out["R5"] = rounds
+    log(f"reliability R5 device loss mid-burst: 64 point lookups, the batched launch raised on "
+        f"its first call; {loss['completed']} tickets answered in {loss['wall_s']:.4f} s, "
+        f"degraded={loss['degraded']} ({loss['degraded_reason']}), serve.degraded="
+        f"{loss['serve_degraded']}, li_rel tables left {loss['tables_after']}, per-file route "
+        f"files read {loss['files_read']} launches {loss['launches']} | fresh server after a "
+        f"re-prefetch: {fresh['wall_s']:.4f} s hist {fresh['batch_size_hist']} launches "
+        f"{fresh['launches']} degraded={fresh['degraded']} | every ticket matches numpy")
+    out["launches"] = {K1: l_r.get(K1, 0) + loss["launches"].get(K1, 0),
+                       K2: l_q3.get(K2, 0), K2F: l_q3.get(K2F, 0),
+                       K1B: fresh["launches"].get(K1B, 0)}
+    out["counters"] = {"recovery.auto_rollback": rollbacks, "storage.retry.attempts": attempts,
+                       "lease.fenced_writer_refused": refused,
+                       "serve.degraded": loss["serve_degraded"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("reliability: " + json.dumps({
+        "steps_s": out["steps_s"], "counters": out["counters"],
+        "doctor": {"before": kinds, "after": out["R1"]["doctor_after"]},
+        "probe_ms": probe_ms, "touch_ms": touch_ms,
+        "launches": {"R1_range": l_r, "R1_q3": l_q3, "R5_loss": loss["launches"],
+                     "R5_fresh": fresh["launches"]},
+        "phase_s": out["phase_s"]}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # streaming phase: TPC-H lineitem at SF3 through the streaming build
 # ---------------------------------------------------------------------------
 STREAM_SF = 3
@@ -4912,6 +5317,7 @@ def main() -> int:
             stream_out = streaming_phase(workdir / "streaming", "cuda", args.seed, args.profile,
                                          scale=args.scale, **cut)
             log(f"phase seconds: streaming {stream_out['phase_s']:.1f} s")
+            degrade_guard("streaming")
     finally:
         if not args.workdir:
             shutil.rmtree(workdir, ignore_errors=True)
@@ -4940,6 +5346,11 @@ def main() -> int:
         # streaming bursts
         launches[tk.K1B] = main_out.get("serve", {}).get("launches_k1b", 0) + (
             0 if stream_out is None else stream_out["ladder"]["launches_k1b"])
+    if "reliability" in main_out:
+        # K1 (R1's range filter, R5's per-file lookups), K2 and K2F (R1's
+        # Q3), K1b (R5's fresh server)
+        for kname, n in main_out["reliability"]["launches"].items():
+            launches[kname] = (launches[kname] or 0) + n
     for kname, n in launches.items():
         if n is not None and n <= 0:
             raise AssertionError(f"{kname} was not launched on its path ({launches})")
@@ -4950,7 +5361,8 @@ def main() -> int:
     for key, name in (("aggregate", "aggregate"), ("resident", "resident_path"),
                       ("join", "join"), ("serve", "serve"), ("native", "native"),
                       ("front_end", "front_end"),
-                      ("lifecycle", "lifecycle"), ("hybrid", "hybrid")):
+                      ("lifecycle", "lifecycle"), ("hybrid", "hybrid"),
+                      ("reliability", "reliability")):
         if key in main_out:
             details[name] = main_out[key]
     log(json.dumps({**details, "streaming": stream_out, "kernel_cases": kphase, "ptxas": ptxas,

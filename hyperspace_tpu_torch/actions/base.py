@@ -12,9 +12,15 @@ the operation log.
   4. ``end()`` — write the *final*-state entry at ``base_id + 2`` and
      recreate ``latestStable``.
 
-A writer that fails between begin and end leaves its transient entry in
-the log, and ``cancel()`` (actions/metadata_actions.py) is how an operator
-rolls it back; writer leases and automatic recovery are not ported here.
+Crash consistency (reliability/): ``_begin()`` also acquires a
+heartbeated writer lease next to the log, and ``_end()`` refuses to commit
+if the lease was fenced (a newer epoch exists: the writer stalled past its
+lease and recovery or a new writer took over). A writer that fails
+in-process marks its lease aborted and leaves the transient entry for
+``cancel()`` (actions/metadata_actions.py), since an operator saw the
+exception; a writer that dies leaves its lease to expire, and ``run()``'s
+recovery consult rolls the index back to its last stable state before the
+next action validates.
 """
 
 from __future__ import annotations
@@ -34,9 +40,16 @@ from . import states
 
 
 class Action(EventLogging):
+    # CancelAction opts out: it operates on the transient state (a prior
+    # auto-recovery would leave it nothing to cancel), and it is the
+    # break-glass that may fence a live lease (force)
+    auto_recover = True
+    lease_force = False
+
     def __init__(self, log_manager: IndexLogManager):
         self.log_manager = log_manager
         self._base_id: Optional[int] = None
+        self._held_lease = None
 
     # -- to be provided by subclasses ---------------------------------------
     @property
@@ -76,7 +89,41 @@ class Action(EventLogging):
         if ev is not None and hasattr(self, "conf"):
             self.log_event(self.conf, ev)  # type: ignore[attr-defined]
 
+    # -- leasing (reliability/lease.py) --------------------------------------
+    def _lease_manager(self):
+        """LeaseManager for this index, or None when the log manager has no
+        filesystem/path surface (bare test fakes keep the lease-free
+        protocol)."""
+        index_path = getattr(self.log_manager, "index_path", None)
+        fs = getattr(self.log_manager, "_fs", None)
+        if index_path is None or fs is None:
+            return None
+        from ..reliability.lease import LeaseManager
+
+        return LeaseManager(index_path, fs)
+
+    def _lease_duration_s(self) -> float:
+        conf = getattr(self, "conf", None)
+        if conf is not None and hasattr(conf, "lease_duration_seconds"):
+            return conf.lease_duration_seconds()
+        from ..reliability.lease import DEFAULT_LEASE_DURATION_S
+
+        return DEFAULT_LEASE_DURATION_S
+
     def run(self) -> None:
+        if self.auto_recover:
+            from ..reliability.recovery import maybe_auto_recover
+
+            if maybe_auto_recover(
+                self.log_manager,
+                data_manager=getattr(self, "data_manager", None),
+                conf=getattr(self, "conf", None),
+            ):
+                # the log changed under us: re-snapshot the base id and
+                # any cached previous entry before validating
+                self._base_id = None
+                if hasattr(self, "_previous"):
+                    self._previous = None
         try:
             self.validate()
         except NoChangesException:
@@ -89,7 +136,14 @@ class Action(EventLogging):
             self._end()
         except Exception:
             self._emit("Operation failed.")
+            # in-process failure: the transient entry stays for cancel(),
+            # and the aborted tombstone tells recovery this is no dead
+            # writer (a real crash never reaches here: its lease expires)
+            if self._held_lease is not None:
+                self._held_lease.abort()
             raise
+        if self._held_lease is not None:
+            self._held_lease.release()
         self._emit("Operation succeeded.")
 
     def _stamp(self, entry: LogEntry, id: int, state: str) -> LogEntry:
@@ -99,6 +153,13 @@ class Action(EventLogging):
         return entry
 
     def _begin(self) -> None:
+        manager = self._lease_manager()
+        if manager is not None:
+            self._held_lease = manager.acquire(
+                duration_s=self._lease_duration_s(),
+                action=type(self).__name__,
+                force=self.lease_force,
+            )
         entry = self._stamp(self.log_entry(), self.base_id + 1, self.transient_state)
         if not self.log_manager.write_log(entry.id, entry):
             raise ConcurrentModificationException(
@@ -107,6 +168,10 @@ class Action(EventLogging):
             )
 
     def _end(self) -> None:
+        if self._held_lease is not None:
+            # fencing: a writer that stalled past its lease finds a newer
+            # epoch (or its own tombstone) and must not commit
+            self._held_lease.check_fenced()
         entry = self._stamp(self.log_entry(), self.base_id + 2, self.final_state)
         if not self.log_manager.write_log(entry.id, entry):
             raise ConcurrentModificationException(

@@ -100,6 +100,13 @@ class CancelAction(IndexAction):
     streaming build that died mid-flight (this package's in-memory build
     writes none); the committed versions' data is never touched."""
 
+    # cancel IS the recovery: it operates on the transient state (a prior
+    # auto-recovery would leave nothing to cancel) and may fence a live
+    # lease, the operator's break-glass against a stalled-but-beating
+    # writer (reliability/lease.py)
+    auto_recover = False
+    lease_force = True
+
     def __init__(
         self,
         log_manager: IndexLogManager,

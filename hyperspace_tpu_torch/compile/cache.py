@@ -88,11 +88,23 @@ class PipelineCache:
             racer = self._pipelines.get(key)
             if racer is not None:
                 return racer  # a concurrent miss lowered first: share it
+            pipeline.cache = self
+            pipeline.cache_key = key
             self._pipelines[key] = pipeline
             while len(self._pipelines) > max_entries:
                 self._pipelines.popitem(last=False)
                 metrics.incr("compile.cache.evicted")
         return pipeline
+
+    def forget(self, pipeline: CompiledPipeline) -> None:
+        """Evict exactly ``pipeline``'s entry (device loss mid-dispatch):
+        the rest of the cache keeps serving."""
+        key = pipeline.cache_key
+        if key is None:
+            return
+        with self._lock:
+            if self._pipelines.get(key) is pipeline:
+                del self._pipelines[key]
 
     def invalidate(self, index_root: Optional[str] = None) -> int:
         """Drop the pipelines whose index leaves live under ``index_root``

@@ -8,9 +8,11 @@ order) from the concrete plan a run receives. The fused arms call the
 same resolution and host-leg code as the interpreter, which is the
 fallback leg of every eligibility miss, so results are the same on either.
 
-Where the reference degrades a device error (drops the table, latches
-the query to the host, evicts the pipeline), the port raises: a failed
-launch or a failed device aggregate propagates to the caller.
+A device error in a fused arm degrades as the reference's does: the arm
+drops its table or region, counts it (``_DEVICE_FAIL_COUNTERS``) and
+answers through the per-file route on the card; a run that moved one of
+those counters evicts its own pipeline, so the next query of the
+structure lowers against what is resident after the loss.
 """
 
 from __future__ import annotations
@@ -22,6 +24,14 @@ from typing import Optional, Tuple
 from ..storage.columnar import ColumnarBatch
 from ..telemetry.metrics import metrics
 from ..telemetry.trace import span
+
+# the device-failure counters every fused arm's degrade bumps (exec/scan,
+# exec/executor, residency/streaming through exec/scan), read from the
+# run's scoped registry so a concurrent query's loss never evicts this one
+_DEVICE_FAIL_COUNTERS = (
+    "scan.resident.device_failed",
+    "scan.resident_join.device_failed",
+)
 
 
 class CompiledPipeline:
@@ -45,6 +55,10 @@ class CompiledPipeline:
         self._stats_lock = threading.Lock()
         self.runs = 0
         self.fused_dispatches = 0
+        # set by PipelineCache when it caches this pipeline: forget-on-
+        # device-loss evicts exactly this entry
+        self.cache = None
+        self.cache_key = None
 
     # -- observability -------------------------------------------------------
     def describe(self) -> dict:
@@ -76,6 +90,10 @@ class CompiledPipeline:
             finally:
                 with self._stats_lock:
                     self.fused_dispatches += run_metrics.get("compile.fused.dispatches")
+                if any(run_metrics.get(c) for c in _DEVICE_FAIL_COUNTERS):
+                    metrics.incr("compile.pipeline.dropped_on_device_loss")
+                    if self.cache is not None:
+                        self.cache.forget(self)
 
     def _run_kind(self, plan, executor) -> ColumnarBatch:
         from .lowering import classify_shape
@@ -159,7 +177,14 @@ class CompiledPipeline:
             if hbm_cache.auto_enabled(executor.residency, executor.device):
                 hbm_cache.note_touch(all_files, want, executor.device, executor.residency)
             return decline("no_table")
-        out, reason = hbm_cache.agg_scan(table, shape.condition, group_by, aggs)
+        try:
+            out, reason = hbm_cache.agg_scan(table, shape.condition, group_by, aggs)
+        except RuntimeError:
+            # device loss: drop the table, and the scan plus the host
+            # aggregate tail answer this query (the per-file route)
+            hbm_cache.drop(table)
+            metrics.incr("scan.resident.device_failed")
+            return decline("device")
         if out is None:
             return decline(reason)
         metrics.incr("compile.fused.dispatches")

@@ -104,6 +104,46 @@ class HyperspaceConf:
             )
         )
 
+    def lease_duration_seconds(self) -> float:
+        return float(
+            self.get(
+                C.RELIABILITY_LEASE_DURATION_SECONDS,
+                C.RELIABILITY_LEASE_DURATION_SECONDS_DEFAULT,
+            )
+        )
+
+    def auto_recovery_enabled(self) -> bool:
+        return self._to_bool(
+            self.get(
+                C.RELIABILITY_AUTO_RECOVERY, C.RELIABILITY_AUTO_RECOVERY_DEFAULT
+            )
+        )
+
+    def retry_policy(self):
+        """The storage RetryPolicy built from conf (reliability/retry.py)."""
+        from .reliability.retry import RetryPolicy
+
+        return RetryPolicy(
+            max_attempts=int(
+                self.get(
+                    C.RELIABILITY_RETRY_MAX_ATTEMPTS,
+                    C.RELIABILITY_RETRY_MAX_ATTEMPTS_DEFAULT,
+                )
+            ),
+            base_delay_s=float(
+                self.get(
+                    C.RELIABILITY_RETRY_BASE_DELAY_SECONDS,
+                    C.RELIABILITY_RETRY_BASE_DELAY_SECONDS_DEFAULT,
+                )
+            ),
+            max_delay_s=float(
+                self.get(
+                    C.RELIABILITY_RETRY_MAX_DELAY_SECONDS,
+                    C.RELIABILITY_RETRY_MAX_DELAY_SECONDS_DEFAULT,
+                )
+            ),
+        )
+
     def event_logger_class(self) -> Optional[str]:
         v = self.get(C.EVENT_LOGGER_CLASS)
         return str(v) if v else None

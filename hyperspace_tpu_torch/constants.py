@@ -169,6 +169,27 @@ DISPLAY_MODE_HTML = "html"
 DISPLAY_MODE_CONSOLE = "console"
 DISPLAY_MODE_DEFAULT = DISPLAY_MODE_PLAIN_TEXT
 
+# --- reliability -------------------------------------------------------------
+# Crash-consistent lifecycle knobs (reliability/).
+# Writer-lease directory name inside every index directory (next to the
+# operation log)
+HYPERSPACE_LEASE = "_hyperspace_lease"
+# How long a writer's lease lives between heartbeats before an expired,
+# unreleased lease counts as a dead writer and triggers auto-rollback
+RELIABILITY_LEASE_DURATION_SECONDS = "hyperspace.reliability.lease.durationSeconds"
+RELIABILITY_LEASE_DURATION_SECONDS_DEFAULT = 60.0
+# Master toggle for automatic rollback of abandoned transient states
+RELIABILITY_AUTO_RECOVERY = "hyperspace.reliability.autoRecovery"
+RELIABILITY_AUTO_RECOVERY_DEFAULT = True
+# Storage retry policy on the FileSystem seam (bounded exponential
+# backoff with deterministic jitter; transient errors only)
+RELIABILITY_RETRY_MAX_ATTEMPTS = "hyperspace.reliability.retry.maxAttempts"
+RELIABILITY_RETRY_MAX_ATTEMPTS_DEFAULT = 4
+RELIABILITY_RETRY_BASE_DELAY_SECONDS = "hyperspace.reliability.retry.baseDelaySeconds"
+RELIABILITY_RETRY_BASE_DELAY_SECONDS_DEFAULT = 0.05
+RELIABILITY_RETRY_MAX_DELAY_SECONDS = "hyperspace.reliability.retry.maxDelaySeconds"
+RELIABILITY_RETRY_MAX_DELAY_SECONDS_DEFAULT = 2.0
+
 # --- telemetry ---------------------------------------------------------------
 EVENT_LOGGER_CLASS = "hyperspace.eventLoggerClass"
 

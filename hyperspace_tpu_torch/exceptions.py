@@ -21,6 +21,37 @@ class ConcurrentModificationException(HyperspaceException):
     state" on a failed write_log of the transient entry)."""
 
 
+class LeaseFencedError(ConcurrentModificationException):
+    """Raised when a writer discovers it has been fenced: its lease epoch
+    was superseded (the writer stalled past its lease and a newer writer
+    — or crash recovery — claimed the next epoch). The fenced writer's
+    ``end()`` must refuse to commit (reliability/lease.py)."""
+
+
+class DeviceUnavailableError(HyperspaceException):
+    """The device probe proved the card unreachable (its first touch hung
+    or raised; ``utils/deviceprobe.py``). Where the reference routes such a
+    query to its host engine, this package raises: every engine path runs
+    on the card. ``reason`` carries the probe's verdict."""
+
+    def __init__(self, reason: str):
+        super().__init__(f"device unavailable: {reason}")
+        self.reason = reason
+
+
+class KernelBuildError(HyperspaceException):
+    """A hand-written kernel failed to build or load (``nvcc`` missing or
+    failing, the library refusing to load, a parameter block that does not
+    match its packer). The device-loss degrade never catches it: a kernel
+    that cannot build is a fault of the program, not of the card."""
+
+
+class KernelLaunchError(HyperspaceException, RuntimeError):
+    """A kernel's launch returned a CUDA error. A ``RuntimeError``, as
+    torch's own CUDA errors are: a resident arm that sees one drops its
+    table and answers through the per-file route (exec/scan.py)."""
+
+
 # -- storage error taxonomy (reliability/retry.py classifies against these) ---
 class StorageError(HyperspaceException):
     """Base for classified storage failures on the FileSystem seam."""

@@ -31,8 +31,10 @@ is served there — the aggregate in one K2/K2p launch and a torch epilogue
 (``scan.path.resident_join_agg``), the materializing join by K2/K2p's
 match ranges and a host gather from the cached groups
 (``scan.path.resident_join``); a miss schedules the region's background
-build. A device error in these arms raises (the reference drops the
-region and answers on the host).
+build. A device error (a ``RuntimeError``) in these arms, the resident
+hybrid arm's included, drops the region or table and the query answers
+through the bucketed join on K2 (``scan.resident_join.device_failed``,
+``scan.resident.device_failed``), as the reference answers on its host.
 
 A join side's bucket groups are cached across queries (the groups cache
 below): keyed by file identities and projection, carrying a cache token
@@ -386,12 +388,19 @@ class Executor:
         if res.status != "ok":
             return None  # the union's index side schedules note_touch
         out_cols = list(info.user_cols)
-        if structure_keyed:
-            pairs = hbm_cache.hybrid_block_counts_batch(res.table, res.delta, [predicate],
-                                                        metric_ns="compile.fused")
-            counts = None if pairs is None else pairs[0]
-        else:
-            counts = hbm_cache.hybrid_block_counts(res.table, res.delta, predicate)
+        try:
+            if structure_keyed:
+                pairs = hbm_cache.hybrid_block_counts_batch(res.table, res.delta, [predicate],
+                                                            metric_ns="compile.fused")
+                counts = None if pairs is None else pairs[0]
+            else:
+                counts = hbm_cache.hybrid_block_counts(res.table, res.delta, predicate)
+        except RuntimeError:
+            # device loss: drop the base (its deltas go with it) and let
+            # the host union answer, its index side on the per-file route
+            hbm_cache.drop(res.table)
+            metrics.incr("scan.resident.device_failed")
+            return None
         if counts is None:
             return None
         base_counts, delta_counts = counts
@@ -687,7 +696,14 @@ class Executor:
             return None
         if res.status != "ok":
             return None
-        out = hbm_cache.join_agg(res.region, group_by, aggs)
+        try:
+            out = hbm_cache.join_agg(res.region, group_by, aggs)
+        except RuntimeError:
+            # device loss: drop the region, and the fusion over K2's
+            # ranges answers
+            hbm_cache.drop(res.region)
+            metrics.incr("scan.resident_join.device_failed")
+            return None
         if out is None:
             return None
         metrics.incr("scan.path.resident_join_agg")
@@ -733,7 +749,14 @@ class Executor:
         l_all, r_all = setup[0], setup[1]
         if l_all.num_rows != region.n_l or r_all.num_rows != region.n_r:
             return None
-        lo, counts = hbm_cache.join_ranges(region)
+        try:
+            lo, counts = hbm_cache.join_ranges(region)
+        except RuntimeError:
+            # device loss: drop the region, and the bucketed join answers
+            # through K2 over the groups
+            hbm_cache.drop(region)
+            metrics.incr("scan.resident_join.device_failed")
+            return None
         l_idx, r_idx = _expand_ranges(lo, counts, region.r_order)
         out: Dict[str, object] = {}
         out.update(l_all.take(l_idx).columns)

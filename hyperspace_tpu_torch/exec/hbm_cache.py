@@ -59,11 +59,18 @@ LRU-evicted against a byte budget. The knobs are session conf (``config.Residenc
 auto | off | force, ``budgetMB``, ``minRows``, ``maxBlockFrac``, and the
 ladder's ``compression``, ``streaming`` and ``window_rows``.
 
-Where the reference recovers quietly, this port raises: a CUDA or torch
-error on a background thread is kept and raised by the next
-``wait_background()`` or ``resident_for()`` on the query thread, and one
-in a window loop or a hybrid launch raises on the query thread. A file
-that vanished before population is a skip, as in the reference.
+A device error (a ``RuntimeError``: torch's CUDA errors, a kernel's
+``KernelLaunchError``) in a resident arm drops the table, delta or region
+(``drop``) and the query answers through the per-file route, which masks
+with K1 and joins with K2 on the card: ``scan.resident.device_failed``,
+``scan.resident_join.device_failed``, ``residency.stream.window_failed``.
+An error on a background population (the reference counts it and
+serves on) is kept and raised by the next ``wait_background()`` or
+``resident_for()`` on the query thread. A kernel that cannot build
+(``KernelBuildError``) is never degraded. A first device touch that the
+probe (``utils/deviceprobe.py``) finds hung or failing raises
+``DeviceUnavailableError`` where the reference turns to its host engine.
+A file that vanished before population is a skip, as in the reference.
 
 The serving layer's batched counts count N predicates over one table in
 one launch: ``block_counts_batch`` (K1b over raw or packed planes, the
@@ -432,8 +439,8 @@ class ResidentCacheBase:
         # File-version identity is in the key, so a new version retries.
         self._failed: set = set()
         self._lock = threading.Lock()
-        # bumped by reset(): a background population scheduled before a
-        # reset must not register into the fresh registry
+        # bumped by reset() and drop(): a background population scheduled
+        # before either must not register into the registry after it
         self._epoch = 0
         self._bg_threads: List[threading.Thread] = []
         self._bg_error: Optional[Exception] = None
@@ -450,9 +457,13 @@ class ResidentCacheBase:
             return not self._tables
 
     def drop(self, table) -> None:
-        """Unregister a table or a join region; the deltas built over a
-        table go with it (no query could reach them without their base)."""
+        """Unregister a table or a join region (device loss mid-query); the
+        deltas built over a table go with it (no query could reach them
+        without their base). The epoch moves as on ``reset``: a background
+        population scheduled before the drop does not register a table
+        on the card that just failed."""
         with self._lock:
+            self._epoch += 1
             self._tables = [t for t in self._tables if t is not table]
             if any(j is table for j in self._joins):
                 self._joins = [j for j in self._joins if j is not table]
@@ -602,6 +613,13 @@ class ResidentCacheBase:
                 return False
             metrics.incr("hbm.delta.registered")
             return True
+
+    def _keep_background_error(self, e: Exception, epoch: int) -> None:
+        """A background population's failure is kept and raised on the
+        next query thread that asks, unless a reset or drop came since."""
+        with self._lock:
+            if epoch == self._epoch and self._bg_error is None:
+                self._bg_error = e
 
     def _raise_background_error(self) -> None:
         with self._lock:
@@ -831,11 +849,9 @@ class HbmIndexCache(ResidentCacheBase):
                     failed = True
             except OSError:  # a file vanished mid-population: skip
                 metrics.incr("hbm.prefetch_read_error")
-            except Exception as e:  # noqa: BLE001 - kept, raised on the query thread
+            except Exception as e:  # noqa: BLE001 - see _keep_background_error
                 metrics.incr("hbm.populate_failed")
-                with self._lock:
-                    if epoch == self._epoch and self._bg_error is None:
-                        self._bg_error = e
+                self._keep_background_error(e, epoch)
             finally:
                 with self._lock:
                     self._pending.discard(key)
@@ -859,10 +875,13 @@ class HbmIndexCache(ResidentCacheBase):
         """(table, permanent_refusal). ``permanent_refusal`` marks
         structural conditions of this file version (nothing encodable,
         empty); budget refusals are not permanent (the budget is a knob).
-        An OSError (a vanished file) propagates to the caller."""
+        An OSError (a vanished file) propagates to the caller, and so does
+        DeviceUnavailableError where the probe finds the card unreachable."""
         from ..storage import layout
         from ..storage.columnar import unify_dictionaries
+        from ..utils.deviceprobe import require_device
 
+        require_device(dev)
         t0 = time.perf_counter()
         readers = [layout.cached_reader(p) for p in paths]
         spans: List[Tuple[str, int, int]] = []
@@ -1223,11 +1242,9 @@ class HbmIndexCache(ResidentCacheBase):
                     failed = permanent
             except OSError:  # an appended file vanished: skip
                 metrics.incr("hbm.delta.read_error")
-            except Exception as e:  # noqa: BLE001 - kept, raised on the query thread
+            except Exception as e:  # noqa: BLE001 - see _keep_background_error
                 metrics.incr("hbm.delta.populate_failed")
-                with self._lock:
-                    if epoch == self._epoch and self._bg_error is None:
-                        self._bg_error = e
+                self._keep_background_error(e, epoch)
             finally:
                 with self._lock:
                     self._pending.discard(memo)
@@ -1257,6 +1274,9 @@ class HbmIndexCache(ResidentCacheBase):
             # base cannot anchor a delta
             metrics.incr("hbm.delta.declined.tier")
             return None, True
+        from ..utils.deviceprobe import require_device
+
+        require_device(table.device)
         t0 = time.perf_counter()
         dels = tuple(sorted(int(i) for i in deleted_ids))
         with self._lock:
@@ -1515,11 +1535,9 @@ class HbmIndexCache(ResidentCacheBase):
                     failed = permanent
             except OSError:  # a file vanished mid-population: skip
                 metrics.incr("hbm.prefetch_read_error")
-            except Exception as e:  # noqa: BLE001 - kept, raised on the query thread
+            except Exception as e:  # noqa: BLE001 - see _keep_background_error
                 metrics.incr("hbm.join.populate_failed")
-                with self._lock:
-                    if epoch == self._epoch and self._bg_error is None:
-                        self._bg_error = e
+                self._keep_background_error(e, epoch)
             finally:
                 with self._lock:
                     self._pending.discard(pending)
@@ -1560,7 +1578,7 @@ class HbmIndexCache(ResidentCacheBase):
         over the region's codes (``torch.searchsorted`` where K2's plan
         declined), no upload; left row i matches sorted-right positions
         [lo[i], lo[i] + counts[i]), which ``region.r_order`` maps to rows.
-        A device error raises."""
+        A device error raises to the caller (the executor's arm degrades)."""
         from .join_residency import region_ranges
 
         t0 = time.perf_counter()
@@ -1578,7 +1596,7 @@ class HbmIndexCache(ResidentCacheBase):
         device, and one copy home of the span-sized group vectors. None
         when the spec cannot ride the device exactly
         (``hbm.join.declined.dtype``: the caller routes the host fusion).
-        A device error raises."""
+        A device error raises to the caller (the executor's arm degrades)."""
         from .join_residency import finish_join_agg, join_agg_outputs, region_agg_plan
 
         plan = region_agg_plan(region, list(group_by), list(aggs))

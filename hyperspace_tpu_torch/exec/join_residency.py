@@ -42,9 +42,12 @@ payload dtypes the card cannot carry exactly. Integer aggregates are exact
 the card picks, so they hold to a relative 1e-9; float sum/avg/min/max and
 any min/max under duplicate right matches decline, the host fusion's rule.
 
-Not here: the mesh regions (``MeshJoinRegion``, ``build_mesh_join_region``,
-``mesh_join_agg_fn``; with multi-device) and the reference's first-touch
-device probe (``first_device_touch_ok``). A device error raises.
+A region's build first consults the device probe (``utils/deviceprobe``):
+an unreachable card raises ``DeviceUnavailableError``. A device error in a
+launch over the region raises to the executor's arm, which drops the
+region and answers on the per-file route. Not here: the mesh regions
+(``MeshJoinRegion``, ``build_mesh_join_region``, ``mesh_join_agg_fn``; with
+multi-device).
 """
 
 from __future__ import annotations
@@ -375,8 +378,11 @@ def build_join_region(
     asks and the codec wins (then plans K2p's groups too), computes the
     wide tiles' exact rows, and uploads everything in one go."""
     from ..ops import kernels as K
+    from ..utils.deviceprobe import require_device
     from .hbm_cache import _budget_bytes
     from .joins import _bucketed_join_setup
+
+    require_device(dev)
 
     t0 = time.perf_counter()
     setup, _ck = _bucketed_join_setup(l_by_bucket, r_by_bucket, list(l_keys), list(r_keys))

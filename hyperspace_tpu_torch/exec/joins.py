@@ -132,6 +132,21 @@ def _expand_ranges(
     return l_idx, r_pos if r_order is None else r_order[r_pos]
 
 
+def _k2_counts(l_codes: np.ndarray, r_sorted: np.ndarray, device: DeviceLike):
+    """K2's ranges through ``ops.kernels.sorted_intersect_counts``. Where
+    the reference's kernel latch and device probe send K2 to the host's
+    searchsorted, this raises: a card the probe found unreachable raises
+    DeviceUnavailableError here, and a failed launch raises from K2."""
+    from ..ops import kernels, resolve_device
+    from ..utils.deviceprobe import latched_verdict, unavailable_reason
+
+    if resolve_device(device).type == "cuda" and latched_verdict() is False:
+        from ..exceptions import DeviceUnavailableError
+
+        raise DeviceUnavailableError(unavailable_reason())
+    return kernels.sorted_intersect_counts(l_codes, r_sorted, device)
+
+
 def merge_join_ranges(
     l_codes: np.ndarray, r_codes: np.ndarray, device: DeviceLike = None
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -141,11 +156,9 @@ def merge_join_ranges(
     overflows int32, or more than a quarter of the left tiles are wide)
     host binary search serves, as in the reference. The arm taken is
     counted under ``join.path.*``."""
-    from ..ops import kernels
-
     r_order = np.argsort(r_codes, kind="stable")
     r_sorted = r_codes[r_order]
-    res = kernels.sorted_intersect_counts(l_codes, r_sorted, device)
+    res = _k2_counts(l_codes, r_sorted, device)
     if res is not None:
         metrics.incr("join.path.device_kernel")
         lo, counts = res
@@ -247,10 +260,8 @@ def segmented_join_ranges(
         return merge_join_ranges(l_codes, r_codes, device)
     flat = _flat_segment_remap(l_codes, r_codes, l_bounds, r_bounds)
     if flat is not None:
-        from ..ops import kernels
-
         l_flat, r_flat = flat
-        res = kernels.sorted_intersect_counts(l_flat, r_flat, device)
+        res = _k2_counts(l_flat, r_flat, device)
         if res is not None:
             metrics.incr("join.path.presorted_merge_flat")
             return res[0], res[1], None

@@ -217,13 +217,23 @@ def _resident_scan(
         if residency.max_block_frac < 1.0 and frac >= residency.max_block_frac:
             metrics.incr("scan.gate.resident_selectivity")
             return None
-    with _trace_span("scan.device_dispatch", tier=table.tier,
-                     structure_keyed=bool(structure_keyed)):
-        if structure_keyed and table.tier != "streaming":
-            m = hbm_cache.block_counts_batch(table, [predicate], metric_ns="compile.fused")
-            counts = None if m is None else m[0]
-        else:
-            counts = hbm_cache.block_counts(table, predicate)
+    try:
+        with _trace_span("scan.device_dispatch", tier=table.tier,
+                         structure_keyed=bool(structure_keyed)):
+            if structure_keyed and table.tier != "streaming":
+                m = hbm_cache.block_counts_batch(table, [predicate], metric_ns="compile.fused")
+                counts = None if m is None else m[0]
+            else:
+                counts = hbm_cache.block_counts(table, predicate)
+    except RuntimeError:
+        # device loss mid-query: drop the table so later queries do not
+        # retry it, and answer through the per-file route, which masks on
+        # the card too (a dead card raises there). A kernel that cannot
+        # build raises KernelBuildError, no RuntimeError, and reaches the
+        # caller.
+        hbm_cache.drop(table)
+        metrics.incr("scan.resident.device_failed")
+        return None
     if counts is None:
         metrics.incr("scan.resident.declined")
         return None

@@ -3,8 +3,9 @@
 Parity: com/microsoft/hyperspace/Hyperspace.scala:34-165 — the lifecycle
 verbs (create, delete, restore, vacuum, refresh, optimize, cancel), list,
 describe and explain, and the reference package's ``prefetch_index`` and
-``compact_index`` (the background compactor's verb). Its ``doctor`` and
-``serve`` are not ported yet.
+``compact_index`` (the background compactor's verb) and ``doctor`` (fsck
+of the index tree, reliability/doctor.py). The query server is the
+session's (``session.serve``).
 """
 
 from __future__ import annotations
@@ -77,6 +78,14 @@ class Hyperspace:
 
     def cancel(self, name: str) -> None:
         self._manager.cancel(name)
+
+    def doctor(self, repair: bool = False):
+        """fsck the index system path (reliability.doctor): log-chain
+        integrity, data-file presence against the log, crash litter.
+        ``repair=True`` rolls back abandoned writers and vacuums orphaned
+        artifacts. Returns a DoctorReport whose ``ok`` is the
+        no-inconsistencies verdict."""
+        return self.session.doctor(repair=repair)
 
     def explain(self, df: DataFrame, verbose: bool = False) -> str:
         from .plananalysis.plan_analyzer import explain_string

@@ -73,9 +73,25 @@ class IndexCollectionManager:
         self.session = session
         self.conf = session.conf
         self.path_resolver = PathResolver(self.conf)
+        # session-attach recovery: the first enumeration through this
+        # manager rolls back abandoned writers (transient head + expired
+        # lease), so a process that died mid-action heals on the next
+        # session that looks at the indexes, listings and queries included
+        self._attach_recovery_done = False
+
+    def _attach_recovery(self) -> None:
+        if self._attach_recovery_done:
+            return
+        self._attach_recovery_done = True
+        from ..reliability.recovery import recover_abandoned_indexes
+
+        recover_abandoned_indexes(self.path_resolver.system_path, self.conf)
 
     def _log_manager(self, name: str) -> IndexLogManagerImpl:
-        return IndexLogManagerImpl(self.path_resolver.get_index_path(name))
+        return IndexLogManagerImpl(
+            self.path_resolver.get_index_path(name),
+            retry_policy=self.conf.retry_policy(),
+        )
 
     def _data_manager(self, name: str) -> IndexDataManagerImpl:
         return IndexDataManagerImpl(self.path_resolver.get_index_path(name))
@@ -182,6 +198,7 @@ class IndexCollectionManager:
 
     def _enumerate(self):
         """(latest entry, stable entry or None) per index directory."""
+        self._attach_recovery()
         out = []
         root = self.path_resolver.system_path
         if not root.is_dir():

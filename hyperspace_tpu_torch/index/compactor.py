@@ -26,12 +26,11 @@ per-bucket layout; this module closes the gap:
 Convergence (no run files and no multi-small-file bucket left) gives
 exactly ``optimize(quick)``'s file layout.
 
-Not ported yet, each waiting for its item of ROADMAP.md's queue A: the
-reference fences each step with a writer lease and recovers a dead one
-(reliability); it orders buckets by the heat queries note on them
-(``exec/scan_gate``, the scan gate), where this package takes them in
-bucket-id order, the reference's order when no heat is recorded; and a
-hosting server sweeps on a timer (serving).
+A step is a writer like any other: it holds a lease, a step that stalls
+past it is fenced at ``end()`` (reliability/lease.py), and one that dies
+mid-flight is rolled back by the abandoned-writer recovery. Buckets go in
+order of the heat queries note on them (``exec/scan_gate``), bucket-id
+order when none is recorded, and a hosting server sweeps on a timer.
 """
 
 from __future__ import annotations

@@ -62,12 +62,18 @@ class IndexLogManagerImpl(IndexLogManager):
     against flat blob storage — the claim primitive is the seam's
     ``create_if_absent`` either way (SURVEY.md §7 hard part 4)."""
 
-    def __init__(self, index_path: str | Path, fs=None):
+    def __init__(self, index_path: str | Path, fs=None, retry_policy=None):
+        from ..reliability.retry import wrap_with_retries
         from ..storage.filesystem import DEFAULT_FS
 
         self._index_path = Path(index_path)
         self._log_dir = self._index_path / C.HYPERSPACE_LOG
-        self._fs = fs if fs is not None else DEFAULT_FS
+        # every log RPC runs under the retry policy (reliability/retry.py):
+        # a flaky object-store call no longer fails a whole action, and
+        # the wrap is idempotent so callers may pass a pre-wrapped fs
+        self._fs = wrap_with_retries(
+            fs if fs is not None else DEFAULT_FS, retry_policy
+        )
 
     @property
     def index_path(self) -> Path:

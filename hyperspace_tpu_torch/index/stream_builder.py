@@ -39,10 +39,11 @@ the event recorded behind its upload has completed; a D2H goes into pinned
 memory with ``non_blocking=True`` and the spill worker waits on the event
 recorded after it (``ops.build.DeviceFetch``) before it reads.
 
-Not ported here, each waiting for its item of ROADMAP.md's queue A: the
-mesh arm (multi-device), the device-reachability watchdog
-(``utils/deviceprobe``, reliability) and the build's trace spans
-(observability).
+The auto probe's first device touch runs under the reachability watchdog
+(``utils/deviceprobe``): an unreachable card raises
+``DeviceUnavailableError``. Not ported here, each waiting for its item of
+ROADMAP.md's queue A: the mesh arm (multi-device) and the build's trace
+spans (observability).
 """
 
 from __future__ import annotations
@@ -630,6 +631,12 @@ class StreamingIndexWriter:
         host_s = self._probe.get("host_s")
         if host_s is None:
             return False
+        # the process's first device touch pays backend init, and on a
+        # wedged card blocks: the watchdog bounds it (and serves as the
+        # untimed warmup, so init is never timed as link bandwidth)
+        from ..utils.deviceprobe import require_device
+
+        require_device(self.dev)
         try:
             import torch
 

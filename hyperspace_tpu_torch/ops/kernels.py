@@ -68,7 +68,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..exceptions import HyperspaceException
+from ..exceptions import HyperspaceException, KernelBuildError, KernelLaunchError
 from ..plan.expr import And, Cmp, Col, Expr, In, Lit, Not, Or, eval_mask
 from ..storage.columnar import Column, ColumnarBatch
 from ..telemetry.metrics import metrics
@@ -124,7 +124,7 @@ def _nvcc() -> str:
         return str(Path(home) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise HyperspaceException(
+        raise KernelBuildError(
             "nvcc not found (set CUDA_HOME): the CUDA kernels build from "
             "hyperspace_tpu_torch/csrc on first use."
         )
@@ -173,15 +173,18 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
                 so.with_suffix(".ptxas.txt").write_bytes(out)
                 os.replace(tmp, so)
         if failed:
-            raise HyperspaceException("nvcc failed:\n" + "\n".join(failed))
+            raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
         for n in todo:
-            lib = ctypes.CDLL(str(_lib_path(n)[1]))
+            try:
+                lib = ctypes.CDLL(str(_lib_path(n)[1]))
+            except OSError as e:
+                raise KernelBuildError(f"{n}: the kernel library does not load: {e}") from e
             vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             if n == K1:
                 lib.hs_predicate_param_bytes.argtypes = []
                 lib.hs_predicate_param_bytes.restype = ci
                 if lib.hs_predicate_param_bytes() != _PARAM_DTYPE.itemsize:
-                    raise HyperspaceException(
+                    raise KernelBuildError(
                         "predicate_mask.cu's parameter block is "
                         f"{lib.hs_predicate_param_bytes()} bytes; ops/kernels.py "
                         f"packs {_PARAM_DTYPE.itemsize}."
@@ -195,7 +198,7 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
                 lib.hs_batch_param_bytes.argtypes = []
                 lib.hs_batch_param_bytes.restype = ci
                 if lib.hs_batch_param_bytes() != K1B_PARAM_BYTES:
-                    raise HyperspaceException(
+                    raise KernelBuildError(
                         "predicate_mask.cu's BatchParams is "
                         f"{lib.hs_batch_param_bytes()} bytes; ops/kernels.py packs "
                         f"{K1B_PARAM_BYTES}."
@@ -241,7 +244,7 @@ def _check_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
 
 def _check_launch(rc: int, what: str) -> None:
     if rc != 0:
-        raise HyperspaceException(f"{what}: CUDA launch failed with error {rc}.")
+        raise KernelLaunchError(f"{what}: CUDA launch failed with error {rc}.")
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:

@@ -36,10 +36,10 @@ The serving layer's batch (``stream_block_counts_batch``) runs the same
 loop once for N predicates: each window uploads the union of their planes
 once and launches K1b over them (K1c or K1p for N = 1), and one
 ``(N, n_blocks)`` matrix comes home. Batches key on the table's
-``window_gen``, the generation the reference bumps when a device failure
-tears its slab pair down; here a device error mid-window raises (the
-reference's host recovery is not ported), so the generation stays 0 until
-that recovery comes. The mesh streaming tables come with multi-device.
+``window_gen``, the generation a device failure mid-window bumps as it
+tears the slab pair down (``residency.stream.window_failed``); the caller
+then drops the table and answers through the per-file route. The mesh
+streaming tables come with multi-device.
 """
 
 from __future__ import annotations
@@ -212,9 +212,19 @@ def _run_window_loop(table: StreamingResidentTable, planes: List[StreamPlane], l
     """The double-buffered loop over every window. ``launch(cols)`` queues
     one window's count launch over ``cols`` (one device slot per plane)
     on the current stream and returns its count tensor. Returns the
-    per-window count arrays in window order."""
+    per-window count arrays in window order.
+
+    A device error mid-window tears the slab pair down: the generation
+    goes up so no in-flight serve batch spans the discontinuity, and the
+    error goes on to the caller, which drops the table and answers
+    through the per-file route."""
     with table._stream_lock:
-        return _windowed_counts_locked(table, planes, launch)
+        try:
+            return _windowed_counts_locked(table, planes, launch)
+        except RuntimeError:
+            table.window_gen += 1
+            metrics.incr("residency.stream.window_failed")
+            raise
 
 
 def _windowed_counts_locked(table, planes, launch) -> List[np.ndarray]:
@@ -302,7 +312,7 @@ def stream_block_counts(table: StreamingResidentTable, predicate) -> Optional[np
     streaming twin of ``HbmIndexCache.block_counts``. Each window launches
     K1p when it holds a packed plane of the predicate, else K1c. None when
     the predicate cannot ride the resident encodings (the caller routes
-    host); device errors raise."""
+    to the per-file path); device errors raise to the caller."""
     from ..exec.hbm_cache import BLOCK_ROWS, prepare_resident_predicate
 
     prepared = prepare_resident_predicate(table.columns, predicate)

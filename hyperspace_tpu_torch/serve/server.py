@@ -23,12 +23,18 @@ dispatcher and a worker pool between callers and the executor:
   with ONE launch (``serve/batcher.py``); the shed ladder turns widening
   off under load.
 
-A device error in a batch fails every ticket of the batch with that
-error (``serve.batch.device_error``); the reference latches the server to
-the host and serves the batch there. A batch the launch declines (not an
-error) is served query by query. The reference's crash-recovery sweep and
-device-probe latch come with the reliability slice; the compaction sweep
-is here.
+A device error (a ``RuntimeError``) in a batch latches the server
+``degraded`` with its reason, drops the table, freezes the flight recorder
+(``device_loss``), counts ``serve.degraded`` once and re-serves that batch
+query by query. While latched the server neither batches nor routes
+resident: each query runs through an executor with residency off, on the
+card's per-file route (the reference's host engine). A device probe
+verdict of False (``utils/deviceprobe.py``) latches the same way, and
+tickets submitted then fail with ``DeviceUnavailableError``. A kernel
+that cannot build fails the batch's tickets with its error, unlatched. A
+batch the launch declines (not an error) is served query by query. The
+submit path hosts two throttled background sweeps: crash recovery
+(abandoned writers rolled back) and compaction.
 
 Tickets: ``submit()`` returns a QueryTicket at once; ``result()`` blocks
 for that query, ``cancel()`` withdraws it while queued. Workers run each
@@ -46,7 +52,7 @@ from typing import Dict, List, Optional
 
 from ..exceptions import HyperspaceException
 from ..storage.columnar import ColumnarBatch
-from ..telemetry.metrics import metrics, serve_snapshot
+from ..telemetry.metrics import metrics, reliability_snapshot, serve_snapshot
 from ..telemetry.recorder import flight_recorder
 from ..telemetry.trace import QueryTrace, span
 from . import batcher, tenancy
@@ -116,6 +122,10 @@ class ServeConfig:
     # hyperspace.index.compaction.intervalSeconds; <= 0 disables. Sweeps
     # run only when hyperspace.index.compaction.enabled is "auto".
     compaction_sweep_interval_s: Optional[float] = None
+    # how often the submit path consults crash recovery: at most one
+    # background sweep per interval rolls back abandoned writers
+    # (transient log head + expired lease). <= 0 disables.
+    recovery_sweep_interval_s: float = 60.0
 
 
 class QueryTicket:
@@ -271,6 +281,14 @@ class QueryServer:
         self._compaction_steps = 0
         self._next_compaction_sweep = 0.0
         self._compaction_running = False  # one sweep in flight at a time
+        # the device-loss latch and its first reason; unavailable is a
+        # probe verdict (tickets fail), not a launch error (queries degrade)
+        self._degraded_latch = threading.Event()
+        self._degraded_reason: Optional[str] = None
+        self._unavailable = False
+        self._recovery_sweeps = 0
+        self._recovered_indexes = 0
+        self._next_recovery_sweep = 0.0  # monotonic; 0 = sweep on first submit
         if self.config.autostart:
             self.start()
 
@@ -440,7 +458,11 @@ class QueryServer:
         deadline_at = (
             time.monotonic() + deadline_s if deadline_s is not None else None
         )
-        # background compaction, hosted on submit: runs-layout indexes
+        # crash recovery, hosted on submit: a throttled background sweep
+        # heals indexes whose writer died (the serving process is often
+        # the only long-lived process around to notice)
+        self._maybe_recovery_sweep()
+        # background compaction, hosted the same way: runs-layout indexes
         # converge toward per-bucket files while admitted queries keep
         # serving their pinned snapshots wholesale
         self._maybe_compaction_sweep()
@@ -478,6 +500,18 @@ class QueryServer:
         # The version token PINS the index-log snapshot: the optimized
         # plan bakes this snapshot's files, so the query serves it
         # wholesale across any concurrent refresh/optimize.
+        latched = self._consult_device_latch()
+        if latched and self._unavailable:
+            # the probe found the card unreachable: every engine path runs
+            # on it, so the ticket fails (the reference serves its host)
+            from ..exceptions import DeviceUnavailableError
+
+            metrics.incr("serve.submitted")
+            with self._cond:
+                self._submitted += 1
+                tstate.submitted += 1
+            self._finish(ticket, error=DeviceUnavailableError(self._degraded_reason))
+            return ticket
         try:
             # the result-cache path shares ONE plan_signature walk with
             # the plan cache — the tree string + leaf snapshots must not
@@ -498,8 +532,12 @@ class QueryServer:
             # memoized table without a worker: sound because the key
             # carries literals, file snapshots, index generation and conf.
             # A snapshot-pinned reader hits entries of ITS pinned token.
+            # The device-loss latch bypasses the cache (no lookup, no
+            # store) but leaves its entries.
             rc_key = None
-            if rc_enabled:
+            if rc_enabled and latched:
+                metrics.incr("compile.result_cache.bypass_latched")
+            elif rc_enabled:
                 from ..compile.result_cache import result_cache, result_key
 
                 rc_key = result_key(df.plan, token, signature=signature)
@@ -514,7 +552,7 @@ class QueryServer:
                         ticket.trace.root.labels["result_cache"] = "hit"
                     self._finish(ticket, result=cached)
                     return ticket
-            resident = batcher.classify(self.session, plan)
+            resident = None if latched else batcher.classify(self.session, plan)
         except Exception as e:  # noqa: BLE001 - planning failure = query failure
             # planning failures (unknown columns, vanished files) belong
             # to the QUERY, not the server: the ticket carries them and
@@ -574,6 +612,40 @@ class QueryServer:
         metrics.incr("serve.cancelled")
         self._finish(ticket, error=QueryCancelled("cancelled before dispatch."))
         return True
+
+    def _maybe_recovery_sweep(self) -> None:
+        interval = self.config.recovery_sweep_interval_s
+        if interval is None or interval <= 0:
+            return
+        now = time.monotonic()
+        with self._cond:
+            if now < self._next_recovery_sweep:
+                return
+            self._next_recovery_sweep = now + interval
+        threading.Thread(
+            target=self._recovery_sweep, daemon=True, name="hyperspace-serve-recovery"
+        ).start()
+
+    def _recovery_sweep(self) -> None:
+        from ..reliability.recovery import recover_abandoned_indexes
+
+        try:
+            n = recover_abandoned_indexes(
+                self.session.conf.system_path(), self.session.conf
+            )
+        except Exception:  # noqa: BLE001
+            # counted, not raised: a failed sweep must never take down
+            # serving; the next interval retries
+            metrics.incr("serve.recovery_sweep_error")
+            return
+        metrics.incr("serve.recovery_sweep")
+        with self._cond:
+            self._recovery_sweeps += 1
+            self._recovered_indexes += n
+        if n:
+            # recovered indexes changed the log: the TTL catalog cache may
+            # hold the transient view
+            self.session.collection_manager.clear_cache()
 
     def _maybe_compaction_sweep(self) -> None:
         if not self.session.conf.compaction_enabled():
@@ -664,6 +736,7 @@ class QueryServer:
                     if (
                         head.resident is not None
                         and self.config.batch_max > 1
+                        and not self._degraded_latch.is_set()
                         and self._shed_stage_locked() < 2
                     ):
                         self._drain_compatible_locked(head, batch)
@@ -678,7 +751,8 @@ class QueryServer:
                     else:
                         live.append(r)
                 if live:
-                    if len(live) == 1 or live[0].resident is None:
+                    if (len(live) == 1 or live[0].resident is None
+                            or self._degraded_latch.is_set()):
                         for r in live:
                             self._execute_single(r)
                     else:
@@ -844,7 +918,14 @@ class QueryServer:
         from ..exec.executor import Executor
 
         conf = self.session.conf
-        executor = Executor(self.session.device, conf.residency(), conf)
+        residency = conf.residency()
+        if self._degraded_latch.is_set():
+            # degraded: no resident route (the reference's host executor);
+            # the per-file route still masks and joins on the card
+            import dataclasses
+
+            residency = dataclasses.replace(residency, mode="off")
+        executor = Executor(self.session.device, residency, conf)
         # the ticket's pinned index-log snapshot folds into the compiled-
         # pipeline cache key: a query admitted under version V serves V's
         # whole compiled pipeline across any concurrent refresh/optimize
@@ -886,12 +967,20 @@ class QueryServer:
             ) as batch_span:
                 with metrics.scoped() as bm:
                     results = batcher.execute_batch(residents)
-        except Exception as e:  # noqa: BLE001 - a device error fails the batch
-            # every ticket of the batch fails with the error (no host
-            # re-run); the failing span is marked in the head trace, and
-            # the recorder freezes the batch's traces around the failure
-            metrics.incr("serve.batch.device_error")
-            flight_recorder.snapshot("device_error", extra_traces=[r.ticket.trace for r in live])
+        except RuntimeError as e:  # device loss mid-serve
+            # latch degraded, drop the table so no later query retries it,
+            # and re-serve THIS batch query by query on the per-file route
+            # (same rows; the error reaches no caller). The failing span
+            # is already marked in the head trace.
+            self._latch_degraded(
+                repr(e), residents[0], traces=[r.ticket.trace for r in live]
+            )
+            results = None
+        except Exception as e:  # noqa: BLE001 - not a device error: fail the batch
+            # a kernel that cannot build (or any other fault of the
+            # program) is never degraded: every ticket carries the error
+            metrics.incr("serve.batch.error")
+            flight_recorder.snapshot("batch_error", extra_traces=[r.ticket.trace for r in live])
             for r in live:
                 self._finish(r.ticket, error=e)
             return
@@ -901,8 +990,9 @@ class QueryServer:
                     self._finish(r.ticket, error=e)
             raise
         if results is None:
-            # the batched launch declined (not an error): query by query
-            metrics.incr("serve.batch.declined")
+            if not self._degraded_latch.is_set():
+                # the batched launch declined (not an error): query by query
+                metrics.incr("serve.batch.declined")
             try:
                 for r in live:
                     self._execute_single(r)
@@ -932,6 +1022,20 @@ class QueryServer:
             if tr is not None and tr is not head_tr and batch_span is not None:
                 tr.adopt(batch_span)
             self._finish(r.ticket, result=result)
+
+    def _latch_degraded(self, reason: str, resident, traces=None) -> None:
+        from ..exec.hbm_cache import hbm_cache
+
+        with self._cond:
+            already = self._degraded_latch.is_set()
+            self._degraded_latch.set()
+            self._degraded_reason = self._degraded_reason or reason
+        # post-mortem: freeze the flight recorder around the loss, with
+        # the failing dispatch's in-flight traces attached
+        flight_recorder.snapshot("device_loss", extra_traces=traces or ())
+        if not already:
+            metrics.incr("serve.degraded")
+            hbm_cache.drop(resident.table)
 
     def _miss_deadline(self, req: _Request) -> None:
         metrics.incr("serve.deadline_missed")
@@ -1028,6 +1132,30 @@ class QueryServer:
         ticket._done.set()
 
     # -- observability -------------------------------------------------------
+    # -- degradation surface -------------------------------------------------
+    def _consult_device_latch(self) -> bool:
+        """True when serving is latched degraded, consulting the process's
+        device-probe verdict first: a card any component found unreachable
+        latches the server (unavailable) without waiting for a serve-path
+        failure. One dict probe per submit."""
+        from ..utils.deviceprobe import latched_verdict, unavailable_reason
+
+        if latched_verdict() is False and not self._unavailable:
+            with self._cond:
+                newly = not self._degraded_latch.is_set()
+                self._degraded_latch.set()
+                self._unavailable = True
+                self._degraded_reason = self._degraded_reason or unavailable_reason()
+            if newly:
+                metrics.incr("serve.degraded")
+        return self._degraded_latch.is_set()
+
+    @property
+    def degraded(self) -> bool:
+        """True once the server latched degraded (a device error in a batch,
+        or the device probe's verdict)."""
+        return self._consult_device_latch()
+
     def stats(self) -> dict:
         import statistics
 
@@ -1045,6 +1173,8 @@ class QueryServer:
             shed_stage = self._shed_stage_locked()
             compaction_sweeps = self._compaction_sweeps
             compaction_steps = self._compaction_steps
+            sweeps = self._recovery_sweeps
+            recovered = self._recovered_indexes
             out = {
                 "submitted": self._submitted,
                 "completed": self._completed,
@@ -1056,6 +1186,8 @@ class QueryServer:
                 "queue_depth": self._global_depth_locked(),
                 "workers": len(self._workers),
                 "workers_killed": self._workers_killed,
+                "degraded": self._degraded_latch.is_set(),
+                "degraded_reason": self._degraded_reason,
                 "batch_dispatches": self._dispatches,
                 "batched_queries": self._batched_queries,
                 "batch_size_hist": dict(sorted(self._batch_sizes.items())),
@@ -1078,10 +1210,12 @@ class QueryServer:
         for name in order:
             dispatch_share[name] = dispatch_share.get(name, 0) + 1
         # load-shed ladder position + the scheduler-turn shares behind
-        # the fairness bound (window: last 4096 turns)
+        # the fairness bound (window: last 4096 turns); widening is off
+        # under the device-loss latch too
         out["overload"] = {
             "shed_stage": shed_stage,
-            "batch_widening": shed_stage < 2 and self.config.batch_max > 1,
+            "batch_widening": shed_stage < 2 and self.config.batch_max > 1
+            and not self._degraded_latch.is_set(),
             "dispatch_share": dispatch_share,
         }
         # process-wide serve counter family (telemetry.metrics)
@@ -1104,6 +1238,14 @@ class QueryServer:
         # residency tier surface: per-table tier ladder state (which
         # rung each table landed on, compression ratio, window counters)
         out["residency"] = _residency_stats()
+        # reliability surface: what the lifecycle layer absorbed (retries)
+        # and healed (rollbacks) while this server ran: THIS server's
+        # sweeps plus the process-wide counters
+        out["reliability"] = {
+            "server_recovery_sweeps": sweeps,
+            "recovered_indexes": recovered,
+            **reliability_snapshot(),
+        }
         # background-compaction surface: THIS server's hosted sweeps and
         # the steps they committed (the process-wide compaction.* counter
         # family rides the registry export below)

@@ -199,6 +199,21 @@ class HyperspaceSession:
             tenant = DEFAULT_TENANT
         return self.serve().submit(df, deadline_s=deadline_s, tenant=tenant)
 
+    def doctor(self, repair: bool = False, include_traces: bool = False):
+        """fsck this session's index system path: log-chain integrity,
+        data-file presence and crash litter (orphaned temp files, torn
+        builds, stale leases); ``repair=True`` rolls back abandoned writers
+        and vacuums orphans. ``include_traces=True`` attaches the flight
+        recorder's dump. Returns a DoctorReport (reliability.doctor)."""
+        from .reliability.doctor import doctor
+
+        return doctor(
+            self.conf.system_path(),
+            repair=repair,
+            conf=self.conf,
+            include_traces=include_traces,
+        )
+
     def table(self, name: str):
         """DataFrame over a registered view or table (Catalog.table)."""
         return self.catalog.table(name)

@@ -213,10 +213,18 @@ def read_avro(
     """Read OCF files into one ColumnarBatch (column projection applied
     after decode — rows are row-major on the wire, so every field is
     decoded regardless)."""
+    from ..reliability.retry import call_with_retries
+
     paths = [str(p) for p in paths]
     if not paths:
         raise HyperspaceException("read_avro: no paths.")
-    batches = [_read_one(p) for p in paths]
+    # per-file retry (reliability/retry.py): a transient storage flake
+    # backs off and re-reads; a decode error (HyperspaceException) stays
+    # immediate, since a truncated varint is corruption, not weather
+    batches = [
+        call_with_retries(lambda: _read_one(p), op="avro.read", key=p)
+        for p in paths
+    ]
     out = ColumnarBatch.concat(batches)
     return out.select(columns) if columns is not None else out
 

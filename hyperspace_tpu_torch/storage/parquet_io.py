@@ -26,12 +26,18 @@ def _read_with(
     """Shared multi-file read: per-file table read, uniform projection
     semantics (``columns=None`` means all; an explicit list — including
     ``[]`` — selects exactly those), concat at the end."""
+    from ..reliability.retry import call_with_retries
+
     paths = [str(p) for p in paths]
     if not paths:
         raise HyperspaceException(f"read_{fmt}: no paths.")
     batches = []
     for p in paths:
-        table = table_reader(p)
+        # per-file retry (reliability/retry.py): a transient OSError backs
+        # off and re-reads; FileNotFound and parse errors stay immediate
+        table = call_with_retries(
+            lambda: table_reader(p), op=f"{fmt}.read", key=p
+        )
         if columns is not None:
             table = table.select(columns)
         batches.append(ColumnarBatch.from_arrow(table))

@@ -184,9 +184,8 @@ metrics = Metrics()
 def residency_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
     """The tier ladder's counters in one dict: which tier served scans,
     what bit-packing bought (packed against raw bytes), and the streaming
-    loop's windows, uploads, prefetch hits and stalls. The reference's
-    mesh keys are left out with the mesh, and its window-failure count
-    with its host recovery (a failed window raises here)."""
+    loop's windows, window failures, uploads, prefetch hits and stalls.
+    The reference's mesh keys are left out with the mesh."""
     r = registry if registry is not None else metrics
     raw = r.get("residency.compressed.raw_bytes")
     packed = r.get("residency.compressed.packed_bytes")
@@ -199,6 +198,7 @@ def residency_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
         "compressed_raw_bytes": raw,
         "compressed_packed_bytes": packed,
         "stream_windows": r.get("residency.stream.windows"),
+        "stream_window_failures": r.get("residency.stream.window_failed"),
         "stream_prefetch_hit": r.get("residency.stream.prefetch_hit"),
         "stream_prefetch_stall": r.get("residency.stream.prefetch_stall"),
         "stream_h2d_bytes": r.get("residency.stream.h2d_bytes"),
@@ -206,6 +206,29 @@ def residency_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
     if packed:
         out["effective_capacity_x"] = round(raw / packed, 2)
     return out
+
+
+def reliability_snapshot(registry: Optional[Metrics] = None) -> Dict[str, int]:
+    """The crash-consistency counters in one dict: what the reliability
+    layer absorbed (storage retries), refused (fenced writers) and healed
+    (auto-rollbacks, swept crash litter), plus the device-loss degrades.
+    ``QueryServer.stats()["reliability"]`` reads it."""
+    r = registry if registry is not None else metrics
+    return {
+        "storage_retry_attempts": r.get("storage.retry.attempts"),
+        "storage_retry_exhausted": r.get("storage.retry.exhausted"),
+        "claim_self_wins": r.get("storage.retry.claim_self_win"),
+        "auto_rollbacks": r.get("recovery.auto_rollback"),
+        "recovery_sweeps": r.get("recovery.sweep"),
+        "orphan_tmp_swept": r.get("recovery.orphan_tmp_swept"),
+        "fenced_writers": r.get("lease.fenced_writer_refused"),
+        "lease_heartbeat_errors": r.get("lease.heartbeat_error"),
+        "doctor_issues_found": r.get("doctor.issues_found"),
+        "doctor_issues_repaired": r.get("doctor.issues_repaired"),
+        "resident_device_failed": r.get("scan.resident.device_failed"),
+        "resident_join_device_failed": r.get("scan.resident_join.device_failed"),
+        "stream_window_failed": r.get("residency.stream.window_failed"),
+    }
 
 
 def compile_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
@@ -258,8 +281,9 @@ def result_cache_snapshot(registry: Optional[Metrics] = None) -> Dict[str, objec
 
 def serve_snapshot(registry: Optional[Metrics] = None) -> Dict[str, int]:
     """The serve tier's counters in one dict: what admission let in, shed
-    or breaker-rejected, and what the batch path dispatched, declined or
-    failed on the card."""
+    or breaker-rejected, what the batch path dispatched or declined, and
+    what the degradation paths absorbed (worker kills, device-loss
+    latches)."""
     r = registry if registry is not None else metrics
     return {
         "submitted": r.get("serve.submitted"),
@@ -275,7 +299,8 @@ def serve_snapshot(registry: Optional[Metrics] = None) -> Dict[str, int]:
         "breaker_closed": r.get("serve.breaker.closed"),
         "batch_dispatches": r.get("serve.batch.dispatches"),
         "batch_declined": r.get("serve.batch.declined"),
-        "batch_device_errors": r.get("serve.batch.device_error"),
+        "batch_errors": r.get("serve.batch.error"),
+        "degraded_latches": r.get("serve.degraded"),
         "workers_killed": r.get("serve.worker_killed"),
         "client_retries": r.get("serve.client.retry"),
         "client_retries_exhausted": r.get("serve.client.exhausted"),
