@@ -9,8 +9,8 @@ It needs a CUDA card and exits non-zero, printing no result, without one
 (or without the ``hyperspace_tpu_torch`` package beside it).
 ``--phases`` takes a comma list of ``kernels``, ``main``, ``aggregate``,
 ``resident``, ``join``, ``serve``, ``native``, ``front_end``,
-``lifecycle``, ``hybrid``, ``reliability`` and ``streaming`` (default: all,
-in that order;
+``lifecycle``, ``hybrid``, ``reliability``, ``mesh`` and ``streaming``
+(default: all, in that order;
 aggregate, resident, join, serve, native and front_end run in the main
 path's session and bring ``main``). Every query runs through the
 whole-plan compiler (``hyperspace.compile.mode`` defaults to ``auto``):
@@ -202,9 +202,26 @@ its launches are the interpreter's, N = 1 counts land under
    degraded and the table dropped, then a fresh server with one K1b
    launch. A ``reliability:`` JSON line gives each step's seconds, the
    counters, the doctor's issue kinds, the probe's ms and the launches.
-   Every other phase ends with its device-loss degrade counters
+   Every other phase but mesh ends with its device-loss degrade counters
    (``scan.resident.device_failed``, ``scan.resident_join.device_failed``,
-   ``residency.stream.window_failed``, ``serve.degraded``) at 0;
+   ``residency.stream.window_failed``, ``serve.degraded``,
+   ``shuffle.device_failed``) at 0;
+9a. mesh — in a session of its own with ``make_mesh(4, device="cuda:0")``
+   (4 shards on one card: the sharded code paths, the per-shard K1 and K2
+   launches and the exchange run on the card, no traffic between cards)
+   and residency off, over the main path's avro source: M1 the sharded
+   build of li_mesh and ord_mesh (200 buckets) and ord_m64 (64), every file
+   of li_mesh and ord_mesh equal to the single-device build's byte for
+   byte (the footer's index name aside), and li_mesh_st through the
+   streaming build's mesh arm; M2 the range filter (one K1 a shard) and a
+   point lookup under ``hyperspace.tpu.distributedQuery.minRows`` (no K1);
+   M3 the co-partitioned Q3 (K2 and K2F once a shard); M4 A3's Q1 shape as
+   a two-phase aggregate (one K1 a shard); M5 Q3 against ord_m64, the
+   orders side moved into the 200-bucket space in one all_to_all round
+   (K2 and K2F once a shard, M3's rows in order); M6 M5 with the exchange
+   raising on its first call (``shuffle.device_failed`` = 1, the exact join
+   once on the card). A ``mesh:`` JSON line gives each step's seconds,
+   launches and counters, the shards and the phase's peak device memory;
 10. streaming — in a session of its own with lineage on: TPC-H lineitem
    and orders at SF3 (18,003,645 and 4,500,000 rows, l_partkey in
    1..600,000) written as avro into ``src/lineitem_st`` (24 files, over
@@ -276,7 +293,7 @@ LI_RESIDENT = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
 # the phases of a run, in order (--phases); aggregate, resident, join,
 # serve, native and front_end run in the main path's session and so need main
 PHASES = ("kernels", "main", "aggregate", "resident", "join", "serve", "native", "front_end",
-          "lifecycle", "hybrid", "reliability", "streaming")
+          "lifecycle", "hybrid", "reliability", "mesh", "streaming")
 DAY_1992_01_01 = 8035  # days since 1970-01-01
 DAY_1998_08_02 = 10440
 DAY_1993_06_01 = 8552
@@ -2010,9 +2027,10 @@ def run_main_path(
     same session, then the lifecycle, hybrid and reliability phases, each
     in its own; every result is checked against numpy. ``phases``
     (``PHASES``) names the ones to run: the same-session ones need "main",
-    the lifecycle, hybrid and reliability phases run without it. Each
-    phase but reliability ends with its degrade counters at 0. Returns
-    timings and counts."""
+    the lifecycle, hybrid, reliability and mesh phases run without it. Each
+    phase but reliability and mesh ends with its degrade counters at 0;
+    those two end with the one loss each injects. Returns timings and
+    counts."""
     out = {}
     watch_degrades()
     t0 = time.perf_counter()
@@ -2020,17 +2038,21 @@ def run_main_path(
         out.update(_main_session(lineitem, orders, workdir, device, seed, profile, phases))
         log(f"phase seconds: the main path's session {time.perf_counter() - t0:.1f} s")
         degrade_guard("the main path's session")
+    # the phases that inject a device loss, and the one degrade each makes
+    injected = {"reliability": ("serve.degraded", "R5"), "mesh": ("shuffle.device_failed", "M6")}
     for name, fn in (("lifecycle", lifecycle_phase), ("hybrid", hybrid_phase),
-                     ("reliability", reliability_phase)):
+                     ("reliability", reliability_phase), ("mesh", mesh_phase)):
         if name in phases:
             t0 = time.perf_counter()
-            out[name] = fn(lineitem, orders, workdir, device, seed, profile)
+            kw = {"single_build_s": out.get("build_s")} if name == "mesh" else {}
+            out[name] = fn(lineitem, orders, workdir, device, seed, profile, **kw)
             log(f"phase seconds: {name} {time.perf_counter() - t0:.1f} s")
-            if name == "reliability":  # R5 injected one loss: consume its latch
-                want = {**dict.fromkeys(DEGRADE_COUNTERS, 0), "serve.degraded": 1}
+            if name in injected:  # one injected loss: consume its latch
+                counter, where = injected[name]
+                want = {**dict.fromkeys(DEGRADE_COUNTERS, 0), counter: 1}
                 if _DEGRADES != want:
-                    raise AssertionError(f"reliability: degrade counters {_DEGRADES}, want {want}")
-                log(f"reliability: degrade counters {dict(_DEGRADES)} (R5's injected loss)")
+                    raise AssertionError(f"{name}: degrade counters {_DEGRADES}, want {want}")
+                log(f"{name}: degrade counters {dict(_DEGRADES)} ({where}'s injected loss)")
                 _DEGRADES.update(dict.fromkeys(DEGRADE_COUNTERS, 0))
             else:
                 degrade_guard(name)
@@ -2268,18 +2290,8 @@ def aggregate_phase(session, li, od, q3, L: dict, O: dict, profile: bool = False
         "l_orderkey": uniq, "o_orderdate": O["o_orderdate"][pos[hit]][first],
         "revenue": np.bincount(inv, weights=L["l_extendedprice"][lm][hit], minlength=len(uniq)),
         "count": np.bincount(inv, minlength=len(uniq)).astype(np.int64)}
-    qty, price, ship = L["l_quantity"][w_mask], L["l_extendedprice"][w_mask], L["l_shipdate"][w_mask]
-    uniq, inv = np.unique(qty, return_inverse=True)
-    inv = inv.reshape(-1)
-    cnt = np.bincount(inv, minlength=len(uniq)).astype(np.int64)
-    s = np.bincount(inv, weights=price, minlength=len(uniq))
-    mins = np.full(len(uniq), np.iinfo(np.int32).max, dtype=np.int32)
-    maxs = np.full(len(uniq), np.iinfo(np.int32).min, dtype=np.int32)
-    np.minimum.at(mins, inv, ship)
-    np.maximum.at(maxs, inv, ship)
-    want["q1_shape"] = {"l_quantity": uniq, "sum_l_extendedprice": s,
-                        "avg_l_extendedprice": s / cnt, "min_l_shipdate": mins,
-                        "max_l_shipdate": maxs, "count": cnt}
+    want["q1_shape"] = q1_shape_truth(L, w_mask)
+    cnt = want["q1_shape"]["count"]
     floor = int(np.median(cnt))
     keep = cnt > floor
     want["q1_having"] = {c: v[keep] for c, v in want["q1_shape"].items()}
@@ -4211,7 +4223,7 @@ REL_LEASE_S = 2.0  # hyperspace.reliability.lease.durationSeconds of the phase
 # the device-loss degrade counters: a run counts them per phase, and only
 # the reliability phase, which injects the loss, may move them
 DEGRADE_COUNTERS = ("scan.resident.device_failed", "scan.resident_join.device_failed",
-                    "residency.stream.window_failed", "serve.degraded")
+                    "residency.stream.window_failed", "serve.degraded", "shuffle.device_failed")
 _DEGRADES = dict.fromkeys(DEGRADE_COUNTERS, 0)
 
 
@@ -4574,6 +4586,413 @@ def reliability_phase(lineitem, orders, workdir: Path, device: str, seed: int,
         "launches": {"R1_range": l_r, "R1_q3": l_q3, "R5_loss": loss["launches"],
                      "R5_fresh": fresh["launches"]},
         "phase_s": out["phase_s"]}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mesh phase: the bucket mesh, 4 shards on one card
+# ---------------------------------------------------------------------------
+MESH_SHARDS = 4
+MESH_LI_COLS = ["l_partkey", "l_quantity", "l_shipdate", "l_extendedprice"]
+MESH_OD_COLS = ["o_custkey", "o_orderdate", "o_totalprice"]
+
+
+def _renamed_index_file(data: bytes, name: str) -> bytes:
+    """An index file's bytes with its footer's ``indexName`` set to
+    ``name``: the bytes the build writes for the same rows under that
+    index name (the footer is the writer's ``json.dumps``)."""
+    from hyperspace_tpu_torch.storage.layout import MAGIC
+
+    end = len(data) - len(MAGIC) - 8
+    n = int.from_bytes(data[end:end + 8], "little")
+    footer = json.loads(data[end - n:end])
+    footer["extra"]["indexName"] = name
+    fb = json.dumps(footer).encode("utf-8")
+    return data[:end - n] + fb + len(fb).to_bytes(8, "little") + MAGIC
+
+
+def _bucket_files(index_dir: Path) -> dict:
+    from hyperspace_tpu_torch.storage import layout
+
+    return {layout.bucket_of_file(f): f for f in sorted((index_dir / "v__=0").glob("*.tcb"))}
+
+
+def _same_index_bytes(mesh_dir: Path, single_dir: Path, name: str) -> int:
+    """Every file of the mesh-built index against the single-device
+    build's file of the same bucket, byte for byte (its footer's index
+    name set to the mesh index's). Returns the files compared."""
+    got, want = _bucket_files(mesh_dir), _bucket_files(single_dir)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"mesh M1: {name} holds buckets {len(got)}, the single-device "
+                             f"build {len(want)}")
+    for b, f in got.items():
+        if f.read_bytes() != _renamed_index_file(want[b].read_bytes(), name):
+            raise AssertionError(f"mesh M1: {name} bucket {b} differs from the single-device "
+                                 f"build's file {want[b].name}")
+    return len(got)
+
+
+def q1_shape_truth(L: dict, window_mask: np.ndarray) -> dict:
+    """numpy's A3 ``q1_shape``: the window's rows grouped by l_quantity,
+    groups ascending."""
+    qty, price, ship = (L["l_quantity"][window_mask], L["l_extendedprice"][window_mask],
+                        L["l_shipdate"][window_mask])
+    uniq, inv = np.unique(qty, return_inverse=True)
+    inv = inv.reshape(-1)
+    cnt = np.bincount(inv, minlength=len(uniq)).astype(np.int64)
+    s = np.bincount(inv, weights=price, minlength=len(uniq))
+    mins = np.full(len(uniq), np.iinfo(np.int32).max, dtype=np.int32)
+    maxs = np.full(len(uniq), np.iinfo(np.int32).min, dtype=np.int32)
+    np.minimum.at(mins, inv, ship)
+    np.maximum.at(maxs, inv, ship)
+    return {"l_quantity": uniq, "sum_l_extendedprice": s, "avg_l_extendedprice": s / cnt,
+            "min_l_shipdate": mins, "max_l_shipdate": maxs, "count": cnt}
+
+
+# NVIDIA's H100 SXM data sheet: PCIe Gen5 x16, 128 GB/s both ways
+PCIE_BYTES_PER_S = 64e9
+
+
+def mesh_programs(mesh, L: dict, root: Path, bounds, repeats: int = 3) -> dict:
+    """Each mesh program of the reference alone, at the mesh phase's shapes,
+    its inputs in host memory: seconds (median of ``repeats`` host-clock
+    calls, each ending in a fence), launches (the last call), the bytes it
+    moves between host and card, and the least time the link allows them
+    (the larger direction over ``PCIE_BYTES_PER_S``): the sharded build of
+    lineitem (``_sharded_build_fn``), the range filter's per-shard masks
+    (``_dist_mask_fn``), A3's partial aggregates (``_dist_agg_fn``), Q3's
+    per-shard ranges (``_dist_join_fn``) and the move of Q3's orders side
+    from ord_m64 into 200 buckets (``_shuffle_fn``)."""
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.distributed.shuffle import repartition_by_bucket
+    from hyperspace_tpu_torch.exec import distributed as dist
+    from hyperspace_tpu_torch.exec.executor import Executor
+    from hyperspace_tpu_torch.ops import build as tbuild
+    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.plan.expr import col, eval_mask
+    from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    def groups(name, cols, pred=None):
+        files = sorted((root / name / "v__=0").glob("*.tcb"))
+        g = Executor._read_groups_by_bucket(files, cols)
+        if pred is not None:
+            g = {b: v.take(np.flatnonzero(eval_mask(pred, v))) for b, v in g.items()}
+            g = {b: v for b, v in g.items() if v.num_rows}
+        return g
+
+    lo_k, hi_k, d_lo = bounds
+    rng_pred = ((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k) & (col("l_quantity") < 24)
+                & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15))
+    window = ((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+              & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15))
+    li_cols = ["l_orderkey"] + MESH_LI_COLS
+    li_batch = ColumnarBatch.from_pydict({c: L[c] for c in li_cols},
+                                         schema={c: LINEITEM_SCHEMA[c] for c in li_cols})
+    li_groups = groups("li_mesh", R_COLS)
+    q3_l = groups("li_mesh", ["l_orderkey", "l_extendedprice", "l_shipdate"],
+                  col("l_shipdate") > DAY_1993_06_01)
+    q3_r = groups("ord_mesh", ["o_orderkey", "o_orderdate", "o_totalprice"],
+                  col("o_orderdate") < DAY_1995_03_15)
+    q3_r64 = groups("ord_m64", ["o_orderkey", "o_orderdate", "o_totalprice"],
+                    col("o_orderdate") < DAY_1995_03_15)
+    build_h2d = sum(int(tbuild.encode_for_device(li_batch.columns[c]).nbytes) for c in li_cols)
+    specs = [hs.agg_sum("l_extendedprice"), hs.agg_avg("l_extendedprice"),
+             hs.agg_min("l_shipdate"), hs.agg_max("l_shipdate"), hs.agg_count()]
+    programs = {
+        # name: (reference program, call, (h2d, d2h) from the counters and shapes)
+        "sharded_build": ("hyperspace_tpu/ops/build.py:808 _sharded_build_fn",
+                          lambda: tbuild.build_partition_sharded(li_batch, ["l_orderkey"],
+                                                                 NUM_BUCKETS, mesh),
+                          lambda m: (build_h2d, build_h2d + 4 * li_batch.num_rows)),
+        "dist_mask": ("hyperspace_tpu/exec/distributed.py:80 _dist_mask_fn",
+                      lambda: dist.distributed_filter(li_groups, rng_pred, R_COLS, mesh),
+                      lambda m: (m.get("dist.h2d_bytes", 0), m.get("dist.d2h_bytes", 0))),
+        "dist_agg": ("hyperspace_tpu/exec/distributed.py:200 _dist_agg_fn",
+                     lambda: dist.distributed_filter_aggregate(li_groups, window, ["l_quantity"],
+                                                               specs, mesh),
+                     lambda m: (m.get("dist.h2d_bytes", 0), m.get("dist.d2h_bytes", 0))),
+        "dist_join": ("hyperspace_tpu/exec/distributed.py:495 _dist_join_fn",
+                      lambda: dist.distributed_bucketed_join(q3_l, q3_r, ["l_orderkey"],
+                                                             ["o_orderkey"], mesh),
+                      lambda m: (m.get("dist.h2d_bytes", 0), m.get("dist.d2h_bytes", 0))),
+        "shuffle": ("hyperspace_tpu/distributed/shuffle.py:70 _shuffle_fn",
+                    lambda: repartition_by_bucket(q3_r64, ["o_orderkey"], NUM_BUCKETS, mesh),
+                    lambda m: (m.get("shuffle.h2d_bytes", 0), m.get("shuffle.d2h_bytes", 0))),
+    }
+    out = {}
+    for name, (ref, call, moved) in programs.items():
+        secs = []
+        for _ in range(repeats):
+            reset_launch_counts()
+            metrics.reset()
+            t = time.perf_counter()
+            call()
+            fence(mesh.devices[0])
+            secs.append(time.perf_counter() - t)
+        h2d, d2h = moved(metrics.snapshot())
+        rec = {"replaces": ref, "ms": statistics.median(secs) * 1e3,
+               "ms_all": [x * 1e3 for x in secs], "launches": launch_counts(),
+               "h2d_bytes": int(h2d), "d2h_bytes": int(d2h),
+               "bound_ms": max(h2d, d2h) / PCIE_BYTES_PER_S * 1e3, "bound_by": "PCIe bytes"}
+        out[name] = rec
+        log(f"mesh program {name} ({ref}): {rec['ms']:.3f} ms (median of {repeats}: "
+            f"{', '.join(f'{x:.3f}' for x in rec['ms_all'])}) launches {rec['launches']} "
+            f"h2d {h2d} B d2h {d2h} B, bound {rec['bound_ms']:.3f} ms (PCIe bytes)")
+    return out
+
+
+def mesh_phase(lineitem, orders, workdir: Path, device: str, seed: int,
+               profile: bool = False, dist_min_rows: int = None,
+               single_build_s: dict = None) -> dict:
+    """The bucket mesh at SF1, in its own session: ``make_mesh(4,
+    device="cuda:0")`` (4 shards on one card: every sharded path, every
+    per-shard K1 and K2 launch and the exchange run there; no traffic
+    between cards), residency off, over the main path's avro source
+    (written here when the workdir lacks it). ``dist_min_rows`` sets conf
+    ``hyperspace.tpu.distributedQuery.minRows`` (None: its default,
+    1,000,000). Each step counts launches from 0 and holds its rows
+    against numpy:
+
+    M1 the sharded build: li_mesh and ord_mesh (200 buckets) and ord_m64
+       (orders at 64 buckets), each create through one all_to_all
+       exchange; every file of li_mesh and ord_mesh equals the
+       single-device build's (the main path's li_idx and ord_idx, or
+       copies built here when main did not run) byte for byte, the
+       footer's index name aside; then li_mesh_st through the streaming
+       build's mesh arm (the threshold lowered under the source so it
+       streams), its range filter checked;
+    M2 filters: the range filter over li_mesh's 200 files (above the gate)
+       launches K1 once a shard; a point lookup reads one bucket, below
+       the gate, and launches none (the host masks it);
+    M3 the co-partitioned Q3 over li_mesh and ord_mesh: K2 and K2F once a
+       shard, join.path.distributed = 1;
+    M4 A3's Q1 shape over li_mesh: the two-phase aggregate, K1 once a
+       shard, aggregate.path.distributed = 1, groups against numpy;
+    M5 the shuffle join: ord_mesh soft-deleted, so Q3 joins li_mesh to
+       ord_m64; the planner moves the filtered orders into the 200-bucket
+       space in one round (shuffle.rounds = 1, rows_moved = numpy's count),
+       then K2 and K2F once a shard; rows equal M3's, in order;
+    M6 an exchange lost: M5's query with ``all_to_all`` raising a
+       RuntimeError on its first call: shuffle.device_failed = 1, and the
+       exact join on the first shard's device (one K2, one K2F; each side's
+       filter through the mesh's K1) answers with M3's rows.
+
+    Then each mesh program alone at these shapes (``mesh_programs``); its
+    launches are not counted on the path."""
+    import torch
+
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.distributed import shuffle as shuffle_mod
+    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.ops.kernels import K1, K2, K2F
+    from hyperspace_tpu_torch.parallel.mesh import make_mesh
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    on_card = device == "cuda"
+    one = int(on_card)
+    t_phase = time.perf_counter()
+    L, O = lineitem, orders
+    n_l, n_o = len(L["l_orderkey"]), len(O["o_orderkey"])
+    li_dir, od_dir = workdir / "src" / "lineitem", workdir / "src" / "orders"
+    if not (li_dir.is_dir() and od_dir.is_dir()):
+        li_dir = Path(write_avro_dir(li_dir, L, LINEITEM_SCHEMA, 8))
+        od_dir = Path(write_avro_dir(od_dir, O, ORDERS_SCHEMA, 2))
+    mesh = make_mesh(MESH_SHARDS, device="cuda:0" if on_card else "cpu")
+    if on_card:
+        torch.empty(1, device=mesh.devices[0])  # the allocator's stats exist once it ran
+        torch.cuda.reset_peak_memory_stats(mesh.devices[0])
+    D = mesh.size
+    root = workdir / "indexes_mesh"
+    conf = {"hyperspace.system.path": str(root),
+            "hyperspace.index.numBuckets": NUM_BUCKETS,
+            "hyperspace.index.build.mode": "inmemory",
+            "hyperspace.torch.device": device,
+            "hyperspace.torch.hbm.mode": "off"}
+    if dist_min_rows is not None:
+        conf["hyperspace.tpu.distributedQuery.minRows"] = int(dist_min_rows)
+    session = hs.HyperspaceSession(hs.HyperspaceConf(dict(conf)), mesh=mesh)
+    hsp = hs.Hyperspace(session)
+    gate = session.conf.distributed_min_rows()
+    out = {"shards": D, "devices": [str(d) for d in mesh.devices], "dist_min_rows": gate,
+           "steps": {}}
+
+    def step(name, fn):
+        """Run ``fn`` with launches and metrics from 0; record its seconds,
+        launches and counters."""
+        reset_launch_counts()
+        metrics.reset()
+        t = time.perf_counter()
+        with _Profiled(f"mesh {name}", profile):
+            res = fn()
+        fence(session.device)
+        rec = {"s": time.perf_counter() - t, "launches": launch_counts(),
+               "counters": {k: v for k, v in metrics.snapshot().items()
+                            if k.startswith(("scan.", "join.path", "aggregate.path", "shuffle.",
+                                             "dist.", "build.stream.", "compile.run"))}}
+        out["steps"][name] = rec
+        return res, rec
+
+    # M1: the sharded build
+    for name, path, key, incl, nb in (
+            ("li_mesh", li_dir, "l_orderkey", MESH_LI_COLS, NUM_BUCKETS),
+            ("ord_mesh", od_dir, "o_orderkey", MESH_OD_COLS, NUM_BUCKETS),
+            ("ord_m64", od_dir, "o_orderkey", MESH_OD_COLS, 64)):
+        session.conf.set("hyperspace.index.numBuckets", nb)
+        _, rec = step(f"M1 build {name}", lambda: hsp.create_index(
+            session.read.avro(str(path)), hs.IndexConfig(name, [key], incl)))
+        rows = n_l if name == "li_mesh" else n_o
+        rec["rows_per_s"] = rows / rec["s"]
+        single = (single_build_s or {}).get({"li_mesh": "li_idx", "ord_mesh": "ord_idx"}.get(
+            name, ""))
+        log(f"mesh M1 build {name} ({nb} buckets, {D} shards): {rec['s']:.3f} s "
+            f"{rec['rows_per_s']:.0f} rows/s" + (f" | the main path's single-device build: "
+                                                 f"{single:.3f} s {rows / single:.0f} rows/s"
+                                                 if single else ""))
+    session.conf.set("hyperspace.index.numBuckets", NUM_BUCKETS)
+    single_root = workdir / "indexes"
+    if not (single_root / "li_idx").is_dir():
+        # main did not run: the single-device builds the bytes are held
+        # against, made here
+        single_root = workdir / "indexes_mesh_single"
+        s1 = hs.HyperspaceSession(hs.HyperspaceConf({**conf, "hyperspace.system.path":
+                                                     str(single_root)}))
+        h1 = hs.Hyperspace(s1)
+        h1.create_index(s1.read.avro(str(li_dir)), hs.IndexConfig(
+            "li_idx", ["l_orderkey"], MESH_LI_COLS))
+        h1.create_index(s1.read.avro(str(od_dir)), hs.IndexConfig(
+            "ord_idx", ["o_orderkey"], MESH_OD_COLS))
+    compared = {n: _same_index_bytes(root / n, single_root / s, n)
+                for n, s in (("li_mesh", "li_idx"), ("ord_mesh", "ord_idx"))}
+    out["bytes_equal_files"] = compared
+    log(f"mesh M1: li_mesh's {compared['li_mesh']} and ord_mesh's {compared['ord_mesh']} files "
+        f"equal the single-device build's ({single_root.name}) byte for byte")
+    bounds = range_bounds(L)
+    rng_want, q3_want = range_and_q3_truth(L, O, bounds, "mesh")
+    # li_mesh_st: the streaming build's mesh arm, in a session of its own
+    src_bytes = sum(f.stat().st_size for f in li_dir.glob("*.avro"))
+    st_conf = {**conf, "hyperspace.system.path": str(workdir / "indexes_mesh_st"),
+               "hyperspace.index.build.mode": "auto",
+               "hyperspace.index.build.streamingThresholdBytes": src_bytes // 2}
+    st_session = hs.HyperspaceSession(hs.HyperspaceConf(st_conf), mesh=mesh)
+    _, rec = step("M1 build li_mesh_st", lambda: hs.Hyperspace(st_session).create_index(
+        st_session.read.avro(str(li_dir)), hs.IndexConfig("li_mesh_st", ["l_orderkey"],
+                                                           MESH_LI_COLS)))
+    if rec["counters"].get("build.stream.rows") != n_l:
+        raise AssertionError(f"mesh M1: li_mesh_st did not stream: {rec['counters']}")
+    st_session.enable_hyperspace()
+    st_range, _ = range_and_q3(st_session, li_dir, od_dir, bounds)
+    got, rec_st = step("M1 li_mesh_st range", st_range.collect)
+    _check("mesh M1 li_mesh_st range filter", got, R_COLS, rng_want)
+    log(f"mesh M1 build li_mesh_st (streamed, {rec['counters'].get('build.stream.chunks')} "
+        f"chunks through the sharded build): {rec['s']:.3f} s {n_l / rec['s']:.0f} rows/s | its "
+        f"range filter {rec_st['s']:.4f} s rows={got.num_rows} launches {rec_st['launches']} "
+        f"matches numpy")
+
+    session.enable_hyperspace()
+    rng_q, q3 = range_and_q3(session, li_dir, od_dir, bounds)
+    if "li_mesh" not in plan_with_indexes(rng_q) or "ord_mesh" not in plan_with_indexes(q3):
+        raise AssertionError("mesh: the queries are not served by li_mesh and ord_mesh")
+    # M2: filters
+    got, rec = step("M2 range", rng_q.collect)
+    _check("mesh M2 range filter", got, R_COLS, rng_want)
+    c = rec["counters"]
+    if (c.get("scan.path.distributed") != 1 or c.get("scan.files_read") != NUM_BUCKETS
+            or rec["launches"].get(K1, 0) != one * D):
+        raise AssertionError(f"mesh M2 range filter: {rec}")
+    k = int(L["l_orderkey"][n_l // 2])
+    point = session.read.avro(str(li_dir)).filter(col("l_orderkey") == k).select(*R_COLS)
+    got_p, rec_p = step("M2 point", point.collect)
+    _check("mesh M2 point lookup", got_p, R_COLS, [L[c_][L["l_orderkey"] == k] for c_ in R_COLS])
+    if (rec_p["counters"].get("scan.files_read") != 1 or rec_p["launches"].get(K1, 0)
+            or rec_p["counters"].get("scan.path.distributed")):
+        raise AssertionError(f"mesh M2 point lookup: {rec_p}")
+    log(f"mesh M2 range filter: {rec['s']:.4f} s rows={got.num_rows} files=200 launches "
+        f"{rec['launches']} (one K1 a shard) dist.h2d_bytes={c.get('dist.h2d_bytes')} | point "
+        f"lookup: {rec_p['s']:.4f} s rows={got_p.num_rows}, one bucket under the gate "
+        f"({gate} rows): the host masks it, launches {rec_p['launches']} | match numpy")
+    # M3: the co-partitioned Q3
+    m3, rec = step("M3 q3", q3.collect)
+    _check("mesh M3 q3", m3, Q3_COLS, q3_want)
+    c = rec["counters"]
+    if (c.get("join.path.distributed") != 1 or rec["launches"].get(K2, 0) != one * D
+            or rec["launches"].get(K2F, 0) != one * D):
+        raise AssertionError(f"mesh M3 q3: {rec}")
+    log(f"mesh M3 q3 (li_mesh x ord_mesh, co-partitioned): {rec['s']:.4f} s rows={m3.num_rows} "
+        f"launches {rec['launches']} (K2 and K2F once a shard) join.path.distributed=1 "
+        f"matches numpy")
+    # M4: the two-phase aggregate
+    lo_k, hi_k, d_lo = bounds
+    window = ((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+              & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15))
+    w_mask = ((L["l_orderkey"] >= lo_k) & (L["l_orderkey"] < hi_k)
+              & (L["l_shipdate"] >= d_lo) & (L["l_shipdate"] < DAY_1995_03_15))
+    q1 = session.read.avro(str(li_dir)).filter(window).group_by("l_quantity").agg(
+        hs.agg_sum("l_extendedprice"), hs.agg_avg("l_extendedprice"), hs.agg_min("l_shipdate"),
+        hs.agg_max("l_shipdate"), hs.agg_count())
+    got, rec = step("M4 q1_shape", q1.collect)
+    _check_agg("mesh M4 q1_shape", got, ["l_quantity"], q1_shape_truth(L, w_mask))
+    if (rec["counters"].get("aggregate.path.distributed") != 1
+            or rec["launches"].get(K1, 0) != one * D):
+        raise AssertionError(f"mesh M4 q1_shape: {rec}")
+    log(f"mesh M4 q1_shape (two-phase aggregate): {rec['s']:.4f} s groups={got.num_rows} "
+        f"launches {rec['launches']} (one K1 a shard) aggregate.path.distributed=1 matches numpy")
+    # M5: the shuffle join into the 200-bucket space
+    hsp.delete_index("ord_mesh")
+    _, q3_64 = range_and_q3(session, li_dir, od_dir, bounds)
+    if "ord_m64" not in plan_with_indexes(q3_64):
+        raise AssertionError("mesh M5: Q3 is not served by ord_m64")
+    moved_want = int((O["o_orderdate"] < DAY_1995_03_15).sum())
+    m5, rec = step("M5 q3 shuffle", q3_64.collect)
+    c = rec["counters"]
+    if (c.get("shuffle.plan.shuffle") != 1 or c.get("shuffle.rounds") != 1
+            or c.get("shuffle.rows_moved") != moved_want
+            or c.get("scan.path.resident_join_shuffle") != 1
+            or c.get("join.path.distributed") != 1
+            or rec["launches"].get(K2, 0) != one * D or rec["launches"].get(K2F, 0) != one * D):
+        raise AssertionError(f"mesh M5 q3 shuffle: {rec}")
+    if m5.column_names != m3.column_names or not all(
+            np.array_equal(m5.columns[n].data, m3.columns[n].data) for n in Q3_COLS):
+        raise AssertionError("mesh M5: the shuffle join's rows differ from M3's")
+    log(f"mesh M5 q3 (li_mesh x ord_m64, shuffled): {rec['s']:.4f} s rows={m5.num_rows} "
+        f"rounds={c.get('shuffle.rounds')} rows_moved={c.get('shuffle.rows_moved')} (numpy "
+        f"{moved_want}) ici_bytes={c.get('shuffle.ici_bytes')} h2d_bytes="
+        f"{c.get('shuffle.h2d_bytes')} launches {rec['launches']} | rows equal M3's, in order")
+    # M6: the exchange lost on its first call
+    real = shuffle_mod.all_to_all
+    lost = []
+
+    def lossy(blocks, mesh_):
+        if not lost:
+            lost.append(1)
+            raise RuntimeError("CUDA error: an illegal memory access was encountered "
+                               "(injected by chip_smoke M6)")
+        return real(blocks, mesh_)
+
+    shuffle_mod.all_to_all = lossy
+    try:
+        m6, rec = step("M6 q3 exchange lost", q3_64.collect)
+    finally:
+        shuffle_mod.all_to_all = real
+    c = rec["counters"]
+    if (c.get("shuffle.device_failed") != 1 or c.get("shuffle.declined.device_failed") != 1
+            or rec["launches"].get(K2, 0) != one or rec["launches"].get(K2F, 0) != one):
+        raise AssertionError(f"mesh M6 exchange lost: {rec}")
+    _check("mesh M6 q3", m6, Q3_COLS, [np.asarray(m3.columns[n].data) for n in Q3_COLS])
+    hsp.restore_index("ord_mesh")
+    log(f"mesh M6 q3 with the exchange lost: {rec['s']:.4f} s rows={m6.num_rows} "
+        f"shuffle.device_failed={c.get('shuffle.device_failed')}, the exact join on "
+        f"{mesh.devices[0]}: launches {rec['launches']} | rows equal M3's")
+    out["launches"] = {kname: sum(r["launches"].get(kname, 0) for r in out["steps"].values())
+                       for kname in (K1, K2, K2F)}
+    t = time.perf_counter()
+    out["programs"] = mesh_programs(mesh, L, root, bounds)
+    out["programs_s"] = time.perf_counter() - t
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(mesh.devices[0]) if on_card else None
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("mesh: " + json.dumps({**out, "note": f"{D} shards on one {device} device: no "
+                                               "inter-card traffic"}))
     return out
 
 
@@ -5351,6 +5770,11 @@ def main() -> int:
         # Q3), K1b (R5's fresh server)
         for kname, n in main_out["reliability"]["launches"].items():
             launches[kname] = (launches[kname] or 0) + n
+    if "mesh" in main_out:
+        # K1 (M2's range filter, M4's aggregate, M6's sides: one a shard),
+        # K2 and K2F (M3 and M5 one a shard, M6's exact join once)
+        for kname, n in main_out["mesh"]["launches"].items():
+            launches[kname] = (launches[kname] or 0) + n
     for kname, n in launches.items():
         if n is not None and n <= 0:
             raise AssertionError(f"{kname} was not launched on its path ({launches})")
@@ -5362,7 +5786,7 @@ def main() -> int:
                       ("join", "join"), ("serve", "serve"), ("native", "native"),
                       ("front_end", "front_end"),
                       ("lifecycle", "lifecycle"), ("hybrid", "hybrid"),
-                      ("reliability", "reliability")):
+                      ("reliability", "reliability"), ("mesh", "mesh")):
         if key in main_out:
             details[name] = main_out[key]
     log(json.dumps({**details, "streaming": stream_out, "kernel_cases": kphase, "ptxas": ptxas,

@@ -3,8 +3,8 @@
 Parity: com/microsoft/hyperspace/actions/CreateActionBase.scala and
 CreateAction.scala, as ``hyperspace_tpu.actions.create`` carries them.
 The build engine is index.builder.write_index_data (torch on the session's
-device), or index.stream_builder for a source over the streaming
-threshold; this module supplies the metadata, lineage and protocol glue:
+device, or the sharded build over the session's mesh), or
+index.stream_builder for a source over the streaming threshold; this module supplies the metadata, lineage and protocol glue:
 
   * resolveConfig — case-insensitive column resolution;
   * prepareIndexDataFrame — project + optional lineage column;
@@ -240,6 +240,7 @@ class CreateActionBase:
                 pipeline=pipeline,
                 device_build=self.conf.build_device(),
                 device=self.conf.torch_device(),
+                mesh=self.session.mesh,
             )
         batch = self.prepare_index_batch(relation, indexed, included, lineage, tracker)
         return write_index_data(
@@ -251,6 +252,7 @@ class CreateActionBase:
             device=self.conf.torch_device(),
             engine=self.conf.build_engine(),
             host_workers=pipeline.host_width(),
+            mesh=self.session.mesh,
         )
 
     # -- metadata (CreateActionBase.scala:50-95) -----------------------------

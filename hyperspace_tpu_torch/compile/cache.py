@@ -66,7 +66,7 @@ class PipelineCache:
 
         conf = executor.conf
         try:
-            fp = plan_fingerprint(plan)
+            fp = plan_fingerprint(plan, executor.mesh)
         except Exception:  # noqa: BLE001 - a fingerprint error interprets
             metrics.incr("compile.fingerprint_error")
             return None

@@ -86,11 +86,12 @@ def _walk(n: LogicalPlan) -> Tuple:
     return (_node_sig(n), tuple(_walk(c) for c in n.children))
 
 
-def plan_fingerprint(plan: LogicalPlan) -> Tuple:
-    """The structural fingerprint of an optimized plan, with the join
-    regions' generation for plans that hold a Join. (The reference also
-    folds its mesh's size; the port has one device.)"""
+def plan_fingerprint(plan: LogicalPlan, mesh=None) -> Tuple:
+    """The structural fingerprint of an optimized plan: the mesh's size
+    folded in (a mesh session lowers differently), with the join regions'
+    generation for plans that hold a Join."""
     parts: list = [_walk(plan)]
+    parts.append(("mesh", mesh.size if mesh is not None else 0))
     if plan.collect(lambda n: isinstance(n, Join)):
         from ..exec.hbm_cache import hbm_cache
 

@@ -21,11 +21,17 @@ Shapes:
 * ``join_agg``  ``[Project]* Aggregate([Project](Join))``: the resident
   aggregate-join arm (K2 or K2p and the epilogue), the host range fusion
   as fallback;
+* ``join_shuffle`` ``[Project]* Join`` over bucketed sides with
+  MISMATCHED bucket counts, mesh only: the executor's join procedure (the
+  planner, the all_to_all shuffle, the co-partitioned arms; the exact
+  join on every decline);
 * ``interpret`` everything else.
 
-The reference's mesh-only ``join_shuffle`` comes with multi-device.
-Lowering is cheap and never raises: an internal error lowers to
-``interpret``, counted ``compile.lower_error``.
+A mesh session (the executor's ``mesh``) classifies a hybrid filter as
+``interpret`` (the reference keeps mesh hybrids on its interpreter's
+fused arm); its ``scan`` and ``agg_scan`` arms route the executor's mesh
+procedures (compile/pipeline.py). Lowering is cheap and never raises: an
+internal error lowers to ``interpret``, counted ``compile.lower_error``.
 """
 
 from __future__ import annotations
@@ -42,12 +48,14 @@ class Shape:
     operands ``CompiledPipeline.run`` re-binds from each concrete plan
     (projects, filter condition, leaf nodes)."""
 
-    __slots__ = ("kind", "projects", "condition", "scan", "union", "agg", "inner_projects")
+    __slots__ = ("kind", "projects", "condition", "scan", "union", "agg", "inner_projects",
+                 "join")
 
     def __init__(self, kind: str, projects: Optional[List[Project]] = None, condition=None,
                  scan: Optional[IndexScan] = None, union: Optional[Union] = None,
                  agg: Optional[Aggregate] = None,
-                 inner_projects: Optional[List[Project]] = None):
+                 inner_projects: Optional[List[Project]] = None,
+                 join: Optional[Join] = None):
         self.kind = kind
         self.projects = projects or []
         self.condition = condition
@@ -55,12 +63,14 @@ class Shape:
         self.union = union
         self.agg = agg
         self.inner_projects = inner_projects or []
+        self.join = join
 
 
-def classify_shape(plan: LogicalPlan) -> Shape:
+def classify_shape(plan: LogicalPlan, mesh=None) -> Shape:
     """Structural classification: pure, no IO, no counters. Two plans with
-    equal fingerprints classify alike, so re-binding a query can never
-    route it differently from its pipeline."""
+    equal fingerprints classify alike (the fingerprint folds the mesh's
+    size), so re-binding a query can never route it differently from its
+    pipeline."""
     projects: List[Project] = []
     node = plan
     while isinstance(node, Project):
@@ -81,8 +91,17 @@ def classify_shape(plan: LogicalPlan) -> Shape:
     if isinstance(node, Filter):
         if isinstance(node.child, IndexScan):
             return Shape("scan", projects, node.condition, node.child)
-        if isinstance(node.child, Union):
+        if isinstance(node.child, Union) and mesh is None:
             return Shape("hybrid", projects, node.condition, union=node.child)
+    if isinstance(node, Join) and mesh is not None:
+        # bucketed sides with MISMATCHED bucket counts: the shuffle join.
+        # Metadata only; the executor's arm re-checks the keys and the
+        # planner's economics per query and declines to the exact join
+        from ..exec.executor import bucketed_meta
+
+        lm, rm = bucketed_meta(node.left), bucketed_meta(node.right)
+        if lm is not None and rm is not None and lm.entry.num_buckets != rm.entry.num_buckets:
+            return Shape("join_shuffle", projects, join=node)
     return Shape("interpret")
 
 
@@ -92,7 +111,11 @@ def _tier_label(shape: Shape, executor) -> str:
     eligibility procedures."""
     from ..exec.hbm_cache import hbm_cache
 
-    if executor.residency.mode == "off":
+    if shape.kind == "join_shuffle":
+        # the mesh is the classification's gate; the planner may still
+        # decline to the host per query
+        return "mesh"
+    if executor.residency.mode == "off" or executor.mesh is not None:
         return "host"
     if shape.kind in ("scan", "agg_scan"):
         cols = set(shape.condition.columns())
@@ -122,6 +145,8 @@ _FUSED = {
                 "on decline)",
     "hybrid": "Filter→Union base+delta (one fused dispatch)",
     "join_agg": "Aggregate→Join (resident region dispatch)",
+    "join_shuffle": "Join (ICI all-to-all repartition → co-partitioned SMJ; planner may "
+                    "decline to host)",
 }
 
 
@@ -141,7 +166,7 @@ def lower(plan: LogicalPlan, executor, fingerprint: Optional[tuple] = None) -> C
 
     try:
         with metrics.timer("compile.lower"):
-            shape = classify_shape(plan)
+            shape = classify_shape(plan, executor.mesh)
             pipeline = CompiledPipeline(kind=shape.kind, fingerprint=fingerprint,
                                         tier=_tier_label(shape, executor),
                                         index_roots=index_roots(plan),

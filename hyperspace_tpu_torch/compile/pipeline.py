@@ -1,8 +1,8 @@
 """CompiledPipeline: one lowered plan subtree, runnable against any
 literal binding that shares its structural fingerprint.
 
-Counterpart of ``hyperspace_tpu.compile.pipeline`` (single device). A
-pipeline stores ROUTING, not values: which fused arm serves the subtree
+Counterpart of ``hyperspace_tpu.compile.pipeline`` (single device and the
+mesh's per-query arms). A pipeline stores ROUTING, not values: which fused arm serves the subtree
 and how to re-bind each query's operands (predicate literals, projection
 order) from the concrete plan a run receives. The fused arms call the
 same resolution and host-leg code as the interpreter, which is the
@@ -100,22 +100,28 @@ class CompiledPipeline:
 
         if self.kind == "interpret":
             return executor._exec(plan, predicate=None)
-        shape = classify_shape(plan)
+        shape = classify_shape(plan, executor.mesh)
         if shape.kind != self.kind:
             # cannot happen for equal fingerprints; guards a future change
             # of the structural walk: interpret exactly
             metrics.incr("compile.shape_drift")
             return executor._exec(plan, predicate=None)
         run = {"scan": self._run_scan, "agg_scan": self._run_agg_scan,
-               "hybrid": self._run_hybrid, "join_agg": self._run_join_agg}[self.kind]
+               "hybrid": self._run_hybrid, "join_agg": self._run_join_agg,
+               "join_shuffle": self._run_join_shuffle}[self.kind]
         return _apply_projects(run(shape, executor), shape.projects)
 
     def _run_scan(self, shape, executor) -> ColumnarBatch:
         """The scan arm: ``index_scan`` with ``structure_keyed`` (the count
         goes through ``block_counts_batch`` as a single, counted under
-        ``compile.fused.*``): the interpreter's procedure otherwise."""
+        ``compile.fused.*``): the interpreter's procedure otherwise. A mesh
+        session takes the interpreter's distributed scan (the mesh's
+        resident tables, which the reference looks up first, are not
+        ported yet)."""
         from ..exec.scan import index_scan
 
+        if executor.mesh is not None:
+            return executor._exec_index_scan_distributed(shape.scan, shape.condition)
         entry = shape.scan.entry
         return index_scan(
             entry.content.files(),
@@ -139,6 +145,10 @@ class CompiledPipeline:
         fused = self._try_device_agg(shape, executor)
         if fused is not None:
             return fused
+        if executor.mesh is not None:
+            # the interpreter's whole Aggregate procedure: a decline must
+            # not demote the mesh's two-phase aggregate to gather-then-hash
+            return executor._exec_aggregate(shape.agg, None)
         out = _apply_projects(self._run_scan(shape, executor), shape.inner_projects)
         return hash_aggregate(out, list(shape.agg.group_by), list(shape.agg.aggs))
 
@@ -169,7 +179,8 @@ class CompiledPipeline:
         if any(c not in entry.schema for c in need):
             return decline("column")
         all_files = entry.content.files()
-        if not all_files:
+        if not all_files or executor.mesh is not None:
+            # (a mesh has no resident tables yet: never a table to serve)
             return decline("no_table")
         want = sorted(set(shape.condition.columns()) | set(need))
         table = hbm_cache.resident_for(all_files, want, executor.device, executor.residency)
@@ -210,6 +221,16 @@ class CompiledPipeline:
         with metrics.scoped() as jm:
             out = executor._exec_aggregate(shape.agg, None)
         if jm.get("scan.path.resident_join_agg") > 0:
+            metrics.incr("compile.fused.dispatches")
+        return out
+
+    def _run_join_shuffle(self, shape, executor) -> ColumnarBatch:
+        """The shuffle-join arm: the executor's whole join procedure (the
+        planner, the exchange, the exact join on every decline). Whether
+        THIS run rode the exchange is read from a scoped registry."""
+        with metrics.scoped() as jm:
+            out = executor._exec_join(shape.join)
+        if jm.get("scan.path.resident_join_shuffle") > 0:
             metrics.incr("compile.fused.dispatches")
         return out
 

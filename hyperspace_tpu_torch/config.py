@@ -413,6 +413,9 @@ class HyperspaceConf:
     def torch_device(self) -> str:
         return str(self.get(C.TORCH_DEVICE, C.TORCH_DEVICE_DEFAULT))
 
+    def distributed_min_rows(self) -> int:
+        return int(self.get(C.TPU_DISTRIBUTED_MIN_ROWS, C.TPU_DISTRIBUTED_MIN_ROWS_DEFAULT))
+
     def residency(self) -> "ResidencyConf":
         """The HBM-residency knobs, parsed as the reference parses its
         environment knobs: a malformed value falls back to its default."""

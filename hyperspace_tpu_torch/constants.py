@@ -205,6 +205,14 @@ STORAGE_BLOCK_ALIGN = 128  # bytes; alignment of TCB column buffers
 TORCH_DEVICE = "hyperspace.torch.device"
 TORCH_DEVICE_DEFAULT = "cuda"
 
+# --- the bucket mesh (parallel/mesh.py) ---------------------------------------
+# Bucket b lives on shard b % D. Below minRows total rows a mesh query
+# executes on the host: the fixed dispatch and transfer cost of a
+# per-shard program cannot win on small data (the reference's key, under
+# its name).
+TPU_DISTRIBUTED_MIN_ROWS = "hyperspace.tpu.distributedQuery.minRows"
+TPU_DISTRIBUTED_MIN_ROWS_DEFAULT = 1_000_000
+
 # --- HBM residency (exec/hbm_cache.py) ---------------------------------------
 # The reference reads these from environment variables (HYPERSPACE_TPU_HBM,
 # _BUDGET_MB, _MIN_ROWS, _MAX_BLOCK_FRAC); here they are session conf.

@@ -130,7 +130,7 @@ class DataFrame(EventLogging):
         from .telemetry.trace import span, start_trace
 
         conf = self.session.conf
-        executor = Executor(self.session.device, conf.residency(), conf)
+        executor = Executor(self.session.device, conf.residency(), conf, mesh=self.session.mesh)
         tracing = conf.telemetry_tracing_enabled()
         with (start_trace("query.collect") if tracing else contextlib.nullcontext()) as qtrace:
             try:

@@ -46,7 +46,18 @@ none (``join.cache.optout.*``).
 unless conf ``hyperspace.compile.mode`` is ``off``: the plan's structural
 fingerprint finds a compiled pipeline in the process cache (lowered on a
 miss), and the pipeline runs with this interpreter as its fallback leg.
-The mesh arms come with multi-device.
+
+Over a mesh of more than one shard (``mesh``, the session's), with at
+least ``dist_min_rows`` rows (conf ``hyperspace.tpu.distributedQuery.
+minRows``): a filtered index scan masks each shard's buckets on its device
+(``scan.path.distributed``), an Aggregate over one aggregates in two
+phases (``aggregate.path.distributed``), and a co-partitioned join joins
+each shard's buckets there (``join.path.distributed``); two bucketed sides
+with different numBuckets join after the smaller moves into the other's
+bucket space in one all_to_all round (``scan.path.resident_join_shuffle``,
+the planner's decision recorded for explain). Every bucketed join records
+its movement decision. The mesh's resident arms are not ported yet: a
+mesh executor ships each query's rows, whatever the residency mode.
 """
 
 from __future__ import annotations
@@ -95,6 +106,16 @@ def bucketed_meta(plan: LogicalPlan) -> Optional[IndexScan]:
     return None
 
 
+def _keys_are_indexed(l_meta: IndexScan, r_meta: IndexScan, l_keys, r_keys) -> bool:
+    """Whether the join keys are exactly each side's indexed (bucketing)
+    columns, as sets."""
+    return {c.lower() for c in l_meta.entry.indexed_columns} == {
+        k.lower() for k in l_keys
+    } and {c.lower() for c in r_meta.entry.indexed_columns} == {
+        k.lower() for k in r_keys
+    }
+
+
 def _co_bucketed(left: LogicalPlan, right: LogicalPlan, l_keys, r_keys) -> bool:
     """Whether both join sides are bucket-spec index scans with the same
     numBuckets, keyed exactly on their indexed (bucketing) columns — so
@@ -105,11 +126,7 @@ def _co_bucketed(left: LogicalPlan, right: LogicalPlan, l_keys, r_keys) -> bool:
         return False
     if l_meta.entry.num_buckets != r_meta.entry.num_buckets:
         return False
-    return {c.lower() for c in l_meta.entry.indexed_columns} == {
-        k.lower() for k in l_keys
-    } and {c.lower() for c in r_meta.entry.indexed_columns} == {
-        k.lower() for k in r_keys
-    }
+    return _keys_are_indexed(l_meta, r_meta, l_keys, r_keys)
 
 
 def _has_index_scan(plan: LogicalPlan) -> bool:
@@ -126,10 +143,20 @@ class Executor:
         device: DeviceLike = None,
         residency: ResidencyConf = ResidencyConf(),
         conf: Optional[HyperspaceConf] = None,
+        mesh=None,
+        dist_min_rows: Optional[int] = None,
     ):
         self.device = device
         self.residency = residency
         self.conf = conf if conf is not None else HyperspaceConf()
+        # a mesh of more than one shard routes bucketed filters, aggregates
+        # and joins through the per-shard programs (exec/distributed.py);
+        # below dist_min_rows total rows a query stays on the host (the
+        # fixed per-shard dispatch and transfer cannot win on small data)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.dist_min_rows = (
+            dist_min_rows if dist_min_rows is not None else self.conf.distributed_min_rows()
+        )
         # the CompiledPipeline the last execute() ran (None when the
         # interpreter served directly): explain(verbose) attribution
         self.last_pipeline = None
@@ -248,6 +275,8 @@ class Executor:
             # best-effort (partial conjunctions, reader fallback)
             return self._apply_predicate(batch, predicate)
         if isinstance(plan, IndexScan):
+            if self.mesh is not None and predicate is not None:
+                return self._exec_index_scan_distributed(plan, predicate)
             entry = plan.entry
             return index_scan(
                 entry.content.files(),
@@ -280,14 +309,17 @@ class Executor:
     def _exec_aggregate(
         self, plan: Aggregate, predicate: Optional[Expr]
     ) -> ColumnarBatch:
-        """The fused aggregate-over-join arm first, then the child
-        gathered + hash_aggregate. A predicate above the aggregate (the
-        HAVING shape) applies to the aggregated rows, never the child's.
-        (The reference tries its mesh two-phase aggregate,
-        ``_try_distributed_aggregate``, before the fused arm; it lands
-        with multi-device.)"""
+        """The fused arms first (the mesh's two-phase aggregate, then the
+        aggregate over a join), then the child gathered + hash_aggregate. A
+        predicate above the aggregate (the HAVING shape) applies to the
+        aggregated rows, never the child's. One entry point for the
+        interpreter and the compiled pipelines, so the arms' order is one."""
         from .aggregate import hash_aggregate
 
+        if self.mesh is not None:
+            fused = self._try_distributed_aggregate(plan)
+            if fused is not None:
+                return self._apply_predicate(fused, predicate)
         fused = self._try_join_aggregate(plan)
         if fused is not None:
             return self._apply_predicate(fused, predicate)
@@ -370,6 +402,8 @@ class Executor:
         from .hbm_cache import hbm_cache
         from .scan import _resident_parts
 
+        if self.mesh is not None:
+            return None  # the mesh's resident deltas are not ported yet
         info = parse_hybrid_union(plan)
         if info is None:
             return None
@@ -487,23 +521,29 @@ class Executor:
         return tagged
 
     @staticmethod
-    def _read_groups_by_bucket(files, columns) -> Dict[int, ColumnarBatch]:
+    def _read_groups_by_bucket(files, columns, buckets=None) -> Dict[int, ColumnarBatch]:
         """Read a bucketed side grouped by bucket: per-bucket files whole,
         multi-bucket RUN files as per-bucket segments through the coalesced
         segment planner (one ordered sweep per run file). Part order within
         a bucket keeps ``files`` order, so merge tie order is unchanged. A
         bucket whose rows span several runs arrives as piecewise-sorted
         segments; the join re-sorts it, as it does the multi-file buckets
-        an incremental refresh leaves."""
+        an incremental refresh leaves. ``buckets`` (None: all) keeps only
+        those buckets' files and run segments, per-bucket files' parts
+        first (the reference mesh scan's order for pinned buckets)."""
         run_files = [f for f in files if layout.is_run_file(f)]
         plain = [f for f in files if not layout.is_run_file(f)]
+        if buckets is not None:
+            plain = [f for f in plain if layout.bucket_of_file(f) in buckets]
+            files = plain + run_files
         bmap = dict(zip(plain, layout.read_batches(plain, columns=columns)))
         seg_map: Dict = {}
         sweep_segments: Dict[str, List] = {}
         if run_files:
             from .scan_gate import note_bucket_heat
 
-            plan = layout.plan_segment_reads(run_files)
+            plan = layout.plan_segment_reads(
+                run_files, None if buckets is None else set(buckets))
             seg_map = layout.execute_segment_reads(plan, columns=columns)
             for sw in plan:
                 sweep_segments[sw.path] = sw.segments
@@ -593,10 +633,21 @@ class Executor:
     def _try_bucketed_join(
         self, join: Join, l_keys: List[str], r_keys: List[str]
     ) -> Optional[ColumnarBatch]:
-        """The shuffle-free bucketed SMJ over two co-bucketed sides; None
-        otherwise (the exact unbucketed join serves)."""
-        if not _co_bucketed(join.left, join.right, l_keys, r_keys):
+        """The shuffle-free bucketed SMJ over two bucketed sides keyed on
+        their indexed columns: co-partitioned (equal numBuckets) on K2, per
+        shard over a mesh above ``dist_min_rows``; with different
+        numBuckets, the shuffle join (``_try_shuffle_join``). None otherwise
+        (the exact unbucketed join serves)."""
+        l_meta, r_meta = bucketed_meta(join.left), bucketed_meta(join.right)
+        if l_meta is None or r_meta is None:
             return None
+        if not _keys_are_indexed(l_meta, r_meta, l_keys, r_keys):
+            return None
+        if l_meta.entry.num_buckets != r_meta.entry.num_buckets:
+            # no shared bucket space: over a mesh the smaller side moves
+            # into the other's (distributed/shuffle.py); otherwise, and on
+            # every decline, the exact join in _exec_join serves
+            return self._try_shuffle_join(join, l_keys, r_keys, l_meta, r_meta)
         left = self._side_by_bucket(join.left)
         right = self._side_by_bucket(join.right)
         if left is None or right is None:
@@ -608,23 +659,46 @@ class Executor:
         l2r = {l.lower(): r for l, r in zip(l_keys, r_keys)}
         l_keys = list(l_node.entry.indexed_columns)
         r_keys = [l2r[k.lower()] for k in l_keys]
-        # the resident materializing join: match ranges on the card over
-        # the region's codes, the gather from the cached groups
-        from .join_residency import resolve_join_residency
+        # the movement decision (here always "direct"), recorded so that
+        # explain(verbose) shows the same plan table for every bucketed join
+        from ..distributed.planner import plan_movement
 
-        res = resolve_join_residency(join.left, join.right, l_keys, r_keys, self.residency,
-                                     self.device)
-        if res.status == "ok":
-            served = self._resident_join_pairs(
-                res.region, l_by_bucket, r_by_bucket, list(res.l_keys), list(res.r_keys)
-            )
-            if served is not None:
-                return served
-        elif res.status == "no_region":
-            self._note_join_touch(res, join.left, join.right, ())
-        parts = bucketed_join_pairs(
-            l_by_bucket, r_by_bucket, l_keys, r_keys, self.device
+        plan_movement(
+            {b: v.num_rows for b, v in l_by_bucket.items()},
+            {b: v.num_rows for b, v in r_by_bucket.items()},
+            l_meta.entry.num_buckets,
+            r_meta.entry.num_buckets,
+            self.mesh.size if self.mesh is not None else 1,
+            self.dist_min_rows,
         )
+        if self.mesh is None:
+            # the resident materializing join: match ranges on the card
+            # over the region's codes, the gather from the cached groups
+            from .join_residency import resolve_join_residency
+
+            res = resolve_join_residency(join.left, join.right, l_keys, r_keys,
+                                         self.residency, self.device)
+            if res.status == "ok":
+                served = self._resident_join_pairs(
+                    res.region, l_by_bucket, r_by_bucket, list(res.l_keys), list(res.r_keys)
+                )
+                if served is not None:
+                    return served
+            elif res.status == "no_region":
+                self._note_join_touch(res, join.left, join.right, ())
+        total_rows = sum(b.num_rows for b in l_by_bucket.values()) + sum(
+            b.num_rows for b in r_by_bucket.values()
+        )
+        if self.mesh is not None and total_rows >= self.dist_min_rows:
+            from .distributed import distributed_bucketed_join
+
+            parts = distributed_bucketed_join(
+                l_by_bucket, r_by_bucket, l_keys, r_keys, self.mesh
+            )
+        else:
+            parts = bucketed_join_pairs(
+                l_by_bucket, r_by_bucket, l_keys, r_keys, self.device
+            )
         if not parts:
             return inner_join(
                 self._empty_side(join.left, l_by_bucket, l_node),
@@ -650,6 +724,11 @@ class Executor:
             return None
         left_plan, right_plan, lk, rk, group_by, aggs = oriented
         if not _co_bucketed(left_plan, right_plan, lk, rk):
+            return None
+        if self.mesh is not None:
+            # the mesh has its own distributed join and two-phase
+            # aggregate, and its resident regions are not ported yet: the
+            # host fusion must not take the query from them
             return None
         # the resident fused aggregate-join first: one K2/K2p launch and a
         # torch epilogue over the region ship the group table home
@@ -780,6 +859,194 @@ class Executor:
         if project is not None:
             by_bucket = _project_groups(by_bucket, list(project.columns))
         return by_bucket, idx_node
+
+    def _try_shuffle_join(
+        self,
+        join: Join,
+        l_keys: List[str],
+        r_keys: List[str],
+        l_meta: IndexScan,
+        r_meta: IndexScan,
+    ) -> Optional[ColumnarBatch]:
+        """The join of two bucketed sides with different numBuckets through
+        the all_to_all shuffle (distributed/shuffle.py): the planner picks
+        the side to move into the other's bucket space; after the one
+        exchange round both sides are co-partitioned and the mesh's join
+        (or the bucketed join below ``dist_min_rows``) serves. None, the
+        exact join in _exec_join serving, when there is no mesh, the planner
+        votes host, or the exchange fails on the device, each counted
+        ``shuffle.declined.<reason>``."""
+        from ..distributed.planner import plan_movement
+
+        left = self._side_by_bucket(join.left)
+        right = self._side_by_bucket(join.right)
+        if left is None or right is None:
+            metrics.incr("shuffle.declined.side_shape")
+            return None
+        l_by_bucket, l_node = left
+        r_by_bucket, r_node = right
+        l_rows = sum(b.num_rows for b in l_by_bucket.values())
+        r_rows = sum(b.num_rows for b in r_by_bucket.values())
+        smaller = l_by_bucket if l_rows <= r_rows else r_by_bucket
+        n_planes = len(next(iter(smaller.values())).columns) if smaller else 0
+        decision = plan_movement(
+            {b: v.num_rows for b, v in l_by_bucket.items()},
+            {b: v.num_rows for b, v in r_by_bucket.items()},
+            l_meta.entry.num_buckets,
+            r_meta.entry.num_buckets,
+            self.mesh.size if self.mesh is not None else 1,
+            self.dist_min_rows,
+            n_payload_planes=max(n_planes, 1),
+        )
+        if decision.path != "shuffle":
+            metrics.incr(f"shuffle.declined.{decision.reason}")
+            return None
+        # the keys in the UNMOVED side's index order: that side keeps its
+        # build-time buckets, so the moved side hashes the same key tuple
+        if decision.moved_side == "right":
+            l2r = {l.lower(): r for l, r in zip(l_keys, r_keys)}
+            l_keys = list(l_node.entry.indexed_columns)
+            r_keys = [l2r[k.lower()] for k in l_keys]
+        else:
+            r2l = {r.lower(): l for l, r in zip(l_keys, r_keys)}
+            r_keys = list(r_node.entry.indexed_columns)
+            l_keys = [r2l[k.lower()] for k in r_keys]
+        from ..distributed.shuffle import try_shuffle_join
+
+        parts = try_shuffle_join(
+            l_by_bucket, r_by_bucket, l_keys, r_keys, decision.moved_side,
+            decision.target_num_buckets, self.mesh, self.dist_min_rows,
+        )
+        if parts is None:
+            # the exchange failed on the device: the exact join answers
+            metrics.incr("shuffle.declined.device_failed")
+            return None
+        if not parts:
+            return inner_join(
+                self._empty_side(join.left, l_by_bucket, l_node),
+                self._empty_side(join.right, r_by_bucket, r_node),
+                l_keys,
+                r_keys,
+                self.device,
+            )
+        return ColumnarBatch.concat(parts)
+
+    # -- the mesh's filter and aggregate -------------------------------------
+    def _exec_index_scan_distributed(
+        self, node: IndexScan, predicate: Expr
+    ) -> ColumnarBatch:
+        """The mesh's filter scan: prune files (buckets, zone maps), read
+        the survivors grouped by bucket (a pinned bucket's rows only, out of
+        run files), and mask each shard's buckets on its device
+        (exec.distributed.distributed_filter). Below ``dist_min_rows`` total
+        rows the host masks and compacts. The mesh's resident tables are
+        not ported yet: every query ships its rows."""
+        from pathlib import Path
+
+        from .distributed import distributed_filter
+        from .scan import buckets_for_predicate, prune_index_files
+
+        entry = node.entry
+        pinned = buckets_for_predicate(
+            predicate, entry.indexed_columns, entry.schema, entry.num_buckets
+        )
+        files = prune_index_files(
+            [Path(p) for p in entry.content.files()],
+            predicate,
+            entry.indexed_columns,
+            entry.schema,
+            entry.num_buckets,
+            pinned_buckets=pinned,
+        )
+        metrics.incr("scan.files_read", len(files))
+        need = list(dict.fromkeys(list(node.required_columns) + sorted(predicate.columns())))
+        # a pinned-bucket equality over run files reads only those
+        # buckets' row ranges, all runs in one coalesced segment plan
+        by_bucket = self._read_groups_by_bucket(
+            files, need, None if pinned is None else set(pinned))
+        out_cols = list(node.required_columns)
+        if not by_bucket:
+            empty = empty_batch_for(out_cols, entry.schema)
+            if empty is not None:
+                return empty
+            if not files:
+                raise HyperspaceException("distributed scan over zero files with no schema.")
+            return layout.read_batch(files[0], columns=out_cols).take(
+                np.array([], dtype=np.int64))
+        total_rows = sum(b.num_rows for b in by_bucket.values())
+        if total_rows < self.dist_min_rows:
+            # too small for the mesh: the host masks and compacts
+            whole = ColumnarBatch.concat([by_bucket[b] for b in sorted(by_bucket)])
+            return self._apply_predicate(whole, predicate).select(out_cols)
+        return distributed_filter(by_bucket, predicate, out_cols, self.mesh)
+
+    def _try_distributed_aggregate(self, plan: Aggregate) -> Optional[ColumnarBatch]:
+        """Aggregate([Project][Filter](IndexScan)) over the mesh: each
+        shard's K1 mask and PARTIAL aggregate, merged on the host
+        (exec.distributed.distributed_filter_aggregate); only partial
+        tables leave the devices. None when the shape or dtypes do not
+        qualify (the caller gathers and aggregates); the host aggregates the
+        rows already read below ``dist_min_rows`` or when the mesh's
+        aggregate declines."""
+        from pathlib import Path
+
+        from .aggregate import hash_aggregate
+        from .distributed import distributed_filter_aggregate
+        from .scan import prune_index_files
+
+        node = plan.child
+        pred = None
+        if isinstance(node, Project):
+            node = node.child
+        if isinstance(node, Filter):
+            pred = node.condition
+            node = node.child
+            if isinstance(node, Project):
+                node = node.child
+        if not isinstance(node, IndexScan):
+            return None
+        entry = node.entry
+        group_by = list(plan.group_by)
+        aggs = list(plan.aggs)
+        need = list(dict.fromkeys(
+            plan.input_columns() + (sorted(pred.columns()) if pred is not None else [])
+        ))
+        # decidable from the logged schema before any IO: string aggregate
+        # inputs need vocab-order min/max; float64 predicates run on the host
+        if not group_by or any(c not in entry.schema for c in need):
+            return None
+        if any(entry.schema[a.column] == "string" for a in aggs if a.column):
+            return None
+        if pred is not None and any(entry.schema[c] == "float64" for c in pred.columns()):
+            return None
+        files = [Path(p) for p in entry.content.files()]
+        if pred is not None:
+            files = prune_index_files(
+                files, pred, entry.indexed_columns, entry.schema, entry.num_buckets
+            )
+        if not files:
+            empty = empty_batch_for(need, entry.schema)
+            if empty is None:
+                return None
+            return hash_aggregate(empty, group_by, aggs)
+        metrics.incr("scan.files_read", len(files))
+        by_bucket = self._read_groups_by_bucket(files, need)
+
+        def host_finish() -> ColumnarBatch:
+            # the rows are in hand: never read them again because the mesh
+            # declined
+            if not by_bucket:
+                return hash_aggregate(
+                    ColumnarBatch.empty({c: entry.schema[c] for c in need}), group_by, aggs)
+            whole = ColumnarBatch.concat([by_bucket[b] for b in sorted(by_bucket)])
+            return hash_aggregate(self._apply_predicate(whole, pred), group_by, aggs)
+
+        if not by_bucket:
+            return host_finish()
+        if sum(b.num_rows for b in by_bucket.values()) < self.dist_min_rows:
+            return host_finish()
+        fused = distributed_filter_aggregate(by_bucket, pred, group_by, aggs, self.mesh)
+        return fused if fused is not None else host_finish()
 
     @staticmethod
     def _empty_side(

@@ -133,9 +133,16 @@ def _expand_ranges(
 
 
 def _k2_counts(l_codes: np.ndarray, r_sorted: np.ndarray, device: DeviceLike):
-    """K2's ranges through ``ops.kernels.sorted_intersect_counts``. Where
-    the reference's kernel latch and device probe send K2 to the host's
-    searchsorted, this raises: a card the probe found unreachable raises
+    """K2's ranges through ``ops.kernels.sorted_intersect_counts``."""
+    finish = _k2_counts_deferred(l_codes, r_sorted, device)
+    return None if finish is None else finish()
+
+
+def _k2_counts_deferred(l_codes: np.ndarray, r_sorted: np.ndarray, device: DeviceLike):
+    """K2 issued, its ``finish()`` (``ops.kernels.sorted_intersect_counts_
+    deferred``), or None where its plan declines. Where the reference's
+    kernel latch and device probe send K2 to the host's searchsorted, this
+    raises: a card the probe found unreachable raises
     DeviceUnavailableError here, and a failed launch raises from K2."""
     from ..ops import kernels, resolve_device
     from ..utils.deviceprobe import latched_verdict, unavailable_reason
@@ -144,7 +151,7 @@ def _k2_counts(l_codes: np.ndarray, r_sorted: np.ndarray, device: DeviceLike):
         from ..exceptions import DeviceUnavailableError
 
         raise DeviceUnavailableError(unavailable_reason())
-    return kernels.sorted_intersect_counts(l_codes, r_sorted, device)
+    return kernels.sorted_intersect_counts_deferred(l_codes, r_sorted, device)
 
 
 def merge_join_ranges(
@@ -156,17 +163,35 @@ def merge_join_ranges(
     overflows int32, or more than a quarter of the left tiles are wide)
     host binary search serves, as in the reference. The arm taken is
     counted under ``join.path.*``."""
+    return merge_join_ranges_deferred(l_codes, r_codes, device)()
+
+
+def merge_join_ranges_deferred(
+    l_codes: np.ndarray, r_codes: np.ndarray, device: DeviceLike = None
+):
+    """``merge_join_ranges`` issued without waiting: the right side's
+    stable argsort and K2's launch happen here, and the returned
+    ``finish()`` waits and gives (lo, counts, r_order). The mesh's join
+    issues every shard's before it waits on any. ``finish.h2d_bytes`` and
+    ``finish.d2h_bytes`` are what K2's launch moved (0 where its plan
+    declined)."""
     r_order = np.argsort(r_codes, kind="stable")
     r_sorted = r_codes[r_order]
-    res = _k2_counts(l_codes, r_sorted, device)
-    if res is not None:
-        metrics.incr("join.path.device_kernel")
-        lo, counts = res
-    else:
-        metrics.incr("join.path.host_searchsorted")
-        lo = np.searchsorted(r_sorted, l_codes, side="left")
-        counts = np.searchsorted(r_sorted, l_codes, side="right") - lo
-    return lo, counts, r_order
+    k2 = _k2_counts_deferred(l_codes, r_sorted, device)
+
+    def finish():
+        if k2 is not None:
+            metrics.incr("join.path.device_kernel")
+            lo, counts = k2()
+        else:
+            metrics.incr("join.path.host_searchsorted")
+            lo = np.searchsorted(r_sorted, l_codes, side="left")
+            counts = np.searchsorted(r_sorted, l_codes, side="right") - lo
+        return lo, counts, r_order
+
+    finish.h2d_bytes = 0 if k2 is None else k2.h2d_bytes
+    finish.d2h_bytes = 0 if k2 is None else k2.d2h_bytes
+    return finish
 
 
 def merge_join_indices(

@@ -104,7 +104,14 @@ def device_mask(
     # not int32-narrowable: the same predicate in torch ops on the device
     metrics.incr("scan.path.torch_mask")
     dev = resolve_device(device)
-    shim = ColumnarBatch(
+    arrays = batch.select(names).device_arrays(device=dev)
+    return eval_mask(bound, device_shim(batch, names), arrays).cpu().numpy()
+
+
+def device_shim(batch: ColumnarBatch, names) -> ColumnarBatch:
+    """A rows-free schema of ``names`` for ``eval_mask`` over device arrays
+    (strings as their int32 codes)."""
+    return ColumnarBatch(
         {
             name: Column("int32", np.empty(0, dtype=np.int32))
             if batch.columns[name].vocab is not None
@@ -115,8 +122,6 @@ def device_mask(
             for name in names
         }
     )
-    arrays = batch.select(names).device_arrays(device=dev)
-    return eval_mask(bound, shim, arrays).cpu().numpy()
 
 
 def _mask_kernel(bound, batch, names, n, device):

@@ -41,9 +41,10 @@ recorded after it (``ops.build.DeviceFetch``) before it reads.
 
 The auto probe's first device touch runs under the reachability watchdog
 (``utils/deviceprobe``): an unreachable card raises
-``DeviceUnavailableError``. Not ported here, each waiting for its item of
-ROADMAP.md's queue A: the mesh arm (multi-device) and the build's trace
-spans (observability).
+``DeviceUnavailableError``. A writer given a mesh of more than one shard
+runs each chunk through the sharded build instead (``build_partition_
+sharded``) and spills each shard's rows as a run of its own, behind the
+same watchdog on a CUDA mesh (the reference's multi-device arm).
 """
 
 from __future__ import annotations
@@ -520,6 +521,7 @@ class StreamingIndexWriter:
         pipeline: Optional[BuildPipelineConfig] = None,
         device_build: Optional[DeviceBuildConfig] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         if chunk_capacity < 1:
             raise HyperspaceException("chunk_capacity must be positive.")
@@ -536,6 +538,7 @@ class StreamingIndexWriter:
             device_build if device_build is not None else DeviceBuildConfig.default()
         )
         self.dev = resolve_device(device)
+        self.mesh = mesh
         # chunk engine: device | host | auto (host probe on chunk 0, link
         # check, device on chunk 1, timed device probe on chunk 2, then the
         # measured winner — see _route_engine)
@@ -889,6 +892,9 @@ class StreamingIndexWriter:
         if self._t_first_add is None:
             self._t_first_add = time.perf_counter()
         t0 = time.perf_counter()
+        if self.mesh is not None and self.mesh.size > 1 and self._mesh_touch_ok():
+            self._process_chunk_sharded(batch, t0)
+            return
         engine = self._route_engine(batch.num_rows)
         if engine == "device" and self._try_stage_chunk(batch):
             # the chunk's sorted composite stays on the card awaiting its
@@ -960,6 +966,38 @@ class StreamingIndexWriter:
         self._chunk_times.append(time.perf_counter() - t0)
         metrics.record_time("build.stream.dispatch", self._chunk_times[-1])
         self._enqueue_spill(finish)
+        self._rows += batch.num_rows
+        metrics.incr("build.stream.chunks")
+        metrics.incr("build.stream.rows", batch.num_rows)
+
+    def _mesh_touch_ok(self) -> bool:
+        """The reference's guard on the mesh arm: its first device touch
+        runs under the reachability watchdog (a CPU mesh touches no card)."""
+        if self.mesh.device_type != "cuda":
+            return True
+        from ..utils.deviceprobe import first_device_touch_ok
+
+        return first_device_touch_ok()
+
+    def _process_chunk_sharded(self, batch: ColumnarBatch, t0: float) -> None:
+        """The mesh arm: the chunk through ``build_partition_sharded`` (one
+        all_to_all exchange), then each shard's bucket-grouped rows spilled
+        as their own run, synchronously (the shards' rows come back
+        materialized). A chunk's runs hold disjoint buckets, so the
+        finalize merge gives each bucket the single-device order."""
+        from ..ops.build import build_partition_sharded
+
+        self._flush_staged()
+        per_shard, _ = build_partition_sharded(
+            batch, self.indexed_cols, self.num_buckets, self.mesh
+        )
+        self._chunk_times.append(time.perf_counter() - t0)
+        metrics.record_time("build.stream.dispatch", self._chunk_times[-1])
+        for shard_batch, bucket_ids in per_shard:
+            if shard_batch.num_rows == 0:
+                continue
+            counts = np.bincount(bucket_ids, minlength=self.num_buckets)
+            self._spill_run_at(self._next_seq(), shard_batch, counts)
         self._rows += batch.num_rows
         metrics.incr("build.stream.chunks")
         metrics.incr("build.stream.rows", batch.num_rows)
@@ -1160,6 +1198,7 @@ def write_index_data_streaming(
     pipeline: Optional[BuildPipelineConfig] = None,
     device_build: Optional[DeviceBuildConfig] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> List[Path]:
     """Drive a StreamingIndexWriter over source chunks. A failure anywhere
     tears the pipeline down (no parked workers, no spill files left) before
@@ -1185,6 +1224,7 @@ def write_index_data_streaming(
         pipeline=pipe,
         device_build=device_build,
         device=device,
+        mesh=mesh,
     )
     if chunks is None and chunk_tasks is None:
         raise HyperspaceException("write_index_data_streaming needs chunks or chunk_tasks.")

@@ -186,8 +186,8 @@ def _single_perm_kernel(
 
 class DeviceFetch:
     """Device tensors on their way to the host. On a CUDA device the copies
-    go into pinned host buffers with ``non_blocking=True`` on the current
-    stream, and an event is recorded after them; ``wait()`` blocks on that
+    go into pinned host buffers with ``non_blocking=True`` on the source
+    device's current stream, and an event is recorded after them there; ``wait()`` blocks on that
     event alone, from any thread, then hands back numpy views. Reading the
     buffers before the event would give stale rows and no error. On the
     CPU the tensors are the host arrays already."""
@@ -203,8 +203,10 @@ class DeviceFetch:
             ]
             for h, t in zip(self._host, self._src):
                 h.copy_(t, non_blocking=True)
+            # the copies ran on the source device's current stream, which
+            # need not be the current device's
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(self._src[0].device))
         else:
             self._host = self._src
             self._event = None
@@ -633,3 +635,169 @@ def build_partition_host_parallel(
     _canonicalize_f64(out)
     metrics.incr("build.engine.host_parallel")
     return out, counts
+
+
+# ---------------------------------------------------------------------------
+# the sharded build (one controller, D shards, one all_to_all exchange)
+# ---------------------------------------------------------------------------
+def _exchange_cap(
+    host_dest: np.ndarray, shard_rows: int, n: int, n_shards: int, D: int
+) -> int:
+    """Max rows any one source shard sends to any one destination shard:
+    the all_to_all block capacity (the reference's rule, shared with its
+    multihost packer)."""
+    cap = 1
+    for s in range(n_shards):
+        seg = host_dest[s * shard_rows : min((s + 1) * shard_rows, n)]
+        if seg.size:
+            cap = max(cap, int(np.bincount(seg, minlength=D).max()))
+    return cap
+
+
+def scatter_blocks(
+    planes: List[torch.Tensor], dest: torch.Tensor, D: int, cap: int
+) -> List[torch.Tensor]:
+    """Each plane's rows scattered into ``(D, cap)`` send blocks by
+    destination shard, in row order within a destination (a stable sort
+    of ``dest``), as the reference's ``.at[sorted_dest, pos].set(...,
+    mode="drop")``: a row whose destination is ``D`` or beyond, or whose
+    slot passes ``cap``, lands in a trash slot past the blocks. The last
+    block returned is the validity plane (bool)."""
+    dev = dest.device
+    m = int(dest.shape[0])
+    sorted_dest, perm = torch.sort(dest, stable=True)
+    counts = torch.bincount(dest.clamp(0, D), minlength=D + 1)[:D]
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(m, dtype=torch.int64, device=dev) - starts[sorted_dest.clamp(0, D - 1)]
+    ok = (sorted_dest < D) & (pos < cap)
+    flat = torch.where(ok, sorted_dest * cap + pos, torch.full_like(pos, D * cap))
+    out = []
+    for x in list(planes) + [torch.ones(m, dtype=torch.bool, device=dev)]:
+        buf = torch.zeros(D * cap + 1, dtype=x.dtype, device=dev)
+        buf[flat] = x[perm]
+        out.append(buf[: D * cap].view(D, cap))
+    return out
+
+
+def build_partition_sharded(
+    batch: ColumnarBatch,
+    key_names: List[str],
+    num_buckets: int,
+    mesh,
+) -> Tuple[List[Tuple[ColumnarBatch, np.ndarray]], np.ndarray]:
+    """The build over a mesh of D shards. Returns ``(per_shard,
+    global_counts)``: ``per_shard[d]`` is the (batch, bucket ids) of the
+    rows that landed on shard d, grouped by bucket and key-sorted, and
+    ``global_counts[b]`` bucket b's row count. Shard d owns the buckets
+    ``b % D == d``.
+
+    Rows split into D contiguous source ranges of ``shard_rows``
+    (``next_pow2``-quantized, as the reference's). Each source shard
+    bucketizes its rows on its device (``device_bucket_ids``, vocab hashes
+    on every device), scatters every plane in transport encoding into
+    ``(D, cap)`` blocks by owner (``scatter_blocks``), and one
+    ``all_to_all`` per plane moves them; each receiving shard then sorts
+    what it got by (bucket, keys...) with the single-device build's sort
+    (its stable tie-break: source shard, then row order, which is the
+    input order), and its rows come home through pinned, non-blocking
+    copies. Every shard is issued before the first wait. Within a bucket
+    the rows are the single-device build's, so the index files are too."""
+    from ..parallel.mesh import (
+        all_reduce,
+        all_to_all,
+        owner_of_bucket_array,
+        owner_of_bucket_device,
+    )
+    from ..storage.columnar import decode_device_array
+    from ..utils.intmath import next_pow2
+    from .hashing import bucket_ids_host, key_repr
+
+    D = mesh.size
+    n = batch.num_rows
+    dtypes = batch.schema()
+    names = list(batch.column_names)
+    host_bucket = bucket_ids_host(
+        [key_repr(batch.columns[k]) for k in key_names], num_buckets
+    )
+    host_dest = owner_of_bucket_array(host_bucket, D)
+    shard_rows = next_pow2(max(-(-n // D), 1))
+    cap = next_pow2(_exchange_cap(host_dest, shard_rows, n, D, D))
+    recv_rows = np.bincount(host_dest, minlength=D).astype(np.int64)
+    encoded = {name: encode_for_device(batch.columns[name]) for name in names}
+    # the receiving sort's radix pack: bounds over every key value, and 0,
+    # which the blocks' empty slots hold
+    bounds = []
+    for k in key_names:
+        b = _packed_minmax(encoded[k])
+        if b is None:
+            bounds = None
+            break
+        bounds.append((min(b[0], 0), max(b[1], 0)))
+    plan = (
+        _pack_plan(bounds, max(int(num_buckets), 1).bit_length())
+        if bounds is not None and n
+        else None
+    )
+    vh_host = {
+        k: vocab_hashes(batch.columns[k]) for k in key_names if is_string(dtypes[k])
+    }
+    vh_on: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+    # 1. each source shard: upload, bucketize, scatter into send blocks
+    sends: List[List[torch.Tensor]] = []
+    for s, dev in enumerate(mesh.devices):
+        lo, hi = min(s * shard_rows, n), min((s + 1) * shard_rows, n)
+        with mesh.scope(dev):
+            arrays = {name: _to_device(encoded[name][lo:hi], dev) for name in names}
+            if dev not in vh_on:
+                vh_on[dev] = {k: torch.from_numpy(v).to(dev) for k, v in vh_host.items()}
+            bucket = device_bucket_ids(arrays, dtypes, list(key_names), vh_on[dev],
+                                       num_buckets)
+            dest = owner_of_bucket_device(bucket, D)
+            planes = [arrays[name] for name in names] + [bucket.to(torch.int32)]
+            sends.append(scatter_blocks(planes, dest, D, cap))
+        del arrays
+    # 2. the exchange, plane by plane; each plane's send blocks go once its
+    # receive is built
+    recv: List[List[torch.Tensor]] = [[] for _ in range(D)]
+    for p in range(len(names) + 2):
+        got = all_to_all([sends[s][p] for s in range(D)], mesh)
+        for s in range(D):
+            sends[s][p] = None
+        for d in range(D):
+            recv[d].append(got[d])
+    # 3. each receiving shard: sort by (bucket, keys...), gather, send home
+    fetches, local_counts = [], []
+    for d, dev in enumerate(mesh.devices):
+        planes = recv[d]
+        with mesh.scope(dev):
+            valid = planes[-1]
+            r_bucket = planes[-2].to(torch.int64)
+            masked = torch.where(valid, r_bucket, torch.full_like(r_bucket, num_buckets))
+            keys = {k: planes[names.index(k)] for k in key_names}
+            if plan is not None:
+                perm = _single_perm_kernel_packed(keys, masked, list(key_names), plan)
+            else:
+                perm = _single_perm_kernel(keys, masked, list(key_names))
+            take = perm[: int(recv_rows[d])]
+            local_counts.append(torch.bincount(masked, minlength=num_buckets + 1)[:num_buckets])
+            fetches.append(DeviceFetch([planes[i][take] for i in range(len(names))]
+                                       + [planes[-2][take]]))
+        recv[d] = None
+    with mesh.scope(mesh.devices[0]):
+        counts_fetch = DeviceFetch([all_reduce(local_counts, "sum", mesh)[0]])
+    # 4. one wait per shard
+    per_shard: List[Tuple[ColumnarBatch, np.ndarray]] = []
+    for f in fetches:
+        got = f.wait()
+        cols = {
+            name: Column(dtypes[name], decode_device_array(dtypes[name], got[i]),
+                         batch.columns[name].vocab)
+            for i, name in enumerate(names)
+        }
+        per_shard.append((ColumnarBatch(cols), got[-1]))
+    global_counts = counts_fetch.wait()[0].astype(np.int64)
+    if int(global_counts.sum()) != n:
+        raise HyperspaceException(
+            f"Shuffle lost rows: {int(global_counts.sum())} != {n}."
+        )
+    return per_shard, global_counts

@@ -710,7 +710,8 @@ def _launch_k1(entry: str, what: str, program: K1Program, cols, n: int, out,
         return
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = getattr(_lib(K1), entry)
-    rc = fn(params, stream) if extra is None else fn(params, extra, stream)
+    with torch.cuda.device(dev):  # the C entry launches on the current device
+        rc = fn(params, stream) if extra is None else fn(params, extra, stream)
     _check_launch(rc, what)
     count_launch(what)
 
@@ -1277,7 +1278,9 @@ def _batch_launch(entry: str, what: str, progs: List[K1Program], addrs: List[int
         shape[:] = [*got, plan]
         return
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _check_launch(getattr(_lib(K1), entry)(params, stream), what)
+    with torch.cuda.device(dev):
+        rc = getattr(_lib(K1), entry)(params, stream)
+    _check_launch(rc, what)
     count_launch(what)
 
 
@@ -1607,9 +1610,10 @@ def sorted_intersect_fences(r: torch.Tensor, out: Optional[torch.Tensor] = None)
     if int(fences.shape[0]) != n_r // K2_FENCE:
         raise HyperspaceException(f"{K2F}: out holds {int(fences.shape[0])} fences, not "
                                   f"{n_r // K2_FENCE}.")
-    rc = _lib(K2).hs_sorted_intersect_fences(
-        r.data_ptr(), n_r, fences.data_ptr(), torch.cuda.current_stream(r.device).cuda_stream
-    )
+    with torch.cuda.device(r.device):
+        rc = _lib(K2).hs_sorted_intersect_fences(
+            r.data_ptr(), n_r, fences.data_ptr(), torch.cuda.current_stream(r.device).cuda_stream
+        )
     _check_launch(rc, K2F)
     count_launch(K2F)
     return fences
@@ -1660,11 +1664,12 @@ def sorted_intersect_tensors(
     _check_aligned(K2, "fences", fences)
     lt = torch.empty(n_l, dtype=torch.int32, device=l.device)
     eq = torch.empty(n_l, dtype=torch.int32, device=l.device)
-    rc = _lib(K2).hs_sorted_intersect(
-        l.data_ptr(), r.data_ptr(), fences.data_ptr(), s_tile.data_ptr(), span.data_ptr(),
-        base.data_ptr(), n_l, max_span, lt.data_ptr(), eq.data_ptr(),
-        torch.cuda.current_stream(l.device).cuda_stream,
-    )
+    with torch.cuda.device(l.device):
+        rc = _lib(K2).hs_sorted_intersect(
+            l.data_ptr(), r.data_ptr(), fences.data_ptr(), s_tile.data_ptr(), span.data_ptr(),
+            base.data_ptr(), n_l, max_span, lt.data_ptr(), eq.data_ptr(),
+            torch.cuda.current_stream(l.device).cuda_stream,
+        )
     _check_launch(rc, K2)
     count_launch(K2)
     return lt, eq
@@ -1920,13 +1925,14 @@ def sorted_intersect_packed_tensors(
         _check_aligned(K2P, what, t)
     lt = torch.empty(n_l, dtype=torch.int32, device=l.device)
     eq = torch.empty(n_l, dtype=torch.int32, device=l.device)
-    rc = _lib(K2).hs_sorted_intersect_packed(
-        l.data_ptr(), words.data_ptr(), refs.data_ptr(), fences.data_ptr(), s_tile.data_ptr(),
-        span.data_ptr(), base.data_ptr(), groups.order.data_ptr(), groups.offsets.data_ptr(),
-        groups.win_lo.data_ptr(), groups.win_len.data_ptr(), groups.n_groups,
-        groups.max_window, n_r_pad, spec.vpw, spec.bits, int(lo_all), spec.n, lt.data_ptr(),
-        eq.data_ptr(), torch.cuda.current_stream(l.device).cuda_stream,
-    )
+    with torch.cuda.device(l.device):
+        rc = _lib(K2).hs_sorted_intersect_packed(
+            l.data_ptr(), words.data_ptr(), refs.data_ptr(), fences.data_ptr(),
+            s_tile.data_ptr(), span.data_ptr(), base.data_ptr(), groups.order.data_ptr(),
+            groups.offsets.data_ptr(), groups.win_lo.data_ptr(), groups.win_len.data_ptr(),
+            groups.n_groups, groups.max_window, n_r_pad, spec.vpw, spec.bits, int(lo_all),
+            spec.n, lt.data_ptr(), eq.data_ptr(), torch.cuda.current_stream(l.device).cuda_stream,
+        )
     _check_launch(rc, K2P)
     count_launch(K2P)
     return lt, eq
@@ -1940,10 +1946,30 @@ def sorted_intersect_counts(
     int64 — searchsorted-left positions and run lengths, computed on
     ``device``. None when the reference's plan declines (int32 overflow of
     the joint key range, or more than a quarter of the left tiles wide)."""
+    finish = sorted_intersect_counts_deferred(l_keys, r_sorted, device)
+    return None if finish is None else finish()
+
+
+def sorted_intersect_counts_deferred(
+    l_keys: np.ndarray, r_sorted: np.ndarray, device: DeviceLike = None
+):
+    """``sorted_intersect_counts`` issued without waiting: the plan, the
+    uploads, K2F and K2 are queued and their results copied home
+    non-blocking, and the returned ``finish()`` waits for them and gives
+    ``(lt, eq)``. A mesh program issues every shard's before it waits on
+    any. None where the plan declines; ``finish.h2d_bytes`` and
+    ``finish.d2h_bytes`` are what the launch uploaded and copies home."""
+    from .build import DeviceFetch
+
     n_l, n_r = len(l_keys), len(r_sorted)
     if n_l == 0 or n_r == 0:
         z = np.zeros(n_l, dtype=np.int64)
-        return z, z.copy()
+
+        def empty():
+            return z, z.copy()
+
+        empty.h2d_bytes = empty.d2h_bytes = 0
+        return empty
     plan = _plan_sorted_intersect(l_keys, r_sorted)
     if plan is None:
         return None
@@ -1951,15 +1977,23 @@ def sorted_intersect_counts(
     dev = resolve_device(device)
     args = [torch.from_numpy(a).to(dev) for a in (s_tile, span, base, l_p, r_p)]
     lt_d, eq_d = sorted_intersect_tensors(*args, max_span=int(span.max()))
-    lt = lt_d.cpu().numpy()[:n_l].astype(np.int64)
-    eq = eq_d.cpu().numpy()[:n_l].astype(np.int64)
-    if wide.any():
-        for t in np.flatnonzero(wide):
-            s, e = int(t) * SMJ_TILE, min((int(t) + 1) * SMJ_TILE, n_l)
-            q = l32[s:e]
-            lt[s:e] = np.searchsorted(r32, q, side="left")
-            eq[s:e] = np.searchsorted(r32, q, side="right") - lt[s:e]
-    return lt, eq
+    fetch = DeviceFetch([lt_d, eq_d])
+
+    def finish():
+        lt_h, eq_h = fetch.wait()
+        lt = lt_h[:n_l].astype(np.int64)
+        eq = eq_h[:n_l].astype(np.int64)
+        if wide.any():
+            for t in np.flatnonzero(wide):
+                s, e = int(t) * SMJ_TILE, min((int(t) + 1) * SMJ_TILE, n_l)
+                q = l32[s:e]
+                lt[s:e] = np.searchsorted(r32, q, side="left")
+                eq[s:e] = np.searchsorted(r32, q, side="right") - lt[s:e]
+        return lt, eq
+
+    finish.h2d_bytes = sum(int(a.nbytes) for a in (s_tile, span, base, l_p, r_p))
+    finish.d2h_bytes = int(lt_d.nbytes + eq_d.nbytes)
+    return finish
 
 
 def resident_sorted_intersect(

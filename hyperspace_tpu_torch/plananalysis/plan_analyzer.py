@@ -142,9 +142,9 @@ def explain_string(
 
 def _write_last_query(buf: BufferStream, session) -> None:
     """The last query's sections, all rendered from ONE record, its trace
-    (``session.last_trace``: serve attribution, compiled pipeline, scoped
-    metrics, spans), so they always describe the same query. (The
-    reference's shuffle-plan section comes with multi-device.)"""
+    (``session.last_trace``: serve attribution, compiled pipeline, the
+    join's movement plan, scoped metrics, spans), so they always describe
+    the same query."""
     last_trace = getattr(session, "last_trace", None)
     if last_trace is None:
         return
@@ -179,6 +179,23 @@ def _write_last_query(buf: BufferStream, session) -> None:
             else:
                 where = "host hash"
             buf.write_line(f"Aggregate ran: {where}")
+        buf.write_line()
+    # the movement plan of the last query's bucketed join (the planner's
+    # "shuffle.plan" span: direct, shuffle or host)
+    plan_span = last_trace.find("shuffle.plan")
+    if plan_span is not None:
+        lb = plan_span.labels
+        buf.write_line(_BANNER)
+        buf.write_line("Shuffle movement plan (last query):")
+        buf.write_line(_BANNER)
+        buf.write_line(f"Decision: {lb.get('decision')} ({lb.get('reason')})")
+        buf.write_line(f"Buckets: left={lb.get('left_buckets')} "
+                       f"right={lb.get('right_buckets')} devices={lb.get('devices')}")
+        buf.write_line(f"Rows: left={lb.get('left_rows')} right={lb.get('right_rows')}")
+        if lb.get("decision") == "shuffle":
+            buf.write_line(f"Moved side: {lb.get('moved_side')} "
+                           f"(~{lb.get('est_moved_bytes')} bytes over ICI)")
+        buf.write_line(f"Plan memo hit: {lb.get('memo_hit')}")
         buf.write_line()
     # where the last query's wall time went, stage by stage
     buf.write_line(_BANNER)

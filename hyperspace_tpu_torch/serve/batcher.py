@@ -18,7 +18,8 @@ filter-shape hybrid union when the base table and its delta are resident
 (one K1hb launch over base, delta and the deletion mask); so does an
 ``Aggregate([Project](Join))`` whose join region is resident (one region
 launch serves the whole batch). Everything else, and predicates the zone
-gate routes to the host, takes the normal executor path.
+gate routes to the host, takes the normal executor path, as does every
+query of a mesh session.
 """
 
 from __future__ import annotations
@@ -68,6 +69,11 @@ def classify(session, plan: LogicalPlan) -> Optional[ResidentScanRequest]:
     from ..exec.hbm_cache import hbm_cache, prepare_resident_predicate, zone_block_fraction
     from ..exec.scan import prune_index_files
 
+    if session.mesh is not None and session.mesh.size > 1:
+        # a mesh session serves each query through the executor's mesh
+        # arms; the mesh's resident tables, which a batch would read, are
+        # not ported yet
+        return None
     output_columns = list(plan.output_columns())
     node = plan
     while isinstance(node, Project):

@@ -919,13 +919,15 @@ class QueryServer:
 
         conf = self.session.conf
         residency = conf.residency()
+        mesh = self.session.mesh
         if self._degraded_latch.is_set():
-            # degraded: no resident route (the reference's host executor);
-            # the per-file route still masks and joins on the card
+            # degraded: no resident route and no mesh (the reference's host
+            # executor); the per-file route still masks and joins on the card
             import dataclasses
 
             residency = dataclasses.replace(residency, mode="off")
-        executor = Executor(self.session.device, residency, conf)
+            mesh = None
+        executor = Executor(self.session.device, residency, conf, mesh=mesh)
         # the ticket's pinned index-log snapshot folds into the compiled-
         # pipeline cache key: a query admitted under version V serves V's
         # whole compiled pipeline across any concurrent refresh/optimize

@@ -1,5 +1,5 @@
 """HyperspaceSession: the framework's session object (the SparkSession
-analog) — holds config, the source providers, the catalog of named views
+analog) — holds config, the device mesh, the source providers, the catalog of named views
 and tables, and the index-collection manager. ``session.read`` builds
 DataFrames; the Hyperspace facade (hyperspace.py) manages indexes against
 this session.
@@ -117,9 +117,21 @@ class Catalog:
 
 
 class HyperspaceSession:
-    def __init__(self, conf: Optional[HyperspaceConf] = None):
+    def __init__(self, conf: Optional[HyperspaceConf] = None, mesh=None):
         self.conf = conf or HyperspaceConf()
         self.device = resolve_device(self.conf.torch_device())
+        # the bucket mesh (parallel/mesh.py): builds shard over it and
+        # queries run its per-shard programs; its devices must be of the
+        # session's kind (a CUDA mesh under a cpu session, or the other
+        # way round, would move work the caller did not ask to move)
+        if mesh is not None and mesh.device_type != self.device.type:
+            from .exceptions import HyperspaceException
+
+            raise HyperspaceException(
+                f"The mesh's devices are {mesh.device_type} but hyperspace.torch.device is "
+                f"{self.device.type}."
+            )
+        self.mesh = mesh
         # the segment-IO mode (hyperspace.storage.segmentIo) becomes the
         # process default, as in the reference: the planner runs on
         # process-global read paths; the typed accessor raises on a typo
