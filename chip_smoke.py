@@ -2038,8 +2038,10 @@ def run_main_path(
         out.update(_main_session(lineitem, orders, workdir, device, seed, profile, phases))
         log(f"phase seconds: the main path's session {time.perf_counter() - t0:.1f} s")
         degrade_guard("the main path's session")
-    # the phases that inject a device loss, and the one degrade each makes
-    injected = {"reliability": ("serve.degraded", "R5"), "mesh": ("shuffle.device_failed", "M6")}
+    # the phases that inject a device loss, and the degrades they make
+    injected = {"reliability": ({"serve.degraded": 1}, "R5"),
+                "mesh": ({"shuffle.device_failed": 1, "scan.resident_mesh.device_failed": 1},
+                         "M6's and MR8's")}
     for name, fn in (("lifecycle", lifecycle_phase), ("hybrid", hybrid_phase),
                      ("reliability", reliability_phase), ("mesh", mesh_phase)):
         if name in phases:
@@ -2047,12 +2049,12 @@ def run_main_path(
             kw = {"single_build_s": out.get("build_s")} if name == "mesh" else {}
             out[name] = fn(lineitem, orders, workdir, device, seed, profile, **kw)
             log(f"phase seconds: {name} {time.perf_counter() - t0:.1f} s")
-            if name in injected:  # one injected loss: consume its latch
-                counter, where = injected[name]
-                want = {**dict.fromkeys(DEGRADE_COUNTERS, 0), counter: 1}
+            if name in injected:  # the injected losses: consume their latches
+                counters, where = injected[name]
+                want = {**dict.fromkeys(DEGRADE_COUNTERS, 0), **counters}
                 if _DEGRADES != want:
                     raise AssertionError(f"{name}: degrade counters {_DEGRADES}, want {want}")
-                log(f"{name}: degrade counters {dict(_DEGRADES)} ({where}'s injected loss)")
+                log(f"{name}: degrade counters {dict(_DEGRADES)} ({where} injected loss)")
                 _DEGRADES.update(dict.fromkeys(DEGRADE_COUNTERS, 0))
             else:
                 degrade_guard(name)
@@ -4223,7 +4225,8 @@ REL_LEASE_S = 2.0  # hyperspace.reliability.lease.durationSeconds of the phase
 # the device-loss degrade counters: a run counts them per phase, and only
 # the reliability phase, which injects the loss, may move them
 DEGRADE_COUNTERS = ("scan.resident.device_failed", "scan.resident_join.device_failed",
-                    "residency.stream.window_failed", "serve.degraded", "shuffle.device_failed")
+                    "residency.stream.window_failed", "serve.degraded", "shuffle.device_failed",
+                    "scan.resident_mesh.device_failed")
 _DEGRADES = dict.fromkeys(DEGRADE_COUNTERS, 0)
 
 
@@ -4742,6 +4745,617 @@ def mesh_programs(mesh, L: dict, root: Path, bounds, repeats: int = 3) -> dict:
     return out
 
 
+MR_REPEATS = 3  # MR2's repeats of each filter, MR5's and MR6's warm calls
+MR3_WINDOWS = 8  # MR3's streaming windows a shard (2^18 rows each at SF1)
+# the reference's mesh programs the mesh cache ports, for the programs-alone lines
+MESH_RESIDENT_REFS = {
+    "mesh_counts": "hyperspace_tpu/exec/mesh_cache.py:198 _mesh_counts_fn",
+    "mesh_batched_counts": "hyperspace_tpu/exec/mesh_cache.py:250 _mesh_batched_counts_fn",
+    "mesh_hybrid_counts": "hyperspace_tpu/exec/mesh_cache.py:315 _mesh_hybrid_counts_fn",
+    "mesh_upload_window": "hyperspace_tpu/residency/streaming.py:519 _mesh_upload_window",
+    "mesh_stream_counts": "hyperspace_tpu/residency/streaming.py:548 mesh_stream_block_counts",
+    "mesh_stream_counts_batch":
+        "hyperspace_tpu/residency/streaming.py:588 mesh_stream_block_counts_batch",
+    "mesh_join_agg": "hyperspace_tpu/exec/join_residency.py:1020 mesh_join_agg_fn",
+    "mesh_scan_agg": "hyperspace_tpu/exec/scan_agg.py:365 mesh_scan_agg_fn",
+}
+
+
+def _mesh_li_table(mesh_cache, root: Path, columns):
+    """The registered mesh table over li_mesh's files holding ``columns``."""
+    li_files = {str(p) for p in (root / "li_mesh").glob("v__=*/*.tcb")}
+    for t in reversed(mesh_cache._tables):
+        if set(columns) <= set(t.columns) and {k[0] for k in t.key} == li_files:
+            return t
+    raise AssertionError(f"mesh: no resident table over li_mesh with {columns}")
+
+
+def mesh_resident_steps(session, hsp, mesh, L: dict, O: dict, workdir: Path, root: Path,
+                        li_dir: Path, od_dir: Path, bounds, step, m4, seed: int,
+                        on_card: bool) -> dict:
+    """MR1-MR8: the mesh phase's session and indexes with
+    ``hyperspace.torch.hbm.mode`` force. Each step counts launches from 0
+    (``step``) and holds its rows against numpy or the equal M step:
+
+    MR1 ``prefetch_index(li_mesh, LI_RESIDENT)`` into the mesh cache: the
+        tier, each shard's rows, ``cap``, MB, seconds and peak device
+        memory; no ``hbm.mesh.*`` refusal;
+    MR2 the range filter, the point lookup and a predicate on
+        ``l_extendedprice`` (f64, two planes), ``MR_REPEATS`` each: K1c
+        once a shard (the lookup too: the resident lookup comes before the
+        row gate), ``scan.path.resident_device_mesh``, no upload;
+    MR3 two fresh prefetches of the range filter's columns under budgets
+        set from MR1's table: the compressed tier (K1p once a shard) and the
+        streaming tier (K1p once a shard a window); the range filter's rows;
+        LI_RESIDENT prefetched again after;
+    MR4 A3's Q1 shape through the interpreter's resident arm (compile off:
+        K1c once a shard, ``aggregate.path.resident_mesh``), then the
+        compiled device aggregate (K1 once a shard, ``compile.agg.device``);
+        groups equal M4's and numpy's;
+    MR5 J1 (Q17's aggregate-join) over li_mesh and ord_mesh: the first call
+        schedules the mesh join region; the warm calls launch K2p once a
+        shard, ``scan.path.resident_join_agg_mesh``, no upload;
+    MR6 ord_hy, a mesh index over a copy of the orders source (2 files,
+        lineage on), one RF1 batch appended and one base file removed: the
+        base prefetched, the first query's host union populating the delta,
+        then a range filter through K1h once a shard,
+        ``scan.path.resident_hybrid_mesh``; rows equal numpy's;
+    MR7 B1's 64 point lookups through a paused server: one
+        ``serve.batch.dispatches``, K1b once a shard; rows equal the single
+        queries';
+    MR8 MR2's range filter with the first shard's count launch raising a
+        RuntimeError: ``scan.resident_mesh.device_failed`` = 1, the table
+        dropped, the per-query route (K1 once a shard, an upload) answering
+        with M2's rows.
+
+    Returns the steps' records and, under ``held``, the tables, region and
+    delta the programs-alone measurement reuses."""
+    import torch
+
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.exec.mesh_cache import mesh_cache
+    from hyperspace_tpu_torch.ops import bitpack, fence
+    from hyperspace_tpu_torch.ops import kernels as tk
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.serve import QueryServer, ServeConfig
+    from hyperspace_tpu_torch.storage.avro_io import write_avro
+    from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
+
+    D = mesh.size
+    dev0 = mesh.devices[0]
+    out = {}
+    held = {}
+
+    def per_shard(kname):
+        return {kname: D} if on_card else {}
+
+    def fenced(fn):
+        def run():
+            res = fn()
+            for dev in dict.fromkeys(mesh.devices):
+                fence(dev)
+            return res
+        return run
+
+    session.conf.set("hyperspace.torch.hbm.mode", "force")
+    lo_k, hi_k, d_lo = bounds
+    li = session.read.avro(str(li_dir))
+    # MR1: the prefetch
+    peak_before = torch.cuda.max_memory_allocated(dev0) if on_card else None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev0)
+    ok, rec = step("MR1 prefetch", fenced(lambda: hsp.prefetch_index("li_mesh", LI_RESIDENT)))
+    table = _mesh_li_table(mesh_cache, root, LI_RESIDENT)
+    refused = {k: v for k, v in rec["counters"].items() if k.startswith("hbm.mesh.")
+               and any(w in k for w in ("refused", "declined", "unreachable", "failed"))}
+    if not ok or refused or table.tier != "resident":
+        raise AssertionError(f"mesh MR1: prefetch {ok}, tier {table.tier}, refusals {refused}")
+    rec.update(tier=table.tier, dev_rows=list(table.dev_rows), cap=table.cap,
+               mb=table.nbytes / 1e6,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev0) if on_card else None)
+    out["peak_before_mr"] = peak_before
+    log(f"mesh MR1 prefetch_index(li_mesh, {LI_RESIDENT}): {rec['s']:.3f} s tier {table.tier} "
+        f"rows a shard {table.dev_rows} cap {table.cap} {rec['mb']:.1f} MB, peak device memory "
+        f"{rec['peak_mem_bytes']} B | no hbm.mesh refusal")
+
+    # MR2: resident filters
+    rng_want, _ = range_and_q3_truth(L, O, bounds, "mesh MR2")
+    rng_q = range_and_q3(session, li_dir, od_dir, bounds)[0]
+    k = int(L["l_orderkey"][len(L["l_orderkey"]) // 2])
+    price = 50_000.0
+    pm = (L["l_orderkey"] >= lo_k) & (L["l_orderkey"] < hi_k) & (L["l_extendedprice"] > price)
+    mr2 = {"range": (rng_q, rng_want),
+           "point": (li.filter(col("l_orderkey") == k).select(*R_COLS),
+                     [L[c][L["l_orderkey"] == k] for c in R_COLS]),
+           "f64": (li.filter((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+                             & (col("l_extendedprice") > price)).select(*R_COLS),
+                   [L[c][pm] for c in R_COLS])}
+    for name, (df, want) in mr2.items():
+        secs = []
+        for i in range(MR_REPEATS):
+            got, rec = step(f"MR2 {name} {i}", df.collect)
+            _check(f"mesh MR2 {name}", got, R_COLS, want)
+            c = rec["counters"]
+            if (rec["launches"] != per_shard(tk.K1C) or c.get("dist.h2d_bytes")
+                    or c.get("scan.path.resident_device_mesh") != 1):
+                raise AssertionError(f"mesh MR2 {name} {i}: {rec}")
+            secs.append(rec["s"])
+        log(f"mesh MR2 {name}: {MR_REPEATS} queries {', '.join(f'{x:.4f}' for x in secs)} s "
+            f"rows={got.num_rows} launches {rec['launches']} a query "
+            f"scan.path.resident_device_mesh=1 dist.h2d_bytes=0 | matches numpy")
+
+    # MR3: the lower tiers, budgets from MR1's table
+    cols3 = ["l_orderkey", "l_quantity", "l_shipdate"]
+    cap = table.cap
+    specs = {c: bitpack.pack_spec(table.columns[c].vmin, table.columns[c].vmax, cap)
+             for c in cols3}
+    raw_b = 4 * D * cap * len(cols3)
+    packed_b = sum(D * s.packed_nbytes if s is not None else 4 * D * cap for s in specs.values())
+    W = cap // MR3_WINDOWS
+    slab_b = 2 * D * sum(4 * (W // s.vpw if s is not None else W) for s in specs.values())
+    # the budget the ladder sees is budgetMB less what builds and result
+    # caches hold (hbm_cache._budget_bytes): those bytes ride on top
+    from hyperspace_tpu_torch.residency.slabs import held_bytes
+    from hyperspace_tpu_torch.residency.tiers import claimant_bytes
+
+    extra = -(-(held_bytes() + claimant_bytes()) >> 20)
+    budgets = {"compressed": ((packed_b + raw_b) // 2 >> 20) + extra,
+               "streaming": (slab_b >> 20) + 2 + extra}
+    if not ((budgets["streaming"] - extra) << 20) < packed_b <= (
+            (budgets["compressed"] - extra) << 20) < raw_b:
+        raise AssertionError(f"mesh MR3: budgets {budgets} do not separate the tiers "
+                             f"(raw {raw_b} B, packed {packed_b} B, slabs {slab_b} B)")
+    mesh_cache.drop(table)
+    session.conf.set("hyperspace.residency.streaming.windowRows", W)
+    for tier, mb in budgets.items():
+        session.conf.set("hyperspace.torch.hbm.budgetMB", mb)
+        ok, rec = step(f"MR3 prefetch {tier}", fenced(lambda: hsp.prefetch_index("li_mesh",
+                                                                                  cols3)))
+        t3 = _mesh_li_table(mesh_cache, root, cols3)
+        if not ok or t3.tier != tier:
+            raise AssertionError(f"mesh MR3: budget {mb} MB gave tier {t3.tier}, not {tier}")
+        held[tier] = t3
+        got, rq = step(f"MR3 range {tier}", rng_q.collect)
+        _check(f"mesh MR3 {tier} range filter", got, R_COLS, rng_want)
+        n_w = getattr(t3, "n_windows", 1)
+        kname = tk.K1P if any(s is not None for s in specs.values()) else tk.K1C
+        want_l = {kname: D * n_w} if on_card else {}
+        c = rq["counters"]
+        if (rq["launches"] != want_l or c.get("scan.path.resident_device_mesh") != 1
+                or (tier == "streaming" and c.get("residency.stream.windows") != n_w)):
+            raise AssertionError(f"mesh MR3 {tier}: {rq}")
+        rec.update(tier=tier, budget_mb=mb, mb=t3.nbytes / 1e6, raw_mb=t3.raw_nbytes / 1e6,
+                   windows=n_w)
+        log(f"mesh MR3 {tier}: budgetMB {mb} (raw {raw_b} B, packed {packed_b} B, slab pairs "
+            f"{slab_b} B) prefetch {rec['s']:.3f} s {rec['mb']:.1f} MB charged | range filter "
+            f"{rq['s']:.4f} s launches {rq['launches']} windows {n_w} | matches numpy")
+        mesh_cache.drop(t3)  # the next prefetch is a fresh one
+    session.conf.unset("hyperspace.torch.hbm.budgetMB")
+    session.conf.unset("hyperspace.residency.streaming.windowRows")
+    ok, rec = step("MR3 prefetch LI_RESIDENT again", fenced(
+        lambda: hsp.prefetch_index("li_mesh", LI_RESIDENT)))
+    table = held["table"] = _mesh_li_table(mesh_cache, root, LI_RESIDENT)
+    if not ok or table.tier != "resident":
+        raise AssertionError(f"mesh MR3: LI_RESIDENT again: tier {table.tier}")
+
+    # MR4: aggregates
+    window = ((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+              & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15))
+    w_mask = ((L["l_orderkey"] >= lo_k) & (L["l_orderkey"] < hi_k)
+              & (L["l_shipdate"] >= d_lo) & (L["l_shipdate"] < DAY_1995_03_15))
+    q1 = li.filter(window).group_by("l_quantity").agg(
+        hs.agg_sum("l_extendedprice"), hs.agg_avg("l_extendedprice"), hs.agg_min("l_shipdate"),
+        hs.agg_max("l_shipdate"), hs.agg_count())
+    q1_want = q1_shape_truth(L, w_mask)
+    m4_order = np.argsort(np.asarray(m4.columns["l_quantity"].data), kind="stable")
+    m4_want = {n: np.asarray(m4.columns[n].data)[m4_order] for n in m4.column_names}
+    session.conf.set("hyperspace.compile.mode", "off")
+    try:
+        got, rec = step("MR4 q1_shape interpreter", q1.collect)
+    finally:
+        session.conf.unset("hyperspace.compile.mode")
+    for label, want in (("numpy", q1_want), ("M4", m4_want)):
+        _check_agg(f"mesh MR4 q1_shape interpreter ({label})", got, ["l_quantity"], want)
+    if (rec["counters"].get("aggregate.path.resident_mesh") != 1
+            or rec["launches"] != per_shard(tk.K1C)):
+        raise AssertionError(f"mesh MR4 interpreter: {rec}")
+    got, rec2 = step("MR4 q1_shape device", q1.collect)
+    for label, want in (("numpy", q1_want), ("M4", m4_want)):
+        _check_agg(f"mesh MR4 q1_shape device ({label})", got, ["l_quantity"], want)
+    if (rec2["counters"].get("compile.agg.device") != 1
+            or rec2["counters"].get("scan.path.resident_agg_mesh") != 1
+            or rec2["launches"] != per_shard(tk.K1)):
+        raise AssertionError(f"mesh MR4 device aggregate: {rec2}")
+    log(f"mesh MR4 q1_shape: interpreter's resident arm {rec['s']:.4f} s launches "
+        f"{rec['launches']} aggregate.path.resident_mesh=1 | compiled device aggregate "
+        f"{rec2['s']:.4f} s launches {rec2['launches']} compile.agg.device=1 | groups equal "
+        f"M4's and numpy's")
+
+    # MR5: the mesh join region
+    od = session.read.avro(str(od_dir))
+    j1 = q17_shape(li, od)
+    plan = plan_with_indexes(j1)
+    if "li_mesh" not in plan or "ord_mesh" not in plan:
+        raise AssertionError(f"mesh MR5: J1 is not served by li_mesh and ord_mesh:\n{plan}")
+    j1_want = q17_truth(L, O)
+    got, rec = step("MR5 j1 first", j1.collect)
+    _check_agg("mesh MR5 j1 first", got, ["l_partkey"], j1_want)
+    t = time.perf_counter()
+    mesh_cache.wait_background()
+    build_s = time.perf_counter() - t
+    snap = mesh_cache.snapshot_joins()
+    if snap["regions"] != 1:
+        raise AssertionError(f"mesh MR5: {snap['regions']} regions after the first call")
+    region = held["region"] = mesh_cache._joins[0]
+    if on_card and set(region.routes) != {"k2p"}:
+        raise AssertionError(f"mesh MR5: the shards' routes are {region.routes}, not k2p")
+    k2 = tk.K2P
+    warm = []
+    for i in range(MR_REPEATS):
+        got, rw = step(f"MR5 j1 warm {i}", j1.collect)
+        _check_agg(f"mesh MR5 j1 warm {i}", got, ["l_partkey"], j1_want)
+        c = rw["counters"]
+        if (rw["launches"] != per_shard(k2) or c.get("scan.path.resident_join_agg_mesh") != 1
+                or c.get("hbm.mesh.join.h2d_bytes") or c.get("dist.h2d_bytes")):
+            raise AssertionError(f"mesh MR5 warm {i}: {rw}")
+        warm.append(rw["s"])
+    rec.update(region=snap["per_region"][0], build_wait_s=build_s)
+    log(f"mesh MR5 j1 (q17_shape over li_mesh x ord_mesh): first {rec['s']:.4f} s (the "
+        f"distributed join; schedules the region) + {build_s:.3f} s to its build's end "
+        f"{snap['per_region'][0]} | warm {', '.join(f'{x:.4f}' for x in warm)} s launches "
+        f"{rw['launches']} a call scan.path.resident_join_agg_mesh=1 hbm.mesh.join.h2d_bytes=0 "
+        f"| groups match numpy")
+
+    # MR6: the mesh hybrid over a copy of orders
+    src = workdir / "src" / "orders_mr6"
+    write_avro_dir(src, O, ORDERS_SCHEMA, 2)
+    for key, v in (("hyperspace.index.lineage.enabled", True),
+                   ("hyperspace.index.hybridscan.enabled", True),
+                   ("hyperspace.index.hybridscan.maxDeletedRatio", 0.6)):
+        session.conf.set(key, v)
+    _, rec = step("MR6 build ord_hy", lambda: hsp.create_index(
+        session.read.avro(str(src)), hs.IndexConfig("ord_hy", ["o_orderkey"], MESH_OD_COLS)))
+    # TPC-H RF1: SF x 1,500 new orders
+    new = rf1_batches(O, seed, max(1, len(O["o_orderkey"]) // 1000), 1)[0][1]
+    write_avro(src / "part-rf1.avro", ColumnarBatch.from_pydict(new, schema=ORDERS_SCHEMA))
+    (src / "part-001.avro").unlink()
+    half = int(np.linspace(0, len(O["o_orderkey"]), 3)[1])
+    kept = {c: np.concatenate([O[c][:half], new[c]]) for c in ORDERS_SCHEMA}
+    top = int(O["o_orderkey"].max())
+    o_lo, o_hi = top // 6, top // 2
+    hy_cols = ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"]
+    hq = session.read.avro(str(src)).filter(
+        (col("o_orderkey") >= o_lo) & (col("o_orderkey") < o_hi)
+        & (col("o_orderdate") < DAY_1995_03_15)).select(*hy_cols)
+    hm = ((kept["o_orderkey"] >= o_lo) & (kept["o_orderkey"] < o_hi)
+          & (kept["o_orderdate"] < DAY_1995_03_15))
+    hy_want = [kept[c][hm] for c in hy_cols]
+    ok, rp = step("MR6 prefetch ord_hy", fenced(lambda: hsp.prefetch_index(
+        "ord_hy", ["o_orderkey", "o_orderdate"])))
+    got, rf = step("MR6 first", hq.collect)
+    _check("mesh MR6 first (host union)", got, hy_cols, hy_want)
+    t = time.perf_counter()
+    mesh_cache.wait_background()
+    pop_s = time.perf_counter() - t
+    if not ok or mesh_cache.snapshot()["deltas"] != 1 or rf["counters"].get(
+            "scan.path.resident_hybrid_mesh"):
+        raise AssertionError(f"mesh MR6: prefetch {ok}, {mesh_cache.snapshot()}, first {rf}")
+    delta = mesh_cache._deltas[0]
+    warm = []
+    for i in range(MR_REPEATS):
+        got, rh = step(f"MR6 hybrid {i}", hq.collect)
+        _check(f"mesh MR6 hybrid {i}", got, hy_cols, hy_want)
+        if (rh["launches"] != per_shard(tk.K1H)
+                or rh["counters"].get("scan.path.resident_hybrid_mesh") != 1
+                or rh["counters"].get("dist.h2d_bytes")):
+            raise AssertionError(f"mesh MR6 hybrid {i}: {rh}")
+        warm.append(rh["s"])
+    hy_table = next(t for t in mesh_cache._tables if t.key == delta.base_key)
+    held["hybrid"] = (hy_table, delta, (col("o_orderkey") >= o_lo) & (col("o_orderkey") < o_hi)
+                      & (col("o_orderdate") < DAY_1995_03_15))
+    rec.update(delta_rows=delta.dev_rows, deleted_ids=len(delta.deleted_ids),
+               delta_cap=delta.cap, populate_wait_s=pop_s)
+    log(f"mesh MR6 ord_hy (2 files, lineage on; one RF1 batch of {len(new['o_orderkey'])} "
+        f"orders appended, part-001 removed): build {rec['s']:.3f} s | prefetch {rp['s']:.3f} s "
+        f"| first query (host union) {rf['s']:.4f} s, the delta populated {pop_s:.3f} s later "
+        f"(shard rows {delta.dev_rows}, {len(delta.deleted_ids)} deleted file ids) | hybrid "
+        f"{', '.join(f'{x:.4f}' for x in warm)} s launches {rh['launches']} "
+        f"scan.path.resident_hybrid_mesh=1 | rows={got.num_rows} match numpy")
+    for key in ("hyperspace.index.lineage.enabled", "hyperspace.index.hybridscan.enabled",
+                "hyperspace.index.hybridscan.maxDeletedRatio"):
+        session.conf.unset(key)
+
+    # MR7: a served burst
+    rng = np.random.default_rng(seed + 60)
+    ok_ = L["l_orderkey"]
+    keys = rng.choice(np.unique(ok_), 64, replace=False)
+    qs = [li.filter(col("l_orderkey") == int(x)).select(*LI_RESIDENT) for x in keys]
+    held["b1_preds"] = [col("l_orderkey") == int(x) for x in keys]
+    serial = [q.collect() for q in qs]
+    session.conf.set("hyperspace.serve.tenant.defaultMaxQueue", 256)
+    box = {}
+
+    def burst():
+        server = QueryServer(session, ServeConfig(max_workers=4, max_queue=256, batch_max=64,
+                                                  autostart=False))
+        tickets = [server.submit(q) for q in qs]
+        server.start()
+        res = [t_.result(timeout=600) for t_ in tickets]
+        box["stats"] = server.stats()
+        server.close()
+        return res
+
+    got, rec = step("MR7 B1 burst", fenced(burst))
+    stats = box["stats"]
+    for i, (x, r, s_r) in enumerate(zip(keys, got, serial)):
+        want = [L[c][ok_ == x] for c in LI_RESIDENT]
+        _check(f"mesh MR7 [{i}]", r, LI_RESIDENT, want)
+        _check(f"mesh MR7 [{i}] collect", s_r, LI_RESIDENT, want)
+    c = rec["counters"]
+    if (rec["launches"] != per_shard(tk.K1B) or c.get("serve.batch.dispatches") != 1
+            or c.get("serve.batch.queries") != len(qs) or stats["batch_size_hist"] != {64: 1}):
+        raise AssertionError(f"mesh MR7: {rec}, hist {stats['batch_size_hist']}")
+    rec.update(qps=len(qs) / rec["s"], latency_p50_ms=stats.get("latency_p50_ms"),
+               latency_p99_ms=stats.get("latency_p99_ms"))
+    session.conf.unset("hyperspace.serve.tenant.defaultMaxQueue")
+    log(f"mesh MR7 B1 burst: 64 point lookups {rec['s']:.4f} s ({rec['qps']:.1f} queries/s) "
+        f"one dispatch, launches {rec['launches']} (K1b once a shard, N = 64) p50 "
+        f"{rec['latency_p50_ms']} ms p99 {rec['latency_p99_ms']} ms | every ticket matches "
+        f"numpy and collect()")
+
+    # MR8: a shard's launch lost
+    real = tk.resident_counts_tensor
+    lost = []
+
+    def lossy(*a, **kw):
+        if not lost:
+            lost.append(1)
+            raise RuntimeError("CUDA error: an illegal memory access was encountered "
+                               "(injected by chip_smoke MR8)")
+        return real(*a, **kw)
+
+    tk.resident_counts_tensor = lossy
+    try:
+        got, rec = step("MR8 range device lost", rng_q.collect)
+    finally:
+        tk.resident_counts_tensor = real
+    _check("mesh MR8 range filter", got, R_COLS, rng_want)
+    c = rec["counters"]
+    if (c.get("scan.resident_mesh.device_failed") != 1 or any(t is table for t in
+                                                                mesh_cache._tables)
+            or rec["launches"] != per_shard(tk.K1) or not c.get("dist.h2d_bytes")
+            or c.get("scan.path.distributed") != 1):
+        raise AssertionError(f"mesh MR8: {rec}")
+    log(f"mesh MR8 range filter with shard 0's K1c lost: {rec['s']:.4f} s "
+        f"scan.resident_mesh.device_failed=1, the table dropped, the per-query route: "
+        f"launches {rec['launches']} dist.h2d_bytes={c.get('dist.h2d_bytes')} | rows equal M2's")
+    session.conf.set("hyperspace.torch.hbm.mode", "off")
+    out["held"] = held
+    return out
+
+
+@contextmanager
+def plain_kernels():
+    """The kernels' wrappers replaced by their plain torch versions on
+    the same tensors (on the card too): a mesh program run inside computes
+    its plain version. Nothing inside counts a launch."""
+    from hyperspace_tpu_torch.ops import kernels as tk
+
+    names = ("resident_counts_tensor", "hybrid_counts_tensor", "predicate_mask_tensor",
+             "sorted_intersect_tensors", "sorted_intersect_packed_tensors")
+    saved = {n: getattr(tk, n) for n in names}
+
+    def counts(prepared, names_, cols, specs, n_rows):
+        if len(prepared) > 1:
+            return tk.predicate_block_counts_batch_reference(prepared, names_, cols, specs,
+                                                             n_rows)
+        b, pn = prepared[0]
+        return tk.predicate_block_counts_packed_reference(b, pn, cols, specs, n_rows)[None]
+
+    def hybrid(prepared, names_, base, delta, words=None):
+        if len(prepared) > 1:
+            return tk.hybrid_block_counts_batch_reference(prepared, names_, base, delta, words)
+        b, pn = prepared[0]
+        return tk.hybrid_block_counts_reference(b, pn, base, delta, words)[None]
+
+    def k2(s_tile, span, base, l_, r, fences=None, *, max_span=None):
+        return tk.sorted_intersect_span_reference(s_tile, span, base, l_, r)
+
+    def k2p(s_tile, span, base, l_, words, refs, fences, spec, lo_all, *, groups):
+        return tk.sorted_intersect_packed_reference(s_tile, span, base, l_, words, refs, spec,
+                                                    lo_all, int(fences.shape[0]) * tk.K2_FENCE)
+
+    tk.resident_counts_tensor, tk.hybrid_counts_tensor = counts, hybrid
+    tk.predicate_mask_tensor = tk.predicate_mask_reference
+    tk.sorted_intersect_tensors, tk.sorted_intersect_packed_tensors = k2, k2p
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(tk, n, f)
+
+
+def _held_exactly(name: str, got, want) -> float:
+    """A mesh program's result against its plain version: count matrices
+    and integer columns exactly; float64 group sums, which ``index_add_``
+    adds in an order the card picks, to 1e-12 relative. Returns the
+    largest absolute difference."""
+    if isinstance(got, tuple):
+        return max(_held_exactly(name, g, w) for g, w in zip(got, want))
+    if isinstance(got, list):
+        return max([_held_exactly(name, g, w) for g, w in zip(got, want)] or [0.0])
+    if isinstance(got, np.ndarray):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"mesh program {name}: differs from its plain version")
+        return 0.0
+    err = 0.0
+    if got.column_names != want.column_names or got.num_rows != want.num_rows:
+        raise AssertionError(f"mesh program {name}: shape differs from its plain version")
+    for n in got.column_names:
+        g, w = np.asarray(got.columns[n].data), np.asarray(want.columns[n].data)
+        if g.dtype.kind == "f":
+            if not np.allclose(g, w, rtol=1e-12, atol=0.0, equal_nan=True):
+                raise AssertionError(f"mesh program {name}: {n} differs from its plain version")
+            err = max(err, float(np.nanmax(np.abs(g - w))) if len(g) else 0.0)
+        elif not np.array_equal(g, w):
+            raise AssertionError(f"mesh program {name}: {n} differs from its plain version")
+    return err
+
+
+def mesh_resident_programs(mesh, held: dict, L: dict, bounds, repeats: int = 3) -> dict:
+    """Each resident mesh program of the port, alone, at the MR steps' shapes
+    over the tables, delta and region MR1-MR6 left resident: seconds
+    (median of ``repeats`` host-clock calls, each ending in a fence of
+    every shard's device), launches (the last call), its plain version's
+    seconds and result on the card (``plain_kernels``: the kernels' plain
+    versions per shard, the same torch epilogue), held exactly, and the
+    bound: a resident program's operand bytes (each read once, the
+    outputs written once) over the card's memory rate, a program that
+    uploads its windows' bytes over PCIe (``PCIE_BYTES_PER_S``)."""
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.exec.hbm_cache import prepare_resident_predicate
+    from hyperspace_tpu_torch.exec.join_residency import region_agg_plan
+    from hyperspace_tpu_torch.exec.mesh_cache import mesh_cache
+    from hyperspace_tpu_torch.exec.scan_agg import plan_plane_names, scan_agg_plan
+    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.residency import streaming as tstream
+
+    import torch
+
+    D = mesh.size
+    table, st, region = held["table"], held["streaming"], held["region"]
+    hy_table, delta, hy_pred = held["hybrid"]
+    lo_k, hi_k, d_lo = bounds
+    rng_pred = ((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k) & (col("l_quantity") < 24)
+                & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15))
+    window = ((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+              & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15))
+    top = int(L["l_orderkey"].max())
+    st_preds = [(col("l_orderkey") >= lo) & (col("l_orderkey") < lo + top // 10)
+                & (col("l_quantity") < 24)
+                for lo in np.linspace(1, top - top // 10, 16).astype(int).tolist()]
+    q1_aggs = [hs.agg_sum("l_extendedprice"), hs.agg_avg("l_extendedprice"),
+               hs.agg_min("l_shipdate"), hs.agg_max("l_shipdate"), hs.agg_count()]
+    j1_aggs = [hs.agg_sum("o_totalprice", "rev"), hs.agg_avg("o_totalprice", "avg_rev"),
+               hs.agg_count()]
+
+    def plane_bytes(t, names) -> int:
+        total = 0
+        for n in names:
+            base = n.split("\x00", 1)[0]
+            spec = None if "\x00" in n else t.columns[base].pack
+            total += D * 4 * (spec.n_words if spec is not None else t.cap)
+        return total
+
+    def names_of(t, preds):
+        return tuple(dict.fromkeys(n for p in preds
+                                   for n in prepare_resident_predicate(t.columns, p)[1]))
+
+    def window_bytes(t, names) -> int:
+        lanes = tstream._lanes(t, names)
+        return t.n_windows * sum(4 * p.slots[0].numel() for lane in lanes for p in lane.planes)
+
+    def upload_all(t, names):
+        lanes = tstream._lanes(t, names)
+        for w in range(t.n_windows):
+            for lane in lanes:
+                with torch.cuda.device(lane.dev), torch.cuda.stream(lane.copy):
+                    for p in lane.planes:
+                        p.slots[w % 2].copy_(tstream._window_slice(p, w, t.window_rows),
+                                             non_blocking=True)
+        for lane in lanes:
+            lane.copy.synchronize()
+        return [p.slots[(t.n_windows - 1) % 2].cpu().numpy() for lane in lanes
+                for p in lane.planes]
+
+    def upload_plain(t, names):
+        """Every window's slices copied to their shard's device in turn,
+        synchronously; the last window's copies home."""
+        lanes = tstream._lanes(t, names)
+        for w in range(t.n_windows):
+            got = [tstream._window_slice(p, w, t.window_rows).to(lane.dev) for lane in lanes
+                   for p in lane.planes]
+        return [g.cpu().numpy() for g in got]
+
+    rng_names = names_of(table, [rng_pred])
+    b1_names = names_of(table, held["b1_preds"])
+    hy_names = names_of(hy_table, [hy_pred])
+    st_names = names_of(st, [rng_pred])
+    st_batch_names = names_of(st, st_preds)
+    q1_plan, _r = scan_agg_plan(table, ["l_quantity"], q1_aggs)
+    j1_plan = region_agg_plan(region, ["l_partkey"], j1_aggs)
+    n_q1_out = 1 + sum(len(c.ops) for c in q1_plan.cols)
+    n_j1_out = 1 + sum(len(c.ops) for c in j1_plan.cols)
+    region_bytes = sum(int(x.nbytes) for r in region.shards if r is not None
+                       for x in [r.l_codes, r.r_codes, r.r_refs, r.fences, *(r.plan or ()),
+                                 *(r.k2p_groups.arrays() if r.k2p_groups is not None else ()),
+                                 r.l_cols["l_partkey"].slots,
+                                 *[a for c in j1_plan.cols for a in
+                                   (r.l_cols if c.side == "l" else r.r_cols)[c.name].arrays]]
+                       if x is not None)
+    nb = table.n_blocks
+    programs = {
+        "mesh_counts": (lambda: mesh_cache.block_counts(table, rng_pred),
+                        plane_bytes(table, rng_names) + 4 * D * nb, "bytes"),
+        "mesh_batched_counts": (
+            lambda: mesh_cache.block_counts_batch(table, held["b1_preds"]),
+            plane_bytes(table, b1_names) + 4 * D * nb * len(held["b1_preds"]), "bytes"),
+        "mesh_hybrid_counts": (
+            lambda: mesh_cache.hybrid_block_counts(hy_table, delta, hy_pred),
+            plane_bytes(hy_table, hy_names) + plane_bytes(delta, hy_names)
+            + (D * hy_table.cap // 8 if delta.del_mask is not None else 0)
+            + 4 * D * (hy_table.n_blocks + delta.n_blocks), "bytes"),
+        "mesh_upload_window": (lambda: upload_all(st, st_names), window_bytes(st, st_names),
+                               "PCIe bytes"),
+        "mesh_stream_counts": (lambda: mesh_cache.block_counts(st, rng_pred),
+                               window_bytes(st, st_names), "PCIe bytes"),
+        "mesh_stream_counts_batch": (lambda: mesh_cache.block_counts_batch(st, st_preds),
+                                     window_bytes(st, st_batch_names), "PCIe bytes"),
+        "mesh_join_agg": (lambda: mesh_cache.join_agg(region, ["l_partkey"], j1_aggs),
+                          region_bytes + 8 * D * n_j1_out * j1_plan.span, "bytes"),
+        "mesh_scan_agg": (
+            lambda: mesh_cache.agg_scan(table, window, ["l_quantity"], q1_aggs)[0],
+            plane_bytes(table, tuple(dict.fromkeys(names_of(table, [window])
+                                                   + plan_plane_names(q1_plan))))
+            + 8 * D * n_q1_out * (q1_plan.span + 1), "bytes"),
+    }
+    if mesh.device_type == "cpu":  # a rehearsal: no copy streams to time
+        del programs["mesh_upload_window"]
+    out = {}
+    for name, (call, nbytes, bound_by) in programs.items():
+        def timed(fn):
+            t = time.perf_counter()
+            res = fn()
+            for dev in dict.fromkeys(mesh.devices):
+                fence(dev)
+            return res, time.perf_counter() - t
+
+        secs = []
+        for _ in range(repeats):
+            reset_launch_counts()
+            got, s = timed(call)
+            secs.append(s)
+        launches = launch_counts()
+        if name == "mesh_upload_window":  # its plain version: synchronous copies
+            plain, plain_s = timed(lambda: upload_plain(st, st_names))
+        else:
+            with plain_kernels():
+                plain, plain_s = timed(call)
+        err = _held_exactly(name, got, plain)
+        rate = PCIE_BYTES_PER_S if bound_by == "PCIe bytes" else H100_BYTES_PER_S
+        rec = {"replaces": MESH_RESIDENT_REFS[name], "ms": statistics.median(secs) * 1e3,
+               "ms_all": [x * 1e3 for x in secs], "plain_ms": plain_s * 1e3,
+               "launches": launches, "max_abs_err": err, "bytes": int(nbytes),
+               "bound_ms": nbytes / rate * 1e3, "bound_by": bound_by}
+        out[name] = rec
+        log(f"mesh program {name} ({rec['replaces']}): {rec['ms']:.3f} ms (median of {repeats}: "
+            f"{', '.join(f'{x:.3f}' for x in rec['ms_all'])}) launches {launches} | plain "
+            f"{rec['plain_ms']:.3f} ms, held exactly (max_abs_err {err}) | bound "
+            f"{rec['bound_ms']:.4f} ms ({nbytes} B, {bound_by})")
+    return out
+
+
 def mesh_phase(lineitem, orders, workdir: Path, device: str, seed: int,
                profile: bool = False, dist_min_rows: int = None,
                single_build_s: dict = None) -> dict:
@@ -4778,13 +5392,18 @@ def mesh_phase(lineitem, orders, workdir: Path, device: str, seed: int,
        exact join on the first shard's device (one K2, one K2F; each side's
        filter through the mesh's K1) answers with M3's rows.
 
-    Then each mesh program alone at these shapes (``mesh_programs``); its
-    launches are not counted on the path."""
+    Then MR1-MR8 in the same session with residency forced: the mesh
+    cache's tiers, resident filters, aggregates, the join region, the
+    hybrid, a served burst and a shard's launch lost
+    (``mesh_resident_steps``). Then each mesh program alone at these
+    shapes (``mesh_programs``, ``mesh_resident_programs``); its launches
+    are not counted on the path."""
     import torch
 
     import hyperspace_tpu_torch as hs
     from hyperspace_tpu_torch.distributed import shuffle as shuffle_mod
     from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.ops import kernels as tk
     from hyperspace_tpu_torch.ops.kernels import K1, K2, K2F
     from hyperspace_tpu_torch.parallel.mesh import make_mesh
     from hyperspace_tpu_torch.plan.expr import col
@@ -4830,7 +5449,8 @@ def mesh_phase(lineitem, orders, workdir: Path, device: str, seed: int,
         rec = {"s": time.perf_counter() - t, "launches": launch_counts(),
                "counters": {k: v for k, v in metrics.snapshot().items()
                             if k.startswith(("scan.", "join.path", "aggregate.path", "shuffle.",
-                                             "dist.", "build.stream.", "compile.run"))}}
+                                             "dist.", "build.stream.", "compile.", "hbm.",
+                                             "serve.batch", "residency."))}}
         out["steps"][name] = rec
         return res, rec
 
@@ -4932,6 +5552,7 @@ def mesh_phase(lineitem, orders, workdir: Path, device: str, seed: int,
         hs.agg_sum("l_extendedprice"), hs.agg_avg("l_extendedprice"), hs.agg_min("l_shipdate"),
         hs.agg_max("l_shipdate"), hs.agg_count())
     got, rec = step("M4 q1_shape", q1.collect)
+    m4 = got
     _check_agg("mesh M4 q1_shape", got, ["l_quantity"], q1_shape_truth(L, w_mask))
     if (rec["counters"].get("aggregate.path.distributed") != 1
             or rec["launches"].get(K1, 0) != one * D):
@@ -4984,12 +5605,19 @@ def mesh_phase(lineitem, orders, workdir: Path, device: str, seed: int,
     log(f"mesh M6 q3 with the exchange lost: {rec['s']:.4f} s rows={m6.num_rows} "
         f"shuffle.device_failed={c.get('shuffle.device_failed')}, the exact join on "
         f"{mesh.devices[0]}: launches {rec['launches']} | rows equal M3's")
+    t = time.perf_counter()
+    mr = mesh_resident_steps(session, hsp, mesh, L, O, workdir, root, li_dir, od_dir, bounds,
+                             step, m4, seed, on_card)
+    out["resident_steps_s"] = time.perf_counter() - t
     out["launches"] = {kname: sum(r["launches"].get(kname, 0) for r in out["steps"].values())
-                       for kname in (K1, K2, K2F)}
+                       for kname in (tk.K1, tk.K1C, tk.K1P, tk.K1H, tk.K1B, tk.K2, tk.K2F,
+                                     tk.K2P)}
     t = time.perf_counter()
     out["programs"] = mesh_programs(mesh, L, root, bounds)
+    out["resident_programs"] = mesh_resident_programs(mesh, mr["held"], L, bounds)
     out["programs_s"] = time.perf_counter() - t
-    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(mesh.devices[0]) if on_card else None
+    out["peak_mem_bytes"] = (max(mr["peak_before_mr"], torch.cuda.max_memory_allocated(
+        mesh.devices[0])) if on_card else None)
     out["phase_s"] = time.perf_counter() - t_phase
     log("mesh: " + json.dumps({**out, "note": f"{D} shards on one {device} device: no "
                                                "inter-card traffic"}))
@@ -5771,8 +6399,11 @@ def main() -> int:
         for kname, n in main_out["reliability"]["launches"].items():
             launches[kname] = (launches[kname] or 0) + n
     if "mesh" in main_out:
-        # K1 (M2's range filter, M4's aggregate, M6's sides: one a shard),
-        # K2 and K2F (M3 and M5 one a shard, M6's exact join once)
+        # K1 (M2's range filter, M4's aggregate, M6's sides, MR4's device
+        # aggregate and MR8's per-query route: one a shard), K2 and K2F (M3
+        # and M5 one a shard, M6's exact join once, MR5's first call), K1c,
+        # K1p, K1b, K1h and K2p (MR2-MR7: one a shard, a window for MR3's
+        # streaming tier)
         for kname, n in main_out["mesh"]["launches"].items():
             launches[kname] = (launches[kname] or 0) + n
     for kname, n in launches.items():

@@ -29,8 +29,8 @@ Shapes:
 
 A mesh session (the executor's ``mesh``) classifies a hybrid filter as
 ``interpret`` (the reference keeps mesh hybrids on its interpreter's
-fused arm); its ``scan`` and ``agg_scan`` arms route the executor's mesh
-procedures (compile/pipeline.py). Lowering is cheap and never raises: an
+fused arm, K1h once a shard); its ``scan`` and ``agg_scan`` arms route the
+executor's mesh procedures and the mesh cache (compile/pipeline.py). Lowering is cheap and never raises: an
 internal error lowers to ``interpret``, counted ``compile.lower_error``.
 """
 
@@ -107,15 +107,16 @@ def classify_shape(plan: LogicalPlan, mesh=None) -> Shape:
 
 def _tier_label(shape: Shape, executor) -> str:
     """Which rung the fused arm would serve on right now (explain only):
-    a registry lookup (``hbm_cache.tier_of``), never the counting
-    eligibility procedures."""
+    a registry lookup (``hbm_cache.tier_of``, ``mesh_cache.tier_of`` on a
+    mesh), never the counting eligibility procedures."""
     from ..exec.hbm_cache import hbm_cache
+    from ..exec.mesh_cache import mesh_cache
 
     if shape.kind == "join_shuffle":
         # the mesh is the classification's gate; the planner may still
         # decline to the host per query
         return "mesh"
-    if executor.residency.mode == "off" or executor.mesh is not None:
+    if executor.residency.mode == "off":
         return "host"
     if shape.kind in ("scan", "agg_scan"):
         cols = set(shape.condition.columns())
@@ -131,9 +132,12 @@ def _tier_label(shape: Shape, executor) -> str:
             return "host"
         cols, files = set(shape.condition.columns()), info.entry.content.files()
     elif shape.kind == "join_agg":
-        return "join_region" if hbm_cache.snapshot_joins()["regions"] else "host"
+        cache = hbm_cache if executor.mesh is None else mesh_cache
+        return "join_region" if cache.snapshot_joins()["regions"] else "host"
     else:
         return "host"
+    if executor.mesh is not None:
+        return mesh_cache.tier_of(files, sorted(cols), executor.mesh) or "host"
     return hbm_cache.tier_of(files, sorted(cols), executor.device) or "host"
 
 

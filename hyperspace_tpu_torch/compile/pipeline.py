@@ -1,8 +1,7 @@
 """CompiledPipeline: one lowered plan subtree, runnable against any
 literal binding that shares its structural fingerprint.
 
-Counterpart of ``hyperspace_tpu.compile.pipeline`` (single device and the
-mesh's per-query arms). A pipeline stores ROUTING, not values: which fused arm serves the subtree
+Counterpart of ``hyperspace_tpu.compile.pipeline``. A pipeline stores ROUTING, not values: which fused arm serves the subtree
 and how to re-bind each query's operands (predicate literals, projection
 order) from the concrete plan a run receives. The fused arms call the
 same resolution and host-leg code as the interpreter, which is the
@@ -30,6 +29,7 @@ from ..telemetry.trace import span
 # run's scoped registry so a concurrent query's loss never evicts this one
 _DEVICE_FAIL_COUNTERS = (
     "scan.resident.device_failed",
+    "scan.resident_mesh.device_failed",
     "scan.resident_join.device_failed",
 )
 
@@ -115,13 +115,14 @@ class CompiledPipeline:
         """The scan arm: ``index_scan`` with ``structure_keyed`` (the count
         goes through ``block_counts_batch`` as a single, counted under
         ``compile.fused.*``): the interpreter's procedure otherwise. A mesh
-        session takes the interpreter's distributed scan (the mesh's
-        resident tables, which the reference looks up first, are not
-        ported yet)."""
+        session takes the interpreter's distributed scan the same way: its
+        resident lookup first (K1c once a shard through
+        ``mesh_cache.block_counts_batch``), the per-query route on a miss."""
         from ..exec.scan import index_scan
 
         if executor.mesh is not None:
-            return executor._exec_index_scan_distributed(shape.scan, shape.condition)
+            return executor._exec_index_scan_distributed(shape.scan, shape.condition,
+                                                         structure_keyed=True)
         entry = shape.scan.entry
         return index_scan(
             entry.content.files(),
@@ -156,9 +157,10 @@ class CompiledPipeline:
         """The device aggregate, or None with its decline counted. A
         ``no_table`` miss schedules the population of the predicate AND
         group/agg columns, so a later query of this structure aggregates
-        on the card. No selectivity gate: the host reads nothing here."""
-        from ..exec.hbm_cache import hbm_cache
-
+        on the card. No selectivity gate: the host reads nothing here. A
+        mesh session aggregates over its mesh table
+        (``mesh_cache.agg_scan``: K1's mask and the epilogue once a shard,
+        ``all_reduce`` of the partials)."""
         group_by = list(shape.agg.group_by)
         aggs = list(shape.agg.aggs)
 
@@ -179,22 +181,29 @@ class CompiledPipeline:
         if any(c not in entry.schema for c in need):
             return decline("column")
         all_files = entry.content.files()
-        if not all_files or executor.mesh is not None:
-            # (a mesh has no resident tables yet: never a table to serve)
+        if not all_files:
             return decline("no_table")
         want = sorted(set(shape.condition.columns()) | set(need))
-        table = hbm_cache.resident_for(all_files, want, executor.device, executor.residency)
+        if executor.mesh is not None:
+            from ..exec.mesh_cache import mesh_cache as cache
+
+            where, fail_metric = executor.mesh, "scan.resident_mesh.device_failed"
+        else:
+            from ..exec.hbm_cache import hbm_cache as cache
+
+            where, fail_metric = executor.device, "scan.resident.device_failed"
+        table = cache.resident_for(all_files, want, where, executor.residency)
         if table is None:
-            if hbm_cache.auto_enabled(executor.residency, executor.device):
-                hbm_cache.note_touch(all_files, want, executor.device, executor.residency)
+            if cache.auto_enabled(executor.residency, where):
+                cache.note_touch(all_files, want, where, executor.residency)
             return decline("no_table")
         try:
-            out, reason = hbm_cache.agg_scan(table, shape.condition, group_by, aggs)
+            out, reason = cache.agg_scan(table, shape.condition, group_by, aggs)
         except RuntimeError:
             # device loss: drop the table, and the scan plus the host
-            # aggregate tail answer this query (the per-file route)
-            hbm_cache.drop(table)
-            metrics.incr("scan.resident.device_failed")
+            # aggregate tail (over a mesh: its aggregate procedure) answer
+            cache.drop(table)
+            metrics.incr(fail_metric)
             return decline("device")
         if out is None:
             return decline(reason)
@@ -220,7 +229,7 @@ class CompiledPipeline:
         THIS run launched on the region is read from a scoped registry."""
         with metrics.scoped() as jm:
             out = executor._exec_aggregate(shape.agg, None)
-        if jm.get("scan.path.resident_join_agg") > 0:
+        if jm.get("scan.path.resident_join_agg") + jm.get("scan.path.resident_join_agg_mesh") > 0:
             metrics.incr("compile.fused.dispatches")
         return out
 

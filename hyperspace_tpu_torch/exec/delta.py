@@ -1,7 +1,7 @@
 """Delta residency: the host-side encode and bind helpers of the hybrid
 scan's device path between refreshes.
 
-Counterpart of ``hyperspace_tpu.exec.delta`` (its single-device arm). The
+Counterpart of ``hyperspace_tpu.exec.delta``. The
 appended side of a Hybrid Scan is small by construction (the rewrite caps
 it at the appended-bytes ratio) yet the host union decodes it on every
 query. Delta residency keeps it on the device beside the resident base
@@ -23,7 +23,8 @@ query. Delta residency keeps it on the device beside the resident base
   expression for base and delta.
 
 ``resolve_hybrid_residency`` is the one eligibility procedure of the fused
-path. Nothing here touches the device.
+path, on one device and on a mesh (``exec/mesh_cache.py``'s delta
+regions). Nothing here touches the device.
 """
 
 from __future__ import annotations
@@ -291,21 +292,25 @@ class HybridResidency:
 
 
 def resolve_hybrid_residency(
-    info, predicate: Expr, device=None, conf: ResidencyConf = ResidencyConf()
+    info, predicate: Expr, device=None, conf: ResidencyConf = ResidencyConf(), mesh=None,
 ) -> HybridResidency:
     """Whether a hybrid union can take the fused base + delta path on
-    ``device``: residency mode and an empty cache first (before any
-    pruning), predicate-column coverage, base-file pruning, the table and
-    delta lookups, the delta-aware zone gate, and the exact host predicate
-    (the lineage NOT IN re-applied for deletes)."""
+    ``device``, or on ``mesh`` through the mesh cache: residency mode and
+    an empty cache first (before any pruning), predicate-column coverage,
+    base-file pruning, the table and delta lookups, the delta-aware zone
+    gate (single device only: the mesh's resident path has no gate, its
+    fallback ships every row), and the exact host predicate (the lineage
+    NOT IN re-applied for deletes)."""
     from pathlib import Path
 
     from .. import constants as C
     from ..plan.expr import col, is_in
     from .hbm_cache import hbm_cache
+    from .mesh_cache import mesh_cache
     from .scan import prune_index_files
 
-    if conf.mode == "off" or hbm_cache.empty():
+    cache = hbm_cache if mesh is None else mesh_cache
+    if conf.mode == "off" or cache.empty():
         return HybridResidency("ineligible")
     entry = info.entry
     pred_cols = sorted(predicate.columns())
@@ -320,20 +325,24 @@ def resolve_hybrid_residency(
     )
     if not files:
         return HybridResidency("ineligible")
-    table = hbm_cache.resident_for(files, pred_cols, device, conf)
+    if mesh is None:
+        table = hbm_cache.resident_for(files, pred_cols, device, conf)
+    else:
+        table = mesh_cache.resident_for(files, pred_cols, mesh, conf)
     if table is None:
         return HybridResidency("no_table", files)
     if table.tier != "resident":
         # K1h reads raw base planes: a compressed or streaming base declines
         # (and no delta is scheduled: it could never register)
-        metrics.incr("hbm.delta.declined.tier")
+        metrics.incr(f"{cache._metric_prefix}.delta.declined.tier")
         return HybridResidency("ineligible", files)
-    delta = hbm_cache.delta_for(table, info.appended, pred_cols, info.deleted_ids, conf)
+    delta = cache.delta_for(table, info.appended, pred_cols, info.deleted_ids, conf)
     if delta is None:
         return HybridResidency("no_delta", files, table)
-    frac = hybrid_zone_block_fraction(table, delta, predicate)
-    if frac is not None and conf.max_block_frac < 1.0 and frac >= conf.max_block_frac:
-        return HybridResidency("gated", files, table, delta)
+    if mesh is None:
+        frac = hybrid_zone_block_fraction(table, delta, predicate)
+        if frac is not None and conf.max_block_frac < 1.0 and frac >= conf.max_block_frac:
+            return HybridResidency("gated", files, table, delta)
     host_predicate = predicate
     if info.deleted_ids:
         host_predicate = predicate & Not(is_in(col(C.DATA_FILE_NAME_ID), list(info.deleted_ids)))

@@ -56,8 +56,21 @@ each shard's buckets there (``join.path.distributed``); two bucketed sides
 with different numBuckets join after the smaller moves into the other's
 bucket space in one all_to_all round (``scan.path.resident_join_shuffle``,
 the planner's decision recorded for explain). Every bucketed join records
-its movement decision. The mesh's resident arms are not ported yet: a
-mesh executor ships each query's rows, whatever the residency mode.
+its movement decision.
+
+With residency on, a mesh executor looks up the mesh cache
+(``exec/mesh_cache.py``) first, before the row gate, as the reference
+does: a filtered scan whose predicate columns are resident as mesh shards
+launches K1c once a shard and reads only the counted blocks
+(``scan.path.resident_device_mesh``), as does the filtered aggregate
+(``aggregate.path.resident_mesh``); a hybrid union with a resident mesh
+delta launches K1h once a shard (``scan.path.resident_hybrid_mesh``); an
+aggregate-join over a mesh join region runs K2 or K2p once a shard and
+merges the partials (``scan.path.resident_join_agg_mesh``). A miss
+schedules the background population. A ``RuntimeError`` out of a shard's
+launch drops the table or region (``scan.resident_mesh.device_failed``,
+``scan.resident_join.device_failed``) and the query answers on the
+per-query mesh route.
 """
 
 from __future__ import annotations
@@ -400,21 +413,27 @@ class Executor:
         from ..plan.rules.hybrid_scan import parse_hybrid_union
         from .delta import resolve_hybrid_residency
         from .hbm_cache import hbm_cache
-        from .scan import _resident_parts
 
-        if self.mesh is not None:
-            return None  # the mesh's resident deltas are not ported yet
         info = parse_hybrid_union(plan)
         if info is None:
             return None
-        res = resolve_hybrid_residency(info, predicate, self.device, self.residency)
+        res = resolve_hybrid_residency(info, predicate, self.device, self.residency,
+                                       mesh=self.mesh)
         if res.status == "gated":
             # its own name: the host union's index side counts
             # scan.gate.resident_selectivity for its own gate
             metrics.incr("scan.gate.resident_hybrid_selectivity")
             return None
         if res.status == "no_delta":
-            if hbm_cache.auto_enabled(self.residency, self.device):
+            if self.mesh is not None:
+                from .mesh_cache import mesh_cache
+
+                if mesh_cache.auto_enabled(self.residency, self.mesh):
+                    mesh_cache.note_touch_delta(
+                        res.table, info.appended, info.relation, list(info.user_cols),
+                        info.deleted_ids, list(info.entry.indexed_columns),
+                        info.entry.num_buckets, self.residency)
+            elif hbm_cache.auto_enabled(self.residency, self.device):
                 hbm_cache.note_touch_delta(res.table, info.appended, info.relation,
                                            list(info.user_cols), info.deleted_ids,
                                            self.residency)
@@ -422,6 +441,51 @@ class Executor:
         if res.status != "ok":
             return None  # the union's index side schedules note_touch
         out_cols = list(info.user_cols)
+        parts = (self._mesh_hybrid_parts(res, predicate, out_cols) if self.mesh is not None
+                 else self._hybrid_parts(res, predicate, out_cols, structure_keyed))
+        if parts is None:
+            return None
+        from .scan_gate import scan_gate
+
+        scan_gate.note_resident_bypass("hybrid")
+        if parts:
+            return ColumnarBatch.concat(parts)
+        empty = empty_batch_for(out_cols, info.entry.schema)
+        if empty is not None:
+            return empty
+        return layout.read_batch(res.files[0], columns=out_cols).take(
+            np.array([], dtype=np.int64))
+
+    def _mesh_hybrid_parts(self, res, predicate: Expr, out_cols) -> Optional[list]:
+        """The mesh's resident hybrid: K1h once a shard, then the exact host
+        legs (base blocks with the lineage NOT IN, delta blocks from the
+        decoded appended rows). None routes the host union; a device error
+        drops the base (its deltas go with it)."""
+        from .mesh_cache import mesh_cache
+
+        try:
+            counts = mesh_cache.hybrid_block_counts(res.table, res.delta, predicate)
+        except RuntimeError:
+            mesh_cache.drop(res.table)
+            metrics.incr("scan.resident_mesh.device_failed")
+            return None
+        if counts is None:
+            return None
+        base_counts, delta_counts = counts
+        parts = mesh_cache.collect_parts(res.table, res.files, out_cols, res.host_predicate,
+                                         base_counts, path_metric=None)
+        parts += mesh_cache.delta_parts(res.delta, predicate, out_cols, delta_counts)
+        metrics.incr("scan.path.resident_hybrid")
+        metrics.incr("scan.path.resident_hybrid_mesh")
+        return parts
+
+    def _hybrid_parts(self, res, predicate: Expr, out_cols, structure_keyed: bool
+                      ) -> Optional[list]:
+        """The single device's resident hybrid: one K1h launch, then the
+        exact host legs. None routes the host union."""
+        from .hbm_cache import hbm_cache
+        from .scan import _resident_parts
+
         try:
             if structure_keyed:
                 pairs = hbm_cache.hybrid_block_counts_batch(res.table, res.delta, [predicate],
@@ -442,16 +506,7 @@ class Executor:
                                 base_counts, path_metric=None)
         parts += hbm_cache.delta_parts(res.delta, predicate, out_cols, delta_counts)
         metrics.incr("scan.path.resident_hybrid")
-        from .scan_gate import scan_gate
-
-        scan_gate.note_resident_bypass("hybrid")
-        if parts:
-            return ColumnarBatch.concat(parts)
-        empty = empty_batch_for(out_cols, info.entry.schema)
-        if empty is not None:
-            return empty
-        return layout.read_batch(res.files[0], columns=out_cols).take(
-            np.array([], dtype=np.int64))
+        return parts
 
     @staticmethod
     def _conjoin(a: Optional[Expr], b: Expr) -> Expr:
@@ -725,16 +780,16 @@ class Executor:
         left_plan, right_plan, lk, rk, group_by, aggs = oriented
         if not _co_bucketed(left_plan, right_plan, lk, rk):
             return None
-        if self.mesh is not None:
-            # the mesh has its own distributed join and two-phase
-            # aggregate, and its resident regions are not ported yet: the
-            # host fusion must not take the query from them
-            return None
-        # the resident fused aggregate-join first: one K2/K2p launch and a
-        # torch epilogue over the region ship the group table home
+        # the resident fused aggregate-join first: one K2/K2p launch (one a
+        # shard over a mesh) and a torch epilogue over the region ship the
+        # group table home
         fused = self._try_resident_join_agg(left_plan, right_plan, lk, rk, group_by, aggs)
         if fused is not None:
             return fused
+        if self.mesh is not None:
+            # the mesh has its own distributed join and two-phase
+            # aggregate: the host fusion must not take the query from them
+            return None
         # decidable before any bucket I/O: an ineligible shape would load
         # both sides, decline, then load everything again on the fallback
         if any(a.fn not in ("count", "sum", "avg") for a in aggs):
@@ -761,41 +816,53 @@ class Executor:
         """The resident fused aggregate-join arm: eligibility is
         ``resolve_join_residency`` (shared with the materializing arm); a
         miss schedules the region with the aggregate's payload columns.
-        None routes the host fusion (no region, or a spec the device
-        cannot serve exactly: ``hbm.join.declined.dtype``)."""
-        from .hbm_cache import hbm_cache
+        None routes the host fusion, or over a mesh its distributed join
+        (no region, or a spec the device cannot serve exactly:
+        ``hbm.join.declined.dtype``, ``hbm.mesh.join.declined.dtype``)."""
         from .join_residency import resolve_join_residency
         from .scan_gate import scan_gate
 
         need = list(dict.fromkeys(list(group_by) + [a.column for a in aggs if a.column]))
         res = resolve_join_residency(left_plan, right_plan, l_keys, r_keys, self.residency,
-                                     self.device, payload_columns=need)
+                                     self.device, payload_columns=need, mesh=self.mesh)
         if res.status == "no_region":
             self._note_join_touch(res, left_plan, right_plan, need)
             return None
         if res.status != "ok":
             return None
+        cache = self._join_cache()
         try:
-            out = hbm_cache.join_agg(res.region, group_by, aggs)
+            out = cache.join_agg(res.region, group_by, aggs)
         except RuntimeError:
             # device loss: drop the region, and the fusion over K2's
-            # ranges answers
-            hbm_cache.drop(res.region)
+            # ranges (over a mesh: the per-query mesh route) answers
+            cache.drop(res.region)
             metrics.incr("scan.resident_join.device_failed")
             return None
         if out is None:
             return None
-        metrics.incr("scan.path.resident_join_agg")
+        metrics.incr("scan.path.resident_join_agg" if self.mesh is None
+                     else "scan.path.resident_join_agg_mesh")
         scan_gate.note_resident_bypass("join")
         return out
+
+    def _join_cache(self):
+        """The cache this executor's join regions live in."""
+        if self.mesh is not None:
+            from .mesh_cache import mesh_cache
+
+            return mesh_cache
+        from .hbm_cache import hbm_cache
+
+        return hbm_cache
 
     def _note_join_touch(self, res, left_plan, right_plan, payload) -> None:
         """Schedule the join region's background build for the NEXT query
         (never blocks). The loader re-derives both sides' bucket groups on
         the background thread, from the groups cache on a warm repeat."""
-        from .hbm_cache import hbm_cache
-
-        if not hbm_cache.auto_enabled(self.residency, self.device):
+        cache = self._join_cache()
+        where = self.mesh if self.mesh is not None else self.device
+        if not cache.auto_enabled(self.residency, where):
             return
 
         def loader():
@@ -805,10 +872,9 @@ class Executor:
                 return None
             return lload[0], rload[0]
 
-        hbm_cache.note_touch_join(
-            res.l_node.entry.content.files(), res.r_node.entry.content.files(),
-            res.l_keys, res.r_keys, payload, loader, self.device, self.residency,
-        )
+        cache.note_touch_join(res.l_node.entry.content.files(),
+                              res.r_node.entry.content.files(), res.l_keys, res.r_keys, payload,
+                              loader, where, self.residency)
 
     def _resident_join_pairs(
         self, region, l_by_bucket, r_by_bucket, l_keys, r_keys
@@ -933,14 +999,17 @@ class Executor:
 
     # -- the mesh's filter and aggregate -------------------------------------
     def _exec_index_scan_distributed(
-        self, node: IndexScan, predicate: Expr
+        self, node: IndexScan, predicate: Expr, structure_keyed: bool = False
     ) -> ColumnarBatch:
-        """The mesh's filter scan: prune files (buckets, zone maps), read
-        the survivors grouped by bucket (a pinned bucket's rows only, out of
-        run files), and mask each shard's buckets on its device
+        """The mesh's filter scan: prune files (buckets, zone maps); then
+        the mesh cache first, before the row gate (``_mesh_resident_scan``);
+        else read the survivors grouped by bucket (a pinned bucket's rows
+        only, out of run files) and mask each shard's buckets on its device
         (exec.distributed.distributed_filter). Below ``dist_min_rows`` total
-        rows the host masks and compacts. The mesh's resident tables are
-        not ported yet: every query ships its rows."""
+        rows the host masks and compacts. ``structure_keyed`` (the compiled
+        scan pipeline): the resident count goes through
+        ``block_counts_batch`` as a single, counted under
+        ``compile.fused.*``."""
         from pathlib import Path
 
         from .distributed import distributed_filter
@@ -960,19 +1029,16 @@ class Executor:
         )
         metrics.incr("scan.files_read", len(files))
         need = list(dict.fromkeys(list(node.required_columns) + sorted(predicate.columns())))
+        out_cols = list(node.required_columns)
+        parts = self._mesh_resident_scan(node, files, predicate, out_cols, structure_keyed)
+        if parts is not None:
+            return self._concat_or_empty(parts, out_cols, entry, files)
         # a pinned-bucket equality over run files reads only those
         # buckets' row ranges, all runs in one coalesced segment plan
         by_bucket = self._read_groups_by_bucket(
             files, need, None if pinned is None else set(pinned))
-        out_cols = list(node.required_columns)
         if not by_bucket:
-            empty = empty_batch_for(out_cols, entry.schema)
-            if empty is not None:
-                return empty
-            if not files:
-                raise HyperspaceException("distributed scan over zero files with no schema.")
-            return layout.read_batch(files[0], columns=out_cols).take(
-                np.array([], dtype=np.int64))
+            return self._concat_or_empty([], out_cols, entry, files)
         total_rows = sum(b.num_rows for b in by_bucket.values())
         if total_rows < self.dist_min_rows:
             # too small for the mesh: the host masks and compacts
@@ -980,9 +1046,62 @@ class Executor:
             return self._apply_predicate(whole, predicate).select(out_cols)
         return distributed_filter(by_bucket, predicate, out_cols, self.mesh)
 
+    @staticmethod
+    def _concat_or_empty(parts, out_cols, entry, files) -> ColumnarBatch:
+        if parts:
+            return ColumnarBatch.concat(parts)
+        empty = empty_batch_for(out_cols, entry.schema)
+        if empty is not None:
+            return empty
+        if not files:
+            raise HyperspaceException("distributed scan over zero files with no schema.")
+        return layout.read_batch(files[0], columns=out_cols).take(np.array([], dtype=np.int64))
+
+    def _mesh_resident_scan(self, node: IndexScan, files, predicate: Expr, out_cols,
+                            structure_keyed: bool = False) -> Optional[list]:
+        """The mesh's resident filter: where the mesh cache holds the
+        predicate columns of ``files``, K1c once a shard (K1p over packed
+        planes, the window loop on a streaming table), the count matrix
+        home, and the exact host leg over the counted blocks
+        (``mesh_cache.collect_parts``). None where no table serves: a miss
+        schedules the population over the version's whole file list, and a
+        device error drops the table (``scan.resident_mesh.device_failed``)
+        for the per-query route to answer."""
+        from ..telemetry.trace import span
+        from .mesh_cache import mesh_cache
+
+        if not files:
+            return None
+        pred_cols = sorted(predicate.columns())
+        table = mesh_cache.resident_for(files, pred_cols, self.mesh, self.residency)
+        if table is None:
+            if mesh_cache.auto_enabled(self.residency, self.mesh):
+                mesh_cache.note_touch(node.entry.content.files(), pred_cols, self.mesh,
+                                      self.residency)
+            return None
+        try:
+            with span("scan.device_dispatch", tier=table.tier,
+                      structure_keyed=bool(structure_keyed), mesh=table.n_devices):
+                if structure_keyed:
+                    m = mesh_cache.block_counts_batch(table, [predicate],
+                                                      metric_ns="compile.fused")
+                    counts = None if m is None else m[0]
+                else:
+                    counts = mesh_cache.block_counts(table, predicate)
+        except RuntimeError:
+            mesh_cache.drop(table)
+            metrics.incr("scan.resident_mesh.device_failed")
+            return None
+        if counts is None:
+            return None
+        return mesh_cache.collect_parts(table, files, out_cols, predicate, counts)
+
     def _try_distributed_aggregate(self, plan: Aggregate) -> Optional[ColumnarBatch]:
-        """Aggregate([Project][Filter](IndexScan)) over the mesh: each
-        shard's K1 mask and PARTIAL aggregate, merged on the host
+        """Aggregate([Project][Filter](IndexScan)) over the mesh: a filtered
+        aggregate whose predicate columns are resident as mesh shards reads
+        only the counted blocks and aggregates them on the host
+        (``aggregate.path.resident_mesh``); otherwise each shard's K1 mask
+        and PARTIAL aggregate, merged on the host
         (exec.distributed.distributed_filter_aggregate); only partial
         tables leave the devices. None when the shape or dtypes do not
         qualify (the caller gathers and aggregates); the host aggregates the
@@ -1030,6 +1149,13 @@ class Executor:
                 return None
             return hash_aggregate(empty, group_by, aggs)
         metrics.incr("scan.files_read", len(files))
+        if pred is not None:
+            parts = self._mesh_resident_scan(node, files, pred, need)
+            if parts is not None:
+                metrics.incr("aggregate.path.resident_mesh")
+                batch = (ColumnarBatch.concat(parts) if parts
+                         else ColumnarBatch.empty({c: entry.schema[c] for c in need}))
+                return hash_aggregate(batch, group_by, aggs)
         by_bucket = self._read_groups_by_bucket(files, need)
 
         def host_finish() -> ColumnarBatch:

@@ -420,7 +420,9 @@ class ResidentCacheBase:
     """Table registry with LRU eviction against the byte budget, the
     pending/failed population memos, the reset epoch, and the background
     threads (joined at exit; their device errors kept for the query
-    thread)."""
+    thread). Its counters are named under ``_metric_prefix``."""
+
+    _metric_prefix = "hbm"
 
     def __init__(self) -> None:
         self._tables: List[ResidentTable] = []
@@ -490,7 +492,7 @@ class ResidentCacheBase:
             if n:
                 self._join_version += 1
         if n:
-            metrics.incr("hbm.join.invalidated", n)
+            metrics.incr(f"{self._metric_prefix}.join.invalidated", n)
 
     def join_region_version(self) -> int:
         """The join regions' generation: bumped on every register, evict,
@@ -510,25 +512,25 @@ class ResidentCacheBase:
                 return False  # reset() since the build started
             for j in self._joins:
                 if j.key == region.key:
-                    metrics.incr("hbm.join.superseded")
+                    metrics.incr(f"{self._metric_prefix}.join.superseded")
             self._joins = [j for j in self._joins if j.key != region.key]
             self._joins.append(region)
             if self._total_locked() > budget:
                 budget += shed_claimants(self._total_locked() - budget)
             while self._total_locked() > budget and self._deltas:
                 self._deltas.remove(min(self._deltas, key=lambda d: d.last_used))
-                metrics.incr("hbm.delta.evicted")
+                metrics.incr(f"{self._metric_prefix}.delta.evicted")
             while self._total_locked() > budget and len(self._joins) > 1:
                 victim = min((j for j in self._joins if j is not region),
                              key=lambda j: j.last_used)
                 self._joins.remove(victim)
-                metrics.incr("hbm.join.evicted")
+                metrics.incr(f"{self._metric_prefix}.join.evicted")
             self._join_version += 1
             if self._total_locked() > budget:
                 self._joins.remove(region)
-                metrics.incr("hbm.join.over_budget_refused")
+                metrics.incr(f"{self._metric_prefix}.join.over_budget_refused")
                 return False
-            metrics.incr("hbm.join.registered")
+            metrics.incr(f"{self._metric_prefix}.join.registered")
             return True
 
     def snapshot_joins(self) -> dict:
@@ -573,7 +575,7 @@ class ResidentCacheBase:
             n = len(self._deltas) - len(keep)
             self._deltas[:] = keep
         if n:
-            metrics.incr("hbm.delta.invalidated", n)
+            metrics.incr(f"{self._metric_prefix}.delta.invalidated", n)
 
     def _total_locked(self) -> int:
         return (sum(t.nbytes for t in self._tables) + sum(d.nbytes for d in self._deltas)
@@ -591,13 +593,13 @@ class ResidentCacheBase:
                 return False  # reset() since this build was scheduled
             if not any(t.key == delta.base_key for t in self._tables):
                 # the base went while this build ran: unreachable
-                metrics.incr("hbm.delta.base_gone")
+                metrics.incr(f"{self._metric_prefix}.delta.base_gone")
                 return False
             for d in self._deltas:
                 if d.base_key == delta.base_key and (
                     d.key != delta.key or d.deleted_ids != delta.deleted_ids
                 ):
-                    metrics.incr("hbm.delta.superseded")
+                    metrics.incr(f"{self._metric_prefix}.delta.superseded")
             self._deltas = [d for d in self._deltas if d.base_key != delta.base_key]
             self._deltas.append(delta)
             if self._total_locked() > budget:
@@ -606,12 +608,12 @@ class ResidentCacheBase:
                 victim = min((d for d in self._deltas if d is not delta),
                              key=lambda d: d.last_used)
                 self._deltas.remove(victim)
-                metrics.incr("hbm.delta.evicted")
+                metrics.incr(f"{self._metric_prefix}.delta.evicted")
             if self._total_locked() > budget:
                 self._deltas.remove(delta)
-                metrics.incr("hbm.delta.over_budget_refused")
+                metrics.incr(f"{self._metric_prefix}.delta.over_budget_refused")
                 return False
-            metrics.incr("hbm.delta.registered")
+            metrics.incr(f"{self._metric_prefix}.delta.registered")
             return True
 
     def _keep_background_error(self, e: Exception, epoch: int) -> None:
@@ -653,19 +655,19 @@ class ResidentCacheBase:
                 budget += shed_claimants(self._total_locked() - budget)
             while self._total_locked() > budget and self._deltas:
                 self._deltas.remove(min(self._deltas, key=lambda d: d.last_used))
-                metrics.incr("hbm.delta.evicted")
+                metrics.incr(f"{self._metric_prefix}.delta.evicted")
             while self._total_locked() > budget and self._joins:
                 self._joins.remove(min(self._joins, key=lambda j: j.last_used))
                 self._join_version += 1
-                metrics.incr("hbm.join.evicted")
+                metrics.incr(f"{self._metric_prefix}.join.evicted")
             while self._total_locked() > budget and len(self._tables) > 1:
                 victim = min(
                     (t for t in self._tables if t is not table),
                     key=lambda t: t.last_used,
                 )
                 self._tables.remove(victim)
-                metrics.incr("hbm.evicted")
-            metrics.incr("hbm.tables_registered")
+                metrics.incr(f"{self._metric_prefix}.evicted")
+            metrics.incr(f"{self._metric_prefix}.tables_registered")
 
     def _track_for_exit(self, t: threading.Thread) -> None:
         """Join live uploads at interpreter exit, so a daemon thread is

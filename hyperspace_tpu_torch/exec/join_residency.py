@@ -45,9 +45,16 @@ any min/max under duplicate right matches decline, the host fusion's rule.
 A region's build first consults the device probe (``utils/deviceprobe``):
 an unreachable card raises ``DeviceUnavailableError``. A device error in a
 launch over the region raises to the executor's arm, which drops the
-region and answers on the per-file route. Not here: the mesh regions
-(``MeshJoinRegion``, ``build_mesh_join_region``, ``mesh_join_agg_fn``; with
-multi-device).
+region and answers on the per-file route.
+
+A mesh session's regions (``MeshJoinRegion``, ``build_mesh_join_region``)
+give each shard the buckets it owns of both sides (the build's ``b % D``
+rule), the right side sorted within the shard, as a single-device region
+of its own on the shard's device, planned once at build. The aggregate
+over the join (``mesh_join_agg_outputs``) runs K2 or K2p and ``_core_agg``
+once a shard and merges the partials with ``parallel/mesh.py:all_reduce``
+into one group table; the materializing join stays on the per-query mesh
+route, as the reference's does.
 """
 
 from __future__ import annotations
@@ -133,6 +140,35 @@ class JoinRegion:
     # recorded on the build's stream after its last copy: a query's
     # stream waits on it before its first launch
     ready: Optional[object] = None
+
+
+@dataclass
+class MeshJoinRegion:
+    """The mesh twin: ``shards[d]`` is shard d's ``JoinRegion`` over the
+    buckets it owns of both sides (the build's ``b % D`` rule), the right
+    side sorted within the shard, on that shard's device (None where the
+    shard holds no rows of one side). ``l_cols``/``r_cols`` give each
+    payload column's planes and group slots as lists over the shards."""
+
+    key: tuple
+    mesh: object
+    n_devices: int
+    n_l: int
+    n_r: int
+    dev_rows_l: List[int]
+    dev_rows_r: List[int]
+    uniq_right: bool
+    l_cols: Dict[str, JoinPayloadColumn]
+    r_cols: Dict[str, JoinPayloadColumn]
+    shards: List[Optional[JoinRegion]]
+    nbytes: int = 0
+    last_used: float = field(default_factory=time.monotonic)
+
+    @property
+    def routes(self) -> List[str]:
+        """Each shard's launch (``k2``, ``k2p``, ``searchsorted``; None
+        without a region)."""
+        return [None if r is None else r.route for r in self.shards]
 
 
 def join_region_key(l_files, r_files, l_keys, r_keys) -> tuple:
@@ -226,22 +262,25 @@ def _side_scan(plan):
 
 
 def resolve_join_residency(
-    left_plan, right_plan, l_keys, r_keys, conf, device=None, payload_columns=()
+    left_plan, right_plan, l_keys, r_keys, conf, device=None, payload_columns=(), mesh=None,
 ) -> JoinResidency:
     """Whether a bucketed equi-join can take the resident path: residency
     mode (session conf ``conf``), pristine sides (filtered and hybrid
-    decline, counted ``hbm.join.declined.*``), bucket and key agreement,
-    then the region lookup with payload coverage on ``device``."""
+    decline, counted ``hbm.join.declined.*``, ``hbm.mesh.join.declined.*``
+    on a mesh), bucket and key agreement, then the region lookup with
+    payload coverage on ``device``, or in the mesh cache on ``mesh``."""
     from .hbm_cache import hbm_cache
+    from .mesh_cache import mesh_cache
 
     if conf.mode == "off":
         return JoinResidency("ineligible", "mode")
+    cache = hbm_cache if mesh is None else mesh_cache
     l_node, l_why = _side_scan(left_plan)
     r_node, r_why = _side_scan(right_plan)
     if l_node is None or r_node is None:
         why = l_why or r_why
         if why in ("filtered", "hybrid"):
-            metrics.incr(f"hbm.join.declined.{why}")
+            metrics.incr(f"{cache._metric_prefix}.join.declined.{why}")
             return JoinResidency("declined", why)
         return JoinResidency("ineligible", why or "shape")
     if l_node.entry.num_buckets != r_node.entry.num_buckets:
@@ -257,10 +296,11 @@ def resolve_join_residency(
     k2k = {a.lower(): b for a, b in zip(l_keys, r_keys)}
     lk = list(l_node.entry.indexed_columns)
     rk = [k2k[k.lower()] for k in lk]
-    region = hbm_cache.join_for(
-        l_node.entry.content.files(), r_node.entry.content.files(), lk, rk,
-        payload_columns, conf, device,
-    )
+    l_files, r_files = l_node.entry.content.files(), r_node.entry.content.files()
+    if mesh is None:
+        region = hbm_cache.join_for(l_files, r_files, lk, rk, payload_columns, conf, device)
+    else:
+        region = mesh_cache.join_for(l_files, r_files, lk, rk, payload_columns, mesh, conf)
     status = "ok" if region is not None else "no_region"
     return JoinResidency(status, "", region, l_node, r_node, tuple(lk), tuple(rk))
 
@@ -368,16 +408,137 @@ def _upload(arrays: List[np.ndarray], dev: torch.device, fence_of: Optional[int]
     return outs, fences, ready
 
 
+def _region_layout(l32: np.ndarray, r_sorted: np.ndarray, conf, dev):
+    """K2's plan over one region's codes, once: the FoR pack of the sorted
+    right codes when ``conf`` asks and the codec wins (then K2p's groups
+    too), the wide tiles' exact rows, or the ``searchsorted`` route where
+    the plan declines. Returns (host arrays to upload, the index of the
+    array K2F builds fences over or None, ``assemble``): ``assemble(it,
+    fences)`` takes the arrays' device copies from the iterator ``it`` and
+    returns the region's route fields."""
+    from ..ops import kernels as K
+
+    r_pack = None
+    if conf.for_delta:
+        from ..ops import bitpack
+
+        fspec = bitpack.for_spec(r_sorted, block=_FOR_BLOCK)
+        if fspec is not None and fspec.packed_nbytes < r_sorted.nbytes:
+            r_pack = fspec
+            metrics.incr("hbm.join.for_delta_packed")
+            metrics.incr("hbm.join.for_delta_saved_bytes",
+                         int(r_sorted.nbytes) - int(fspec.packed_nbytes))
+    plan = K._plan_sorted_intersect(l32.astype(np.int64), r_sorted.astype(np.int64))
+    if plan is None:
+        arrays = [l32, *pack_for_right(r_sorted, r_pack)]
+
+        def assemble(it, _fences):
+            l_dev, r_dev = next(it), next(it)
+            return dict(l_codes=l_dev, r_codes=r_dev, route="searchsorted", r_pack=r_pack,
+                        r_refs=next(it) if r_pack is not None else None)
+
+        return arrays, None, assemble
+    s_tile, span, base, l_p, r_p, pl32, pr32, wide = plan
+    lo_all = int(min(int(l32.min()), int(r_sorted.min())))
+    route = "k2p" if r_pack is not None else "k2"
+    fence_of = None
+    if route == "k2p":
+        w_pad, refs_pad = K.packed_right_operands(r_sorted, r_pack, len(r_p))
+        # the fences stay raw: the narrowed, padded keys' every 8th
+        arrays = [l_p, w_pad, refs_pad, np.ascontiguousarray(r_p[:: K.K2_FENCE])]
+    else:
+        arrays = [l_p, r_p]
+        fence_of = 1
+    arrays += [s_tile, span, base]
+    groups = None
+    if route == "k2p":  # K2p's groups, a pure function of the plan
+        groups = K.plan_k2p_groups(s_tile, span, r_pack.vpw, K.k2p_group_target(dev))
+        arrays += list(groups.arrays())
+    n_wide = 0
+    if wide.any():
+        n_l = len(l32)
+        rows = np.concatenate([np.arange(t * K.SMJ_TILE, min((t + 1) * K.SMJ_TILE, n_l))
+                               for t in np.flatnonzero(wide)]).astype(np.int64)
+        q = pl32[rows]
+        w_lo = np.searchsorted(pr32, q, side="left")
+        w_cnt = np.searchsorted(pr32, q, side="right") - w_lo
+        arrays += [rows, w_lo.astype(np.int32), w_cnt.astype(np.int32)]
+        n_wide = len(rows)
+        metrics.incr("hbm.join.wide_rows", n_wide)
+
+    def assemble(it, fences):
+        out = dict(l_codes=next(it), r_codes=next(it), route=route, r_pack=r_pack,
+                   max_span=int(span.max()), lo_all=lo_all)
+        if route == "k2p":
+            out["r_refs"], fences = next(it), next(it)
+        out["fences"] = fences
+        out["plan"] = (next(it), next(it), next(it))
+        if groups is not None:
+            out["k2p_groups"] = groups.with_arrays([next(it) for _ in range(4)])
+        if n_wide:
+            out["wide_rows"], out["wide_lo"], out["wide_counts"] = next(it), next(it), next(it)
+        return out
+
+    return arrays, fence_of, assemble
+
+
+def pack_for_right(r_sorted: np.ndarray, r_pack) -> list:
+    """The searchsorted route's right operands: the FoR words and refs, or
+    the raw sorted codes."""
+    if r_pack is None:
+        return [r_sorted]
+    from ..ops.bitpack import pack_for
+
+    return list(pack_for(r_sorted, r_pack))
+
+
+def _payload_arrays(specs, l_take=None, r_take=None) -> List[np.ndarray]:
+    """The payload planes (right planes in sorted-right order) and group
+    slots to upload, in ``_payload_columns``' order; ``l_take``/``r_take``
+    select a shard's rows (None: all)."""
+    out = []
+    for side, _name, planes, _e, service in specs:
+        take = l_take if side == "l" else r_take
+        for p in planes:
+            out.append(p if take is None else p[take])
+        if service is not None:
+            out.append(service[0] if l_take is None else service[0][l_take])
+    return out
+
+
+def _payload_columns(specs, l_all, r_all, it) -> Tuple[dict, dict]:
+    """(l_cols, r_cols) from the payload planes' device copies in ``it``."""
+    l_cols: Dict[str, JoinPayloadColumn] = {}
+    r_cols: Dict[str, JoinPayloadColumn] = {}
+    for side, name, planes, enc_s, service in specs:
+        dev_planes = tuple(next(it) for _ in planes)
+        pc = JoinPayloadColumn(
+            dev_planes, (l_all if side == "l" else r_all).columns[name].dtype_str, enc_s,
+            sum(int(p.nbytes) for p in dev_planes),
+        )
+        if service is not None:
+            pc.slots = next(it)
+            pc.mn, pc.span = service[1], service[2]
+            pc.nbytes += int(pc.slots.nbytes)
+        (l_cols if side == "l" else r_cols)[name] = pc
+    return l_cols, r_cols
+
+
+def _upload_bytes(arrays, fence_of) -> int:
+    from ..ops import kernels as K
+
+    n = sum(int(a.nbytes) for a in arrays)
+    return n + (int(arrays[fence_of].nbytes) // K.K2_FENCE if fence_of is not None else 0)
+
+
 def build_join_region(
     cache, l_by_bucket, r_by_bucket, l_keys, r_keys, key, payload_columns, dev, conf,
 ):
     """(region, permanent_refusal) — ``hbm_cache._build`` semantics:
     permanent refusals are structural for this version pair (no common
     bucket, codes past int32), budget refusals are not. Plans K2 once over
-    the region's codes, packs the sorted right codes FoR when ``conf``
-    asks and the codec wins (then plans K2p's groups too), computes the
-    wide tiles' exact rows, and uploads everything in one go."""
-    from ..ops import kernels as K
+    the region's codes (``_region_layout``), computes the wide tiles'
+    exact rows, and uploads everything in one go."""
     from ..utils.deviceprobe import require_device
     from .hbm_cache import _budget_bytes
     from .joins import _bucketed_join_setup
@@ -399,66 +560,10 @@ def build_join_region(
     n_l, n_r = l_all.num_rows, r_all.num_rows
     if n_l == 0 or n_r == 0:
         return None, True
-    r_pack = None
-    if conf.for_delta:
-        from ..ops import bitpack
-
-        fspec = bitpack.for_spec(r_sorted, block=_FOR_BLOCK)
-        if fspec is not None and fspec.packed_nbytes < r_sorted.nbytes:
-            r_pack = fspec
-            metrics.incr("hbm.join.for_delta_packed")
-            metrics.incr("hbm.join.for_delta_saved_bytes",
-                         int(r_sorted.nbytes) - int(fspec.packed_nbytes))
-
-    # K2's plan over the region's codes, once
-    plan = K._plan_sorted_intersect(l32.astype(np.int64), r_sorted.astype(np.int64))
-    arrays: List[np.ndarray] = []
-    fence_of = None
-    wide_rows = wide_lo = wide_cnt = None
-    groups = None
-    if plan is not None:
-        s_tile, span, base, l_p, r_p, pl32, pr32, wide = plan
-        lo_all = int(min(int(l32.min()), int(r_sorted.min())))
-        route = "k2p" if r_pack is not None else "k2"
-        if route == "k2p":
-            w_pad, refs_pad = K.packed_right_operands(r_sorted, r_pack, len(r_p))
-            # the fences stay raw: the narrowed, padded keys' every 8th
-            arrays = [l_p, w_pad, refs_pad, np.ascontiguousarray(r_p[:: K.K2_FENCE])]
-        else:
-            arrays = [l_p, r_p]
-            fence_of = 1
-        arrays += [s_tile, span, base]
-        if route == "k2p":  # K2p's groups, a pure function of the plan
-            groups = K.plan_k2p_groups(s_tile, span, r_pack.vpw, K.k2p_group_target(dev))
-            arrays += list(groups.arrays())
-        if wide.any():
-            rows = np.concatenate([np.arange(t * K.SMJ_TILE, min((t + 1) * K.SMJ_TILE, n_l))
-                                   for t in np.flatnonzero(wide)]).astype(np.int64)
-            q = pl32[rows]
-            w_lo = np.searchsorted(pr32, q, side="left")
-            w_cnt = np.searchsorted(pr32, q, side="right") - w_lo
-            wide_rows, wide_lo, wide_cnt = rows, w_lo.astype(np.int32), w_cnt.astype(np.int32)
-            arrays += [wide_rows, wide_lo, wide_cnt]
-            metrics.incr("hbm.join.wide_rows", int(len(rows)))
-    else:
-        lo_all = 0
-        route = "searchsorted"
-        if r_pack is not None:
-            from ..ops.bitpack import pack_for
-
-            arrays = [l32, *pack_for(r_sorted, r_pack)]
-        else:
-            arrays = [l32, r_sorted]
-
+    arrays, fence_of, assemble = _region_layout(l32, r_sorted, conf, dev)
     specs = _payload_specs(l_all, r_all, payload_columns, n_l)
-    for side, _name, planes, _e, service in specs:
-        for p in planes:
-            arrays.append(p[r_order] if side == "r" else p)
-        if service is not None:
-            arrays.append(service[0])
-    dev_bytes = sum(int(a.nbytes) for a in arrays)
-    if fence_of is not None:
-        dev_bytes += int(arrays[fence_of].nbytes) // K.K2_FENCE
+    arrays += _payload_arrays(specs, r_take=r_order)
+    dev_bytes = _upload_bytes(arrays, fence_of)
     host_bytes = int(r_order.nbytes)
     # headroom against the resident tables: registration never evicts a
     # table for a join region, so one that only fits by doing so would be
@@ -471,46 +576,108 @@ def build_join_region(
 
     outs, fences, ready = _upload(arrays, dev, fence_of)
     it = iter(outs)
-    region_plan = None
-    r_refs = None
-    if route == "searchsorted":
-        l_dev = next(it)
-        r_dev = next(it)
-        if r_pack is not None:
-            r_refs = next(it)
-    else:
-        l_dev, r_dev = next(it), next(it)
-        if route == "k2p":
-            r_refs, fences = next(it), next(it)
-        region_plan = (next(it), next(it), next(it))
-        if groups is not None:
-            groups = groups.with_arrays([next(it) for _ in range(4)])
-        if wide_rows is not None:
-            wide_rows, wide_lo, wide_cnt = next(it), next(it), next(it)
-    l_cols: Dict[str, JoinPayloadColumn] = {}
-    r_cols: Dict[str, JoinPayloadColumn] = {}
-    for side, name, planes, enc_s, service in specs:
-        dev_planes = tuple(next(it) for _ in planes)
-        pc = JoinPayloadColumn(
-            dev_planes, (l_all if side == "l" else r_all).columns[name].dtype_str, enc_s,
-            sum(int(p.nbytes) for p in planes),
-        )
-        if service is not None:
-            slots, mn, span_g = service
-            pc.slots = next(it)
-            pc.mn, pc.span = mn, span_g
-            pc.nbytes += int(slots.nbytes)
-        (l_cols if side == "l" else r_cols)[name] = pc
+    fields = assemble(it, fences)
+    l_cols, r_cols = _payload_columns(specs, l_all, r_all, it)
     metrics.incr("hbm.join.h2d_bytes", dev_bytes)
     _trace_bytes("h2d_bytes", dev_bytes)
     metrics.record_time("hbm.join.prefetch", time.perf_counter() - t0)
-    return JoinRegion(
-        key, n_l, n_r, l_dev, r_dev, r_order, uniq_right, l_cols, r_cols,
-        dev_bytes + host_bytes, r_pack=r_pack, r_refs=r_refs, route=route,
-        plan=region_plan, k2p_groups=groups, fences=fences,
-        max_span=int(plan[1].max()) if plan is not None else 0, lo_all=lo_all,
-        wide_rows=wide_rows, wide_lo=wide_lo, wide_counts=wide_cnt, device=dev, ready=ready,
-    ), False
+    return JoinRegion(key=key, n_l=n_l, n_r=n_r, r_order=r_order, uniq_right=uniq_right,
+                      l_cols=l_cols, r_cols=r_cols, nbytes=dev_bytes + host_bytes, device=dev,
+                      ready=ready, **fields), False
+
+
+def build_mesh_join_region(cache, l_by_bucket, r_by_bucket, l_keys, r_keys, key,
+                           payload_columns, mesh, conf):
+    """(region, permanent_refusal) for the mesh cache: each shard receives
+    its owned buckets of BOTH sides (the build's ``b % D`` rule: equal
+    keys share a bucket, so a shard's join sees every match its left rows
+    have), the right side sorted within the shard. Each shard's region is
+    planned as a single-device region is (``_region_layout``: K2, or K2p
+    with forDelta) and uploaded to its device; the group slots keep the
+    whole left side's frame."""
+    from ..parallel.mesh import owner_of_bucket
+    from .hbm_cache import _budget_bytes
+    from .joins import _bucketed_join_setup
+    from .mesh_cache import require_mesh
+
+    require_mesh(mesh)
+    t0 = time.perf_counter()
+    setup, _ck = _bucketed_join_setup(l_by_bucket, r_by_bucket, list(l_keys), list(r_keys))
+    if setup is None:
+        return None, True
+    l_all, r_all, l_codes, r_codes, l_bounds, r_bounds, _ps = setup
+    enc = _encode_codes(l_codes, r_codes)
+    if enc is None:
+        return None, True
+    l32, r32 = enc
+    n_l, n_r = l_all.num_rows, r_all.num_rows
+    if n_l == 0 or n_r == 0:
+        return None, True
+    # the common-bucket derivation of _bucketed_join_setup: bounds index k
+    # is common[k]
+    common = sorted(set(l_by_bucket) & set(r_by_bucket))
+    D = mesh.size
+    l_rows: List[list] = [[] for _ in range(D)]
+    r_rows: List[list] = [[] for _ in range(D)]
+    for k, b in enumerate(common):
+        d = owner_of_bucket(int(b), D)
+        l_rows[d].append(np.arange(int(l_bounds[k]), int(l_bounds[k + 1])))
+        r_rows[d].append(np.arange(int(r_bounds[k]), int(r_bounds[k + 1])))
+    l_idx = [np.concatenate(x) if x else np.empty(0, dtype=np.int64) for x in l_rows]
+    r_idx = [np.concatenate(x) if x else np.empty(0, dtype=np.int64) for x in r_rows]
+    # the right side sorted within each shard; payload gathers ride it
+    r_idx = [ix[np.argsort(r32[ix], kind="stable")] for ix in r_idx]
+    r_sorted_all = np.sort(r32, kind="stable")
+    uniq_right = bool((np.diff(r_sorted_all) > 0).all()) if n_r > 1 else True
+    specs = _payload_specs(l_all, r_all, payload_columns, n_l)
+    layouts = []
+    for d, dev in enumerate(mesh.devices):
+        if not len(l_idx[d]) or not len(r_idx[d]):
+            layouts.append(None)  # the shard's partials are the identities
+            continue
+        arrays, fence_of, assemble = _region_layout(l32[l_idx[d]], r32[r_idx[d]], conf, dev)
+        arrays += _payload_arrays(specs, l_take=l_idx[d], r_take=r_idx[d])
+        layouts.append((arrays, fence_of, assemble))
+    dev_bytes = sum(_upload_bytes(a, f) for a, f, _ in filter(None, layouts))
+    with cache._lock:
+        headroom = _budget_bytes(conf) - sum(t.nbytes for t in cache._tables)
+    if dev_bytes > headroom:
+        metrics.incr("hbm.mesh.join.over_budget_refused")
+        return None, False
+    shards: List[Optional[JoinRegion]] = []
+    for d, dev in enumerate(mesh.devices):
+        if layouts[d] is None:
+            shards.append(None)
+            continue
+        arrays, fence_of, assemble = layouts[d]
+        with mesh.scope(dev):
+            outs, fences, ready = _upload(arrays, dev, fence_of)
+        it = iter(outs)
+        fields = assemble(it, fences)
+        l_cols, r_cols = _payload_columns(specs, l_all, r_all, it)
+        shards.append(JoinRegion(key=key, n_l=len(l_idx[d]), n_r=len(r_idx[d]), r_order=None,
+                                 uniq_right=uniq_right, l_cols=l_cols, r_cols=r_cols,
+                                 device=dev, ready=ready, **fields))
+    metrics.incr("hbm.mesh.join.h2d_bytes", dev_bytes)
+    _trace_bytes("h2d_bytes", dev_bytes)
+    metrics.record_time("hbm.mesh.join.prefetch", time.perf_counter() - t0)
+    # the mesh's payload columns: each plane and the group slots as a list
+    # of the shards' tensors (None for a shard without a region)
+    cols = ({}, {})
+    for side, name, planes, enc_s, service in specs:
+        per = [None if r is None else (r.l_cols if side == "l" else r.r_cols)[name]
+               for r in shards]
+        pc = JoinPayloadColumn(
+            tuple([None if c is None else c.arrays[i] for c in per] for i in range(len(planes))),
+            (l_all if side == "l" else r_all).columns[name].dtype_str, enc_s,
+            sum(c.nbytes for c in per if c is not None))
+        if service is not None:
+            pc.slots = [None if c is None else c.slots for c in per]
+            pc.mn, pc.span = service[1], service[2]
+        cols[side == "r"][name] = pc
+    return MeshJoinRegion(key, mesh, D, n_l, n_r, [len(x) for x in l_idx],
+                          [len(x) for x in r_idx], uniq_right, cols[0], cols[1], shards,
+                          dev_bytes), False
 
 
 # ---------------------------------------------------------------------------
@@ -764,6 +931,41 @@ def join_agg_outputs(region: JoinRegion, plan: AggPlan) -> list:
     slots = region.l_cols[plan.group].slots
     return _core_agg(specs, plan.span, plan.uniq_right, lt.to(torch.int64), eq.to(torch.int64),
                      slots, plan_device_arrays(region, plan))
+
+
+def _agg_kinds(plan: AggPlan) -> List[str]:
+    """The merge each ``_core_agg`` output needs across shards."""
+    return ["sum"] + ["sum" if op in ("sum", "nn") else op for c in plan.cols for op in c.ops]
+
+
+def mesh_join_agg_outputs(region: MeshJoinRegion, plan: AggPlan) -> list:
+    """The two-phase mesh aggregate-join on the card: per shard, its
+    region's match ranges (one K2 or K2p launch) and ``_core_agg``'s
+    partials over the full slot space, every shard issued with its device
+    current; then ``parallel/mesh.py:all_reduce`` SUM/MIN/MAX merges the
+    partials on the first shard's device (the reference's psum, pmin and
+    pmax). A shard without a region adds the identities. Returns the
+    merged device outputs."""
+    from ..parallel.mesh import all_reduce
+
+    specs = [(c.side, c.enc, c.arity, c.ops) for c in plan.cols]
+    n_flat = sum(c.arity for c in plan.cols)
+    mesh = region.mesh
+    parts = []
+    for shard, dev in zip(region.shards, mesh.devices):
+        with mesh.scope(dev):
+            if shard is None:
+                none = torch.zeros(0, dtype=torch.int64, device=dev)
+                empty = torch.zeros(0, dtype=torch.int32, device=dev)
+                parts.append(_core_agg(specs, plan.span, plan.uniq_right, none, none, empty,
+                                       (empty,) * n_flat))
+                continue
+            lt, eq = region_ranges(shard)
+            parts.append(_core_agg(specs, plan.span, plan.uniq_right, lt.to(torch.int64),
+                                   eq.to(torch.int64), shard.l_cols[plan.group].slots,
+                                   plan_device_arrays(shard, plan)))
+    return [all_reduce([p[i] for p in parts], kind, mesh)[0]
+            for i, kind in enumerate(_agg_kinds(plan))]
 
 
 # ---------------------------------------------------------------------------

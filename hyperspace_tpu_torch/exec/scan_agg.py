@@ -30,8 +30,13 @@ Exactness, as the reference's:
 
 Specs that cannot ride exactly decline with a reason (``tier``,
 ``shape``, ``column``, ``dtype``, ``span``) and the caller aggregates on
-the host, counting ``compile.agg.declined.<reason>``. The reference's
-mesh twin (``mesh_scan_agg_fn``) comes with multi-device.
+the host, counting ``compile.agg.declined.<reason>``.
+
+The mesh twin (``mesh_scan_agg_outputs``, the reference's
+``mesh_scan_agg_fn``) runs K1's mask and the epilogue once a shard, each
+shard's pad rows past its ``dev_rows`` cleared, and merges the partial
+slot vectors with ``parallel/mesh.py:all_reduce``; one copy of the merged
+group vectors comes home.
 """
 
 from __future__ import annotations
@@ -84,11 +89,15 @@ class ScanAggPlan:
 
 def column_value_bounds(table, name: str) -> Optional[Tuple[int, int]]:
     """(min, max) of an int-encoded resident column's values: from the
-    zone vectors, else the pack spec's frame. None: unknown (decline)."""
-    z = table.zones.get(name)
+    zone vectors, else the bounds a mesh table records (its shards build
+    no zones), else the pack spec's frame. None: unknown (decline)."""
+    z = getattr(table, "zones", {}).get(name)
     if z is not None and z[0] == "value" and len(z[1]):
         return int(z[1].min()), int(z[2].max())
-    pack = table.columns[name].pack
+    col = table.columns[name]
+    if getattr(col, "vmin", None) is not None:
+        return int(col.vmin), int(col.vmax)
+    pack = col.pack
     if pack is not None:
         return int(pack.ref0), int(pack.ref0) + (1 << pack.bits) - 1
     return None
@@ -182,16 +191,19 @@ def decode_value(enc: str, planes) -> Tuple[torch.Tensor, Optional[torch.Tensor]
     return codes, codes >= 0
 
 
-def _raw_planes(table, names) -> list:
-    """Int32 planes of ``n_pad`` rows for resident ``names``: a packed
-    plane decoded in torch."""
+def _raw_planes(table, names, shard: Optional[int] = None) -> list:
+    """Int32 planes of ``n_pad`` rows for resident ``names`` (of a mesh
+    table: shard ``shard``'s, ``cap`` rows): a packed plane decoded in
+    torch."""
     from .hbm_cache import resident_arrays_for
 
+    rows = table.n_pad if shard is None else table.cap
     out = []
     for n, t in zip(names, resident_arrays_for(table.columns, names)):
+        t = t if shard is None else t[shard]
         spec = None if "\x00" in n else table.columns[n].pack
         out.append(t if spec is None else unpack_plain_torch(
-            t, dataclasses.replace(spec, n=table.n_pad)))
+            t, dataclasses.replace(spec, n=rows)))
     return out
 
 
@@ -249,6 +261,29 @@ def scan_agg_outputs(table, prepared, plan: ScanAggPlan) -> list:
     mask = mask & (torch.arange(table.n_pad, device=mask.device) < table.n_rows)
     planes = _raw_planes(table, plan_plane_names(plan))
     return core_scan_agg(plan, mask, planes[0], planes[1:])
+
+
+def mesh_scan_agg_outputs(table, prepared, plan: ScanAggPlan) -> list:
+    """The mesh device aggregate (the reference's ``mesh_scan_agg_fn``):
+    per shard, K1's mask of the prepared predicate over the shard's planes
+    with the rows past its ``dev_rows`` cleared, then ``core_scan_agg``
+    over the full slot space, every shard issued with its device current;
+    ``parallel/mesh.py:all_reduce`` merges the partials (sums and counts
+    SUM, min MIN, max MAX) on the first shard's device. Returns the merged
+    device vectors."""
+    from ..parallel.mesh import all_reduce
+
+    narrowed, names = prepared
+    mesh = table.mesh
+    parts = []
+    for d, dev in enumerate(mesh.devices):
+        with mesh.scope(dev):
+            mask = K.predicate_mask_tensor(narrowed, names, _raw_planes(table, names, d))
+            mask = mask & (torch.arange(table.cap, device=mask.device) < table.dev_rows[d])
+            planes = _raw_planes(table, plan_plane_names(plan), d)
+            parts.append(core_scan_agg(plan, mask, planes[0], planes[1:]))
+    kinds = ["sum"] + ["sum" if op in ("sum", "nn") else op for c in plan.cols for op in c.ops]
+    return [all_reduce([p[i] for p in parts], kind, mesh)[0] for i, kind in enumerate(kinds)]
 
 
 def finish_scan_agg(table, plan: ScanAggPlan, group_by, aggs, outs) -> ColumnarBatch:

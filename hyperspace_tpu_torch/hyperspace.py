@@ -93,7 +93,8 @@ class Hyperspace:
         return explain_string(df, verbose=verbose)
 
     def prefetch_index(self, name: str, columns: Optional[List[str]] = None) -> bool:
-        """Upload an index's predicate columns to the session's device NOW
+        """Upload an index's predicate columns to the session's device (on
+        a mesh session: as mesh shards, one a device of the mesh) NOW
         (the once-per-version cost first-touch population pays lazily), so
         the next query already runs the resident scan. ``columns``
         defaults to the indexed (key) columns; include covered columns you

@@ -13,7 +13,9 @@ again; they drop the compiled pipelines and memoized results scoped to
 the index too (``_invalidate_compiled``), as a delete does. A quick
 refresh changes no index file and keeps them all. The resident tables
 are keyed by file identity, so a new version never reads an old one's
-planes. (The reference's mesh cache comes with multi-device.)
+planes. On a mesh session (a mesh of more than one shard) ``prefetch``
+fills the mesh cache (``exec/mesh_cache.py``), the tables the executor's
+mesh arms consult.
 """
 
 from __future__ import annotations
@@ -46,12 +48,15 @@ from .stats import IndexStatistics
 
 def _invalidate_resident_deltas(index_root) -> None:
     """Drop the resident delta regions whose base lies under this index's
-    directory, and the join regions that read it on either side, after a
-    verb that rewrote its data (the other indexes' stay)."""
+    directory, and the join regions that read it on either side, in both
+    caches (one device's and the mesh's), after a verb that rewrote its
+    data (the other indexes' stay)."""
     from ..exec.hbm_cache import hbm_cache
+    from ..exec.mesh_cache import mesh_cache
 
-    hbm_cache.invalidate_deltas(str(index_root))
-    hbm_cache.invalidate_joins(str(index_root))
+    for cache in (hbm_cache, mesh_cache):
+        cache.invalidate_deltas(str(index_root))
+        cache.invalidate_joins(str(index_root))
     _invalidate_compiled(index_root)
 
 
@@ -247,11 +252,13 @@ class IndexCollectionManager:
 
     def prefetch(self, name: str, columns: Optional[List[str]] = None) -> bool:
         """Upload the index's predicate columns to the session's device
-        (exec.hbm_cache) under the session's residency policy: only an
-        ACTIVE covering index qualifies — a DELETED index's files still
-        exist on disk but no query is rewritten to them. ``columns``
-        defaults to the indexed columns; their case resolves against the
-        index schema, as DataFrame filters do."""
+        (exec.hbm_cache), or as mesh shards on a mesh session
+        (exec.mesh_cache: bucket b on shard b % D, the build's placement),
+        under the session's residency policy: only an ACTIVE covering index
+        qualifies — a DELETED index's files still exist on disk but no
+        query is rewritten to them. ``columns`` defaults to the indexed
+        columns; their case resolves against the index schema, as DataFrame
+        filters do."""
         from ..exec.hbm_cache import hbm_cache
         from ..utils import resolver
 
@@ -265,6 +272,13 @@ class IndexCollectionManager:
         else:
             schema_cols = list(entry.schema)
             cols = [resolver.resolve(c, schema_cols) or c for c in columns]
+        mesh = self.session.mesh
+        if mesh is not None and mesh.size > 1:
+            # the executor's own gate: a mesh of one shard runs single-device
+            from ..exec.mesh_cache import mesh_cache
+
+            return mesh_cache.prefetch(entry.content.files(), cols, mesh,
+                                       self.conf.residency()) is not None
         return (
             hbm_cache.prefetch(
                 entry.content.files(), cols, self.session.device,

@@ -1,7 +1,7 @@
 """Micro-batcher: coalesce compatible queued resident scans into ONE
 launch.
 
-Counterpart of ``hyperspace_tpu.serve.batcher`` (single device). Every
+Counterpart of ``hyperspace_tpu.serve.batcher``. Every
 resident-scan query pays a launch and a count-vector copy home; N
 concurrent point lookups served one by one pay N of each. Queries are
 COMPATIBLE when they hit the same resident table (same index version:
@@ -18,8 +18,15 @@ filter-shape hybrid union when the base table and its delta are resident
 (one K1hb launch over base, delta and the deletion mask); so does an
 ``Aggregate([Project](Join))`` whose join region is resident (one region
 launch serves the whole batch). Everything else, and predicates the zone
-gate routes to the host, takes the normal executor path, as does every
-query of a mesh session.
+gate routes to the host, takes the normal executor path.
+
+On a mesh session the filter shape coalesces over a resident mesh table
+(``exec/mesh_cache.py``): a batch launches K1b once a shard and brings
+home one ``(N, D, n_blocks)`` count matrix; keys fold the table's
+identity, the prepared plane names and a streaming table's
+``window_gen``. The mesh has no selectivity gate. Mesh hybrids and
+aggregate-joins are served query by query by the executor's mesh arms
+(one launch a shard each), as in the reference.
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ class ResidentScanRequest:
     kind: str = "scan"
     group_by: Tuple = ()
     aggs: Tuple = ()
+    # the session's mesh where the table is a mesh table (exec/mesh_cache.py)
+    mesh: object = None
 
 
 def classify(session, plan: LogicalPlan) -> Optional[ResidentScanRequest]:
@@ -69,20 +78,20 @@ def classify(session, plan: LogicalPlan) -> Optional[ResidentScanRequest]:
     from ..exec.hbm_cache import hbm_cache, prepare_resident_predicate, zone_block_fraction
     from ..exec.scan import prune_index_files
 
-    if session.mesh is not None and session.mesh.size > 1:
-        # a mesh session serves each query through the executor's mesh
-        # arms; the mesh's resident tables, which a batch would read, are
-        # not ported yet
-        return None
+    mesh = session.mesh if session.mesh is not None and session.mesh.size > 1 else None
     output_columns = list(plan.output_columns())
     node = plan
     while isinstance(node, Project):
         node = node.child
     if isinstance(node, Aggregate):
+        if mesh is not None:
+            return None  # the executor's mesh arm serves it, one launch a shard
         return _classify_join_aggregate(session, node, output_columns, batch_fingerprint(plan))
     if not isinstance(node, Filter):
         return None
     if isinstance(node.child, Union):
+        if mesh is not None:
+            return None  # the executor's mesh arm serves it, one launch a shard
         return _classify_hybrid(session, node.condition, node.child, output_columns,
                                 batch_fingerprint(plan))
     if not isinstance(node.child, IndexScan):
@@ -97,12 +106,19 @@ def classify(session, plan: LogicalPlan) -> Optional[ResidentScanRequest]:
                               entry.indexed_columns, entry.schema, entry.num_buckets)
     if not files:
         return None  # empty scans are cheap on the normal path
-    table = hbm_cache.resident_for(files, sorted(predicate.columns()), session.device, residency)
+    if mesh is not None:
+        from ..exec.mesh_cache import mesh_cache
+
+        table = mesh_cache.resident_for(files, sorted(predicate.columns()), mesh, residency)
+    else:
+        table = hbm_cache.resident_for(files, sorted(predicate.columns()), session.device,
+                                       residency)
     if table is None:
         return None
-    # the single query's selectivity gate: a predicate that cannot prune
-    # blocks reads nearly everything on the host anyway
-    frac = zone_block_fraction(table, predicate)
+    # the single query's selectivity gate (one device only: the mesh's
+    # fallback ships every row): a predicate that cannot prune blocks
+    # reads nearly everything on the host anyway
+    frac = None if mesh is not None else zone_block_fraction(table, predicate)
     if frac is not None and residency.max_block_frac < 1.0 and frac >= residency.max_block_frac:
         return None
     prepared = prepare_resident_predicate(table.columns, predicate)
@@ -112,7 +128,7 @@ def classify(session, plan: LogicalPlan) -> Optional[ResidentScanRequest]:
     gen = getattr(table, "window_gen", None)
     batch_key = (fp, id(table), frozenset(prepared[1])) + ((gen,) if gen is not None else ())
     return ResidentScanRequest(table, entry, files, predicate, output_columns, batch_key,
-                               prepared)
+                               prepared, mesh=mesh)
 
 
 def _classify_hybrid(session, predicate: Expr, union: LogicalPlan,
@@ -200,6 +216,15 @@ def execute_batch(requests: List[ResidentScanRequest]) -> Optional[List[Columnar
             parts += hbm_cache.delta_parts(head.delta, r.predicate, r.output_columns, delta_c)
             metrics.incr("scan.path.resident_hybrid")
             results.append(_concat_or_empty(parts, r))
+    elif head.mesh is not None:
+        from ..exec.mesh_cache import mesh_cache
+
+        counts = mesh_cache.block_counts_batch(table, predicates, prepared)
+        if counts is None:
+            return None
+        for r, c in zip(requests, counts):
+            results.append(_concat_or_empty(
+                mesh_cache.collect_parts(table, r.files, r.output_columns, r.predicate, c), r))
     else:
         counts = hbm_cache.block_counts_batch(table, predicates, prepared)
         if counts is None:

@@ -59,6 +59,7 @@ class PlanCache:
     def _version_token(self, session) -> Tuple:
         from ..actions import states
         from ..exec.hbm_cache import hbm_cache
+        from ..exec.mesh_cache import mesh_cache
 
         entries = session.collection_manager.get_indexes([states.ACTIVE], prefer_stable=True)
         return (
@@ -67,7 +68,7 @@ class PlanCache:
             tuple(sorted((k, str(v)) for k, v in session.conf.as_dict().items())),
             # a cached plan must not outlive the join-region generation its
             # batch classification saw
-            (hbm_cache.join_region_version(),),
+            (hbm_cache.join_region_version(), mesh_cache.join_region_version()),
         )
 
     def optimized_plan(self, df) -> LogicalPlan:

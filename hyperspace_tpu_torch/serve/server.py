@@ -1027,6 +1027,7 @@ class QueryServer:
 
     def _latch_degraded(self, reason: str, resident, traces=None) -> None:
         from ..exec.hbm_cache import hbm_cache
+        from ..exec.mesh_cache import mesh_cache
 
         with self._cond:
             already = self._degraded_latch.is_set()
@@ -1037,7 +1038,7 @@ class QueryServer:
         flight_recorder.snapshot("device_loss", extra_traces=traces or ())
         if not already:
             metrics.incr("serve.degraded")
-            hbm_cache.drop(resident.table)
+            (mesh_cache if resident.mesh is not None else hbm_cache).drop(resident.table)
 
     def _miss_deadline(self, req: _Request) -> None:
         metrics.incr("serve.deadline_missed")
@@ -1316,18 +1317,25 @@ def _result_cache_stats() -> dict:
 
 
 def _residency_stats() -> dict:
-    """Tier-ladder snapshot for stats(): each table's tier and the
-    residency counters (telemetry.residency_snapshot)."""
+    """Tier-ladder snapshot for stats(): each cache's table tiers (the
+    single-device cache's and the mesh's) and the residency counters
+    (telemetry.residency_snapshot)."""
     from ..exec.hbm_cache import hbm_cache
+    from ..exec.mesh_cache import mesh_cache
     from ..telemetry.metrics import residency_snapshot
 
-    return {"hbm": hbm_cache.snapshot_residency(), **residency_snapshot()}
+    return {"hbm": hbm_cache.snapshot_residency(), "mesh": mesh_cache.snapshot_residency(),
+            **residency_snapshot()}
 
 
 def _join_region_stats() -> dict:
-    """Join regions held: count, MB and generation (the per-region detail
-    stays on hbm_cache.snapshot_joins)."""
+    """Join regions held in each cache: count, MB and generation (the
+    per-region detail stays on the caches' ``snapshot_joins``)."""
     from ..exec.hbm_cache import hbm_cache
+    from ..exec.mesh_cache import mesh_cache
 
-    snap = hbm_cache.snapshot_joins()
-    return {"hbm": {"regions": snap["regions"], "mb": snap["mb"], "version": snap["version"]}}
+    out = {}
+    for name, cache in (("hbm", hbm_cache), ("mesh", mesh_cache)):
+        snap = cache.snapshot_joins()
+        out[name] = {"regions": snap["regions"], "mb": snap["mb"], "version": snap["version"]}
+    return out

@@ -184,8 +184,9 @@ metrics = Metrics()
 def residency_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
     """The tier ladder's counters in one dict: which tier served scans,
     what bit-packing bought (packed against raw bytes), and the streaming
-    loop's windows, window failures, uploads, prefetch hits and stalls.
-    The reference's mesh keys are left out with the mesh."""
+    loop's windows, window failures, uploads, prefetch hits and stalls
+    (the mesh's streaming tables count there too; the mesh's tables by
+    tier are the server's ``"mesh"`` entry)."""
     r = registry if registry is not None else metrics
     raw = r.get("residency.compressed.raw_bytes")
     packed = r.get("residency.compressed.packed_bytes")

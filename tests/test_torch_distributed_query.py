@@ -393,16 +393,30 @@ def test_dist_min_rows_gates_to_the_host(tree):
 
 
 def test_mesh_session_ignores_residency(tree):
-    """Until the mesh's resident tables land, a mesh session ships each
-    query whatever the residency mode (the reference's route with its
-    residency off)."""
+    """A mesh session never reads the single-device cache: with residency
+    off it ships each query (the reference's route with its residency
+    off); with residency forced the first query ships and schedules the
+    MESH table (exec/mesh_cache.py), and the repeat reads its shards."""
+    from hyperspace_tpu_torch.exec.mesh_cache import mesh_cache
+
     _, tm = meshes(4)
-    s = tree.session("torch", tm, **{"hyperspace.torch.hbm.mode": "force",
-                                     "hyperspace.torch.hbm.minRows": 1})
+    s = tree.session("torch", tm)
     QUERIES["range"](tree, s, texpr).collect()
     QUERIES["range"](tree, s, texpr).collect()
     assert tmetrics.get("scan.path.distributed") == 2
-    assert tmetrics.get("scan.path.resident_device") == 0
+    assert mesh_cache.empty()
+    s = tree.session("torch", tm)
+    s.conf.set("hyperspace.torch.hbm.mode", "force")
+    s.conf.set("hyperspace.torch.hbm.minRows", 1)
+    try:
+        QUERIES["range"](tree, s, texpr).collect()
+        mesh_cache.wait_background()
+        QUERIES["range"](tree, s, texpr).collect()
+        assert tmetrics.get("scan.path.distributed") == 3
+        assert tmetrics.get("scan.path.resident_device_mesh") == 1
+        assert tmetrics.get("scan.path.resident_device") == 0
+    finally:
+        mesh_cache.reset()
 
 
 def test_executor_mesh_over_run_files(tmp_path):
@@ -593,14 +607,128 @@ def _same_result(got, want):
         assert_same(got, want)
 
 
+def _resident_programs(root: Path, n=200_000):
+    """The mesh's resident programs over index trees the port builds under
+    ``root`` (16 buckets): for each, ``setup(mesh) -> (run, launches)``,
+    where ``setup`` makes the tables, delta and region resident on
+    ``mesh`` and ``run()`` is the one program whose launches are counted:
+    K1c once a shard (counts), K1b once a shard (a batch of 3), K1c once a
+    shard a window (a streaming table), K1h once a shard (base and delta),
+    K2 or K2p once a shard (the aggregate-join) and K1's mask once a shard
+    (the device aggregate). Integer aggregates only: the comparison is
+    exact."""
+    from hyperspace_tpu_torch.config import ResidencyConf
+    from hyperspace_tpu_torch.exec.mesh_cache import mesh_cache as tmc
+    from hyperspace_tpu_torch.ops.kernels import K1, K1B, K1C, K1H, K2, K2P
+    from hyperspace_tpu_torch.plan.ir import Union
+    from hyperspace_tpu_torch.plan.rules.hybrid_scan import parse_hybrid_union
+
+    rng = np.random.default_rng(31)
+    li = TB.from_pydict({"k": rng.integers(0, n // 4, n).astype(np.int64),
+                         "v": rng.integers(-(1 << 20), 1 << 20, n).astype(np.int64),
+                         "g": rng.integers(0, 40, n).astype(np.int64),
+                         "s": rng.choice(["aa", "bb", "cc"], n).astype(object)},
+                        {"k": "int64", "v": "int64", "g": "int64", "s": "string"})
+    od = TB.from_pydict({"o_k": np.arange(n // 4, dtype=np.int64),
+                         "o_t": rng.integers(0, 9000, n // 4).astype(np.int64)},
+                        {"o_k": "int64", "o_t": "int64"})
+    conf = {"hyperspace.system.path": str(root / "indexes"), "hyperspace.index.numBuckets": 16,
+            "hyperspace.index.hybridscan.enabled": True, "hyperspace.torch.device": "cpu",
+            "hyperspace.torch.hbm.mode": "off"}
+    build = hs_torch.HyperspaceSession(hs_torch.HyperspaceConf(dict(conf)))
+    h = hs_torch.Hyperspace(build)
+    for name, batch, key, inc in (("li", li, "k", ["v", "g", "s"]), ("od", od, "o_k", ["o_t"]),
+                                  ("lh", li, "k", ["v", "g", "s"])):
+        avro_io.write_avro(root / name / "p-0.avro", batch)
+        h.create_index(build.read.avro(str(root / name)),
+                       hs_torch.IndexConfig(f"{name}_idx", [key], inc))
+    avro_io.write_avro(root / "lh" / "p-append.avro", li.take(np.arange(0, n, 17)))
+    files = {x: sorted(str(p) for p in (root / "indexes" / f"{x}_idx").glob("v__=*/*.tcb"))
+             for x in ("li", "od", "lh")}
+    force = ResidencyConf(mode="force", min_rows=1)
+    # (k, s) raw: 2 planes x 4 shards x 65,536 rows x 4 B = 2 MiB, over a
+    # 1 MB budget with compression off; the slab pairs of 8,192-row
+    # windows take 0.5 MiB
+    stream = ResidencyConf(mode="force", min_rows=1, budget_mb=1, compression="off",
+                           window_rows=8192)
+    E = texpr
+    pred = (E.col("k") >= 1000) & (E.col("k") < 9000) & (E.col("s") != "aa")
+    preds = [E.col("k") == 77, pred, (E.col("g") < 5) & (E.col("k") > 100)]
+    aggs = [taggs.agg_sum("v", "sv"), taggs.agg_count(), taggs.agg_min("v", "mn"),
+            taggs.agg_max("v", "mx")]
+
+    def table(mesh, cols=("k", "v", "g", "s"), rc=force):
+        t = tmc.prefetch(files["li"], list(cols), mesh, rc)
+        assert t is not None
+        return t
+
+    def counts(mesh):
+        t = table(mesh)
+        return lambda: tmc.block_counts(t, pred), {K1C: mesh.size}
+
+    def batch(mesh):
+        t = table(mesh)
+        return lambda: tmc.block_counts_batch(t, preds), {K1B: mesh.size}
+
+    def streaming(mesh):
+        tmc.reset()
+        t = table(mesh, ("k", "s"), stream)
+        assert t.tier == "streaming" and t.n_windows >= 2
+        return lambda: tmc.block_counts(t, pred), {K1C: mesh.size * t.n_windows}
+
+    def scan_agg(mesh):
+        t = table(mesh)
+        return lambda: tmc.agg_scan(t, pred, ["g"], aggs)[0], {K1: mesh.size}
+
+    def join_agg(mesh):
+        groups = [texec.Executor._read_groups_by_bucket(files[x], cols)
+                  for x, cols in (("li", ["k", "g", "v"]), ("od", ["o_k", "o_t"]))]
+        region = tmc.prefetch_join(groups[0], groups[1], files["li"], files["od"], ["k"],
+                                   ["o_k"], ["g", "v", "o_t"], mesh, force)
+        assert region is not None
+        k2 = K2P if "k2p" in region.routes else K2
+        jaggs_ = [taggs.agg_sum("o_t", "rev"), taggs.agg_count(), taggs.agg_sum("v", "sv")]
+        return lambda: tmc.join_agg(region, ["g"], jaggs_), {k2: mesh.size}
+
+    def hybrid(mesh):
+        s = hs_torch.HyperspaceSession(hs_torch.HyperspaceConf(
+            {**conf, "hyperspace.torch.device": mesh.device_type}), mesh=mesh)
+        s.enable_hyperspace()
+        plan = s.read.avro(str(root / "lh")).filter(pred).select("k", "v").optimized_plan()
+        info = parse_hybrid_union(plan.collect(lambda x: isinstance(x, Union))[0])
+        t = tmc.prefetch(info.entry.content.files(), ["k", "s"], mesh, force)
+        delta = tmc.prefetch_delta(t, info.appended, info.relation, list(info.user_cols),
+                                   info.deleted_ids, list(info.entry.indexed_columns),
+                                   info.entry.num_buckets, force)
+        assert delta is not None
+        return lambda: tmc.hybrid_block_counts(t, delta, pred), {K1H: mesh.size}
+
+    return {"counts": counts, "batch": batch, "streaming": streaming, "scan_agg": scan_agg,
+            "join_agg": join_agg, "hybrid": hybrid}
+
+
+def _same_resident(got, want):
+    if isinstance(want, tuple):
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+    elif isinstance(want, np.ndarray):
+        assert np.array_equal(got, want)
+    else:
+        assert_same(got, want)
+
+
 @pytest.mark.gpu
-def test_mesh_programs_across_cards():
+def test_mesh_programs_across_cards(tmp_path):
     """On a host with several cards: one shard on each card
     (``make_mesh()``), every mesh program against the same mesh's shape on
-    the CPU, exactly; K1 and K2 launch once a shard."""
+    the CPU, exactly; K1 and K2 launch once a shard. Then the resident
+    programs (``_resident_programs``): each shard's tables, delta and
+    region on its own card, each program's result against the CPU mesh's,
+    exactly, with its kernel launched once a shard (a window)."""
     import torch
 
     from hyperspace_tpu_torch import ops
+    from hyperspace_tpu_torch.exec.mesh_cache import mesh_cache
     from hyperspace_tpu_torch.ops.kernels import K1, K2, K2F
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -618,3 +746,18 @@ def test_mesh_programs_across_cards():
         for k, v in launches.get(name, {}).items():
             assert counts.get(k) == v, (name, counts)
         _same_result(got, run(cpu))
+    for name, setup in _resident_programs(tmp_path).items():
+        mesh_cache.reset()
+        run, want_launches = setup(cards)
+        for t in mesh_cache._tables:  # each shard's planes on its own card
+            for c in t.columns.values():
+                if isinstance(getattr(c, "data", None), list):
+                    assert [x.device for x in c.data] == list(cards.devices), name
+        ops.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == want_launches, (name, ops.launch_counts())
+        mesh_cache.reset()
+        run_cpu, _ = setup(cpu)
+        _same_resident(got, run_cpu())
+    mesh_cache.reset()
