@@ -9,10 +9,10 @@ It needs a CUDA card and exits non-zero, printing no result, without one
 (or without the ``hyperspace_tpu_torch`` package beside it).
 ``--phases`` takes a comma list of ``kernels``, ``main``, ``aggregate``,
 ``resident``, ``join``, ``serve``, ``native``, ``front_end``,
-``lifecycle``, ``hybrid``, ``reliability``, ``mesh`` and ``streaming``
-(default: all, in that order;
-aggregate, resident, join, serve, native and front_end run in the main
-path's session and bring ``main``). Every query runs through the
+``lifecycle``, ``hybrid``, ``reliability``, ``mesh``, ``fabric`` and
+``streaming`` (default: all, in that order; aggregate, resident, join,
+serve, native and front_end run in the main path's session and bring
+``main``, as does fabric, which serves the main path's li_idx). Every query runs through the
 whole-plan compiler (``hyperspace.compile.mode`` defaults to ``auto``):
 its launches are the interpreter's, N = 1 counts land under
 ``compile.fused.*``. Phases:
@@ -222,6 +222,26 @@ its launches are the interpreter's, N = 1 counts land under
    raising on its first call (``shuffle.device_failed`` = 1, the exact join
    once on the card). A ``mesh:`` JSON line gives each step's seconds,
    launches and counters, the shards and the phase's peak device memory;
+9b. fabric — the multi-controller tier over the main path's li_idx and
+   lineitem: F1 two worker processes (this script with
+   ``--fabric-worker``), each one contiguous half of lineitem with
+   l_shipmode (TPC-H's 7 values, drawn from the seed) handed over as npz
+   files, join one gloo group through a ``file://`` store and build it
+   through ``QueryFabric.build_sharded`` on 2 shards each of the card (D =
+   4; the exchange staged through pinned host memory, the vocabulary
+   union on shared storage), each writing only its own buckets' files;
+   counts, each bucket's rows and each file's key order are held against
+   the parent's ``build_partition_sharded`` over the whole table. F2-F6:
+   two hosts, sessions with residency forced over li_idx, each with a
+   ``QueryServer``, fronted by a ``QueryRouter`` (``make_router``), host i
+   taking half i of l_orderkey: F2 A3's Q1 shape (one K1 a host leg, the
+   merged groups equal the single session's and numpy's), F3 the range
+   filter (one K1c a host leg), F4 64 identical lookups coalesced onto one
+   fan-out and B1's 64 distinct ones (one K1b a host, N = 64), F5 chaos
+   (a crash with 0 failed tickets, a slow host hedged, a flapping host
+   readmitted through a probation probe, ``revive_host``), F6 the fleet
+   result cache (a hit with zero legs) and warm-compile hints. A
+   ``fabric:`` JSON line gives each step's seconds, launches and counters;
 10. streaming — in a session of its own with lineage on: TPC-H lineitem
    and orders at SF3 (18,003,645 and 4,500,000 rows, l_partkey in
    1..600,000) written as avro into ``src/lineitem_st`` (24 files, over
@@ -291,9 +311,10 @@ H100_OPS_PER_S = 67e12  # 32-bit, outside the tensor cores
 LARGE_ROWS = 1 << 28  # K1c's large case: 3 int32 columns, 3 GiB
 LI_RESIDENT = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
 # the phases of a run, in order (--phases); aggregate, resident, join,
-# serve, native and front_end run in the main path's session and so need main
+# serve, native and front_end run in the main path's session and so need
+# main, as does fabric, which serves the main path's li_idx
 PHASES = ("kernels", "main", "aggregate", "resident", "join", "serve", "native", "front_end",
-          "lifecycle", "hybrid", "reliability", "mesh", "streaming")
+          "lifecycle", "hybrid", "reliability", "mesh", "fabric", "streaming")
 DAY_1992_01_01 = 8035  # days since 1970-01-01
 DAY_1998_08_02 = 10440
 DAY_1993_06_01 = 8552
@@ -2043,7 +2064,8 @@ def run_main_path(
                 "mesh": ({"shuffle.device_failed": 1, "scan.resident_mesh.device_failed": 1},
                          "M6's and MR8's")}
     for name, fn in (("lifecycle", lifecycle_phase), ("hybrid", hybrid_phase),
-                     ("reliability", reliability_phase), ("mesh", mesh_phase)):
+                     ("reliability", reliability_phase), ("mesh", mesh_phase),
+                     ("fabric", fabric_phase)):
         if name in phases:
             t0 = time.perf_counter()
             kw = {"single_build_s": out.get("build_s")} if name == "mesh" else {}
@@ -5625,6 +5647,531 @@ def mesh_phase(lineitem, orders, workdir: Path, device: str, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# fabric phase: the multi-controller tier (process group, router, chaos)
+# ---------------------------------------------------------------------------
+# TPC-H's seven ship modes (sorted: a string column's vocab is ordered)
+FABRIC_SHIPMODES = np.array([b"AIR", b"FOB", b"MAIL", b"RAIL", b"REG AIR", b"SHIP", b"TRUCK"],
+                            dtype=object)
+FABRIC_PROCS = 2  # worker processes of F1
+FABRIC_LOCAL = 2  # shards a worker drives (all on the phase's card)
+FABRIC_CHAOS_QUERIES = 16  # F5's crash run
+FABRIC_FLAP_QUERIES = 10  # F5's flap run, 0.06 s of its clock a query
+FABRIC_COUNTER_PREFIXES = ("router.", "serve.chaos.", "serve.batch.", "compile.agg.",
+                           "compile.warm_hint.", "scan.path.", "mesh.")
+
+
+def _fabric_batch(cols: dict, shipmode_codes: np.ndarray):
+    """lineitem's columns plus l_shipmode (codes into ``FABRIC_SHIPMODES``)
+    as a batch of the port."""
+    from hyperspace_tpu_torch.storage.columnar import Column, ColumnarBatch
+
+    out = {name: Column(LINEITEM_SCHEMA[name], np.ascontiguousarray(cols[name]))
+           for name in LINEITEM_SCHEMA}
+    out["l_shipmode"] = Column("string", np.ascontiguousarray(shipmode_codes, dtype=np.int32),
+                               FABRIC_SHIPMODES)
+    return ColumnarBatch(out)
+
+
+def fabric_worker(pid: str, nproc: str, fdir: str, device: str) -> int:
+    """One process of F1 (``chip_smoke.py --fabric-worker PID NPROC DIR
+    DEVICE``): joins the gloo group through ``DIR/pg_init``, builds its half
+    (``DIR/half-PID.npz``) on ``FABRIC_LOCAL`` shards of ``DEVICE`` through
+    ``QueryFabric.build_sharded``, writes only its own buckets' files under
+    ``DIR/index`` and its record to ``DIR/worker-PID.json``."""
+    import torch
+    import torch.distributed
+
+    from hyperspace_tpu_torch.distributed import QueryFabric
+    from hyperspace_tpu_torch.ops import fence
+    from hyperspace_tpu_torch.parallel.mesh import make_mesh
+    from hyperspace_tpu_torch.storage import layout
+
+    pid, nproc, fdir = int(pid), int(nproc), Path(fdir)
+    t0 = time.perf_counter()
+    with np.load(fdir / f"half-{pid}.npz", allow_pickle=False) as z:
+        data = {k: z[k] for k in z.files}
+    local = _fabric_batch(data, data["l_shipmode"])
+    local_mesh = make_mesh(FABRIC_LOCAL, device=device)
+    dev = local_mesh.devices[0]
+    fabric = QueryFabric(init_method=f"file://{fdir / 'pg_init'}", num_processes=nproc,
+                         process_id=pid, local_mesh=local_mesh, backend="gloo").connect()
+    t_connect = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.empty(1, device=dev)  # the allocator's stats exist once it ran
+        torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    per_local, counts = fabric.build_sharded(local, ["l_orderkey"], NUM_BUCKETS,
+                                             scratch_dir=fdir / "vocab")
+    fence(dev)
+    build_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    mine = set(fabric.local_buckets(NUM_BUCKETS))
+    out_dir = fdir / "index"
+    out_dir.mkdir(exist_ok=True)
+    written, t = [], time.perf_counter()
+    for batch, bucket_ids in per_local:
+        bounds = np.flatnonzero(np.diff(bucket_ids)) + 1
+        for s, e in zip(np.concatenate([[0], bounds]), np.concatenate([bounds, [len(bucket_ids)]])):
+            if e <= s:
+                continue
+            b = int(bucket_ids[s])
+            if b not in mine:
+                raise AssertionError(f"fabric worker {pid}: bucket {b} is another process's")
+            layout.write_batch(out_dir / layout.bucket_file_name(b), batch.take(np.arange(s, e)),
+                               sorted_by=["l_orderkey"], bucket=b)
+            written.append(b)
+    rec = {"pid": pid, "rows": local.num_rows, "connect_s": t_connect, "build_s": build_s,
+           "write_s": time.perf_counter() - t, "staged_bytes": fabric.mesh.staged_bytes,
+           "staging_alloc_s": fabric.mesh.staging_alloc_s,
+           "peak_mem_bytes": peak, "buckets": sorted(written),
+           "global_counts": [int(c) for c in counts], "info": fabric.info()}
+    (fdir / f"worker-{pid}.json").write_text(json.dumps(rec))
+    print(f"fabric worker {pid}: {local.num_rows} rows built in {build_s:.3f} s, "
+          f"{len(written)} bucket files", flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _rows_sorted(cols: list) -> list:
+    """Columns reordered by all of them (a multiset's canonical order);
+    floats compare by their bits."""
+    keys = [c.view(np.int64) if c.dtype == np.float64 else c for c in cols]
+    order = np.lexsort(tuple(reversed(keys)))
+    return [k[order] for k in keys]
+
+
+def fabric_build(L: dict, fdir: Path, device: str, seed: int) -> dict:
+    """F1: two worker processes, each one contiguous half of lineitem (with
+    l_shipmode), one gloo group, ``FABRIC_LOCAL`` shards each on the card;
+    held against the parent's ``build_partition_sharded`` over the whole
+    table on a mesh of the same D shards."""
+    import subprocess as sp
+
+    from hyperspace_tpu_torch.ops import fence
+    from hyperspace_tpu_torch.ops.build import build_partition_sharded, encode_for_device
+    from hyperspace_tpu_torch.parallel.mesh import make_mesh
+    from hyperspace_tpu_torch.storage import layout
+
+    n = len(L["l_orderkey"])
+    D = FABRIC_PROCS * FABRIC_LOCAL
+    modes = np.random.default_rng(seed + 70).integers(0, len(FABRIC_SHIPMODES), n).astype(np.int32)
+    cuts = np.linspace(0, n, FABRIC_PROCS + 1).astype(np.int64)
+    fdir.mkdir(parents=True)
+    t = time.perf_counter()
+    for pid in range(FABRIC_PROCS):
+        lo, hi = int(cuts[pid]), int(cuts[pid + 1])
+        np.savez(fdir / f"half-{pid}.npz", l_shipmode=modes[lo:hi],
+                 **{c: L[c][lo:hi] for c in LINEITEM_SCHEMA})
+    out = {"rows": n, "shards": D, "handoff": "npz files the parent writes",
+           "handoff_s": time.perf_counter() - t,
+           "handoff_bytes": sum((fdir / f"half-{p}.npz").stat().st_size
+                                for p in range(FABRIC_PROCS))}
+    t = time.perf_counter()
+    procs = [sp.Popen([sys.executable, str(Path(__file__).resolve()), "--fabric-worker", str(pid),
+                       str(FABRIC_PROCS), str(fdir), "cuda:0" if device == "cuda" else device],
+                      stdout=sp.PIPE, stderr=sp.STDOUT) for pid in range(FABRIC_PROCS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["workers_wall_s"] = time.perf_counter() - t
+    for pid, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.strip().splitlines()[-3:]:
+            log(f"fabric F1 worker {pid}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"fabric F1: worker {pid} exited {p.returncode}:\n{text[-4000:]}")
+    workers = [json.loads((fdir / f"worker-{pid}.json").read_text())
+               for pid in range(FABRIC_PROCS)]
+    out["workers"] = [{k: w[k] for k in ("rows", "connect_s", "build_s", "write_s",
+                                         "staged_bytes", "staging_alloc_s", "peak_mem_bytes")}
+                      for w in workers]
+    # the same rows whole, through the single-controller build on D shards
+    whole = _fabric_batch(L, modes)
+    t = time.perf_counter()
+    mesh = make_mesh(D, device="cuda:0" if device == "cuda" else device)
+    per_shard, counts = build_partition_sharded(whole, ["l_orderkey"], NUM_BUCKETS, mesh)
+    fence(mesh.devices[0])
+    out["single_controller_s"] = time.perf_counter() - t
+    for w in workers:
+        owned = {b for b in range(NUM_BUCKETS) if (b % D) // FABRIC_LOCAL == w["pid"]}
+        if w["global_counts"] != counts.tolist() or not set(w["buckets"]) <= owned:
+            raise AssertionError(f"fabric F1: worker {w['pid']}'s counts or buckets differ")
+    t = time.perf_counter()
+    names = list(LINEITEM_SCHEMA) + ["l_shipmode"]
+    files = {layout.bucket_of_file(f): f for f in (fdir / "index").glob("*.tcb")}
+    if sorted(files) != sorted(np.flatnonzero(counts).tolist()):
+        raise AssertionError(f"fabric F1: {len(files)} bucket files, "
+                             f"{int(np.count_nonzero(counts))} non-empty buckets")
+    for b, f in sorted(files.items()):
+        got = layout.read_batch(f)
+        keys = got.columns["l_orderkey"].data
+        if np.any(keys[1:] < keys[:-1]) or list(got.columns["l_shipmode"].vocab) != \
+                list(FABRIC_SHIPMODES):
+            raise AssertionError(f"fabric F1: bucket {b}'s file is out of key order or vocab")
+        batch, ids = per_shard[b % D]
+        rows = np.flatnonzero(ids == b)
+        want = _rows_sorted([np.asarray(batch.columns[c].data)[rows] for c in names])
+        have = _rows_sorted([np.asarray(got.columns[c].data) for c in names])
+        if not all(np.array_equal(x, y) for x, y in zip(have, want)):
+            raise AssertionError(f"fabric F1: bucket {b}'s rows differ from the "
+                                 "single-controller build's")
+    out["check_s"] = time.perf_counter() - t
+    out["build_s"] = max(w["build_s"] for w in workers)
+    # the bound: every row's exchange record (its planes in transport
+    # encoding, the bucket id, the validity byte) crosses PCIe once down and
+    # once up under gloo's host staging, on separate 64 GB/s directions; the
+    # staged bytes beside it also hold the blocks' padding up to cap
+    out["row_bytes"] = sum(encode_for_device(c).dtype.itemsize
+                           for c in whole.columns.values()) + 4 + 1
+    out["row_exchange_bytes"] = 2 * n * out["row_bytes"]
+    staged = sum(w["staged_bytes"] for w in workers)
+    out["staged_bytes"] = staged
+    out["padding_factor"] = staged / out["row_exchange_bytes"]
+    out["bound_ms"] = n * out["row_bytes"] / PCIE_BYTES_PER_S * 1e3
+    out["bound_by"] = "bytes"
+    log(f"fabric F1 multi-process build: {FABRIC_PROCS} processes x {FABRIC_LOCAL} shards on "
+        f"{device}, {n} rows ({out['handoff_bytes']} bytes handed over in "
+        f"{out['handoff_s']:.3f} s) | build s per worker "
+        f"{[round(w['build_s'], 4) for w in workers]}, staged bytes "
+        f"{[w['staged_bytes'] for w in workers]} ({out['padding_factor']:.3f}x the rows' "
+        f"{out['row_exchange_bytes']} B, {out['row_bytes']} B a row down and up), pinning s "
+        f"{[round(w['staging_alloc_s'], 4) for w in workers]}, peak device "
+        f"memory {[w['peak_mem_bytes'] for w in workers]} | bound {out['bound_ms']:.3f} ms "
+        f"(the rows' bytes over PCIe) | "
+        f"workers' wall {out['workers_wall_s']:.3f} s | single-controller build "
+        f"{out['single_controller_s']:.3f} s | {len(files)} files checked in "
+        f"{out['check_s']:.3f} s: counts, rows and key order equal the single-controller "
+        f"build's")
+    return out
+
+
+def _same_groups(name: str, got, want) -> None:
+    """Two aggregates' groups: integer columns exact, floats rtol 1e-9."""
+    if got.column_names != want.column_names or got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got.column_names} x {got.num_rows} against "
+                             f"{want.column_names} x {want.num_rows}")
+    for c in got.column_names:
+        g, w = np.asarray(got.columns[c].data), np.asarray(want.columns[c].data)
+        ok = (np.allclose(g, w, rtol=1e-9, atol=0.0, equal_nan=True) if w.dtype.kind == "f"
+              else np.array_equal(g, w))
+        if not ok:
+            raise AssertionError(f"{name}: column {c} differs")
+
+
+class _Clock:
+    """A clock the phase sets (the chaos schedule's and health director's)."""
+
+    def __init__(self, t: float = 100.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def fabric_phase(lineitem, orders, workdir: Path, device: str, seed: int,
+                 profile: bool = False) -> dict:
+    """The multi-controller tier over the main path's li_idx (shared
+    storage) and lineitem:
+
+    F1 the multi-process build (``fabric_build``): 2 worker processes
+       (``--fabric-worker``), each half of lineitem with l_shipmode, one
+       gloo group through a ``file://`` store, 2 shards each on the card.
+    F2-F6 two "hosts" over the main path's index root, each a session with
+       residency forced and a QueryServer on the card, built through
+       ``QueryFabric.make_router``; host i takes half i of l_orderkey:
+    F2 A3's Q1 shape: merged groups equal the single session's (ints
+       exact, floats rtol 1e-9) and numpy's; one K1 a host leg (the
+       device aggregate), ``router.merge.agg``;
+    F3 the range filter, merged by concatenation: rows equal numpy's; one
+       K1c a host leg, ``router.merge.concat``;
+    F4 64 identical point lookups on paused servers coalesce onto one
+       fan-out (``router.coalesced`` = 63); then B1's 64 distinct lookups
+       launch K1b once a host (N = 64); rows equal numpy's and the single
+       queries';
+    F5 chaos (``FaultPlan``): host b crashes at its 3rd submission and 16
+       A3 queries complete with 0 failed tickets, ``router.host_lost`` = 1;
+       a slow host b (its legs withheld on a frozen clock) is hedged and the
+       hedge wins; a flapping host b (outages of 0.2 s on the phase's
+       clock, 0.06 s a query) is readmitted through a probation probe, then
+       ``revive_host`` swaps in a fresh server and the next query readmits
+       it;
+    F6 the fleet result cache: a repeated F2 query hits
+       ``router.result_cache`` with zero fan-out legs; ``offer_warm_hints``
+       to a cold host adopts at least one shape.
+
+    Each step counts launches from 0 and prints its seconds, launches and
+    counters."""
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.compile.cache import pipeline_cache
+    from hyperspace_tpu_torch.distributed import QueryFabric, QueryRouter
+    from hyperspace_tpu_torch.distributed.health import HealthDirector, HealthPolicy
+    from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
+    from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
+    from hyperspace_tpu_torch.ops import kernels as tk
+    from hyperspace_tpu_torch.parallel.mesh import make_mesh
+    from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.reliability.chaos import ChaosHostProxy, FaultPlan, HostFault
+    from hyperspace_tpu_torch.reliability.retry import RetryPolicy
+    from hyperspace_tpu_torch.serve import QueryServer, ServeConfig
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
+
+    on_card = device == "cuda"
+    one = int(on_card)
+    t_phase = time.perf_counter()
+    L = lineitem
+    li_dir = workdir / "src" / "lineitem"
+    out = {"steps": {}}
+    out["F1"] = fabric_build(L, workdir / "fabric", device, seed)
+
+    def host_session(**conf):
+        values = {"hyperspace.system.path": str(workdir / "indexes"),
+                  "hyperspace.index.numBuckets": NUM_BUCKETS,
+                  "hyperspace.torch.device": device, "hyperspace.torch.hbm.mode": "force",
+                  "hyperspace.serve.tenant.defaultMaxQueue": 256, **conf}
+        if not on_card:  # a rehearsal: the zone gate would route small tables away
+            values["hyperspace.torch.hbm.maxBlockFrac"] = 1.0
+        return hs.HyperspaceSession(hs.HyperspaceConf(values)).enable_hyperspace()
+
+    def read(s):
+        return s.read.avro(str(li_dir))
+
+    serve_conf = ServeConfig(max_workers=4, max_queue=256, batch_max=64, autostart=False)
+    fabric = QueryFabric(local_mesh=make_mesh(1, device="cuda:0" if on_card else "cpu")).connect()
+    sa, sb = host_session(), host_session()
+    t = time.perf_counter()
+    if not hs.Hyperspace(sa).prefetch_index("li_idx", SERVE_COLS):
+        raise AssertionError("fabric: prefetch_index(li_idx) did not make the index resident")
+    hbm_cache.wait_background()
+    fence(sa.device)
+    out["prefetch_s"] = time.perf_counter() - t
+
+    ok = L["l_orderkey"]
+    lo_k, hi_k, d_lo = range_bounds(L)
+    mid = (lo_k + hi_k) // 2
+
+    def half(i, pred):
+        return pred & ((col("l_orderkey") < mid) if i == 0 else (col("l_orderkey") >= mid))
+
+    window = ((col("l_orderkey") >= lo_k) & (col("l_orderkey") < hi_k)
+              & (col("l_shipdate") >= d_lo) & (col("l_shipdate") < DAY_1995_03_15))
+    w_mask = ((ok >= lo_k) & (ok < hi_k) & (L["l_shipdate"] >= d_lo)
+              & (L["l_shipdate"] < DAY_1995_03_15))
+    a3_want = q1_shape_truth(L, w_mask)
+
+    def a3(df):
+        return df.group_by("l_quantity").agg(
+            hs.agg_sum("l_extendedprice"), hs.agg_avg("l_extendedprice"),
+            hs.agg_min("l_shipdate"), hs.agg_max("l_shipdate"), hs.agg_count())
+
+    def a3_build(s, i, n):
+        return a3(read(s).filter(half(i, window)))
+
+    rng_pred = window & (col("l_quantity") < 24)
+    rng_mask = w_mask & (L["l_quantity"] < 24)
+
+    def step(name, fn):
+        reset_launch_counts()
+        metrics.reset()
+        t = time.perf_counter()
+        with _Profiled(f"fabric {name}", profile):
+            res = fn()
+        fence(sa.device)
+        rec = {"s": time.perf_counter() - t, "launches": launch_counts(),
+               "counters": {k: v for k, v in metrics.snapshot().items()
+                            if k.startswith(FABRIC_COUNTER_PREFIXES)}}
+        out["steps"][name] = rec
+        log(f"fabric {name}: {rec['s']:.4f} s launches {rec['launches']} counters "
+            f"{rec['counters']}")
+        return res, rec
+
+    def routed(router, build, n=1):
+        tickets = [router.submit(build) for _ in range(n)]
+        return [t_.result(timeout=600) for t_ in tickets]
+
+    # F2: the aggregate through the router
+    a3_single = a3(read(sa).filter(window)).collect()
+    router = fabric.make_router({"a": sa, "b": sb}, serve_config=serve_conf).start()
+    try:
+        (f2,), rec = step("F2 router aggregate", lambda: routed(router, a3_build))
+    finally:
+        router.close()
+    _same_groups("fabric F2", f2, a3_single)
+    _check_agg("fabric F2", f2, ["l_quantity"], a3_want)
+    c = rec["counters"]
+    if (rec["launches"].get(tk.K1, 0) != 2 * one or c.get("router.merge.agg") != 1
+            or c.get("compile.agg.device") != 2 or c.get("router.subqueries") != 2):
+        raise AssertionError(f"fabric F2: {rec}")
+
+    # F3: the range filter, merged by concatenation
+    router = fabric.make_router({"a": sa, "b": sb}, serve_config=serve_conf).start()
+    try:
+        (f3,), rec = step("F3 router range filter", lambda: routed(
+            router, lambda s, i, n: read(s).filter(half(i, rng_pred)).select(*LI_RESIDENT)))
+    finally:
+        router.close()
+    _check("fabric F3", f3, LI_RESIDENT, [L[c_][rng_mask] for c_ in LI_RESIDENT])
+    c = rec["counters"]
+    if (rec["launches"].get(tk.K1C, 0) != 2 * one or c.get("router.merge.concat") != 1
+            or sum(rec["launches"].values()) != 2 * one):
+        raise AssertionError(f"fabric F3: {rec}")
+
+    # F4: bursts on paused servers
+    keys = np.random.default_rng(seed + 30).choice(np.unique(ok), 64, replace=False)
+
+    def lookup(k):
+        return lambda s, i, n: read(s).filter(half(i, col("l_orderkey") == int(k))).select(
+            *LI_RESIDENT)
+
+    router = fabric.make_router({"a": sa, "b": sb}, serve_config=serve_conf)
+    try:
+        def identical():
+            tickets = [router.submit(lookup(keys[0])) for _ in range(64)]
+            router.start()
+            return [t_.result(timeout=600) for t_ in tickets]
+
+        same, rec = step("F4 64 identical lookups", identical)
+    finally:
+        router.close()
+    if rec["counters"].get("router.coalesced") != 63 or rec["counters"].get("router.fanout") != 1:
+        raise AssertionError(f"fabric F4 identical: {rec}")
+    for r in same:
+        _check("fabric F4 identical", r, LI_RESIDENT, [L[c_][ok == keys[0]] for c_ in LI_RESIDENT])
+    single = [read(sa).filter(col("l_orderkey") == int(k)).select(*LI_RESIDENT).collect()
+              for k in keys]
+    router = fabric.make_router({"a": sa, "b": sb}, serve_config=serve_conf)
+    try:
+        def distinct():
+            tickets = [router.submit(lookup(k)) for k in keys]
+            router.start()
+            got = [t_.result(timeout=600) for t_ in tickets]
+            return got, {h: s.stats()["batch_size_hist"] for h, s in router.hosts.items()}
+
+        (b1, hists), rec = step("F4 B1 64 distinct lookups", distinct)
+    finally:
+        router.close()
+    for k, r, s_r in zip(keys, b1, single):
+        want = [L[c_][ok == k] for c_ in LI_RESIDENT]
+        _check("fabric F4 B1", r, LI_RESIDENT, want)
+        _check("fabric F4 B1 single", s_r, LI_RESIDENT, want)
+    c = rec["counters"]
+    if (rec["launches"].get(tk.K1B, 0) != 2 * one or c.get("serve.batch.dispatches") != 2
+            or c.get("serve.batch.queries") != 128 or any(h != {64: 1} for h in hists.values())):
+        raise AssertionError(f"fabric F4 B1: {rec}, batch sizes {hists}")
+    rec["batch_size_hist"] = hists
+
+    # F5: chaos
+    def factories():
+        return {"a": lambda: QueryServer(sa, ServeConfig(max_workers=2)),
+                "b": lambda: QueryServer(sb, ServeConfig(max_workers=2))}
+
+    retry = RetryPolicy(max_attempts=3, base_delay_s=0.01, max_delay_s=0.1)
+    hosts = FaultPlan([HostFault("crash", "b", at_query=2)]).wrap(factories())
+    # no probation within the run (the dead host is never probed, so lost
+    # once) and no hedges
+    router = QueryRouter(hosts, health_policy=HealthPolicy(probation_cooldown_s=3600.0),
+                         retry_policy=retry, hedging=False).start()
+    try:
+        crash, rec = step("F5 crash", lambda: [routed(router, a3_build)[0]
+                                               for _ in range(FABRIC_CHAOS_QUERIES)])
+        rec["health"] = router.stats()["health"]
+    finally:
+        router.close()
+    for r in crash:
+        _same_groups("fabric F5 crash", r, f2)
+    c = rec["counters"]
+    if c.get("router.host_lost") != 1 or c.get("serve.chaos.crashed") != 1:
+        raise AssertionError(f"fabric F5 crash: {rec}")
+
+    slow_clock = _Clock()  # never moves: the slow leg is withheld until cancelled
+    hosts = {"a": factories()["a"](),
+             "b": ChaosHostProxy("b", factories()["b"],
+                                 [HostFault("slow", "b", at_query=3, delay_s=1e9, times=1)],
+                                 clock=slow_clock)}
+    router = QueryRouter(hosts, health_policy=HealthPolicy(
+        hedge_min_samples=2, hedge_min_delay_s=0.5, hedge_max_delay_s=0.5),
+        retry_policy=retry).start()
+    try:
+        slow, rec = step("F5 slow host hedged", lambda: [routed(router, a3_build)[0]
+                                                         for _ in range(5)])
+    finally:
+        router.close()
+    for r in slow:
+        _same_groups("fabric F5 slow", r, f2)
+    c = rec["counters"]
+    if c.get("router.hedge.issued", 0) < 1 or c.get("router.hedge.won", 0) < 1:
+        raise AssertionError(f"fabric F5 slow: {rec}")
+
+    clock = _Clock()
+    hosts = {"a": factories()["a"](),
+             "b": ChaosHostProxy("b", factories()["b"],
+                                 [HostFault("flap", "b", at_query=1, duration_s=0.2),
+                                  HostFault("flap", "b", at_query=4, duration_s=0.2)],
+                                 clock=clock)}
+    # no hedges: a hedged leg on b would move b's submission count, the
+    # flap schedule's clock
+    router = QueryRouter(hosts, health_policy=HealthPolicy(probation_cooldown_s=0.05),
+                         retry_policy=retry, hedging=False)
+    router.health = HealthDirector(list(hosts), policy=router.health.policy, clock=clock)
+    router.start()
+    try:
+        def flap():
+            got = []
+            for _ in range(FABRIC_FLAP_QUERIES):
+                got += routed(router, a3_build)
+                clock.t += 0.06
+            readmitted = metrics.get("router.health.readmitted")
+            router.revive_host("b", QueryServer(sb, ServeConfig(max_workers=2)))
+            got += routed(router, a3_build)
+            return got, readmitted, router.health.state("b"), router.stats()["health"]["b"]
+
+        (flapped, readmitted, state, health_b), rec = step("F5 flap and revive", flap)
+    finally:
+        router.close()
+    for r in flapped:
+        _same_groups("fabric F5 flap", r, f2)
+    c = rec["counters"]
+    rec["health_b"] = health_b
+    if (readmitted < 1 or health_b["deaths"] < 2 or state != "healthy"
+            or c.get("router.health.readmitted") != readmitted + 1
+            or c.get("router.health.revive_offered") != 1):
+        raise AssertionError(f"fabric F5 flap: {rec}, readmitted before revive {readmitted}, "
+                             f"b {state}")
+
+    # F6: the fleet result cache and warm-compile hints
+    ca = host_session(**{"hyperspace.compile.resultCache": "on"})
+    cb = host_session(**{"hyperspace.compile.resultCache": "on"})
+    router = fabric.make_router({"a": ca, "b": cb}, serve_config=ServeConfig(max_workers=2))
+    router.start()
+    try:
+        routed(router, a3_build)  # cold: declined
+        routed(router, a3_build)  # a repeat: admitted
+        (hit,), rec = step("F6 fleet cache hit", lambda: routed(router, a3_build))
+        pipeline_cache.reset()  # a cold host: its compiled pipelines gone
+        hints, hrec = step("F6 warm hints", lambda: router.offer_warm_hints("b"))
+    finally:
+        router.close()
+    _same_groups("fabric F6 hit", hit, f2)
+    c = rec["counters"]
+    if (c.get("router.result_cache.hit") != 1 or c.get("router.subqueries", 0) != 0
+            or sum(rec["launches"].values()) != 0):
+        raise AssertionError(f"fabric F6 hit: {rec}")
+    hrec["offer"] = hints
+    if hints["adopted"] < 1:
+        raise AssertionError(f"fabric F6 warm hints: {hints}")
+
+    out["launches"] = {kname: sum(r["launches"].get(kname, 0) for r in out["steps"].values())
+                       for kname in (tk.K1, tk.K1C, tk.K1B)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("fabric: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # streaming phase: TPC-H lineitem at SF3 through the streaming build
 # ---------------------------------------------------------------------------
 STREAM_SF = 3
@@ -6271,7 +6818,7 @@ def _phases(arg: str) -> tuple:
     if unknown or not want:
         raise argparse.ArgumentTypeError(
             f"--phases takes a comma list of {','.join(PHASES)} (got {arg!r})")
-    if want & {"aggregate", "resident", "join", "serve", "native", "front_end"}:
+    if want & {"aggregate", "resident", "join", "serve", "native", "front_end", "fabric"}:
         want.add("main")
     return tuple(p for p in PHASES if p in want)
 
@@ -6286,11 +6833,16 @@ def main() -> int:
                     help="print host and device profiles of each main-path step")
     ap.add_argument("--phases", type=_phases, default=PHASES,
                     help="comma list of the phases to run, of " + ",".join(PHASES)
-                    + " (default: all; aggregate, resident, join, serve, native and front_end "
-                    "bring "
-                    "main)")
+                    + " (default: all; aggregate, resident, join, serve, native, front_end "
+                    "and fabric bring main)")
+    ap.add_argument("--fabric-worker", nargs=4, metavar=("PID", "NPROC", "DIR", "DEVICE"),
+                    help="run one worker process of the fabric phase's multi-process build "
+                    "(the fabric phase starts them)")
     args = ap.parse_args()
     phases = args.phases
+    if args.fabric_worker:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        return fabric_worker(*args.fabric_worker)
 
     import torch
 
@@ -6406,6 +6958,11 @@ def main() -> int:
         # streaming tier)
         for kname, n in main_out["mesh"]["launches"].items():
             launches[kname] = (launches[kname] or 0) + n
+    if "fabric" in main_out:
+        # K1 (F2 and F5's queries: one a host leg), K1c (F3, and F4's
+        # identical lookup: one a host leg), K1b (F4's B1 burst: one a host)
+        for kname, n in main_out["fabric"]["launches"].items():
+            launches[kname] = (launches[kname] or 0) + n
     for kname, n in launches.items():
         if n is not None and n <= 0:
             raise AssertionError(f"{kname} was not launched on its path ({launches})")
@@ -6417,7 +6974,8 @@ def main() -> int:
                       ("join", "join"), ("serve", "serve"), ("native", "native"),
                       ("front_end", "front_end"),
                       ("lifecycle", "lifecycle"), ("hybrid", "hybrid"),
-                      ("reliability", "reliability"), ("mesh", "mesh")):
+                      ("reliability", "reliability"), ("mesh", "mesh"),
+                      ("fabric", "fabric")):
         if key in main_out:
             details[name] = main_out[key]
     log(json.dumps({**details, "streaming": stream_out, "kernel_cases": kphase, "ptxas": ptxas,

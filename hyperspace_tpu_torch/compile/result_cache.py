@@ -7,8 +7,12 @@ result_cache``. Results depend on literal values, so the key is the serve
 plan cache's ``plan_signature`` (tree string with literals, every leaf's
 file snapshot) plus the full version token: a hit is sound by
 construction (same literals, same source snapshot, same index
-generation, same conf). ``invalidate(index_root)`` drops a rewritten
-index's entries eagerly (the collection manager's hook).
+generation, same conf). ``invalidate_all(index_root)`` drops a rewritten
+index's entries eagerly from both levels (the collection manager's hook).
+Two instances: ``result_cache``, the serve-level one (``compile.
+result_cache.*``), and ``router_result_cache``, the fleet-level one the
+query router (``distributed/router.py``) keys on every host's plan
+signature and version token (``router.result_cache.*``).
 
 * Admission (``serve/cache_policy.py``): a result enters only when its
   observed recompute cost times its fingerprint's repeat rate beats its
@@ -17,12 +21,11 @@ index's entries eagerly (the collection manager's hook).
   the clock set to each victim's priority, so stale expensive entries
   cannot squat and cheap bulky ones go first.
 
-The cache's bytes charge against the residency budget: it registers as a
-``residency/tiers.py`` claimant, and the caches' eviction ladder sheds it
-before deltas. Entries under an older token are never dropped on a token
+The caches' bytes charge against the residency budget: each registers
+as a ``residency/tiers.py`` claimant, and the caches' eviction ladder
+sheds them before deltas. Entries under an older token are never dropped on a token
 change: a snapshot-pinned reader presenting its token still hits them
-(a reader on the new token misses, counted ``stale_miss``). The
-reference's router-level instance comes with multi-device.
+(a reader on the new token misses, counted ``stale_miss``).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..telemetry.metrics import metrics
 class ResultCache:
     """Cost-aware result memo: (plan signature, version token) ->
     finished batch, GDSF-evicted, byte-budgeted. ``prefix`` names the
-    counter family (``compile.result_cache.*``)."""
+    counter family (``compile.result_cache.*``, ``router.result_cache.*``)."""
 
     def __init__(self, prefix: str = "compile.result_cache"):
         self._prefix = prefix
@@ -213,6 +216,14 @@ class ResultCache:
 
 
 result_cache = ResultCache()
+router_result_cache = ResultCache(prefix="router.result_cache")
+
+
+def invalidate_all(index_root: Optional[str] = None) -> int:
+    """Scoped invalidation across both levels: a refresh, optimize or
+    delete of an index drops its serve-level entries and every router-level
+    entry whose fan-out read it (either side of a join)."""
+    return result_cache.invalidate(index_root) + router_result_cache.invalidate(index_root)
 
 
 def budget_share_bytes(share: float, budget_bytes: int) -> int:
@@ -240,7 +251,8 @@ def result_roots(optimized_plan) -> Tuple[str, ...]:
     return index_roots(optimized_plan)
 
 
-# the cache's bytes charge against the one residency budget and shed first
+# the caches' bytes charge against the one residency budget and shed first
 from ..residency import tiers as _tiers  # noqa: E402
 
 _tiers.register_claimant("result_cache", result_cache)
+_tiers.register_claimant("router_result_cache", router_result_cache)

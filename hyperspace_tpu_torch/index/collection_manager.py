@@ -67,10 +67,10 @@ def _invalidate_compiled(index_root) -> None:
     the eager drop keeps the bounded caches from pinning dead routing
     state."""
     from ..compile.cache import pipeline_cache
-    from ..compile.result_cache import result_cache
+    from ..compile.result_cache import invalidate_all
 
     pipeline_cache.invalidate(str(index_root))
-    result_cache.invalidate(str(index_root))
+    invalidate_all(str(index_root))
 
 
 class IndexCollectionManager:

@@ -679,6 +679,85 @@ def scatter_blocks(
     return out
 
 
+def _receive_plan(bounds, n_rows: int, num_buckets: int):
+    """The receiving sort's radix pack over per-key ``bounds`` (None when
+    a key declines packing, or there are no rows)."""
+    if bounds is None or not n_rows:
+        return None
+    return _pack_plan(bounds, max(int(num_buckets), 1).bit_length())
+
+
+def _scatter_sources(mesh, encoded, names, dtypes, key_names, vh_host, num_buckets: int,
+                     D: int, cap: int, shard_rows: int, n: int) -> List[List[torch.Tensor]]:
+    """Each of ``mesh``'s shards takes the rows ``[s * shard_rows, (s + 1) *
+    shard_rows)`` of the host buffers: upload, bucketize (vocab hashes on
+    every device), scatter every plane in transport encoding, then the
+    bucket ids, into ``(D, cap)`` send blocks by owner (``scatter_blocks``:
+    the validity plane last)."""
+    from ..parallel.mesh import owner_of_bucket_device
+
+    vh_on: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+    sends: List[List[torch.Tensor]] = []
+    for s, dev in enumerate(mesh.devices):
+        lo, hi = min(s * shard_rows, n), min((s + 1) * shard_rows, n)
+        with mesh.scope(dev):
+            arrays = {name: _to_device(encoded[name][lo:hi], dev) for name in names}
+            if dev not in vh_on:
+                vh_on[dev] = {k: torch.from_numpy(v).to(dev) for k, v in vh_host.items()}
+            bucket = device_bucket_ids(arrays, dtypes, list(key_names), vh_on[dev],
+                                       num_buckets)
+            dest = owner_of_bucket_device(bucket, D)
+            planes = [arrays[name] for name in names] + [bucket.to(torch.int32)]
+            sends.append(scatter_blocks(planes, dest, D, cap))
+        del arrays
+    return sends
+
+
+def _exchange_planes(sends: List[List[torch.Tensor]], exchange) -> List[List[torch.Tensor]]:
+    """The exchange, plane by plane (``exchange`` maps one send block a
+    source shard to one receive a destination shard); each plane's send
+    blocks go once its receive is built."""
+    recv: List[List[torch.Tensor]] = [[] for _ in sends]
+    for p in range(len(sends[0])):
+        got = exchange([sends[s][p] for s in range(len(sends))])
+        for s in range(len(sends)):
+            sends[s][p] = None
+        for d in range(len(got)):
+            recv[d].append(got[d])
+    return recv
+
+
+def _sort_received(planes: List[torch.Tensor], names, key_names, num_buckets: int, plan,
+                   n_take: int) -> Tuple["DeviceFetch", torch.Tensor]:
+    """One receiving shard: sort what it got by (bucket, keys...) with the
+    single-device build's sort (its stable tie-break is the receive order:
+    source shard, then row order), keep the ``n_take`` valid rows and send
+    their planes and bucket ids home. Returns the fetch and the shard's
+    per-bucket counts (on its device)."""
+    valid = planes[-1]
+    r_bucket = planes[-2].to(torch.int64)
+    masked = torch.where(valid, r_bucket, torch.full_like(r_bucket, num_buckets))
+    keys = {k: planes[names.index(k)] for k in key_names}
+    if plan is not None:
+        perm = _single_perm_kernel_packed(keys, masked, list(key_names), plan)
+    else:
+        perm = _single_perm_kernel(keys, masked, list(key_names))
+    take = perm[: int(n_take)]
+    counts = torch.bincount(masked, minlength=num_buckets + 1)[:num_buckets]
+    fetch = DeviceFetch([planes[i][take] for i in range(len(names))] + [planes[-2][take]])
+    return fetch, counts
+
+
+def _fetched_batch(got: List[np.ndarray], names, dtypes, vocabs) -> Tuple[ColumnarBatch, np.ndarray]:
+    from ..storage.columnar import decode_device_array
+
+    cols = {
+        name: Column(dtypes[name], decode_device_array(dtypes[name], got[i]), vocabs[name])
+        for i, name in enumerate(names)
+    }
+    return ColumnarBatch(cols), got[-1]
+
+
 def build_partition_sharded(
     batch: ColumnarBatch,
     key_names: List[str],
@@ -702,13 +781,7 @@ def build_partition_sharded(
     input order), and its rows come home through pinned, non-blocking
     copies. Every shard is issued before the first wait. Within a bucket
     the rows are the single-device build's, so the index files are too."""
-    from ..parallel.mesh import (
-        all_reduce,
-        all_to_all,
-        owner_of_bucket_array,
-        owner_of_bucket_device,
-    )
-    from ..storage.columnar import decode_device_array
+    from ..parallel.mesh import all_reduce, all_to_all, owner_of_bucket_array
     from ..utils.intmath import next_pow2
     from .hashing import bucket_ids_host, key_repr
 
@@ -733,71 +806,216 @@ def build_partition_sharded(
             bounds = None
             break
         bounds.append((min(b[0], 0), max(b[1], 0)))
-    plan = (
-        _pack_plan(bounds, max(int(num_buckets), 1).bit_length())
-        if bounds is not None and n
-        else None
-    )
+    plan = _receive_plan(bounds, n, num_buckets)
     vh_host = {
         k: vocab_hashes(batch.columns[k]) for k in key_names if is_string(dtypes[k])
     }
-    vh_on: Dict[torch.device, Dict[str, torch.Tensor]] = {}
-    # 1. each source shard: upload, bucketize, scatter into send blocks
-    sends: List[List[torch.Tensor]] = []
-    for s, dev in enumerate(mesh.devices):
-        lo, hi = min(s * shard_rows, n), min((s + 1) * shard_rows, n)
-        with mesh.scope(dev):
-            arrays = {name: _to_device(encoded[name][lo:hi], dev) for name in names}
-            if dev not in vh_on:
-                vh_on[dev] = {k: torch.from_numpy(v).to(dev) for k, v in vh_host.items()}
-            bucket = device_bucket_ids(arrays, dtypes, list(key_names), vh_on[dev],
-                                       num_buckets)
-            dest = owner_of_bucket_device(bucket, D)
-            planes = [arrays[name] for name in names] + [bucket.to(torch.int32)]
-            sends.append(scatter_blocks(planes, dest, D, cap))
-        del arrays
-    # 2. the exchange, plane by plane; each plane's send blocks go once its
-    # receive is built
-    recv: List[List[torch.Tensor]] = [[] for _ in range(D)]
-    for p in range(len(names) + 2):
-        got = all_to_all([sends[s][p] for s in range(D)], mesh)
-        for s in range(D):
-            sends[s][p] = None
-        for d in range(D):
-            recv[d].append(got[d])
-    # 3. each receiving shard: sort by (bucket, keys...), gather, send home
+    sends = _scatter_sources(mesh, encoded, names, dtypes, key_names, vh_host, num_buckets,
+                             D, cap, shard_rows, n)
+    recv = _exchange_planes(sends, lambda blocks: all_to_all(blocks, mesh))
     fetches, local_counts = [], []
     for d, dev in enumerate(mesh.devices):
-        planes = recv[d]
         with mesh.scope(dev):
-            valid = planes[-1]
-            r_bucket = planes[-2].to(torch.int64)
-            masked = torch.where(valid, r_bucket, torch.full_like(r_bucket, num_buckets))
-            keys = {k: planes[names.index(k)] for k in key_names}
-            if plan is not None:
-                perm = _single_perm_kernel_packed(keys, masked, list(key_names), plan)
-            else:
-                perm = _single_perm_kernel(keys, masked, list(key_names))
-            take = perm[: int(recv_rows[d])]
-            local_counts.append(torch.bincount(masked, minlength=num_buckets + 1)[:num_buckets])
-            fetches.append(DeviceFetch([planes[i][take] for i in range(len(names))]
-                                       + [planes[-2][take]]))
+            f, c = _sort_received(recv[d], names, key_names, num_buckets, plan, recv_rows[d])
+            fetches.append(f)
+            local_counts.append(c)
         recv[d] = None
     with mesh.scope(mesh.devices[0]):
         counts_fetch = DeviceFetch([all_reduce(local_counts, "sum", mesh)[0]])
-    # 4. one wait per shard
-    per_shard: List[Tuple[ColumnarBatch, np.ndarray]] = []
-    for f in fetches:
-        got = f.wait()
-        cols = {
-            name: Column(dtypes[name], decode_device_array(dtypes[name], got[i]),
-                         batch.columns[name].vocab)
-            for i, name in enumerate(names)
-        }
-        per_shard.append((ColumnarBatch(cols), got[-1]))
+    # one wait per shard
+    vocabs = {name: batch.columns[name].vocab for name in names}
+    per_shard = [_fetched_batch(f.wait(), names, dtypes, vocabs) for f in fetches]
     global_counts = counts_fetch.wait()[0].astype(np.int64)
     if int(global_counts.sum()) != n:
         raise HyperspaceException(
             f"Shuffle lost rows: {int(global_counts.sum())} != {n}."
         )
     return per_shard, global_counts
+
+
+# ---------------------------------------------------------------------------
+# the multi-controller build (P processes, L shards each, one exchange)
+# ---------------------------------------------------------------------------
+def _fsync_path(path) -> None:
+    import os
+
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def unify_vocabs_shared_storage(
+    local_batch: ColumnarBatch,
+    scratch_dir,
+    barrier,
+    process_index: int,
+    process_count: int,
+    timeout_s: float = 30.0,
+) -> ColumnarBatch:
+    """Cross-process dictionary union over shared storage: every process
+    writes its string columns' vocabs, a barrier orders the writes before
+    any read, and each process re-encodes onto the union, so codes are
+    comparable across processes and string columns cross the exchange as
+    any integer column does. (Vocabs are ragged bytes, so they go through
+    the index's shared storage rather than a collective.)
+
+    ``barrier`` is a zero-argument callable that returns only once every
+    process has entered it. Files are written under a temporary name,
+    fsynced, renamed and their directory fsynced before the first barrier,
+    so a peer's read after it cannot miss them under NFS-style caching;
+    a read that still misses is retried until ``timeout_s``
+    (``build.multihost.vocab_stale_retry``). A second barrier keeps every
+    file in place until every process has read it, so a later build
+    reusing the directory cannot race this one."""
+    import pickle
+    import time
+    from pathlib import Path
+
+    from ..telemetry.metrics import metrics
+
+    names = [n for n, c in local_batch.columns.items() if c.vocab is not None]
+    if not names:
+        return local_batch
+    scratch = Path(scratch_dir)
+    scratch.mkdir(parents=True, exist_ok=True)
+    payload = {n: local_batch.columns[n].vocab for n in names}
+    tmp = scratch / f".vocab-{process_index:05d}.tmp"
+    tmp.write_bytes(pickle.dumps(payload))
+    _fsync_path(tmp)
+    tmp.replace(scratch / f"vocab-{process_index:05d}.pkl")
+    _fsync_path(scratch)
+    barrier()  # every vocab file durable before anyone reads
+    merged: Dict[str, list] = {}
+    for p in range(process_count):
+        path = scratch / f"vocab-{p:05d}.pkl"
+        deadline = time.monotonic() + timeout_s
+        while True:
+            try:
+                # the files are this build's own, written by its processes
+                data = pickle.loads(path.read_bytes())
+                metrics.incr("build.multihost.vocab_read")
+                break
+            except FileNotFoundError:
+                if time.monotonic() >= deadline:
+                    raise
+                metrics.incr("build.multihost.vocab_stale_retry")
+                time.sleep(0.05)
+        for n, v in data.items():
+            merged.setdefault(n, []).append(v)
+    barrier()  # nobody overwrites these files until every process read them
+    out = dict(local_batch.columns)
+    for n in names:
+        union = np.unique(np.concatenate(merged[n]))
+        out[n] = local_batch.columns[n].reencode(union)
+    return ColumnarBatch(out)
+
+
+def build_partition_sharded_multihost(
+    local_batch: ColumnarBatch,
+    key_names: List[str],
+    num_buckets: int,
+    mesh,
+    scratch_dir=None,
+) -> Tuple[List[Tuple[ColumnarBatch, np.ndarray]], np.ndarray]:
+    """The multi-controller twin of ``build_partition_sharded``: every
+    process of the job calls it at once with its OWN rows (its share of
+    the source files), over a ``parallel.mesh.ProcessMesh`` of D = P x L
+    shards, and no ingest funnels through one host. Returns
+    ``(per_local_shard, global_counts)``: this process's L shards' (batch,
+    bucket ids), grouped by bucket and key-sorted (local slot order:
+    global shard ``process_index * L + l``), and the global per-bucket
+    counts, the same on every process.
+
+    It runs the single-controller program on each local shard, with the
+    group's collectives between them; where that program reads the whole
+    table, the processes agree instead (``ProcessMesh.consensus``, small
+    int64 all_reduces, recomputed per build: the reference's cache of
+    jitted reducers has nothing to cache here):
+
+    * ``shard_rows`` and the exchange's ``cap``: their MAX over the group;
+    * each destination's received rows: the per-destination send counts
+      summed over the group before the exchange;
+    * the receiving sort's radix pack: each key's bounds, MIN and MAX over
+      the group (a shard sorts rows other processes sent), and no pack
+      when any process's keys decline it;
+    * the global per-bucket counts, SUM over the group of what each
+      receiving shard got valid (the validity plane), with the
+      reference's "lost rows" check against the rows sent, and every
+      shard's valid rows against its agreed receive count.
+
+    The exchange concatenates what a shard receives in global source-shard
+    order (process, then local shard), so the stable tie-break stays
+    "source shard, then row order". String columns need ``scratch_dir`` on
+    shared storage: the per-process dictionaries union there first
+    (``unify_vocabs_shared_storage``)."""
+    from ..parallel.mesh import owner_of_bucket_array
+    from ..utils.intmath import next_pow2
+    from .hashing import bucket_ids_host, key_repr
+
+    L, D, P = mesh.local_size, mesh.size, mesh.process_count
+    if any(c.vocab is not None for c in local_batch.columns.values()):
+        if scratch_dir is None:
+            raise HyperspaceException(
+                "The multi-process build of string columns needs scratch_dir on "
+                "shared storage for the cross-process vocab union."
+            )
+        local_batch = unify_vocabs_shared_storage(
+            local_batch, scratch_dir, mesh.barrier, mesh.process_index, P)
+    dtypes = local_batch.schema()
+    names = list(local_batch.column_names)
+    n_local = local_batch.num_rows
+    shard_rows = next_pow2(mesh.consensus([max(-(-n_local // L), 1)], "max")[0])
+    host_dest = owner_of_bucket_array(
+        bucket_ids_host([key_repr(local_batch.columns[k]) for k in key_names], num_buckets), D)
+    encoded = {name: encode_for_device(local_batch.columns[name]) for name in names}
+    # per key: (min, max, declines) of the transport buffer, 0 included
+    # (the blocks' empty slots hold it); an empty share brings (0, 0)
+    lows, highs, declines = [], [], []
+    for k in key_names:
+        b = _packed_minmax(encoded[k])
+        declines.append(int(b is None and encoded[k].size > 0))
+        lo, hi = (0, 0) if b is None else b
+        lows.append(min(lo, 0))
+        highs.append(max(hi, 0))
+    agreed = mesh.consensus(
+        [_exchange_cap(host_dest, shard_rows, n_local, L, D)] + highs + declines, "max")
+    cap = next_pow2(agreed[0])
+    highs, declined = agreed[1:1 + len(key_names)], any(agreed[1 + len(key_names):])
+    lows = mesh.consensus(lows, "min")
+    sums = mesh.consensus([n_local] + np.bincount(host_dest, minlength=D).tolist(), "sum")
+    n_global, recv_rows = sums[0], sums[1:]
+    plan = _receive_plan(None if declined else list(zip(lows, highs)), n_global, num_buckets)
+    vh_host = {
+        k: vocab_hashes(local_batch.columns[k]) for k in key_names if is_string(dtypes[k])
+    }
+    local = mesh.local
+    sends = _scatter_sources(local, encoded, names, dtypes, key_names, vh_host, num_buckets,
+                             D, cap, shard_rows, n_local)
+    try:
+        recv = _exchange_planes(sends, mesh.all_to_all)
+    finally:
+        mesh.release_staging()
+    fetches, count_fetches = [], []
+    for l, (g, dev) in enumerate(zip(mesh.local_shards(), local.devices)):
+        with local.scope(dev):
+            f, c = _sort_received(recv[l], names, key_names, num_buckets, plan, recv_rows[g])
+            fetches.append(f)
+            count_fetches.append(DeviceFetch([c]))
+        recv[l] = None
+    vocabs = {name: local_batch.columns[name].vocab for name in names}
+    per_local = [_fetched_batch(f.wait(), names, dtypes, vocabs) for f in fetches]
+    # the valid rows each local shard received, by bucket (its masked
+    # counts): a row the exchange dropped or sent astray shows here, where
+    # the rows taken above (recv_rows, agreed before the exchange) cannot
+    valid = [f.wait()[0].astype(np.int64) for f in count_fetches]
+    astray = sum(int(v.sum()) != int(recv_rows[g]) for v, g in zip(valid, mesh.local_shards()))
+    agreed = mesh.consensus(np.sum(valid, axis=0).tolist() + [astray], "sum")
+    global_counts = np.asarray(agreed[:num_buckets], dtype=np.int64)
+    if int(global_counts.sum()) != n_global or agreed[num_buckets]:
+        raise HyperspaceException(
+            f"Multihost shuffle lost rows: {int(global_counts.sum())} != {n_global}, "
+            f"{agreed[num_buckets]} shards received other than their count."
+        )
+    return per_local, global_counts

@@ -1,8 +1,8 @@
 """reliability/: crash-consistent lifecycle machinery.
 
-Counterpart of ``hyperspace_tpu.reliability`` (its chaos proxy for the
-query router waits for the multi-device slice). Layered over the
-FileSystem seam and the Action protocol:
+Counterpart of ``hyperspace_tpu.reliability``. Layered over the
+FileSystem seam and the Action protocol, and one tier up, the hosts
+behind the query router:
 
 * ``retry``    — classified storage errors, bounded-backoff RetryPolicy
                  with deterministic jitter, RetryingFileSystem decorator;
@@ -13,9 +13,12 @@ FileSystem seam and the Action protocol:
 * ``doctor``   — fsck over index directories (log-chain integrity, data
                  presence, orphan reporting/vacuum), also a command line:
                  ``python -m hyperspace_tpu_torch.reliability.doctor PATH``;
-* ``faults``   — deterministic fault injection on the storage seam.
+* ``faults``   — deterministic fault injection on the storage seam;
+* ``chaos``    — deterministic host faults (crash, stall, flap, slow)
+                 behind the query router (``ChaosHostProxy``, ``FaultPlan``).
 """
 
+from .chaos import ChaosHostProxy, FaultPlan, HostFault
 from .doctor import DoctorReport, Issue, doctor
 from .faults import (
     FaultInjectingFileSystem,
@@ -40,12 +43,15 @@ from .retry import (
 )
 
 __all__ = [
+    "ChaosHostProxy",
     "DEFAULT_LEASE_DURATION_S",
     "DEFAULT_RETRY_POLICY",
     "DoctorReport",
     "FaultInjectingFileSystem",
+    "FaultPlan",
     "FaultRule",
     "HeldLease",
+    "HostFault",
     "InjectedCrash",
     "Issue",
     "LeaseManager",

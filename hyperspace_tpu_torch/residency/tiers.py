@@ -17,8 +17,8 @@ Compression ``force`` skips the resident rung for packable columns.
 Budget claimants are the non-residency holders of budget-charged bytes
 (the reference's result caches): each exposes ``held_bytes() -> int`` and
 ``shed(nbytes) -> int``, and the eviction ladder sheds them first. The
-serve tier's result cache registers here (``compile/result_cache.py``);
-the reference's router-level twin comes with multi-device.
+serve tier's result cache and the router's fleet-level one register here
+(``compile/result_cache.py``).
 """
 
 from __future__ import annotations

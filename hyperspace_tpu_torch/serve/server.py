@@ -333,6 +333,17 @@ class QueryServer:
         for t in workers:
             t.join(timeout_s)
 
+    def ping(self) -> dict:
+        """Lightweight liveness probe (the router's health director calls
+        it before spending a real query on a probation probe): no queue, no
+        planning, the closed flag and pool size under the lock. Raises
+        ServerClosed on a closed server, so a probe observes death the way
+        a query leg does."""
+        with self._cond:
+            if self._closed:
+                raise ServerClosed("query server is closed.")
+            return {"workers": len(self._workers), "queue_depth": self._depth}
+
     # -- tenancy -------------------------------------------------------------
     def _tenant_locked(self, name: str) -> TenantState:
         t = self._tenants.get(name)
@@ -1308,12 +1319,14 @@ def _compile_stats() -> dict:
 
 
 def _result_cache_stats() -> dict:
-    """Result-cache snapshot for stats(): occupancy and the admission and
-    eviction counters (telemetry.result_cache_snapshot)."""
-    from ..compile.result_cache import result_cache
+    """Result-cache snapshot for stats(): the serve-level and router-level
+    caches' occupancy and their admission and eviction counters
+    (telemetry.result_cache_snapshot)."""
+    from ..compile.result_cache import result_cache, router_result_cache
     from ..telemetry.metrics import result_cache_snapshot
 
-    return {"serve": result_cache.snapshot(), **result_cache_snapshot()}
+    return {"serve": result_cache.snapshot(), "router": router_result_cache.snapshot(),
+            **result_cache_snapshot()}
 
 
 def _residency_stats() -> dict:

@@ -235,9 +235,9 @@ def reliability_snapshot(registry: Optional[Metrics] = None) -> Dict[str, int]:
 def compile_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
     """The compiler's counters in one dict: lowerings against pipeline
     cache hits (a burst of one structure keeps ``pipelines_lowered`` flat
-    while ``cache_hits`` climbs), the fused arms' dispatches, and the
-    result cache's hits. The reference's warm-hint keys belong to its
-    router (multi-device) and are left out."""
+    while ``cache_hits`` climbs), the fused arms' dispatches, the result
+    cache's hits, and the router's warm-compile hints (offered, adopted by
+    a host that lowered, declined)."""
     r = registry if registry is not None else metrics
     out: Dict[str, object] = {
         "pipelines_lowered": r.get("compile.lowered"),
@@ -252,6 +252,9 @@ def compile_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
         "result_misses": r.get("compile.result_cache.miss"),
         "result_admitted": r.get("compile.result_cache.admitted"),
         "result_invalidated": r.get("compile.result_cache.invalidated"),
+        "warm_hints_offered": r.get("compile.warm_hint.offered"),
+        "warm_hints_adopted": r.get("compile.warm_hint.adopted"),
+        "warm_hints_declined": r.get("compile.warm_hint.declined"),
     }
     runs = {kind: r.get(f"compile.run.{kind}")
             for kind in ("scan", "agg_scan", "hybrid", "join_agg", "interpret")}
@@ -260,14 +263,15 @@ def compile_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
 
 
 def result_cache_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
-    """The serve-level result cache's counters: what admission took or
-    declined (cold structure, byte economics), what eviction shed, hits,
-    misses, and misses that were only stale by version token. (The
-    reference's router-level family comes with multi-device.)"""
+    """The result caches' counters, per level (``serve``:
+    ``compile.result_cache.*``, ``router``: ``router.result_cache.*``):
+    what admission took or declined (cold structure, byte economics), what
+    eviction shed, hits, misses, and misses that were only stale by
+    version token."""
     r = registry if registry is not None else metrics
-    p = "compile.result_cache"
-    return {
-        "serve_counters": {
+    out: Dict[str, object] = {}
+    for level, p in (("serve", "compile.result_cache"), ("router", "router.result_cache")):
+        out[level + "_counters"] = {
             "hits": r.get(p + ".hit"),
             "misses": r.get(p + ".miss"),
             "stale_misses": r.get(p + ".stale_miss"),
@@ -276,8 +280,8 @@ def result_cache_snapshot(registry: Optional[Metrics] = None) -> Dict[str, objec
             "declined_bytes": r.get(p + ".declined_bytes"),
             "evicted": r.get(p + ".evicted"),
             "invalidated": r.get(p + ".invalidated"),
-        },
-    }
+        }
+    return out
 
 
 def serve_snapshot(registry: Optional[Metrics] = None) -> Dict[str, int]:
