@@ -9,8 +9,8 @@ It needs a CUDA card and exits non-zero, printing no result, without one
 (or without the ``hyperspace_tpu_torch`` package beside it).
 ``--phases`` takes a comma list of ``kernels``, ``main``, ``aggregate``,
 ``resident``, ``join``, ``serve``, ``native``, ``front_end``,
-``lifecycle``, ``hybrid``, ``reliability``, ``mesh``, ``fabric`` and
-``streaming`` (default: all, in that order; aggregate, resident, join,
+``lifecycle``, ``hybrid``, ``reliability``, ``mesh``, ``fabric``,
+``streaming`` and ``lint`` (default: all, in that order; aggregate, resident, join,
 serve, native and front_end run in the main path's session and bring
 ``main``, as does fabric, which serves the main path's li_idx). Every query runs through the
 whole-plan compiler (``hyperspace.compile.mode`` defaults to ``auto``):
@@ -84,7 +84,10 @@ its launches are the interpreter's, N = 1 counts land under
    card, then a point lookup, a range filter and a Q3-shaped join with
    Hyperspace enabled and residency off (the per-file scan: the files'
    columns load through the native runtime's parallel ``pread``, Q3's
-   ranges from K2 expand and gather in its C++). Every result
+   ranges from K2 expand and gather in its C++). The point lookup runs
+   under the per-query profiler (conf ``hyperspace.tpu.profile.dir``): its
+   Chrome trace must name ``hs_predicate_mask`` and K1's device function,
+   and its bytes and kernel names are printed. Every result
    must equal a plain numpy evaluation of the same query, ``explain`` must
    show the index scans, and K1 and K2 must have launched; then, in the
    same session, the aggregates: Q17's shape (lineitem joined to orders,
@@ -153,7 +156,7 @@ its launches are the interpreter's, N = 1 counts land under
    at most 14 of 28 files for a 2,000-key window, and a point filter on
    l_partkey equals numpy;
 7. lifecycle — in a session of its own with lineage on: the same rows
-   written anew as ``src/lineitem_lc`` (8 avro files) and ``src/orders_lc``
+   (the main path's files copied) as ``src/lineitem_lc`` (8 avro files) and ``src/orders_lc``
    (2), covering indexes li_lc and ord_lc (200 buckets), then TPC-H's
    refresh functions as files appended to and removed from the sources
    (RF1: 1,500 new orders a batch, 1 to 7 lineitems each, keys in
@@ -168,7 +171,7 @@ its launches are the interpreter's, N = 1 counts land under
    once per Q3, none while the index is deleted. Every step is timed and
    every result equals numpy over the source as it stands;
 8. hybrid — in a session of its own with hybrid scan and lineage on: the
-   same rows written anew as ``src/lineitem_hy`` (8 files) and
+   same rows (the main path's files copied) as ``src/lineitem_hy`` (8 files) and
    ``src/orders_hy`` (2), covering indexes li_hy and ord_hy, served while
    the sources run ahead of them: H1 baseline (index only), H2 two RF1
    batches appended (the range filter a ``Union`` of the index and the 2
@@ -273,7 +276,14 @@ its launches are the interpreter's, N = 1 counts land under
    against the resident tier's; on the compressed and streaming tiers a
    burst of 16 range filters through a paused ``QueryServer`` launches
    K1b once (a window at a time when streaming: 18 launches);
-11. one ``native:`` line (each native entry's calls on the main,
+11. lint — on the host: the port's static analyzer
+   (``hyperspace_tpu_torch.tools.lint``'s default targets) must find no
+   unsuppressed finding (``lint: files N, unsuppressed 0, suppressed K,
+   seconds S``), and the live metrics registry, after every other phase,
+   must render to Prometheus text with no problem
+   (``metrics: families F, problems 0``); S1 of the streaming phase also
+   prints its ``build_pipeline_snapshot``;
+12. one ``native:`` line (each native entry's calls on the main,
    aggregate, join and streaming paths, counted from zero at each path's
    start, null where the path did not run; its native and plain ms and
    ``max_abs_err``; the host's CPU count and model), one ``kernels`` JSON
@@ -291,6 +301,7 @@ import functools
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -314,7 +325,7 @@ LI_RESIDENT = ["l_orderkey", "l_quantity", "l_shipdate", "l_extendedprice"]
 # serve, native and front_end run in the main path's session and so need
 # main, as does fabric, which serves the main path's li_idx
 PHASES = ("kernels", "main", "aggregate", "resident", "join", "serve", "native", "front_end",
-          "lifecycle", "hybrid", "reliability", "mesh", "fabric", "streaming")
+          "lifecycle", "hybrid", "reliability", "mesh", "fabric", "streaming", "lint")
 DAY_1992_01_01 = 8035  # days since 1970-01-01
 DAY_1998_08_02 = 10440
 DAY_1993_06_01 = 8552
@@ -384,6 +395,19 @@ def write_avro_dir(root: Path, table: dict, schema: dict, n_files: int) -> str:
         part = ColumnarBatch.from_pydict({k: v[s:e] for k, v in table.items()}, schema=schema)
         write_avro(root / f"part-{i:03d}.avro", part)
     return str(root)
+
+
+def own_source(workdir: Path, name: str, table: dict, schema: dict, n_files: int,
+               main_name: str):
+    """``workdir/src/<name>``, a phase's own source of ``table``: a copy of
+    the main path's ``src/<main_name>`` where the main path wrote those
+    ``n_files`` from the same table (the run passes every phase the same
+    tables), else written anew. Returns (the directory, how it came)."""
+    main_dir, dst = workdir / "src" / main_name, workdir / "src" / name
+    if main_dir.is_dir() and len(list(main_dir.glob("*.avro"))) == n_files:
+        shutil.copytree(main_dir, dst)
+        return dst, "copied from the main path's"
+    return Path(write_avro_dir(dst, table, schema, n_files)), "written anew"
 
 
 # ---------------------------------------------------------------------------
@@ -1949,7 +1973,7 @@ def kernel_phase(lineitem: dict, orders: dict, seed: int) -> dict:
         np.add.at(want_s, grp, rvc[hi] - rvc[lo])
         if not (np.array_equal(gc, want_c) and np.array_equal(gs, want_s)):
             raise AssertionError(f"fused agg {name}: disagrees with numpy")
-        arm = "kernel" if metrics.get("fused_agg.path.kernel") else "torch"
+        arm = "kernel" if metrics.get("join.fused_agg.path.kernel") else "torch"
         # plain: the same function in torch ops on the same device inputs
         l_d, r_d, g_d = (torch.from_numpy(a).to(dev) for a in (lk, r_sorted, grp))
         rvc_d = torch.from_numpy(rvc).to(dev)
@@ -1990,6 +2014,88 @@ def _check(name, batch, cols, want):
         raise AssertionError(
             f"{name}: {len(g[0])} rows differ from the numpy reference ({len(w[0])} rows)"
         )
+
+
+def query_trace_summary(profile_dir: Path, device: str, missing: int) -> dict:
+    """The one Chrome trace the per-query profiler wrote into
+    ``profile_dir``: its bytes, its launch ranges, its CUDA runtime calls
+    and its kernel names (the device functions' events). On the card it
+    must name ``hs_predicate_mask`` (the range around K1's launch) and hold
+    its ``cudaLaunchKernel``; K1's device function must be among its
+    kernels unless the profiler said it dropped kernel records
+    (``missing``, the ``trace.profile.device_records_missing`` count: the
+    card's timestamps can fall outside the profiler's window on this
+    machine, ``tools/profile_probe.py``). Off the card (a rehearsal: K1's
+    plain version, no launch) it must hold events."""
+    traces = sorted(profile_dir.glob("query-*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"query profile: {len(traces)} traces in {profile_dir}, want 1")
+    events = json.loads(traces[0].read_text()).get("traceEvents", [])
+    if not events:
+        raise AssertionError(f"query profile: {traces[0]} holds no events")
+    kernels, runtime = (sorted({e.get("name", "") for e in events if e.get("cat") == cat})
+                        for cat in ("kernel", "cuda_runtime"))
+    ranges = sorted({e.get("name", "") for e in events
+                     if str(e.get("name", "")).startswith("hs_")})
+    k1_seen = any("predicate_mask_kernel" in k for k in kernels)
+    if device != "cpu":
+        if "hs_predicate_mask" not in ranges or "cudaLaunchKernel" not in runtime:
+            raise AssertionError(f"query profile: no hs_predicate_mask launch (ranges {ranges}, "
+                                 f"runtime {runtime})")
+        if not k1_seen and not missing:
+            raise AssertionError(f"query profile: no K1 device function among {kernels}, and "
+                                 "trace.profile.device_records_missing did not count it")
+    rec = {"trace_bytes": traces[0].stat().st_size, "events": len(events), "ranges": ranges,
+           "runtime": runtime, "kernels": kernels, "device_records_missing": missing}
+    log(f"query point_lookup profile: trace {rec['trace_bytes']} bytes, {rec['events']} events, "
+        f"ranges {ranges}, kernels {kernels}"
+        + (" (kernel records fell outside the profiler's window: "
+           "trace.profile.device_records_missing 1)" if missing else ""))
+    return rec
+
+
+def start_lint() -> subprocess.Popen:
+    """The port's analyzer over its default targets (``python -m
+    hyperspace_tpu_torch.tools.lint``, JSON and per-rule timings, no cache)
+    in a process of its own: it reads only the sources, so it runs while
+    the phases before the lint phase do."""
+    from hyperspace_tpu_torch.tools.lint import DEFAULT_TARGETS
+
+    root = Path(__file__).resolve().parent
+    return subprocess.Popen(
+        [sys.executable, "-m", "hyperspace_tpu_torch.tools.lint", "--format", "json",
+         "--timings", *(str(root / t) for t in DEFAULT_TARGETS)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def lint_phase(proc=None) -> dict:
+    """The analyzer's verdict (``start_lint``'s process, started now when
+    none is given): no unsuppressed finding; then the live registry's
+    Prometheus text, after every other phase, validated the way a scraper
+    would (no problem)."""
+    from hyperspace_tpu_torch.analysis import iter_python_files
+    from hyperspace_tpu_torch.telemetry import export
+    from hyperspace_tpu_torch.tools.lint import DEFAULT_TARGETS
+
+    proc = start_lint() if proc is None else proc
+    out, err = proc.communicate(timeout=600)
+    findings = json.loads(out)["findings"] if out.strip() else []
+    unsuppressed = [f for f in findings if not f["suppressed"]]
+    if proc.returncode != 0 or unsuppressed:
+        raise AssertionError(f"lint: exit {proc.returncode}, unsuppressed findings "
+                             f"{unsuppressed}\n{err[-4000:]}")
+    lint_s = float(re.search(r"total: ([0-9.]+) s", err).group(1))
+    root = Path(__file__).resolve().parent
+    n_files = sum(1 for _ in iter_python_files([root / t for t in DEFAULT_TARGETS]))
+    log(f"lint: files {n_files}, unsuppressed 0, suppressed {len(findings)}, seconds {lint_s:.3f}")
+    text = export.render_prometheus()
+    problems = export.check_prometheus(text)
+    families = sum(1 for line in text.splitlines() if line.startswith("# TYPE "))
+    if problems:
+        raise AssertionError(f"metrics: {len(problems)} problems: {problems[:20]}")
+    log(f"metrics: families {families}, problems 0")
+    return {"files": n_files, "unsuppressed": 0, "suppressed": len(findings), "lint_s": lint_s,
+            "families": families, "problems": 0}
 
 
 class _Profiled:
@@ -2091,6 +2197,7 @@ def _main_session(lineitem, orders, workdir: Path, device: str, seed: int, profi
     from hyperspace_tpu_torch import native
     from hyperspace_tpu_torch.ops import fence, launch_counts, reset_launch_counts
     from hyperspace_tpu_torch.plan.expr import col
+    from hyperspace_tpu_torch.telemetry.metrics import metrics
 
     # the main path starts here: kernel launches and native calls from zero
     reset_launch_counts()
@@ -2169,14 +2276,25 @@ def _main_session(lineitem, orders, workdir: Path, device: str, seed: int, profi
         if "IndexScan Hyperspace(Type: CI" not in df.explain():
             raise AssertionError(f"{q}: explain shows no index scan")
     results = {}
+    # the point lookup runs under the per-query profiler (conf
+    # hyperspace.tpu.profile.dir; --profile runs its own profiler instead)
+    profile_dir = workdir / "query_profile"
     for q in list(queries) + ["q3_join"]:
         df = q3 if q == "q3_join" else queries[q][0]
+        traced = q == "point_lookup" and not profile
+        if traced:
+            session.conf.set("hyperspace.tpu.profile.dir", str(profile_dir))
+            missing0 = metrics.get("trace.profile.device_records_missing")
         t0 = time.perf_counter()
         with _Profiled(f"query {q}", profile):
             results[q] = df.collect()
         fence(session.device)
         out["query_s"][q] = time.perf_counter() - t0
         out["rows"][q] = results[q].num_rows
+        if traced:
+            session.conf.unset("hyperspace.tpu.profile.dir")
+            out["query_profile"] = query_trace_summary(
+                profile_dir, device, metrics.get("trace.profile.device_records_missing") - missing0)
     out["launches"] = launch_counts()
     # Q3's two presorted sides join through K2's ranges and the C++
     # gather (the range filter's 200 files, just written, are in the page
@@ -3635,7 +3753,7 @@ def range_and_q3_truth(L: dict, O: dict, bounds, where: str):
 def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
                     profile: bool = False) -> dict:
     """The index lifecycle after create, in its own session with lineage
-    on: the SF1 rows written anew as ``src/lineitem_lc`` (8 avro files) and
+    on: the SF1 rows (``own_source``) as ``src/lineitem_lc`` (8 avro files) and
     ``src/orders_lc`` (2), covering indexes li_lc and ord_lc (200 buckets),
     then TPC-H's refresh functions as a data lake sees them: RF1 appends
     one avro file of new orders and their lineitems to each source, RF2
@@ -3663,12 +3781,12 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
     n_new = max(1, int(round(1500 * len(orders["o_orderkey"]) / SF1_ORDERS)))
     batches = dict(zip(("rf1_a", "rf1_b"), rf1_batches(orders, seed, n_new)))
     t0 = time.perf_counter()
-    li_dir = Path(write_avro_dir(workdir / "src" / "lineitem_lc", lineitem, LINEITEM_SCHEMA, 8))
-    od_dir = Path(write_avro_dir(workdir / "src" / "orders_lc", orders, ORDERS_SCHEMA, 2))
+    li_dir, how = own_source(workdir, "lineitem_lc", lineitem, LINEITEM_SCHEMA, 8, "lineitem")
+    od_dir, _how = own_source(workdir, "orders_lc", orders, ORDERS_SCHEMA, 2, "orders")
     out = {"write_s": time.perf_counter() - t0, "rf1_orders": n_new,
            "rf1_lineitems": {k: len(li["l_orderkey"]) for k, (li, _od) in batches.items()},
            "steps": []}
-    log(f"lifecycle: sources written anew in {out['write_s']:.3f} s; RF1 batches of {n_new} "
+    log(f"lifecycle: sources {how} in {out['write_s']:.3f} s; RF1 batches of {n_new} "
         f"orders ({out['rf1_lineitems']} lineitems)")
     present = {"base": (lineitem, orders)}  # the source as it stands, by file
 
@@ -3900,7 +4018,7 @@ def lifecycle_phase(lineitem, orders, workdir: Path, device: str, seed: int,
 def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
                  profile: bool = False) -> dict:
     """Hybrid Scan at SF1, in a session of its own (hybrid scan and lineage
-    on, 200 buckets, residency off): the SF1 rows written anew as
+    on, 200 buckets, residency off): the SF1 rows (``own_source``) as
     ``src/lineitem_hy`` (8 avro files) and ``src/orders_hy`` (2), covering
     indexes li_hy and ord_hy, then, never refreshing until the last step:
 
@@ -3930,10 +4048,10 @@ def hybrid_phase(lineitem, orders, workdir: Path, device: str, seed: int,
     n_new = max(1, int(round(1500 * len(orders["o_orderkey"]) / SF1_ORDERS)))
     rf1 = dict(zip(("rf1_a", "rf1_b"), rf1_batches(orders, seed, n_new)))
     t_phase = t0 = time.perf_counter()
-    li_dir = Path(write_avro_dir(workdir / "src" / "lineitem_hy", lineitem, LINEITEM_SCHEMA, 8))
-    od_dir = Path(write_avro_dir(workdir / "src" / "orders_hy", orders, ORDERS_SCHEMA, 2))
+    li_dir, how = own_source(workdir, "lineitem_hy", lineitem, LINEITEM_SCHEMA, 8, "lineitem")
+    od_dir, _how = own_source(workdir, "orders_hy", orders, ORDERS_SCHEMA, 2, "orders")
     out = {"write_s": time.perf_counter() - t0, "steps": []}
-    log(f"hybrid: sources written anew in {out['write_s']:.3f} s")
+    log(f"hybrid: sources {how} in {out['write_s']:.3f} s")
     # the sources as they stand, by file: the base lineitem rows as
     # write_avro_dir split them, the orders whole, and the RF1 batches
     cuts = np.linspace(0, len(lineitem["l_orderkey"]), 9).astype(np.int64)
@@ -6498,9 +6616,34 @@ def ladder_burst(session, li, L: dict, table, label: str, seed: int, on_card: bo
     return rec
 
 
+def streaming_tables(seed: int, scale: float = 1.0):
+    """The streaming phase's TPC-H SF3 lineitem and orders (``scale`` of
+    them), from the seed alone."""
+    n_l = int(round(SF1_LINEITEM * STREAM_SF * scale))
+    n_o = int(round(SF1_ORDERS * STREAM_SF * scale))
+    return make_tables(seed + 8, n_o, n_l, n_parts=200_000 * STREAM_SF)
+
+
+def write_streaming_sources(workdir: Path, seed: int, scale: float = 1.0) -> None:
+    """S0's sources: ``src/lineitem_st`` (24 avro files) and
+    ``src/orders_st`` (6) under ``workdir``."""
+    L, O = streaming_tables(seed, scale)
+    write_avro_dir(workdir / "src" / "lineitem_st", L, LINEITEM_SCHEMA, 24)
+    write_avro_dir(workdir / "src" / "orders_st", O, ORDERS_SCHEMA, 6)
+
+
+def start_streaming_sources(workdir: Path, seed: int, scale: float) -> subprocess.Popen:
+    """``write_streaming_sources`` in a process of its own (``chip_smoke.py
+    --write-streaming-sources DIR SEED SCALE``), started before the kernel
+    phase so the write overlaps the phases before the streaming one."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--write-streaming-sources", str(workdir), str(seed), str(scale)])
+
+
 def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False,
                     scale: float = 1.0, chunk_rows=None, threshold=None,
-                    ladder_budgets=LADDER_BUDGETS_MB, ladder_window_rows=None) -> dict:
+                    ladder_budgets=LADDER_BUDGETS_MB, ladder_window_rows=None,
+                    sources=None) -> dict:
     """The streaming build, run files and background compaction, in a
     session of its own (lineage on, 200 buckets, ``build.engine=device``,
     residency off), over TPC-H lineitem and orders at SF3 (18,003,645 and
@@ -6534,7 +6677,9 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
     runtime's calls are counted over the phase; after S4,
     ``sf3_range_walk`` times its walk over li_runs and ord_st.
     ``chunk_rows`` and ``threshold`` are for rehearsals off the card at a
-    small ``scale`` only."""
+    small ``scale`` only. ``sources``: the process ``start_streaming_sources``
+    started to write S0's sources (waited for here), or None to write them
+    now."""
     import hyperspace_tpu_torch as hs
     from hyperspace_tpu_torch import native
     from hyperspace_tpu_torch.exec.hbm_cache import hbm_cache
@@ -6545,18 +6690,22 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
     from hyperspace_tpu_torch.storage import layout
     from hyperspace_tpu_torch.storage.avro_io import write_avro
     from hyperspace_tpu_torch.storage.columnar import ColumnarBatch
-    from hyperspace_tpu_torch.telemetry.metrics import metrics
+    from hyperspace_tpu_torch.telemetry.metrics import build_pipeline_snapshot, metrics
 
     on_card = device == "cuda"
     native.reset_call_counts()
     t_phase = time.perf_counter()
-    n_l = int(round(SF1_LINEITEM * STREAM_SF * scale))
-    n_o = int(round(SF1_ORDERS * STREAM_SF * scale))
-    n_parts = 200_000 * STREAM_SF
-    L, O = make_tables(seed + 8, n_o, n_l, n_parts=n_parts)
+    L, O = streaming_tables(seed, scale)
+    n_l, n_o = len(L["l_orderkey"]), len(O["o_orderkey"])
     t0 = time.perf_counter()
-    li_dir = Path(write_avro_dir(workdir / "src" / "lineitem_st", L, LINEITEM_SCHEMA, 24))
-    od_dir = Path(write_avro_dir(workdir / "src" / "orders_st", O, ORDERS_SCHEMA, 6))
+    if sources is None:
+        write_streaming_sources(workdir, seed, scale)
+        how = "written in"
+    else:
+        if sources.wait(timeout=1200) != 0:
+            raise AssertionError(f"streaming S0: the source writer exited {sources.returncode}")
+        how = "written in the background, waited"
+    li_dir, od_dir = workdir / "src" / "lineitem_st", workdir / "src" / "orders_st"
     thr = STREAM_THRESHOLD if threshold is None else int(threshold)
     li_bytes = sum(f.stat().st_size for f in li_dir.glob("*.avro"))
     od_bytes = sum(f.stat().st_size for f in od_dir.glob("*.avro"))
@@ -6566,7 +6715,7 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
     log(f"streaming S0: TPC-H SF{STREAM_SF}" + (f" x {scale}" if scale != 1.0 else "")
         + f": lineitem {n_l} rows in 24 avro files, {li_bytes} bytes "
         f"({li_bytes / n_l:.2f} a row); orders {n_o} rows in 6 files, {od_bytes} bytes; "
-        f"threshold {thr} bytes; written in {out['write_s']:.3f} s")
+        f"threshold {thr} bytes; {how} {out['write_s']:.3f} s")
     if li_bytes <= thr or od_bytes > thr:
         raise AssertionError("streaming S0: lineitem must exceed the threshold and orders not")
     os.environ["HYPERSPACE_TPU_TORCH_PROBE_CACHE"] = str(workdir / "engine_probe.json")
@@ -6684,6 +6833,8 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
         f"{got['build.device.staged_runs']}, D2H calls {got['build.stream.d2h_calls']}, H2D "
         f"{got['build.stream.h2d_bytes']} bytes, D2H {got['build.stream.d2h_bytes']} bytes | "
         + " ".join(f"{k[13:]}={v:.3f}" for k, v in sorted(timers.items())))
+    out["li_st"]["pipeline"] = build_pipeline_snapshot()
+    log(f"streaming S1 build_pipeline_snapshot: {json.dumps(out['li_st']['pipeline'])}")
     metrics.reset()
     t = verb(hsp.create_index, session.read.avro(str(od_dir)), hs.IndexConfig(
         "ord_st", ["o_orderkey"], ["o_custkey", "o_orderdate", "o_totalprice"]))
@@ -6752,7 +6903,8 @@ def streaming_phase(workdir: Path, device: str, seed: int, profile: bool = False
 
     # S3: one RF1 batch appended and refreshed, then RF2 through the lineage rewrite
     n_new = max(1, int(round(1500 * n_o / SF1_ORDERS)))
-    li_new, od_new = rf1_batches(O, seed + 8, n_new, n_batches=1, n_parts=n_parts)[0]
+    li_new, od_new = rf1_batches(O, seed + 8, n_new, n_batches=1,
+                                 n_parts=200_000 * STREAM_SF)[0]
     write_avro(li_dir / "part-rf1.avro", ColumnarBatch.from_pydict(li_new, schema=LINEITEM_SCHEMA))
     write_avro(od_dir / "part-rf1.avro", ColumnarBatch.from_pydict(od_new, schema=ORDERS_SCHEMA))
     present["rf1"] = (li_new, od_new)
@@ -6835,6 +6987,8 @@ def main() -> int:
                     help="comma list of the phases to run, of " + ",".join(PHASES)
                     + " (default: all; aggregate, resident, join, serve, native, front_end "
                     "and fabric bring main)")
+    ap.add_argument("--write-streaming-sources", nargs=3, metavar=("DIR", "SEED", "SCALE"),
+                    help="write the streaming phase's sources under DIR (the run starts it)")
     ap.add_argument("--fabric-worker", nargs=4, metavar=("PID", "NPROC", "DIR", "DEVICE"),
                     help="run one worker process of the fabric phase's multi-process build "
                     "(the fabric phase starts them)")
@@ -6843,6 +6997,11 @@ def main() -> int:
     if args.fabric_worker:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         return fabric_worker(*args.fabric_worker)
+    if args.write_streaming_sources:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        wdir, wseed, wscale = args.write_streaming_sources
+        write_streaming_sources(Path(wdir), int(wseed), float(wscale))
+        return 0
 
     import torch
 
@@ -6897,14 +7056,19 @@ def main() -> int:
     lineitem, orders = make_tables(args.seed, n_o, n_l)
     log(f"setup: tables generated in {time.perf_counter() - t0:.3f} s")
 
-    t0 = time.perf_counter()
-    kphase = kernel_phase(lineitem, orders, args.seed) if "kernels" in phases else None
-    log(f"phase seconds: kernels {time.perf_counter() - t0:.1f} s")
-    # launches above compared kernels with their plain versions; each
-    # path's counts start from zero inside its phase
     workdir = Path(args.workdir) if args.workdir else Path(tempfile.mkdtemp(prefix="hs_smoke_"))
+    # host work that needs only the sources or the seed runs in processes
+    # of its own beside the phases before the one that reads it
+    lint_proc = start_lint() if "lint" in phases else None
+    sources = (start_streaming_sources(workdir / "streaming", args.seed, args.scale)
+               if "streaming" in phases else None)
     stream_out = None
     try:
+        t0 = time.perf_counter()
+        kphase = kernel_phase(lineitem, orders, args.seed) if "kernels" in phases else None
+        log(f"phase seconds: kernels {time.perf_counter() - t0:.1f} s")
+        # launches above compared kernels with their plain versions; each
+        # path's counts start from zero inside its phase
         main_out = run_main_path(lineitem, orders, workdir, "cuda", args.seed, args.profile,
                                  phases)
         if "streaming" in phases:
@@ -6914,10 +7078,19 @@ def main() -> int:
                        "threshold": int(STREAM_THRESHOLD * args.scale)}
                 log(f"CUT: streaming phase at scale {args.scale}: {cut}")
             stream_out = streaming_phase(workdir / "streaming", "cuda", args.seed, args.profile,
-                                         scale=args.scale, **cut)
+                                         scale=args.scale, sources=sources, **cut)
             log(f"phase seconds: streaming {stream_out['phase_s']:.1f} s")
             degrade_guard("streaming")
+        lint_out = None
+        if "lint" in phases:
+            t0 = time.perf_counter()
+            lint_out = lint_phase(lint_proc)
+            log(f"phase seconds: lint {time.perf_counter() - t0:.1f} s")
     finally:
+        for proc in (lint_proc, sources):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if not args.workdir:
             shutil.rmtree(workdir, ignore_errors=True)
     # each kernel's launches on its paths (None where no phase of them ran)
@@ -6978,7 +7151,8 @@ def main() -> int:
                       ("fabric", "fabric")):
         if key in main_out:
             details[name] = main_out[key]
-    log(json.dumps({**details, "streaming": stream_out, "kernel_cases": kphase, "ptxas": ptxas,
+    log(json.dumps({**details, "streaming": stream_out, "lint": lint_out,
+                    "kernel_cases": kphase, "ptxas": ptxas,
                     "phases": list(phases), "total_s": time.perf_counter() - t_start}))
     log("native: " + json.dumps(native_line(main_out, stream_out)))
     if kphase is not None:

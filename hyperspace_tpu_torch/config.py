@@ -416,6 +416,10 @@ class HyperspaceConf:
     def distributed_min_rows(self) -> int:
         return int(self.get(C.TPU_DISTRIBUTED_MIN_ROWS, C.TPU_DISTRIBUTED_MIN_ROWS_DEFAULT))
 
+    def profile_dir(self) -> Optional[str]:
+        v = self.get(C.TPU_PROFILE_DIR)
+        return str(v) if v else None
+
     def residency(self) -> "ResidencyConf":
         """The HBM-residency knobs, parsed as the reference parses its
         environment knobs: a malformed value falls back to its default."""

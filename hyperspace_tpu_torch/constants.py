@@ -212,6 +212,12 @@ TORCH_DEVICE_DEFAULT = "cuda"
 # its name).
 TPU_DISTRIBUTED_MIN_ROWS = "hyperspace.tpu.distributedQuery.minRows"
 TPU_DISTRIBUTED_MIN_ROWS_DEFAULT = 1_000_000
+# When set to a directory, each query's execution runs under
+# torch.profiler (CPU activity, and CUDA activity on a CUDA session) and
+# its Chrome trace lands there: the per-kernel view beside the engine's
+# metrics registry (the reference's key, under its name, where it starts
+# jax.profiler.trace).
+TPU_PROFILE_DIR = "hyperspace.tpu.profile.dir"
 
 # --- HBM residency (exec/hbm_cache.py) ---------------------------------------
 # The reference reads these from environment variables (HYPERSPACE_TPU_HBM,

@@ -9,6 +9,7 @@ telemetry is emitted exactly when a rewrite fired
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import List
 
 import numpy as np
@@ -20,6 +21,75 @@ from .session import HyperspaceSession
 from .storage.columnar import ColumnarBatch
 from .telemetry import HyperspaceIndexUsageEvent
 from .telemetry.logging import EventLogging
+
+
+@contextmanager
+def _query_profile(profile_dir, device):
+    """Run the enclosed query execution under ``torch.profiler`` when
+    ``profile_dir`` is set, and write its Chrome trace there as
+    ``query-<ns>-<pid>.pt.trace.json``: CPU activity always, CUDA activity
+    (the kernels, named by the launches' ``record_function`` ranges and by
+    the device functions) on a CUDA ``device``. A CUDA session whose torch
+    cannot record CUDA activity raises rather than trace the CPU alone, and
+    a trace that holds more kernel launches than kernel records on the
+    device (the profiler drops a record whose card timestamp falls outside
+    its window, as where the host's and the card's clocks disagree) warns
+    and counts ``trace.profile.device_records_missing``. One profiler runs
+    in a process at a time, so concurrent profiled queries are not
+    supported."""
+    if not profile_dir:
+        yield None
+        return
+    import os
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    on_cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if on_cuda:
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            raise HyperspaceException(
+                f"conf hyperspace.tpu.profile.dir is set on a {device} session, but this "
+                "torch cannot record CUDA activity; unset it or use a build with CUPTI."
+            )
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if on_cuda:
+            # CUPTI hands over a kernel's record only once it is complete,
+            # and leaves waiting for the device to the caller
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(
+        os.path.join(profile_dir, f"query-{time.time_ns()}-{os.getpid()}.pt.trace.json"))
+    if on_cuda and kernel_records_missing(prof.events()):
+        import warnings
+
+        from .telemetry.metrics import metrics
+
+        metrics.incr("trace.profile.device_records_missing")
+        warnings.warn(
+            "the query's profile holds more CUDA kernel launches than kernel records on "
+            "the device: the profiler dropped records as outside its window (the card's "
+            "timestamps disagree with the host's)", RuntimeWarning, stacklevel=3)
+
+
+_LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                           "cuLaunchKernelEx"})
+
+
+def kernel_records_missing(events) -> bool:
+    """True when profiled ``events`` (``torch.profiler``'s) hold more CUDA
+    kernel launches on the host than kernel records on the device (each
+    launch has one; copies and memsets on the device are not kernels)."""
+    from torch.autograd import DeviceType
+
+    launches = sum(1 for e in events if e.name in _LAUNCH_CALLS)
+    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    return kernels < launches
 
 
 class DataFrame(EventLogging):
@@ -121,7 +191,10 @@ class DataFrame(EventLogging):
         ``hyperspace.telemetry.tracing``): the plan and execute stages as
         spans, the query's scoped metrics and its compiled pipeline on the
         trace's meta (what ``session.last_trace`` and explain(verbose)
-        read), the finished trace rung into the flight recorder."""
+        read), the finished trace rung into the flight recorder. With conf
+        ``hyperspace.tpu.profile.dir`` set, the execution also runs under
+        ``torch.profiler`` and its Chrome trace lands in that directory
+        (``_query_profile``)."""
         import contextlib
 
         from .exec.executor import Executor
@@ -136,7 +209,8 @@ class DataFrame(EventLogging):
             try:
                 with span("plan.optimize"):
                     plan = self.optimized_plan(log_usage=True)
-                with metrics.scoped() as query_metrics, span("query.execute"):
+                with (_query_profile(conf.profile_dir(), self.session.device),
+                      metrics.scoped() as query_metrics, span("query.execute")):
                     result = executor.execute(plan)
             except BaseException as e:
                 # a failed query's trace is the one a post-mortem needs

@@ -404,6 +404,9 @@ def _upload(arrays: List[np.ndarray], dev: torch.device, fence_of: Optional[int]
             K.sorted_intersect_fences(outs[fence_of], out=fences)
         ready = torch.cuda.Event()
         ready.record(side)
+    # hslint: disable=HS001 - the region's build, off the query path: it
+    # registers only complete uploads, and the staged pinned buffers must
+    # outlive their copies
     ready.synchronize()
     return outs, fences, ready
 
@@ -621,7 +624,9 @@ def build_mesh_join_region(cache, l_by_bucket, r_by_bucket, l_keys, r_keys, key,
     r_rows: List[list] = [[] for _ in range(D)]
     for k, b in enumerate(common):
         d = owner_of_bucket(int(b), D)
+        # hslint: disable=HS001 - host numpy: the setup's bucket bounds
         l_rows[d].append(np.arange(int(l_bounds[k]), int(l_bounds[k + 1])))
+        # hslint: disable=HS001 - host numpy (as above)
         r_rows[d].append(np.arange(int(r_bounds[k]), int(r_bounds[k + 1])))
     l_idx = [np.concatenate(x) if x else np.empty(0, dtype=np.int64) for x in l_rows]
     r_idx = [np.concatenate(x) if x else np.empty(0, dtype=np.int64) for x in r_rows]

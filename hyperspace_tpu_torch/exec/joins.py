@@ -237,6 +237,7 @@ def _segments_sorted(codes: np.ndarray, bounds: np.ndarray) -> bool:
     descents = np.flatnonzero(np.diff(codes) < 0)
     if not len(descents):
         return True
+    # hslint: disable=HS001 - host numpy: the setup's bucket bounds
     allowed = set((np.asarray(bounds[1:-1]) - 1).tolist())
     return all(int(d) in allowed for d in descents)
 
@@ -303,7 +304,9 @@ def segmented_join_ranges(
     lo = np.empty(len(l_codes), dtype=np.int64)
     counts = np.empty(len(l_codes), dtype=np.int64)
     for k in range(len(l_bounds) - 1):
+        # hslint: disable=HS001 - host numpy: the setup's bucket bounds
         ls, le = int(l_bounds[k]), int(l_bounds[k + 1])
+        # hslint: disable=HS001 - host numpy (as above)
         rs, re = int(r_bounds[k]), int(r_bounds[k + 1])
         seg = r_codes[rs:re]
         q = l_codes[ls:le]
@@ -331,7 +334,9 @@ def _flat_segment_remap(
     span = mx - mn + 1
     if span <= 0 or n_seg * span >= (1 << 62):
         return None
+    # hslint: disable=HS001 - host numpy: the setup's bucket bounds
     l_seg = np.repeat(np.arange(n_seg, dtype=np.int64), np.diff(np.asarray(l_bounds)))
+    # hslint: disable=HS001 - host numpy (as above)
     r_seg = np.repeat(np.arange(n_seg, dtype=np.int64), np.diff(np.asarray(r_bounds)))
     sp = np.int64(span)
     return l_seg * sp + (l_codes - mn), r_seg * sp + (r_codes - mn)

@@ -4,8 +4,8 @@ Parity: com/microsoft/hyperspace/Hyperspace.scala:34-165 — the lifecycle
 verbs (create, delete, restore, vacuum, refresh, optimize, cancel), list,
 describe and explain, and the reference package's ``prefetch_index`` and
 ``compact_index`` (the background compactor's verb) and ``doctor`` (fsck
-of the index tree, reliability/doctor.py). The query server is the
-session's (``session.serve``).
+of the index tree, reliability/doctor.py), and ``serve``, the session's
+query server.
 """
 
 from __future__ import annotations
@@ -86,6 +86,15 @@ class Hyperspace:
         artifacts. Returns a DoctorReport whose ``ok`` is the
         no-inconsistencies verdict."""
         return self.session.doctor(repair=repair)
+
+    def serve(self, **options):
+        """The session's query server (``serve.QueryServer``, through
+        ``session.serve``): per-tenant admission with weighted-fair
+        scheduling, per-query deadlines, micro-batched resident scans and
+        plan caching over this session's indexes. ``options`` are
+        ServeConfig fields and apply only when the server is created; a
+        closed server is replaced on the next call."""
+        return self.session.serve(**options)
 
     def explain(self, df: DataFrame, verbose: bool = False) -> str:
         from .plananalysis.plan_analyzer import explain_string

@@ -97,8 +97,8 @@ def bucket_of_values(values, dtype_strs, num_buckets: int) -> int:
         np.array([scalar_key_repr(v, dt)], dtype=np.int64)
         for v, dt in zip(values, dtype_strs)
     ]
-    # bucket_ids_host is the host lane by name and contract
-    return int(bucket_ids_host(reprs, num_buckets)[0])  # hslint: disable=HS001
+    # hslint: disable=HS001 - bucket_ids_host is the host lane by name and contract
+    return int(bucket_ids_host(reprs, num_buckets)[0])
 
 
 def _fmix32_np(h: np.ndarray) -> np.ndarray:

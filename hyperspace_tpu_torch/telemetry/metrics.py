@@ -181,6 +181,40 @@ class Metrics:
 metrics = Metrics()
 
 
+def build_pipeline_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
+    """Per-stage occupancy of the pipelined index build in one dict, in
+    the reference's layout. ``*_busy_s`` sums WORKER time per stage, so
+    with the pipeline on, busy sums legitimately exceed ``wall_s`` — that
+    excess IS the overlap (serial mode: they add up to at most wall).
+    ``*_occupancy`` divides by wall: the stage nearest its worker count is
+    the bottleneck. ``workers`` holds the stages' pool widths, which the
+    streaming build records as gauges (index/stream_builder.py)."""
+    r = registry if registry is not None else metrics
+    times = r.timings()
+
+    def busy(name: str) -> float:
+        return times.get(name, (0.0, 0))[0]
+
+    wall = busy("build.stream.pipeline_wall")
+    out: Dict[str, object] = {"wall_s": round(wall, 4)}
+    for stage in ("ingest_decode", "dispatch", "spill_compute", "spill_write"):
+        b = busy(f"build.stream.{stage}")
+        out[f"{stage}_busy_s"] = round(b, 4)
+        if wall > 0:
+            out[f"{stage}_occupancy"] = round(b / wall, 3)
+    out["ingest_wait_s"] = round(busy("build.stream.ingest_wait"), 4)
+    out["workers"] = {
+        k.rsplit(".", 1)[-1]: r.get(k)
+        for k in (
+            "build.stream.workers.ingest",
+            "build.stream.workers.spill_compute",
+            "build.stream.workers.spill_write",
+        )
+        if r.get(k)
+    }
+    return out
+
+
 def residency_snapshot(registry: Optional[Metrics] = None) -> Dict[str, object]:
     """The tier ladder's counters in one dict: which tier served scans,
     what bit-packing bought (packed against raw bytes), and the streaming

@@ -35,6 +35,10 @@ def test_import_leaves_jax_and_reference_out():
         "from hyperspace_tpu_torch.telemetry import trace, recorder, export\n"
         "from hyperspace_tpu_torch.exec import scan_agg\n"
         "from hyperspace_tpu_torch.reliability import retry\n"
+        "from hyperspace_tpu_torch import analysis\n"
+        "from hyperspace_tpu_torch.analysis import cache, core, reporter, rules\n"
+        "from hyperspace_tpu_torch.analysis.rules import hs001_host_sync, hs007_unfenced_device_timing\n"
+        "from hyperspace_tpu_torch.tools import lint, metrics\n"
         "native.available()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'hyperspace_tpu' or m.startswith('hyperspace_tpu.'))\n"

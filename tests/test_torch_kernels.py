@@ -487,7 +487,7 @@ def test_fused_agg_over_join_matches_reference(i):
     exp_c, exp_s = _agg_ref(np.asarray(lk, dtype=np.int64), np.asarray(rk, dtype=np.int64), rv, g, ng)
     assert np.array_equal(gc.numpy(), exp_c) and np.array_equal(gs.numpy(), exp_s)
     arm = "torch" if i == 5 else "kernel"  # only the wide key range declines K2
-    assert metrics.get(f"fused_agg.path.{arm}") == 1
+    assert metrics.get(f"join.fused_agg.path.{arm}") == 1
     if i in (0, 5):
         jc, js = (np.asarray(a) for a in jax.block_until_ready(
             jk.resident_fused_agg_over_join(lk, rk, rv, g, ng)()))

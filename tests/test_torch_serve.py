@@ -300,6 +300,34 @@ def test_session_submit_and_stats_surface(env):
     s.serve().close()
 
 
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_session_facade_verbs(env, pkg):
+    """Mirrors ``tests/test_serve.py::test_session_facade_verbs`` in each
+    package: ``Hyperspace.serve`` is the session's server, options after
+    its creation refuse, a closed server is replaced; the facade's
+    server answers a lookup with the rows of the same query's collect()."""
+    from hyperspace_tpu.exceptions import HyperspaceException as JErr
+    from hyperspace_tpu_torch.exceptions import HyperspaceException as TErr
+
+    mod = PKGS[pkg]
+    s = env.session(pkg)
+    hsp = mod.Hyperspace(s)
+    server = s.serve(max_workers=1)
+    assert s.serve() is server  # idempotent
+    assert hsp.serve() is server
+    for verb in (s.serve, hsp.serve):
+        with pytest.raises(JErr if pkg == "jax" else TErr):
+            verb(max_workers=3)  # options after creation refuse
+    q = lookup(env, s, mod, 77)
+    want = q.collect()
+    assert_same(hsp.serve().submit(q).result(timeout=60), want, ordered=False, keys=["k", "v"])
+    server.close()
+    # a closed server is replaced on the next serve() call, the facade's too
+    fresh = hsp.serve()
+    assert fresh is not server and s.serve() is fresh
+    fresh.close()
+
+
 @pytest.mark.gpu
 def test_cuda_k1b_and_k1hb_match_plain_versions():
     """K1b and K1hb on the card against their plain versions, exactly: N

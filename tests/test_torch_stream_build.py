@@ -262,6 +262,34 @@ def test_streaming_build_fuzz_matches_reference(tmp_path, seed):
     assert _files_by_slot(outs["jax"]) == _files_by_slot(outs["torch"])
 
 
+@pytest.mark.parametrize("builds", [1, 2])
+def test_pipeline_snapshot_matches_reference(tmp_path, builds):
+    """``build_pipeline_snapshot`` after the same pipelined host-engine
+    build(s) in each package: the same keys and the reference's worker
+    counts, a level rather than a sum over two builds in one process
+    (mirrors tests/test_build_pipeline.py's occupancy and gauge tests)."""
+    from hyperspace_tpu.telemetry.metrics import build_pipeline_snapshot as jsnap
+    from hyperspace_tpu.telemetry.metrics import metrics as jmetrics
+    from hyperspace_tpu_torch.telemetry.metrics import build_pipeline_snapshot as tsnap
+
+    t = _table(4000, 61)
+    pipe = {"torch": tsb.BuildPipelineConfig(True, 2, 2, 2, 2, 2)}
+    pipe["jax"] = jsb.BuildPipelineConfig(**pipe["torch"].__dict__)
+    snaps = {}
+    for key, registry, snap in (("jax", jmetrics, jsnap), ("torch", tmetrics, tsnap)):
+        registry.reset()
+        for b in range(builds):
+            _build(key, tmp_path / str(b), t, ["k"], chunk=512, chunk_rows=512, engine="host",
+                   pipeline=pipe[key])
+        snaps[key] = snap()
+    assert set(snaps["torch"]) == set(snaps["jax"])
+    assert snaps["torch"]["workers"] == snaps["jax"]["workers"] == {
+        "spill_compute": 2, "spill_write": 2}
+    for snap in snaps.values():
+        assert snap["wall_s"] > 0 and snap["spill_compute_busy_s"] > 0
+        assert snap["spill_write_busy_s"] > 0 and "spill_compute_occupancy" in snap
+
+
 def test_budget_refusal_takes_the_per_chunk_device_path(tmp_path):
     """A reservation the budget refuses routes every chunk through the
     per-chunk device path, counted, never the CPU engine; the reservation

@@ -7,6 +7,7 @@ a context into threads. Mirrors ``tests/test_trace.py`` and
 ``tests/test_observability.py``. Tolerance: exact.
 """
 
+import json
 import threading
 
 import pytest
@@ -23,6 +24,7 @@ from hyperspace_tpu_torch.telemetry import recorder as trec
 from hyperspace_tpu_torch.telemetry import trace as ttrace
 from hyperspace_tpu_torch.telemetry.metrics import Metrics, metrics as tmetrics
 
+from tests.test_torch_aggregate import assert_same
 from tests.test_torch_compile import PKGS, _fresh, lookup, make_env  # noqa: F401
 
 
@@ -165,3 +167,71 @@ def test_flight_recorder_matches_the_reference():
                          [t["root"]["name"] for t in s["inflight"]]) for s in d["snapshots"]])
     assert dumps["torch"] == dumps["jax"]
     assert dumps["torch"][0] == ["q4", "q3", "q2"]
+
+
+def test_profile_dir_writes_one_trace_a_query(env, tmp_path):
+    """Conf ``hyperspace.tpu.profile.dir`` (the reference's key, where it
+    starts ``jax.profiler.trace``): each collect() with it set leaves one
+    Chrome trace of the query's execution in the directory, with CPU
+    activity on a CPU session; without it, none. Rows are the same either
+    way, and the reference's."""
+    from hyperspace_tpu import constants as jC
+    from hyperspace_tpu_torch import constants as tC
+
+    assert tC.TPU_PROFILE_DIR == jC.TPU_PROFILE_DIR == "hyperspace.tpu.profile.dir"
+    prof = tmp_path / "prof"
+    plain_s = env.session("torch")
+    assert plain_s.conf.profile_dir() is None
+    plain = lookup(env, plain_s, texpr, 77).collect()
+    assert not prof.exists()
+    s = env.session("torch", **{tC.TPU_PROFILE_DIR: str(prof)})
+    assert s.conf.profile_dir() == str(prof)
+    traced = lookup(env, s, texpr, 77).collect()
+    (trace,) = prof.glob("query-*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert events and not any(e.get("cat") == "kernel" for e in events)
+    lookup(env, plain_s, texpr, 78).collect()
+    assert len(list(prof.glob("query-*.pt.trace.json"))) == 1
+    jmod = PKGS["jax"]
+    want = lookup(env, env.session("jax"), jmod, 77).collect()
+    assert_same(traced, plain, ordered=False, keys=["k", "v"])
+    assert_same(traced, want, ordered=False, keys=["k", "v"])
+
+
+def test_profile_dir_on_a_cuda_session_needs_cuda_activity(tmp_path, monkeypatch):
+    """A CUDA session whose torch cannot record CUDA activity refuses to
+    profile rather than trace the CPU alone."""
+    import torch
+
+    from hyperspace_tpu_torch.dataframe import _query_profile
+    from hyperspace_tpu_torch.exceptions import HyperspaceException
+
+    monkeypatch.setattr(torch.profiler, "supported_activities",
+                        lambda: {torch.profiler.ProfilerActivity.CPU})
+    with pytest.raises(HyperspaceException, match="CUDA activity"):
+        with _query_profile(str(tmp_path / "p"), torch.device("cuda")):
+            pass
+    assert not (tmp_path / "p").exists()
+    with _query_profile(None, torch.device("cuda")) as prof:
+        assert prof is None
+
+
+def test_missing_kernel_records_are_detected():
+    """The per-query profiler's check: a trace with more kernel launches on
+    the host than kernel records on the device lost records (a copy's
+    record on the device is no kernel's)."""
+    from types import SimpleNamespace as Ev
+
+    from torch.autograd import DeviceType
+
+    from hyperspace_tpu_torch.dataframe import kernel_records_missing
+
+    launch = Ev(name="cudaLaunchKernel", device_type=DeviceType.CPU)
+    kernel = Ev(name="predicate_mask_kernel", device_type=DeviceType.CUDA)
+    copy = Ev(name="Memcpy DtoH (Device -> Pageable)", device_type=DeviceType.CUDA)
+    host = Ev(name="aten::add", device_type=DeviceType.CPU)
+    assert kernel_records_missing([host, launch])
+    assert kernel_records_missing([host, launch, copy])
+    assert kernel_records_missing([launch, launch, kernel, copy])
+    assert not kernel_records_missing([host, launch, kernel, copy])
+    assert not kernel_records_missing([host, copy])
