@@ -277,9 +277,12 @@ its launches are the interpreter's, N = 1 counts land under
    burst of 16 range filters through a paused ``QueryServer`` launches
    K1b once (a window at a time when streaming: 18 launches);
 11. lint — on the host: the port's static analyzer
-   (``hyperspace_tpu_torch.tools.lint``'s default targets) must find no
-   unsuppressed finding (``lint: files N, unsuppressed 0, suppressed K,
-   seconds S``), and the live metrics registry, after every other phase,
+   (``hyperspace_tpu_torch.tools.lint``'s default targets, both phases)
+   must build a project model over every module of the port (``lint
+   project: modules M, functions F, edges E, locks L, model seconds S``,
+   read from its ``--call-graph-dump``) and find no unsuppressed finding
+   (``lint: files N, unsuppressed 0, suppressed K, seconds S``), and the
+   live metrics registry, after every other phase,
    must render to Prometheus text with no problem
    (``metrics: families F, problems 0``); S1 of the streaming phase also
    prints its ``build_pipeline_snapshot``;
@@ -2054,39 +2057,63 @@ def query_trace_summary(profile_dir: Path, device: str, missing: int) -> dict:
     return rec
 
 
-def start_lint() -> subprocess.Popen:
+def start_lint(dump: Path) -> subprocess.Popen:
     """The port's analyzer over its default targets (``python -m
-    hyperspace_tpu_torch.tools.lint``, JSON and per-rule timings, no cache)
-    in a process of its own: it reads only the sources, so it runs while
-    the phases before the lint phase do."""
+    hyperspace_tpu_torch.tools.lint``, both phases, JSON and per-rule
+    timings, no cache) in a process of its own, writing the project
+    model's call graph to ``dump``: it reads only the sources, so it runs
+    while the phases before the lint phase do."""
     from hyperspace_tpu_torch.tools.lint import DEFAULT_TARGETS
 
     root = Path(__file__).resolve().parent
     return subprocess.Popen(
         [sys.executable, "-m", "hyperspace_tpu_torch.tools.lint", "--format", "json",
-         "--timings", *(str(root / t) for t in DEFAULT_TARGETS)],
+         "--timings", "--call-graph-dump", str(dump), *(str(root / t) for t in DEFAULT_TARGETS)],
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def lint_phase(proc=None) -> dict:
-    """The analyzer's verdict (``start_lint``'s process, started now when
-    none is given): no unsuppressed finding; then the live registry's
-    Prometheus text, after every other phase, validated the way a scraper
-    would (no problem)."""
+def lint_phase(proc=None, dump=None) -> dict:
+    """The analyzer's verdict (``start_lint``'s process writing its call
+    graph to ``dump``, started now when none is given): no unsuppressed
+    finding, and a project model over every module of the port; then the
+    live registry's Prometheus text, after every other phase, validated
+    the way a scraper would (no problem)."""
     from hyperspace_tpu_torch.analysis import iter_python_files
     from hyperspace_tpu_torch.telemetry import export
     from hyperspace_tpu_torch.tools.lint import DEFAULT_TARGETS
 
-    proc = start_lint() if proc is None else proc
-    out, err = proc.communicate(timeout=600)
+    tmp = None
+    if proc is None:
+        tmp = tempfile.mkdtemp(prefix="hs_lint_")
+        dump = Path(tmp) / "callgraph.json"
+        proc = start_lint(dump)
+    try:
+        out, err = proc.communicate(timeout=600)
+        graph = json.loads(dump.read_text()) if dump.exists() else None
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
     findings = json.loads(out)["findings"] if out.strip() else []
     unsuppressed = [f for f in findings if not f["suppressed"]]
     if proc.returncode != 0 or unsuppressed:
         raise AssertionError(f"lint: exit {proc.returncode}, unsuppressed findings "
                              f"{unsuppressed}\n{err[-4000:]}")
     lint_s = float(re.search(r"total: ([0-9.]+) s", err).group(1))
+    model_s = float(re.search(r"project-model: ([0-9.]+) ms", err).group(1)) / 1e3
     root = Path(__file__).resolve().parent
-    n_files = sum(1 for _ in iter_python_files([root / t for t in DEFAULT_TARGETS]))
+    files = list(iter_python_files([root / t for t in DEFAULT_TARGETS]))
+    n_files = len(files)
+    if graph is None:
+        raise AssertionError(f"lint project: no call graph written\n{err[-4000:]}")
+    want = {".".join(f.relative_to(root).with_suffix("").parts).removesuffix(".__init__")
+            for f in files}
+    missing = sorted(want - set(graph["modules"]))
+    if missing:
+        raise AssertionError(f"lint project: the model lacks {len(missing)} modules: {missing[:20]}")
+    fns = graph["functions"]
+    edges = sum(len(f["calls"]) for f in fns.values())
+    log(f"lint project: modules {len(graph['modules'])}, functions {len(fns)}, edges {edges}, "
+        f"locks {len(graph['locks'])}, model seconds {model_s:.3f}")
     log(f"lint: files {n_files}, unsuppressed 0, suppressed {len(findings)}, seconds {lint_s:.3f}")
     text = export.render_prometheus()
     problems = export.check_prometheus(text)
@@ -2095,7 +2122,8 @@ def lint_phase(proc=None) -> dict:
         raise AssertionError(f"metrics: {len(problems)} problems: {problems[:20]}")
     log(f"metrics: families {families}, problems 0")
     return {"files": n_files, "unsuppressed": 0, "suppressed": len(findings), "lint_s": lint_s,
-            "families": families, "problems": 0}
+            "modules": len(graph["modules"]), "functions": len(fns), "edges": edges,
+            "locks": len(graph["locks"]), "model_s": model_s, "families": families, "problems": 0}
 
 
 class _Profiled:
@@ -7057,9 +7085,11 @@ def main() -> int:
     log(f"setup: tables generated in {time.perf_counter() - t0:.3f} s")
 
     workdir = Path(args.workdir) if args.workdir else Path(tempfile.mkdtemp(prefix="hs_smoke_"))
+    workdir.mkdir(parents=True, exist_ok=True)
     # host work that needs only the sources or the seed runs in processes
     # of its own beside the phases before the one that reads it
-    lint_proc = start_lint() if "lint" in phases else None
+    lint_dump = workdir / "lint_callgraph.json"
+    lint_proc = start_lint(lint_dump) if "lint" in phases else None
     sources = (start_streaming_sources(workdir / "streaming", args.seed, args.scale)
                if "streaming" in phases else None)
     stream_out = None
@@ -7084,7 +7114,7 @@ def main() -> int:
         lint_out = None
         if "lint" in phases:
             t0 = time.perf_counter()
-            lint_out = lint_phase(lint_proc)
+            lint_out = lint_phase(lint_proc, lint_dump)
             log(f"phase seconds: lint {time.perf_counter() - t0:.1f} s")
     finally:
         for proc in (lint_proc, sources):

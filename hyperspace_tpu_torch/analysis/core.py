@@ -8,9 +8,11 @@ modules' docstrings give the heuristic and its blind spots). Intentional
 violations at genuine host/device or IO boundaries carry a per-line
 ``# hslint: disable=HSxxx`` suppression with a justification comment.
 
-Counterpart of ``hyperspace_tpu.analysis.core``'s per-file half: the
-same finding, context, rule, alias, suppression and traversal surface,
-so one source yields the same findings under both analyzers.
+Counterpart of ``hyperspace_tpu.analysis.core``: the same finding,
+context, rule, alias, suppression and traversal surface, and the same
+two phases (per-file rules, then the project rules on the whole-program
+model of ``project.py``), so one source tree yields the same findings
+under both analyzers.
 """
 
 from __future__ import annotations
@@ -96,6 +98,22 @@ class Rule:
         return True
 
     def check(self, ctx: ModuleContext) -> Iterator[Tuple[int, int, str]]:
+        raise NotImplementedError
+
+
+class ProjectRule(Rule):
+    """Phase-2 analysis pass over the whole-program model
+    (analysis/project.py) instead of one module's AST. Subclasses
+    implement ``check_project`` yielding ``(path, line, col, message)``
+    tuples — path included because a cross-module property anchors its
+    finding wherever the witness site lives. Project rules run only when
+    the analysis builds a project model (``run_analysis(project=True)``,
+    the default); ``analyze_source`` skips them."""
+
+    def check(self, ctx: ModuleContext) -> Iterator[Tuple[int, int, str]]:
+        return iter(())  # per-file phase: nothing — the model phase reports
+
+    def check_project(self, project) -> Iterator[Tuple[str, int, int, str]]:
         raise NotImplementedError
 
 
@@ -233,6 +251,14 @@ def _comment_lines(source: str) -> Optional[Set[int]]:
     return out
 
 
+def _suppressed(
+    suppressions: Dict[int, Optional[Set[str]]], line: int, code: str
+) -> bool:
+    """A marker on ``line`` names ``code``, or names no rule."""
+    codes = suppressions.get(line, "absent")
+    return codes != "absent" and (codes is None or code in codes)
+
+
 def _findings(
     ctx: ModuleContext,
     rule: Rule,
@@ -241,9 +267,24 @@ def _findings(
     """``rule``'s findings on one module, each flagged suppressed when a
     marker on its line names the rule (or names no rule)."""
     for line, col, message in rule.check(ctx):
-        codes = suppressions.get(line, "absent")
-        suppressed = codes != "absent" and (codes is None or rule.code in codes)
-        yield Finding(rule.code, message, ctx.path, line, col, bool(suppressed))
+        yield Finding(
+            rule.code, message, ctx.path, line, col,
+            _suppressed(suppressions, line, rule.code),
+        )
+
+
+def _project_findings(
+    model,
+    rule: ProjectRule,
+    suppressions_by_path: Dict[str, Dict[int, Optional[Set[str]]]],
+) -> Iterator[Finding]:
+    """``rule``'s findings on the whole-program model, each flagged
+    suppressed by the markers of the module it lands in."""
+    for path, line, col, message in rule.check_project(model):
+        yield Finding(
+            rule.code, message, path, line, col,
+            _suppressed(suppressions_by_path.get(path, {}), line, rule.code),
+        )
 
 
 def _syntax_error(path: str, e: SyntaxError) -> Finding:
@@ -303,33 +344,93 @@ def iter_python_files(paths: Iterable[Path]) -> Iterator[Path]:
 def run_analysis(
     paths: Iterable[Path],
     rules: Optional[Sequence[Rule]] = None,
+    project: bool = True,
     timings: Optional[Dict[str, float]] = None,
+    model_sink: Optional[list] = None,
 ) -> List[Finding]:
     """Lint every ``.py`` under ``paths`` (files or directories) and return
-    the combined findings list, each rule run on each module's AST.
-    ``timings`` — when a dict is passed, it is filled with per-rule wall
-    seconds (the ``--timings`` CLI surface)."""
+    the combined findings list.
+
+    Two phases: per-file rules run on each module's AST; with
+    ``project=True`` (the default) a whole-program model is then built
+    over ALL the parsed modules and the cross-module rules (HS009-HS013)
+    run on it. Module names are derived relative to each path's parent
+    (``project.path_to_module``). ``timings`` — when a dict is passed, it
+    is filled with per-rule wall seconds plus ``"project-model"`` for the
+    model build (the ``--timings`` CLI surface). ``model_sink`` — when a
+    list is passed and the project phase runs, the built ProjectModel is
+    appended to it (the ``--call-graph-dump`` surface: the model is
+    expensive enough that the CLI must not build it twice)."""
     import time as _time
 
     if rules is None:
         from .rules import REGISTRY
 
         rules = REGISTRY
+    file_rules = [r for r in rules if not isinstance(r, ProjectRule)]
+    project_rules = [r for r in rules if isinstance(r, ProjectRule)] if project else []
+    if project_rules:
+        # project.py imports this module: bound here, not at import
+        from .project import build_project, path_to_module
+
+    def note(code: str, dt: float) -> None:
+        if timings is not None:
+            timings[code] = timings.get(code, 0.0) + dt
+
     findings: List[Finding] = []
-    for f in iter_python_files(Path(p) for p in paths):
-        source = f.read_text(encoding="utf-8")
-        try:
-            ctx = ModuleContext(source, str(f))
-        except SyntaxError as e:
-            findings.append(_syntax_error(str(f), e))
-            continue
-        suppressions = parse_suppressions(source)
-        for rule in rules:
-            if not rule.applies_to(ctx.posix):
+    entries: List[Tuple[ModuleContext, str, bool]] = []
+    suppressions_by_path: Dict[str, Dict[int, Optional[Set[str]]]] = {}
+    for root in paths:
+        root = Path(root)
+        base = root.parent.as_posix()
+        for f in iter_python_files([root]):
+            source = f.read_text(encoding="utf-8")
+            try:
+                ctx = ModuleContext(source, str(f))
+            except SyntaxError as e:
+                findings.append(_syntax_error(str(f), e))
                 continue
+            suppressions = parse_suppressions(source)
+            suppressions_by_path[ctx.path] = suppressions
+            if project_rules:
+                name, is_pkg = path_to_module(f.as_posix(), base)
+                entries.append((ctx, name, is_pkg))
+            for rule in file_rules:
+                if not rule.applies_to(ctx.posix):
+                    continue
+                t0 = _time.perf_counter()
+                findings.extend(_findings(ctx, rule, suppressions))
+                note(rule.code, _time.perf_counter() - t0)
+    if project_rules and entries:
+        t0 = _time.perf_counter()
+        model = build_project(entries)
+        note("project-model", _time.perf_counter() - t0)
+        if model_sink is not None:
+            model_sink.append(model)
+        for rule in project_rules:
             t0 = _time.perf_counter()
-            findings.extend(_findings(ctx, rule, suppressions))
-            if timings is not None:
-                dt = _time.perf_counter() - t0
-                timings[rule.code] = timings.get(rule.code, 0.0) + dt
+            findings.extend(_project_findings(model, rule, suppressions_by_path))
+            note(rule.code, _time.perf_counter() - t0)
+    return _sorted(findings)
+
+
+def analyze_project_sources(
+    sources: Dict[str, str], rules: Optional[Sequence[Rule]] = None
+) -> List[Finding]:
+    """Project-rule findings over a virtual ``{posix path: source}`` tree
+    — the fixture entry point: tests hand a synthetic multi-module
+    package and get cross-module findings with suppressions applied, no
+    filesystem involved."""
+    from .project import build_project_from_sources
+
+    if rules is None:
+        from .rules import REGISTRY
+
+        rules = REGISTRY
+    model = build_project_from_sources(sources)
+    sups = {path: parse_suppressions(src) for path, src in sources.items()}
+    findings: List[Finding] = []
+    for rule in rules:
+        if isinstance(rule, ProjectRule):
+            findings.extend(_project_findings(model, rule, sups))
     return _sorted(findings)

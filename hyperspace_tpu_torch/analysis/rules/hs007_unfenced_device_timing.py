@@ -57,7 +57,7 @@ SCOPE = (
 
 # torch calls that run on the host only: handles, queries and guards that
 # queue no work on the card
-_HOST_ONLY = frozenset(
+HOST_ONLY = frozenset(
     {
         "torch.device",
         "torch.dtype",
@@ -223,7 +223,7 @@ class UnfencedDeviceTimingRule(Rule):
             if _is_fence(node, resolved):
                 fences.append(node.lineno)
             elif (
-                resolved.startswith("torch.") and resolved not in _HOST_ONLY
+                resolved.startswith("torch.") and resolved not in HOST_ONLY
             ) or (resolved and _suffix_in(resolved, KERNEL_WRAPPERS)):
                 dispatches.append((node.lineno, node.col_offset, resolved))
         for lo, hi in spans:

@@ -100,10 +100,14 @@ def _load() -> ctypes.CDLL:
     lib = _LIB
     if lib is not None:
         return lib
+    # the library's name digests its source: read before the lock
+    so = _lib_path()
     with _LOCK:
         if _LIB is None:
-            so = _lib_path()
             if not so.exists():
+                # hslint: disable=HS011 - once-per-process build latch: holding
+                # _LOCK across the g++ compile IS the dedup; racers need the .so
+                # before proceeding and there is no caller-timeout contract here
                 _build(so)
             lib = ctypes.CDLL(str(so))
             for name, (res, args) in _SIGNATURES.items():

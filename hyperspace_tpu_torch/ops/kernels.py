@@ -147,11 +147,14 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
     the named kernels' libraries; already-built ones are reused. Each
     build keeps ``ptxas -v``'s report (registers, stack frame, spills per
     kernel) beside its library (``build_report``)."""
+    # the libraries' names digest their sources: read before the lock,
+    # which covers only the builds and the loads
+    paths = {n: _lib_path(n) for n in names}
     with _LIB_LOCK:
         todo = [n for n in names if n not in _LIBS]
         procs = []
         for n in todo:
-            src, so = _lib_path(n)
+            src, so = paths[n]
             if so.exists():
                 continue
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -183,7 +186,7 @@ def build_kernels(names=tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
             raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
         for n in todo:
             try:
-                lib = ctypes.CDLL(str(_lib_path(n)[1]))
+                lib = ctypes.CDLL(str(paths[n][1]))
             except OSError as e:
                 raise KernelBuildError(f"{n}: the kernel library does not load: {e}") from e
             vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

@@ -521,7 +521,8 @@ class QueryServer:
             with self._cond:
                 self._submitted += 1
                 tstate.submitted += 1
-            self._finish(ticket, error=DeviceUnavailableError(self._degraded_reason))
+                reason = self._degraded_reason
+            self._finish(ticket, error=DeviceUnavailableError(reason))
             return ticket
         try:
             # the result-cache path shares ONE plan_signature walk with

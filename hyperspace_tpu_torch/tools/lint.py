@@ -1,30 +1,34 @@
 """hslint CLI — run the port's static analyzer.
 
 Usage:
-    python -m hyperspace_tpu_torch.tools.lint            # default targets
+    python -m hyperspace_tpu_torch.tools.lint            # default targets, both phases
     python -m hyperspace_tpu_torch.tools.lint hyperspace_tpu_torch chip_smoke.py
     python -m hyperspace_tpu_torch.tools.lint --format json hyperspace_tpu_torch
-    python -m hyperspace_tpu_torch.tools.lint --changed HEAD~1
+    python -m hyperspace_tpu_torch.tools.lint --no-project somefile.py  # per-file rules only
+    python -m hyperspace_tpu_torch.tools.lint --changed HEAD~1  # full model, report changed
     python -m hyperspace_tpu_torch.tools.lint --format sarif > hslint.sarif
-    python -m hyperspace_tpu_torch.tools.lint --check-suppressions --budget 15
+    python -m hyperspace_tpu_torch.tools.lint --check-suppressions --budget 16
     python -m hyperspace_tpu_torch.tools.lint --no-cache
-    python -m hyperspace_tpu_torch.tools.lint --timings
+    python -m hyperspace_tpu_torch.tools.lint --call-graph-dump cg.json --timings
     python -m hyperspace_tpu_torch.tools.lint --list-rules
 
-The default targets are the port's package and ``chip_smoke.py``.
-Exit status: 0 when no unsuppressed findings (in the reported set), 1
-otherwise (2 on usage error). Suppressed findings never fail the run;
-``--show-suppressed`` prints them for auditing. The port's tests hold
-the default targets at zero through this same entry point.
+The default targets are the port's package and ``chip_smoke.py``. The
+whole-program phase (HS009-HS013) is ON by default: it builds one
+project model over every given path, so even ``--changed`` pre-commit
+runs see cross-module effects of a local edit. Exit status: 0 when no
+unsuppressed findings (in the reported set), 1 otherwise (2 on usage
+error). Suppressed findings never fail the run; ``--show-suppressed``
+prints them for auditing. The port's tests hold the default targets at
+zero through this same entry point.
 
-Counterpart of the reference's ``scripts/lint.py`` with its per-file
-rules; the finding cache lives in ``.hslint_torch_cache/`` at the repo
-root.
+Counterpart of the reference's ``scripts/lint.py``; the finding cache
+lives in ``.hslint_torch_cache/`` at the repo root.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import subprocess
 import sys
 import time
@@ -72,15 +76,35 @@ def main(argv=None) -> int:
         help="include suppressed findings in text output",
     )
     ap.add_argument(
+        "--project",
+        dest="project",
+        action="store_true",
+        default=True,
+        help="run the whole-program phase (HS009-HS013) — the default",
+    )
+    ap.add_argument(
+        "--no-project",
+        dest="project",
+        action="store_false",
+        help="skip the whole-program phase; per-file rules only",
+    )
+    ap.add_argument(
         "--timings",
         action="store_true",
-        help="print per-rule wall seconds",
+        help="print per-rule wall seconds (project model build included)",
+    )
+    ap.add_argument(
+        "--call-graph-dump",
+        metavar="PATH",
+        help="write the project model (resolved call graph, lock "
+        "inventory, per-function lock events) as JSON — the debug "
+        "artifact for surprising HS009-HS012 verdicts",
     )
     ap.add_argument(
         "--changed",
         metavar="GIT_REF",
-        help="analyze every path but report findings only in files "
-        "changed since GIT_REF (plus untracked files) — the fast "
+        help="build the FULL project model but report findings only in "
+        "files changed since GIT_REF (plus untracked files) — the fast "
         "pre-commit mode",
     )
     ap.add_argument(
@@ -129,6 +153,15 @@ def main(argv=None) -> int:
 
     if args.budget is not None and not args.check_suppressions:
         ap.error("--budget only applies to --check-suppressions")
+    if not args.project and args.check_suppressions:
+        # the audit must see every rule a marker can name — auditing
+        # with project rules off would report live HS009+ suppressions
+        # as stale and tell the user to delete them
+        ap.error("--check-suppressions requires the project phase "
+                 "(drop --no-project)")
+    if not args.project and args.call_graph_dump:
+        ap.error("--call-graph-dump is a project-phase artifact "
+                 "(drop --no-project)")
 
     changed = None
     if args.changed is not None:
@@ -143,13 +176,21 @@ def main(argv=None) -> int:
             return 2
 
     timings: dict = {}
+    models: list = []
     t0 = time.perf_counter()
     # cache: a hit replays the stored findings of an identical run.
+    # --call-graph-dump needs the live model, --no-project runs a
+    # different (smaller) finding set than the cached full run, and
     # --timings measures the analyzer (a replay's timings would be
-    # noise), so it bypasses. The key covers the linted bytes AND the
+    # noise) — all three bypass. The key covers the linted bytes AND the
     # analyzer sources, so neither a source edit nor a rule edit can
     # replay stale verdicts.
-    use_cache = not args.no_cache and not args.timings
+    use_cache = (
+        not args.no_cache
+        and args.project
+        and not args.call_graph_dump
+        and not args.timings
+    )
     findings = None
     key = None
     if use_cache:
@@ -162,11 +203,21 @@ def main(argv=None) -> int:
     if findings is None:
         findings = run_analysis(
             [Path(p) for p in paths],
+            project=args.project,
             timings=timings if args.timings else None,
+            model_sink=models if args.call_graph_dump else None,
         )
         if use_cache and key is not None:
             _cache.store(Path(args.cache_dir), key, findings)
     wall = time.perf_counter() - t0
+
+    if args.call_graph_dump and models:
+        Path(args.call_graph_dump).write_text(
+            json.dumps(models[0].dump(), indent=2, sort_keys=True),
+            encoding="utf-8",
+        )
+        # on stderr: a --format json or sarif run's stdout stays one document
+        print(f"hslint: call graph written to {args.call_graph_dump}", file=sys.stderr)
 
     if args.check_suppressions:
         return _check_suppressions(paths, findings, args.budget)

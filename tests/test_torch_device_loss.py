@@ -327,8 +327,9 @@ def test_kernel_build_error_propagates(env, monkeypatch, tmp_path):
 
 def test_unreachable_card_fails_tickets_at_submit(env, monkeypatch):
     """A probe verdict of False latches the server (serve.degraded once),
-    and each ticket submitted then fails with DeviceUnavailableError, the
-    probe's reason in it; the reference serves its host engine instead."""
+    and each ticket submitted then fails with DeviceUnavailableError whose
+    text is the probe's reason as the server latched it; the reference
+    serves its host engine instead."""
     from hyperspace_tpu_torch import serve as tserve
 
     s = env.session("torch")
@@ -338,8 +339,9 @@ def test_unreachable_card_fails_tickets_at_submit(env, monkeypatch):
     server = tserve.QueryServer(s, tserve.ServeConfig(max_workers=1))
     tickets = [server.submit(lookup(env, s, PKGS["torch"], k)) for k in (3, 70)]
     for t in tickets:
-        with pytest.raises(DeviceUnavailableError, match="no CUDA-capable device"):
+        with pytest.raises(DeviceUnavailableError, match="no CUDA-capable device") as e:
             t.result(timeout=60)
+        assert str(e.value) == str(DeviceUnavailableError(deviceprobe.unavailable_reason()))
     stats = server.stats()
     server.close()
     assert stats["degraded"] is True and stats["failed"] == 2
