@@ -2075,9 +2075,10 @@ def start_lint(dump: Path) -> subprocess.Popen:
 def lint_phase(proc=None, dump=None) -> dict:
     """The analyzer's verdict (``start_lint``'s process writing its call
     graph to ``dump``, started now when none is given): no unsuppressed
-    finding, and a project model over every module of the port; then the
-    live registry's Prometheus text, after every other phase, validated
-    the way a scraper would (no problem)."""
+    finding, a project model over every module of the port, and value-flow
+    facts in its call graph; then the live registry's Prometheus text,
+    after every other phase, validated the way a scraper would (no
+    problem)."""
     from hyperspace_tpu_torch.analysis import iter_python_files
     from hyperspace_tpu_torch.telemetry import export
     from hyperspace_tpu_torch.tools.lint import DEFAULT_TARGETS
@@ -2114,6 +2115,17 @@ def lint_phase(proc=None, dump=None) -> dict:
     edges = sum(len(f["calls"]) for f in fns.values())
     log(f"lint project: modules {len(graph['modules'])}, functions {len(fns)}, edges {edges}, "
         f"locks {len(graph['locks'])}, model seconds {model_s:.3f}")
+    # the value flow's facts (HS015-HS020): device returns and params, D2H
+    # coercions, transfer sites and compile factories, per function
+    flows = [f["valueflow"] for f in fns.values() if "valueflow" in f]
+    if not flows:
+        raise AssertionError(f"lint flow: the call graph holds no valueflow entry\n{err[-4000:]}")
+    flow_s = float(re.search(r"device-flow: ([0-9.]+) ms", err).group(1)) / 1e3
+    d2h = sum(len(f.get("d2h", ())) for f in flows)
+    transfers = sum(len(f.get("transfers", ())) for f in flows)
+    factories = sum(len(f.get("jit_factories", ())) for f in flows)
+    log(f"lint flow: functions {len(flows)}, d2h {d2h}, transfers {transfers}, "
+        f"jit factories {factories}, device-flow {flow_s:.3f} s")
     log(f"lint: files {n_files}, unsuppressed 0, suppressed {len(findings)}, seconds {lint_s:.3f}")
     text = export.render_prometheus()
     problems = export.check_prometheus(text)
@@ -2123,7 +2135,9 @@ def lint_phase(proc=None, dump=None) -> dict:
     log(f"metrics: families {families}, problems 0")
     return {"files": n_files, "unsuppressed": 0, "suppressed": len(findings), "lint_s": lint_s,
             "modules": len(graph["modules"]), "functions": len(fns), "edges": edges,
-            "locks": len(graph["locks"]), "model_s": model_s, "families": families, "problems": 0}
+            "locks": len(graph["locks"]), "model_s": model_s, "flow_functions": len(flows),
+            "d2h": d2h, "transfers": transfers, "jit_factories": factories, "flow_s": flow_s,
+            "families": families, "problems": 0}
 
 
 class _Profiled:

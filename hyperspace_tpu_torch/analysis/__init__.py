@@ -10,8 +10,11 @@ log/metadata paths, and metric-name discipline. Project rules
 intra-package call graph, lock inventory (analysis/project.py) — and
 machine-check the cross-module concurrency invariants: lock ordering,
 guarded fields, blocking reachability (device dispatch included),
-residency fence/epoch discipline and the config-key registry. Entry
-points:
+residency fence/epoch discipline and the config-key registry; HS015-
+HS020 run on the model's device-value flow (analysis/dataflow.py, under
+a torch device model) and check implicit readbacks, compile-cache
+hazards, torch's default float dtype, uncounted declines, untraced
+transfers and uncounted failovers. Entry points:
 
     from hyperspace_tpu_torch.analysis import run_analysis, analyze_source
     findings = run_analysis([Path("hyperspace_tpu_torch")])  # both phases
@@ -21,8 +24,8 @@ the port's package and ``chip_smoke.py``). Suppress intentional boundary
 violations per line with ``# hslint: disable=HSxxx`` plus a
 justification comment.
 
-Counterpart of ``hyperspace_tpu.analysis`` without its value-flow phase;
-stdlib only, it imports neither torch nor anything of the engine.
+Counterpart of ``hyperspace_tpu.analysis``; stdlib only, it imports
+neither torch nor anything of the engine.
 """
 
 from __future__ import annotations

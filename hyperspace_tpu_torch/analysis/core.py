@@ -353,11 +353,13 @@ def run_analysis(
 
     Two phases: per-file rules run on each module's AST; with
     ``project=True`` (the default) a whole-program model is then built
-    over ALL the parsed modules and the cross-module rules (HS009-HS013)
-    run on it. Module names are derived relative to each path's parent
-    (``project.path_to_module``). ``timings`` — when a dict is passed, it
-    is filled with per-rule wall seconds plus ``"project-model"`` for the
-    model build (the ``--timings`` CLI surface). ``model_sink`` — when a
+    over ALL the parsed modules and the cross-module rules (HS009+)
+    run on it, HS015-HS020 on the model's value flow. Module names are
+    derived relative to each path's parent (``project.path_to_module``).
+    ``timings`` — when a dict is passed, it is filled with per-rule wall
+    seconds plus ``"project-model"`` for the model build and
+    ``"device-flow"`` for the value flow's (the ``--timings`` CLI
+    surface). ``model_sink`` — when a
     list is passed and the project phase runs, the built ProjectModel is
     appended to it (the ``--call-graph-dump`` surface: the model is
     expensive enough that the CLI must not build it twice)."""
@@ -407,6 +409,12 @@ def run_analysis(
         note("project-model", _time.perf_counter() - t0)
         if model_sink is not None:
             model_sink.append(model)
+        t0 = _time.perf_counter()
+        # prebuild the device-value flow so the HS015+ rules share one
+        # fixpoint and its cost shows under its own timings key instead
+        # of inflating whichever rule touches it first
+        model.device_flow()
+        note("device-flow", _time.perf_counter() - t0)
         for rule in project_rules:
             t0 = _time.perf_counter()
             findings.extend(_project_findings(model, rule, suppressions_by_path))

@@ -5,7 +5,7 @@ protecting this code base's concurrency — lock ordering across modules,
 which lock guards which field, whether a lock region transitively
 reaches blocking work — are properties of the PROGRAM, not of any single
 module. This module builds the shared model the cross-module rules
-(HS009-HS013) run on:
+(HS009-HS013, and HS015-HS020 through its value flow) run on:
 
 * **module symbol table** — every module's top-level functions, classes
   (with methods and in-package base resolution), module-level locks, and
@@ -36,8 +36,10 @@ resolution and facts. Where the reference names JAX, this model has the
 port's device: a device dispatch is a torch call outside HS007's
 host-only list or a call to one of ``ops/kernels.py``'s launching
 wrappers, and the fences that stand in for an epoch guard are
-``ops.fence`` and ``synchronize()``. The reference's 64-bit-scope facts
-serve only its value-flow rules and are left out here.
+``ops.fence`` and ``synchronize()``. The reference's lexical 64-bit
+scope has no torch counterpart (``set_default_dtype`` is process-wide),
+so call sites carry no such flag; the value flow built on this model
+(``device_flow()``) finds the module-level float64 default itself.
 """
 
 from __future__ import annotations
@@ -264,6 +266,17 @@ class ProjectModel:
                     self.functions[meth.qual] = meth
         self._mro_cache: Dict[str, List[ClassInfo]] = {}
         self._closure_cache: Dict[str, Dict[str, set]] = {}
+        self._device_flow = None
+
+    def device_flow(self):
+        """The phase-3 value-flow model (analysis/dataflow.py) over this
+        project, built once and shared by HS015-HS020 and the
+        --call-graph-dump artifact."""
+        if self._device_flow is None:
+            from .dataflow import DeviceFlow
+
+            self._device_flow = DeviceFlow(self)
+        return self._device_flow
 
     # -- class resolution ----------------------------------------------------
     def resolve_class(self, dotted: str) -> Optional[ClassInfo]:
@@ -383,9 +396,12 @@ class ProjectModel:
         """JSON-ready call-graph artifact (``python -m
         hyperspace_tpu_torch.tools.lint --call-graph-dump``): the module
         list, the lock inventory, and per function its resolved edges,
-        unresolved call spellings, lock events and direct blocking
-        endpoints — the thing to read when a rule's verdict surprises
-        you."""
+        unresolved call spellings, lock events, direct blocking endpoints
+        and, where it has any, its phase-3 value-flow facts (device
+        returns/params, D2H coercions, transfer sites, float64 facts)
+        under ``valueflow`` — the thing to read when a rule's verdict
+        surprises you."""
+        flow = self.device_flow()
         funcs = {}
         for qual, f in sorted(self.functions.items()):
             funcs[qual] = {
@@ -403,6 +419,9 @@ class ProjectModel:
                 ],
                 "blocking": [d for _l, _c, d in f.blocking],
             }
+            vf = flow.dump_function(qual)
+            if vf:
+                funcs[qual]["valueflow"] = vf
         locks = sorted(
             {
                 lid

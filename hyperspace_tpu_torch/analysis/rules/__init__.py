@@ -2,12 +2,16 @@
 
 Adding a rule = add a module here and append an instance to REGISTRY;
 ``python -m hyperspace_tpu_torch.tools.lint --list-rules`` reads this
-list. HS001-HS008 and HS014 are per-file passes; HS009-HS013 are project
-rules (subclasses of ``ProjectRule``) running on the whole-program model
-of ``analysis/project.py``. HS001 and HS007 carry the torch/CUDA device
-model (their modules' docstrings give it), and the project model's
-device-dispatch endpoint, which HS011 follows, reads HS007's lists; the
-others are the reference analyzer's rules as written.
+list. HS001-HS008 and HS014 are per-file passes; HS009-HS013 and
+HS015-HS020 are project rules (subclasses of ``ProjectRule``) running on
+the whole-program model of ``analysis/project.py``, HS015-HS020 on its
+value flow (``analysis/dataflow.py``). HS001 and HS007 carry the
+torch/CUDA device model (their modules' docstrings give it), the project
+model's device-dispatch endpoint, which HS011 follows, and the value
+flow's device judgement read HS007's lists, HS015-HS017 and HS019 are
+the reference's rules over the value flow's torch device model (HS017
+guards torch's default float dtype), and the others are the reference
+analyzer's rules as written.
 """
 
 from __future__ import annotations
@@ -29,6 +33,12 @@ from .hs011_interproc_blocking import InterprocBlockingRule
 from .hs012_residency_fence import ResidencyFenceRule
 from .hs013_config_keys import ConfigKeyRule
 from .hs014_metric_names import MetricNameRule
+from .hs015_implicit_d2h import ImplicitD2HRule
+from .hs016_recompile_hazard import RecompileHazardRule
+from .hs017_x64_scope import X64ScopeRule
+from .hs018_uncounted_decline import UncountedDeclineRule
+from .hs019_untraced_transfer import UntracedTransferRule
+from .hs020_uncounted_failover import UncountedFailoverRule
 
 REGISTRY: List[Rule] = [
     HostSyncRule(),
@@ -45,6 +55,12 @@ REGISTRY: List[Rule] = [
     ResidencyFenceRule(),
     ConfigKeyRule(),
     MetricNameRule(),
+    ImplicitD2HRule(),
+    RecompileHazardRule(),
+    X64ScopeRule(),
+    UncountedDeclineRule(),
+    UntracedTransferRule(),
+    UncountedFailoverRule(),
 ]
 
 __all__ = [
@@ -63,4 +79,10 @@ __all__ = [
     "ResidencyFenceRule",
     "ConfigKeyRule",
     "MetricNameRule",
+    "ImplicitD2HRule",
+    "RecompileHazardRule",
+    "X64ScopeRule",
+    "UncountedDeclineRule",
+    "UntracedTransferRule",
+    "UncountedFailoverRule",
 ]

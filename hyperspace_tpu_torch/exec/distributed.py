@@ -184,7 +184,7 @@ def _partial_tables(codes: torch.Tensor, vals: torch.Tensor, mask: Optional[torc
     m = int(codes.shape[0])
     n_out = min(m, int(n_groups) + 1)
     dev = codes.device
-    pad = torch.tensor(_I64_PAD, dtype=torch.int64, device=dev)
+    pad = torch.full((), _I64_PAD, dtype=torch.int64, device=dev)
     g = codes if mask is None else torch.where(mask, codes, pad)
     g_sorted, perm = torch.sort(g, stable=True)
     valid = g_sorted != pad

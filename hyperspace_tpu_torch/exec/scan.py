@@ -207,48 +207,53 @@ def _resident_scan(
 
     pred_cols = sorted(predicate.columns())
     table = hbm_cache.resident_for(files, pred_cols, device, residency)
-    if table is None:
-        if hbm_cache.auto_enabled(residency, device):
-            hbm_cache.note_touch(all_files, pred_cols, device, residency)
-        return None
-    # selectivity gate: the zone vectors bound the block fraction the
-    # predicate can touch; when the host would read nearly every block
-    # anyway, the device pass is pure overhead — route host before it
-    frac = zone_block_fraction(table, predicate)
-    if frac is not None:
-        # per-mille sum + eval count: mean fraction = sum / count
-        metrics.incr("scan.gate.resident_zone_frac_pm", int(frac * 1000))
-        metrics.incr("scan.gate.resident_zone_evals")
-        if residency.max_block_frac < 1.0 and frac >= residency.max_block_frac:
-            metrics.incr("scan.gate.resident_selectivity")
+    if table is None and hbm_cache.auto_enabled(residency, device):
+        hbm_cache.note_touch(all_files, pred_cols, device, residency)
+    if table is not None:
+        # selectivity gate: the zone vectors bound the block fraction the
+        # predicate can touch; when the host would read nearly every
+        # block anyway, the device pass is pure overhead — route host
+        # before it
+        frac = zone_block_fraction(table, predicate)
+        if frac is not None:
+            # per-mille sum + eval count: mean fraction = sum / count
+            metrics.incr("scan.gate.resident_zone_frac_pm", int(frac * 1000))
+            metrics.incr("scan.gate.resident_zone_evals")
+            if residency.max_block_frac < 1.0 and frac >= residency.max_block_frac:
+                metrics.incr("scan.gate.resident_selectivity")
+                table = None
+    if table is not None:
+        try:
+            with _trace_span("scan.device_dispatch", tier=table.tier,
+                             structure_keyed=bool(structure_keyed)):
+                if structure_keyed and table.tier != "streaming":
+                    m = hbm_cache.block_counts_batch(table, [predicate],
+                                                     metric_ns="compile.fused")
+                    counts = None if m is None else m[0]
+                else:
+                    counts = hbm_cache.block_counts(table, predicate)
+        except RuntimeError:
+            # device loss mid-query: drop the table so later queries do
+            # not retry it, and answer through the per-file route, which
+            # masks on the card too (a dead card raises there). A kernel
+            # that cannot build raises KernelBuildError, no RuntimeError,
+            # and reaches the caller.
+            hbm_cache.drop(table)
+            metrics.incr("scan.resident.device_failed")
             return None
-    try:
-        with _trace_span("scan.device_dispatch", tier=table.tier,
-                         structure_keyed=bool(structure_keyed)):
-            if structure_keyed and table.tier != "streaming":
-                m = hbm_cache.block_counts_batch(table, [predicate], metric_ns="compile.fused")
-                counts = None if m is None else m[0]
-            else:
-                counts = hbm_cache.block_counts(table, predicate)
-    except RuntimeError:
-        # device loss mid-query: drop the table so later queries do not
-        # retry it, and answer through the per-file route, which masks on
-        # the card too (a dead card raises there). A kernel that cannot
-        # build raises KernelBuildError, no RuntimeError, and reaches the
-        # caller.
-        hbm_cache.drop(table)
-        metrics.incr("scan.resident.device_failed")
-        return None
-    if counts is None:
-        metrics.incr("scan.resident.declined")
-        return None
-    # the path metric names the tier that served: raw planes, packed
-    # planes (K1p), or the window loop; the gate's bypass counter too
-    from .scan_gate import scan_gate
+        if counts is None:
+            metrics.incr("scan.resident.declined")
+            return None
+        # the path metric names the tier that served: raw planes, packed
+        # planes (K1p), or the window loop; the gate's bypass counter too
+        from .scan_gate import scan_gate
 
-    scan_gate.note_resident_bypass("plain" if table.tier == "resident" else table.tier)
-    return _resident_parts(table, files, output_columns, predicate, counts,
-                           path_metric=_TIER_PATH_METRIC[table.tier])
+        scan_gate.note_resident_bypass("plain" if table.tier == "resident" else table.tier)
+        return _resident_parts(table, files, output_columns, predicate, counts,
+                               path_metric=_TIER_PATH_METRIC[table.tier])
+    # no covering table (population scheduled above), or the zone gate
+    # routed host: the per-file path answers
+    return None
 
 
 _TIER_PATH_METRIC = {

@@ -303,6 +303,28 @@ def _run_window_loop(table, lanes: List[_Lane], launch) -> List[List[np.ndarray]
             raise
 
 
+def _upload_window(lane: _Lane, w: int, W: int, read) -> "torch.cuda.Event":
+    """Queue window ``w``'s slices into slot ``w % 2`` of each plane's
+    slab pair on the lane's copy stream, after ``read`` (the event of the
+    launch that last read the slot, or None), and return the event
+    recorded after the copies."""
+    slot = w % 2
+    t0 = time.perf_counter()
+    with _device_scope(lane.dev), torch.cuda.stream(lane.copy):
+        if read is not None:
+            # the slot is refilled only after the launch that read it
+            lane.copy.wait_event(read)
+        for p in lane.planes:
+            p.slots[slot].copy_(_window_slice(p, w, W), non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(lane.copy)
+    nbytes = sum(4 * p.slots[slot].numel() for p in lane.planes)
+    metrics.incr("residency.stream.h2d_bytes", nbytes)
+    _trace_bytes("h2d_bytes", nbytes)  # label at the transfer site
+    metrics.record_time("residency.stream.h2d", time.perf_counter() - t0)
+    return ev
+
+
 def _windowed_counts_locked(table, lanes: List[_Lane], launch) -> List[List[np.ndarray]]:
     from ..ops.build import DeviceFetch
 
@@ -320,27 +342,10 @@ def _windowed_counts_locked(table, lanes: List[_Lane], launch) -> List[List[np.n
     read = [[None, None] for _ in lanes]
     fetches: List[list] = [[] for _ in lanes]
 
-    def upload(i: int, w: int) -> None:
-        lane, slot = lanes[i], w % 2
-        t0 = time.perf_counter()
-        with _device_scope(lane.dev), torch.cuda.stream(lane.copy):
-            if read[i][slot] is not None:
-                # the slot is refilled only after the launch that read it
-                lane.copy.wait_event(read[i][slot])
-            for p in lane.planes:
-                p.slots[slot].copy_(_window_slice(p, w, W), non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(lane.copy)
-        uploaded[i][slot] = ev
-        nbytes = sum(4 * p.slots[slot].numel() for p in lane.planes)
-        metrics.incr("residency.stream.h2d_bytes", nbytes)
-        _trace_bytes("h2d_bytes", nbytes)
-        metrics.record_time("residency.stream.h2d", time.perf_counter() - t0)
-
     for i, lane in enumerate(lanes):
         # the slots' previous contents may still be read by queued work
         lane.copy.wait_stream(torch.cuda.current_stream(lane.dev))
-        upload(i, 0)
+        uploaded[i][0] = _upload_window(lane, 0, W, read[i][0])
     for w in range(table.n_windows):
         slot = w % 2
         for i, lane in enumerate(lanes):
@@ -360,8 +365,9 @@ def _windowed_counts_locked(table, lanes: List[_Lane], launch) -> List[List[np.n
                 read[i][slot] = ev
                 fetches[i].append(DeviceFetch([counts]))
         if w + 1 < table.n_windows:
-            for i in range(len(lanes)):
-                upload(i, w + 1)
+            nxt = (w + 1) % 2
+            for i, lane in enumerate(lanes):
+                uploaded[i][nxt] = _upload_window(lane, w + 1, W, read[i][nxt])
         metrics.incr("residency.stream.windows")
     out = [[f.wait()[0] for f in lane_fetches] for lane_fetches in fetches]
     for lane in lanes:

@@ -199,11 +199,13 @@ def test_suppressed_findings_are_reported_not_dropped():
 
 
 def test_registry_holds_the_per_file_rules_in_code_order():
-    """HS001-HS014 in code order: the per-file rules and, HS009-HS013,
-    the project rules (``tests/test_torch_project.py`` holds those)."""
-    assert [r.code for r in trules.REGISTRY] == [f"HS{n:03d}" for n in range(1, 15)]
+    """HS001-HS020 in code order: the per-file rules and, HS009-HS013
+    and HS015-HS020, the project rules (``tests/test_torch_project.py``
+    and ``tests/test_torch_dataflow.py`` hold those)."""
+    assert [r.code for r in trules.REGISTRY] == [f"HS{n:03d}" for n in range(1, 21)]
     assert [r.code for r in trules.REGISTRY if isinstance(r, tcore.ProjectRule)] == [
-        "HS009", "HS010", "HS011", "HS012", "HS013"]
+        "HS009", "HS010", "HS011", "HS012", "HS013",
+        "HS015", "HS016", "HS017", "HS018", "HS019", "HS020"]
     by_code = {r.code: r for r in jrules.REGISTRY}
     for r in T_RULES:
         assert (r.name, r.description) == (by_code[r.code].name, by_code[r.code].description)

@@ -36,11 +36,15 @@ def test_import_leaves_jax_and_reference_out():
         "from hyperspace_tpu_torch.exec import scan_agg\n"
         "from hyperspace_tpu_torch.reliability import retry\n"
         "from hyperspace_tpu_torch import analysis\n"
-        "from hyperspace_tpu_torch.analysis import cache, core, project, reporter, rules\n"
+        "from hyperspace_tpu_torch.analysis import cache, core, dataflow, project, reporter, rules\n"
         "from hyperspace_tpu_torch.analysis.rules import hs001_host_sync, hs007_unfenced_device_timing\n"
         "from hyperspace_tpu_torch.analysis.rules import hs009_lock_order, hs010_guarded_fields\n"
         "from hyperspace_tpu_torch.analysis.rules import hs011_interproc_blocking\n"
         "from hyperspace_tpu_torch.analysis.rules import hs012_residency_fence, hs013_config_keys\n"
+        "from hyperspace_tpu_torch.analysis.rules import hs015_implicit_d2h, hs016_recompile_hazard\n"
+        "from hyperspace_tpu_torch.analysis.rules import hs017_x64_scope, hs018_uncounted_decline\n"
+        "from hyperspace_tpu_torch.analysis.rules import hs019_untraced_transfer\n"
+        "from hyperspace_tpu_torch.analysis.rules import hs020_uncounted_failover\n"
         "from hyperspace_tpu_torch.tools import lint, metrics\n"
         "native.available()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -41,7 +41,9 @@ from hyperspace_tpu_torch.analysis import rules as trules
 REPO = Path(__file__).resolve().parent.parent
 PROJECT_CODES = ("HS009", "HS010", "HS011", "HS012", "HS013")
 J_PROJECT = [r for r in jrules.REGISTRY if r.code in PROJECT_CODES]
-T_PROJECT = [r for r in trules.REGISTRY if isinstance(r, tcore.ProjectRule)]
+# the model's rules; the value flow's (HS015-HS020) are
+# tests/test_torch_dataflow.py's
+T_PROJECT = [r for r in trules.REGISTRY if r.code in PROJECT_CODES]
 DEVICE = " device dispatch"
 
 
@@ -116,7 +118,7 @@ def test_reference_project_test_runs_on_the_port(name, monkeypatch):
 
     def both_analyzers(sources, rules=None):
         want = ref_sources(sources, J_PROJECT)
-        got = tcore.analyze_project_sources(sources)
+        got = tcore.analyze_project_sources(sources, T_PROJECT)
         assert view(got) == view(want)
         seen.append("findings")
         return got
